@@ -1,0 +1,36 @@
+"""poisson_ellipse_tpu_torch — the PyTorch/CUDA port of poisson_ellipse_tpu.
+
+The fictitious-domain Poisson solve (-Δu = f on the ellipse x² + 4y² < 1
+inside Ω = [-1,1]×[-0.6,0.6]) with diagonally preconditioned conjugate
+gradients, on one NVIDIA Hopper card. The module layout mirrors the JAX
+package's, so each module's counterpart has the same relative path:
+
+- ``models``  — ``Problem`` and the ellipse's closed forms;
+- ``ops``     — f64 host assembly, the plain stencil and reductions, and
+  the hand-written CUDA kernels (``csrc/``, built by ``ops._build``):
+  the stencil (``ops.hopper_kernels``) and the fused K1/K2 iteration
+  (``ops.fused_pcg``);
+- ``solver``  — the classical loop with its scalar carry on the device,
+  and the engine table (``xla``, ``pallas``, ``fused``);
+- ``harness`` — ``run_once`` and the command line;
+- ``interop`` — the JAX package's arrays into the port, for the tests.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+This package imports neither JAX nor the JAX package.
+"""
+
+from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.solver.engine import build_solver, solve
+from poisson_ellipse_tpu_torch.solver.pcg import PCGResult, pcg
+from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Problem",
+    "PCGResult",
+    "build_solver",
+    "pcg",
+    "solve",
+    "l2_error_vs_analytic",
+]

@@ -1,0 +1,394 @@
+"""Fused-iteration PCG: the whole loop body as two CUDA kernels.
+
+The counterpart of ``poisson_ellipse_tpu.ops.fused_pcg``. One iteration:
+
+  K1  p = z + beta*p;  ap = A(p);  denominator and α    (csrc K-b)
+  K2  w += α p;  r −= α ap;  z = r·(1/D);  (z,r), ‖Δw‖², β, diff,
+      k and the exit flags                               (csrc K-c)
+
+The loop is rotated as in the JAX engine: β is applied at the start of
+the next body, which gives the reference's value sequence. The stencil
+runs in normalised form ap = d*p − (an*p↑ + as*p↓ + bw*p← + be*p→) with
+the neighbour coefficients pre-divided by h² and masked to the interior,
+and the preconditioner multiplies by a precomputed guarded 1/D. The
+operands are computed in f64 on the host and rounded once
+(``fused_operands``), the oracle-exact operand set.
+
+Where the TPU engine ends each iteration with an XLA scalar fusion, here
+the scalar tail runs in the last block of each kernel, on a carry kept in
+device memory (``scal`` and ``flags`` below), so an iteration is two
+launches with no host round trip; the host reads the flags once per chunk
+(``solver.pcg.run_chunked``). Once the loop has exited both kernels return
+without writing, so extra bodies in the last chunk change nothing.
+
+Arrays are the unpadded (M+1, N+1) node grid: the TPU's (row-tile, 128)
+padding is gone (``interop.fused_operands_from_reference`` strips it from
+the JAX operand set).
+
+Each wrapper (``k1``, ``k2``) runs its plain PyTorch version (``k1_plain``,
+``k2_plain``) only for CPU tensors; for CUDA tensors it launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.ops import _build, assembly
+from poisson_ellipse_tpu_torch.ops.stencil import spacing
+from poisson_ellipse_tpu_torch.solver.pcg import (
+    DEFAULT_CHUNK,
+    DENOM_GUARD,
+    PCGResult,
+    Solver,
+    run_chunked,
+    unported,
+)
+from poisson_ellipse_tpu_torch.utils.device import resolve_device
+
+LIBRARY = "fused_pcg"
+K1 = "fused_k1"
+K2 = "fused_k2"
+
+# the device-resident scalar carry; csrc/fused_pcg.cu holds the same layout
+SCAL_ZR, SCAL_BETA, SCAL_DIFF, SCAL_DENOM, SCAL_ALPHA = range(5)
+N_SCAL = 5
+(FLAG_K, FLAG_CONVERGED, FLAG_BREAKDOWN, FLAG_PENDING_BREAKDOWN,
+ FLAG_TICKET_K1, FLAG_TICKET_K2) = range(6)
+N_FLAGS = 6
+
+
+def normalized_unmasked(problem: Problem, a, b):
+    """(an, bw) = (a/h1², b/h2²) over the full grid, unmasked, in the
+    input precision."""
+    ih1 = 1.0 / (float(problem.h1) * float(problem.h1))
+    ih2 = 1.0 / (float(problem.h2) * float(problem.h2))
+    return a * ih1, b * ih2
+
+
+def interior_normalized(problem: Problem, a, b):
+    """(an, as_, bw, be, d, dinv) in the input precision (numpy or torch):
+      an_ij = a_ij / h1²        (multiplies p_{i-1,j})
+      as_ij = a_{i+1,j} / h1²   (multiplies p_{i+1,j})
+      bw_ij = b_ij / h2²        (multiplies p_{i,j-1})
+      be_ij = b_{i,j+1} / h2²   (multiplies p_{i,j+1})
+      d     = an + as_ + bw + be;  dinv = 1/d where d != 0 else 0
+    all masked to the interior 1..M-1 × 1..N-1."""
+    is_np = isinstance(a, np.ndarray)
+    g1, g2 = a.shape
+    an, bw = normalized_unmasked(problem, a, b)
+    if is_np:
+        as_ = np.roll(an, -1, axis=0)
+        be = np.roll(bw, -1, axis=1)
+        gi = np.arange(g1)[:, None]
+        gj = np.arange(g2)[None, :]
+        zero = np.zeros((), an.dtype)
+        where = np.where
+    else:
+        as_ = torch.roll(an, -1, dims=0)
+        be = torch.roll(bw, -1, dims=1)
+        gi = torch.arange(g1, device=a.device)[:, None]
+        gj = torch.arange(g2, device=a.device)[None, :]
+        zero = torch.zeros((), dtype=an.dtype, device=an.device)
+        where = torch.where
+    interior = (gi >= 1) & (gi <= problem.M - 1) & (gj >= 1) & (gj <= problem.N - 1)
+    an, as_, bw, be = (where(interior, x, zero) for x in (an, as_, bw, be))
+    d = an + as_ + bw + be
+    nonzero = d != 0.0
+    one = np.ones((), d.dtype) if is_np else torch.ones_like(zero)
+    dinv = where(nonzero, one / where(nonzero, d, one), zero)
+    return an, as_, bw, be, d, dinv
+
+
+def normalized_coefficients(problem: Problem, a, b, dtype=None,
+                            device=None):
+    """The loop-invariant operand set (an, as_, bw, be, d, dinv) as device
+    tensors, computed in the inputs' precision and then cast to ``dtype``.
+    Pass f64 numpy a/b (``assembly.assemble_numpy``) to get coefficients
+    rounded once from the reference's double-precision values."""
+    pieces = interior_normalized(problem, a, b)
+    if isinstance(a, np.ndarray):
+        dev = resolve_device(device)
+        return tuple(assembly.to_device(x, dtype or torch.float32, dev)
+                     for x in pieces)
+    return tuple(x.to(dtype or a.dtype) for x in pieces)
+
+
+def fused_operands(problem: Problem, dtype=torch.float32, device=None):
+    """Device-ready operands rounded once from the f64 host assembly."""
+    a64, b64, _ = assembly.assemble_numpy(problem)
+    return normalized_coefficients(problem, a64, b64, dtype, device)
+
+
+@dataclasses.dataclass
+class FusedCarry:
+    """The rotated loop's state. ``w``, ``r``, ``z`` are updated in place by
+    K2; K1 of body i reads ``p[i % 2]`` and writes ``p[(i + 1) % 2]``
+    (its halo reads neighbours of p, so it cannot write p in place)."""
+
+    w: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    p: list
+    ap: torch.Tensor
+    scal: torch.Tensor      # (N_SCAL,) in the run dtype
+    flags: torch.Tensor     # (N_FLAGS,) int32
+    partials: torch.Tensor  # the kernels' per-block sums (empty on the CPU)
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "pe_fused_scratch_len": (_I, [_I, _I]),
+    "pe_fused_k1_f32": (_I, [_P] * 12 + [_I] * 3 + [_F, _F, _P]),
+    "pe_fused_k2_f32": (_I, [_P] * 9 + [_I] * 3 + [_F, _F, _F, _I, _P]),
+    "pe_fused_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+@functools.lru_cache(maxsize=16)
+def scratch_len(g1: int, g2: int) -> int:
+    """Per-block partial sums one solve needs at (g1, g2) on the card."""
+    return int(_build.load(LIBRARY, _SIGNATURES).pe_fused_scratch_len(g1, g2))
+
+
+def rotated_state0(r0: torch.Tensor, z0: torch.Tensor,
+                   zr0: torch.Tensor) -> FusedCarry:
+    """Iteration-0 carry: w = 0, p = 0 and β = 0, so the first K1 gives
+    p1 = z0, the reference's initial direction; diff = inf."""
+    dtype, dev = r0.dtype, r0.device
+    scal = torch.zeros(N_SCAL, dtype=dtype, device=dev)
+    scal[SCAL_ZR] = zr0
+    scal[SCAL_DIFF] = float("inf")
+    n_partials = scratch_len(*r0.shape) if dev.type == "cuda" else 0
+    return FusedCarry(
+        w=torch.zeros_like(r0),
+        r=r0.clone(),
+        z=z0,
+        p=[torch.zeros_like(r0), torch.empty_like(r0)],
+        ap=torch.empty_like(r0),
+        scal=scal,
+        flags=torch.zeros(N_FLAGS, dtype=torch.int32, device=dev),
+        partials=torch.empty(n_partials, dtype=dtype, device=dev),
+    )
+
+
+def _loop_active(flags: torch.Tensor, max_iter: int) -> bool:
+    k, converged, breakdown = (int(v) for v in flags[:3].tolist())
+    return not converged and not breakdown and k < max_iter
+
+
+def k1_plain(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials, *,
+             max_iter: int, h1: float, h2: float) -> None:
+    """The plain version of K1: writes pn, ap, scal[DENOM], scal[ALPHA] and
+    flags[PENDING_BREAKDOWN]; nothing once the loop has exited."""
+    if not _loop_active(flags, max_iter):
+        return
+    h1t, h2t = spacing(h1, z), spacing(h2, z)
+    pn_new = z + scal[SCAL_BETA] * p
+    ext = F.pad(pn_new, (1, 1, 1, 1))  # outside the grid pn is 0
+    ap_new = d * pn_new - (
+        an * ext[:-2, 1:-1]
+        + as_ * ext[2:, 1:-1]
+        + bw * ext[1:-1, :-2]
+        + be * ext[1:-1, 2:]
+    )
+    denom = torch.sum(ap_new * pn_new) * h1t * h2t
+    breakdown = denom < DENOM_GUARD
+    alpha = scal[SCAL_ZR] / torch.where(breakdown, torch.ones_like(denom),
+                                        denom)
+    alpha = torch.where(breakdown, torch.zeros_like(alpha), alpha)
+    pn.copy_(pn_new)
+    ap.copy_(ap_new)
+    scal[SCAL_DENOM] = denom
+    scal[SCAL_ALPHA] = alpha
+    flags[FLAG_PENDING_BREAKDOWN] = breakdown.to(flags.dtype)
+
+
+def rotated_next_state(scal, flags, zr_new, dw2, h1t, h2t, delta,
+                       weighted: bool) -> None:
+    """The plain scalar tail of one rotated iteration, in place on the
+    carry: convergence test, breakdown holds (zr, β, diff frozen, as the
+    reference exits before touching them), the next β, k + 1."""
+    breakdown = flags[FLAG_PENDING_BREAKDOWN].to(torch.bool)
+    zr, beta, diff = scal[SCAL_ZR], scal[SCAL_BETA], scal[SCAL_DIFF]
+    ndiff = torch.sqrt(dw2 * h1t * h2t) if weighted else torch.sqrt(dw2)
+    converged = ~breakdown & (ndiff < delta)
+    ndiff = torch.where(breakdown, diff, ndiff)
+    beta_new = zr_new / torch.where(breakdown, torch.ones_like(zr), zr)
+    scal[:3] = torch.stack([
+        torch.where(breakdown, zr, zr_new),
+        torch.where(breakdown, beta, beta_new),
+        ndiff,
+    ])
+    flags[:3] = torch.stack([
+        flags[FLAG_K] + 1,
+        converged.to(flags.dtype),
+        breakdown.to(flags.dtype),
+    ])
+
+
+def k2_plain(w, r, pn, ap, dinv, z, scal, flags, partials, *, max_iter: int,
+             h1: float, h2: float, delta: float, weighted: bool) -> None:
+    """The plain version of K2: updates w, r, z in place and runs the
+    scalar tail; nothing once the loop has exited."""
+    if not _loop_active(flags, max_iter):
+        return
+    h1t, h2t = spacing(h1, w), spacing(h2, w)
+    alpha = scal[SCAL_ALPHA]
+    w_new = w + alpha * pn
+    r_new = r - alpha * ap
+    z_new = r_new * dinv
+    dw = w_new - w  # the realised increment, not α·p
+    sums = torch.stack([torch.sum(z_new * r_new), torch.sum(dw * dw)])
+    w.copy_(w_new)
+    r.copy_(r_new)
+    z.copy_(z_new)
+    rotated_next_state(scal, flags, sums[0] * h1t * h2t, sums[1], h1t, h2t,
+                       spacing(delta, w), weighted)
+
+
+def _check(kernel: str, arrays: dict, scal, flags, partials) -> None:
+    ref = next(iter(arrays.values()))
+    if ref.dtype != torch.float32:
+        raise ValueError(f"{kernel}: the kernel is built for float32, got "
+                         f"{ref.dtype}")
+    if ref.dim() != 2:
+        raise ValueError(f"{kernel}: need 2-D arrays, got {tuple(ref.shape)}")
+    for name, t in arrays.items():
+        if (t.device != ref.device or t.dtype != ref.dtype
+                or t.shape != ref.shape or not t.is_contiguous()):
+            raise ValueError(
+                f"{kernel}: {name} is {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()}); expected "
+                f"contiguous {ref.dtype} {tuple(ref.shape)} on {ref.device}"
+            )
+    if (scal.shape != (N_SCAL,) or scal.dtype != ref.dtype
+            or scal.device != ref.device):
+        raise ValueError(f"{kernel}: scal must be ({N_SCAL},) {ref.dtype}")
+    if (flags.shape != (N_FLAGS,) or flags.dtype != torch.int32
+            or flags.device != ref.device):
+        raise ValueError(f"{kernel}: flags must be ({N_FLAGS},) int32")
+    if (partials.dtype != ref.dtype or partials.device != ref.device
+            or partials.numel() < scratch_len(*ref.shape)):
+        raise ValueError(f"{kernel}: partials scratch too small")
+
+
+def k1(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials, *,
+       max_iter: int, h1: float, h2: float) -> None:
+    """K1 (K-b): pn = z + βp, ap = A(pn), denominator and α, on the carry."""
+    if z.device.type == "cpu":
+        return k1_plain(z, p, an, as_, bw, be, d, pn, ap, scal, flags,
+                        partials, max_iter=max_iter, h1=h1, h2=h2)
+    arrays = dict(z=z, p=p, an=an, as_=as_, bw=bw, be=be, d=d, pn=pn, ap=ap)
+    _check(K1, arrays, scal, flags, partials)
+    lib = _build.load(LIBRARY, _SIGNATURES)
+    g1, g2 = z.shape
+    rc = lib.pe_fused_k1_f32(
+        *(t.data_ptr() for t in arrays.values()), partials.data_ptr(),
+        scal.data_ptr(), flags.data_ptr(), g1, g2, max_iter, h1, h2,
+        _build.stream_handle(z.device),
+    )
+    _build.check(lib.pe_fused_error_string, K1, rc)
+    _build.count_launch(K1)
+
+
+def k2(w, r, pn, ap, dinv, z, scal, flags, partials, *, max_iter: int,
+       h1: float, h2: float, delta: float, weighted: bool) -> None:
+    """K2 (K-c): w, r, z updates, the two sums and the scalar tail."""
+    if w.device.type == "cpu":
+        return k2_plain(w, r, pn, ap, dinv, z, scal, flags, partials,
+                        max_iter=max_iter, h1=h1, h2=h2, delta=delta,
+                        weighted=weighted)
+    arrays = dict(w=w, r=r, pn=pn, ap=ap, dinv=dinv, z=z)
+    _check(K2, arrays, scal, flags, partials)
+    lib = _build.load(LIBRARY, _SIGNATURES)
+    g1, g2 = w.shape
+    rc = lib.pe_fused_k2_f32(
+        *(t.data_ptr() for t in arrays.values()), partials.data_ptr(),
+        scal.data_ptr(), flags.data_ptr(), g1, g2, max_iter, h1, h2, delta,
+        int(weighted), _build.stream_handle(w.device),
+    )
+    _build.check(lib.pe_fused_error_string, K2, rc)
+    _build.count_launch(K2)
+
+
+def _run_fused(problem: Problem, coeffs, r0: torch.Tensor,
+               chunk: int = DEFAULT_CHUNK):
+    """The rotated loop over prebuilt operands; returns (result, host reads)."""
+    an, as_, bw, be, d, dinv = coeffs
+    h1t, h2t = spacing(problem.h1, r0), spacing(problem.h2, r0)
+    z0 = r0 * dinv
+    carry = rotated_state0(r0, z0, torch.sum(z0 * r0) * h1t * h2t)
+    limit = problem.max_iterations
+    consts = dict(max_iter=limit, h1=problem.h1, h2=problem.h2)
+    bodies = [0]
+
+    def step():
+        src = carry.p[bodies[0] % 2]
+        dst = carry.p[(bodies[0] + 1) % 2]
+        k1(carry.z, src, an, as_, bw, be, d, dst, carry.ap, carry.scal,
+           carry.flags, carry.partials, **consts)
+        k2(carry.w, carry.r, dst, carry.ap, dinv, carry.z, carry.scal,
+           carry.flags, carry.partials, delta=problem.delta,
+           weighted=problem.norm == "weighted", **consts)
+        bodies[0] += 1
+
+    syncs = run_chunked(step, lambda: carry.flags[:3], limit, chunk)
+    result = PCGResult(
+        w=carry.w,
+        iters=carry.flags[FLAG_K],
+        diff=carry.scal[SCAL_DIFF],
+        converged=carry.flags[FLAG_CONVERGED].to(torch.bool),
+        breakdown=carry.flags[FLAG_BREAKDOWN].to(torch.bool),
+    )
+    return result, syncs
+
+
+def _check_dtype(dtype: torch.dtype) -> None:
+    if dtype == torch.float64:
+        raise ValueError("the fused solver supports float32; use the xla "
+                         "engine for f64")
+    if dtype != torch.float32:
+        raise unported(f"the fused engine in {dtype}", "Queue B item 10")
+
+
+def pcg_fused(problem: Problem, a, b, rhs,
+              chunk: int = DEFAULT_CHUNK) -> PCGResult:
+    """PCG with the fused two-kernel iteration on pre-assembled device
+    tensors; the coefficient normalisation runs in their dtype (for the
+    oracle-exact f64-rounded operands use ``build_fused_solver``)."""
+    _check_dtype(rhs.dtype)
+    coeffs = normalized_coefficients(problem, a, b)
+    return _run_fused(problem, coeffs, rhs, chunk)[0]
+
+
+def build_fused_solver(problem: Problem, dtype=torch.float32, device=None,
+                       chunk: int = DEFAULT_CHUNK):
+    """(solver, args) with the f64-rounded operand set: args are
+    (an, as_, bw, be, d, dinv, r0) on the device, and ``solver(*args)``
+    may be called many times."""
+    _check_dtype(dtype)
+    dev = resolve_device(device)
+    coeffs = fused_operands(problem, dtype, dev)
+    _, _, rhs64 = assembly.assemble_numpy(problem)
+    args = (*coeffs, assembly.to_device(rhs64, dtype, dev))
+    solver = Solver(
+        lambda an, as_, bw, be, d, dinv, r0: _run_fused(
+            problem, (an, as_, bw, be, d, dinv), r0, chunk
+        )
+    )
+    return solver, args
+
+
+def solve_fused(problem: Problem, dtype=torch.float32, device=None,
+                chunk: int = DEFAULT_CHUNK) -> PCGResult:
+    """Assemble and solve with the fused iteration on one device."""
+    solver, args = build_fused_solver(problem, dtype, device, chunk)
+    return solver(*args)
