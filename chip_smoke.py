@@ -7,31 +7,48 @@ Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
 1. device   — nvidia-smi's name and power limit, torch's device name and
-              count; fails without a CUDA device or without the port's
-              package beside this script.
+              count, the card's capacity; fails without a CUDA device or
+              without the port's package beside this script.
 2. build    — every kernel from poisson_ellipse_tpu_torch/csrc/, one nvcc
               per source in parallel; prints ptxas's registers, shared
               memory and spills.
-3. kernels  — each kernel against its plain PyTorch version at the main
-              path's 2401x3201 f32 shapes, inputs from
+3. kernels  — each kernel against its plain PyTorch version on the card.
+              K-a, K1, K2 at the 2401x3201 f32 shapes, inputs from
               numpy.random.default_rng(seed): arrays within rel 1e-6 /
               atol 1e-6 (bitwise expected: built with -fmad=false), sums
-              within rel 1e-5 (their order differs); and a no-op check
-              once the loop's flags say it has exited.
+              within rel 1e-5 (their order differs); and a no-op check once
+              the loop's flags say it has exited. The whole-solve kernels
+              on capped solves, max_iter 1, 2 and 7: xl at 2401x3201,
+              resident at the largest published grid its gate admits,
+              streamed at 1101x1651 with dinv on chip (r-state) and with
+              dinv streamed (z-state), each forced by its plan. Iterations
+              and flags equal, w and the step norm within rel 1e-5 of
+              their scale.
 4. oracles  — xla in f64 on the card: exactly 17/31/61 (unweighted),
-              15/26/50 (weighted) and 546; pallas and fused in f32: the
-              exact small-grid counts and 546/989 within +-2.
-5. main     — 2400x3200 through build_solver(engine="auto") (resolves to
-              fused): 2449 +- 2 iterations, K1 and K2 launches >= iters,
-              host reads once per chunk, l2 error; the same grid through
-              the pallas engine for the stencil's launches; and
-              max|w_fused - w_xla,f64| at 800x1200. Launch counts are set
-              to 0 just before each run and read just after it.
-6. timing   — each kernel and its plain version with CUDA events at
-              2401x3201 next to its bound, and T_solver at 2400x3200 and
-              800x1200.
-7. profile  — one solve of each timed configuration under torch.profiler:
-              device time by kernel and the device's idle share.
+              15/26/50 (weighted) and 546; pallas, fused, resident,
+              streamed and xl in f32: the exact small-grid counts, and
+              546/989 within +-2 wherever the engine's gate admits the
+              grid; the max_iter=5 cap reports 5, not converged.
+5. main     — 2400x3200 through build_solver(engine="auto"), which must
+              resolve to xl by the card's gate: 2449 +- 2 iterations,
+              l2 < 1e-3, one xl launch and one host read per solve, and two
+              solves with the same bits and count. auto's engine at
+              400x600, 800x1200, 1100x1650 and 1600x2400; auto at 800x1200
+              (resident) and 1100x1650 (streamed) for their launches;
+              fused and pallas at 2400x3200 explicitly, and
+              max|w - w_xla,f64| at 800x1200 for fused and resident.
+              Launch counts are set to 0 just before each run and read
+              just after it.
+6. timing   — each per-iteration kernel and its plain version with CUDA
+              events at 2401x3201 next to its bound; each whole-solve
+              kernel's solve and its plain version's on auto's grid for it,
+              per solve and per iteration, next to its bounds, the two
+              whole solves held to each other as in phase 3 (their error
+              joins the kernel's max_abs_err); T_solver per engine at
+              400x600, 800x1200, 1100x1650 and 2400x3200.
+7. profile  — one solve of each whole-solve engine and of fused and pallas
+              under torch.profiler: device time by kernel and the device's
+              idle share.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -69,6 +86,22 @@ WEIGHTED = {(10, 10): 15, (20, 20): 26, (40, 40): 50}
 LARGE = {(400, 600): 546, (800, 1200): 989}
 MAIN_GRID = (2400, 3200)
 MAIN_ITERS = 2449
+
+WHOLE_SOLVE = ("resident", "streamed", "xl")
+WHOLE_RTOL = 1e-5
+CAPS = (1, 2, 7)
+# published grids, largest first (README.md:1139-1144), and the grid
+# between the resident and streamed gates
+PUBLISHED = ((2400, 3200), (1600, 2400), (800, 1200), (400, 600))
+STREAMED_GRID = (1100, 1650)
+TIMED_GRIDS = ((400, 600), (800, 1200), (1100, 1650), (2400, 3200))
+# operations per node per iteration, counted from each kernel's source,
+# and the arrays one solve must read (operands, r0) and write (w)
+WHOLE_FLOPS = {"resident": 24, "streamed": 25, "xl": 27}
+WHOLE_ARRAYS = {"resident": 6, "streamed": 5, "xl": 5}
+# the same for the per-iteration engines (K1 15 + K2 10; K-a 18 and the
+# plain loop's 12 around it)
+ITER_FLOPS = {**WHOLE_FLOPS, "fused": 25, "pallas": 30}
 
 
 class SmokeFailure(RuntimeError):
@@ -149,9 +182,6 @@ def phase_device() -> tuple[str, str]:
     say(f"nvidia-smi: {line}")
     say(f"torch: {torch.__version__} cuda {torch.version.cuda} device "
         f"{kind!r} count {torch.cuda.device_count()}")
-    from poisson_ellipse_tpu_torch.utils.device import capacity
-
-    say(f"capacity: {capacity(0)}")
     return line, kind
 
 
@@ -279,6 +309,79 @@ def phase_kernels(problem, inp) -> dict:
     return errs
 
 
+def _whole_runs(name, problem, cap, resident=None):
+    """(kernel, plain) runs of one whole-solve engine on the card, over
+    operands built once for ``problem``'s grid; each takes the Problem to
+    solve (its max_iter may differ) and returns a PCGResult."""
+    from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
+    from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
+    from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
+
+    dev = torch.device("cuda")
+    if name == "resident":
+        ops = rp.resident_operands(problem, torch.float32, dev)
+        return (lambda pr: rp.resident(pr, *ops, cap=cap)[0],
+                lambda pr: rp.resident_plain(pr, *ops)[0])
+    ops = sp.streamed_operands(problem, torch.float32, dev)
+    if name == "xl":
+        return (lambda pr: xp.xl(pr, *ops, cap=cap)[0],
+                lambda pr: xp.xl_plain(pr, *ops)[0])
+    plan = sp.StreamPlan(problem, cap, resident=resident)
+    return (lambda pr: sp.streamed(pr, *ops, plan=plan)[0],
+            lambda pr: sp.streamed_plain(pr, *ops, zstate=plan.zstate)[0])
+
+
+def close_solves(label: str, got, want) -> float:
+    """A whole-solve kernel's capped solve against its plain version's:
+    equal iterations and flags, w and the step norm within rel 1e-5 of
+    their scale. Returns max|w_kernel - w_plain|."""
+    for f in ("iters", "converged", "breakdown"):
+        g, w = int(getattr(got, f)), int(getattr(want, f))
+        require(g == w, f"{label}: {f} {g}, plain {w}")
+    scale = float(want.w.abs().max())
+    err = max_abs(got.w, want.w)
+    d_k, d_p = float(got.diff), float(want.diff)
+    say(f"  {label}: {int(got.iters)} iterations, max_abs_err {err:.3e} "
+        f"(w scale {scale:.3e}) bitwise={torch.equal(got.w, want.w)}, "
+        f"diff {d_k!r} plain {d_p!r}")
+    require(err <= WHOLE_RTOL * scale,
+            f"{label}: w differs beyond rel {WHOLE_RTOL} of its scale")
+    require(d_k == d_p or abs(d_k - d_p) <= WHOLE_RTOL * abs(d_p),
+            f"{label}: diff differs beyond rel {WHOLE_RTOL}")
+    return err
+
+
+def phase_whole_kernels(cap) -> dict:
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops.resident_pcg import fits_resident
+
+    say("== phase 3 (whole-solve kernels): capped solves against their "
+        f"plain versions, max_iter in {CAPS}")
+    admitted = [g for g in PUBLISHED
+                if fits_resident(Problem(*g), torch.float32, cap)]
+    require(bool(admitted), "the resident gate admits no published grid")
+    cases = [
+        ("xl", MAIN_GRID, None, "xl"),
+        ("resident", admitted[0], None, "resident"),
+        ("streamed", STREAMED_GRID, ("dinv",), "streamed r-state"),
+        ("streamed", STREAMED_GRID, ("ap",), "streamed z-state"),
+    ]
+    errs = {}
+    for name, (m, n), resident, label in cases:
+        kernel, plain = _whole_runs(name, Problem(M=m, N=n), cap, resident)
+        for max_iter in CAPS:
+            capped = Problem(M=m, N=n, max_iter=max_iter)
+            got, want = kernel(capped), plain(capped)
+            torch.cuda.synchronize()
+            require(int(got.iters) == max_iter,
+                    f"{label}: {int(got.iters)} iterations at max_iter "
+                    f"{max_iter}")
+            err = close_solves(f"{label} {m}x{n} max_iter={max_iter}", got,
+                               want)
+            errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
 def _solve(problem, engine, dtype):
     from poisson_ellipse_tpu_torch.solver.engine import build_solver
 
@@ -287,23 +390,28 @@ def _solve(problem, engine, dtype):
     return result, resolved, solver.host_syncs
 
 
-def phase_oracles() -> None:
+def phase_oracles(cap) -> None:
     from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops.resident_pcg import fits_resident
+    from poisson_ellipse_tpu_torch.ops.streamed_pcg import fits_streamed
 
     say("== phase 4: oracle iteration counts on the card")
+    gates = {"resident": fits_resident, "streamed": fits_streamed}
+    f32_engines = ("pallas", "fused") + WHOLE_SOLVE
     cases = []
     for norm, table in (("unweighted", UNWEIGHTED), ("weighted", WEIGHTED)):
         for (m, n), want in table.items():
-            for engine, dtype in (("xla", torch.float64),
-                                  ("pallas", torch.float32),
-                                  ("fused", torch.float32)):
+            for engine, dtype in (("xla", torch.float64),) + tuple(
+                    (e, torch.float32) for e in f32_engines):
                 cases.append((Problem(M=m, N=n, norm=norm), engine, dtype,
                               want, 0))
     cases.append((Problem(M=400, N=600), "xla", torch.float64, 546, 0))
     for (m, n), want in LARGE.items():
-        for engine in ("pallas", "fused"):
-            cases.append((Problem(M=m, N=n), engine, torch.float32, want,
-                          ITERS_ABS))
+        for engine in f32_engines:
+            gate = gates.get(engine)
+            if gate is None or gate(Problem(M=m, N=n), torch.float32, cap):
+                cases.append((Problem(M=m, N=n), engine, torch.float32, want,
+                              ITERS_ABS))
     for problem, engine, dtype, want, tol in cases:
         result, _, _ = _solve(problem, engine, dtype)
         iters = int(result.iters)
@@ -312,47 +420,104 @@ def phase_oracles() -> None:
             f"{f' +-{tol}' if tol else ''})")
         require(bool(result.converged), "did not converge")
         require(abs(iters - want) <= tol, "iteration count off the oracle")
+    for engine in WHOLE_SOLVE:
+        result, _, _ = _solve(Problem(M=40, N=40, max_iter=5), engine,
+                              torch.float32)
+        say(f"  40x40 max_iter=5 {engine}: {int(result.iters)} iterations, "
+            f"converged {bool(result.converged)}")
+        require(int(result.iters) == 5 and not bool(result.converged)
+                and not bool(result.breakdown), "the max_iter cap is off")
 
 
-def phase_main() -> dict:
-    from poisson_ellipse_tpu_torch.models.problem import Problem
+def _run_counted(solver, args):
+    """One solve with the launch counts set to 0 just before it and read
+    just after it."""
     from poisson_ellipse_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    result = solver(*args)
+    torch.cuda.synchronize()
+    return result, dict(_build.LAUNCHES)
+
+
+def phase_main(cap) -> dict:
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops.streamed_pcg import StreamPlan
     from poisson_ellipse_tpu_torch.solver.engine import build_solver
+    from poisson_ellipse_tpu_torch.solver.engine import select_engine
     from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
 
     problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
     say(f"== phase 5: main path, {problem.M}x{problem.N} f32, engine auto")
+    for m, n in ((400, 600), (800, 1200), STREAMED_GRID, (1600, 2400)):
+        say(f"  auto at {m}x{n}: "
+            f"{select_engine(Problem(M=m, N=n), torch.float32, cap)}")
     solver, args, engine = build_solver(problem, "auto", torch.float32,
                                         "cuda")
-    _build.reset_launches()
-    result = solver(*args)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
+    result, launches = _run_counted(solver, args)
     iters = int(result.iters)
     l2 = float(l2_error_vs_analytic(problem, result.w))
     say(f"  engine {engine}: {iters} iterations, converged "
         f"{bool(result.converged)}, diff {float(result.diff):.3e}, "
         f"host reads {solver.host_syncs}, l2 error {l2:.6e}, "
         f"launches {launches}")
-    require(engine == "fused", "auto did not resolve to fused")
+    require(engine == "xl", "auto did not resolve to xl")
     require(bool(result.converged) and abs(iters - MAIN_ITERS) <= ITERS_ABS,
             f"expected {MAIN_ITERS} +-{ITERS_ABS} iterations")
     require(tuple(result.w.shape) == problem.node_shape
             and bool(torch.isfinite(result.w).all()), "w not finite")
     require(math.isfinite(l2) and l2 < 1e-3, "l2 error out of range")
+    require(launches == {"xl": 1}, "not one xl launch per solve")
+    require(solver.host_syncs == 1, "not one host read per solve")
+    again = solver(*args)
+    same = torch.equal(again.w, result.w) and int(again.iters) == iters
+    say(f"  a second solve: {int(again.iters)} iterations, bitwise "
+        f"identical {same}")
+    require(same, "two solves differ")
+    counts = dict(launches)
+    whole = {"xl": (solver, args, problem, iters)}
+
+    for (m, n), want, oracle in (((800, 1200), "resident", LARGE[(800, 1200)]),
+                                 (STREAMED_GRID, "streamed", None)):
+        grid = Problem(M=m, N=n)
+        s, a, e = build_solver(grid, "auto", torch.float32, "cuda")
+        r, ln = _run_counted(s, a)
+        it = int(r.iters)
+        l2g = float(l2_error_vs_analytic(grid, r.w))
+        say(f"  auto at {m}x{n} -> {e}: {it} iterations, host reads "
+            f"{s.host_syncs}, l2 error {l2g:.6e}, launches {ln}"
+            + (f", plan resident {StreamPlan(grid, cap).resident}"
+               if e == "streamed" else ""))
+        require(e == want, f"auto at {m}x{n} did not resolve to {want}")
+        require(bool(r.converged) and ln == {want: 1} and s.host_syncs == 1,
+                f"{want}: not one converged launch per solve")
+        require(oracle is None or abs(it - oracle) <= ITERS_ABS,
+                f"{want}: off the {oracle} oracle")
+        require(math.isfinite(l2g) and l2g < 1e-3, "l2 error out of range")
+        counts.update(ln)
+        whole[want] = (s, a, grid, it)
+
+    say(f"  fused engine, {problem.M}x{problem.N} f32")
+    solver_f, args_f, _ = build_solver(problem, "fused", torch.float32,
+                                       "cuda")
+    result_f, launches_f = _run_counted(solver_f, args_f)
+    iters_f = int(result_f.iters)
+    say(f"  fused: {iters_f} iterations, host reads {solver_f.host_syncs}, "
+        f"launches {launches_f}")
+    require(bool(result_f.converged)
+            and abs(iters_f - MAIN_ITERS) <= ITERS_ABS,
+            f"fused: expected {MAIN_ITERS} +-{ITERS_ABS} iterations")
     for k in ("fused_k1", "fused_k2"):
-        require(launches.get(k, 0) >= iters, f"{k} launched fewer times "
+        require(launches_f.get(k, 0) >= iters_f, f"{k} launched fewer times "
                 "than iterations")
-    require(solver.host_syncs <= iters // 64 + 2, "more host reads than "
+    require(solver_f.host_syncs <= iters_f // 64 + 2, "more host reads than "
             "one per chunk")
+    counts.update(launches_f)
 
     say(f"  pallas engine, {problem.M}x{problem.N} f32")
     solver_p, args_p, _ = build_solver(problem, "pallas", torch.float32,
                                        "cuda")
-    _build.reset_launches()
-    result_p = solver_p(*args_p)
-    torch.cuda.synchronize()
-    launches_p = dict(_build.LAUNCHES)
+    result_p, launches_p = _run_counted(solver_p, args_p)
     iters_p = int(result_p.iters)
     say(f"  pallas: {iters_p} iterations, host reads {solver_p.host_syncs}, "
         f"launches {launches_p}")
@@ -361,15 +526,18 @@ def phase_main() -> dict:
             f"pallas: expected {MAIN_ITERS} +-{ITERS_ABS} iterations")
     require(launches_p.get("stencil", 0) >= iters_p, "stencil launched "
             "fewer times than iterations")
+    counts.update(launches_p)
 
     mid = Problem(M=800, N=1200)
-    w32, _, _ = _solve(mid, "fused", torch.float32)
     w64, _, _ = _solve(mid, "xla", torch.float64)
-    gap = max_abs(w32.w, w64.w)
-    say(f"  max|w_fused,f32 - w_xla,f64| at 800x1200: {gap:.3e}")
-    require(math.isfinite(gap) and gap < 1e-3, "fused f32 strays from f64")
-    return dict(launches=launches, stencil=launches_p,
-                problem=problem, solver=solver, args=args,
+    for engine in ("fused", "resident"):
+        w32, _, _ = _solve(mid, engine, torch.float32)
+        gap = max_abs(w32.w, w64.w)
+        say(f"  max|w_{engine},f32 - w_xla,f64| at 800x1200: {gap:.3e}")
+        require(math.isfinite(gap) and gap < 1e-3,
+                f"{engine} f32 strays from f64")
+    return dict(counts=counts, whole=whole, problem=problem,
+                solver_f=solver_f, args_f=args_f,
                 solver_p=solver_p, args_p=args_p)
 
 
@@ -482,6 +650,99 @@ def profile_solve(label: str, solver, args) -> None:
             f"{name[:90]}")
 
 
+def time_plain(name, args, problem, cap):
+    """(seconds, result) of one solve by a whole-solve kernel's plain
+    version on the card, on the operands its kernel is timed on (the
+    streamed one in the regime of the kernel's plan)."""
+    from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
+    from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
+    from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
+
+    plain = {"resident": lambda: rp.resident_plain(problem, *args),
+             "streamed": lambda: sp.streamed_plain(
+                 problem, *args, zstate=sp.StreamPlan(problem, cap).zstate),
+             "xl": lambda: xp.xl_plain(problem, *args)}[name]
+    out = []
+    seconds = time_solver(lambda: out.append(plain()[0]), (), 1)
+    return seconds, out[-1]
+
+
+def phase_whole_timing(main_run, cap, card: str, errs: dict) -> list:
+    """Each whole-solve kernel's solve on auto's grid for it, next to its
+    plain version's and its bounds: per solve (each input read once, w
+    written once; the operations the iterations take) and per iteration
+    (the engine's pass model against its operations). The timed plain
+    solve is also held against the kernel's whole solve (as in phase 3,
+    at the main path's iteration count), and its error joins ``errs``."""
+    from poisson_ellipse_tpu_torch.harness.roofline import passes_per_iter
+
+    say(f"== phase 6 (whole-solve kernels): one launch per solve, on {card}")
+    replaces = {
+        "resident": "poisson_ellipse_tpu/ops/resident_pcg.py:234",
+        "streamed": "poisson_ellipse_tpu/ops/streamed_pcg.py:632",
+        "xl": "poisson_ellipse_tpu/ops/xl_pcg.py:451",
+    }
+    rows = []
+    for name in WHOLE_SOLVE:
+        solver, args, problem, iters = main_run["whole"][name]
+        g1, g2 = problem.node_shape
+        n = g1 * g2
+        ms = time_solver(solver, args) * 1e3
+        plain_s, want = time_plain(name, args, problem, cap)
+        plain_ms = plain_s * 1e3
+        err = close_solves(f"{name} {g1}x{g2} whole solve", solver(*args),
+                           want)
+        errs[name] = max(errs[name], err)
+        bound_ms, bound_by = bound(WHOLE_ARRAYS[name] * n * 4,
+                                   iters * WHOLE_FLOPS[name] * n)
+        passes = passes_per_iter(name, problem, cap)
+        iter_ms, iter_by = bound(passes * n * 4, WHOLE_FLOPS[name] * n)
+        us_per_iter = ms * 1e3 / iters
+        say(f"  {name} {g1}x{g2}: {ms:.3f} ms per solve, {iters} iterations, "
+            f"{us_per_iter:.2f} us/iter; plain {plain_ms:.1f} ms; bound "
+            f"{bound_ms:.3f} ms per solve ({bound_by}), "
+            f"{iter_ms * 1e3:.2f} us/iter ({passes:g} passes, {iter_by})")
+        rows.append(dict(name=name, route="cuda",
+                         source=f"poisson_ellipse_tpu_torch/csrc/{name}_pcg.cu",
+                         replaces=replaces[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None, us_per_iter=us_per_iter,
+                         bound_us_per_iter=iter_ms * 1e3, iters=iters,
+                         grid=[g1, g2]))
+    return rows
+
+
+def phase_solver_times(cap, card: str) -> None:
+    """T_solver per engine at the timed grids: each whole-solve engine
+    wherever its gate admits the grid, fused and pallas everywhere."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops.resident_pcg import fits_resident
+    from poisson_ellipse_tpu_torch.ops.streamed_pcg import fits_streamed
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    from poisson_ellipse_tpu_torch.harness.roofline import passes_per_iter
+
+    say(f"== phase 6 (T_solver per engine, median of 3, pallas 1; {card})")
+    gates = {"resident": fits_resident, "streamed": fits_streamed}
+    for m, n in TIMED_GRIDS:
+        problem = Problem(M=m, N=n)
+        nodes = (m + 1) * (n + 1)
+        for engine in WHOLE_SOLVE + ("fused", "pallas"):
+            gate = gates.get(engine)
+            if gate is not None and not gate(problem, torch.float32, cap):
+                continue
+            solver, args, _ = build_solver(problem, engine, torch.float32,
+                                           "cuda")
+            iters = int(solver(*args).iters)
+            t = time_solver(solver, args, 1 if engine == "pallas" else 3)
+            passes = passes_per_iter(engine, problem, cap)
+            iter_ms, iter_by = bound(passes * nodes * 4,
+                                     ITER_FLOPS[engine] * nodes)
+            say(f"  T_solver {m}x{n} {engine}: {t:.5f} s, {iters} iterations, "
+                f"{t / iters * 1e6:.2f} us/iter, bound {iter_ms * 1e3:.2f} "
+                f"us/iter ({passes:g} passes, {iter_by})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -492,32 +753,30 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    from poisson_ellipse_tpu_torch.utils.device import capacity
+
+    cap = capacity(0)
+    say(f"capacity: {cap}, cooperative launch "
+        f"{cap.cooperative_launch('xl_pcg')}")
     problem, inp = kernel_inputs(args.seed)
     errs = phase_kernels(problem, inp)
-    phase_oracles()
-    main_run = phase_main()
+    errs.update(phase_whole_kernels(cap))
+    phase_oracles(cap)
+    main_run = phase_main(cap)
     timed = phase_timing(problem, inp, card)
+    timed += phase_whole_timing(main_run, cap, card, errs)
+    phase_solver_times(cap, card)
 
-    from poisson_ellipse_tpu_torch.models.problem import Problem
-    from poisson_ellipse_tpu_torch.solver.engine import build_solver
-
-    t_main = time_solver(main_run["solver"], main_run["args"])
-    t_pallas = time_solver(main_run["solver_p"], main_run["args_p"], 1)
-    solver_mid, args_mid, _ = build_solver(Problem(M=800, N=1200), "auto",
-                                           torch.float32, "cuda")
-    solver_mid(*args_mid)
-    t_mid = time_solver(solver_mid, args_mid)
-    say(f"  T_solver fused 2400x3200: {t_main:.4f} s; 800x1200: "
-        f"{t_mid:.4f} s; pallas 2400x3200: {t_pallas:.4f} s ({card})")
     say(f"== phase 7: where the time goes (torch.profiler, {card})")
-    profile_solve("fused 2400x3200", main_run["solver"], main_run["args"])
-    profile_solve("fused 800x1200", solver_mid, args_mid)
+    for name in WHOLE_SOLVE:
+        solver, solver_args, grid, _ = main_run["whole"][name]
+        profile_solve(f"{name} {grid.M}x{grid.N}", solver, solver_args)
+    profile_solve("fused 2400x3200", main_run["solver_f"], main_run["args_f"])
     profile_solve("pallas 2400x3200", main_run["solver_p"],
                   main_run["args_p"])
 
-    counts = {**main_run["launches"], **main_run["stencil"]}
     for row in timed:
-        row["launches"] = counts.get(row["name"], 0)
+        row["launches"] = main_run["counts"].get(row["name"], 0)
         row["max_abs_err"] = errs[row["name"]]
     print(card, flush=True)
     print(json.dumps({"kernels": timed}), flush=True)

@@ -8,10 +8,12 @@ package's, so each module's counterpart has the same relative path:
 - ``models``  — ``Problem`` and the ellipse's closed forms;
 - ``ops``     — f64 host assembly, the plain stencil and reductions, and
   the hand-written CUDA kernels (``csrc/``, built by ``ops._build``):
-  the stencil (``ops.hopper_kernels``) and the fused K1/K2 iteration
-  (``ops.fused_pcg``);
+  the stencil (``ops.hopper_kernels``), the fused K1/K2 iteration
+  (``ops.fused_pcg``) and the whole-solve kernels (``ops.resident_pcg``,
+  ``ops.streamed_pcg``, ``ops.xl_pcg``, over ``ops.whole_solve``);
 - ``solver``  — the classical loop with its scalar carry on the device,
-  and the engine table (``xla``, ``pallas``, ``fused``);
+  the engine table (``xla``, ``pallas``, ``fused``, ``resident``,
+  ``streamed``, ``xl``) and ``auto``'s capacity ladder;
 - ``harness`` — ``run_once`` and the command line;
 - ``interop`` — the JAX package's arrays into the port, for the tests.
 

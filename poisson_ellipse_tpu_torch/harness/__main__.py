@@ -38,9 +38,12 @@ def main(argv=None) -> int:
     ap.add_argument("--grids",
                     help="comma list of MxN grids, e.g. 400x600,800x1200")
     ap.add_argument("--engine", choices=ENGINES, default="auto",
-                    help="auto: fused for f32, xla for f64; xla is the "
-                    "plain PyTorch loop, pallas the same loop with the CUDA "
-                    "stencil, fused the two-kernel iteration")
+                    help="auto: xla for f64; for f32 the first of resident, "
+                    "streamed, xl whose gate admits the grid on the card (xl "
+                    "on the CPU). xla is the plain PyTorch loop, pallas the "
+                    "same loop with the CUDA stencil, fused the two-kernel "
+                    "iteration; resident, streamed and xl run the whole "
+                    "solve in one kernel launch")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     ap.add_argument("--norm", choices=("weighted", "unweighted"),
                     default="weighted")

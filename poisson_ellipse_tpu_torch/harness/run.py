@@ -19,7 +19,7 @@ from poisson_ellipse_tpu_torch.harness.roofline import roofline
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.solver.engine import build_solver
 from poisson_ellipse_tpu_torch.solver.pcg import unported
-from poisson_ellipse_tpu_torch.utils.device import resolve_device
+from poisson_ellipse_tpu_torch.utils.device import capacity, resolve_device
 from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
 from poisson_ellipse_tpu_torch.utils.timing import PhaseTimer
 
@@ -115,9 +115,11 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
         raise ValueError("repeat must be >= 1")
     dev = resolve_device(device)
     tdtype = DTYPES[dtype]
+    cap = capacity(dev) if dev.type == "cuda" else None
     timer = PhaseTimer(dev)
     with timer.phase("init"):
-        solver, args, engine = build_solver(problem, engine, tdtype, dev)
+        solver, args, engine = build_solver(problem, engine, tdtype, dev,
+                                            capacity=cap)
     result = solver(*args)  # warm-up: builds the kernels on first use
     times = []
     for _ in range(repeat):
@@ -130,7 +132,7 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
         l2 = float(l2_error_vs_analytic(problem, result.w))
     iters = int(result.iters)
     roof = roofline(problem, engine, iters, timer.totals["solver"], tdtype,
-                    dev)
+                    dev, cap)
     return RunReport(
         problem=problem,
         mesh_shape=(1, 1),

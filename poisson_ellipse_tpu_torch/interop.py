@@ -52,10 +52,29 @@ def fused_operands_from_reference(problem: Problem, coeffs, *, device=None,
     are kept in their dtype unless ``dtype`` is given."""
     if len(coeffs) != 6:
         raise ValueError("expected (an, as_, bw, be, d, dinv)")
+    return _stripped(problem, coeffs, device, dtype)
+
+
+def _stripped(problem: Problem, arrays, device, dtype) -> tuple:
+    """Each of ``arrays`` without its zero padding, on ``device``, in its
+    own dtype unless ``dtype`` is given."""
     dev = resolve_device(device)
     out = []
-    for x in coeffs:
-        x = strip_padding(problem, x)
-        t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    for x in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(strip_padding(problem, x)))
+        t = t.to(dev)
         out.append(t if dtype is None else t.to(dtype))
     return tuple(out)
+
+
+def streamed_operands_from_reference(problem: Problem, operands, *,
+                                     device=None, dtype=None):
+    """The streamed and xl engines' (dinv, an, bw, r0) from JAX's
+    ``streamed_operand_set``: there each array is zero-padded to (g1p, g2p)
+    and an carries 8 more padded rows
+    (``poisson_ellipse_tpu/ops/streamed_pcg.py:538-571``). The padding is
+    stripped after checking it holds only zeros; the values are kept in
+    their dtype unless ``dtype`` is given."""
+    if len(operands) != 4:
+        raise ValueError("expected (dinv, an, bw, r0)")
+    return _stripped(problem, operands, device, dtype)

@@ -3,9 +3,15 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface and loaded with ``ctypes``. A library is
 built on first use into ``build/kernels/`` at the repository root, under a
-name keyed on a hash of its source and the compiler flags, so an edited
-source never loads a stale library. ``build()`` starts one ``nvcc`` per
-missing library, all at once, and waits for them together.
+name keyed on a hash of its source, the shared headers (``csrc/*.cuh``)
+and the compiler flags, so an edited source never loads a stale library.
+``build()`` starts one ``nvcc`` per missing library, all at once, and
+waits for them together.
+
+The whole-solve libraries (``resident_pcg``, ``streamed_pcg``, ``xl_pcg``)
+each export ``pe_<library>_launch_query``: the cooperative-launch
+attribute of a device and their kernel's occupancy at a dynamic
+shared-memory size (``launch_query``).
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc``.
@@ -27,7 +33,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCES = ("stencil", "fused_pcg")
+SOURCES = ("stencil", "fused_pcg", "resident_pcg", "streamed_pcg",
+           "xl_pcg")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -58,6 +65,8 @@ def source_path(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -118,19 +127,35 @@ def build(names=SOURCES) -> dict[str, str]:
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library ``name``, built first if it is missing, with
-    ``signatures`` ({symbol: (restype, [argtypes])}) declared once."""
+    ``signatures`` ({symbol: (restype, [argtypes])}) declared."""
     lib = _LOADED.get(name)
     if lib is None:
         path = library_path(name)
         if not path.exists():
             build((name,))
-        lib = ctypes.CDLL(str(path))
-        for symbol, (restype, argtypes) in signatures.items():
-            fn = getattr(lib, symbol)
-            fn.restype = restype
-            fn.argtypes = argtypes
-        _LOADED[name] = lib
+        lib = _LOADED[name] = ctypes.CDLL(str(path))
+    for symbol, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, symbol)
+        fn.restype = restype
+        fn.argtypes = argtypes
     return lib
+
+
+def launch_query(name: str, device: int, smem_bytes: int) -> tuple[int, int]:
+    """(cooperative-launch attribute of ``device``, blocks of library
+    ``name``'s whole-solve kernel that fit on one SM with ``smem_bytes``
+    of dynamic shared memory), from ``pe_<name>_launch_query``."""
+    symbol = f"pe_{name}_launch_query"
+    ptr = ctypes.POINTER(ctypes.c_int)
+    lib = load(name, {
+        symbol: (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ptr, ptr]),
+        f"pe_{name}_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    })
+    cooperative, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    rc = getattr(lib, symbol)(device, smem_bytes, ctypes.byref(cooperative),
+                              ctypes.byref(per_sm))
+    check(getattr(lib, f"pe_{name}_error_string"), symbol, rc)
+    return cooperative.value, per_sm.value
 
 
 def check(error_string, kernel: str, rc: int) -> None:

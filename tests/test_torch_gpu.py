@@ -10,7 +10,13 @@ package, so it also runs where JAX is not installed:
 Tolerances: the kernels are built with ``-fmad=false``, so arrays agree
 with the plain versions to 1e-6 (bitwise in practice); per-block sums are
 added in another order than ``torch.sum``'s, so sums agree to rel 1e-5.
+The whole-solve kernels (resident, streamed, xl) run capped solves against
+their plain versions on the card: equal iterations and flags, w and the
+step norm within rel 1e-5 of their scale (the reordered sums move α and β
+in their last bits, and w follows).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,7 +26,11 @@ from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import _build
 from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
 from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
+from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
+from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
 from poisson_ellipse_tpu_torch.solver import engine
+from poisson_ellipse_tpu_torch.utils.device import capacity
 
 pytestmark = pytest.mark.gpu
 
@@ -166,7 +176,10 @@ WEIGHTED = {(10, 10): 15, (20, 20): 26, (40, 40): 50}
 
 @pytest.mark.parametrize("engine_name,dtype", [("xla", torch.float64),
                                                ("pallas", torch.float32),
-                                               ("fused", torch.float32)])
+                                               ("fused", torch.float32),
+                                               ("resident", torch.float32),
+                                               ("streamed", torch.float32),
+                                               ("xl", torch.float32)])
 def test_oracle_counts_on_the_card(cuda, engine_name, dtype):
     for norm, table in (("unweighted", UNWEIGHTED), ("weighted", WEIGHTED)):
         for (m, n), want in table.items():
@@ -190,3 +203,115 @@ def test_fused_on_the_card_matches_its_plain_run(cuda):
     # a chunked run on the card gives the bits of a straight one
     one = fp.solve_fused(problem, device=cuda, chunk=1)
     assert int(one.iters) == iters and torch.equal(one.w, got.w)
+
+
+# -- the whole-solve kernels ------------------------------------------------
+
+WHOLE_SHAPES = [(60, 90), (200, 132), (257, 301)]
+WHOLE_RTOL = 1e-5
+
+
+def _whole(name, problem, dev, resident=None):
+    """(operands, kernel run, plain run) of one whole-solve engine."""
+    cap = capacity(dev)
+    if name == "resident":
+        ops = rp.resident_operands(problem, torch.float32, dev)
+        return (ops, lambda: rp.resident(problem, *ops, cap=cap),
+                lambda: rp.resident_plain(problem, *ops))
+    if name == "xl":
+        ops = sp.streamed_operands(problem, torch.float32, dev)
+        return (ops, lambda: xp.xl(problem, *ops, cap=cap),
+                lambda: xp.xl_plain(problem, *ops))
+    plan = sp.StreamPlan(problem, cap, resident=resident)
+    ops = sp.streamed_operands(problem, torch.float32, dev)
+    return (ops, lambda: sp.streamed(problem, *ops, plan=plan),
+            lambda: sp.streamed_plain(problem, *ops, zstate=plan.zstate))
+
+
+WHOLE_CASES = [("resident", None), ("xl", None),
+               ("streamed", ("ap", "dinv", "a", "b")),  # r-state, all on chip
+               ("streamed", ("dinv",)),                  # r-state, ap streamed
+               ("streamed", ("ap",)),                    # z-state
+               ("streamed", ())]                         # z-state, all streamed
+
+
+def _assert_whole_close(got, want):
+    for f in ("iters", "converged", "breakdown"):
+        assert int(getattr(got, f)) == int(getattr(want, f)), f
+    scale = float(want.w.abs().max())
+    torch.testing.assert_close(got.w, want.w, rtol=WHOLE_RTOL,
+                               atol=WHOLE_RTOL * scale)
+    if torch.isfinite(want.diff):
+        assert float(got.diff) == pytest.approx(float(want.diff),
+                                                rel=WHOLE_RTOL)
+
+
+@pytest.mark.parametrize("name,resident", WHOLE_CASES)
+@pytest.mark.parametrize("M,N", WHOLE_SHAPES)
+def test_whole_solve_kernel_matches_plain_on_capped_runs(cuda, name,
+                                                         resident, M, N):
+    for max_iter in (1, 2, 7):
+        problem = Problem(M=M, N=N, max_iter=max_iter)
+        _, kernel, plain = _whole(name, problem, cuda, resident)
+        _build.reset_launches()
+        got, reads = kernel()
+        assert reads == 1 and _build.LAUNCHES[name] == 1
+        want, _ = plain()
+        assert int(got.iters) == max_iter
+        _assert_whole_close(got, want)
+
+
+@pytest.mark.parametrize("name,resident", WHOLE_CASES)
+def test_whole_solve_kernel_converges_as_its_plain_version(cuda, name,
+                                                           resident):
+    problem = Problem(M=60, N=90)
+    _, kernel, plain = _whole(name, problem, cuda, resident)
+    got, _ = kernel()
+    again, _ = kernel()
+    want, _ = plain()
+    assert bool(got.converged) and int(got.iters) == int(want.iters)
+    torch.testing.assert_close(got.w, want.w, rtol=0, atol=5e-6)
+    # one launch per solve, the same bits on a rerun
+    assert int(again.iters) == int(got.iters)
+    assert torch.equal(again.w, got.w)
+
+
+@pytest.mark.parametrize("name", ["resident", "streamed", "xl"])
+def test_too_large_cooperative_launch_raises(cuda, name):
+    """A capacity that claims 100 times the card's SMs makes each kernel's
+    grid larger than the card can hold at once (xl's grid is capped at its
+    1820 tiles here): the cooperative launch is refused and the wrapper
+    raises, nothing runs and nothing hangs."""
+    problem = Problem(M=1100, N=1650)
+    real = capacity(cuda)
+    fake = dataclasses.replace(real, sm_count=100 * real.sm_count)
+    ops = sp.streamed_operands(problem, torch.float32, cuda)
+    call = {
+        "resident": lambda: rp.resident(
+            problem, *rp.resident_operands(problem, torch.float32, cuda),
+            cap=fake),
+        "streamed": lambda: sp.streamed(problem, *ops,
+                                        plan=sp.StreamPlan(problem, fake)),
+        "xl": lambda: xp.xl(problem, *ops, cap=fake),
+    }[name]
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        call()
+    assert _build.LAUNCHES[name] == 0
+    torch.cuda.synchronize()
+    # the card is still usable
+    assert int(engine.solve(Problem(M=40, N=40), name,
+                            device=cuda).iters) == 50
+
+
+def test_capacity_and_the_ladder_on_the_card(cuda):
+    cap = capacity(cuda)
+    assert cap.cooperative_launch(xp.LIBRARY) and cap.sm_count > 0
+    assert cap.smem_per_sm >= cap.smem_per_block > 0
+    assert cap.max_co_resident(xp.LIBRARY, 0) >= cap.sm_count
+    lay = rp.layout(Problem(M=400, N=600), cap)
+    assert cap.max_co_resident(rp.LIBRARY, lay.smem_bytes) >= lay.nblocks
+    assert engine.select_engine(Problem(M=400, N=600), torch.float32,
+                                cap) == "resident"
+    assert engine.select_engine(Problem(M=2400, N=3200), torch.float32,
+                                cap) == "xl"

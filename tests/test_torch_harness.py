@@ -45,7 +45,10 @@ def jax_keys():
 
 @pytest.mark.parametrize("engine_name,dtype", [("xla", "f64"),
                                                ("pallas", "f32"),
-                                               ("fused", "f32")])
+                                               ("fused", "f32"),
+                                               ("resident", "f32"),
+                                               ("streamed", "f32"),
+                                               ("xl", "f32")])
 def test_run_once_report_has_the_jax_keys(jax_keys, engine_name, dtype):
     report = run_once(Problem(M=10, N=10), dtype=dtype, engine=engine_name,
                       repeat=2, device="cpu")
@@ -55,7 +58,8 @@ def test_run_once_report_has_the_jax_keys(jax_keys, engine_name, dtype):
     assert d["engine"] == engine_name and d["mesh"] == [1, 1]
     # no device-memory rate for a run on the CPU
     assert d["hbm_gbps"] is None and d["hbm_peak_frac"] is None
-    assert d["passes_per_iter"] == roofline.passes_per_iter(engine_name)
+    assert d["passes_per_iter"] == roofline.passes_per_iter(
+        engine_name, Problem(M=10, N=10))
     assert len(report.times) == 2 and report.host_syncs >= 2
     assert "Converged after 15 iterations" in report.summary()
 
@@ -68,7 +72,8 @@ def test_cli_json_on_cpu(jax_keys, capsys):
     records = [json.loads(ln) for ln in lines]
     assert [r["iters"] for r in records] == [17, 31]
     assert all(set(r) == jax_keys for r in records)
-    assert all(r["engine"] == "fused" for r in records)
+    # auto on the CPU: the capacity ladder's last rung, the xl plain version
+    assert all(r["engine"] == "xl" for r in records)
 
 
 def test_cli_exit_codes(capsys):
@@ -120,8 +125,9 @@ def test_roofline_model():
     assert roofline.passes_per_iter("xla") == 13
     assert roofline.passes_per_iter("pallas") == 13
     assert roofline.passes_per_iter("fused") == 17
+    assert roofline.passes_per_iter("resident") == 0
     with pytest.raises(ValueError):
-        roofline.passes_per_iter("resident")
+        roofline.passes_per_iter("cuda")
     # a CPU run reports no device-memory rate
     r = roofline.roofline(Problem(M=400, N=600), "fused", 546, 0.5,
                           torch.float32, "cpu")

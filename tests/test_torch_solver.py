@@ -164,12 +164,14 @@ def test_pcg_fused_on_assembled_tensors():
 
 
 def test_select_engine_policy():
+    """f64 takes xla; f32 walks the capacity ladder, which on the CPU (no
+    capacity: no on-chip memory) ends at the xl plain version."""
     problem = Problem(M=400, N=600)
     assert engine.select_engine(problem, torch.float64) == "xla"
-    assert engine.select_engine(problem, torch.float32) == "fused"
+    assert engine.select_engine(problem, torch.float32) == "xl"
     _, _, resolved = engine.build_solver(Problem(M=10, N=10), "auto",
                                          torch.float32, "cpu")
-    assert resolved == "fused"
+    assert resolved == "xl"
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -193,8 +195,12 @@ def test_engine_rejects_what_it_does_not_run():
     with pytest.raises(ValueError):
         engine.build_solver(Problem(M=10, N=10), "pallas", torch.float64,
                             "cpu")
-    with pytest.raises(ValueError):
-        engine.build_solver(Problem(M=10, N=10), "resident", torch.float32,
+    for name in ("resident", "streamed", "xl"):
+        with pytest.raises(ValueError):
+            engine.build_solver(Problem(M=10, N=10), name, torch.float64,
+                                "cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        engine.build_solver(Problem(M=10, N=10), "megakernel", torch.float32,
                             "cpu")
     with pytest.raises(NotImplementedError, match="Queue B item 10"):
         fp.build_fused_solver(Problem(M=10, N=10), torch.bfloat16, "cpu")
