@@ -13,7 +13,7 @@ result line):
               per source in parallel; prints ptxas's registers, shared
               memory and spills.
 3. kernels  — each kernel against its plain PyTorch version on the card.
-              K-a, K1, K2 at the 2401x3201 f32 shapes, inputs from
+              K-a, K1, K2 and K-d at the 2401x3201 f32 shapes, inputs from
               numpy.random.default_rng(seed): arrays within rel 1e-6 /
               atol 1e-6 (bitwise expected: built with -fmad=false), sums
               within rel 1e-5 (their order differs); and a no-op check once
@@ -23,12 +23,18 @@ result line):
               streamed at 1101x1651 with dinv on chip (r-state) and with
               dinv streamed (z-state), each forced by its plan. Iterations
               and flags equal, w and the step norm within rel 1e-5 of
-              their scale.
+              their scale. K-d (the stencil fused with the pipelined
+              loop's 8-pair dot bundle of 5 distinct vectors): n bitwise
+              equal to K-a's and to the plain version's, sums within rel
+              1e-6 (both sum in double and round once).
 4. oracles  — xla in f64 on the card: exactly 17/31/61 (unweighted),
               15/26/50 (weighted) and 546; pallas, fused, resident,
               streamed and xl in f32: the exact small-grid counts, and
               546/989 within +-2 wherever the engine's gate admits the
               grid; the max_iter=5 cap reports 5, not converged.
+              pipelined in f64 within +-2 of those small-grid counts,
+              sstep (s = 2 and 4) in f64 exactly at them; pipelined-pallas
+              and sstep-pallas (s = 4) in f32 at 546 +-2.
 5. main     — 2400x3200 through build_solver(engine="auto"), which must
               resolve to xl by the card's gate: 2449 +- 2 iterations,
               l2 < 1e-3, one xl launch and one host read per solve, and two
@@ -37,18 +43,28 @@ result line):
               (resident) and 1100x1650 (streamed) for their launches;
               fused and pallas at 2400x3200 explicitly, and
               max|w - w_xla,f64| at 800x1200 for fused and resident.
-              Launch counts are set to 0 just before each run and read
-              just after it.
+              This slice's path, 2400x3200 f32 through build_solver:
+              pipelined-pallas (converged, no breakdown, l2 < 1e-3, one K-d
+              launch per issued body, K-a for w0 and each residual
+              replacement, one host read per 64-iteration chunk plus one);
+              plain pipelined on the card within +-2 iterations of it;
+              sstep-pallas with s = 4 (converged, l2 < 1e-3, within
+              2*(2449//32 + 1) = 154 iterations of 2449, K-a 7 times a
+              body). Launch counts are set to 0 just before each run and
+              read just after it.
 6. timing   — each per-iteration kernel and its plain version with CUDA
               events at 2401x3201 next to its bound; each whole-solve
               kernel's solve and its plain version's on auto's grid for it,
               per solve and per iteration, next to its bounds, the two
               whole solves held to each other as in phase 3 (their error
               joins the kernel's max_abs_err); T_solver per engine at
-              400x600, 800x1200, 1100x1650 and 2400x3200.
-7. profile  — one solve of each whole-solve engine and of fused and pallas
-              under torch.profiler: device time by kernel and the device's
-              idle share.
+              400x600, 800x1200, 1100x1650 and 2400x3200; K-d against its
+              82.6 us bound; T_solver of pipelined, pipelined-pallas, sstep
+              and sstep-pallas (s = 4) at 400x600, 800x1200 and 2400x3200.
+7. profile  — one solve of each whole-solve engine, of fused and pallas,
+              and of pipelined-pallas and sstep-pallas at 2400x3200 under
+              torch.profiler: device time by kernel and the device's idle
+              share.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -79,6 +95,7 @@ PEAK_F32_FLOPS = 67e12
 ARRAY_RTOL = 1e-6
 ARRAY_ATOL = 1e-6
 SUM_RTOL = 1e-5
+KD_SUM_RTOL = 1e-6  # K-d and its plain version both sum in double
 ITERS_ABS = 2  # pyproject.toml [tool.bench_compare] iters-abs
 
 UNWEIGHTED = {(10, 10): 17, (20, 20): 31, (40, 40): 61}
@@ -100,8 +117,17 @@ TIMED_GRIDS = ((400, 600), (800, 1200), (1100, 1650), (2400, 3200))
 WHOLE_FLOPS = {"resident": 24, "streamed": 25, "xl": 27}
 WHOLE_ARRAYS = {"resident": 6, "streamed": 5, "xl": 5}
 # the same for the per-iteration engines (K1 15 + K2 10; K-a 18 and the
-# plain loop's 12 around it)
-ITER_FLOPS = {**WHOLE_FLOPS, "fused": 25, "pallas": 30}
+# plain loop's 12 around it); the recurrence engines: the stencil (18),
+# the bundle's 8 products and 8 sums (16), two D^-1 (2) and the seven
+# updates (14) a pipelined iteration; per s-step iteration at s = 4 the
+# 7 basis steps (20 each), the two Grams (2 * 81 * 2), V*D (9) and the
+# three reconstructions (54), over 4
+ITER_FLOPS = {**WHOLE_FLOPS, "fused": 25, "pallas": 30, "pipelined": 50,
+              "pipelined-pallas": 50, "sstep": 132, "sstep-pallas": 132}
+RECURRENCE = ("pipelined", "pipelined-pallas", "sstep", "sstep-pallas")
+SSTEP_S = 4
+# K-d: the stencil and the 8 pairs' products and sums, per node
+KD_FLOPS = 18 + 16
 
 
 class SmokeFailure(RuntimeError):
@@ -142,11 +168,12 @@ def close_arrays(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def close_sum(name: str, got: float, want: float) -> float:
+def close_sum(name: str, got: float, want: float,
+              rtol: float = SUM_RTOL) -> float:
     rel = abs(got - want) / max(abs(want), 1e-300)
     say(f"  {name}: kernel {got!r} plain {want!r} rel {rel:.3e}")
-    require(math.isfinite(got) and rel <= SUM_RTOL,
-            f"{name} differs beyond rel {SUM_RTOL}")
+    require(math.isfinite(got) and rel <= rtol,
+            f"{name} differs beyond rel {rtol}")
     return abs(got - want)
 
 
@@ -218,6 +245,8 @@ def kernel_inputs(seed: int):
         z=dev_f32(rng.standard_normal((g1, g2))),
         p=dev_f32(rng.standard_normal((g1, g2))),
         r=dev_f32(rng.standard_normal((g1, g2))),
+        u=dev_f32(rng.standard_normal((g1, g2))),
+        s=dev_f32(rng.standard_normal((g1, g2))),
         coeffs=fused_operands(problem, torch.float32, dev),
     )
 
@@ -306,7 +335,33 @@ def phase_kernels(problem, inp) -> dict:
                 zip(before, (w, r, z, pn, ap, scal, flags))),
             "a kernel wrote after the loop had exited")
     say("  unchanged")
+
+    say("K-d stencil + the pipelined loop's 8-pair dot bundle (full grid)")
+    pairs = kd_bundle(inp)
+    got_n, got_sums = hk.apply_a_dots_kernel(inp["w"], inp["a"], inp["b"],
+                                             h1, h2, pairs)
+    want_n, want_sums = hk.apply_a_dots_plain(inp["w"], inp["a"], inp["b"],
+                                              h1, h2, pairs)
+    ka = hk.apply_a_kernel(inp["w"], inp["a"], inp["b"], h1, h2)
+    errs["stencil_dots"] = close_arrays("n", got_n, want_n)
+    require(torch.equal(got_n, want_n) and torch.equal(got_n, ka),
+            "K-d's n is not bitwise its plain version's and K-a's")
+    for j in range(len(pairs)):
+        close_sum(f"sum {j}", float(got_sums[j]), float(want_sums[j]),
+                  KD_SUM_RTOL)
+    again_n, again_sums = hk.apply_a_dots_kernel(inp["w"], inp["a"],
+                                                 inp["b"], h1, h2, pairs)
+    require(torch.equal(again_n, got_n) and torch.equal(again_sums, got_sums),
+            "two K-d launches differ")
+    say("  a second launch: the same bits")
     return errs
+
+
+def kd_bundle(inp):
+    """The pipelined loop's 8 pairs over (r, u, w, s, p): 5 distinct."""
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+
+    return _bundle(inp["r"], inp["u"], inp["z"], inp["s"], inp["p"])
 
 
 def _whole_runs(name, problem, cap, resident=None):
@@ -382,10 +437,11 @@ def phase_whole_kernels(cap) -> dict:
     return errs
 
 
-def _solve(problem, engine, dtype):
+def _solve(problem, engine, dtype, sstep_s=SSTEP_S):
     from poisson_ellipse_tpu_torch.solver.engine import build_solver
 
-    solver, args, resolved = build_solver(problem, engine, dtype, "cuda")
+    solver, args, resolved = build_solver(problem, engine, dtype, "cuda",
+                                          sstep_s=sstep_s)
     result = solver(*args)
     return result, resolved, solver.host_syncs
 
@@ -420,6 +476,27 @@ def phase_oracles(cap) -> None:
             f"{f' +-{tol}' if tol else ''})")
         require(bool(result.converged), "did not converge")
         require(abs(iters - want) <= tol, "iteration count off the oracle")
+    for norm, table in (("unweighted", UNWEIGHTED), ("weighted", WEIGHTED)):
+        for (m, n), want in table.items():
+            for engine, s, tol in (("pipelined", SSTEP_S, ITERS_ABS),
+                                   ("sstep", 2, 0), ("sstep", 4, 0)):
+                result, _, _ = _solve(Problem(M=m, N=n, norm=norm), engine,
+                                      torch.float64, sstep_s=s)
+                iters = int(result.iters)
+                say(f"  {m}x{n} {norm} {engine}"
+                    f"{f' s={s}' if engine == 'sstep' else ''} f64: "
+                    f"{iters} iterations (oracle {want}"
+                    f"{f' +-{tol}' if tol else ''})")
+                require(bool(result.converged) and abs(iters - want) <= tol,
+                        "iteration count off the oracle")
+    for engine in ("pipelined-pallas", "sstep-pallas"):
+        result, _, _ = _solve(Problem(M=400, N=600), engine, torch.float32,
+                              sstep_s=SSTEP_S)
+        iters = int(result.iters)
+        say(f"  400x600 {engine} f32: {iters} iterations (oracle 546 "
+            f"+-{ITERS_ABS})")
+        require(bool(result.converged) and abs(iters - 546) <= ITERS_ABS,
+                "iteration count off the oracle")
     for engine in WHOLE_SOLVE:
         result, _, _ = _solve(Problem(M=40, N=40, max_iter=5), engine,
                               torch.float32)
@@ -541,6 +618,78 @@ def phase_main(cap) -> dict:
                 solver_p=solver_p, args_p=args_p)
 
 
+def expected_pipelined_launches(iters: int, chunk: int = 64) -> dict:
+    """K-d and K-a launches of a pipelined-pallas solve that took
+    ``iters`` iterations with the host reading once per ``chunk``: every
+    issued body launches K-d once (bodies past the exit too), K-a runs for
+    w0 and in each issued body whose iteration is a positive multiple of
+    REPLACE_EVERY (four rebuild stencils)."""
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import REPLACE_EVERY
+
+    bodies = chunk * -(-iters // chunk)
+    rebuilds = (bodies - 1) // REPLACE_EVERY
+    return {"stencil_dots": bodies, "stencil": 1 + 4 * rebuilds}
+
+
+def phase_recurrence(cap) -> dict:
+    """This slice's path at 2400x3200 f32: pipelined-pallas, then plain
+    pipelined on the card, then sstep-pallas (s = 4)."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops.sstep_pcg import replaces
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+    from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+    say(f"== phase 5 (this slice): pipelined and s-step at "
+        f"{problem.M}x{problem.N} f32")
+    runs, counts = {}, {}
+    for engine in ("pipelined-pallas", "pipelined", "sstep-pallas"):
+        solver, args, resolved = build_solver(problem, engine, torch.float32,
+                                              "cuda", sstep_s=SSTEP_S)
+        require(resolved == engine, f"{engine} resolved to {resolved}")
+        t0 = time.perf_counter()
+        result, launches = _run_counted(solver, args)
+        wall = time.perf_counter() - t0
+        iters = int(result.iters)
+        l2 = float(l2_error_vs_analytic(problem, result.w))
+        say(f"  {engine}: {iters} iterations, converged "
+            f"{bool(result.converged)}, breakdown {bool(result.breakdown)}, "
+            f"diff {float(result.diff):.3e}, l2 error {l2:.6e}, host reads "
+            f"{solver.host_syncs}, launches {launches}, {wall:.3f} s")
+        require(bool(result.converged) and not bool(result.breakdown),
+                f"{engine} did not converge")
+        require(tuple(result.w.shape) == problem.node_shape
+                and bool(torch.isfinite(result.w).all()), "w not finite")
+        require(math.isfinite(l2) and l2 < 1e-3, "l2 error out of range")
+        require(solver.host_syncs == -(-iters // 64) + 1,
+                "not one host read per 64-iteration chunk plus one")
+        runs[engine] = (solver, args, iters)
+        if engine == "pipelined-pallas":
+            want = expected_pipelined_launches(iters)
+            require(launches == want, f"pipelined-pallas launches {launches},"
+                    f" expected {want}")
+        elif engine == "pipelined":
+            ref = runs["pipelined-pallas"][2]
+            require(launches == {}, "plain pipelined launched a kernel")
+            require(abs(iters - ref) <= ITERS_ABS, f"pipelined {iters} vs "
+                    f"pipelined-pallas {ref}: more than +-{ITERS_ABS} apart")
+        else:
+            band = 2 * (MAIN_ITERS // 32 + 1)
+            require(abs(iters - MAIN_ITERS) <= band,
+                    f"sstep-pallas {iters} iterations: outside {MAIN_ITERS} "
+                    f"+-{band}")
+            bodies = [64 * c + SSTEP_S * j for c in range(-(-iters // 64))
+                      for j in range(64 // SSTEP_S)]
+            want = (2 * SSTEP_S - 1) * len(bodies) + sum(
+                replaces(k, SSTEP_S) for k in bodies)
+            require(launches == {"stencil": want},
+                    f"sstep-pallas launches {launches}, expected "
+                    f"{{'stencil': {want}}}")
+        for k, v in launches.items():
+            counts.setdefault(k, v)
+    return dict(runs=runs, counts=counts, problem=problem)
+
+
 def phase_timing(problem, inp, card: str) -> list:
     from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
     from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
@@ -565,6 +714,11 @@ def phase_timing(problem, inp, card: str) -> list:
     def stencil_plain():
         hk.apply_a_plain(inp["w"], inp["a"], inp["b"], h1, h2)
 
+    pairs = kd_bundle(inp)
+
+    def stencil_dots(fn=hk.apply_a_dots_kernel):
+        fn(inp["w"], inp["a"], inp["b"], h1, h2, pairs)
+
     def k1(fn=fp.k1):
         fn(inp["z"], inp["p"], an, as_, bw, be, d, pn, ap, scal, flags,
            partials, max_iter=never, h1=h1, h2=h2)
@@ -585,6 +739,11 @@ def phase_timing(problem, inp, card: str) -> list:
         ("fused_k2", "csrc/fused_pcg.cu",
          "poisson_ellipse_tpu/ops/fused_pcg.py:152", k2,
          lambda: k2(fp.k2_plain), 8 * array, 10 * n),
+        # reads w, a, b and the bundle's 5 distinct vectors, writes n
+        ("stencil_dots", "csrc/stencil_dots.cu",
+         "poisson_ellipse_tpu/ops/pallas_kernels.py:196", stencil_dots,
+         lambda: stencil_dots(hk.apply_a_dots_plain), 9 * array,
+         KD_FLOPS * n),
     ]
     timed = []
     for name, src, replaces, fn, plain, nbytes, flops in rows:
@@ -743,6 +902,37 @@ def phase_solver_times(cap, card: str) -> None:
                 f"us/iter ({passes:g} passes, {iter_by})")
 
 
+def phase_recurrence_times(rec, card: str) -> None:
+    """T_solver of the recurrence engines: one timed solve each at 400x600
+    and 800x1200 (after a warm-up solve) and at 2400x3200 (on phase 5's
+    solvers, already warm)."""
+    from poisson_ellipse_tpu_torch.harness.roofline import passes_per_iter
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    say(f"== phase 6 (T_solver, recurrence engines, s = {SSTEP_S}; {card})")
+    for m, n in ((400, 600), (800, 1200), MAIN_GRID):
+        problem = Problem(M=m, N=n)
+        nodes = (m + 1) * (n + 1)
+        for engine in RECURRENCE:
+            if (m, n) == MAIN_GRID and engine in rec["runs"]:
+                solver, args, _ = rec["runs"][engine]
+            else:
+                solver, args, _ = build_solver(problem, engine, torch.float32,
+                                               "cuda", sstep_s=SSTEP_S)
+                if (m, n) != MAIN_GRID:
+                    solver(*args)
+            out = []
+            t = time_solver(lambda: out.append(solver(*args)), (), 1)
+            iters = int(out[-1].iters)
+            passes = passes_per_iter(engine, problem, sstep_s=SSTEP_S)
+            iter_ms, iter_by = bound(passes * nodes * 4,
+                                     ITER_FLOPS[engine] * nodes)
+            say(f"  T_solver {m}x{n} {engine}: {t:.5f} s, {iters} "
+                f"iterations, {t / iters * 1e6:.2f} us/iter, bound "
+                f"{iter_ms * 1e3:.2f} us/iter ({passes:g} passes, {iter_by})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -763,9 +953,13 @@ def main(argv=None) -> int:
     errs.update(phase_whole_kernels(cap))
     phase_oracles(cap)
     main_run = phase_main(cap)
+    rec = phase_recurrence(cap)
     timed = phase_timing(problem, inp, card)
     timed += phase_whole_timing(main_run, cap, card, errs)
+    # the kernels in the order they were ported, this slice's last
+    timed.sort(key=lambda row: row["name"] == "stencil_dots")
     phase_solver_times(cap, card)
+    phase_recurrence_times(rec, card)
 
     say(f"== phase 7: where the time goes (torch.profiler, {card})")
     for name in WHOLE_SOLVE:
@@ -774,9 +968,13 @@ def main(argv=None) -> int:
     profile_solve("fused 2400x3200", main_run["solver_f"], main_run["args_f"])
     profile_solve("pallas 2400x3200", main_run["solver_p"],
                   main_run["args_p"])
+    for engine in ("pipelined-pallas", "sstep-pallas"):
+        solver, solver_args, _ = rec["runs"][engine]
+        profile_solve(f"{engine} 2400x3200", solver, solver_args)
 
+    counts = {**rec["counts"], **main_run["counts"]}
     for row in timed:
-        row["launches"] = main_run["counts"].get(row["name"], 0)
+        row["launches"] = counts.get(row["name"], 0)
         row["max_abs_err"] = errs[row["name"]]
     print(card, flush=True)
     print(json.dumps({"kernels": timed}), flush=True)

@@ -8,12 +8,16 @@ package's, so each module's counterpart has the same relative path:
 - ``models``  — ``Problem`` and the ellipse's closed forms;
 - ``ops``     — f64 host assembly, the plain stencil and reductions, and
   the hand-written CUDA kernels (``csrc/``, built by ``ops._build``):
-  the stencil (``ops.hopper_kernels``), the fused K1/K2 iteration
+  the stencil and the stencil fused with dot products
+  (``ops.hopper_kernels``), the fused K1/K2 iteration
   (``ops.fused_pcg``) and the whole-solve kernels (``ops.resident_pcg``,
-  ``ops.streamed_pcg``, ``ops.xl_pcg``, over ``ops.whole_solve``);
+  ``ops.streamed_pcg``, ``ops.xl_pcg``, over ``ops.whole_solve``); the
+  pipelined and s-step recurrences (``ops.pipelined_pcg``,
+  ``ops.sstep_pcg``);
 - ``solver``  — the classical loop with its scalar carry on the device,
   the engine table (``xla``, ``pallas``, ``fused``, ``resident``,
-  ``streamed``, ``xl``) and ``auto``'s capacity ladder;
+  ``streamed``, ``xl``, ``pipelined``, ``pipelined-pallas``, ``sstep``,
+  ``sstep-pallas``) and ``auto``'s capacity ladder;
 - ``harness`` — ``run_once`` and the command line;
 - ``interop`` — the JAX package's arrays into the port, for the tests.
 
@@ -22,6 +26,11 @@ This package imports neither JAX nor the JAX package.
 """
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.ops.pipelined_pcg import (
+    PipelinedState,
+    pcg_pipelined,
+)
+from poisson_ellipse_tpu_torch.ops.sstep_pcg import pcg_sstep
 from poisson_ellipse_tpu_torch.solver.engine import build_solver, solve
 from poisson_ellipse_tpu_torch.solver.pcg import PCGResult, pcg
 from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
@@ -31,8 +40,11 @@ __version__ = "0.1.0"
 __all__ = [
     "Problem",
     "PCGResult",
+    "PipelinedState",
     "build_solver",
     "pcg",
+    "pcg_pipelined",
+    "pcg_sstep",
     "solve",
     "l2_error_vs_analytic",
 ]

@@ -2,7 +2,8 @@
 
 The argv contract of ``python -m poisson_ellipse_tpu.harness``'s default
 command (``M N``, ``--grids``, ``--engine``, ``--dtype``, ``--norm``,
-``--eps``, ``--delta``, ``--repeat``, ``--json``), plus ``--device``. It
+``--eps``, ``--delta``, ``--repeat``, ``--json``, ``--sstep-s``), plus
+``--device``. It
 runs on the card unless ``--device cpu`` is given, and fails without one.
 
 Exit codes: 0 converged, 1 not converged within the iteration cap,
@@ -43,12 +44,16 @@ def main(argv=None) -> int:
                     "on the CPU). xla is the plain PyTorch loop, pallas the "
                     "same loop with the CUDA stencil, fused the two-kernel "
                     "iteration; resident, streamed and xl run the whole "
-                    "solve in one kernel launch")
+                    "solve in one kernel launch; pipelined and sstep are "
+                    "the one-bundle and s-step recurrences, their -pallas "
+                    "forms with the CUDA kernels")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     ap.add_argument("--norm", choices=("weighted", "unweighted"),
                     default="weighted")
     ap.add_argument("--eps", type=float, default=None)
     ap.add_argument("--delta", type=float, default=1e-6)
+    ap.add_argument("--sstep-s", type=int, choices=(2, 4), default=4,
+                    help="iterations per block of the sstep engines")
     ap.add_argument("--repeat", type=int, default=1,
                     help="timed solves; T_solver is their median")
     ap.add_argument("--device", default="cuda",
@@ -78,7 +83,8 @@ def main(argv=None) -> int:
             problem = Problem(M=M, N=N, delta=args.delta, eps=args.eps,
                               norm=args.norm)
             report = run_once(problem, dtype=args.dtype, engine=args.engine,
-                              repeat=args.repeat, device=args.device)
+                              repeat=args.repeat, device=args.device,
+                              sstep_s=args.sstep_s)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2

@@ -105,8 +105,9 @@ class RunReport:
 
 def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
              engine: str = "auto", repeat: int = 1,
-             device=None) -> RunReport:
-    """Assemble, warm up, and time ``repeat`` solves on one device."""
+             device=None, sstep_s: int = 4) -> RunReport:
+    """Assemble, warm up, and time ``repeat`` solves on one device;
+    ``sstep_s`` is the s-step engines' block size."""
     if mode not in ("single", "auto"):
         raise unported(f"mode={mode!r}", "Queue A item 12")
     if dtype not in DTYPES:
@@ -119,7 +120,7 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
     timer = PhaseTimer(dev)
     with timer.phase("init"):
         solver, args, engine = build_solver(problem, engine, tdtype, dev,
-                                            capacity=cap)
+                                            capacity=cap, sstep_s=sstep_s)
     result = solver(*args)  # warm-up: builds the kernels on first use
     times = []
     for _ in range(repeat):
@@ -132,7 +133,7 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
         l2 = float(l2_error_vs_analytic(problem, result.w))
     iters = int(result.iters)
     roof = roofline(problem, engine, iters, timer.totals["solver"], tdtype,
-                    dev, cap)
+                    dev, cap, sstep_s)
     return RunReport(
         problem=problem,
         mesh_shape=(1, 1),

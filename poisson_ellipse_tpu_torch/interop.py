@@ -78,3 +78,52 @@ def streamed_operands_from_reference(problem: Problem, operands, *,
     if len(operands) != 4:
         raise ValueError("expected (dinv, an, bw, r0)")
     return _stripped(problem, operands, device, dtype)
+
+
+def _carry(state, names, problem: Problem, device, dtype) -> dict:
+    """The fields of a JAX carry tuple as tensors on ``device``: the
+    iteration counter as int32, the flags as bool, the (M+1, N+1) arrays
+    and the scalars in their own dtype unless ``dtype`` is given."""
+    state = tuple(state)
+    if len(state) != len(names):
+        raise ValueError(f"expected a {len(names)}-field carry "
+                         f"{names}, got {len(state)} fields")
+    dev = resolve_device(device)
+    out = {}
+    for name, x in zip(names, state):
+        x = np.asarray(x)
+        if name == "k":
+            t = torch.tensor(int(x), dtype=torch.int32)
+        elif name in ("converged", "breakdown"):
+            t = torch.tensor(bool(x))
+        else:
+            if x.ndim == 2 and x.shape != problem.node_shape:
+                raise ValueError(f"{name} is {x.shape}, expected "
+                                 f"{problem.node_shape}")
+            t = torch.from_numpy(np.array(x))  # a writable copy, 0-dim kept
+            if dtype is not None:
+                t = t.to(dtype)
+        out[name] = t.to(dev)
+    return out
+
+
+def pipelined_state_from_reference(problem: Problem, state, *, device=None,
+                                   dtype=None):
+    """The port's ``PipelinedState`` from the JAX pipelined carry
+    (k, x, r, u, w, z, s, p, γ₋₁, diff, converged, breakdown), so the port
+    can advance a carry the JAX package began."""
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import PipelinedState
+
+    return PipelinedState(**_carry(state, PipelinedState._fields, problem,
+                                   device, dtype))
+
+
+def pcg_state_from_reference(problem: Problem, state, *, device=None,
+                             dtype=None):
+    """The port's ``PCGState`` from the JAX classical carry
+    (k, x, r, p, zr, diff, converged, breakdown), which the s-step engine
+    shares."""
+    from poisson_ellipse_tpu_torch.solver.pcg import PCGState
+
+    return PCGState(**_carry(state, PCGState._fields, problem, device,
+                             dtype))

@@ -330,7 +330,7 @@ def _run_fused(problem: Problem, coeffs, r0: torch.Tensor,
     consts = dict(max_iter=limit, h1=problem.h1, h2=problem.h2)
     bodies = [0]
 
-    def step():
+    def step(_k):
         src = carry.p[bodies[0] % 2]
         dst = carry.p[(bodies[0] + 1) % 2]
         k1(carry.z, src, an, as_, bw, be, d, dst, carry.ap, carry.scal,

@@ -3,21 +3,30 @@
 The counterpart of ``poisson_ellipse_tpu.solver.engine``, holding the rows
 the port has ported so far:
 
-  engine    iteration                                   kernels
-  --------  ------------------------------------------  ------------------
-  xla       the classical loop in plain PyTorch         none
-  pallas    the classical loop, stencil by kernel K-a   stencil
-  fused     the rotated two-kernel iteration            fused_k1, fused_k2
-  resident  the whole solve, every array on chip        resident
-  streamed  the whole solve, state on chip              streamed
-  xl        the whole solve, all in device memory       xl
+  engine            iteration                               kernels
+  ----------------  --------------------------------------  --------------
+  xla               the classical loop in plain PyTorch     none
+  pallas            the classical loop, stencil by K-a      stencil
+  fused             the rotated two-kernel iteration        fused_k1,
+                                                            fused_k2
+  resident          the whole solve, every array on chip    resident
+  streamed          the whole solve, state on chip          streamed
+  xl                the whole solve, all in device memory   xl
+  pipelined         the Ghysels–Vanroose recurrence, one    none
+                    dot bundle per iteration
+  pipelined-pallas  the same, stencil and bundle by K-d,    stencil,
+                    w₀ and the rebuilds by K-a              stencil_dots
+  sstep             s iterations per basis and Gram         none
+                    (s = ``sstep_s`` ∈ {2, 4})
+  sstep-pallas      the same, the basis chain by K-a        stencil
 
 Policy (``select_engine``), as in the JAX package: f64 takes ``xla``; f32
 walks the capacity ladder resident → streamed → xl and takes the first
-whose gate admits the grid. The gates are computed from the card's own
-shared memory (``utils.device.capacity``), from the same functions that
-size each kernel's launch, so a gate that admits a grid is a launch that
-fits. On the CPU there is no on-chip memory for a block to keep state
+whose gate admits the grid. The pipelined and s-step engines are on no
+rung: ``auto`` never picks them, as in the JAX package. The gates are
+computed from the card's own shared memory (``utils.device.capacity``),
+from the same functions that size each kernel's launch, so a gate that
+admits a grid is a launch that fits. On the CPU there is no on-chip memory for a block to keep state
 in: there ``auto`` takes ``xl`` (its plain version) unless the caller
 passes ``capacity=``.
 
@@ -50,7 +59,8 @@ from poisson_ellipse_tpu_torch.utils.device import (
 # One row per ported engine.
 #   family   — "loop": the classical recurrence with the carry on the
 #              device; "fused": the rotated two-kernel iteration;
-#              "megakernel": the whole solve in one launch
+#              "megakernel": the whole solve in one launch; "pipelined":
+#              the one-bundle recurrence; "sstep": s iterations a body
 #   kernels  — the hand-written kernels (ops._build launch-counter names)
 #              the engine launches
 #   capacity — the engine's rung on the capacity ladder "auto" walks
@@ -69,9 +79,23 @@ ENGINE_CAPS = {
                    dtypes=(torch.float32,)),
     "fused": dict(family="fused", kernels=("fused_k1", "fused_k2"),
                   capacity=None, dtypes=(torch.float32,)),
+    "pipelined": dict(family="pipelined", kernels=(), capacity=None,
+                      dtypes=(torch.float32, torch.float64)),
+    "pipelined-pallas": dict(family="pipelined",
+                             kernels=("stencil", "stencil_dots"),
+                             capacity=None, dtypes=(torch.float32,)),
+    "sstep": dict(family="sstep", kernels=(), capacity=None,
+                  dtypes=(torch.float32, torch.float64)),
+    "sstep-pallas": dict(family="sstep", kernels=("stencil",), capacity=None,
+                         dtypes=(torch.float32,)),
 }
 
 ENGINES = ("auto",) + tuple(ENGINE_CAPS)
+
+# the s-step engines: ``build_solver``'s ``sstep_s`` sets their block size
+SSTEP_ENGINES = tuple(
+    e for e, c in ENGINE_CAPS.items() if c["family"] == "sstep"
+)
 
 # the capacity ladder "auto" walks: the rungs in order
 CAPACITY_LADDER = tuple(sorted(
@@ -105,7 +129,7 @@ def build_solver(problem: Problem, engine: str = "auto",
                  chunk: int = DEFAULT_CHUNK, history: bool = False,
                  lanes: int = 1, geometry=None, storage_dtype=None,
                  precond=None, recycle=None,
-                 capacity: DeviceCapacity | None = None):
+                 capacity: DeviceCapacity | None = None, sstep_s: int = 4):
     """(solver, args, resolved_engine) for a single-device solve.
 
     Operands are assembled in f64 on the host and rounded once to
@@ -118,6 +142,8 @@ def build_solver(problem: Problem, engine: str = "auto",
     ``capacity`` is the card the gates and launch shapes read: on a CUDA
     device it defaults to that card's; on the CPU it defaults to none, so
     ``auto`` takes ``xl``, and a given capacity plans as on that card.
+
+    ``sstep_s`` is the block size of the s-step engines (2 or 4).
     """
     reject_unported(history, precond, storage_dtype, recycle=recycle,
                     geometry=geometry, lanes=lanes)
@@ -155,11 +181,35 @@ def build_solver(problem: Problem, engine: str = "auto",
         solver, args = build_xl_solver(problem, dtype, dev, capacity)
         return solver, args, engine
 
-    def run(a, b, rhs):
-        state, syncs = advance(problem, a, b, rhs,
-                               init_state(problem, a, b, rhs),
-                               stencil=engine, chunk=chunk)
-        return result_of(state), syncs
+    family = ENGINE_CAPS[engine]["family"]
+    stencil = "pallas" if engine.endswith("pallas") else "xla"
+    if family == "pipelined":
+        from poisson_ellipse_tpu_torch.ops import pipelined_pcg as pp
+
+        def run(a, b, rhs):
+            state, syncs = pp.advance(
+                problem, a, b, rhs,
+                pp.init_state(problem, a, b, rhs, stencil=stencil),
+                stencil=stencil, chunk=chunk)
+            return pp.result_of(state), syncs
+    elif family == "sstep":
+        from poisson_ellipse_tpu_torch.ops import sstep_pcg as ss
+
+        if sstep_s not in ss.SSTEP_CHOICES:
+            raise ValueError(f"s must be one of {ss.SSTEP_CHOICES}, got "
+                             f"{sstep_s}")
+
+        def run(a, b, rhs):
+            state, syncs = ss.advance(
+                problem, a, b, rhs, ss.init_state(problem, a, b, rhs),
+                s=sstep_s, stencil=stencil, chunk=chunk)
+            return result_of(state), syncs
+    else:
+        def run(a, b, rhs):
+            state, syncs = advance(problem, a, b, rhs,
+                                   init_state(problem, a, b, rhs),
+                                   stencil=stencil, chunk=chunk)
+            return result_of(state), syncs
 
     return Solver(run), assembly.assemble(problem, dtype, dev), engine
 

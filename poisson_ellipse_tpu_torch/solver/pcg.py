@@ -114,24 +114,35 @@ def reject_unported(history=False, precond=None, storage_dtype=None,
         raise unported("x0=/recycle=", "Queue A item 13")
 
 
-def run_chunked(step: Callable[[], None], flags: Callable[[], torch.Tensor],
-                limit: int, chunk: int = DEFAULT_CHUNK) -> int:
+def run_chunked(step: Callable[[int], None],
+                flags: Callable[[], torch.Tensor], limit: int,
+                chunk: int = DEFAULT_CHUNK, per_body: int = 1) -> int:
     """Issue ``step`` in chunks until the loop's flags say it has exited.
 
     ``flags()`` returns the device tensor (k, converged, breakdown); it is
-    read on the host once per chunk, and each chunk issues no more bodies
-    than the iteration ``limit`` leaves. Returns the number of host reads.
+    read on the host once per chunk. A chunk covers the next ``chunk``
+    iterations, or what the iteration ``limit`` leaves, in bodies of up to
+    ``per_body`` iterations each (the body masks itself at ``limit``, so a
+    limit inside a body still stops exactly there). Body j of a chunk that
+    starts at iteration k₀ is called as ``step(k₀ + j·per_body)``: the
+    iteration it starts at while the loop is active, which lets the host
+    issue work keyed on the iteration counter (the residual replacement of
+    the recurrence engines) only in the bodies where it fires. Returns the
+    number of host reads.
     """
     if chunk < 1:
         raise ValueError("chunk must be >= 1")
+    if per_body < 1:
+        raise ValueError("per_body must be >= 1")
     syncs = 0
     while True:
         k, converged, breakdown = (int(v) for v in flags().tolist())
         syncs += 1
         if converged or breakdown or k >= limit:
             return syncs
-        for _ in range(min(chunk, limit - k)):
-            step()
+        iters = min(chunk, limit - k)
+        for j in range(-(-iters // per_body)):
+            step(k + j * per_body)
 
 
 def init_state(problem: Problem, a, b, rhs, history: bool = False,
@@ -154,7 +165,9 @@ def init_state(problem: Problem, a, b, rhs, history: bool = False,
     )
 
 
-def _stencil_fn(problem: Problem, a, b, h1, h2, stencil: str):
+def stencil_fn(problem: Problem, a, b, h1, h2, stencil: str):
+    """The A·(·) closure of a loop engine: the plain stencil for "xla",
+    K-a (``ops.hopper_kernels.apply_a_kernel``) for "pallas"."""
     if stencil == "xla":
         return lambda p: apply_a(p, a, b, h1, h2)
     if stencil == "pallas":
@@ -173,7 +186,7 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla"):
     zero = torch.zeros((), dtype=dtype, device=dev)
     weighted = problem.norm == "weighted"
     d = diag_d(a, b, h1, h2)
-    apply_stencil = _stencil_fn(problem, a, b, h1, h2, stencil)
+    apply_stencil = stencil_fn(problem, a, b, h1, h2, stencil)
 
     def body(s: PCGState) -> PCGState:
         active = (s.k < limit) & ~s.converged & ~s.breakdown
@@ -224,7 +237,7 @@ def advance(problem: Problem, a, b, rhs, state: PCGState, limit=None,
     body = make_body(problem, a, b, rhs, limit, stencil)
     carry = [state]
 
-    def step():
+    def step(_k):
         carry[0] = body(carry[0])
 
     def flags():

@@ -13,7 +13,9 @@ added in another order than ``torch.sum``'s, so sums agree to rel 1e-5.
 The whole-solve kernels (resident, streamed, xl) run capped solves against
 their plain versions on the card: equal iterations and flags, w and the
 step norm within rel 1e-5 of their scale (the reordered sums move α and β
-in their last bits, and w follows).
+in their last bits, and w follows). K-d's stencil is bitwise K-a's and its
+plain version's; its sums, in double rounded once to f32 on both sides,
+agree to rel 1e-6.
 """
 
 import dataclasses
@@ -23,9 +25,10 @@ import pytest
 import torch
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
-from poisson_ellipse_tpu_torch.ops import _build
+from poisson_ellipse_tpu_torch.ops import _build, assembly
 from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
 from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+from poisson_ellipse_tpu_torch.ops import pipelined_pcg as pp
 from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
 from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
 from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
@@ -315,3 +318,102 @@ def test_capacity_and_the_ladder_on_the_card(cuda):
                                 cap) == "resident"
     assert engine.select_engine(Problem(M=2400, N=3200), torch.float32,
                                 cap) == "xl"
+
+
+# -- K-d, the stencil fused with dot products --------------------------------
+
+DOTS_SHAPES = [(44, 132), (2400, 3200)]
+
+
+def _dots_pairs(n_pairs, ops):
+    """n_pairs pairs over the operands, with aliases: (u, u), (p, p) and
+    the pipelined bundle's order."""
+    r, u, w, s, p = ops[:5]
+    table = [(u, u), (r, u), (p, p), (w, u), (w, p), (s, u), (s, p),
+             (u, p)]
+    return tuple(table[:n_pairs])
+
+
+@pytest.mark.parametrize("form", ["full", "block"])
+@pytest.mark.parametrize("M,N", DOTS_SHAPES)
+def test_stencil_dots_kernel_matches_plain(cuda, M, N, form):
+    g = (M + 1, N + 1)
+    w, a, b = (_rand(g, cuda, s, lo=lo) for s, lo in
+               ((0, None), (1, 0.5), (2, 0.5)))
+    h1, h2 = 2.0 / M, 1.2 / N
+    xg = g if form == "full" else (M - 1, N - 1)
+    ops = [_rand(xg, cuda, 10 + i) for i in range(5)]
+    if form == "full":
+        kernel, plain = hk.apply_a_dots_kernel, hk.apply_a_dots_plain
+        stencil = hk.apply_a_kernel(w, a, b, h1, h2)
+    else:
+        kernel, plain = hk.apply_a_block_dots_kernel, \
+            hk.apply_a_block_dots_plain
+        stencil = hk.apply_a_block_kernel(w, a, b, h1, h2)
+    for n_pairs in range(1, 9):
+        pairs = _dots_pairs(n_pairs, ops)
+        _build.reset_launches()
+        n, sums = kernel(w, a, b, h1, h2, pairs)
+        again_n, again_sums = kernel(w, a, b, h1, h2, pairs)
+        assert _build.LAUNCHES["stencil_dots"] == 2
+        n_p, sums_p = plain(w, a, b, h1, h2, pairs)
+        assert torch.equal(n, n_p) and torch.equal(n, stencil)
+        assert sums.shape == (n_pairs,) and sums.dtype == torch.float32
+        torch.testing.assert_close(sums, sums_p, rtol=1e-6, atol=0)
+        # the launch shape depends on the shape alone: the same bits again
+        assert torch.equal(again_n, n) and torch.equal(again_sums, sums)
+
+
+def test_stencil_dots_rejects_what_it_does_not_take(cuda):
+    g = (21, 33)
+    w, a, b, x, y = (_rand(g, cuda, s) for s in range(5))
+    for bad in (
+        lambda: hk.apply_a_dots_kernel(w, a, b, 0.1, 0.1, ()),
+        lambda: hk.apply_a_dots_kernel(w.double(), a.double(), b.double(),
+                                       0.1, 0.1, ((x.double(), y.double()),)),
+        lambda: hk.apply_a_dots_kernel(w, a, b, 0.1, 0.1, ((x.t(), y),)),
+        lambda: hk.apply_a_dots_kernel(w, a, b, 0.1, 0.1,
+                                       ((x[1:-1, 1:-1].contiguous(), y),)),
+        lambda: hk.apply_a_block_dots_kernel(w, a, b, 0.1, 0.1, ((x, y),)),
+        lambda: hk.apply_a_dots_kernel(w, a[:, :-1].contiguous(), b, 0.1,
+                                       0.1, ((x, y),)),
+        lambda: hk.apply_a_dots_kernel(w, a, b, 0.1, 0.1, ((x, y),) * 9),
+        lambda: hk.apply_a_dots_kernel(
+            w, a, b, 0.1, 0.1,
+            tuple((_rand(g, cuda, 20 + 2 * i), _rand(g, cuda, 21 + 2 * i))
+                  for i in range(5))),
+    ):
+        _build.reset_launches()
+        with pytest.raises(ValueError):
+            bad()
+        assert _build.LAUNCHES["stencil_dots"] == 0
+
+
+@pytest.mark.parametrize("engine_name", ["pipelined-pallas", "sstep-pallas"])
+def test_recurrence_engines_on_the_card(cuda, engine_name):
+    """40² f32 within ±2 of the oracle counts, through the kernels: K-d
+    once a body for pipelined-pallas, K-a in the s-step basis chain."""
+    for norm, table in (("unweighted", UNWEIGHTED), ("weighted", WEIGHTED)):
+        problem = Problem(M=40, N=40, norm=norm)
+        _build.reset_launches()
+        got = engine.solve(problem, engine_name, torch.float32, device=cuda)
+        iters = int(got.iters)
+        assert bool(got.converged) and abs(iters - table[(40, 40)]) <= 2
+        if engine_name == "pipelined-pallas":
+            assert _build.LAUNCHES["stencil_dots"] >= iters
+        assert _build.LAUNCHES["stencil"] >= 1
+        ref = engine.solve(problem, engine_name, torch.float32, device="cpu")
+        assert abs(iters - int(ref.iters)) <= 2
+
+
+def test_pipelined_pallas_chunked_equals_straight_on_the_card(cuda):
+    problem = Problem(M=60, N=90)
+    a, b, rhs = assembly.assemble(problem, torch.float32, cuda)
+    init = pp.init_state(problem, a, b, rhs, stencil="pallas")
+    straight, _ = pp.advance(problem, a, b, rhs, init, stencil="pallas")
+    state = init
+    for limit in (32, 33, None):
+        state, _ = pp.advance(problem, a, b, rhs, state, limit=limit,
+                              stencil="pallas", chunk=7)
+    for name, x, y in zip(pp.PipelinedState._fields, straight, state):
+        assert torch.equal(x, y), name
