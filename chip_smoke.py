@@ -65,6 +65,25 @@ result line):
               and of pipelined-pallas and sstep-pallas at 2400x3200 under
               torch.profiler: device time by kernel and the device's idle
               share.
+8. batched  — the lane-batched path. K-e and K-f lane by lane against K-a
+              and K-d on that lane (bitwise) and against their plain
+              versions (arrays bitwise, K-f's sums within rel 1e-6), at
+              44x132 with B = 3 and 400x600 with B = 32. The harness entry
+              point (`--lanes 32 --engine batched-pallas` at 400x600,
+              `--lanes 8` at 800x1200): every lane 546 / 989 +-2, lane 0's
+              l2 < 1e-3, K-e launched 64*ceil(n/64) times a solve. batched,
+              batched-pipelined and batched-pipelined-pallas at the same
+              lanes (pipelined within +-2 of the classical lane), their
+              launches as the body count predicts. One lane NaN-poisoned at
+              iteration 10 through advance(limit=10): quarantined at 11, one
+              lane-quarantine event, the healthy lanes bitwise a clean
+              batch's. Then K-e and K-f timed against their bounds, solves/s
+              of batched-pallas and batched at 400x600 and 800x1200 for
+              lanes 1, 8 and 32, of batched-pipelined-pallas at 32 lanes,
+              beside B sequential auto (resident) solves, and one
+              torch.profiler breakdown of batched-pallas at 400x600, B = 32.
+              Whether lane 0 is bitwise the single pallas / xla solve is
+              printed, not required.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -933,6 +952,326 @@ def phase_recurrence_times(rec, card: str) -> None:
                 f"{iter_ms * 1e3:.2f} us/iter ({passes:g} passes, {iter_by})")
 
 
+# -- phase 8: the lane-batched path ------------------------------------------
+
+# every shape the batched path gives K-e and K-f, and a small one
+BATCHED_KERNEL_CASES = (((44, 132), 3), ((400, 600), 32), ((800, 1200), 8))
+BATCHED_ORACLE = (((400, 600), 32, 546), ((800, 1200), 8, 989))
+THROUGHPUT_GRIDS = ((400, 600), (800, 1200))
+THROUGHPUT_LANES = (1, 8, 32)
+POISON_LANE, POISON_AT = 5, 10
+
+
+def batched_inputs(grid, lanes: int, seed: int):
+    """A lane stack w, lane-shared a, b and the pipelined bundle's five
+    distinct (B, g1, g2) operands on the card, from numpy's seed."""
+    g = (grid[0] + 1, grid[1] + 1)
+    rng = np.random.default_rng(seed)
+
+    def dev_f32(x):
+        return torch.from_numpy(x.astype(np.float32)).to("cuda")
+
+    return dict(
+        w=dev_f32(rng.standard_normal((lanes,) + g)),
+        a=dev_f32(rng.random(g) + 0.5),
+        b=dev_f32(rng.random(g) + 0.5),
+        ops=[dev_f32(rng.standard_normal((lanes,) + g)) for _ in range(5)],
+    )
+
+
+def phase_batched_kernels(seed: int) -> dict:
+    """K-e and K-f lane by lane: bitwise K-a / K-d on that lane and their
+    plain versions' arrays; K-f's sums within KD_SUM_RTOL of the plain
+    version's (both sum the f32 products in double, rounded once)."""
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+
+    say("== phase 8: the batched kernels lane by lane against K-a and K-d")
+    errs = {"batched_stencil": 0.0, "batched_stencil_dots": 0.0}
+    for (m, n), lanes in BATCHED_KERNEL_CASES:
+        inp = batched_inputs((m, n), lanes, seed)
+        w, a, b = inp["w"], inp["a"], inp["b"]
+        h1, h2 = 2.0 / m, 1.2 / n
+        label = f"{m + 1}x{n + 1} B={lanes}"
+        for form, kernel, plain, single in (
+                ("full", hk.apply_a_batched_kernel, hk.apply_a_batched_plain,
+                 hk.apply_a_kernel),
+                ("block", hk.apply_a_batched_block_kernel,
+                 hk.apply_a_block_plain, hk.apply_a_block_kernel)):
+            got = kernel(w, a, b, h1, h2)
+            errs["batched_stencil"] = max(errs["batched_stencil"],
+                                          close_arrays(f"K-e {form} {label}",
+                                                       got,
+                                                       plain(w, a, b, h1, h2)))
+            lanes_ok = all(torch.equal(got[l], single(w[l].contiguous(), a, b,
+                                                      h1, h2))
+                           for l in range(lanes))
+            say(f"  K-e {form} {label}: every lane bitwise K-a's {lanes_ok}")
+            require(lanes_ok and torch.equal(got, plain(w, a, b, h1, h2)),
+                    f"K-e {form} {label} is not bitwise K-a and its plain "
+                    "version on every lane")
+        pairs = _bundle(*inp["ops"])
+        got_n, got_sums = hk.apply_a_dots_batched_kernel(w, a, b, h1, h2,
+                                                         pairs)
+        want_n, want_sums = hk.apply_a_dots_batched_plain(w, a, b, h1, h2,
+                                                          pairs)
+        err = close_arrays(f"K-f n {label}", got_n, want_n)
+        require(torch.equal(got_n, want_n), f"K-f n {label} is not bitwise "
+                "its plain version's")
+        rel = float(((got_sums.double() - want_sums.double()).abs()
+                     / want_sums.double().abs().clamp_min(1e-300)).max())
+        say(f"  K-f sums {label}: max rel {rel:.3e} against the plain "
+            f"version, bitwise {torch.equal(got_sums, want_sums)}")
+        require(bool(torch.isfinite(got_sums).all()) and rel <= KD_SUM_RTOL,
+                f"K-f sums {label} differ beyond rel {KD_SUM_RTOL}")
+        errs["batched_stencil_dots"] = max(
+            errs["batched_stencil_dots"], err,
+            float((got_sums.double() - want_sums.double()).abs().max()))
+        for l in range(lanes):
+            lane_ops = [o[l].contiguous() for o in inp["ops"]]
+            n_l, sums_l = hk.apply_a_dots_kernel(w[l].contiguous(), a, b, h1,
+                                                 h2, _bundle(*lane_ops))
+            require(torch.equal(got_n[l], n_l)
+                    and torch.equal(got_sums[:, l], sums_l),
+                    f"K-f lane {l} {label} is not bitwise K-d on that lane")
+        say(f"  K-f {label}: n and sums[:, l] bitwise K-d's on every lane")
+    return errs
+
+
+def expected_batched_launches(engine: str, iters: int, chunk: int = 64):
+    """The kernel launches of one solve of a batched engine whose slowest
+    lane took ``iters`` iterations, the host reading once per ``chunk``:
+    every issued body launches the engine's per-body kernel (bodies past
+    the exit too); the pipelined form launches K-e for w0 and four times in
+    each body whose iteration is a positive multiple of REPLACE_EVERY."""
+    if not engine.endswith("pallas"):
+        return {}
+    if engine == "batched-pallas":
+        return {"batched_stencil": chunk * -(-iters // chunk)}
+    want = expected_pipelined_launches(iters, chunk)
+    return {"batched_stencil_dots": want["stencil_dots"],
+            "batched_stencil": want["stencil"]}
+
+
+def _check_lanes(label, result, problem, want, tol, lanes):
+    from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+    iters = result.iters.tolist()
+    l2 = float(l2_error_vs_analytic(problem, result.w[0]))
+    say(f"  {label}: lanes {lanes}, iterations {sorted(set(iters))} "
+        f"(oracle {want} +-{tol}), converged {bool(result.converged.all())}, "
+        f"quarantined {int(result.quarantined.sum())}, lane 0 l2 {l2:.6e}")
+    require(tuple(result.w.shape) == (lanes,) + problem.node_shape
+            and bool(torch.isfinite(result.w).all()), f"{label}: w not finite")
+    require(bool(result.converged.all()) and not bool(result.breakdown.any())
+            and not bool(result.quarantined.any()),
+            f"{label}: not every lane converged")
+    require(all(abs(i - want) <= tol for i in iters),
+            f"{label}: a lane is off {want} +-{tol}")
+    require(math.isfinite(l2) and l2 < 1e-3, f"{label}: lane 0 l2 error")
+    return iters
+
+
+def phase_batched(seed: int) -> dict:
+    """This slice's path: the harness entry point with --lanes, each
+    batched engine's per-lane counts and launches, the NaN-lane drill."""
+    import contextlib
+    import io
+
+    from poisson_ellipse_tpu_torch.batch import batched_pcg as bp
+    from poisson_ellipse_tpu_torch.batch import driver
+    from poisson_ellipse_tpu_torch.harness.__main__ import main as cli_main
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import _build
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    say("== phase 8: the batched path on the card")
+    counts, runs = {}, {}
+    for (m, n), lanes, want in BATCHED_ORACLE:
+        problem = Problem(M=m, N=n)
+        # the entry point a user calls: a warm-up solve and one timed one
+        out = io.StringIO()
+        _build.reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main([str(m), str(n), "--lanes", str(lanes), "--engine",
+                           "batched-pallas", "--json"])
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        rep = json.loads(out.getvalue())
+        say(f"  harness {m} {n} --lanes {lanes} --engine batched-pallas: rc "
+            f"{rc}, iters {rep['iters']}, converged {rep['converged']}, "
+            f"solves/s {rep['solves_per_sec']:.2f}, l2 {rep['l2_error']}, "
+            f"launches {launches}")
+        want_launches = expected_batched_launches("batched-pallas",
+                                                  rep["iters"])
+        require(rc == 0 and rep["converged"] and rep["lanes"] == lanes
+                and rep["iters"] == want
+                and rep["l2_error"] is not None and rep["l2_error"] < 1e-3,
+                f"harness --lanes {lanes} at {m}x{n} failed")
+        require(launches == {k: 2 * v for k, v in want_launches.items()},
+                f"harness launches {launches}, expected twice "
+                f"{want_launches}")
+        for engine in ("batched-pallas", "batched", "batched-pipelined-pallas",
+                       "batched-pipelined"):
+            solver, args, resolved = build_solver(problem, engine,
+                                                  torch.float32, "cuda",
+                                                  lanes=lanes)
+            require(resolved == engine, f"{engine} resolved to {resolved}")
+            result, launches = _run_counted(solver, args)
+            ref = runs.get(("batched", m, n))
+            classical = ref is None or "pipelined" not in engine
+            # the classical engines land on the oracle exactly, the
+            # pipelined ones within ITERS_ABS
+            iters = _check_lanes(f"{engine} {m}x{n}", result, problem, want,
+                                 ITERS_ABS if "pipelined" in engine else 0,
+                                 lanes)
+            if not classical:
+                gap = max(abs(i - j) for i, j in zip(iters, ref[2]))
+                require(gap <= ITERS_ABS, f"{engine}: a lane more than "
+                        f"+-{ITERS_ABS} from the classical lane")
+            want_launches = expected_batched_launches(engine, max(iters))
+            say(f"    launches {launches} (predicted {want_launches}), "
+                f"host reads {solver.host_syncs}")
+            require(launches == want_launches, f"{engine} launches")
+            require(solver.host_syncs == -(-max(iters) // 64) + 1,
+                    "not one host read per 64-iteration chunk plus one")
+            if engine == "batched-pallas" and (m, n) == (400, 600):
+                counts.update(launches)
+            if engine == "batched-pipelined-pallas" and (m, n) == (400, 600):
+                counts["batched_stencil_dots"] = launches.get(
+                    "batched_stencil_dots", 0)
+            runs[(engine, m, n)] = (solver, args, iters, result)
+
+    # on the CPU a lane of a batch is the single solve to the bit; on the
+    # card the per-lane and whole-grid sums may add in other orders:
+    # reported, not required (the contract is lane independence)
+    problem = Problem(M=400, N=600)
+    for batched_engine, single_engine in (("batched-pallas", "pallas"),
+                                          ("batched", "xla")):
+        single, _, _ = _solve(problem, single_engine, torch.float32)
+        lane = runs[(batched_engine, 400, 600)][3]
+        say(f"  {batched_engine} lane 0 against one {single_engine} solve at "
+            f"400x600: iterations {int(lane.iters[0])} / "
+            f"{int(single.iters)}, w bitwise "
+            f"{torch.equal(lane.w[0], single.w)}, max|dw| "
+            f"{max_abs(lane.w[0], single.w):.3e}")
+
+    say(f"  NaN in lane {POISON_LANE}'s r at iteration {POISON_AT}, "
+        "batched-pallas 400x600, B = 32")
+    problem = Problem(M=400, N=600)
+    solver, args, iters, clean = runs[("batched-pallas", 400, 600)]
+    a, b, rhs = args
+    state, _ = bp.advance(problem, a, b, rhs, bp.init_state(problem, a, b,
+                                                            rhs),
+                          limit=POISON_AT, stencil="pallas")
+    r = state.r.clone()
+    r[POISON_LANE] = float("nan")
+    got = driver.solve_batched(problem, 32, "batched-pallas",
+                               operands=args, state=state._replace(r=r))
+    res = got.result
+    quar = res.quarantined.nonzero().flatten().tolist()
+    events = [(e.kind, e.at_iter, e.detail) for e in got.recoveries]
+    healthy = [l for l in range(32) if l != POISON_LANE]
+    same = all(torch.equal(res.w[l], clean.w[l])
+               and int(res.iters[l]) == iters[l] for l in healthy)
+    say(f"    quarantined {quar} at {res.iters[POISON_LANE].item()}, events "
+        f"{events}, healthy lanes bitwise the clean batch's {same}")
+    require(quar == [POISON_LANE] and int(res.iters[POISON_LANE])
+            == POISON_AT + 1, "the poisoned lane was not quarantined at 11")
+    require(events == [("lane-quarantine", POISON_AT + 1,
+                        f"lane {POISON_LANE}")], "not one quarantine event")
+    require(same, "a healthy lane moved")
+    return dict(counts=counts, runs=runs)
+
+
+def phase_batched_timing(seed: int, card: str) -> list:
+    """K-e and K-f per launch at 401x601, B = 32 and 801x1201, B = 8,
+    against their bounds: K-e reads a and b once and each lane's w and
+    out once, (2 + 2B) passes; K-f also each lane's five bundle operands,
+    (2 + 7B) passes."""
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+
+    say(f"== phase 8 (timing): K-e and K-f on {card}")
+    rows = []
+    for (m, n), lanes in (((400, 600), 32), ((800, 1200), 8)):
+        inp = batched_inputs((m, n), lanes, seed)
+        w, a, b = inp["w"], inp["a"], inp["b"]
+        h1, h2 = 2.0 / m, 1.2 / n
+        pairs = _bundle(*inp["ops"])
+        nodes = (m + 1) * (n + 1)
+        array = nodes * 4
+        cases = (
+            ("batched_stencil", "csrc/stencil.cu",
+             "poisson_ellipse_tpu/ops/pallas_kernels.py:409",
+             lambda fn=hk.apply_a_batched_kernel: fn(w, a, b, h1, h2),
+             lambda: hk.apply_a_batched_plain(w, a, b, h1, h2),
+             (2 + 2 * lanes) * array, 18 * nodes * lanes),
+            ("batched_stencil_dots", "csrc/stencil_dots.cu",
+             "poisson_ellipse_tpu/ops/pallas_kernels.py:529",
+             lambda: hk.apply_a_dots_batched_kernel(w, a, b, h1, h2, pairs),
+             lambda: hk.apply_a_dots_batched_plain(w, a, b, h1, h2, pairs),
+             (2 + 7 * lanes) * array, KD_FLOPS * nodes * lanes),
+        )
+        for name, src, replaces, fn, plain, nbytes, flops in cases:
+            ms = time_ms(fn, 100)
+            plain_ms = time_ms(plain, 10)
+            bound_ms, bound_by = bound(nbytes, flops)
+            say(f"  {name} {m + 1}x{n + 1} B={lanes}: {ms * 1e3:.1f} us/launch,"
+                f" plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} "
+                f"us ({bound_by}), {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+            if (m, n) == (400, 600):
+                rows.append(dict(name=name, route="cuda",
+                                 source=f"poisson_ellipse_tpu_torch/{src}",
+                                 replaces=replaces, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=None, grid=[m + 1, n + 1],
+                                 lanes=lanes))
+    return rows
+
+
+def phase_throughput(batched, card: str) -> None:
+    """solves/s = B / T_solver (CUDA events around one batched solve,
+    median of 3, of 1 where one solve takes over a second) for each
+    batched engine, grid and lane count, beside B sequential auto solves
+    (resident at both grids)."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    say(f"== phase 8 (throughput, solves/s; {card})")
+    for m, n in THROUGHPUT_GRIDS:
+        problem = Problem(M=m, N=n)
+        seq, seq_args, resolved = build_solver(problem, "auto",
+                                               torch.float32, "cuda")
+        seq(*seq_args)
+        for lanes in THROUGHPUT_LANES:
+            t = time_solver(lambda: [seq(*seq_args) for _ in range(lanes)],
+                            (), 3)
+            say(f"  {m}x{n} B={lanes} sequential auto ({resolved}): "
+                f"T {t:.5f} s, {lanes / t:.2f} solves/s")
+            engines = ["batched-pallas", "batched"]
+            if lanes == 32:
+                engines.append("batched-pipelined-pallas")
+            for engine in engines:
+                key = (engine, m, n)
+                run = batched["runs"].get(key)
+                if run is not None and len(run[1][2]) == lanes:
+                    solver, args = run[0], run[1]
+                else:
+                    solver, args, _ = build_solver(problem, engine,
+                                                   torch.float32, "cuda",
+                                                   lanes=lanes)
+                    solver(*args)
+                out = []
+                t1 = time_solver(lambda: out.append(solver(*args)), (), 1)
+                if t1 < 1.0:
+                    t1 = time_solver(lambda: out.append(solver(*args)), (), 3)
+                iters = int(out[-1].iters.max())
+                say(f"  {m}x{n} B={lanes} {engine}: T_solver {t1:.5f} s, "
+                    f"{lanes / t1:.2f} solves/s, {iters} iterations "
+                    f"(slowest lane), {t1 / iters * 1e6:.1f} us/iter")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -956,7 +1295,7 @@ def main(argv=None) -> int:
     rec = phase_recurrence(cap)
     timed = phase_timing(problem, inp, card)
     timed += phase_whole_timing(main_run, cap, card, errs)
-    # the kernels in the order they were ported, this slice's last
+    # the kernels in the order they were ported: K-d after the first six
     timed.sort(key=lambda row: row["name"] == "stencil_dots")
     phase_solver_times(cap, card)
     phase_recurrence_times(rec, card)
@@ -972,7 +1311,14 @@ def main(argv=None) -> int:
         solver, solver_args, _ = rec["runs"][engine]
         profile_solve(f"{engine} 2400x3200", solver, solver_args)
 
-    counts = {**rec["counts"], **main_run["counts"]}
+    errs.update(phase_batched_kernels(args.seed))
+    batched = phase_batched(args.seed)
+    timed += phase_batched_timing(args.seed, card)
+    phase_throughput(batched, card)
+    solver, solver_args = batched["runs"][("batched-pallas", 400, 600)][:2]
+    profile_solve("batched-pallas 400x600 B=32", solver, solver_args)
+
+    counts = {**rec["counts"], **main_run["counts"], **batched["counts"]}
     for row in timed:
         row["launches"] = counts.get(row["name"], 0)
         row["max_abs_err"] = errs[row["name"]]

@@ -13,12 +13,17 @@ package's, so each module's counterpart has the same relative path:
   (``ops.fused_pcg``) and the whole-solve kernels (``ops.resident_pcg``,
   ``ops.streamed_pcg``, ``ops.xl_pcg``, over ``ops.whole_solve``); the
   pipelined and s-step recurrences (``ops.pipelined_pcg``,
-  ``ops.sstep_pcg``);
+  ``ops.sstep_pcg``); the lane-batched stencil (K-e) and stencil with dot
+  bundle (K-f);
+- ``batch``   — B independent solves in one loop (``batched_pcg``,
+  ``batched_pipelined``) and the chunked driver that reports lane
+  quarantines (``driver.solve_batched``);
 - ``solver``  — the classical loop with its scalar carry on the device,
   the engine table (``xla``, ``pallas``, ``fused``, ``resident``,
   ``streamed``, ``xl``, ``pipelined``, ``pipelined-pallas``, ``sstep``,
-  ``sstep-pallas``) and ``auto``'s capacity ladder;
-- ``harness`` — ``run_once`` and the command line;
+  ``sstep-pallas``, ``batched``, ``batched-pipelined``, ``batched-pallas``,
+  ``batched-pipelined-pallas``) and ``auto``'s capacity ladder;
+- ``harness`` — ``run_once`` and the command line (``--lanes``);
 - ``interop`` — the JAX package's arrays into the port, for the tests.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

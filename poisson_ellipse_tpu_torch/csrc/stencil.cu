@@ -28,6 +28,20 @@
 // Layouts: with pad == 0 the output is the (bm, bn) block; with pad == 1
 // it is the full (bm+2, bn+2) grid with a zero ring (apply_a_pallas's
 // jnp.pad), written by the kernel itself so no second pass is needed.
+//
+// K-e, the lane-batched form, is this kernel with the lane on gridDim.z:
+// A·w for B lanes of w with lane-shared a and b, so lane l of the output is
+// K-a on lane l by construction.
+//
+// Replaces: poisson_ellipse_tpu/ops/pallas_kernels.py:_batched_stencil_kernel
+// (launched by apply_a_batched_block_pallas / apply_a_batched_pallas), the
+// batched engines' stencil (poisson_ellipse_tpu/batch/batched_pcg.py:280-296).
+//
+// What bounds it: bytes. Read a and b once and each lane's w and out once:
+// (2 + 2B) passes of one lane's grid; at 401x601 f32 with B = 32 that is
+// 66 passes of 0.964 MB, 19.0 us at 3.35 TB/s. Each lane's blocks read a
+// and b again, but after the first lane they come from L2 (the pair is
+// 1.9 MB at 401x601, 7.7 MB at 801x1201, both inside the 50 MB L2).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -47,6 +61,9 @@ __global__ void stencil_kernel(const float* __restrict__ w,
   const int oj = blockIdx.x * blockDim.x + threadIdx.x;
   const int oi = blockIdx.y * blockDim.y + threadIdx.y;
   if (oi >= om || oj >= on) return;
+  // this block's lane (0 in a one-lane launch): its slice of w and out
+  w += blockIdx.z * (int64_t)(bm + 2) * (bn + 2);
+  out += blockIdx.z * (int64_t)om * on;
   const int i = oi - pad;
   const int j = oj - pad;
   float val = 0.0f;
@@ -64,11 +81,13 @@ __global__ void stencil_kernel(const float* __restrict__ w,
 }
 
 int launch(const float* w, const float* a, const float* b, float* out,
-           int bm, int bn, int pad, float h1, float h2, void* stream) {
+           int lanes, int bm, int bn, int pad, float h1, float h2,
+           void* stream) {
   const int on = bn + 2 * pad;
   const int om = bm + 2 * pad;
   dim3 block(kBlockX, kBlockY);
-  dim3 grid((on + kBlockX - 1) / kBlockX, (om + kBlockY - 1) / kBlockY);
+  dim3 grid((on + kBlockX - 1) / kBlockX, (om + kBlockY - 1) / kBlockY,
+            lanes);
   stencil_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       w, a, b, out, bm, bn, pad, h1, h2);
   return static_cast<int>(cudaGetLastError());
@@ -80,7 +99,18 @@ extern "C" {
 
 int pe_stencil_f32(const float* w, const float* a, const float* b, float* out,
                    int bm, int bn, int pad, float h1, float h2, void* stream) {
-  return launch(w, a, b, out, bm, bn, pad, h1, h2, stream);
+  return launch(w, a, b, out, 1, bm, bn, pad, h1, h2, stream);
+}
+
+// K-e: w (lanes, bm+2, bn+2), a and b (bm+2, bn+2) shared by every lane,
+// out (lanes, bm+2*pad, bn+2*pad).
+int pe_batched_stencil_f32(const float* w, const float* a, const float* b,
+                           float* out, int lanes, int bm, int bn, int pad,
+                           float h1, float h2, void* stream) {
+  if (lanes < 1 || lanes > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch(w, a, b, out, lanes, bm, bn, pad, h1, h2, stream);
 }
 
 const char* pe_stencil_error_string(int code) {

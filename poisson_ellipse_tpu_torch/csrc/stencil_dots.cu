@@ -43,6 +43,25 @@
 //
 // Layouts: with pad == 0 the output is the (bm, bn) block; with pad == 1
 // it is the full (bm+2, bn+2) grid with a zero ring written by the kernel.
+//
+// K-f, the lane-batched form, is this kernel with the lane on gridDim.z.
+//
+// Replaces: poisson_ellipse_tpu/ops/pallas_kernels.py:
+// _batched_stencil_dots_kernel (launched by apply_a_dots_batched_pallas),
+// the batched pipelined engine's one pass per iteration
+// (poisson_ellipse_tpu/batch/batched_pipelined.py:171-183): n = A·m for B
+// lanes of m with lane-shared a and b, and sums of shape (n_pairs, B).
+//
+// What bounds it: bytes. a and b once, each lane's m, n and the bundle's 5
+// distinct operands once: (2 + 7B) passes of one lane's grid; 65.0 us at
+// 401x601 f32 with B = 32, 66.6 us at 801x1201 with B = 8.
+//
+// Design: lane l of w, out and every pair operand lies l lane sizes into
+// its array; block (x, y, l) does for lane l exactly what block (x, y)
+// does in a one-lane launch, with lane l's own partials, last-block ticket
+// and sums column. So lane l's n and sums[:, l] are bitwise K-d's on that
+// lane. The coefficients are re-read for every lane, from L2 after the
+// first (1.9 MB at 401x601; 7.7 MB at 801x1201).
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -112,6 +131,13 @@ stencil_dots_kernel(const float* __restrict__ w, const float* __restrict__ a,
   const int om = bm + 2 * pad;
   const int oj = blockIdx.x * kBlockX + threadIdx.x;
   const int64_t ld = bn + 2;
+  // this block's lane (0 in a one-lane launch): its slice of every array
+  const int lane = blockIdx.z;
+  const int lanes = gridDim.z;
+  w += lane * (int64_t)(bm + 2) * ld;
+  out += lane * (int64_t)om * on;
+  const int64_t x_lane = lane * (int64_t)(bm + 2 * pad) * x_ld;
+  partials += (int64_t)lane * pairs.n_pairs * nblocks;
 
   double acc[kMaxPairs];
 #pragma unroll
@@ -136,7 +162,7 @@ stencil_dots_kernel(const float* __restrict__ w, const float* __restrict__ a,
       float v[kMaxOperands];
 #pragma unroll
       for (int o = 0; o < kMaxOperands; ++o) {
-        v[o] = o < pairs.n_operands ? pairs.ptr[o][xi] : 0.0f;
+        v[o] = o < pairs.n_operands ? pairs.ptr[o][x_lane + xi] : 0.0f;
       }
 #pragma unroll
       for (int p = 0; p < kMaxPairs; ++p) {
@@ -155,7 +181,7 @@ stencil_dots_kernel(const float* __restrict__ w, const float* __restrict__ a,
     __threadfence();
   }
   __syncthreads();
-  if (tid == 0) s_last = atomicAdd(ticket, 1) == nblocks - 1;
+  if (tid == 0) s_last = atomicAdd(ticket + lane, 1) == nblocks - 1;
   __syncthreads();
   if (!s_last) return;
   __threadfence();
@@ -173,38 +199,24 @@ stencil_dots_kernel(const float* __restrict__ w, const float* __restrict__ a,
   }
   __syncthreads();  // s_warp is read again below
   const double total = block_sums(acc, pairs.n_pairs, s_warp);
-  if (tid < pairs.n_pairs) sums[tid] = (float)total;
+  if (tid < pairs.n_pairs) sums[tid * lanes + lane] = (float)total;
 }
 
-dim3 grid_of(int bm, int bn, int pad) {
+dim3 grid_of(int bm, int bn, int pad, int lanes = 1) {
   const int on = bn + 2 * pad;
   const int om = bm + 2 * pad;
-  return dim3((on + kBlockX - 1) / kBlockX, (om + kTileRows - 1) / kTileRows);
+  return dim3((on + kBlockX - 1) / kBlockX, (om + kTileRows - 1) / kTileRows,
+              lanes);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Blocks of one launch at (bm, bn, pad): the wrapper's partials scratch
-// holds n_pairs doubles for each.
-int pe_stencil_dots_blocks(int bm, int bn, int pad) {
-  const dim3 g = grid_of(bm, bn, pad);
-  return static_cast<int>(g.x * g.y);
-}
-
-// operands: n_operands device pointers (host array); pair_x, pair_y:
-// n_pairs indices into it (host arrays). ticket: one int, 0 before the
-// launch. Returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue for counts out of range.
-int pe_stencil_dots_f32(const float* w, const float* a, const float* b,
-                        float* out, const void* const* operands,
-                        int n_operands, const int* pair_x, const int* pair_y,
-                        int n_pairs, int x_ld, int x_off, double* partials,
-                        int* ticket, float* sums, int bm, int bn, int pad,
-                        float h1, float h2, void* stream) {
+// Checks the pair table and launches ``lanes`` lanes; see the entry points.
+int launch(const float* w, const float* a, const float* b, float* out,
+           const void* const* operands, int n_operands, const int* pair_x,
+           const int* pair_y, int n_pairs, int x_ld, int x_off,
+           double* partials, int* ticket, float* sums, int lanes, int bm,
+           int bn, int pad, float h1, float h2, void* stream) {
   if (n_operands < 1 || n_operands > kMaxOperands || n_pairs < 1 ||
-      n_pairs > kMaxPairs) {
+      n_pairs > kMaxPairs || lanes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Pairs pairs{};
@@ -221,11 +233,53 @@ int pe_stencil_dots_f32(const float* w, const float* a, const float* b,
   }
   pairs.n_operands = n_operands;
   pairs.n_pairs = n_pairs;
-  stencil_dots_kernel<<<grid_of(bm, bn, pad), dim3(kBlockX, kBlockY), 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  stencil_dots_kernel<<<grid_of(bm, bn, pad, lanes), dim3(kBlockX, kBlockY),
+                        0, static_cast<cudaStream_t>(stream)>>>(
       w, a, b, out, pairs, x_ld, x_off, partials, ticket, sums, bm, bn, pad,
       h1, h2);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Blocks of one lane of a launch at (bm, bn, pad): the wrapper's partials
+// scratch holds n_pairs doubles for each, in each lane.
+int pe_stencil_dots_blocks(int bm, int bn, int pad) {
+  const dim3 g = grid_of(bm, bn, pad);
+  return static_cast<int>(g.x * g.y);
+}
+
+// operands: n_operands device pointers (host array); pair_x, pair_y:
+// n_pairs indices into it (host arrays). ticket: one int, 0 before the
+// launch. Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for counts out of range.
+int pe_stencil_dots_f32(const float* w, const float* a, const float* b,
+                        float* out, const void* const* operands,
+                        int n_operands, const int* pair_x, const int* pair_y,
+                        int n_pairs, int x_ld, int x_off, double* partials,
+                        int* ticket, float* sums, int bm, int bn, int pad,
+                        float h1, float h2, void* stream) {
+  return launch(w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs,
+                x_ld, x_off, partials, ticket, sums, 1, bm, bn, pad, h1, h2,
+                stream);
+}
+
+// K-f: w, out and each operand hold ``lanes`` lanes back to back; partials
+// holds n_pairs * blocks doubles a lane, ticket one int a lane (all 0
+// before the launch), sums is (n_pairs, lanes). Otherwise as above.
+int pe_batched_stencil_dots_f32(const float* w, const float* a,
+                                const float* b, float* out,
+                                const void* const* operands, int n_operands,
+                                const int* pair_x, const int* pair_y,
+                                int n_pairs, int x_ld, int x_off,
+                                double* partials, int* ticket, float* sums,
+                                int lanes, int bm, int bn, int pad, float h1,
+                                float h2, void* stream) {
+  return launch(w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs,
+                x_ld, x_off, partials, ticket, sums, lanes, bm, bn, pad, h1,
+                h2, stream);
 }
 
 const char* pe_stencil_dots_error_string(int code) {

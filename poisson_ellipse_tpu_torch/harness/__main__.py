@@ -2,8 +2,8 @@
 
 The argv contract of ``python -m poisson_ellipse_tpu.harness``'s default
 command (``M N``, ``--grids``, ``--engine``, ``--dtype``, ``--norm``,
-``--eps``, ``--delta``, ``--repeat``, ``--json``, ``--sstep-s``), plus
-``--device``. It
+``--eps``, ``--delta``, ``--repeat``, ``--json``, ``--sstep-s``,
+``--lanes``), plus ``--device``. It
 runs on the card unless ``--device cpu`` is given, and fails without one.
 
 Exit codes: 0 converged, 1 not converged within the iteration cap,
@@ -46,7 +46,9 @@ def main(argv=None) -> int:
                     "iteration; resident, streamed and xl run the whole "
                     "solve in one kernel launch; pipelined and sstep are "
                     "the one-bundle and s-step recurrences, their -pallas "
-                    "forms with the CUDA kernels")
+                    "forms with the CUDA kernels; batched and "
+                    "batched-pipelined (and their -pallas forms) run --lanes "
+                    "solves in one loop")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     ap.add_argument("--norm", choices=("weighted", "unweighted"),
                     default="weighted")
@@ -54,6 +56,10 @@ def main(argv=None) -> int:
     ap.add_argument("--delta", type=float, default=1e-6)
     ap.add_argument("--sstep-s", type=int, choices=(2, 4), default=4,
                     help="iterations per block of the sstep engines")
+    ap.add_argument("--lanes", type=int, default=1,
+                    help="run N independent solves in one loop on a batched "
+                    "engine (auto resolves to batched when N > 1); reports "
+                    "T_solver of the whole batch and solves/s")
     ap.add_argument("--repeat", type=int, default=1,
                     help="timed solves; T_solver is their median")
     ap.add_argument("--device", default="cuda",
@@ -84,7 +90,7 @@ def main(argv=None) -> int:
                               norm=args.norm)
             report = run_once(problem, dtype=args.dtype, engine=args.engine,
                               repeat=args.repeat, device=args.device,
-                              sstep_s=args.sstep_s)
+                              sstep_s=args.sstep_s, lanes=args.lanes)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 2

@@ -1,5 +1,5 @@
 """Carry the JAX package's state into the port, so both compute on the
-same inputs.
+same inputs: operands, and the classical, pipelined and batched carries.
 
 The arguments are numpy arrays (or anything ``numpy.asarray`` accepts,
 such as a JAX array): this module imports neither JAX nor the JAX
@@ -80,10 +80,15 @@ def streamed_operands_from_reference(problem: Problem, operands, *,
     return _stripped(problem, operands, device, dtype)
 
 
+_FLAGS = ("converged", "breakdown", "quarantined")
+
+
 def _carry(state, names, problem: Problem, device, dtype) -> dict:
     """The fields of a JAX carry tuple as tensors on ``device``: the
-    iteration counter as int32, the flags as bool, the (M+1, N+1) arrays
-    and the scalars in their own dtype unless ``dtype`` is given."""
+    iteration counter k and the per-lane counts ``iters`` as int32, the
+    flags as bool (0-dim, or (B,) in a batched carry), the (M+1, N+1) or
+    (B, M+1, N+1) arrays and the scalars in their own dtype unless
+    ``dtype`` is given."""
     state = tuple(state)
     if len(state) != len(names):
         raise ValueError(f"expected a {len(names)}-field carry "
@@ -94,10 +99,12 @@ def _carry(state, names, problem: Problem, device, dtype) -> dict:
         x = np.asarray(x)
         if name == "k":
             t = torch.tensor(int(x), dtype=torch.int32)
-        elif name in ("converged", "breakdown"):
-            t = torch.tensor(bool(x))
+        elif name == "iters":
+            t = torch.from_numpy(np.array(x, dtype=np.int32))
+        elif name in _FLAGS:
+            t = torch.from_numpy(np.array(x, dtype=bool))
         else:
-            if x.ndim == 2 and x.shape != problem.node_shape:
+            if x.ndim >= 2 and x.shape[-2:] != problem.node_shape:
                 raise ValueError(f"{name} is {x.shape}, expected "
                                  f"{problem.node_shape}")
             t = torch.from_numpy(np.array(x))  # a writable copy, 0-dim kept
@@ -127,3 +134,25 @@ def pcg_state_from_reference(problem: Problem, state, *, device=None,
 
     return PCGState(**_carry(state, PCGState._fields, problem, device,
                              dtype))
+
+
+def batched_state_from_reference(problem: Problem, state, engine: str, *,
+                                 device=None, dtype=None):
+    """The port's batched carry from the JAX one, so the port can advance
+    a batched carry the JAX package began: for ``engine`` "batched" (or
+    "batched-pallas") a ``BatchedPCGState`` from (k, w, r, p, zr, diff,
+    converged, breakdown, quarantined, iters); for "batched-pipelined" (or
+    its "-pallas" form) a ``BatchedPipelinedState`` from the 14-field
+    carry. Flags become (B,) bool, iters (B,) int32."""
+    from poisson_ellipse_tpu_torch.batch.batched_pcg import BatchedPCGState
+    from poisson_ellipse_tpu_torch.batch.batched_pipelined import (
+        BatchedPipelinedState,
+    )
+
+    states = {"batched": BatchedPCGState,
+              "batched-pipelined": BatchedPipelinedState}
+    cls = states.get(engine.removesuffix("-pallas"))
+    if cls is None:
+        raise ValueError(f"unknown batched engine {engine!r} (one of "
+                         f"{sorted(states)} or their -pallas forms)")
+    return cls(**_carry(state, cls._fields, problem, device, dtype))

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels for the per-op PCG path, with plain twins.
 
-The counterpart of ``poisson_ellipse_tpu.ops.pallas_kernels``. Two of its
+The counterpart of ``poisson_ellipse_tpu.ops.pallas_kernels``. Four of its
 kernels are ported:
 
 - ``_stencil_kernel`` as K-a (``csrc/stencil.cu``): the ``pallas``
@@ -9,9 +9,18 @@ kernels are ported:
   basis chain;
 - ``_stencil_dots_kernel`` as K-d (``csrc/stencil_dots.cu``): the stencil
   fused with up to eight dot products, the ``pipelined-pallas`` engine's
-  one pass per iteration.
+  one pass per iteration;
+- ``_batched_stencil_kernel`` as K-e (``csrc/stencil.cu``, K-a with the
+  lane on the grid): the stencil for B lanes with lane-shared coefficients,
+  once a body of ``batched-pallas``, for w₀ and the rebuilds of
+  ``batched-pipelined-pallas``;
+- ``_batched_stencil_dots_kernel`` as K-f (``csrc/stencil_dots.cu``, K-d
+  with the lane on the grid): once a body of ``batched-pipelined-pallas``.
 
 The other kernels of that module are still queued (ROADMAP Queue B).
+
+The plain versions index the last two axes only (``ops.stencil``), so the
+same plain function serves one grid and a (B, ·, ·) stack of lanes.
 
 Each wrapper takes the plain PyTorch version only for tensors on the CPU.
 For a CUDA tensor it launches the kernel or raises; there is no fallback.
@@ -27,8 +36,11 @@ import torch.nn.functional as F
 from poisson_ellipse_tpu_torch.ops import _build
 from poisson_ellipse_tpu_torch.ops.stencil import apply_a_block, spacing
 
+# launch-counter names; K-e and K-f live in the libraries of K-a and K-d
 KERNEL = "stencil"
 DOTS_KERNEL = "stencil_dots"
+BATCHED_KERNEL = "batched_stencil"
+BATCHED_DOTS_KERNEL = "batched_stencil_dots"
 
 # K-d takes at most this many distinct pair operands and pairs
 MAX_OPERANDS = 8
@@ -38,6 +50,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pe_stencil_error_string": (ctypes.c_char_p, [_I]),
     "pe_stencil_f32": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P]),
+    # w, a, b, out, lanes, bm, bn, pad, h1, h2, stream
+    "pe_batched_stencil_f32": (_I, [_P] * 4 + [_I] * 4 + [_F, _F, _P]),
 }
 _DOTS_SIGNATURES = {
     "pe_stencil_dots_error_string": (ctypes.c_char_p, [_I]),
@@ -46,6 +60,10 @@ _DOTS_SIGNATURES = {
     # x_off, partials, ticket, sums, bm, bn, pad, h1, h2, stream
     "pe_stencil_dots_f32": (_I, [_P] * 5 + [_I] + [_P] * 2 + [_I] * 3
                             + [_P] * 3 + [_I] * 3 + [_F, _F, _P]),
+    # the same with lanes before bm
+    "pe_batched_stencil_dots_f32": (_I, [_P] * 5 + [_I] + [_P] * 2
+                                    + [_I] * 3 + [_P] * 3 + [_I] * 4
+                                    + [_F, _F, _P]),
 }
 
 
@@ -77,18 +95,26 @@ def apply_a_kernel(w, a, b, h1: float, h2: float):
     return _launch(w, a, b, h1, h2, pad=1)
 
 
-def _check_stencil_inputs(kernel: str, w, a, b) -> None:
+def _check_stencil_inputs(kernel: str, w, a, b, lanes: bool = False) -> None:
+    """Raise unless w is a float32 block of at least 3x3 (a (B, ·, ·) stack
+    of them with ``lanes``) and a, b are one block of its shape, all
+    contiguous on one device."""
+    grid = tuple(w.shape[1:]) if lanes else tuple(w.shape)
     for name, t in (("a", a), ("b", b)):
-        if t.device != w.device or t.dtype != w.dtype or t.shape != w.shape:
+        if (t.device != w.device or t.dtype != w.dtype
+                or tuple(t.shape) != grid):
             raise ValueError(
                 f"{kernel}: {name} is {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}; w is {w.dtype} {tuple(w.shape)} on {w.device}"
             )
     if w.dtype != torch.float32:
         raise ValueError(f"{kernel}: the kernel runs float32, got {w.dtype}")
-    if w.dim() != 2 or w.shape[0] < 3 or w.shape[1] < 3:
-        raise ValueError(f"{kernel}: need a 2-D block of at least 3x3, got "
-                         f"{tuple(w.shape)}")
+    dims = 3 if lanes else 2
+    if (w.dim() != dims or len(grid) != 2 or grid[0] < 3 or grid[1] < 3
+            or (lanes and w.shape[0] < 1)):
+        raise ValueError(f"{kernel}: need a {dims}-D "
+                         f"{'stack of blocks' if lanes else 'block'} of at "
+                         f"least 3x3, got {tuple(w.shape)}")
     if not (w.is_contiguous() and a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{kernel}: inputs must be contiguous")
 
@@ -108,6 +134,45 @@ def _launch(w, a, b, h1, h2, pad: int):
     return out
 
 
+def apply_a_batched_plain(w, a, b, h1: float, h2: float):
+    """The plain version of K-e on full (B, M+1, N+1) grids (zero ring):
+    ``batch.batched_pcg.apply_a_batched`` with the port's ``spacing``."""
+    return apply_a_plain(w, a, b, h1, h2)
+
+
+def apply_a_batched_block_kernel(w_ext, a_ext, b_ext, h1: float, h2: float):
+    """A·w per lane over halo-extended blocks, (B, bm+2, bn+2) with
+    lane-shared (bm+2, bn+2) coefficients → (B, bm, bn): the port of
+    ``apply_a_batched_block_pallas``."""
+    if w_ext.device.type == "cpu":
+        return apply_a_block_plain(w_ext, a_ext, b_ext, h1, h2)
+    return _launch_batched(w_ext, a_ext, b_ext, h1, h2, pad=0)
+
+
+def apply_a_batched_kernel(w, a, b, h1: float, h2: float):
+    """A·w per lane on full (B, M+1, N+1) grids with a zero ring and
+    lane-shared (M+1, N+1) coefficients: the port of
+    ``apply_a_batched_pallas``."""
+    if w.device.type == "cpu":
+        return apply_a_batched_plain(w, a, b, h1, h2)
+    return _launch_batched(w, a, b, h1, h2, pad=1)
+
+
+def _launch_batched(w, a, b, h1, h2, pad: int):
+    _check_stencil_inputs(BATCHED_KERNEL, w, a, b, lanes=True)
+    lanes, bm, bn = w.shape[0], w.shape[1] - 2, w.shape[2] - 2
+    out = torch.empty((lanes, bm + 2 * pad, bn + 2 * pad), dtype=w.dtype,
+                      device=w.device)
+    lib = _build.load(KERNEL, _SIGNATURES)
+    rc = lib.pe_batched_stencil_f32(
+        w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes, bm,
+        bn, pad, h1, h2, _build.stream_handle(w.device),
+    )
+    _build.check(lib.pe_stencil_error_string, BATCHED_KERNEL, rc)
+    _build.count_launch(BATCHED_KERNEL)
+    return out
+
+
 def _pair_tuple(pairs) -> tuple:
     pairs = tuple(tuple(p) for p in pairs)
     if not pairs:
@@ -116,10 +181,11 @@ def _pair_tuple(pairs) -> tuple:
 
 
 def dot_sums_plain(pairs):
-    """Σ x·y of each pair: each product rounded in the operands' dtype,
-    summed in double, rounded once back (K-d's accumulation)."""
-    return torch.stack([(x * y).double().sum() for x, y in pairs]).to(
-        pairs[0][0].dtype)
+    """Σ x·y over the last two axes of each pair: each product rounded in
+    the operands' dtype, summed in double, rounded once back (K-d's
+    accumulation). (n_pairs,) for grids, (n_pairs, B) for lane stacks."""
+    return torch.stack([(x * y).double().sum(dim=(-2, -1))
+                        for x, y in pairs]).to(pairs[0][0].dtype)
 
 
 def apply_a_block_dots_plain(w_ext, a_ext, b_ext, h1: float, h2: float,
@@ -135,8 +201,16 @@ def apply_a_dots_plain(w, a, b, h1: float, h2: float, pairs):
     """The plain version of K-d on the full grid: A·w with a zero ring, and
     the pair sums over the interior of full-grid operands."""
     pairs = _pair_tuple(pairs)
-    cropped = tuple((x[1:-1, 1:-1], y[1:-1, 1:-1]) for x, y in pairs)
+    cropped = tuple((x[..., 1:-1, 1:-1], y[..., 1:-1, 1:-1])
+                    for x, y in pairs)
     return apply_a_plain(w, a, b, h1, h2), dot_sums_plain(cropped)
+
+
+def apply_a_dots_batched_plain(w, a, b, h1: float, h2: float, pairs):
+    """The plain version of K-f: per-lane A·w on (B, M+1, N+1) grids with
+    a zero ring, and the (n_pairs, B) per-lane sums over the interior of
+    (B, M+1, N+1) pair operands (``dot_sums_plain``)."""
+    return apply_a_dots_plain(w, a, b, h1, h2, pairs)
 
 
 def apply_a_block_dots_kernel(w_ext, a_ext, b_ext, h1: float, h2: float,
@@ -160,6 +234,18 @@ def apply_a_dots_kernel(w, a, b, h1: float, h2: float, pairs):
     return _launch_dots(w, a, b, h1, h2, pairs, pad=1)
 
 
+def apply_a_dots_batched_kernel(w, a, b, h1: float, h2: float, pairs):
+    """Per-lane A·w and per-lane raw sums Σ xⱼ·yⱼ in one pass: the port of
+    ``apply_a_dots_batched_pallas``. ``w`` is (B, M+1, N+1), ``a``/``b``
+    lane-shared (M+1, N+1), each pair operand (B, M+1, N+1) and summed over
+    its interior. Returns ``(Aw, sums)`` with ``sums`` of shape
+    (n_pairs, B)."""
+    pairs = _pair_tuple(pairs)
+    if w.device.type == "cpu":
+        return apply_a_dots_batched_plain(w, a, b, h1, h2, pairs)
+    return _launch_dots(w, a, b, h1, h2, pairs, pad=1, lanes=True)
+
+
 def distinct_operands(pairs) -> tuple[list, list, list]:
     """(operands, x index, y index): each distinct tensor of ``pairs`` once,
     by identity, in order of first use, and each pair's two indices."""
@@ -174,45 +260,51 @@ def distinct_operands(pairs) -> tuple[list, list, list]:
     return operands, xs, ys
 
 
-def _launch_dots(w, a, b, h1, h2, pairs, pad: int):
+def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False):
+    """K-d, or with ``lanes`` K-f over the (B, ·, ·) stacks w and operands."""
+    kernel = BATCHED_DOTS_KERNEL if lanes else DOTS_KERNEL
     if len(pairs) > MAX_PAIRS:
-        raise ValueError(f"{DOTS_KERNEL}: at most {MAX_PAIRS} pairs, got "
+        raise ValueError(f"{kernel}: at most {MAX_PAIRS} pairs, got "
                          f"{len(pairs)}")
     operands, xs, ys = distinct_operands(pairs)
     if len(operands) > MAX_OPERANDS:
-        raise ValueError(f"{DOTS_KERNEL}: at most {MAX_OPERANDS} distinct "
+        raise ValueError(f"{kernel}: at most {MAX_OPERANDS} distinct "
                          f"operands, got {len(operands)}")
-    _check_stencil_inputs(DOTS_KERNEL, w, a, b)
-    bm, bn = w.shape[0] - 2, w.shape[1] - 2
-    x_shape = (bm + 2 * pad, bn + 2 * pad)
+    _check_stencil_inputs(kernel, w, a, b, lanes)
+    bm, bn = w.shape[-2] - 2, w.shape[-1] - 2
+    lead = tuple(w.shape[:1]) if lanes else ()
+    x_shape = lead + (bm + 2 * pad, bn + 2 * pad)
     for t in operands:
         if (t.device != w.device or t.dtype != w.dtype
                 or tuple(t.shape) != x_shape or not t.is_contiguous()):
             raise ValueError(
-                f"{DOTS_KERNEL}: a pair operand is {t.dtype} "
+                f"{kernel}: a pair operand is {t.dtype} "
                 f"{tuple(t.shape)} on {t.device} (contiguous="
                 f"{t.is_contiguous()}); expected contiguous {w.dtype} "
                 f"{x_shape} on {w.device}")
+    n_lanes = w.shape[0] if lanes else 1
     x_ld = bn + 2 * pad
     x_off = pad * (x_ld + 1)
     lib = _build.load(DOTS_KERNEL, _DOTS_SIGNATURES)
     nblocks = lib.pe_stencil_dots_blocks(bm, bn, pad)
     out = torch.empty(x_shape, dtype=w.dtype, device=w.device)
-    sums = torch.empty(len(pairs), dtype=w.dtype, device=w.device)
-    partials = torch.empty(len(pairs) * nblocks, dtype=torch.float64,
-                           device=w.device)
-    # the last-block ticket: 0 before the launch
-    ticket = torch.zeros(1, dtype=torch.int32, device=w.device)
+    sums = torch.empty((len(pairs),) + lead, dtype=w.dtype, device=w.device)
+    partials = torch.empty(len(pairs) * nblocks * n_lanes,
+                           dtype=torch.float64, device=w.device)
+    # the last-block tickets, one a lane: 0 before the launch
+    ticket = torch.zeros(n_lanes, dtype=torch.int32, device=w.device)
     ptrs = (ctypes.c_void_p * len(operands))(
         *(t.data_ptr() for t in operands))
     pair_x = (ctypes.c_int * len(pairs))(*xs)
     pair_y = (ctypes.c_int * len(pairs))(*ys)
-    rc = lib.pe_stencil_dots_f32(
-        w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), ptrs,
-        len(operands), pair_x, pair_y, len(pairs), x_ld, x_off,
-        partials.data_ptr(), ticket.data_ptr(), sums.data_ptr(), bm, bn,
-        pad, h1, h2, _build.stream_handle(w.device),
-    )
-    _build.check(lib.pe_stencil_dots_error_string, DOTS_KERNEL, rc)
-    _build.count_launch(DOTS_KERNEL)
+    head = (w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), ptrs,
+            len(operands), pair_x, pair_y, len(pairs), x_ld, x_off,
+            partials.data_ptr(), ticket.data_ptr(), sums.data_ptr())
+    tail = (bm, bn, pad, h1, h2, _build.stream_handle(w.device))
+    if lanes:
+        rc = lib.pe_batched_stencil_dots_f32(*head, n_lanes, *tail)
+    else:
+        rc = lib.pe_stencil_dots_f32(*head, *tail)
+    _build.check(lib.pe_stencil_dots_error_string, kernel, rc)
+    _build.count_launch(kernel)
     return out, sums

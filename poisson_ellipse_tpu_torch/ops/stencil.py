@@ -7,6 +7,11 @@ same two layouts:
   interior and leaves the boundary ring at zero;
 - **block**: one halo-extended (bm+2, bn+2) block → (bm, bn) output.
 
+Every function indexes the last two axes only, so a leading lane axis
+(B, ·, ·) rides through unchanged: the lane-batched engines (``batch``)
+call the same expressions with (B, g1, g2) iterates, (g1, g2) or
+(B, g1, g2) coefficients and scalar or (B, 1, 1) spacings.
+
 The floating-point tree is the reference's, term for term: each
 difference is divided by h before the terms are combined
 (``stage0/Withoutopenmp1.cpp:83-85``). ``h1``/``h2`` are 0-dim tensors on
@@ -36,14 +41,14 @@ def apply_a_block(w_ext, a_ext, b_ext, h1, h2):
     (Aw)_ij = −(a_{i+1,j}(w_{i+1,j}−w_ij)/h1 − a_ij(w_ij−w_{i−1,j})/h1)/h1
               −(b_{i,j+1}(w_{i,j+1}−w_ij)/h2 − b_ij(w_ij−w_{i,j−1})/h2)/h2
     """
-    wc = w_ext[1:-1, 1:-1]
+    wc = w_ext[..., 1:-1, 1:-1]
     ax = -(
-        a_ext[2:, 1:-1] * (w_ext[2:, 1:-1] - wc) / h1
-        - a_ext[1:-1, 1:-1] * (wc - w_ext[:-2, 1:-1]) / h1
+        a_ext[..., 2:, 1:-1] * (w_ext[..., 2:, 1:-1] - wc) / h1
+        - a_ext[..., 1:-1, 1:-1] * (wc - w_ext[..., :-2, 1:-1]) / h1
     ) / h1
     ay = -(
-        b_ext[1:-1, 2:] * (w_ext[1:-1, 2:] - wc) / h2
-        - b_ext[1:-1, 1:-1] * (wc - w_ext[1:-1, :-2]) / h2
+        b_ext[..., 1:-1, 2:] * (w_ext[..., 1:-1, 2:] - wc) / h2
+        - b_ext[..., 1:-1, 1:-1] * (wc - w_ext[..., 1:-1, :-2]) / h2
     ) / h2
     return ax + ay
 
@@ -56,8 +61,8 @@ def diag_d(a, b, h1, h2):
 
 def diag_d_block(a_ext, b_ext, h1, h2):
     """Diagonal of A over one halo-extended block → (bm, bn)."""
-    return (a_ext[2:, 1:-1] + a_ext[1:-1, 1:-1]) / (h1 * h1) + (
-        b_ext[1:-1, 2:] + b_ext[1:-1, 1:-1]
+    return (a_ext[..., 2:, 1:-1] + a_ext[..., 1:-1, 1:-1]) / (h1 * h1) + (
+        b_ext[..., 1:-1, 2:] + b_ext[..., 1:-1, 1:-1]
     ) / (h2 * h2)
 
 

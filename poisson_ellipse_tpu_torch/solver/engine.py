@@ -19,6 +19,21 @@ the port has ported so far:
   sstep             s iterations per basis and Gram         none
                     (s = ``sstep_s`` ∈ {2, 4})
   sstep-pallas      the same, the basis chain by K-a        stencil
+  batched           B independent lanes in one loop         none
+                    (``lanes=`` selects B), per-lane masks
+                    and quarantine
+  batched-pipelined the same lanes through the pipelined    none
+                    recurrence, one (8, B) bundle a body
+  batched-pallas    ``batched``, stencil by K-e             batched_stencil
+  batched-pipelined-pallas                                  batched_stencil,
+                    ``batched-pipelined``, stencil and      batched_stencil_dots
+                    bundle by K-f, w₀ and the rebuilds by
+                    K-e
+
+The ``-pallas`` batched rows are the port's names for the JAX
+``stencil="pallas"`` option of ``pcg_batched`` and
+``pcg_batched_pipelined``, as ``pallas`` and ``pipelined-pallas`` name it
+for the single-lane loops.
 
 Policy (``select_engine``), as in the JAX package: f64 takes ``xla``; f32
 walks the capacity ladder resident → streamed → xl and takes the first
@@ -28,7 +43,9 @@ computed from the card's own shared memory (``utils.device.capacity``),
 from the same functions that size each kernel's launch, so a gate that
 admits a grid is a launch that fits. On the CPU there is no on-chip memory for a block to keep state
 in: there ``auto`` takes ``xl`` (its plain version) unless the caller
-passes ``capacity=``.
+passes ``capacity=``. The batched engines are on no rung either; the
+harness resolves ``auto`` with ``lanes > 1`` to ``batched``, as the JAX
+harness does.
 
 There is no degrade chain (the JAX ``build_solver`` walks down the ladder
 when a Mosaic compile fails): the gate is exact, and a kernel that fails
@@ -60,7 +77,8 @@ from poisson_ellipse_tpu_torch.utils.device import (
 #   family   — "loop": the classical recurrence with the carry on the
 #              device; "fused": the rotated two-kernel iteration;
 #              "megakernel": the whole solve in one launch; "pipelined":
-#              the one-bundle recurrence; "sstep": s iterations a body
+#              the one-bundle recurrence; "sstep": s iterations a body;
+#              "batched": B lanes in one loop (``lanes=``)
 #   kernels  — the hand-written kernels (ops._build launch-counter names)
 #              the engine launches
 #   capacity — the engine's rung on the capacity ladder "auto" walks
@@ -88,6 +106,15 @@ ENGINE_CAPS = {
                   dtypes=(torch.float32, torch.float64)),
     "sstep-pallas": dict(family="sstep", kernels=("stencil",), capacity=None,
                          dtypes=(torch.float32,)),
+    "batched": dict(family="batched", kernels=(), capacity=None,
+                    dtypes=(torch.float32, torch.float64)),
+    "batched-pipelined": dict(family="batched", kernels=(), capacity=None,
+                              dtypes=(torch.float32, torch.float64)),
+    "batched-pallas": dict(family="batched", kernels=("batched_stencil",),
+                           capacity=None, dtypes=(torch.float32,)),
+    "batched-pipelined-pallas": dict(
+        family="batched", kernels=("batched_stencil", "batched_stencil_dots"),
+        capacity=None, dtypes=(torch.float32,)),
 }
 
 ENGINES = ("auto",) + tuple(ENGINE_CAPS)
@@ -95,6 +122,11 @@ ENGINES = ("auto",) + tuple(ENGINE_CAPS)
 # the s-step engines: ``build_solver``'s ``sstep_s`` sets their block size
 SSTEP_ENGINES = tuple(
     e for e, c in ENGINE_CAPS.items() if c["family"] == "sstep"
+)
+
+# the lane-batched engines: ``build_solver``'s ``lanes`` sets their width
+BATCHED_ENGINES = tuple(
+    e for e, c in ENGINE_CAPS.items() if c["family"] == "batched"
 )
 
 # the capacity ladder "auto" walks: the rungs in order
@@ -144,9 +176,29 @@ def build_solver(problem: Problem, engine: str = "auto",
     ``auto`` takes ``xl``, and a given capacity plans as on that card.
 
     ``sstep_s`` is the block size of the s-step engines (2 or 4).
+
+    ``lanes`` is the width B of the lane-batched engines
+    (``BATCHED_ENGINES``): their solver runs B solves of the problem in
+    one loop and returns a ``batch.BatchedPCGResult``; every other engine
+    takes ``lanes=1`` only.
     """
+    if lanes != 1 and engine not in BATCHED_ENGINES:
+        raise ValueError(
+            f"engine {engine!r} runs one solve per dispatch; lanes={lanes} "
+            "needs the lane-batched engines ("
+            + " / ".join(repr(e) for e in BATCHED_ENGINES) + ")"
+        )
+    if engine in BATCHED_ENGINES:
+        if history:
+            raise ValueError(
+                "the batched engines carry per-lane scalar recurrences, "
+                "not the obs.convergence ring buffers; use a single-lane "
+                "engine for history=True"
+            )
+        if lanes < 1:
+            raise ValueError("lanes must be >= 1")
     reject_unported(history, precond, storage_dtype, recycle=recycle,
-                    geometry=geometry, lanes=lanes)
+                    geometry=geometry)
     dev = resolve_device(device)
     if capacity is None and dev.type == "cuda":
         capacity = device_capacity(dev)
@@ -183,6 +235,25 @@ def build_solver(problem: Problem, engine: str = "auto",
 
     family = ENGINE_CAPS[engine]["family"]
     stencil = "pallas" if engine.endswith("pallas") else "xla"
+    if family == "batched":
+        from poisson_ellipse_tpu_torch.batch import (
+            batched_pcg,
+            batched_pipelined,
+        )
+
+        mod = batched_pipelined if "pipelined" in engine else batched_pcg
+        extra = {"stencil": stencil} if mod is batched_pipelined else {}
+
+        def run(a, b, rhs):
+            state, syncs = mod.advance(
+                problem, a, b, rhs,
+                mod.init_state(problem, a, b, rhs, **extra),
+                stencil=stencil, chunk=chunk)
+            return mod.result_of(state), syncs
+
+        return (Solver(run),
+                batched_pcg.batched_operands(problem, lanes, dtype, dev),
+                engine)
     if family == "pipelined":
         from poisson_ellipse_tpu_torch.ops import pipelined_pcg as pp
 

@@ -26,7 +26,7 @@ A breakdown iteration keeps its pre-update iterates.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -96,14 +96,11 @@ def unported(option: str, item: str):
 
 
 def reject_unported(history=False, precond=None, storage_dtype=None,
-                    x0=None, recycle=None, geometry=None,
-                    lanes: int = 1) -> None:
+                    x0=None, recycle=None, geometry=None) -> None:
     """Raise for any option this slice does not port, naming the
     ROADMAP.md item that will."""
     if geometry is not None:
         raise unported("geometry=", "Queue A item 11")
-    if lanes != 1:
-        raise unported("lanes>1", "Queue A item 10")
     if history:
         raise unported("history=", "Queue A item 8")
     if precond is not None:
@@ -116,11 +113,13 @@ def reject_unported(history=False, precond=None, storage_dtype=None,
 
 def run_chunked(step: Callable[[int], None],
                 flags: Callable[[], torch.Tensor], limit: int,
-                chunk: int = DEFAULT_CHUNK, per_body: int = 1) -> int:
+                chunk: int = DEFAULT_CHUNK, per_body: int = 1,
+                on_read: Optional[Callable[[list], None]] = None) -> int:
     """Issue ``step`` in chunks until the loop's flags say it has exited.
 
-    ``flags()`` returns the device tensor (k, converged, breakdown); it is
-    read on the host once per chunk. A chunk covers the next ``chunk``
+    ``flags()`` returns the device tensor (k, converged, breakdown, ...); it
+    is read on the host once per chunk, and ``on_read``, if given, gets each
+    read as a list (the entries past the first three are the caller's). A chunk covers the next ``chunk``
     iterations, or what the iteration ``limit`` leaves, in bodies of up to
     ``per_body`` iterations each (the body masks itself at ``limit``, so a
     limit inside a body still stops exactly there). Body j of a chunk that
@@ -136,8 +135,11 @@ def run_chunked(step: Callable[[int], None],
         raise ValueError("per_body must be >= 1")
     syncs = 0
     while True:
-        k, converged, breakdown = (int(v) for v in flags().tolist())
+        vals = flags().tolist()
         syncs += 1
+        if on_read is not None:
+            on_read(vals)
+        k, converged, breakdown = (int(v) for v in vals[:3])
         if converged or breakdown or k >= limit:
             return syncs
         iters = min(chunk, limit - k)

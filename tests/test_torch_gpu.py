@@ -15,7 +15,10 @@ their plain versions on the card: equal iterations and flags, w and the
 step norm within rel 1e-5 of their scale (the reordered sums move α and β
 in their last bits, and w follows). K-d's stencil is bitwise K-a's and its
 plain version's; its sums, in double rounded once to f32 on both sides,
-agree to rel 1e-6.
+agree to rel 1e-6. The lane-batched kernels K-e and K-f are held lane by
+lane, bitwise, against K-a and K-d on that lane, and against their plain
+versions (arrays bitwise, K-f's sums to rel 1e-6); the two batched kernel
+engines keep lane independence and chunked == straight to the bit.
 """
 
 import dataclasses
@@ -24,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from poisson_ellipse_tpu_torch.batch import batched_pcg as bp
+from poisson_ellipse_tpu_torch.batch import batched_pipelined as bpp
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import _build, assembly
 from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
@@ -416,4 +421,137 @@ def test_pipelined_pallas_chunked_equals_straight_on_the_card(cuda):
         state, _ = pp.advance(problem, a, b, rhs, state, limit=limit,
                               stencil="pallas", chunk=7)
     for name, x, y in zip(pp.PipelinedState._fields, straight, state):
+        assert torch.equal(x, y), name
+
+
+# -- K-e and K-f, the lane-batched kernels -----------------------------------
+
+BATCHED_SHAPES = [(44, 132, 3), (130, 20, 2), (400, 600, 32),
+                  (800, 1200, 8)]
+
+
+@pytest.mark.parametrize("form", ["full", "block"])
+@pytest.mark.parametrize("M,N,B", BATCHED_SHAPES)
+def test_batched_stencil_kernel_is_k_a_on_every_lane(cuda, M, N, B, form):
+    g = (M + 1, N + 1)
+    w = _rand((B,) + g, cuda, 0)
+    a, b = _rand(g, cuda, 1, lo=0.5), _rand(g, cuda, 2, lo=0.5)
+    h1, h2 = 2.0 / M, 1.2 / N
+    if form == "full":
+        kernel, plain, single = (hk.apply_a_batched_kernel,
+                                 hk.apply_a_batched_plain, hk.apply_a_kernel)
+    else:
+        kernel, plain, single = (hk.apply_a_batched_block_kernel,
+                                 hk.apply_a_block_plain,
+                                 hk.apply_a_block_kernel)
+    _build.reset_launches()
+    got = kernel(w, a, b, h1, h2)
+    assert _build.LAUNCHES["batched_stencil"] == 1
+    assert torch.equal(got, plain(w, a, b, h1, h2))
+    for lane in range(B):
+        assert torch.equal(got[lane], single(w[lane].contiguous(), a, b, h1,
+                                             h2))
+
+
+@pytest.mark.parametrize("M,N,B", BATCHED_SHAPES)
+def test_batched_stencil_dots_kernel_is_k_d_on_every_lane(cuda, M, N, B):
+    g = (M + 1, N + 1)
+    w = _rand((B,) + g, cuda, 0)
+    a, b = _rand(g, cuda, 1, lo=0.5), _rand(g, cuda, 2, lo=0.5)
+    h1, h2 = 2.0 / M, 1.2 / N
+    ops = [_rand((B,) + g, cuda, 10 + i) for i in range(5)]
+    for n_pairs in (1, 5, 8):
+        pairs = _dots_pairs(n_pairs, ops)
+        _build.reset_launches()
+        n, sums = hk.apply_a_dots_batched_kernel(w, a, b, h1, h2, pairs)
+        again_n, again_sums = hk.apply_a_dots_batched_kernel(w, a, b, h1, h2,
+                                                             pairs)
+        assert _build.LAUNCHES["batched_stencil_dots"] == 2
+        assert sums.shape == (n_pairs, B) and sums.dtype == torch.float32
+        n_p, sums_p = hk.apply_a_dots_batched_plain(w, a, b, h1, h2, pairs)
+        assert torch.equal(n, n_p)
+        torch.testing.assert_close(sums, sums_p, rtol=1e-6, atol=0)
+        assert torch.equal(again_n, n) and torch.equal(again_sums, sums)
+        for lane in range(B):
+            # the same table on one lane: its aliases stay aliases
+            lane_pairs = _dots_pairs(n_pairs, [o[lane].contiguous()
+                                               for o in ops])
+            n_l, sums_l = hk.apply_a_dots_kernel(w[lane].contiguous(), a, b,
+                                                 h1, h2, lane_pairs)
+            assert torch.equal(n[lane], n_l)
+            assert torch.equal(sums[:, lane], sums_l)
+
+
+def test_batched_kernels_reject_what_they_do_not_take(cuda):
+    g = (21, 33)
+    w, x, y = (_rand((3,) + g, cuda, s) for s in range(3))
+    a, b = _rand(g, cuda, 3), _rand(g, cuda, 4)
+    for kernel, bad in (
+        ("batched_stencil", lambda: hk.apply_a_batched_kernel(
+            w, w, w, 0.1, 0.1)),
+        ("batched_stencil", lambda: hk.apply_a_batched_kernel(
+            w[:, :, :-1], a[:, :-1], b[:, :-1], 0.1, 0.1)),
+        ("batched_stencil", lambda: hk.apply_a_batched_kernel(
+            w.double(), a.double(), b.double(), 0.1, 0.1)),
+        ("batched_stencil", lambda: hk.apply_a_batched_kernel(
+            w[0], a, b, 0.1, 0.1)),
+        ("batched_stencil_dots", lambda: hk.apply_a_dots_batched_kernel(
+            w, a, b, 0.1, 0.1, ((x[0].contiguous(), y[0].contiguous()),))),
+        ("batched_stencil_dots", lambda: hk.apply_a_dots_batched_kernel(
+            w, a, b, 0.1, 0.1, ((x.transpose(1, 2), y),))),
+        ("batched_stencil_dots", lambda: hk.apply_a_dots_batched_kernel(
+            w, a, b, 0.1, 0.1, ((x, y),) * 9)),
+    ):
+        _build.reset_launches()
+        with pytest.raises(ValueError):
+            bad()
+        assert _build.LAUNCHES[kernel] == 0
+
+
+@pytest.mark.parametrize("engine_name", ["batched-pallas",
+                                         "batched-pipelined-pallas"])
+def test_batched_kernel_engines_on_the_card(cuda, engine_name):
+    """40² f32 with three lanes: every lane within ±2 of the oracle
+    counts, through the kernels, and lane independence: lanes 0 and 2 are
+    the same bits whatever lane 1 holds, a NaN included."""
+    for norm, table in (("unweighted", UNWEIGHTED), ("weighted", WEIGHTED)):
+        problem = Problem(M=40, N=40, norm=norm)
+        solver, args, _ = engine.build_solver(problem, engine_name,
+                                              torch.float32, cuda, lanes=3)
+        _build.reset_launches()
+        got = solver(*args)
+        iters = got.iters.tolist()
+        assert got.converged.all()
+        assert all(abs(i - table[(40, 40)]) <= 2 for i in iters)
+        bodies = 64 * -(-max(iters) // 64)
+        if engine_name == "batched-pallas":
+            assert dict(_build.LAUNCHES) == {"batched_stencil": bodies}
+        else:
+            assert _build.LAUNCHES["batched_stencil_dots"] == bodies
+        runs = [got]
+        for middle in (3.0, float("nan")):
+            a, b, rhs = (t.clone() for t in args)
+            rhs[1] *= middle
+            runs.append(solver(a, b, rhs))
+        assert runs[2].quarantined.tolist() == [False, True, False]
+        for other in runs[1:]:
+            for lane in (0, 2):
+                assert torch.equal(other.w[lane], got.w[lane])
+                assert int(other.iters[lane]) == iters[lane]
+
+
+@pytest.mark.parametrize("mod,stencil", [(bp, "pallas"), (bpp, "pallas"),
+                                         (bp, "xla"), (bpp, "xla")])
+def test_batched_chunked_equals_straight_on_the_card(cuda, mod, stencil):
+    problem = Problem(M=60, N=90)
+    a, b, rhs = bp.batched_operands(problem, 3, torch.float32, cuda)
+    rhs[1] *= 2.0
+    extra = {"stencil": stencil} if mod is bpp else {}
+    init = mod.init_state(problem, a, b, rhs, **extra)
+    straight, _ = mod.advance(problem, a, b, rhs, init, stencil=stencil)
+    state = init
+    for limit in (32, 33, None):
+        state, _ = mod.advance(problem, a, b, rhs, state, limit=limit,
+                               stencil=stencil, chunk=7)
+    for name, x, y in zip(type(init)._fields, straight, state):
         assert torch.equal(x, y), name
