@@ -84,6 +84,35 @@ result line):
               torch.profiler breakdown of batched-pallas at 400x600, B = 32.
               Whether lane 0 is bitwise the single pallas / xla solve is
               printed, not required.
+9. storage  — the storage axis (state and operands stored in bf16 or f16,
+              f32 arithmetic). K-g (the mixed stencil) at 45x133, 801x1201
+              and 2401x3201 with w bf16 or f32 and a, b bf16, and with w,
+              a, b f16 (numpy-seeded inputs, inside f16's range): bitwise
+              its plain version and K-a on the upcast inputs. K-h (the
+              mixed stencil + the pipelined bundle of 5 distinct bf16
+              operands): n bitwise its plain version's, K-g's and K-d's on
+              the upcast inputs, sums within rel 1e-6 of the plain
+              version's and bitwise K-d's. The main path: run_once(pallas,
+              storage_dtype="bf16") at 2400x3200, uncapped: converged, the
+              report's "storage_dtype" "bf16", K-g once per issued body,
+              one host read per 64-iteration chunk plus one; xla bf16 on
+              the card with pallas's iterations and flags (w's gap
+              printed), the relative gap to the f32 solve printed, the
+              count printed beside the JAX package's 3032 (CPU). The
+              recurrences at 2400x3200, bf16, max_iter 1024:
+              pipelined-pallas and sstep-pallas (s = 4) finite, chunk 64
+              bitwise one straight run, launches as the body count
+              predicts (K-a for w0, K-h once a body and K-g 4 times every
+              8th body; K-g 7 times a block plus the replacements); the
+              plain pipelined and sstep counts and x gaps printed. 400x600
+              and 800x1200 pallas bf16 converged (counts printed beside the
+              JAX package's 560 and 1053); f16 at 44x132 and 400x600:
+              pallas with xla's iterations and flags. K-g and K-h timed
+              against their bounds, plain versions and K-a / K-d at f32;
+              T_solver of pallas bf16 beside f32 at 400x600, 800x1200 and
+              2400x3200; the capped recurrences' time per iteration in bf16
+              beside f32; one torch.profiler breakdown of pallas bf16 at
+              2400x3200.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -1272,6 +1301,366 @@ def phase_throughput(batched, card: str) -> None:
                     f"(slowest lane), {t1 / iters * 1e6:.1f} us/iter")
 
 
+# -- phase 9: the storage axis -----------------------------------------------
+
+# every grid the storage path gives K-g and K-h, and a small ragged one
+STORAGE_KERNEL_GRIDS = ((44, 132), (800, 1200), MAIN_GRID)
+STORAGE_KERNEL_CASES = (("bf16", "bf16"), ("f32", "bf16"), ("f16", "f16"))
+NARROW = {"bf16": torch.bfloat16, "f16": torch.float16}
+# the JAX package's counts on the CPU (raw bf16 classical loop): printed
+# beside the card's, not held (a narrow solve's count moves with the order
+# of its sums)
+JAX_BF16_ITERS = {(400, 600): 560, (800, 1200): 1053, MAIN_GRID: 3032}
+# f16 on the JAX package's CPU run: 298 iterations, converged; breakdown
+# at iteration 2 (D overflows f16)
+JAX_F16 = {(44, 132): "298, converged", (400, 600): "2, breakdown"}
+STORAGE_CAP = 1024
+# a narrow solve sits at its storage floor: l2 is held to this sanity
+# bound only (the JAX package: 9.1e-3 at 400x600, 4.1e-2 at 2400x3200)
+STORAGE_L2 = 0.1
+
+
+def storage_inputs(grid, seed: int):
+    """w, m, a, b and the bundle's five operands at f32 on the card, from
+    numpy's seed; inside f16's range."""
+    g = (grid[0] + 1, grid[1] + 1)
+    rng = np.random.default_rng(seed)
+
+    def dev_f32(x):
+        return torch.from_numpy(x.astype(np.float32)).to("cuda")
+
+    return dict(
+        w=dev_f32(rng.standard_normal(g)),
+        a=dev_f32(rng.random(g) + 0.5),
+        b=dev_f32(rng.random(g) + 0.5),
+        ops=[dev_f32(rng.standard_normal(g)) for _ in range(5)],
+    )
+
+
+def _as(x, st: str):
+    return x if st == "f32" else x.to(NARROW[st])
+
+
+def phase_storage_kernels(seed: int) -> dict:
+    """K-g and K-h bitwise against their plain versions and against K-a /
+    K-d on the upcast inputs."""
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+
+    say("== phase 9: K-g and K-h against their plain versions and K-a / K-d")
+    errs = {"stencil_mixed": 0.0, "stencil_dots_mixed": 0.0}
+    for m, n in STORAGE_KERNEL_GRIDS:
+        inp = storage_inputs((m, n), seed)
+        h1, h2 = 2.0 / m, 1.2 / n
+        label = f"{m + 1}x{n + 1}"
+        for w_st, ab_st in STORAGE_KERNEL_CASES:
+            w = _as(inp["w"], w_st)
+            a, b = _as(inp["a"], ab_st), _as(inp["b"], ab_st)
+            up = [x.float().contiguous() for x in (w, a, b)]
+            for form, kernel, plain, f32 in (
+                    ("full", hk.apply_a_mixed_kernel, hk.apply_a_mixed_plain,
+                     hk.apply_a_kernel),
+                    ("block", hk.apply_a_mixed_block_kernel,
+                     hk.apply_a_mixed_block_plain, hk.apply_a_block_kernel)):
+                got = kernel(w, a, b, h1, h2)
+                err = close_arrays(f"K-g {form} {label} w {w_st} a,b {ab_st}",
+                                   got, plain(w, a, b, h1, h2))
+                require(torch.equal(got, plain(w, a, b, h1, h2))
+                        and torch.equal(got, f32(*up, h1, h2)),
+                        f"K-g {form} {label} is not bitwise its plain version "
+                        "and K-a on the upcast inputs")
+                errs["stencil_mixed"] = max(errs["stencil_mixed"], err)
+        a, b = _as(inp["a"], "bf16"), _as(inp["b"], "bf16")
+        m_f32 = inp["w"]
+        ops = [_as(o, "bf16") for o in inp["ops"]]
+        pairs = _bundle(*ops)
+        got_n, got_sums = hk.apply_a_dots_mixed_kernel(m_f32, a, b, h1, h2,
+                                                       pairs)
+        want_n, want_sums = hk.apply_a_dots_mixed_plain(m_f32, a, b, h1, h2,
+                                                        pairs)
+        d_n, d_sums = hk.apply_a_dots_kernel(
+            m_f32, a.float(), b.float(), h1, h2,
+            _bundle(*(o.float() for o in ops)))
+        err = close_arrays(f"K-h n {label}", got_n, want_n)
+        require(torch.equal(got_n, want_n) and torch.equal(got_n, d_n)
+                and torch.equal(got_n, hk.apply_a_mixed_kernel(m_f32, a, b,
+                                                               h1, h2)),
+                f"K-h n {label} is not bitwise its plain version's, K-d's and "
+                "K-g's")
+        for j in range(len(pairs)):
+            close_sum(f"K-h sum {j} {label}", float(got_sums[j]),
+                      float(want_sums[j]), KD_SUM_RTOL)
+        require(torch.equal(got_sums, d_sums), f"K-h sums {label} are not "
+                "bitwise K-d's on the upcast inputs")
+        say(f"  K-h {label}: sums bitwise K-d's on the upcast operands")
+        errs["stencil_dots_mixed"] = max(
+            errs["stencil_dots_mixed"], err,
+            float((got_sums.double() - want_sums.double()).abs().max()))
+    return errs
+
+
+def _storage_solve(problem, engine, storage, chunk=64):
+    """(solver, args, result, launches) of one counted solve."""
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    solver, args, resolved = build_solver(problem, engine, torch.float32,
+                                          "cuda", chunk=chunk,
+                                          sstep_s=SSTEP_S,
+                                          storage_dtype=storage)
+    require(resolved == engine, f"{engine} resolved to {resolved}")
+    result, launches = _run_counted(solver, args)
+    return solver, args, result, launches
+
+
+def phase_storage_main() -> dict:
+    """The slice's main path: run_once(pallas, bf16) at 2400x3200."""
+    from poisson_ellipse_tpu_torch.harness.run import run_once
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import _build
+
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+    say(f"== phase 9: main path, run_once(pallas, storage bf16) at "
+        f"{problem.M}x{problem.N} f32")
+    _build.reset_launches()
+    rep = run_once(problem, engine="pallas", storage_dtype="bf16",
+                   device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    d = rep.json_dict()
+    bodies = 64 * -(-rep.iters // 64)
+    say(f"  run_once: {rep.iters} iterations (JAX package, CPU: "
+        f"{JAX_BF16_ITERS[MAIN_GRID]}), converged {rep.converged}, breakdown "
+        f"{rep.breakdown}, l2 {rep.l2_error:.6e}, T_solver {rep.t_solver:.5f}"
+        f" s, {rep.t_solver / rep.iters * 1e6:.2f} us/iter, host reads "
+        f"{rep.host_syncs}, launches (warm-up + timed solve) {launches}, "
+        f"storage_dtype {d.get('storage_dtype')!r}")
+    require(d.get("storage_dtype") == "bf16", "the report does not carry "
+            "storage_dtype bf16")
+    require(rep.converged and not rep.breakdown, "pallas bf16 did not "
+            "converge")
+    require(math.isfinite(rep.l2_error) and rep.l2_error < STORAGE_L2,
+            "pallas bf16 l2 error out of range")
+    require(launches == {"stencil_mixed": 2 * bodies}, "K-g not launched "
+            "once per issued body")
+    require(rep.host_syncs == -(-rep.iters // 64) + 1,
+            "not one host read per 64-iteration chunk plus one")
+
+    runs = {}
+    for engine, storage in (("pallas", "bf16"), ("xla", "bf16"),
+                            ("pallas", None)):
+        runs[(engine, storage)] = _storage_solve(problem, engine, storage)
+    _, _, res_p, launches_p = runs[("pallas", "bf16")]
+    _, _, res_x, launches_x = runs[("xla", "bf16")]
+    _, _, res_f, _ = runs[("pallas", None)]
+    gap = max_abs(res_p.w, res_x.w)
+    say(f"  pallas bf16 {int(res_p.iters)} / xla bf16 {int(res_x.iters)} "
+        f"iterations, flags {bool(res_p.converged)}/{bool(res_p.breakdown)} "
+        f"and {bool(res_x.converged)}/{bool(res_x.breakdown)}, "
+        f"max|w_pallas - w_xla| {gap:.3e}, bitwise "
+        f"{torch.equal(res_p.w, res_x.w)}; launches {launches_p} / "
+        f"{launches_x}")
+    for f in ("iters", "converged", "breakdown"):
+        require(int(getattr(res_p, f)) == int(getattr(res_x, f)),
+                f"pallas and xla bf16 differ in {f}")
+    require(launches_x == {}, "xla bf16 launched a kernel")
+    w16, w32 = res_p.w.double(), res_f.w.double()
+    rel = float(torch.linalg.vector_norm(w16 - w32)
+                / torch.linalg.vector_norm(w32))
+    say(f"  ||w_bf16 - w_f32|| / ||w_f32|| = {rel:.4e} (f32: "
+        f"{int(res_f.iters)} iterations)")
+    return dict(counts={"stencil_mixed": launches_p["stencil_mixed"]},
+                runs=runs, report=rep)
+
+
+def expected_narrow_launches(engine: str, iters: int, limit: int,
+                             chunk: int = 64) -> dict:
+    """The launches of a bf16 run of pipelined-pallas or sstep-pallas
+    capped at ``limit`` with the host reading once per ``chunk``: bodies
+    are issued in chunks up to the limit; the replacement comes every
+    ``replace_every("bf16")`` = 8 iterations."""
+    from poisson_ellipse_tpu_torch.ops.precision import replace_every
+    from poisson_ellipse_tpu_torch.ops.sstep_pcg import replaces
+
+    cadence = replace_every("bf16")
+    issued = min(limit, chunk * -(-iters // chunk))
+    if engine == "pipelined-pallas":
+        return {"stencil": 1, "stencil_dots_mixed": issued,
+                "stencil_mixed": 4 * ((issued - 1) // cadence)}
+    starts = range(0, issued, SSTEP_S)
+    return {"stencil_mixed": (2 * SSTEP_S - 1) * len(starts)
+            + sum(replaces(k, SSTEP_S, cadence) for k in starts)}
+
+
+def phase_storage_recurrences(card: str) -> dict:
+    """pipelined-pallas and sstep-pallas at 2400x3200 in bf16, capped at
+    STORAGE_CAP: finite, chunk 64 bitwise one straight run, launches; the
+    plain forms' counts and gaps printed; time per iteration beside f32."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1], max_iter=STORAGE_CAP)
+    say(f"== phase 9: the recurrences at {problem.M}x{problem.N}, bf16, "
+        f"max_iter {STORAGE_CAP} ({card})")
+    counts, results = {}, {}
+    for engine in ("pipelined-pallas", "sstep-pallas"):
+        solver, args, got, launches = _storage_solve(problem, engine, "bf16")
+        _, _, straight, _ = _storage_solve(problem, engine, "bf16",
+                                           chunk=STORAGE_CAP)
+        iters = int(got.iters)
+        want = expected_narrow_launches(engine, iters, STORAGE_CAP)
+        same = all(torch.equal(x, y) for x, y in zip(got, straight))
+        say(f"  {engine}: {iters} iterations, converged "
+            f"{bool(got.converged)}, breakdown {bool(got.breakdown)}, w "
+            f"finite {bool(torch.isfinite(got.w).all())}, chunk 64 bitwise "
+            f"straight {same}, launches {launches} (predicted {want})")
+        require(bool(torch.isfinite(got.w).all()), f"{engine}: carry not "
+                "finite")
+        require(same, f"{engine}: chunked and straight runs differ")
+        require(launches == want, f"{engine}: launches {launches}")
+        results[engine] = (got, time_solver(solver, args, 1))
+        if engine == "pipelined-pallas":
+            counts["stencil_dots_mixed"] = launches["stencil_dots_mixed"]
+    for plain, kernel in (("pipelined", "pipelined-pallas"),
+                          ("sstep", "sstep-pallas")):
+        _, _, got, launches = _storage_solve(problem, plain, "bf16")
+        ref = results[kernel][0]
+        rel = float((got.w.double() - ref.w.double()).abs().max()
+                    / ref.w.double().abs().max())
+        say(f"  {plain} bf16: {int(got.iters)} iterations, converged "
+            f"{bool(got.converged)}, breakdown {bool(got.breakdown)}, "
+            f"max|x - x_{kernel}| / max|x_{kernel}| {rel:.3e}, launches "
+            f"{launches}")
+        require(launches == {}, f"{plain} launched a kernel")
+    return dict(counts=counts, results=results, problem=problem)
+
+
+def phase_storage_checks() -> None:
+    """The published grids under bf16, and f16 on pallas against xla."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+    say("== phase 9: published grids in bf16, f16 against xla")
+    for (m, n), jax_iters in JAX_BF16_ITERS.items():
+        if (m, n) == MAIN_GRID:
+            continue
+        problem = Problem(M=m, N=n)
+        _, _, res, launches = _storage_solve(problem, "pallas", "bf16")
+        l2 = float(l2_error_vs_analytic(problem, res.w))
+        say(f"  {m}x{n} pallas bf16: {int(res.iters)} iterations (JAX "
+            f"package, CPU: {jax_iters}), converged {bool(res.converged)}, "
+            f"l2 {l2:.6e}, launches {launches}")
+        require(bool(res.converged) and not bool(res.breakdown),
+                f"{m}x{n} pallas bf16 did not converge")
+        require(math.isfinite(l2) and l2 < STORAGE_L2, "l2 out of range")
+    for (m, n), jax_says in JAX_F16.items():
+        problem = Problem(M=m, N=n)
+        _, _, res_p, _ = _storage_solve(problem, "pallas", "f16")
+        _, _, res_x, _ = _storage_solve(problem, "xla", "f16")
+        say(f"  {m}x{n} f16: pallas {int(res_p.iters)} it "
+            f"{bool(res_p.converged)}/{bool(res_p.breakdown)}, xla "
+            f"{int(res_x.iters)} it {bool(res_x.converged)}/"
+            f"{bool(res_x.breakdown)} (converged/breakdown; JAX package, "
+            f"CPU: {jax_says}); w bitwise {torch.equal(res_p.w, res_x.w)}")
+        for f in ("iters", "converged", "breakdown"):
+            require(int(getattr(res_p, f)) == int(getattr(res_x, f)),
+                    f"{m}x{n} f16: pallas and xla differ in {f}")
+
+
+def phase_storage_timing(seed: int, main, rec, card: str) -> list:
+    """K-g and K-h against their bounds, plain versions and K-a / K-d at
+    f32 on the same 2401x3201 inputs; T_solver of pallas in bf16 beside
+    f32; the capped recurrences' time per iteration."""
+    from poisson_ellipse_tpu_torch.harness.run import run_once
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+
+    say(f"== phase 9 (timing): K-g and K-h at 2401x3201 on {card}")
+    inp = storage_inputs(MAIN_GRID, seed)
+    nodes = (MAIN_GRID[0] + 1) * (MAIN_GRID[1] + 1)
+    h1, h2 = 2.0 / MAIN_GRID[0], 1.2 / MAIN_GRID[1]
+    a, b = _as(inp["a"], "bf16"), _as(inp["b"], "bf16")
+    w16, w32 = _as(inp["w"], "bf16"), inp["w"]
+    ops16 = [_as(o, "bf16") for o in inp["ops"]]
+    pairs16, pairs32 = _bundle(*ops16), _bundle(*(o.float() for o in ops16))
+    a32, b32 = a.float(), b.float()
+    cases = (
+        # name, label, kernel, plain, bytes, flops
+        ("stencil_mixed", "K-g w bf16",
+         lambda: hk.apply_a_mixed_kernel(w16, a, b, h1, h2),
+         lambda: hk.apply_a_mixed_plain(w16, a, b, h1, h2),
+         10 * nodes, 18 * nodes),
+        (None, "K-g w f32",
+         lambda: hk.apply_a_mixed_kernel(w32, a, b, h1, h2),
+         lambda: hk.apply_a_mixed_plain(w32, a, b, h1, h2),
+         12 * nodes, 18 * nodes),
+        (None, "K-a f32 (same values)",
+         lambda: hk.apply_a_kernel(w32, a32, b32, h1, h2),
+         lambda: hk.apply_a_plain(w32, a32, b32, h1, h2),
+         16 * nodes, 18 * nodes),
+        ("stencil_dots_mixed", "K-h bundle bf16",
+         lambda: hk.apply_a_dots_mixed_kernel(w32, a, b, h1, h2, pairs16),
+         lambda: hk.apply_a_dots_mixed_plain(w32, a, b, h1, h2, pairs16),
+         22 * nodes, KD_FLOPS * nodes),
+        (None, "K-d f32 (same values)",
+         lambda: hk.apply_a_dots_kernel(w32, a32, b32, h1, h2, pairs32),
+         lambda: hk.apply_a_dots_plain(w32, a32, b32, h1, h2, pairs32),
+         36 * nodes, KD_FLOPS * nodes),
+    )
+    rows = []
+    sources = {"stencil_mixed": ("csrc/stencil.cu", 784),
+               "stencil_dots_mixed": ("csrc/stencil_dots.cu", 910)}
+    for name, label, fn, plain, nbytes, flops in cases:
+        ms = time_ms(fn, 200)
+        plain_ms = time_ms(plain, 20)
+        bound_ms, bound_by = bound(nbytes, flops)
+        say(f"  {label}: {ms * 1e3:.1f} us/launch, plain "
+            f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+            f"({bound_by}, {nbytes / nodes:g} B a node), "
+            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+        if name is not None:
+            src, line = sources[name]
+            rows.append(dict(
+                name=name, route="cuda",
+                source=f"poisson_ellipse_tpu_torch/{src}",
+                replaces=f"poisson_ellipse_tpu/ops/pallas_kernels.py:{line}",
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None))
+
+    say(f"== phase 9 (timing): T_solver of pallas, bf16 beside f32 ({card})")
+    rep16 = main["report"]
+    for m, n in ((400, 600), (800, 1200), MAIN_GRID):
+        problem = Problem(M=m, N=n)
+        reps = {"f32": run_once(problem, engine="pallas", device="cuda")}
+        reps["bf16"] = (rep16 if (m, n) == MAIN_GRID else
+                        run_once(problem, engine="pallas", device="cuda",
+                                 storage_dtype="bf16"))
+        for st, rep in reps.items():
+            say(f"  T_solver {m}x{n} pallas {st}: {rep.t_solver:.5f} s, "
+                f"{rep.iters} iterations, {rep.t_solver / rep.iters * 1e6:.2f}"
+                f" us/iter, {rep.passes_per_iter:g} passes/iter, "
+                f"{rep.hbm_gbps} GB/s modelled")
+    for engine, (got, t16) in rec["results"].items():
+        say(f"  {engine} {MAIN_GRID[0]}x{MAIN_GRID[1]} capped at "
+            f"{STORAGE_CAP}: bf16 {t16:.5f} s for {int(got.iters)} "
+            f"iterations, {t16 / int(got.iters) * 1e6:.2f} us/iter")
+    return rows
+
+
+def phase_storage_f32_recurrence_times(rec, card: str) -> None:
+    """The capped recurrences at f32, timed as the bf16 ones were."""
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    problem = rec["problem"]
+    for engine in rec["results"]:
+        solver, args, _ = build_solver(problem, engine, torch.float32,
+                                       "cuda", sstep_s=SSTEP_S)
+        out = []
+        t = time_solver(lambda: out.append(solver(*args)), (), 1)
+        iters = int(out[-1].iters)
+        say(f"  {engine} capped at {STORAGE_CAP}: f32 {t:.5f} s for {iters}"
+            f" iterations, {t / iters * 1e6:.2f} us/iter ({card})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1318,7 +1707,17 @@ def main(argv=None) -> int:
     solver, solver_args = batched["runs"][("batched-pallas", 400, 600)][:2]
     profile_solve("batched-pallas 400x600 B=32", solver, solver_args)
 
-    counts = {**rec["counts"], **main_run["counts"], **batched["counts"]}
+    errs.update(phase_storage_kernels(args.seed))
+    storage_main = phase_storage_main()
+    storage_rec = phase_storage_recurrences(card)
+    phase_storage_checks()
+    timed += phase_storage_timing(args.seed, storage_main, storage_rec, card)
+    phase_storage_f32_recurrence_times(storage_rec, card)
+    solver, solver_args = storage_main["runs"][("pallas", "bf16")][:2]
+    profile_solve("pallas bf16 2400x3200", solver, solver_args)
+
+    counts = {**rec["counts"], **main_run["counts"], **batched["counts"],
+              **storage_main["counts"], **storage_rec["counts"]}
     for row in timed:
         row["launches"] = counts.get(row["name"], 0)
         row["max_abs_err"] = errs[row["name"]]

@@ -14,7 +14,9 @@ package's, so each module's counterpart has the same relative path:
   ``ops.streamed_pcg``, ``ops.xl_pcg``, over ``ops.whole_solve``); the
   pipelined and s-step recurrences (``ops.pipelined_pcg``,
   ``ops.sstep_pcg``); the lane-batched stencil (K-e) and stencil with dot
-  bundle (K-f);
+  bundle (K-f); the storage axis (``ops.precision``: state stored in bf16
+  or f16, f32 arithmetic) with the mixed stencil (K-g) and mixed stencil
+  with dot bundle (K-h);
 - ``batch``   — B independent solves in one loop (``batched_pcg``,
   ``batched_pipelined``) and the chunked driver that reports lane
   quarantines (``driver.solve_batched``);
@@ -23,7 +25,8 @@ package's, so each module's counterpart has the same relative path:
   ``streamed``, ``xl``, ``pipelined``, ``pipelined-pallas``, ``sstep``,
   ``sstep-pallas``, ``batched``, ``batched-pipelined``, ``batched-pallas``,
   ``batched-pipelined-pallas``) and ``auto``'s capacity ladder;
-- ``harness`` — ``run_once`` and the command line (``--lanes``);
+- ``harness`` — ``run_once`` and the command line (``--lanes``,
+  ``--storage-dtype``);
 - ``interop`` — the JAX package's arrays into the port, for the tests.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -37,6 +37,11 @@ the JAX package's lane 0 does.
 ``stencil="pallas"`` takes K-e (``ops.hopper_kernels.apply_a_batched_kernel``)
 for A·p. It needs lane-shared coefficients and the problem's own spacings
 (the kernel takes h as scalars).
+
+``storage_dtype`` (``ops.precision``) stores the lane fields w, r and p
+narrow, with a, b and D rounded once; the per-lane scalars stay at compute
+width. As in the JAX package it rides the plain stencil: K-e is f32 only,
+and ``stencil="pallas"`` with a storage dtype is refused.
 """
 
 from __future__ import annotations
@@ -49,6 +54,11 @@ import torch
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import assembly
+from poisson_ellipse_tpu_torch.ops.precision import (
+    load,
+    resolve_storage_dtype,
+    store,
+)
 from poisson_ellipse_tpu_torch.ops.stencil import apply_a, apply_dinv, diag_d
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
@@ -140,10 +150,9 @@ def init_state(problem: Problem, a, b, rhs, mask=None, h1=None, h2=None,
                storage_dtype=None, x0=None) -> BatchedPCGState:
     """The batched carry at iteration 0: w = 0, r = rhs, p = z = D⁻¹r,
     zr = (z, r) per lane, diff = inf, no flags, iters 0. ``h1``/``h2``
-    override the problem's spacings (scalars or (B,))."""
-    if storage_dtype is not None:
-        raise unported("storage_dtype= on the batched engines",
-                       "Queue A item 17")
+    override the problem's spacings (scalars or (B,)). With
+    ``storage_dtype`` w, r and p are stored in it."""
+    st = resolve_storage_dtype(storage_dtype, rhs.dtype)
     if x0 is not None:
         raise unported("x0=", "Queue A item 13")
     dev, lanes = rhs.device, rhs.shape[0]
@@ -156,9 +165,9 @@ def init_state(problem: Problem, a, b, rhs, mask=None, h1=None, h2=None,
     flags = torch.zeros(lanes, dtype=torch.bool, device=dev)
     return BatchedPCGState(
         k=torch.zeros((), dtype=torch.int32, device=dev),
-        w=torch.zeros_like(rhs),
-        r=rhs,
-        p=z0,
+        w=torch.zeros_like(rhs, dtype=st or rhs.dtype),
+        r=store(rhs, st),
+        p=store(z0, st),
         zr=zr0,
         diff=torch.full((lanes,), float("inf"), dtype=rhs.dtype, device=dev),
         converged=flags,
@@ -191,36 +200,53 @@ def stencil_closure(a3, b3, h1, h2, stencil: str, hs):
 
 
 def make_lane_step(a3, b3, d, m3, h1, h2, delta, weighted: bool,
-                   stencil: str = "xla", hs=None, limit=None):
+                   stencil: str = "xla", hs=None, limit=None,
+                   storage_dtype=None):
     """One batched-classical iteration as a carry → carry function.
 
     A lane is active while it has neither converged, broken down nor been
     quarantined, and k is below ``limit`` (None: no limit). A body with no
-    active lane returns its carry unchanged, k included.
+    active lane returns its carry unchanged, k included. With
+    ``storage_dtype`` the lane fields are loaded at compute width and the
+    new ones stored narrow, and a, b and D are rounded once here (the
+    plain stencil on their upcast values).
     """
+    st = storage_dtype
+    dtype = d.dtype
+    if st is not None:
+        if stencil != "xla":
+            raise ValueError(
+                "storage_dtype on the batched engines rides the XLA stencil "
+                "(the convert fuses into the consumers); the batched Pallas "
+                "kernel is full-width"
+            )
+        # rounded once; their upcast values, once (the same values as a
+        # load in every body)
+        a3, b3, d = (load(store(x, st), dtype, st) for x in (a3, b3, d))
     apply_stencil = stencil_closure(a3, b3, h1, h2, stencil, hs)
-    one = torch.ones((), dtype=d.dtype, device=d.device)
+    one = torch.ones((), dtype=dtype, device=d.device)
 
     def body(s: BatchedPCGState) -> BatchedPCGState:
         active = ~s.converged & ~s.breakdown & ~s.quarantined
         if limit is not None:
             active = active & (s.k < limit)
-        ap = apply_stencil(s.p)
+        w, r, p = (load(x, dtype, st) for x in (s.w, s.r, s.p))
+        ap = apply_stencil(p)
         if m3 is not None:
             # bucket embedding: nodes outside the true interior stay
             # exactly zero (×1.0 elsewhere: a bitwise identity)
             ap = ap * m3
-        denom = torch.sum(ap * s.p, dim=(1, 2)) * h1 * h2
+        denom = torch.sum(ap * p, dim=(1, 2)) * h1 * h2
         breakdown = denom < DENOM_GUARD
         alpha = s.zr / torch.where(breakdown, one, denom)
 
         al = alpha[:, None, None]
-        w_new = s.w + al * s.p
-        r_new = s.r - al * ap
+        w_new = w + al * p
+        r_new = r - al * ap
         z = apply_dinv_batched(r_new, d)
 
         # the realised update (w_new − w), one stacked (2, B) reduction
-        dw = w_new - s.w
+        dw = w_new - w
         sums = lane_dots((z, r_new), (dw, dw))
         zr_new = sums[0] * h1 * h2
         dw2 = sums[1]
@@ -236,7 +262,7 @@ def make_lane_step(a3, b3, d, m3, h1, h2, delta, weighted: bool,
         converged = converged & ~sick
 
         beta = zr_new / s.zr
-        p_new = z + beta[:, None, None] * s.p
+        p_new = z + beta[:, None, None] * p
 
         # per-lane freeze: an inactive or sick lane keeps its carry; a
         # breakdown lane discards its update; a converged lane keeps the
@@ -245,9 +271,9 @@ def make_lane_step(a3, b3, d, m3, h1, h2, delta, weighted: bool,
         follow = active & ~breakdown & ~converged & ~sick
         return BatchedPCGState(
             k=s.k + active.any().to(s.k.dtype),
-            w=torch.where(upd, w_new, s.w),
-            r=torch.where(upd, r_new, s.r),
-            p=torch.where(follow[:, None, None], p_new, s.p),
+            w=torch.where(upd, store(w_new, st), s.w),
+            r=torch.where(upd, store(r_new, st), s.r),
+            p=torch.where(follow[:, None, None], store(p_new, st), s.p),
             zr=torch.where(follow, zr_new, s.zr),
             diff=torch.where(active & ~sick, diff, s.diff),
             converged=s.converged | (active & converged),
@@ -260,7 +286,7 @@ def make_lane_step(a3, b3, d, m3, h1, h2, delta, weighted: bool,
 
 
 def make_body(problem: Problem, a, b, rhs, limit: int, mask=None, h1=None,
-              h2=None, delta=None, stencil: str = "xla"):
+              h2=None, delta=None, stencil: str = "xla", storage_dtype=None):
     """``body(state, k)``: one iteration of every active lane below
     ``limit``, with the operands, overrides and stencil resolved once.
     ``k`` (the host's count) is unused: the classical body needs none."""
@@ -277,7 +303,9 @@ def make_body(problem: Problem, a, b, rhs, limit: int, mask=None, h1=None,
     d = diag_d_batched(a3, b3, hh1, hh2, m3)
     step = make_lane_step(a3, b3, d, m3, hh1, hh2, dl,
                           problem.norm == "weighted", stencil=stencil,
-                          hs=(problem.h1, problem.h2), limit=limit)
+                          hs=(problem.h1, problem.h2), limit=limit,
+                          storage_dtype=resolve_storage_dtype(storage_dtype,
+                                                              rhs.dtype))
     return lambda state, _k: step(state)
 
 
@@ -298,14 +326,13 @@ def advance(problem: Problem, a, b, rhs, state: BatchedPCGState, limit=None,
     ``h1``/``h2``/``delta`` may be scalars or (B,) per lane and ``mask``
     (g1, g2) shared or (B, g1, g2) per lane: the bucket-embedding
     arguments. Chunked runs (any ``chunk``, any sequence of ``limit``s)
-    are bitwise equal to one straight run.
+    are bitwise equal to one straight run. ``storage_dtype`` must be the
+    one the carry was made with.
     """
-    if storage_dtype is not None:
-        raise unported("storage_dtype= on the batched engines",
-                       "Queue A item 17")
     cap = problem.max_iterations
     limit = cap if limit is None else min(int(limit), cap)
-    body = make_body(problem, a, b, rhs, limit, mask, h1, h2, delta, stencil)
+    body = make_body(problem, a, b, rhs, limit, mask, h1, h2, delta, stencil,
+                     storage_dtype)
     carry = [state]
 
     def step(k: int):
@@ -329,11 +356,12 @@ def pcg_batched(problem: Problem, a, b, rhs, mask=None, stencil: str = "xla",
     """Run batched PCG on pre-assembled operands on their device: ``rhs``
     (B, M+1, N+1), ``a``/``b`` (M+1, N+1) shared or (B, M+1, N+1) per
     lane. ``stencil``: "xla" (plain PyTorch, any operands) or "pallas"
-    (K-e; lane-shared coefficients, f32)."""
+    (K-e; lane-shared coefficients, f32). ``storage_dtype``: the lane
+    fields stored narrow ("xla" only)."""
     state = init_state(problem, a, b, rhs, mask=mask,
                        storage_dtype=storage_dtype)
     state, _ = advance(problem, a, b, rhs, state, mask=mask, stencil=stencil,
-                       chunk=chunk)
+                       chunk=chunk, storage_dtype=storage_dtype)
     return result_of(state)
 
 

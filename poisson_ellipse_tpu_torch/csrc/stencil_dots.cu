@@ -62,9 +62,28 @@
 // and sums column. So lane l's n and sums[:, l] are bitwise K-d's on that
 // lane. The coefficients are re-read for every lane, from L2 after the
 // first (1.9 MB at 401x601; 7.7 MB at 801x1201).
+//
+// K-h, the mixed-precision form, is this kernel with an f32 stencil input
+// m, a and b in the storage type (bf16 or f16), and up to eight distinct
+// pair operands all in the storage type. Every load is upcast exactly
+// (csrc/storage.cuh); the stencil, the products and the double sums are
+// K-d's, so n and the sums are bitwise K-d's on the upcast inputs.
+//
+// Replaces: poisson_ellipse_tpu/ops/pallas_kernels.py:
+// _stencil_dots_kernel_mixed (launched by apply_a_block_dots_mixed_pallas /
+// apply_a_dots_mixed_pallas), the storage-axis pipelined-pallas engine's
+// one pass per iteration (poisson_ellipse_tpu/ops/pipelined_pcg.py:
+// 194-218). The TPU kernel carries an f32 accumulator; here, as in K-d,
+// each product is rounded to f32 and summed in double, rounded once.
+//
+// What bounds it: bytes. m (4 B), a and b (2 x 2 B), out (4 B) and the
+// bundle's 5 distinct operands (5 x 2 B): 22 B a node, 169 MB at 2401x3201,
+// 50.5 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "storage.cuh"
 
 namespace {
 
@@ -79,8 +98,9 @@ constexpr int kMaxPairs = 8;
 
 // The pair operands, passed by value: each distinct tensor once, and for
 // each pair the indices of its two operands in ``ptr``.
+template <typename TX>
 struct Pairs {
-  const float* ptr[kMaxOperands];
+  const TX* ptr[kMaxOperands];
   int x[kMaxPairs];
   int y[kMaxPairs];
   int n_operands;
@@ -116,10 +136,13 @@ __device__ double block_sums(double (&acc)[kMaxPairs], int n_pairs,
   return s;
 }
 
+// TC: the type of a and b; TX: the type of the pair operands (float for K-d
+// and K-f)
+template <typename TC, typename TX>
 __global__ void __launch_bounds__(kThreads)
-stencil_dots_kernel(const float* __restrict__ w, const float* __restrict__ a,
-                    const float* __restrict__ b, float* __restrict__ out,
-                    const Pairs pairs, int x_ld, int x_off,
+stencil_dots_kernel(const float* __restrict__ w, const TC* __restrict__ a,
+                    const TC* __restrict__ b, float* __restrict__ out,
+                    const Pairs<TX> pairs, int x_ld, int x_off,
                     double* partials, int* ticket, float* sums, int bm,
                     int bn, int pad, float h1, float h2) {
   __shared__ double s_warp[kMaxPairs][kWarps];
@@ -152,17 +175,18 @@ stencil_dots_kernel(const float* __restrict__ w, const float* __restrict__ a,
     if (i >= 0 && i < bm && j >= 0 && j < bn) {
       const int64_t c = (int64_t)(i + 1) * ld + (j + 1);
       const float wc = w[c];
-      const float ax = -(a[c + ld] * (w[c + ld] - wc) / h1
-                         - a[c] * (wc - w[c - ld]) / h1) / h1;
-      const float ay = -(b[c + 1] * (w[c + 1] - wc) / h2
-                         - b[c] * (wc - w[c - 1]) / h2) / h2;
+      const float ax = -(up(a[c + ld]) * (w[c + ld] - wc) / h1
+                         - up(a[c]) * (wc - w[c - ld]) / h1) / h1;
+      const float ay = -(up(b[c + 1]) * (w[c + 1] - wc) / h2
+                         - up(b[c]) * (wc - w[c - 1]) / h2) / h2;
       val = ax + ay;
 
       const int64_t xi = x_off + (int64_t)i * x_ld + j;
       float v[kMaxOperands];
 #pragma unroll
       for (int o = 0; o < kMaxOperands; ++o) {
-        v[o] = o < pairs.n_operands ? pairs.ptr[o][x_lane + xi] : 0.0f;
+        v[o] = o < pairs.n_operands ? up(pairs.ptr[o][x_lane + xi])
+                                    : 0.0f;
       }
 #pragma unroll
       for (int p = 0; p < kMaxPairs; ++p) {
@@ -210,7 +234,8 @@ dim3 grid_of(int bm, int bn, int pad, int lanes = 1) {
 }
 
 // Checks the pair table and launches ``lanes`` lanes; see the entry points.
-int launch(const float* w, const float* a, const float* b, float* out,
+template <typename TC, typename TX>
+int launch(const float* w, const TC* a, const TC* b, float* out,
            const void* const* operands, int n_operands, const int* pair_x,
            const int* pair_y, int n_pairs, int x_ld, int x_off,
            double* partials, int* ticket, float* sums, int lanes, int bm,
@@ -219,9 +244,9 @@ int launch(const float* w, const float* a, const float* b, float* out,
       n_pairs > kMaxPairs || lanes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Pairs pairs{};
+  Pairs<TX> pairs{};
   for (int o = 0; o < n_operands; ++o) {
-    pairs.ptr[o] = static_cast<const float*>(operands[o]);
+    pairs.ptr[o] = static_cast<const TX*>(operands[o]);
   }
   for (int p = 0; p < n_pairs; ++p) {
     if (pair_x[p] < 0 || pair_x[p] >= n_operands || pair_y[p] < 0 ||
@@ -233,8 +258,9 @@ int launch(const float* w, const float* a, const float* b, float* out,
   }
   pairs.n_operands = n_operands;
   pairs.n_pairs = n_pairs;
-  stencil_dots_kernel<<<grid_of(bm, bn, pad, lanes), dim3(kBlockX, kBlockY),
-                        0, static_cast<cudaStream_t>(stream)>>>(
+  stencil_dots_kernel<TC, TX><<<grid_of(bm, bn, pad, lanes),
+                                dim3(kBlockX, kBlockY), 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       w, a, b, out, pairs, x_ld, x_off, partials, ticket, sums, bm, bn, pad,
       h1, h2);
   return static_cast<int>(cudaGetLastError());
@@ -261,9 +287,9 @@ int pe_stencil_dots_f32(const float* w, const float* a, const float* b,
                         int n_pairs, int x_ld, int x_off, double* partials,
                         int* ticket, float* sums, int bm, int bn, int pad,
                         float h1, float h2, void* stream) {
-  return launch(w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs,
-                x_ld, x_off, partials, ticket, sums, 1, bm, bn, pad, h1, h2,
-                stream);
+  return launch<float, float>(w, a, b, out, operands, n_operands, pair_x,
+                              pair_y, n_pairs, x_ld, x_off, partials, ticket,
+                              sums, 1, bm, bn, pad, h1, h2, stream);
 }
 
 // K-f: w, out and each operand hold ``lanes`` lanes back to back; partials
@@ -277,9 +303,37 @@ int pe_batched_stencil_dots_f32(const float* w, const float* a,
                                 double* partials, int* ticket, float* sums,
                                 int lanes, int bm, int bn, int pad, float h1,
                                 float h2, void* stream) {
-  return launch(w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs,
-                x_ld, x_off, partials, ticket, sums, lanes, bm, bn, pad, h1,
-                h2, stream);
+  return launch<float, float>(w, a, b, out, operands, n_operands, pair_x,
+                              pair_y, n_pairs, x_ld, x_off, partials, ticket,
+                              sums, lanes, bm, bn, pad, h1, h2, stream);
+}
+
+// K-h: w (the stencil input m) f32; a, b and every operand in the storage
+// type (bf16 or f16). Otherwise as pe_stencil_dots_f32.
+int pe_stencil_dots_mixed_bf16(const float* w, const __nv_bfloat16* a,
+                               const __nv_bfloat16* b, float* out,
+                               const void* const* operands, int n_operands,
+                               const int* pair_x, const int* pair_y,
+                               int n_pairs, int x_ld, int x_off,
+                               double* partials, int* ticket, float* sums,
+                               int bm, int bn, int pad, float h1, float h2,
+                               void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16>(
+      w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
+      x_off, partials, ticket, sums, 1, bm, bn, pad, h1, h2, stream);
+}
+
+int pe_stencil_dots_mixed_f16(const float* w, const __half* a,
+                              const __half* b, float* out,
+                              const void* const* operands, int n_operands,
+                              const int* pair_x, const int* pair_y,
+                              int n_pairs, int x_ld, int x_off,
+                              double* partials, int* ticket, float* sums,
+                              int bm, int bn, int pad, float h1, float h2,
+                              void* stream) {
+  return launch<__half, __half>(
+      w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
+      x_off, partials, ticket, sums, 1, bm, bn, pad, h1, h2, stream);
 }
 
 const char* pe_stencil_dots_error_string(int code) {

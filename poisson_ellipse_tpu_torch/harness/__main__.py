@@ -3,7 +3,7 @@
 The argv contract of ``python -m poisson_ellipse_tpu.harness``'s default
 command (``M N``, ``--grids``, ``--engine``, ``--dtype``, ``--norm``,
 ``--eps``, ``--delta``, ``--repeat``, ``--json``, ``--sstep-s``,
-``--lanes``), plus ``--device``. It
+``--lanes``, ``--storage-dtype``), plus ``--device``. It
 runs on the card unless ``--device cpu`` is given, and fails without one.
 
 Exit codes: 0 converged, 1 not converged within the iteration cap,
@@ -60,6 +60,13 @@ def main(argv=None) -> int:
                     help="run N independent solves in one loop on a batched "
                     "engine (auto resolves to batched when N > 1); reports "
                     "T_solver of the whole batch and solves/s")
+    ap.add_argument("--storage-dtype", choices=("bf16", "f16", "f32"),
+                    default=None, metavar="DT",
+                    help="store the state and the rounded operands in DT "
+                    "(bf16, f16 or f32) while every stencil and reduction "
+                    "runs at --dtype; on xla, pallas, the pipelined and "
+                    "sstep engines and batched. The raw narrow solve "
+                    "converges to the storage floor")
     ap.add_argument("--repeat", type=int, default=1,
                     help="timed solves; T_solver is their median")
     ap.add_argument("--device", default="cuda",
@@ -90,8 +97,9 @@ def main(argv=None) -> int:
                               norm=args.norm)
             report = run_once(problem, dtype=args.dtype, engine=args.engine,
                               repeat=args.repeat, device=args.device,
-                              sstep_s=args.sstep_s, lanes=args.lanes)
-        except ValueError as e:
+                              sstep_s=args.sstep_s, lanes=args.lanes,
+                              storage_dtype=args.storage_dtype)
+        except (ValueError, NotImplementedError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
         if args.json:

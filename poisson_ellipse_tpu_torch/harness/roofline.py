@@ -48,6 +48,12 @@ once; D⁻¹v reads v and D: 3; a stencil reads v, a, b: 4):
                      replacement r = rhs − Ax (7) once every 32
                      => 66.47 (s = 4), 74.72 (s = 2)
 
+With a storage dtype (``ops.precision``) a pass moves one array at the
+storage width (2 bytes for bf16 and f16), and the recurrences' replacement
+terms are amortised over ``replace_every(storage_dtype)`` (8) in place of
+32: ``pipelined-pallas`` 25/8 and the s-step 7/8. The plain PyTorch loops
+also upcast in passes of their own that the model does not count.
+
 The model counts unpadded node arrays and assumes each array streams
 once per use; the plain PyTorch loop (``xla``) moves more than that,
 since each of its operations is its own pass. The whole-solve engines'
@@ -62,6 +68,10 @@ from typing import Optional
 import torch
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.ops.precision import (
+    replace_every,
+    storage_itemsize,
+)
 
 # Published peak device-memory bandwidth by CUDA device name (bytes/s).
 _MEMORY_PEAK = {
@@ -81,28 +91,33 @@ def memory_peak_bytes_per_s(device=None) -> Optional[float]:
     return _MEMORY_PEAK.get(torch.cuda.get_device_name(dev))
 
 
-# the recurrence engines' terms, as the module docstring counts them
-_PIPELINED_UPDATE = 3.0 + 18.0 + 6.0 + 21.0 + 25.0 / 32
+# the recurrence engines' terms, as the module docstring counts them (the
+# replacement's 25 passes go on top, amortised over the cadence)
+_PIPELINED_UPDATE = 3.0 + 18.0 + 6.0 + 21.0
 _PIPELINED_STENCIL_DOTS = {"pipelined-pallas": 9.0, "pipelined": 4.0 + 16.0}
 
 
-def _sstep_passes(s: int) -> float:
+def _sstep_passes(s: int, cadence: int) -> float:
     K = 2 * s + 1
-    return (22.0 + 9.0 * (2 * s - 1) + 20.0 * K) / s + 7.0 / 32
+    return (22.0 + 9.0 * (2 * s - 1) + 20.0 * K) / s + 7.0 / cadence
 
 
 def passes_per_iter(engine: str, problem: Problem | None = None,
-                    capacity=None, sstep_s: int = 4) -> float:
+                    capacity=None, sstep_s: int = 4,
+                    storage_dtype=None, dtype=torch.float32) -> float:
     """Modelled array passes per PCG iteration for one engine; the
     streamed engine's depends on its plan for ``problem`` on
     ``capacity`` (None: the CPU's all-resident plan), the s-step
-    engines' on their block size ``sstep_s``."""
+    engines' on their block size ``sstep_s``, the recurrences' on the
+    replacement cadence of ``storage_dtype`` against ``dtype``."""
     if engine in ("xla", "pallas"):
         return 13.0
+    cadence = replace_every(storage_dtype, dtype)
     if engine in _PIPELINED_STENCIL_DOTS:
-        return _PIPELINED_UPDATE + _PIPELINED_STENCIL_DOTS[engine]
+        return (_PIPELINED_UPDATE + 25.0 / cadence
+                + _PIPELINED_STENCIL_DOTS[engine])
     if engine in ("sstep", "sstep-pallas"):
-        return _sstep_passes(sstep_s)
+        return _sstep_passes(sstep_s, cadence)
     if engine == "fused":
         return 17.0
     if engine == "resident":
@@ -123,13 +138,15 @@ def passes_per_iter(engine: str, problem: Problem | None = None,
 
 def roofline(problem: Problem, engine: str, iters: int, t_solver: float,
              dtype=torch.float32, device="cuda", capacity=None,
-             sstep_s: int = 4) -> dict:
+             sstep_s: int = 4, storage_dtype=None) -> dict:
     """{"passes_per_iter", "hbm_gbps", "hbm_peak_frac"} for a measured
-    solve. The rate is a device-memory rate, so it is None for a run on
-    the CPU; the fraction is None where the peak is unknown."""
+    solve, each pass at the storage width. The rate is a device-memory
+    rate, so it is None for a run on the CPU; the fraction is None where
+    the peak is unknown."""
     g1, g2 = problem.node_shape
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    passes = passes_per_iter(engine, problem, capacity, sstep_s)
+    itemsize = storage_itemsize(dtype, storage_dtype)
+    passes = passes_per_iter(engine, problem, capacity, sstep_s,
+                             storage_dtype, dtype)
     out = {"passes_per_iter": passes, "hbm_gbps": None, "hbm_peak_frac": None}
     if torch.device(device).type != "cuda" or t_solver <= 0:
         return out

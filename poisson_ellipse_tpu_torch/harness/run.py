@@ -12,6 +12,10 @@ harness). The report reduces the lanes as the JAX one does: iterations
 and step norm of the worst lane, converged only if every lane converged,
 breakdown if any lane broke down, the L2 error of lane 0, and
 ``solves_per_sec = lanes / T_solver``. A batched run reports no roofline.
+
+``storage_dtype`` ("bf16", "f16" or "f32") runs the storage-vs-compute
+split (``ops.precision``); the report carries it, and the roofline counts
+the bytes at the storage width.
 """
 
 from __future__ import annotations
@@ -63,6 +67,9 @@ class RunReport:
     lanes: int = 1
     solves_per_sec: float | None = None
     quarantined: int = 0
+    # the storage width of the state and operands when one was asked for
+    # ("bf16": ops.precision); None = storage == compute
+    storage_dtype: str | None = None
 
     def summary(self) -> str:
         p = self.problem
@@ -76,7 +83,10 @@ class RunReport:
         lines = [
             f"Grid: {p.M} x {p.N}  (h1={p.h1:.6g}, h2={p.h2:.6g}, "
             f"eps={p.eps_value:.6g}, delta={p.delta:g}, norm={p.norm})",
-            f"Device: {self.device}  dtype={self.dtype}  engine={self.engine}",
+            f"Device: {self.device}  dtype={self.dtype}"
+            + (f" (storage {self.storage_dtype})" if self.storage_dtype
+               else "")
+            + f"  engine={self.engine}",
             status,
             f"T_init   {self.t_init:10.4f} s",
             f"T_solver {self.t_solver:10.4f} s"
@@ -125,15 +135,19 @@ class RunReport:
             "hbm_peak_frac": self.hbm_peak_frac,
             **({"lanes": self.lanes, "solves_per_sec": self.solves_per_sec,
                 "quarantined": self.quarantined} if self.lanes > 1 else {}),
+            **({"storage_dtype": self.storage_dtype}
+               if self.storage_dtype else {}),
         }
 
 
 def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
              engine: str = "auto", repeat: int = 1,
-             device=None, sstep_s: int = 4, lanes: int = 1) -> RunReport:
+             device=None, sstep_s: int = 4, lanes: int = 1,
+             storage_dtype: str | None = None) -> RunReport:
     """Assemble, warm up, and time ``repeat`` solves on one device;
     ``sstep_s`` is the s-step engines' block size, ``lanes`` the number of
-    solves a batched engine runs together."""
+    solves a batched engine runs together, ``storage_dtype`` the narrow
+    width the state and operands are stored at."""
     if mode not in ("single", "auto"):
         raise unported(f"mode={mode!r}", "Queue A item 12")
     if dtype not in DTYPES:
@@ -149,7 +163,8 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
     with timer.phase("init"):
         solver, args, engine = build_solver(problem, engine, tdtype, dev,
                                             capacity=cap, sstep_s=sstep_s,
-                                            lanes=lanes)
+                                            lanes=lanes,
+                                            storage_dtype=storage_dtype)
     result = solver(*args)  # warm-up: builds the kernels on first use
     times = []
     for _ in range(repeat):
@@ -178,7 +193,7 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
     roof = (dict(passes_per_iter=0.0, hbm_gbps=None, hbm_peak_frac=None)
             if batched else
             roofline(problem, engine, iters, t_solver, tdtype, dev, cap,
-                     sstep_s))
+                     sstep_s, storage_dtype))
     return RunReport(
         problem=problem,
         mesh_shape=(1, 1),
@@ -199,5 +214,6 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
         solves_per_sec=(lanes / t_solver if batched and t_solver > 0
                         else None),
         quarantined=int(result.quarantined.sum()) if batched else 0,
+        storage_dtype=storage_dtype,
         **roof,
     )

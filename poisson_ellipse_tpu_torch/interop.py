@@ -3,7 +3,10 @@ same inputs: operands, and the classical, pipelined and batched carries.
 
 The arguments are numpy arrays (or anything ``numpy.asarray`` accepts,
 such as a JAX array): this module imports neither JAX nor the JAX
-package.
+package. A narrow carry (the storage axis) keeps its dtype: JAX's bf16
+arrays reach numpy as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+does not take, so they cross bit for bit as 16-bit words
+(``tensor_from_numpy``).
 """
 
 from __future__ import annotations
@@ -14,6 +17,22 @@ import torch
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import assembly
 from poisson_ellipse_tpu_torch.utils.device import resolve_device
+
+
+# numpy's names of the 2-byte floats, and their torch dtypes
+_NARROW = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def tensor_from_numpy(x) -> torch.Tensor:
+    """A writable CPU tensor holding ``x``'s values in its own dtype. A
+    bf16 or f16 array is carried across bit for bit through its 16-bit
+    words, since numpy's bfloat16 (``ml_dtypes``) has no torch
+    counterpart that ``torch.from_numpy`` accepts."""
+    x = np.array(x)  # a writable copy, 0-dim kept
+    narrow = _NARROW.get(x.dtype.name)
+    if narrow is not None:
+        return torch.from_numpy(x.view(np.uint16)).view(narrow)
+    return torch.from_numpy(x)
 
 
 def strip_padding(problem: Problem, x) -> np.ndarray:
@@ -88,7 +107,8 @@ def _carry(state, names, problem: Problem, device, dtype) -> dict:
     iteration counter k and the per-lane counts ``iters`` as int32, the
     flags as bool (0-dim, or (B,) in a batched carry), the (M+1, N+1) or
     (B, M+1, N+1) arrays and the scalars in their own dtype unless
-    ``dtype`` is given."""
+    ``dtype`` is given; a narrow (bf16 or f16) array keeps its dtype
+    whatever ``dtype`` says, so a stored carry resumes with its bits."""
     state = tuple(state)
     if len(state) != len(names):
         raise ValueError(f"expected a {len(names)}-field carry "
@@ -107,8 +127,8 @@ def _carry(state, names, problem: Problem, device, dtype) -> dict:
             if x.ndim >= 2 and x.shape[-2:] != problem.node_shape:
                 raise ValueError(f"{name} is {x.shape}, expected "
                                  f"{problem.node_shape}")
-            t = torch.from_numpy(np.array(x))  # a writable copy, 0-dim kept
-            if dtype is not None:
+            t = tensor_from_numpy(x)
+            if dtype is not None and t.dtype not in _NARROW.values():
                 t = t.to(dtype)
         out[name] = t.to(dev)
     return out
@@ -118,7 +138,8 @@ def pipelined_state_from_reference(problem: Problem, state, *, device=None,
                                    dtype=None):
     """The port's ``PipelinedState`` from the JAX pipelined carry
     (k, x, r, u, w, z, s, p, γ₋₁, diff, converged, breakdown), so the port
-    can advance a carry the JAX package began."""
+    can advance a carry the JAX package began (a narrow one too: advance
+    it with the same ``storage_dtype``)."""
     from poisson_ellipse_tpu_torch.ops.pipelined_pcg import PipelinedState
 
     return PipelinedState(**_carry(state, PipelinedState._fields, problem,
@@ -129,7 +150,7 @@ def pcg_state_from_reference(problem: Problem, state, *, device=None,
                              dtype=None):
     """The port's ``PCGState`` from the JAX classical carry
     (k, x, r, p, zr, diff, converged, breakdown), which the s-step engine
-    shares."""
+    shares; a narrow carry keeps its storage dtype."""
     from poisson_ellipse_tpu_torch.solver.pcg import PCGState
 
     return PCGState(**_carry(state, PCGState._fields, problem, device,
@@ -143,7 +164,8 @@ def batched_state_from_reference(problem: Problem, state, engine: str, *,
     "batched-pallas") a ``BatchedPCGState`` from (k, w, r, p, zr, diff,
     converged, breakdown, quarantined, iters); for "batched-pipelined" (or
     its "-pallas" form) a ``BatchedPipelinedState`` from the 14-field
-    carry. Flags become (B,) bool, iters (B,) int32."""
+    carry. Flags become (B,) bool, iters (B,) int32; narrow lane fields
+    keep their storage dtype."""
     from poisson_ellipse_tpu_torch.batch.batched_pcg import BatchedPCGState
     from poisson_ellipse_tpu_torch.batch.batched_pipelined import (
         BatchedPipelinedState,

@@ -15,12 +15,21 @@ kernels are ported:
   once a body of ``batched-pallas``, for w₀ and the rebuilds of
   ``batched-pipelined-pallas``;
 - ``_batched_stencil_dots_kernel`` as K-f (``csrc/stencil_dots.cu``, K-d
-  with the lane on the grid): once a body of ``batched-pipelined-pallas``.
+  with the lane on the grid): once a body of ``batched-pipelined-pallas``;
+- ``_stencil_kernel_mixed`` as K-g (``csrc/stencil.cu``, K-a with typed
+  loads): the storage axis's stencil, w in the storage dtype or f32, a and
+  b in the storage dtype, out f32; once a body of ``pallas`` with
+  ``storage_dtype``, in the rebuilds of ``pipelined-pallas`` and in the
+  basis chain of ``sstep-pallas``;
+- ``_stencil_dots_kernel_mixed`` as K-h (``csrc/stencil_dots.cu``, K-d
+  with typed loads): f32 m, a, b and the pair operands in the storage
+  dtype; once a body of ``pipelined-pallas`` with ``storage_dtype``.
 
 The other kernels of that module are still queued (ROADMAP Queue B).
 
 The plain versions index the last two axes only (``ops.stencil``), so the
-same plain function serves one grid and a (B, ·, ·) stack of lanes.
+same plain function serves one grid and a (B, ·, ·) stack of lanes. The
+mixed ones are K-a's and K-d's on the exactly upcast inputs.
 
 Each wrapper takes the plain PyTorch version only for tensors on the CPU.
 For a CUDA tensor it launches the kernel or raises; there is no fallback.
@@ -41,6 +50,12 @@ KERNEL = "stencil"
 DOTS_KERNEL = "stencil_dots"
 BATCHED_KERNEL = "batched_stencil"
 BATCHED_DOTS_KERNEL = "batched_stencil_dots"
+# K-g and K-h live in the libraries of K-a and K-d
+MIXED_KERNEL = "stencil_mixed"
+MIXED_DOTS_KERNEL = "stencil_dots_mixed"
+
+# the storage dtypes K-g and K-h load, by their names in the C entry points
+_STORAGE_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 # K-d takes at most this many distinct pair operands and pairs
 MAX_OPERANDS = 8
@@ -52,6 +67,9 @@ _SIGNATURES = {
     "pe_stencil_f32": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P]),
     # w, a, b, out, lanes, bm, bn, pad, h1, h2, stream
     "pe_batched_stencil_f32": (_I, [_P] * 4 + [_I] * 4 + [_F, _F, _P]),
+    # K-g: pe_stencil_f32's arguments, w and a, b of the named types
+    **{f"pe_stencil_mixed_{w}_{ab}": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P])
+       for ab in ("bf16", "f16") for w in (ab, "f32")},
 }
 _DOTS_SIGNATURES = {
     "pe_stencil_dots_error_string": (ctypes.c_char_p, [_I]),
@@ -64,6 +82,11 @@ _DOTS_SIGNATURES = {
     "pe_batched_stencil_dots_f32": (_I, [_P] * 5 + [_I] + [_P] * 2
                                     + [_I] * 3 + [_P] * 3 + [_I] * 4
                                     + [_F, _F, _P]),
+    # K-h: pe_stencil_dots_f32's arguments, a, b and the operands narrow
+    **{f"pe_stencil_dots_mixed_{st}": (_I, [_P] * 5 + [_I] + [_P] * 2
+                                       + [_I] * 3 + [_P] * 3 + [_I] * 3
+                                       + [_F, _F, _P])
+       for st in ("bf16", "f16")},
 }
 
 
@@ -260,9 +283,13 @@ def distinct_operands(pairs) -> tuple[list, list, list]:
     return operands, xs, ys
 
 
-def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False):
-    """K-d, or with ``lanes`` K-f over the (B, ·, ·) stacks w and operands."""
-    kernel = BATCHED_DOTS_KERNEL if lanes else DOTS_KERNEL
+def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False,
+                 symbol: str | None = None, kernel: str | None = None):
+    """K-d, or with ``lanes`` K-f over the (B, ·, ·) stacks w and operands;
+    or K-h, the entry ``symbol`` counted as ``kernel``, whose inputs the
+    caller has checked, with every operand in a's dtype."""
+    if kernel is None:
+        kernel = BATCHED_DOTS_KERNEL if lanes else DOTS_KERNEL
     if len(pairs) > MAX_PAIRS:
         raise ValueError(f"{kernel}: at most {MAX_PAIRS} pairs, got "
                          f"{len(pairs)}")
@@ -270,25 +297,27 @@ def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False):
     if len(operands) > MAX_OPERANDS:
         raise ValueError(f"{kernel}: at most {MAX_OPERANDS} distinct "
                          f"operands, got {len(operands)}")
-    _check_stencil_inputs(kernel, w, a, b, lanes)
+    if symbol is None:
+        _check_stencil_inputs(kernel, w, a, b, lanes)
     bm, bn = w.shape[-2] - 2, w.shape[-1] - 2
     lead = tuple(w.shape[:1]) if lanes else ()
     x_shape = lead + (bm + 2 * pad, bn + 2 * pad)
     for t in operands:
-        if (t.device != w.device or t.dtype != w.dtype
+        if (t.device != w.device or t.dtype != a.dtype
                 or tuple(t.shape) != x_shape or not t.is_contiguous()):
             raise ValueError(
                 f"{kernel}: a pair operand is {t.dtype} "
                 f"{tuple(t.shape)} on {t.device} (contiguous="
-                f"{t.is_contiguous()}); expected contiguous {w.dtype} "
+                f"{t.is_contiguous()}); expected contiguous {a.dtype} "
                 f"{x_shape} on {w.device}")
     n_lanes = w.shape[0] if lanes else 1
     x_ld = bn + 2 * pad
     x_off = pad * (x_ld + 1)
     lib = _build.load(DOTS_KERNEL, _DOTS_SIGNATURES)
     nblocks = lib.pe_stencil_dots_blocks(bm, bn, pad)
-    out = torch.empty(x_shape, dtype=w.dtype, device=w.device)
-    sums = torch.empty((len(pairs),) + lead, dtype=w.dtype, device=w.device)
+    out = torch.empty(x_shape, dtype=torch.float32, device=w.device)
+    sums = torch.empty((len(pairs),) + lead, dtype=torch.float32,
+                       device=w.device)
     partials = torch.empty(len(pairs) * nblocks * n_lanes,
                            dtype=torch.float64, device=w.device)
     # the last-block tickets, one a lane: 0 before the launch
@@ -304,7 +333,158 @@ def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False):
     if lanes:
         rc = lib.pe_batched_stencil_dots_f32(*head, n_lanes, *tail)
     else:
-        rc = lib.pe_stencil_dots_f32(*head, *tail)
+        rc = getattr(lib, symbol or "pe_stencil_dots_f32")(*head, *tail)
     _build.check(lib.pe_stencil_dots_error_string, kernel, rc)
     _build.count_launch(kernel)
     return out, sums
+
+
+# -- the storage axis: K-g and K-h -----------------------------------------
+#
+# Like the JAX mixed kernels, each takes the compute dtype: its plain version
+# computes in it, on the exactly upcast inputs. The CUDA kernels compute in
+# f32, the width of every engine that launches them.
+
+
+def _check_compute(kernel: str, compute_dtype) -> None:
+    if compute_dtype != torch.float32:
+        raise ValueError(f"{kernel}: the kernel computes in float32, got "
+                         f"compute_dtype {compute_dtype}")
+
+
+def apply_a_mixed_block_plain(w_ext, a_s, b_s, h1: float, h2: float,
+                              compute_dtype=torch.float32):
+    """The plain version of K-g in block layout: K-a's on the inputs upcast
+    to ``compute_dtype``, (bm+2, bn+2) → (bm, bn)."""
+    return apply_a_block_plain(*(x.to(compute_dtype) for x in
+                                 (w_ext, a_s, b_s)), h1, h2)
+
+
+def apply_a_mixed_plain(w, a_s, b_s, h1: float, h2: float,
+                        compute_dtype=torch.float32):
+    """The plain version of K-g on the full grid (zero ring)."""
+    return apply_a_plain(*(x.to(compute_dtype) for x in (w, a_s, b_s)), h1,
+                         h2)
+
+
+def apply_a_mixed_block_kernel(w_ext, a_s, b_s, h1: float, h2: float,
+                               compute_dtype=torch.float32):
+    """Mixed A·w over a halo-extended block: w in the storage dtype or
+    f32, a and b in the storage dtype (bf16 or f16), (bm+2, bn+2) →
+    (bm, bn) at compute width. The port of ``apply_a_block_mixed_pallas``."""
+    if w_ext.device.type == "cpu":
+        return apply_a_mixed_block_plain(w_ext, a_s, b_s, h1, h2,
+                                         compute_dtype)
+    _check_compute(MIXED_KERNEL, compute_dtype)
+    return _launch_mixed(w_ext, a_s, b_s, h1, h2, pad=0)
+
+
+def apply_a_mixed_kernel(w, a_s, b_s, h1: float, h2: float,
+                         compute_dtype=torch.float32):
+    """The full-grid form of K-g: A·w at compute width with a zero ring,
+    from narrow inputs. The port of ``apply_a_mixed_pallas``."""
+    if w.device.type == "cpu":
+        return apply_a_mixed_plain(w, a_s, b_s, h1, h2, compute_dtype)
+    _check_compute(MIXED_KERNEL, compute_dtype)
+    return _launch_mixed(w, a_s, b_s, h1, h2, pad=1)
+
+
+def _check_mixed_inputs(kernel: str, w, a, b) -> str:
+    """Raise unless a and b are one contiguous block of w's shape in a
+    storage dtype K-g and K-h load, and w is a contiguous block of at least
+    3x3 on their device in that dtype or f32. Returns the storage name."""
+    st = _STORAGE_NAMES.get(a.dtype)
+    if st is None or b.dtype != a.dtype:
+        raise ValueError(f"{kernel}: a and b must be one of "
+                         f"{sorted(map(str, _STORAGE_NAMES))}, got "
+                         f"{a.dtype} and {b.dtype}")
+    if w.dtype not in (a.dtype, torch.float32):
+        raise ValueError(f"{kernel}: w must be {a.dtype} or float32, got "
+                         f"{w.dtype}")
+    for name, t in (("a", a), ("b", b)):
+        if t.device != w.device or t.shape != w.shape:
+            raise ValueError(
+                f"{kernel}: {name} is {tuple(t.shape)} on {t.device}; w is "
+                f"{tuple(w.shape)} on {w.device}")
+    if w.dim() != 2 or w.shape[0] < 3 or w.shape[1] < 3:
+        raise ValueError(f"{kernel}: need a 2-D block of at least 3x3, got "
+                         f"{tuple(w.shape)}")
+    if not (w.is_contiguous() and a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{kernel}: inputs must be contiguous")
+    return st
+
+
+def _launch_mixed(w, a, b, h1, h2, pad: int):
+    st = _check_mixed_inputs(MIXED_KERNEL, w, a, b)
+    w_name = "f32" if w.dtype == torch.float32 else st
+    bm, bn = w.shape[0] - 2, w.shape[1] - 2
+    out = torch.empty((bm + 2 * pad, bn + 2 * pad), dtype=torch.float32,
+                      device=w.device)
+    lib = _build.load(KERNEL, _SIGNATURES)
+    rc = getattr(lib, f"pe_stencil_mixed_{w_name}_{st}")(
+        w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), bm, bn,
+        pad, h1, h2, _build.stream_handle(w.device),
+    )
+    _build.check(lib.pe_stencil_error_string, MIXED_KERNEL, rc)
+    _build.count_launch(MIXED_KERNEL)
+    return out
+
+
+def _upcast_pairs(pairs, compute_dtype) -> tuple:
+    """Each pair with both operands upcast to ``compute_dtype``."""
+    return tuple((x.to(compute_dtype), y.to(compute_dtype))
+                 for x, y in _pair_tuple(pairs))
+
+
+def apply_a_dots_mixed_block_plain(m_ext, a_s, b_s, h1: float, h2: float,
+                                   pairs, compute_dtype=torch.float32):
+    """The plain version of K-h in block layout: K-d's on the inputs
+    upcast to ``compute_dtype``, each product rounded there, summed in
+    double, rounded once."""
+    return apply_a_block_dots_plain(
+        *(x.to(compute_dtype) for x in (m_ext, a_s, b_s)), h1, h2,
+        _upcast_pairs(pairs, compute_dtype))
+
+
+def apply_a_dots_mixed_plain(m, a_s, b_s, h1: float, h2: float, pairs,
+                             compute_dtype=torch.float32):
+    """The plain version of K-h on the full grid."""
+    return apply_a_dots_plain(*(x.to(compute_dtype) for x in (m, a_s, b_s)),
+                              h1, h2, _upcast_pairs(pairs, compute_dtype))
+
+
+def apply_a_block_dots_mixed_kernel(m_ext, a_s, b_s, h1: float, h2: float,
+                                    pairs, compute_dtype=torch.float32):
+    """Mixed A·m over a halo-extended block and the raw sums Σ xⱼ·yⱼ of
+    ``pairs`` of (bm, bn) storage-dtype arrays in one pass, at compute
+    width: the port of ``apply_a_block_dots_mixed_pallas``. Returns
+    ``(n, sums)``."""
+    pairs = _pair_tuple(pairs)
+    if m_ext.device.type == "cpu":
+        return apply_a_dots_mixed_block_plain(m_ext, a_s, b_s, h1, h2, pairs,
+                                              compute_dtype)
+    return _launch_dots_mixed(m_ext, a_s, b_s, h1, h2, pairs, 0,
+                              compute_dtype)
+
+
+def apply_a_dots_mixed_kernel(m, a_s, b_s, h1: float, h2: float, pairs,
+                              compute_dtype=torch.float32):
+    """The full-grid form of K-h: A·m with a zero ring and the raw sums
+    over the interior of full-grid storage-dtype pair operands, at
+    compute width: the port of ``apply_a_dots_mixed_pallas``."""
+    pairs = _pair_tuple(pairs)
+    if m.device.type == "cpu":
+        return apply_a_dots_mixed_plain(m, a_s, b_s, h1, h2, pairs,
+                                        compute_dtype)
+    return _launch_dots_mixed(m, a_s, b_s, h1, h2, pairs, 1, compute_dtype)
+
+
+def _launch_dots_mixed(m, a, b, h1, h2, pairs, pad: int, compute_dtype):
+    _check_compute(MIXED_DOTS_KERNEL, compute_dtype)
+    if m.dtype != torch.float32:
+        raise ValueError(f"{MIXED_DOTS_KERNEL}: the stencil input must be "
+                         f"float32, got {m.dtype}")
+    st = _check_mixed_inputs(MIXED_DOTS_KERNEL, m, a, b)
+    return _launch_dots(m, a, b, h1, h2, pairs, pad,
+                        symbol=f"pe_stencil_dots_mixed_{st}",
+                        kernel=MIXED_DOTS_KERNEL)

@@ -35,6 +35,13 @@ nothing: unlike the classical loop, α = 0 would not freeze this state
 (z⁺ = n + βz still moves), so every carried field is masked by
 ``active`` and by the breakdown exit, which discards the iteration's
 update. Chunked and straight runs then agree bitwise in every field.
+
+``storage_dtype`` (``ops.precision``) stores the carry's seven vectors
+narrow, rebuilds every ``replace_every(storage_dtype)`` iterations (8 under
+bf16 or f16) and rounds a, b and D once. m = D⁻¹w stays at compute width.
+``"pallas"`` then runs K-h (``apply_a_dots_mixed_kernel``) on m and the
+stored bundle operands, and K-g for the rebuilds. w₀ is A·u₀ at full
+width (K-a for ``"pallas"``), as in the JAX ``init_state``.
 """
 
 from __future__ import annotations
@@ -45,6 +52,12 @@ import torch
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import assembly
+from poisson_ellipse_tpu_torch.ops.precision import (
+    load,
+    replace_every,
+    resolve_storage_dtype,
+    store,
+)
 from poisson_ellipse_tpu_torch.ops.reduction import grid_dots
 from poisson_ellipse_tpu_torch.ops.stencil import apply_dinv, diag_d, spacing
 from poisson_ellipse_tpu_torch.solver.pcg import (
@@ -54,13 +67,13 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     reject_unported,
     run_chunked,
     stencil_fn,
+    stored_operands,
 )
 from poisson_ellipse_tpu_torch.utils.device import resolve_device
 
-# Residual-replacement period (iterations); the JAX package's f32 and
-# f64 cadence (``ops.precision.replace_every`` there, with no storage
-# dtype).
-REPLACE_EVERY = 32
+# Residual-replacement period (iterations) with no storage dtype: the JAX
+# package's f32 and f64 cadence (``ops.precision.replace_every``)
+REPLACE_EVERY = replace_every()
 
 
 class PipelinedState(NamedTuple):
@@ -80,8 +93,19 @@ class PipelinedState(NamedTuple):
     breakdown: torch.Tensor
 
 
-def _stencil_and_dots_fn(problem: Problem, a, b, h1, h2, stencil: str):
-    """(n, raw bundle sums) for m and the carried (r, u, w, s, p)."""
+def _stencil_and_dots_fn(problem: Problem, a, b, h1, h2, stencil: str,
+                         storage_dtype=None):
+    """(n, raw bundle sums) for m and the carried (r, u, w, s, p); with
+    ``storage_dtype`` and "pallas" the bundle operands are the stored ones
+    and ``a``, ``b`` the stored coefficients (K-h)."""
+    if stencil == "pallas" and storage_dtype is not None:
+        from poisson_ellipse_tpu_torch.ops.hopper_kernels import (
+            apply_a_dots_mixed_kernel,
+        )
+
+        return lambda m, r, u, w, s, p: apply_a_dots_mixed_kernel(
+            m, a, b, problem.h1, problem.h2, _bundle(r, u, w, s, p),
+            h1.dtype)
     if stencil == "pallas":
         from poisson_ellipse_tpu_torch.ops.hopper_kernels import (
             apply_a_dots_kernel,
@@ -89,7 +113,7 @@ def _stencil_and_dots_fn(problem: Problem, a, b, h1, h2, stencil: str):
 
         return lambda m, r, u, w, s, p: apply_a_dots_kernel(
             m, a, b, problem.h1, problem.h2, _bundle(r, u, w, s, p))
-    apply_stencil = stencil_fn(problem, a, b, h1, h2, stencil)
+    apply_stencil = stencil_fn(problem, a, b, h1, h2, stencil, storage_dtype)
     return lambda m, r, u, w, s, p: (apply_stencil(m),
                                      grid_dots(*_bundle(r, u, w, s, p)))
 
@@ -110,20 +134,22 @@ def init_state(problem: Problem, a, b, rhs, stencil: str = "xla",
     """The pipelined carry at iteration 0: x = 0, r = rhs, u = D⁻¹r,
     w = A·u (the one stencil application outside the loop), z = s = p = 0
     (β = 0 in the first iteration rebuilds them), γ₋₁ = 1 (it divides
-    only under that β = 0), diff = inf."""
+    only under that β = 0), diff = inf. With ``storage_dtype`` the seven
+    vectors are stored in it (u₀ and w₀ computed at full width first)."""
     reject_unported(history, storage_dtype=storage_dtype)
+    st = resolve_storage_dtype(storage_dtype, rhs.dtype)
     dtype, dev = rhs.dtype, rhs.device
     h1, h2 = spacing(problem.h1, rhs), spacing(problem.h2, rhs)
     d = diag_d(a, b, h1, h2)
     u0 = apply_dinv(rhs, d)
     w0 = stencil_fn(problem, a, b, h1, h2, stencil)(u0)
-    zeros = torch.zeros_like(rhs)
+    zeros = torch.zeros_like(rhs, dtype=st or dtype)
     return PipelinedState(
         k=torch.zeros((), dtype=torch.int32, device=dev),
         x=zeros,
-        r=rhs,
-        u=u0,
-        w=w0,
+        r=store(rhs, st),
+        u=store(u0, st),
+        w=store(w0, st),
         z=zeros,
         s=zeros,
         p=zeros,
@@ -134,36 +160,53 @@ def init_state(problem: Problem, a, b, rhs, stencil: str = "xla",
     )
 
 
-def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla"):
+def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
+              storage_dtype=None):
     """One pipelined iteration as ``body(state, k)``, where ``k`` is the
     iteration the host expects the body to run (exact while the loop is
     active, and irrelevant after it has exited, when the body is a
     no-op)."""
+    dtype = rhs.dtype
+    sd = resolve_storage_dtype(storage_dtype, dtype)
+    cadence = replace_every(sd, dtype)
     h1, h2 = spacing(problem.h1, rhs), spacing(problem.h2, rhs)
     hw = h1 * h2
     delta = spacing(problem.delta, rhs)
     weighted = problem.norm == "weighted"
-    one = torch.ones((), dtype=rhs.dtype, device=rhs.device)
-    d = diag_d(a, b, h1, h2)
-    apply_stencil = stencil_fn(problem, a, b, h1, h2, stencil)
-    stencil_and_dots = _stencil_and_dots_fn(problem, a, b, h1, h2, stencil)
+    one = torch.ones((), dtype=dtype, device=rhs.device)
+    a_s, b_s, d_s = stored_operands(a, b, diag_d(a, b, h1, h2), sd)
+    d = load(d_s, dtype, sd)
+    apply_stencil = stencil_fn(problem, a_s, b_s, h1, h2, stencil, sd)
+    stencil_and_dots = _stencil_and_dots_fn(problem, a_s, b_s, h1, h2,
+                                            stencil, sd)
+    # K-h reads the bundle at storage width; every other form at compute
+    # width
+    narrow_bundle = sd is not None and stencil == "pallas"
 
     def dinv(v):
         return apply_dinv(v, d)
 
     def body(st: PipelinedState, k: int) -> PipelinedState:
         active = (st.k < limit) & ~st.converged & ~st.breakdown
-        r, u, w, z, s = st.r, st.u, st.w, st.z, st.s
-        if k > 0 and k % REPLACE_EVERY == 0:
+        x, r, u, w, z, s, p = (load(v, dtype, sd) for v in
+                               (st.x, st.r, st.u, st.w, st.z, st.s, st.p))
+        # the stored bundle operands: the carried tensors themselves
+        # (store(load(v)) == v), rounded anew only where rebuilt
+        bundle = (st.r, st.u, st.w, st.s, st.p)
+        if k > 0 and k % cadence == 0:
             # residual replacement: rebuild the recurrence-maintained
             # vectors from the ground-truth x and p
-            r = rhs - apply_stencil(st.x)
+            r = rhs - apply_stencil(x)
             u = dinv(r)
-            s = apply_stencil(st.p)
+            s = apply_stencil(p)
             w = apply_stencil(u)
             z = apply_stencil(dinv(s))
+            bundle = tuple(store(v, sd) for v in (r, u, w, s)) + (st.p,)
         m = dinv(w)
-        n, sums = stencil_and_dots(m, r, u, w, s, st.p)
+        if narrow_bundle:
+            n, sums = stencil_and_dots(m, *bundle)
+        else:
+            n, sums = stencil_and_dots(m, r, u, w, s, p)
         gamma = sums[0] * hw
         wu, wp, su, sp = sums[1], sums[2], sums[3], sums[4]
         uu, up, pp = sums[5], sums[6], sums[7]
@@ -175,8 +218,8 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla"):
 
         z_new = n + beta * z
         s_new = w + beta * s
-        p_new = u + beta * st.p
-        x_new = st.x + alpha * p_new
+        p_new = u + beta * p
+        x_new = x + alpha * p_new
         r_new = r - alpha * s_new
         u_new = u - alpha * dinv(s_new)
         w_new = w - alpha * z_new
@@ -191,7 +234,7 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla"):
         upd = active & ~breakdown
 
         def keep(old, new):
-            return torch.where(upd, new, old)
+            return torch.where(upd, store(new, sd), old)
 
         return PipelinedState(
             k=st.k + active.to(st.k.dtype),
@@ -202,8 +245,8 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla"):
             z=keep(st.z, z_new),
             s=keep(st.s, s_new),
             p=keep(st.p, p_new),
-            gamma_prev=keep(st.gamma_prev, gamma),
-            diff=keep(st.diff, diff),
+            gamma_prev=torch.where(upd, gamma, st.gamma_prev),
+            diff=torch.where(upd, diff, st.diff),
             converged=st.converged | (active & converged),
             breakdown=st.breakdown | (active & breakdown),
         )
@@ -218,11 +261,12 @@ def advance(problem: Problem, a, b, rhs, state: PipelinedState, limit=None,
     iteration ``limit`` (default ``max_iterations``). Returns (new carry,
     host reads). Chunked runs (limit = k, k + K, …; any ``chunk``) are
     bitwise equal to one straight run: the replacement is keyed on the
-    iteration counter, not on where the host looks."""
+    iteration counter, not on where the host looks. ``storage_dtype`` must
+    be the one the carry was made with."""
     reject_unported(history, storage_dtype=storage_dtype)
     cap = problem.max_iterations
     limit = cap if limit is None else min(int(limit), cap)
-    body = make_body(problem, a, b, rhs, limit, stencil)
+    body = make_body(problem, a, b, rhs, limit, stencil, storage_dtype)
     carry = [state]
 
     def step(k: int):
@@ -248,11 +292,13 @@ def pcg_pipelined(problem: Problem, a, b, rhs, stencil: str = "xla",
                   storage_dtype=None) -> PCGResult:
     """Run pipelined PCG on pre-assembled (M+1, N+1) tensors on their
     device. stencil: "xla" (plain PyTorch) or "pallas" (K-d once per
-    iteration, K-a for w₀ and the rebuilds; f32)."""
+    iteration, K-a for w₀ and the rebuilds; f32; with ``storage_dtype``
+    K-h once per iteration and K-g for the rebuilds)."""
     reject_unported(history, storage_dtype=storage_dtype)
-    state = init_state(problem, a, b, rhs, stencil=stencil)
+    state = init_state(problem, a, b, rhs, stencil=stencil,
+                       storage_dtype=storage_dtype)
     state, _ = advance(problem, a, b, rhs, state, stencil=stencil,
-                       chunk=chunk)
+                       chunk=chunk, storage_dtype=storage_dtype)
     return result_of(state)
 
 
@@ -264,4 +310,5 @@ def solve(problem: Problem, dtype: torch.dtype = torch.float32,
     reject_unported(history, storage_dtype=storage_dtype)
     dev = resolve_device(device)
     a, b, rhs = assembly.assemble(problem, dtype, dev)
-    return pcg_pipelined(problem, a, b, rhs, stencil=stencil, chunk=chunk)
+    return pcg_pipelined(problem, a, b, rhs, stencil=stencil, chunk=chunk,
+                         storage_dtype=storage_dtype)

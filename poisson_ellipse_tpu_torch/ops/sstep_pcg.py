@@ -25,6 +25,13 @@ run matches a straight one in its iteration count, not bitwise, as in the
 JAX engine). A body the host issues after the loop has exited changes no
 field: its outputs are masked by whether the loop was active when it
 started.
+
+``storage_dtype`` (``ops.precision``) stores the carry's x, r and p narrow
+and loads them at compute width in each body; the replacement cadence is
+``replace_every(storage_dtype)`` (8 under bf16 or f16, which divides both
+block sizes), a replaced block also restarts p = z (the JAX engine's
+measured answer to the drift a narrow basis brings), a, b and D are
+rounded once, and ``"pallas"`` runs K-g in the basis chain.
 """
 
 from __future__ import annotations
@@ -35,6 +42,12 @@ import torch
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import assembly
 from poisson_ellipse_tpu_torch.ops.pipelined_pcg import REPLACE_EVERY
+from poisson_ellipse_tpu_torch.ops.precision import (
+    load,
+    replace_every,
+    resolve_storage_dtype,
+    store,
+)
 from poisson_ellipse_tpu_torch.ops.stencil import apply_dinv, diag_d, spacing
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
@@ -46,6 +59,7 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     result_of,
     run_chunked,
     stencil_fn,
+    stored_operands,
 )
 from poisson_ellipse_tpu_torch.utils.device import resolve_device
 
@@ -152,18 +166,21 @@ def replaces(k: int, s: int, cadence: int = REPLACE_EVERY) -> bool:
 
 
 def make_body(problem: Problem, a, b, rhs, limit: int, s: int = DEFAULT_S,
-              stencil: str = "xla"):
+              stencil: str = "xla", storage_dtype=None):
     """One s-step block as ``body(state, k)``, ``k`` being the iteration
     the host expects the block to start at."""
     if s not in SSTEP_CHOICES:
         raise ValueError(f"s must be one of {SSTEP_CHOICES}, got {s}")
     dtype = rhs.dtype
+    sd = resolve_storage_dtype(storage_dtype, dtype)
+    cadence = replace_every(sd, dtype)
     h1, h2 = spacing(problem.h1, rhs), spacing(problem.h2, rhs)
     hw = h1 * h2
     delta = spacing(problem.delta, rhs)
     weighted = problem.norm == "weighted"
-    d = diag_d(a, b, h1, h2)
-    apply_stencil = stencil_fn(problem, a, b, h1, h2, stencil)
+    a_s, b_s, d_s = stored_operands(a, b, diag_d(a, b, h1, h2), sd)
+    d = load(d_s, dtype, sd)
+    apply_stencil = stencil_fn(problem, a_s, b_s, h1, h2, stencil, sd)
 
     def dinv(v):
         return apply_dinv(v, d)
@@ -179,11 +196,18 @@ def make_body(problem: Problem, a, b, rhs, limit: int, s: int = DEFAULT_S,
 
     def body(st: PCGState, k: int) -> PCGState:
         active = (st.k < limit) & ~st.converged & ~st.breakdown
-        r = rhs - apply_stencil(st.w) if replaces(k, s) else st.r
+        x, r, p = (load(v, dtype, sd) for v in (st.w, st.r, st.p))
+        replaced = replaces(k, s, cadence)
+        if replaced:
+            r = rhs - apply_stencil(x)
 
         # the basis: one stencil chain, no reductions
         z = dinv(r)
-        vs = [st.p]
+        if replaced and sd is not None:
+            # a narrow basis drifts where a p-preserving replacement cannot
+            # clear it: the JAX engine restarts p = z with the rebuild
+            p = z
+        vs = [p]
         for _ in range(s):
             vs.append(ahat(vs[-1]) * scale)
         zs = [z]
@@ -205,21 +229,21 @@ def make_body(problem: Problem, a, b, rhs, limit: int, s: int = DEFAULT_S,
         x_c, z_c, p_c = x_c.to(dtype), z_c.to(dtype), p_c.to(dtype)
 
         # reconstruct against the basis; r = D·z exactly
-        x_new = st.w + torch.tensordot(x_c, V, dims=1)
+        x_new = x + torch.tensordot(x_c, V, dims=1)
         r_new = d * torch.tensordot(z_c, V, dims=1)
         p_new = torch.tensordot(p_c, V, dims=1)
 
         # a body issued after the loop has exited changes nothing
         def keep(old, new):
-            return torch.where(active, new, old)
+            return torch.where(active, store(new, sd), old)
 
         return PCGState(
             k=k_n,
             w=keep(st.w, x_new),
             r=keep(st.r, r_new),
             p=keep(st.p, p_new),
-            zr=keep(st.zr, zr_n.to(dtype)),
-            diff=keep(st.diff, diff_n.to(dtype)),
+            zr=torch.where(active, zr_n.to(dtype), st.zr),
+            diff=torch.where(active, diff_n.to(dtype), st.diff),
             converged=conv_n,
             breakdown=bd_n,
         )
@@ -233,11 +257,12 @@ def advance(problem: Problem, a, b, rhs, state: PCGState, s: int = DEFAULT_S,
     """Advance the s-step carry until convergence/breakdown or iteration
     ``limit`` (default ``max_iterations``), honoured exactly. Returns (new
     carry, host reads): one read per ``chunk`` iterations, issued as
-    bodies of s."""
+    bodies of s. ``storage_dtype`` must be the one the carry was made
+    with."""
     reject_unported(storage_dtype=storage_dtype)
     cap = problem.max_iterations
     limit = cap if limit is None else min(int(limit), cap)
-    body = make_body(problem, a, b, rhs, limit, s, stencil)
+    body = make_body(problem, a, b, rhs, limit, s, stencil, storage_dtype)
     carry = [state]
 
     def step(k: int):
@@ -257,11 +282,11 @@ def pcg_sstep(problem: Problem, a, b, rhs, s: int = DEFAULT_S,
               storage_dtype=None) -> PCGResult:
     """Run s-step PCG on pre-assembled (M+1, N+1) tensors on their device.
     stencil: "xla" (plain PyTorch) or "pallas" (K-a in the basis chain;
-    f32)."""
+    f32; K-g with ``storage_dtype``)."""
     reject_unported(storage_dtype=storage_dtype)
-    state = init_state(problem, a, b, rhs)
+    state = init_state(problem, a, b, rhs, storage_dtype=storage_dtype)
     state, _ = advance(problem, a, b, rhs, state, s=s, stencil=stencil,
-                       chunk=chunk)
+                       chunk=chunk, storage_dtype=storage_dtype)
     return result_of(state)
 
 
@@ -273,4 +298,5 @@ def solve(problem: Problem, dtype: torch.dtype = torch.float32,
     reject_unported(storage_dtype=storage_dtype)
     dev = resolve_device(device)
     a, b, rhs = assembly.assemble(problem, dtype, dev)
-    return pcg_sstep(problem, a, b, rhs, s=s, stencil=stencil, chunk=chunk)
+    return pcg_sstep(problem, a, b, rhs, s=s, stencil=stencil, chunk=chunk,
+                     storage_dtype=storage_dtype)

@@ -50,6 +50,15 @@ harness does.
 There is no degrade chain (the JAX ``build_solver`` walks down the ladder
 when a Mosaic compile fails): the gate is exact, and a kernel that fails
 to build or a cooperative launch the card refuses raises.
+
+``storage_dtype`` (``ops.precision``) runs the storage-vs-compute split on
+the engines whose row says ``storage``, as in the JAX table: ``xla``,
+``pallas`` (K-g in place of K-a), ``pipelined``, ``pipelined-pallas`` (K-h
+in place of K-d, K-g for the rebuilds), ``sstep``, ``sstep-pallas`` (K-g
+in the basis chain) and ``batched``. ``streamed`` and ``xl`` have a
+storage form in JAX (bf16 operand streams) that is not ported yet (ROADMAP
+Queue A item 18); every other engine, ``auto`` included, refuses it with
+the JAX error.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ import torch
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import assembly
+from poisson_ellipse_tpu_torch.ops.precision import resolve_storage_dtype
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
     PCGResult,
@@ -66,6 +76,7 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     init_state,
     reject_unported,
     result_of,
+    unported,
 )
 from poisson_ellipse_tpu_torch.utils.device import (
     DeviceCapacity,
@@ -84,37 +95,42 @@ from poisson_ellipse_tpu_torch.utils.device import (
 #   capacity — the engine's rung on the capacity ladder "auto" walks
 #              (None: not on it)
 #   dtypes   — the dtypes the engine accepts
+#   storage  — accepts ``storage_dtype`` (the JAX table's column; the port
+#              of streamed's and xl's form is ROADMAP Queue A item 18)
 ENGINE_CAPS = {
     "resident": dict(family="megakernel", kernels=("resident",), capacity=0,
-                     dtypes=(torch.float32,)),
+                     dtypes=(torch.float32,), storage=False),
     "streamed": dict(family="megakernel", kernels=("streamed",), capacity=1,
-                     dtypes=(torch.float32,)),
+                     dtypes=(torch.float32,), storage=True),
     "xl": dict(family="megakernel", kernels=("xl",), capacity=2,
-               dtypes=(torch.float32,)),
+               dtypes=(torch.float32,), storage=True),
     "xla": dict(family="loop", kernels=(), capacity=None,
-                dtypes=(torch.float32, torch.float64)),
+                dtypes=(torch.float32, torch.float64), storage=True),
     "pallas": dict(family="loop", kernels=("stencil",), capacity=None,
-                   dtypes=(torch.float32,)),
+                   dtypes=(torch.float32,), storage=True),
     "fused": dict(family="fused", kernels=("fused_k1", "fused_k2"),
-                  capacity=None, dtypes=(torch.float32,)),
+                  capacity=None, dtypes=(torch.float32,), storage=False),
     "pipelined": dict(family="pipelined", kernels=(), capacity=None,
-                      dtypes=(torch.float32, torch.float64)),
+                      dtypes=(torch.float32, torch.float64), storage=True),
     "pipelined-pallas": dict(family="pipelined",
                              kernels=("stencil", "stencil_dots"),
-                             capacity=None, dtypes=(torch.float32,)),
+                             capacity=None, dtypes=(torch.float32,),
+                             storage=True),
     "sstep": dict(family="sstep", kernels=(), capacity=None,
-                  dtypes=(torch.float32, torch.float64)),
+                  dtypes=(torch.float32, torch.float64), storage=True),
     "sstep-pallas": dict(family="sstep", kernels=("stencil",), capacity=None,
-                         dtypes=(torch.float32,)),
+                         dtypes=(torch.float32,), storage=True),
     "batched": dict(family="batched", kernels=(), capacity=None,
-                    dtypes=(torch.float32, torch.float64)),
+                    dtypes=(torch.float32, torch.float64), storage=True),
     "batched-pipelined": dict(family="batched", kernels=(), capacity=None,
-                              dtypes=(torch.float32, torch.float64)),
+                              dtypes=(torch.float32, torch.float64),
+                              storage=False),
     "batched-pallas": dict(family="batched", kernels=("batched_stencil",),
-                           capacity=None, dtypes=(torch.float32,)),
+                           capacity=None, dtypes=(torch.float32,),
+                           storage=False),
     "batched-pipelined-pallas": dict(
         family="batched", kernels=("batched_stencil", "batched_stencil_dots"),
-        capacity=None, dtypes=(torch.float32,)),
+        capacity=None, dtypes=(torch.float32,), storage=False),
 }
 
 ENGINES = ("auto",) + tuple(ENGINE_CAPS)
@@ -128,6 +144,9 @@ SSTEP_ENGINES = tuple(
 BATCHED_ENGINES = tuple(
     e for e, c in ENGINE_CAPS.items() if c["family"] == "batched"
 )
+
+# the engines that accept ``storage_dtype`` (the JAX package's tuple)
+STORAGE_ENGINES = tuple(e for e, c in ENGINE_CAPS.items() if c["storage"])
 
 # the capacity ladder "auto" walks: the rungs in order
 CAPACITY_LADDER = tuple(sorted(
@@ -181,6 +200,10 @@ def build_solver(problem: Problem, engine: str = "auto",
     (``BATCHED_ENGINES``): their solver runs B solves of the problem in
     one loop and returns a ``batch.BatchedPCGResult``; every other engine
     takes ``lanes=1`` only.
+
+    ``storage_dtype`` ("bf16", "f16", "f32", a torch dtype or None) stores
+    the state and the rounded operands narrow on the ``STORAGE_ENGINES``
+    (``ops.precision``); storage equal to ``dtype`` is the plain solve.
     """
     if lanes != 1 and engine not in BATCHED_ENGINES:
         raise ValueError(
@@ -188,6 +211,18 @@ def build_solver(problem: Problem, engine: str = "auto",
             "needs the lane-batched engines ("
             + " / ".join(repr(e) for e in BATCHED_ENGINES) + ")"
         )
+    # resolved early: a bad name or a widening request fails here, and
+    # storage == compute normalises to None (the plain path)
+    storage_dtype = resolve_storage_dtype(storage_dtype, dtype)
+    if storage_dtype is not None and engine not in STORAGE_ENGINES:
+        raise ValueError(
+            f"engine {engine!r} has no storage-dtype form; choose from "
+            f"{', '.join(STORAGE_ENGINES)} (or drop --storage-dtype)"
+        )
+    if storage_dtype is not None and ENGINE_CAPS[engine]["family"] == \
+            "megakernel":
+        raise unported(f"storage_dtype= on the {engine!r} engine",
+                       "Queue A item 18")
     if engine in BATCHED_ENGINES:
         if history:
             raise ValueError(
@@ -242,13 +277,16 @@ def build_solver(problem: Problem, engine: str = "auto",
         )
 
         mod = batched_pipelined if "pipelined" in engine else batched_pcg
-        extra = {"stencil": stencil} if mod is batched_pipelined else {}
+        extra = ({"stencil": stencil} if mod is batched_pipelined
+                 else {"storage_dtype": storage_dtype})
 
         def run(a, b, rhs):
             state, syncs = mod.advance(
                 problem, a, b, rhs,
                 mod.init_state(problem, a, b, rhs, **extra),
-                stencil=stencil, chunk=chunk)
+                stencil=stencil, chunk=chunk,
+                **({} if mod is batched_pipelined else
+                   {"storage_dtype": storage_dtype}))
             return mod.result_of(state), syncs
 
         return (Solver(run),
@@ -260,8 +298,9 @@ def build_solver(problem: Problem, engine: str = "auto",
         def run(a, b, rhs):
             state, syncs = pp.advance(
                 problem, a, b, rhs,
-                pp.init_state(problem, a, b, rhs, stencil=stencil),
-                stencil=stencil, chunk=chunk)
+                pp.init_state(problem, a, b, rhs, stencil=stencil,
+                              storage_dtype=storage_dtype),
+                stencil=stencil, chunk=chunk, storage_dtype=storage_dtype)
             return pp.result_of(state), syncs
     elif family == "sstep":
         from poisson_ellipse_tpu_torch.ops import sstep_pcg as ss
@@ -272,14 +311,18 @@ def build_solver(problem: Problem, engine: str = "auto",
 
         def run(a, b, rhs):
             state, syncs = ss.advance(
-                problem, a, b, rhs, ss.init_state(problem, a, b, rhs),
-                s=sstep_s, stencil=stencil, chunk=chunk)
+                problem, a, b, rhs,
+                ss.init_state(problem, a, b, rhs,
+                              storage_dtype=storage_dtype),
+                s=sstep_s, stencil=stencil, chunk=chunk,
+                storage_dtype=storage_dtype)
             return result_of(state), syncs
     else:
         def run(a, b, rhs):
-            state, syncs = advance(problem, a, b, rhs,
-                                   init_state(problem, a, b, rhs),
-                                   stencil=stencil, chunk=chunk)
+            state, syncs = advance(
+                problem, a, b, rhs,
+                init_state(problem, a, b, rhs, storage_dtype=storage_dtype),
+                stencil=stencil, chunk=chunk, storage_dtype=storage_dtype)
             return result_of(state), syncs
 
     return Solver(run), assembly.assemble(problem, dtype, dev), engine

@@ -22,6 +22,12 @@ Semantics, in order (``stage0/Withoutopenmp1.cpp:124-169``):
   4. diff = ‖w^{k+1} − w^k‖ from the realised update; converged if < δ
   5. β = zr_new/zr;  p = z + βp
 A breakdown iteration keeps its pre-update iterates.
+
+``storage_dtype`` (``ops.precision``) keeps w, r and p in a narrow dtype:
+each body loads them at compute width and stores the new ones rounded; a,
+b and D are rounded once from the compute-width operands. The "pallas"
+stencil is then K-g, which reads p, a and b narrow. A body that changes
+nothing (breakdown, or issued after the exit) keeps the stored bits.
 """
 
 from __future__ import annotations
@@ -32,6 +38,11 @@ import torch
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import assembly
+from poisson_ellipse_tpu_torch.ops.precision import (
+    load,
+    resolve_storage_dtype,
+    store,
+)
 from poisson_ellipse_tpu_torch.ops.reduction import grid_dot, grid_dots
 from poisson_ellipse_tpu_torch.ops.stencil import (
     apply_a,
@@ -98,15 +109,20 @@ def unported(option: str, item: str):
 def reject_unported(history=False, precond=None, storage_dtype=None,
                     x0=None, recycle=None, geometry=None) -> None:
     """Raise for any option this slice does not port, naming the
-    ROADMAP.md item that will."""
+    ROADMAP.md item that will; and, as the JAX package does, for a
+    storage dtype beside a preconditioner."""
+    if storage_dtype is not None and precond is not None:
+        raise ValueError(
+            "storage_dtype covers the diagonal-preconditioned loops; the "
+            "mg/cheb appliers carry their own full-width level hierarchy "
+            "— run them at compute width"
+        )
     if geometry is not None:
         raise unported("geometry=", "Queue A item 11")
     if history:
         raise unported("history=", "Queue A item 8")
     if precond is not None:
         raise unported("precond=", "Queue A item 11")
-    if storage_dtype is not None:
-        raise unported("storage_dtype=", "Queue A item 17")
     if x0 is not None or recycle:
         raise unported("x0=/recycle=", "Queue A item 13")
 
@@ -149,17 +165,20 @@ def run_chunked(step: Callable[[int], None],
 
 def init_state(problem: Problem, a, b, rhs, history: bool = False,
                precond=None, storage_dtype=None, x0=None, recycle=None):
-    """The PCG carry at iteration 0 (w = 0, r = rhs, p = z = D⁻¹r)."""
+    """The PCG carry at iteration 0 (w = 0, r = rhs, p = z = D⁻¹r); with
+    ``storage_dtype`` w, r and p are stored in it, zr stays at compute
+    width."""
     reject_unported(history, precond, storage_dtype, x0, recycle)
+    st = resolve_storage_dtype(storage_dtype, rhs.dtype)
     dev = rhs.device
     h1, h2 = spacing(problem.h1, rhs), spacing(problem.h2, rhs)
     d = diag_d(a, b, h1, h2)
     z0 = apply_dinv(rhs, d)
     return PCGState(
         k=torch.zeros((), dtype=torch.int32, device=dev),
-        w=torch.zeros_like(rhs),
-        r=rhs,
-        p=z0,
+        w=torch.zeros_like(rhs, dtype=st or rhs.dtype),
+        r=store(rhs, st),
+        p=store(z0, st),
         zr=grid_dot(z0, rhs, h1, h2),
         diff=torch.full((), float("inf"), dtype=rhs.dtype, device=dev),
         converged=torch.zeros((), dtype=torch.bool, device=dev),
@@ -167,42 +186,83 @@ def init_state(problem: Problem, a, b, rhs, history: bool = False,
     )
 
 
-def stencil_fn(problem: Problem, a, b, h1, h2, stencil: str):
+def stencil_fn(problem: Problem, a, b, h1, h2, stencil: str,
+               storage_dtype=None):
     """The A·(·) closure of a loop engine: the plain stencil for "xla",
-    K-a (``ops.hopper_kernels.apply_a_kernel``) for "pallas"."""
-    if stencil == "xla":
+    K-a (``ops.hopper_kernels.apply_a_kernel``) for "pallas".
+
+    With ``storage_dtype``, ``a`` and ``b`` are the stored (narrow)
+    coefficients and the argument may be narrow or at compute width: "xla"
+    applies the plain stencil to the upcast values (a and b upcast once
+    here), "pallas" runs K-g (``apply_a_mixed_kernel``) on the narrow
+    arrays. Either returns A·p at compute width."""
+    if storage_dtype is not None:
+        if stencil == "xla":
+            dtype = h1.dtype
+            a_c, b_c = load(a, dtype, storage_dtype), load(b, dtype,
+                                                          storage_dtype)
+            return lambda p: apply_a(load(p, dtype, storage_dtype), a_c, b_c,
+                                     h1, h2)
+        if stencil == "pallas":
+            from poisson_ellipse_tpu_torch.ops.hopper_kernels import (
+                apply_a_mixed_kernel,
+            )
+
+            return lambda p: apply_a_mixed_kernel(p, a, b, problem.h1,
+                                                  problem.h2, h1.dtype)
+    elif stencil == "xla":
         return lambda p: apply_a(p, a, b, h1, h2)
-    if stencil == "pallas":
+    elif stencil == "pallas":
         from poisson_ellipse_tpu_torch.ops.hopper_kernels import apply_a_kernel
 
         return lambda p: apply_a_kernel(p, a, b, problem.h1, problem.h2)
     raise ValueError(f"unknown stencil: {stencil!r} (choose from {STENCILS})")
 
 
-def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla"):
-    """One PCG iteration as a function of the carry, with no host sync."""
+def stored_operands(a, b, d, storage_dtype):
+    """(a, b, D) rounded once to ``storage_dtype`` from the compute-width
+    operands (the JAX ``_store(a, st)``; never from the f64 host arrays,
+    which would round differently), or as they are without one."""
+    return tuple(store(x, storage_dtype) for x in (a, b, d))
+
+
+def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
+              storage_dtype=None):
+    """One PCG iteration as a function of the carry, with no host sync.
+
+    With ``storage_dtype`` the body loads w, r and p at compute width and
+    stores the new ones rounded (the JAX storage body,
+    ``poisson_ellipse_tpu/solver/pcg.py:197-275``); K-g reads the stored p.
+    Without one, load and store are identities."""
+    st = resolve_storage_dtype(storage_dtype, rhs.dtype)
     dtype, dev = rhs.dtype, rhs.device
     h1, h2 = spacing(problem.h1, rhs), spacing(problem.h2, rhs)
     delta = spacing(problem.delta, rhs)
     one = torch.ones((), dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
     weighted = problem.norm == "weighted"
-    d = diag_d(a, b, h1, h2)
-    apply_stencil = stencil_fn(problem, a, b, h1, h2, stencil)
+    a_s, b_s, d_s = stored_operands(a, b, diag_d(a, b, h1, h2), st)
+    apply_stencil = stencil_fn(problem, a_s, b_s, h1, h2, stencil, st)
+    # the stored D at compute width, once (the same values as a load in
+    # every body)
+    d = load(d_s, dtype, st)
+    narrow_stencil = st is not None and stencil == "pallas"
 
     def body(s: PCGState) -> PCGState:
         active = (s.k < limit) & ~s.converged & ~s.breakdown
-        ap = apply_stencil(s.p)
-        denom = grid_dot(ap, s.p, h1, h2)
+        w, r, p = (load(x, dtype, st) for x in (s.w, s.r, s.p))
+        ap = apply_stencil(s.p if narrow_stencil else p)
+        denom = grid_dot(ap, p, h1, h2)
         breakdown = denom < DENOM_GUARD
         step = active & ~breakdown
-        # α = 0 once the loop has exited or on breakdown: w, r unchanged
+        # α = 0 once the loop has exited or on breakdown: w, r unchanged,
+        # and store(load(w) + 0·p) gives back the stored bits
         alpha = torch.where(step, s.zr / torch.where(breakdown, one, denom),
                             zero)
-        w_new = s.w + alpha * s.p
-        r_new = s.r - alpha * ap
+        w_new = w + alpha * p
+        r_new = r - alpha * ap
         z = apply_dinv(r_new, d)
-        dw = w_new - s.w
+        dw = w_new - w
         sums = grid_dots((z, r_new), (dw, dw))
         zr_new = sums[0] * h1 * h2
         dw2 = sums[1]
@@ -212,9 +272,9 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla"):
         advance = step & ~converged
         return PCGState(
             k=s.k + active.to(s.k.dtype),
-            w=w_new,
-            r=r_new,
-            p=torch.where(advance, z + beta * s.p, s.p),
+            w=store(w_new, st),
+            r=store(r_new, st),
+            p=torch.where(advance, store(z + beta * p, st), s.p),
             zr=torch.where(advance, zr_new, s.zr),
             diff=torch.where(step, diff, s.diff),
             converged=s.converged | converged,
@@ -232,11 +292,12 @@ def advance(problem: Problem, a, b, rhs, state: PCGState, limit=None,
 
     Chunking moves only where the host looks, not the arithmetic, so any
     ``chunk`` and any sequence of ``limit``s give the same bits.
+    ``storage_dtype`` must be the one the carry was made with.
     """
     reject_unported(history, precond, storage_dtype)
     cap = problem.max_iterations
     limit = cap if limit is None else min(int(limit), cap)
-    body = make_body(problem, a, b, rhs, limit, stencil)
+    body = make_body(problem, a, b, rhs, limit, stencil, storage_dtype)
     carry = [state]
 
     def step(_k):
@@ -263,12 +324,14 @@ def pcg(problem: Problem, a, b, rhs, stencil: str = "xla",
     """Run PCG on pre-assembled (M+1, N+1) coefficients on their device.
 
     stencil: "xla" (plain PyTorch slices) or "pallas" (the CUDA stencil
-    K-a, ``ops.hopper_kernels.apply_a_kernel``).
+    K-a, ``ops.hopper_kernels.apply_a_kernel``; K-g with a storage dtype).
+    ``storage_dtype``: the narrow dtype the state is stored in (the
+    returned w too), or None.
     """
     reject_unported(history, precond, storage_dtype, x0, recycle)
-    state = init_state(problem, a, b, rhs)
+    state = init_state(problem, a, b, rhs, storage_dtype=storage_dtype)
     state, _ = advance(problem, a, b, rhs, state, stencil=stencil,
-                       chunk=chunk)
+                       chunk=chunk, storage_dtype=storage_dtype)
     return result_of(state)
 
 
@@ -279,4 +342,5 @@ def solve(problem: Problem, dtype: torch.dtype = torch.float32,
     reject_unported(history, storage_dtype=storage_dtype)
     dev = resolve_device(device)
     a, b, rhs = assembly.assemble(problem, dtype, dev)
-    return pcg(problem, a, b, rhs, stencil=stencil, chunk=chunk)
+    return pcg(problem, a, b, rhs, stencil=stencil, chunk=chunk,
+               storage_dtype=storage_dtype)

@@ -23,8 +23,17 @@ def _node_coords(problem: Problem, like: torch.Tensor):
     return x[:, None], y[None, :]
 
 
+def _at_least_f32(w: torch.Tensor) -> torch.Tensor:
+    """A narrow (storage-dtype) solution upcast exactly to f32, so the
+    node coordinates and the analytic solution are not rounded to bf16
+    (the JAX package computes them in w's own dtype)."""
+    return w.float() if w.dtype.itemsize < 4 else w
+
+
 def l2_error_vs_analytic(problem: Problem, w: torch.Tensor) -> torch.Tensor:
-    """sqrt( h1·h2 · Σ_{nodes in D} (w_ij − u(x_i, y_j))² )."""
+    """sqrt( h1·h2 · Σ_{nodes in D} (w_ij − u(x_i, y_j))² ), at f32 or
+    wider."""
+    w = _at_least_f32(w)
     x, y = _node_coords(problem, w)
     u = ellipse.analytic_solution(x, y)
     in_d = ellipse.is_in_d(x, y)
@@ -34,6 +43,7 @@ def l2_error_vs_analytic(problem: Problem, w: torch.Tensor) -> torch.Tensor:
 
 def residual_norm(problem: Problem, w, a, b, rhs) -> torch.Tensor:
     """‖B − A·w‖ in the grid-weighted norm."""
+    w = _at_least_f32(w)
     h1, h2 = spacing(problem.h1, w), spacing(problem.h2, w)
     r = rhs - apply_a(w, a, b, h1, h2)
     return torch.sqrt(grid_dot(r, r, h1, h2))

@@ -590,10 +590,17 @@ def test_solve_batched_contract():
         driver.solve_batched(problem, 3, device="cpu",
                              operands=bp.batched_operands(problem, 2,
                                                           device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue A item 17"):
+    # storage_dtype runs on the plain stencil, and K-e (f32) refuses it
+    # with the JAX package's error
+    narrow = bp.pcg_batched(problem, *bp.batched_operands(problem, 2,
+                                                          device="cpu"),
+                            storage_dtype=torch.bfloat16)
+    assert narrow.w.dtype == torch.bfloat16
+    assert bool(narrow.converged.all())
+    with pytest.raises(ValueError, match="rides the XLA stencil"):
         bp.pcg_batched(problem, *bp.batched_operands(problem, 2,
                                                      device="cpu"),
-                       storage_dtype=torch.bfloat16)
+                       stencil="pallas", storage_dtype=torch.bfloat16)
     # the chunked driver gives the loop's bits, in every engine
     for name in engine.BATCHED_ENGINES:
         solver, args, _ = engine.build_solver(problem, name, torch.float32,

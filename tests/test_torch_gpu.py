@@ -18,7 +18,11 @@ plain version's; its sums, in double rounded once to f32 on both sides,
 agree to rel 1e-6. The lane-batched kernels K-e and K-f are held lane by
 lane, bitwise, against K-a and K-d on that lane, and against their plain
 versions (arrays bitwise, K-f's sums to rel 1e-6); the two batched kernel
-engines keep lane independence and chunked == straight to the bit.
+engines keep lane independence and chunked == straight to the bit. The
+storage axis's K-g and K-h widen their narrow loads exactly, so they are
+held bitwise against their plain versions and against K-a / K-d on the
+upcast inputs (K-h's sums to rel 1e-6 of the plain version's, bitwise
+K-d's); ``pallas`` with bf16 storage takes ``xla``'s iterations and flags.
 """
 
 import dataclasses
@@ -555,3 +559,122 @@ def test_batched_chunked_equals_straight_on_the_card(cuda, mod, stencil):
                                stencil=stencil, chunk=7)
     for name, x, y in zip(type(init)._fields, straight, state):
         assert torch.equal(x, y), name
+
+
+# -- the storage axis: K-g and K-h -------------------------------------------
+
+MIXED_SHAPES = [(44, 132), (400, 600), (800, 1200)]
+NARROW = {"bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def _narrow(g, dev, seed, st, lo=None):
+    """A numpy-seeded array rounded once to ``st`` ("f32" keeps f32)."""
+    x = _rand(g, dev, seed, lo=lo)
+    return x if st == "f32" else x.to(NARROW[st])
+
+
+@pytest.mark.parametrize("w_st,ab_st", [("bf16", "bf16"), ("f32", "bf16"),
+                                        ("f16", "f16"), ("f32", "f16")])
+@pytest.mark.parametrize("M,N", MIXED_SHAPES)
+def test_mixed_stencil_kernel_is_k_a_on_upcast_inputs(cuda, M, N, w_st,
+                                                      ab_st):
+    g = (M + 1, N + 1)
+    w = _narrow(g, cuda, 0, w_st)
+    a, b = (_narrow(g, cuda, s, ab_st, lo=0.5) for s in (1, 2))
+    h1, h2 = 2.0 / M, 1.2 / N
+    _build.reset_launches()
+    got = hk.apply_a_mixed_kernel(w, a, b, h1, h2)
+    block = hk.apply_a_mixed_block_kernel(w, a, b, h1, h2)
+    assert _build.LAUNCHES["stencil_mixed"] == 2
+    assert got.dtype == block.dtype == torch.float32
+    assert torch.equal(got, hk.apply_a_mixed_plain(w, a, b, h1, h2))
+    assert torch.equal(block, hk.apply_a_mixed_block_plain(w, a, b, h1, h2))
+    up = [x.float().contiguous() for x in (w, a, b)]
+    assert torch.equal(got, hk.apply_a_kernel(*up, h1, h2))
+
+
+@pytest.mark.parametrize("st", ["bf16", "f16"])
+@pytest.mark.parametrize("M,N", MIXED_SHAPES)
+def test_mixed_stencil_dots_kernel_is_k_d_on_upcast_inputs(cuda, M, N, st):
+    g = (M + 1, N + 1)
+    m = _rand(g, cuda, 0)
+    a, b = (_narrow(g, cuda, s, st, lo=0.5) for s in (1, 2))
+    ops = [_narrow(g, cuda, 10 + i, st) for i in range(5)]
+    h1, h2 = 2.0 / M, 1.2 / N
+    pairs = pp._bundle(*ops)
+    _build.reset_launches()
+    n, sums = hk.apply_a_dots_mixed_kernel(m, a, b, h1, h2, pairs)
+    assert _build.LAUNCHES["stencil_dots_mixed"] == 1
+    want_n, want_sums = hk.apply_a_dots_mixed_plain(m, a, b, h1, h2, pairs)
+    assert torch.equal(n, want_n)
+    assert torch.equal(n, hk.apply_a_mixed_kernel(m, a, b, h1, h2))
+    torch.testing.assert_close(sums, want_sums, rtol=1e-6, atol=0)
+    up = [o.float().contiguous() for o in ops]
+    n_d, sums_d = hk.apply_a_dots_kernel(m, a.float().contiguous(),
+                                         b.float().contiguous(), h1, h2,
+                                         pp._bundle(*up))
+    assert torch.equal(n, n_d) and torch.equal(sums, sums_d)
+
+
+def test_mixed_kernels_reject_what_they_do_not_take(cuda):
+    g = (45, 133)
+    w = _narrow(g, cuda, 0, "bf16")
+    a, b = (_narrow(g, cuda, s, "bf16", lo=0.5) for s in (1, 2))
+    for bad in ((w, a, b.float()), (w.half(), a, b),
+                (w, a[:, :-1].contiguous(), b), (w.double(), a, b)):
+        with pytest.raises(ValueError):
+            hk.apply_a_mixed_kernel(*bad, 0.1, 0.1)
+    with pytest.raises(ValueError, match="computes in float32"):
+        hk.apply_a_mixed_kernel(w, a, b, 0.1, 0.1, torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        hk.apply_a_dots_mixed_kernel(w, a, b, 0.1, 0.1, ((w, w),))
+    m = w.float()
+    with pytest.raises(ValueError, match="pair operand"):
+        hk.apply_a_dots_mixed_kernel(m, a, b, 0.1, 0.1, ((m, m),))
+
+
+def test_pallas_bf16_takes_xla_iterations_on_the_card(cuda):
+    """K-g is bitwise the plain stencil on the upcast inputs, and the two
+    engines share the rest of the body: the same iterations, flags and
+    bits at 400x600."""
+    problem = Problem(M=400, N=600)
+    runs = {}
+    for name in ("pallas", "xla"):
+        solver, args, _ = engine.build_solver(problem, name, torch.float32,
+                                              cuda, storage_dtype="bf16")
+        _build.reset_launches()
+        runs[name] = (solver(*args), dict(_build.LAUNCHES))
+    (got, launches), (want, plain) = runs["pallas"], runs["xla"]
+    assert plain == {}
+    assert launches == {"stencil_mixed": 64 * -(-int(got.iters) // 64)}
+    assert int(got.iters) == int(want.iters)
+    assert bool(got.converged) == bool(want.converged) is True
+    assert bool(got.breakdown) == bool(want.breakdown)
+    assert torch.equal(got.w, want.w)
+
+
+@pytest.mark.parametrize("engine_name", ["pipelined-pallas", "sstep-pallas"])
+def test_narrow_recurrences_on_the_card(cuda, engine_name):
+    """Capped bf16 runs: finite, stored in bf16, chunked == straight."""
+    problem = Problem(M=400, N=600, max_iter=96)
+    runs = []
+    for chunk in (64, 96):
+        solver, args, _ = engine.build_solver(problem, engine_name,
+                                              torch.float32, cuda,
+                                              chunk=chunk,
+                                              storage_dtype="bf16")
+        _build.reset_launches()
+        runs.append((solver(*args), dict(_build.LAUNCHES)))
+    (got, launches), (straight, _) = runs
+    assert got.w.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.w).all())
+    for x, y in zip(got, straight):
+        assert torch.equal(x, y)
+    # the bodies the host issued: chunks of 64 up to the cap of 96
+    bodies = min(96, 64 * -(-int(got.iters) // 64))
+    if engine_name == "pipelined-pallas":
+        # w0 by K-a; K-h once a body; K-g four times every 8th body
+        assert launches == {"stencil": 1, "stencil_dots_mixed": bodies,
+                            "stencil_mixed": 4 * ((bodies - 1) // 8)}
+    else:
+        assert set(launches) == {"stencil_mixed"}

@@ -334,6 +334,12 @@ def test_launcher_signatures_match_the_c_prototypes(library, signatures):
     and only misreads arguments on the card."""
     names = {ctypes.c_int: "int", ctypes.c_float: "float",
              ctypes.c_void_p: "ptr"}
+    # the storage axis's entries (K-g, K-h) are in the tables too
+    mixed = {hk.KERNEL: {f"pe_stencil_mixed_{w}_{ab}" for ab in
+                         ("bf16", "f16") for w in (ab, "f32")},
+             hk.DOTS_KERNEL: {"pe_stencil_dots_mixed_bf16",
+                              "pe_stencil_dots_mixed_f16"}}[library]
+    assert mixed <= set(signatures)
     for symbol, (restype, argtypes) in signatures.items():
         if restype is not ctypes.c_int:
             continue  # the error-string functions

@@ -177,18 +177,51 @@ def test_select_engine_policy():
 @pytest.mark.parametrize("kw,item", [
     (dict(geometry="ellipse"), "Queue A item 11"),
     (dict(history=True), "Queue A item 8"),
-    # lanes > 1 runs on the batched engines; their bf16 storage is not
-    # ported
-    (dict(lanes=4, storage_dtype=torch.bfloat16), "Queue A item 17"),
-    (dict(storage_dtype=torch.bfloat16), "Queue A item 17"),
+    # the JAX streamed and xl engines stream bf16 operands; that form is
+    # not ported (the other storage engines are: test_storage_dtype_runs)
+    (dict(engine="streamed", storage_dtype=torch.bfloat16), "Queue A item 18"),
+    (dict(engine="xl", storage_dtype=torch.bfloat16), "Queue A item 18"),
     (dict(precond="mg"), "Queue A item 11"),
     (dict(recycle=8), "Queue A item 13"),
 ])
 def test_unported_options_name_their_roadmap_item(kw, item):
-    name = "batched" if "lanes" in kw else "auto"
+    kw = dict(kw)
+    name = kw.pop("engine", "auto")
     with pytest.raises(NotImplementedError, match=item):
         engine.build_solver(Problem(M=10, N=10), name, torch.float32,
                             "cpu", **kw)
+
+
+@pytest.mark.parametrize("name,lanes", [("xla", 1), ("pallas", 1),
+                                        ("batched", 4)])
+def test_storage_dtype_runs(name, lanes):
+    """The storage engines take ``storage_dtype``: the state comes back
+    in it, at the JAX package's bf16 count (18 at 10x10 weighted, both
+    its flavours, against 15 at f32)."""
+    solver, args, _ = engine.build_solver(Problem(M=10, N=10), name,
+                                          torch.float32, "cpu", lanes=lanes,
+                                          storage_dtype=torch.bfloat16)
+    result = solver(*args)
+    assert result.w.dtype == torch.bfloat16
+    assert bool(result.converged.all())
+    assert result.iters.tolist() == ([18] * lanes if lanes > 1 else 18)
+
+
+@pytest.mark.parametrize("name", ["auto", "fused", "resident",
+                                  "batched-pallas", "batched-pipelined",
+                                  "batched-pipelined-pallas"])
+def test_storage_dtype_refused_as_in_jax(name):
+    """Engines with no storage form refuse it with the JAX package's
+    error, ``auto`` included; storage equal to compute is the plain
+    solve on any engine."""
+    lanes = 2 if name.startswith("batched") else 1
+    with pytest.raises(ValueError, match="has no storage-dtype form"):
+        engine.build_solver(Problem(M=10, N=10), name, torch.float32, "cpu",
+                            lanes=lanes, storage_dtype="bf16")
+    solver, args, _ = engine.build_solver(Problem(M=10, N=10), name,
+                                          torch.float32, "cpu", lanes=lanes,
+                                          storage_dtype="f32")
+    assert solver(*args).w.dtype == torch.float32
 
 
 def test_engine_rejects_what_it_does_not_run():

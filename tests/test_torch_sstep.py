@@ -277,12 +277,28 @@ def test_engine_dtypes(name):
 @pytest.mark.parametrize("name", RECURRENCE_ENGINES)
 @pytest.mark.parametrize("kw,item", [
     (dict(history=True), "Queue A item 8"),
-    (dict(storage_dtype=torch.bfloat16), "Queue A item 17"),
+    # storage_dtype is ported (the storage runs below); storage wider than
+    # compute is refused as in the JAX package
+    (dict(storage_dtype=torch.float64), "wider than compute"),
 ])
 def test_unported_options_name_their_roadmap_item(name, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    error = NotImplementedError if "history" in kw else ValueError
+    with pytest.raises(error, match=item):
         engine.build_solver(Problem(M=10, N=10), name, torch.float32, "cpu",
                             **kw)
+
+
+@pytest.mark.parametrize("name", RECURRENCE_ENGINES)
+def test_recurrence_engines_take_storage_dtype(name):
+    """A narrow recurrence need not converge (ROADMAP Queue C): a capped
+    bf16 run comes back at its cap, stored in bf16, finite."""
+    problem = Problem(M=20, N=20, max_iter=24)
+    solver, args, _ = engine.build_solver(problem, name, torch.float32,
+                                          "cpu", storage_dtype="bf16")
+    result = solver(*args)
+    assert result.w.dtype == torch.bfloat16
+    assert bool(torch.isfinite(result.w).all())
+    assert int(result.iters) == 24 or bool(result.converged)
 
 
 def test_module_entry_points_reject_unported_options():
@@ -295,12 +311,15 @@ def test_module_entry_points_reject_unported_options():
                  lambda: pp.init_state(problem, *ours, history=True)):
         with pytest.raises(NotImplementedError, match="Queue A item 8"):
             call()
+    # storage_dtype is ported: the module entry points run it (f64 compute
+    # with bf16 storage here, f32 through solve)
     for call in (lambda: pp.pcg_pipelined(problem, *ours, storage_dtype="bf16"),
                  lambda: ss.pcg_sstep(problem, *ours, storage_dtype="bf16"),
                  lambda: ss.solve(problem, device="cpu",
                                   storage_dtype="bf16")):
-        with pytest.raises(NotImplementedError, match="Queue A item 17"):
-            call()
+        result = call()
+        assert result.w.dtype == torch.bfloat16
+        assert bool(torch.isfinite(result.w).all())
 
 
 @pytest.fixture(scope="module")
