@@ -114,6 +114,31 @@ result line):
               beside f32; one torch.profiler breakdown of pallas bf16 at
               2400x3200.
 
+10. dtypes  — bf16 compute and the narrow operand streams. Every new
+              form against its plain version on capped solves (max_iter 1,
+              2, 7; iterations and flags equal, w and the step norm bitwise
+              or within rel 1e-5 of their scale, NaN in the same places):
+              xl bf16 at 2401x3201, streamed bf16 at the first published
+              grid between the bf16 gates (1601x2401), resident bf16 at the
+              largest published grid its bf16 gate admits (801x1201); xl and
+              streamed (both regimes) with f32 compute and bf16 or f16
+              operand streams at 2401x3201 / 1101x1651, on the real operands
+              and on numpy-seeded finite ones (the real f16 operands
+              overflow); K-b / K-c bf16 on seeded inputs at 2401x3201. The
+              main path: build_solver(engine="auto", bf16) capped at 8192 at
+              400x600, 800x1200, 1100x1650, 1600x2400 and 2400x3200: the
+              engine select_engine names, one launch and one host read, w
+              finite, counts and l2 printed beside the bf16 xla loop's on
+              the card (held below 3e-2 at 400x600, the JAX package's
+              1.55e-2 there); fused bf16 at 400x600 and 2400x3200; xl and
+              streamed with bf16 operand streams at 2400x3200 / 1100x1650,
+              converged, l2 < 1e-3, counts beside f32's; f16 streams at
+              400x600 (NaN, as in the JAX package). Timing, capped at 256
+              iterations, in turns: xl at 2400x3200 and streamed at
+              1100x1650 in f32, bf16, f32 + bf16 and f32 + f16 streams,
+              resident at 800x1200 in f32 and bf16, against their pass
+              bounds; K-b / K-c bf16 against f32 per launch.
+
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -124,6 +149,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -412,24 +438,26 @@ def kd_bundle(inp):
     return _bundle(inp["r"], inp["u"], inp["z"], inp["s"], inp["p"])
 
 
-def _whole_runs(name, problem, cap, resident=None):
-    """(kernel, plain) runs of one whole-solve engine on the card, over
-    operands built once for ``problem``'s grid; each takes the Problem to
-    solve (its max_iter may differ) and returns a PCGResult."""
+def _whole_runs(name, problem, cap, resident=None, dtype=torch.float32,
+                storage=None, operands=None):
+    """(kernel, plain) runs of one whole-solve engine on the card, in its
+    form at ``dtype`` with operands streamed at ``storage``, over operands
+    built once for ``problem``'s grid (or ``operands``); each takes the
+    Problem to solve (its max_iter may differ) and returns a PCGResult."""
     from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
     from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
     from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
 
     dev = torch.device("cuda")
     if name == "resident":
-        ops = rp.resident_operands(problem, torch.float32, dev)
+        ops = rp.resident_operands(problem, dtype, dev)
         return (lambda pr: rp.resident(pr, *ops, cap=cap)[0],
                 lambda pr: rp.resident_plain(pr, *ops)[0])
-    ops = sp.streamed_operands(problem, torch.float32, dev)
+    ops = operands or sp.streamed_operands(problem, dtype, dev, storage)
     if name == "xl":
         return (lambda pr: xp.xl(pr, *ops, cap=cap)[0],
                 lambda pr: xp.xl_plain(pr, *ops)[0])
-    plan = sp.StreamPlan(problem, cap, resident=resident)
+    plan = sp.StreamPlan(problem, cap, dtype, resident=resident)
     return (lambda pr: sp.streamed(pr, *ops, plan=plan)[0],
             lambda pr: sp.streamed_plain(pr, *ops, zstate=plan.zstate)[0])
 
@@ -437,19 +465,27 @@ def _whole_runs(name, problem, cap, resident=None):
 def close_solves(label: str, got, want) -> float:
     """A whole-solve kernel's capped solve against its plain version's:
     equal iterations and flags, w and the step norm within rel 1e-5 of
-    their scale. Returns max|w_kernel - w_plain|."""
+    their scale; a solve that overflowed (f16 operand streams) NaN in the
+    same places and the same elsewhere. Returns max|w_kernel - w_plain|
+    over the finite nodes."""
     for f in ("iters", "converged", "breakdown"):
         g, w = int(getattr(got, f)), int(getattr(want, f))
         require(g == w, f"{label}: {f} {g}, plain {w}")
-    scale = float(want.w.abs().max())
-    err = max_abs(got.w, want.w)
+    nan = torch.isnan(want.w)
+    require(torch.equal(torch.isnan(got.w), nan),
+            f"{label}: NaN in other places than the plain version's")
+    w_k, w_p = (x.w.double().masked_fill(nan, 0.0) for x in (got, want))
+    scale = float(w_p.abs().max())
+    err = float((w_k - w_p).abs().max())
     d_k, d_p = float(got.diff), float(want.diff)
     say(f"  {label}: {int(got.iters)} iterations, max_abs_err {err:.3e} "
-        f"(w scale {scale:.3e}) bitwise={torch.equal(got.w, want.w)}, "
-        f"diff {d_k!r} plain {d_p!r}")
+        f"(w scale {scale:.3e}"
+        + (f", {int(nan.sum())} NaN nodes in both" if bool(nan.any()) else "")
+        + f") bitwise={torch.equal(w_k, w_p)}, diff {d_k!r} plain {d_p!r}")
     require(err <= WHOLE_RTOL * scale,
             f"{label}: w differs beyond rel {WHOLE_RTOL} of its scale")
-    require(d_k == d_p or abs(d_k - d_p) <= WHOLE_RTOL * abs(d_p),
+    require(d_k == d_p or abs(d_k - d_p) <= WHOLE_RTOL * abs(d_p)
+            or (math.isnan(d_k) and math.isnan(d_p)),
             f"{label}: diff differs beyond rel {WHOLE_RTOL}")
     return err
 
@@ -1661,6 +1697,382 @@ def phase_storage_f32_recurrence_times(rec, card: str) -> None:
             f" iterations, {t / iters * 1e6:.2f} us/iter ({card})")
 
 
+# -- phase 10: the dtype axes ------------------------------------------------
+
+BF16 = torch.bfloat16
+# every bf16-compute solve and every f16-stream solve is capped here: a
+# stalled bf16 loop would run into the script's time limit at the default
+# cap of (M-1)(N-1)
+DTYPE_CAP = 8192
+# published grids (README.md:1139-1144) and the grid between the f32 gates:
+# auto bf16 takes resident, streamed (1600x2400) and xl on them
+BF16_AUTO_GRIDS = ((400, 600), (800, 1200), STREAMED_GRID, (1600, 2400),
+                   MAIN_GRID)
+# the JAX package's CPU run: xla bf16 at 400x600, l2 1.55e-2 (290
+# iterations, "converged" at bf16's floor); resident bf16 there: 33
+# iterations, l2 0.0719 (the cancelling stencil; ROADMAP Queue C)
+BF16_XLA_L2 = 3e-2
+JAX_BF16_400 = {"xla": "290, l2 1.55e-2", "resident": "33, l2 0.0719"}
+# capped solves timed per iteration (the forms stop at different counts
+# uncapped, if at all)
+TIME_CAP = 256
+FORM_ROWS = {
+    # counter: (engine, compute dtype, storage dtype)
+    "resident_bf16": ("resident", BF16, None),
+    "streamed_bf16": ("streamed", BF16, None),
+    "streamed_f32_bf16": ("streamed", torch.float32, "bf16"),
+    "streamed_f32_f16": ("streamed", torch.float32, "f16"),
+    "xl_bf16": ("xl", BF16, None),
+    "xl_f32_bf16": ("xl", torch.float32, "bf16"),
+    "xl_f32_f16": ("xl", torch.float32, "f16"),
+}
+WHOLE_REPLACES = {
+    "resident": "poisson_ellipse_tpu/ops/resident_pcg.py:234",
+    "streamed": "poisson_ellipse_tpu/ops/streamed_pcg.py:632",
+    "xl": "poisson_ellipse_tpu/ops/xl_pcg.py:451",
+}
+
+
+def seeded_operands(grid, storage, seed: int):
+    """Finite (dinv, an, bw, r0) for a narrow-stream form: the real f16
+    operands overflow (1/eps > 65504), so the f16 load path is also held on
+    numpy-seeded values inside f16's range."""
+    g = (grid[0] + 1, grid[1] + 1)
+    rng = np.random.default_rng(seed)
+
+    def dev(lo, hi, dtype):
+        x = rng.uniform(lo, hi, g).astype(np.float32)
+        return torch.from_numpy(x).to("cuda").to(dtype)
+
+    st = NARROW[storage]
+    return (dev(0.1, 0.2, st), dev(1.0, 2.0, st), dev(1.0, 2.0, st),
+            dev(-1.0, 1.0, torch.float32))
+
+
+def phase_dtype_kernels(cap, seed: int, inp) -> dict:
+    """Every new form against its plain version on the card: capped solves
+    at max_iter 1, 2 and 7 for the whole-solve forms, one launch each on
+    seeded inputs for K-b / K-c bf16 at 2401x3201."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
+    from poisson_ellipse_tpu_torch.ops.resident_pcg import fits_resident
+    from poisson_ellipse_tpu_torch.ops.streamed_pcg import fits_streamed
+
+    say("== phase 10: the dtype forms against their plain versions, "
+        f"max_iter in {CAPS}")
+    admitted = [g for g in PUBLISHED if fits_resident(Problem(*g), BF16, cap)]
+    require(bool(admitted), "the bf16 resident gate admits no published grid")
+    between = [g for g in PUBLISHED
+               if fits_streamed(Problem(*g), BF16, cap)
+               and not fits_resident(Problem(*g), BF16, cap)]
+    require(bool(between), "no published grid between the bf16 gates")
+    cases = [
+        ("xl_bf16", "xl", MAIN_GRID, BF16, None, None, None),
+        ("streamed_bf16", "streamed", between[0], BF16, None, None, None),
+        ("resident_bf16", "resident", admitted[0], BF16, None, None, None),
+    ]
+    for st in ("bf16", "f16"):
+        for seeded in (False, True):
+            ops = (lambda g, st=st: seeded_operands(g, st, seed)) \
+                if seeded else (lambda g: None)
+            cases += [
+                (f"xl_f32_{st}", "xl", MAIN_GRID, torch.float32, st, None,
+                 ops(MAIN_GRID)),
+                (f"streamed_f32_{st}", "streamed", STREAMED_GRID,
+                 torch.float32, st, None, ops(STREAMED_GRID)),
+                (f"streamed_f32_{st}", "streamed", STREAMED_GRID,
+                 torch.float32, st, ("dinv",), ops(STREAMED_GRID)),
+            ]
+    errs = {}
+    for counter, name, (m, n), dtype, st, resident, operands in cases:
+        kernel, plain = _whole_runs(name, Problem(M=m, N=n), cap, resident,
+                                    dtype, st, operands)
+        label = (f"{counter} {m}x{n}"
+                 + (f" resident {list(resident)}" if resident else "")
+                 + (" seeded operands" if operands else ""))
+        for max_iter in CAPS:
+            capped = Problem(M=m, N=n, max_iter=max_iter)
+            got, want = kernel(capped), plain(capped)
+            torch.cuda.synchronize()
+            err = close_solves(f"{label} max_iter={max_iter}", got, want)
+            errs[counter] = max(errs.get(counter, 0.0), err)
+
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+    g1, g2 = problem.node_shape
+    h1, h2 = problem.h1, problem.h2
+    an, as_, bw, be, d, dinv = fp.fused_operands(problem, BF16, "cuda")
+    z, p, w0, r0 = (inp[k].to(BF16) for k in ("z", "p", "w", "r"))
+    partials = torch.empty(fp.scratch_len(g1, g2), dtype=torch.float64,
+                           device="cuda")
+
+    def fresh(alpha=0.0):
+        scal = torch.tensor([1.5, 0.7, float("inf"), 0.0, alpha], dtype=BF16,
+                            device="cuda")
+        return scal, torch.zeros(fp.N_FLAGS, dtype=torch.int32,
+                                 device="cuda")
+
+    say(f"K-b / K-c bf16 at {g1}x{g2} against their plain versions")
+    outs = []
+    for fn in (fp.k1, fp.k1_plain):
+        scal, flags = fresh()
+        pn, ap = torch.empty_like(z), torch.empty_like(z)
+        fn(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials,
+           max_iter=2**31 - 1, h1=h1, h2=h2)
+        outs.append((pn, ap, scal, flags))
+    (pn, ap, scal_k, flags_k), (pn_p, ap_p, scal_p, flags_p) = outs
+    errs["fused_k1_bf16"] = max(close_arrays("K-b bf16 pn", pn, pn_p),
+                                close_arrays("K-b bf16 ap", ap, ap_p))
+    for nm, i in (("denom", fp.SCAL_DENOM), ("alpha", fp.SCAL_ALPHA)):
+        close_sum(f"K-b bf16 {nm}", float(scal_k[i]), float(scal_p[i]))
+    require(torch.equal(flags_k, flags_p), "K-b bf16 flags differ")
+    outs = []
+    for fn in (fp.k2, fp.k2_plain):
+        scal, flags = fresh(alpha=0.3)
+        w, r, zz = w0.clone(), r0.clone(), torch.empty_like(w0)
+        fn(w, r, pn_p, ap_p, dinv, zz, scal, flags, partials,
+           max_iter=2**31 - 1, h1=h1, h2=h2, delta=problem.delta,
+           weighted=True)
+        outs.append((w, r, zz, scal, flags))
+    (w, r, zz, scal_k, flags_k), (w_p, r_p, zz_p, scal_p, flags_p) = outs
+    errs["fused_k2_bf16"] = max(close_arrays("K-c bf16 w", w, w_p),
+                                close_arrays("K-c bf16 r", r, r_p),
+                                close_arrays("K-c bf16 z", zz, zz_p))
+    for nm, i in (("zr", fp.SCAL_ZR), ("beta", fp.SCAL_BETA),
+                  ("diff", fp.SCAL_DIFF)):
+        close_sum(f"K-c bf16 {nm}", float(scal_k[i]), float(scal_p[i]))
+    require(torch.equal(flags_k[:3], flags_p[:3]), "K-c bf16 flags differ")
+    return errs
+
+
+def _add(counts: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        counts[k] = counts.get(k, 0) + v
+
+
+def phase_dtype_main(cap) -> dict:
+    """The slice's path: auto at bf16 through build_solver on the published
+    grids, fused at bf16, and xl and streamed with f32 compute and bf16
+    (then f16) operand streams; launches counted over these runs only."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.solver.engine import (
+        build_solver,
+        select_engine,
+    )
+    from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+    say(f"== phase 10: main path, auto at bf16 (capped at {DTYPE_CAP}), and "
+        "the narrow operand streams")
+    counts = {}
+    for m, n in BF16_AUTO_GRIDS:
+        problem = Problem(M=m, N=n, max_iter=DTYPE_CAP)
+        solver, args, engine = build_solver(problem, "auto", BF16, "cuda")
+        want = select_engine(problem, BF16, cap)
+        result, launches = _run_counted(solver, args)
+        _add(counts, launches)
+        iters = int(result.iters)
+        l2 = float(l2_error_vs_analytic(problem, result.w))
+        l2_zero = float(l2_error_vs_analytic(problem,
+                                             torch.zeros_like(result.w)))
+        s_x, a_x, _ = build_solver(problem, "xla", BF16, "cuda")
+        ref, launches_x = _run_counted(s_x, a_x)
+        l2_x = float(l2_error_vs_analytic(problem, ref.w))
+        say(f"  auto bf16 {m}x{n} -> {engine} (select_engine {want}): "
+            f"{iters} iterations, converged {bool(result.converged)}, "
+            f"breakdown {bool(result.breakdown)}, hit the cap "
+            f"{iters >= DTYPE_CAP}, l2 {l2:.6e} (w = 0 scores {l2_zero:.6e}),"
+            f" launches {launches}, host reads {solver.host_syncs}; xla bf16 "
+            f"on this card {int(ref.iters)} iterations, converged "
+            f"{bool(ref.converged)}, l2 {l2_x:.6e}"
+            + (f" (JAX package, CPU: xla {JAX_BF16_400['xla']}, resident "
+               f"{JAX_BF16_400['resident']})" if (m, n) == (400, 600)
+               else ""))
+        require(engine == want, f"auto bf16 {m}x{n} resolved to {engine}, "
+                f"select_engine says {want}")
+        require(launches == {f"{engine}_bf16": 1} and solver.host_syncs == 1,
+                f"auto bf16 {m}x{n}: not one launch and one host read")
+        require(bool(torch.isfinite(result.w).all()), "w not finite")
+        require(launches_x == {}, "xla bf16 launched a kernel")
+        if (m, n) == (400, 600):
+            require(bool(ref.converged) and l2_x < BF16_XLA_L2,
+                    f"xla bf16 at 400x600: l2 {l2_x:.3e} not below "
+                    f"{BF16_XLA_L2}")
+    for m, n in ((400, 600), MAIN_GRID):
+        problem = Problem(M=m, N=n, max_iter=DTYPE_CAP)
+        solver, args, _ = build_solver(problem, "fused", BF16, "cuda")
+        result, launches = _run_counted(solver, args)
+        _add(counts, launches)
+        iters = int(result.iters)
+        say(f"  fused bf16 {m}x{n}: {iters} iterations, converged "
+            f"{bool(result.converged)}, breakdown {bool(result.breakdown)}, "
+            f"l2 {float(l2_error_vs_analytic(problem, result.w)):.6e}, "
+            f"launches {launches}")
+        for k in ("fused_k1_bf16", "fused_k2_bf16"):
+            require(launches.get(k, 0) >= max(iters, 1),
+                    f"{k} launched fewer times than iterations")
+        require(bool(torch.isfinite(result.w).all()), "w not finite")
+
+    for engine, (m, n) in (("xl", MAIN_GRID), ("streamed", STREAMED_GRID)):
+        problem = Problem(M=m, N=n)
+        s_f, a_f, _ = build_solver(problem, engine, torch.float32, "cuda")
+        f32_iters = int(s_f(*a_f).iters)
+        solver, args, _ = build_solver(problem, engine, torch.float32, "cuda",
+                                       storage_dtype="bf16")
+        result, launches = _run_counted(solver, args)
+        _add(counts, launches)
+        iters = int(result.iters)
+        l2 = float(l2_error_vs_analytic(problem, result.w))
+        say(f"  {engine} f32, bf16 operand streams, {m}x{n}: {iters} "
+            f"iterations (f32 streams: {f32_iters}), converged "
+            f"{bool(result.converged)}, l2 {l2:.6e}, launches {launches}, "
+            f"host reads {solver.host_syncs}")
+        require(bool(result.converged) and l2 < 1e-3,
+                f"{engine} with bf16 streams: not converged below l2 1e-3")
+        require(launches == {f"{engine}_f32_bf16": 1}
+                and solver.host_syncs == 1, "not one launch and one read")
+    for engine in ("xl", "streamed"):
+        problem = Problem(M=400, N=600, max_iter=DTYPE_CAP)
+        solver, args, _ = build_solver(problem, engine, torch.float32, "cuda",
+                                       storage_dtype="f16")
+        result, launches = _run_counted(solver, args)
+        _add(counts, launches)
+        say(f"  {engine} f32, f16 operand streams, 400x600 (capped at "
+            f"{DTYPE_CAP}): {int(result.iters)} iterations, converged "
+            f"{bool(result.converged)}, breakdown {bool(result.breakdown)}, "
+            f"w NaN {bool(torch.isnan(result.w).any())}, launches {launches} "
+            "(JAX package, CPU: NaN, not converged, at 40x40 and 44x132)")
+        require(launches == {f"{engine}_f32_f16": 1}, "not one launch")
+    return dict(counts=counts)
+
+
+def _timed_form(engine, problem, dtype, storage):
+    """(solver, args, iterations) of one capped solve of a form."""
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    solver, args, _ = build_solver(problem, engine, dtype, "cuda",
+                                   storage_dtype=storage)
+    return solver, args, int(solver(*args).iters)
+
+
+def phase_dtype_timing(cap, card: str) -> list:
+    """Per iteration, capped at TIME_CAP: xl at 2400x3200 and streamed at
+    1100x1650 in f32, f32 with bf16 streams and bf16 compute, resident at
+    800x1200 in f32 and bf16, in turns in one run; each new form's plain
+    version on the same solve; K-b / K-c bf16 against f32 per launch."""
+    from poisson_ellipse_tpu_torch.harness.roofline import bytes_per_node
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
+    from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
+    from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
+    from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
+
+    say(f"== phase 10 (timing): the dtype forms, capped at {TIME_CAP} "
+        f"iterations, on {card}")
+    grids = {"xl": MAIN_GRID, "streamed": STREAMED_GRID,
+             "resident": (800, 1200)}
+    forms = {"xl": (("f32", torch.float32, None), ("bf16", BF16, None),
+                    ("f32_bf16", torch.float32, "bf16"),
+                    ("f32_f16", torch.float32, "f16")),
+             "streamed": (("f32", torch.float32, None), ("bf16", BF16, None),
+                          ("f32_bf16", torch.float32, "bf16"),
+                          ("f32_f16", torch.float32, "f16")),
+             "resident": (("f32", torch.float32, None), ("bf16", BF16, None))}
+    plains = {"resident": rp.resident_plain, "xl": xp.xl_plain}
+    rows = []
+    for engine, (m, n) in grids.items():
+        # delta = 0: no form stops on the step norm before the cap (a bf16
+        # form may still break down earlier; its count is printed)
+        problem = Problem(M=m, N=n, max_iter=TIME_CAP, delta=0.0)
+        nodes = (m + 1) * (n + 1)
+        built = {f: _timed_form(engine, problem, dt, st)
+                 for f, dt, st in forms[engine]}
+        times = {f: [] for f in built}
+        # in turns: f32, the others, the others again, f32
+        order = list(built) + list(built)[::-1]
+        for f in order:
+            solver, args, _ = built[f]
+            times[f].append(time_solver(solver, args, 1))
+        for f, dt, st in forms[engine]:
+            solver, args, iters = built[f]
+            ms = statistics.median(times[f]) * 1e3
+            per_node = bytes_per_node(engine, problem, cap,
+                                      storage_dtype=st, dtype=dt)
+            iter_ms, iter_by = bound(per_node * nodes,
+                                     WHOLE_FLOPS[engine] * nodes)
+            say(f"  {engine} {m}x{n} {f}: {ms:.3f} ms for {iters} "
+                f"iterations, {ms * 1e3 / iters:.2f} us/iter; bound "
+                f"{iter_ms * 1e3:.2f} us/iter ({per_node:g} B a node, "
+                f"{iter_by})")
+            if f == "f32":
+                continue
+            if engine == "streamed":
+                plan = sp.StreamPlan(problem, cap, dt)
+                plain = lambda: sp.streamed_plain(problem, *args,
+                                                  zstate=plan.zstate)
+            else:
+                plain = lambda fn=plains[engine]: fn(problem, *args)
+            plain_ms = time_solver(lambda: plain(), (), 1) * 1e3
+            item = dt.itemsize
+            load = NARROW[st].itemsize if st else item
+            arrays = (5 * item if engine == "resident"
+                      else 3 * load + item)  # the operands and r0, read
+            solve_ms, solve_by = bound((arrays + item) * nodes,
+                                       iters * WHOLE_FLOPS[engine] * nodes)
+            rows.append(dict(
+                name=f"{engine}_{f}", route="cuda",
+                source=f"poisson_ellipse_tpu_torch/csrc/{engine}_pcg.cu",
+                replaces=WHOLE_REPLACES[engine], ms=ms, plain_ms=plain_ms,
+                bound_ms=solve_ms, bound_by=solve_by, library_ms=None,
+                us_per_iter=ms * 1e3 / iters,
+                bound_us_per_iter=iter_ms * 1e3, iters=iters,
+                grid=[m + 1, n + 1]))
+            say(f"    plain {plain_ms:.1f} ms; bound {solve_ms:.3f} ms a "
+                f"solve ({solve_by})")
+
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+    g1, g2 = problem.node_shape
+    nodes = g1 * g2
+    h1, h2 = problem.h1, problem.h2
+    rng = np.random.default_rng(3)
+    for dt, tag in ((torch.float32, "f32"), (BF16, "bf16")):
+        an, as_, bw, be, d, dinv = fp.fused_operands(problem, dt, "cuda")
+        z, p, w, r = (torch.from_numpy(rng.standard_normal((g1, g2)))
+                      .to("cuda").to(dt) for _ in range(4))
+        partials = torch.empty(fp.scratch_len(g1, g2),
+                               dtype=fp.partials_dtype(dt), device="cuda")
+        scal = torch.tensor([1.5, 0.7, float("inf"), 0.0, 0.3], dtype=dt,
+                            device="cuda")
+        flags = torch.zeros(fp.N_FLAGS, dtype=torch.int32, device="cuda")
+        pn, ap, zz = (torch.empty_like(z) for _ in range(3))
+        never = 2**31 - 1
+
+        def k1(fn=fp.k1):
+            fn(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials,
+               max_iter=never, h1=h1, h2=h2)
+
+        def k2(fn=fp.k2):
+            fn(w, r, pn, ap, dinv, zz, scal, flags, partials, max_iter=never,
+               h1=h1, h2=h2, delta=0.0, weighted=True)
+
+        item = dt.itemsize
+        for name, fn, plain, passes, flops, line in (
+                ("fused_k1", k1, lambda: k1(fp.k1_plain), 9, 15, 112),
+                ("fused_k2", k2, lambda: k2(fp.k2_plain), 8, 10, 152)):
+            ms = time_ms(fn, 200)
+            plain_ms = time_ms(plain, 20)
+            bound_ms, bound_by = bound(passes * nodes * item, flops * nodes)
+            say(f"  {name} {tag} {g1}x{g2}: {ms * 1e3:.1f} us/launch, plain "
+                f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+                f"({bound_by})")
+            if tag == "bf16":
+                rows.append(dict(
+                    name=f"{name}_bf16", route="cuda",
+                    source="poisson_ellipse_tpu_torch/csrc/fused_pcg.cu",
+                    replaces=f"poisson_ellipse_tpu/ops/fused_pcg.py:{line}",
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1716,8 +2128,13 @@ def main(argv=None) -> int:
     solver, solver_args = storage_main["runs"][("pallas", "bf16")][:2]
     profile_solve("pallas bf16 2400x3200", solver, solver_args)
 
+    errs.update(phase_dtype_kernels(cap, args.seed, inp))
+    dtype_main = phase_dtype_main(cap)
+    timed += phase_dtype_timing(cap, card)
+
     counts = {**rec["counts"], **main_run["counts"], **batched["counts"],
-              **storage_main["counts"], **storage_rec["counts"]}
+              **storage_main["counts"], **storage_rec["counts"],
+              **dtype_main["counts"]}
     for row in timed:
         row["launches"] = counts.get(row["name"], 0)
         row["max_abs_err"] = errs[row["name"]]

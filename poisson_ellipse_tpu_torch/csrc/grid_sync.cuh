@@ -32,11 +32,23 @@
 //
 // Values other blocks wrote during the launch are read with __ldcg (L2,
 // not the SM's L1, which is not coherent across SMs).
+//
+// The compute type TC (float or __nv_bfloat16) of a kernel's instantiation
+// is a template parameter of the pieces below. Every value is computed in
+// float; a value the kernel stores (an array element, a grid sum, a scalar
+// of the carry) is rounded to TC there (rn<TC>, storage.cuh), where the
+// plain version rounds it (ops/whole_solve.py:rounder). A sum is
+// accumulated in double from its float terms and rounded to float, then
+// to TC. rn<float> is the identity: the float forms are the untemplated
+// arithmetic. The span halo (zpub, ppub) is float in every form, so a
+// neighbour rebuilds pn from the owner's unrounded z.
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "storage.cuh"
 
 namespace pe {
 
@@ -137,18 +149,27 @@ __device__ __forceinline__ bool at_span_edge(int l, int len, int g2) {
 
 // pn at global node x: from the block's shared memory inside its span,
 // else rebuilt from the published z and p.
-__device__ __forceinline__ float span_pn(int x, int s, int len,
-                                        const float* s_p, const float* zpub,
-                                        const float* ppub, float beta) {
+template <typename TC>
+__device__ __forceinline__ float span_pn(int x, int s, int len, const TC* s_p,
+                                        const float* zpub, const float* ppub,
+                                        float beta) {
   const int l = x - s;
-  if (l >= 0 && l < len) return s_p[l];
-  return __ldcg(zpub + x) + beta * __ldcg(ppub + x);
+  if (l >= 0 && l < len) return up(s_p[l]);
+  return rn<TC>(__ldcg(zpub + x) + beta * __ldcg(ppub + x));
+}
+
+// The breakdown test on the (Ap, p) denominator, with the guard rounded to
+// TC as a PyTorch comparison of a TC tensor with the Python float rounds it.
+template <typename TC>
+__device__ __forceinline__ bool below_guard(float denom) {
+  return denom < rn<TC>(kDenomGuard);
 }
 
 // alpha = zr / denom, forced to 0 when the guard trips.
+template <typename TC>
 __device__ __forceinline__ float guarded_alpha(float zr, float denom) {
-  const bool guard = denom < kDenomGuard;
-  const float alpha = zr / (guard ? 1.f : denom);
+  const bool guard = below_guard<TC>(denom);
+  const float alpha = rn<TC>(zr / (guard ? 1.f : denom));
   return guard ? 0.f : alpha;
 }
 
@@ -165,29 +186,32 @@ struct Carry {
 // (resident_pcg.py:179-184 there): convergence on the realised step norm,
 // and on breakdown zr, beta and diff held, as the reference exits before
 // touching them.
+// dw2 and zr_raw are the grid sums, rounded to TC.
+template <typename TC>
 __device__ __forceinline__ void next_carry(Carry& c, bool breakdown,
                                            float dw2, float zr_raw,
                                            float h1h2, float delta,
                                            int weighted) {
-  const float zr_new = zr_raw * h1h2;
-  float nd = weighted ? sqrtf(dw2 * h1h2) : sqrtf(dw2);
+  const float zr_new = rn<TC>(zr_raw * h1h2);
+  float nd = rn<TC>(weighted ? sqrtf(dw2 * h1h2) : sqrtf(dw2));
   const bool conv = !breakdown && nd < delta;
   nd = breakdown ? c.diff : nd;
-  c.beta = breakdown ? c.beta : zr_new / c.zr;
+  c.beta = breakdown ? c.beta : rn<TC>(zr_new / c.zr);
   c.zr = breakdown ? c.zr : zr_new;
   c.diff = nd;
   c.converged = conv;
   c.breakdown = breakdown;
 }
 
-__device__ __forceinline__ void write_status(int* status, float* diff_out,
+template <typename TC>
+__device__ __forceinline__ void write_status(int* status, TC* diff_out,
                                              int iters, const Carry& c) {
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     status[kIters] = iters;
     status[kConverged] = c.converged ? 1 : 0;
     status[kBreakdown] = c.breakdown ? 1 : 0;
     status[kDone] = 1;
-    diff_out[0] = c.diff;
+    diff_out[0] = down<TC>(c.diff);
   }
 }
 

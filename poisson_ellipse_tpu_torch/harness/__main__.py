@@ -39,9 +39,9 @@ def main(argv=None) -> int:
     ap.add_argument("--grids",
                     help="comma list of MxN grids, e.g. 400x600,800x1200")
     ap.add_argument("--engine", choices=ENGINES, default="auto",
-                    help="auto: xla for f64; for f32 the first of resident, "
-                    "streamed, xl whose gate admits the grid on the card (xl "
-                    "on the CPU). xla is the plain PyTorch loop, pallas the "
+                    help="auto: xla for f64; for f32 and bf16 the first of "
+                    "resident, streamed, xl whose gate admits the grid on "
+                    "the card (xl on the CPU). xla is the plain PyTorch loop, pallas the "
                     "same loop with the CUDA stencil, fused the two-kernel "
                     "iteration; resident, streamed and xl run the whole "
                     "solve in one kernel launch; pipelined and sstep are "
@@ -49,7 +49,9 @@ def main(argv=None) -> int:
                     "forms with the CUDA kernels; batched and "
                     "batched-pipelined (and their -pallas forms) run --lanes "
                     "solves in one loop")
-    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32",
+                    help="the compute dtype; bf16 runs on xla, fused, "
+                    "resident, streamed, xl and auto")
     ap.add_argument("--norm", choices=("weighted", "unweighted"),
                     default="weighted")
     ap.add_argument("--eps", type=float, default=None)
@@ -66,7 +68,9 @@ def main(argv=None) -> int:
                     "(bf16, f16 or f32) while every stencil and reduction "
                     "runs at --dtype; on xla, pallas, the pipelined and "
                     "sstep engines and batched. The raw narrow solve "
-                    "converges to the storage floor")
+                    "converges to the storage floor. On streamed and xl "
+                    "(f32 compute) only the operands dinv, a and b are "
+                    "stored in DT")
     ap.add_argument("--repeat", type=int, default=1,
                     help="timed solves; T_solver is their median")
     ap.add_argument("--device", default="cuda",

@@ -48,11 +48,16 @@ once; D⁻¹v reads v and D: 3; a stencil reads v, a, b: 4):
                      replacement r = rhs − Ax (7) once every 32
                      => 66.47 (s = 4), 74.72 (s = 2)
 
-With a storage dtype (``ops.precision``) a pass moves one array at the
-storage width (2 bytes for bf16 and f16), and the recurrences' replacement
-terms are amortised over ``replace_every(storage_dtype)`` (8) in place of
-32: ``pipelined-pallas`` 25/8 and the s-step 7/8. The plain PyTorch loops
-also upcast in passes of their own that the model does not count.
+A pass moves one array at the compute width: 4 bytes at f32, 2 at bf16
+compute. With a storage dtype (``ops.precision``) a pass moves one array
+at the storage width (2 bytes for bf16 and f16), and the recurrences'
+replacement terms are amortised over ``replace_every(storage_dtype)`` (8)
+in place of 32: ``pipelined-pallas`` 25/8 and the s-step 7/8. The plain
+PyTorch loops also upcast in passes of their own that the model does not
+count. ``streamed`` and ``xl`` store only their operands narrow: their
+operand passes (dinv, a, b; ``xl_pcg.OPERAND_PASSES``, 3.06 of xl's
+12.32) move at the storage width, the rest at the compute width
+(``bytes_per_node``).
 
 The model counts unpadded node arrays and assumes each array streams
 once per use; the plain PyTorch loop (``xla``) moves more than that,
@@ -128,7 +133,8 @@ def passes_per_iter(engine: str, problem: Problem | None = None,
         if problem is None:
             raise ValueError("the streamed engine's traffic follows its "
                              "plan: pass the problem")
-        return StreamPlan(problem, capacity).streamed_passes_per_iter()
+        return StreamPlan(problem, capacity,
+                          dtype).streamed_passes_per_iter()
     if engine == "xl":
         from poisson_ellipse_tpu_torch.ops.xl_pcg import PASSES_PER_ITER
 
@@ -136,21 +142,53 @@ def passes_per_iter(engine: str, problem: Problem | None = None,
     raise ValueError(f"no traffic model for engine {engine!r}")
 
 
+def operand_passes(engine: str, problem: Problem | None = None,
+                   capacity=None, dtype=torch.float32) -> float:
+    """The passes of ``passes_per_iter`` that read the operands dinv, a
+    and b: what a storage dtype narrows on ``streamed`` and ``xl``."""
+    if engine == "xl":
+        from poisson_ellipse_tpu_torch.ops.xl_pcg import OPERAND_PASSES
+
+        return OPERAND_PASSES
+    if engine == "streamed":
+        from poisson_ellipse_tpu_torch.ops.streamed_pcg import StreamPlan
+
+        plan = StreamPlan(problem, capacity, dtype)
+        return float(sum(not plan.resident[k] for k in ("dinv", "a", "b")))
+    raise ValueError(f"engine {engine!r} stores its state narrow, not only "
+                     "its operands")
+
+
+def bytes_per_node(engine: str, problem: Problem | None = None,
+                   capacity=None, sstep_s: int = 4, storage_dtype=None,
+                   dtype=torch.float32) -> float:
+    """Bytes an iteration moves per node: the passes at the storage width
+    (the compute width without one); on ``streamed`` and ``xl`` only
+    their operand passes at the storage width."""
+    passes = passes_per_iter(engine, problem, capacity, sstep_s,
+                             storage_dtype, dtype)
+    item = storage_itemsize(dtype, storage_dtype)
+    if engine not in ("streamed", "xl"):
+        return passes * item
+    narrow = operand_passes(engine, problem, capacity, dtype)
+    return (passes - narrow) * dtype.itemsize + narrow * item
+
+
 def roofline(problem: Problem, engine: str, iters: int, t_solver: float,
              dtype=torch.float32, device="cuda", capacity=None,
              sstep_s: int = 4, storage_dtype=None) -> dict:
     """{"passes_per_iter", "hbm_gbps", "hbm_peak_frac"} for a measured
-    solve, each pass at the storage width. The rate is a device-memory
+    solve, the bytes counted by ``bytes_per_node``. The rate is a device-memory
     rate, so it is None for a run on the CPU; the fraction is None where
     the peak is unknown."""
     g1, g2 = problem.node_shape
-    itemsize = storage_itemsize(dtype, storage_dtype)
     passes = passes_per_iter(engine, problem, capacity, sstep_s,
                              storage_dtype, dtype)
     out = {"passes_per_iter": passes, "hbm_gbps": None, "hbm_peak_frac": None}
     if torch.device(device).type != "cuda" or t_solver <= 0:
         return out
-    rate = passes * g1 * g2 * itemsize * max(iters, 1) / t_solver
+    rate = (bytes_per_node(engine, problem, capacity, sstep_s, storage_dtype,
+                           dtype) * g1 * g2 * max(iters, 1) / t_solver)
     peak = memory_peak_bytes_per_s(device)
     out["hbm_gbps"] = round(rate / 1e9, 2)
     if peak:

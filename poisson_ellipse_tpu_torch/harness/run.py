@@ -15,7 +15,11 @@ breakdown if any lane broke down, the L2 error of lane 0, and
 
 ``storage_dtype`` ("bf16", "f16" or "f32") runs the storage-vs-compute
 split (``ops.precision``); the report carries it, and the roofline counts
-the bytes at the storage width.
+the bytes at the storage width (on ``streamed`` and ``xl``, which store
+only their operands narrow, those passes alone). ``dtype="bf16"`` is bf16
+compute on ``xla``, ``fused``, ``resident``, ``streamed`` and ``xl``
+(``auto`` walks their ladder with the gates at 2 bytes a node), as the JAX
+harness's ``--dtype bf16``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from poisson_ellipse_tpu_torch.utils.device import capacity, resolve_device
 from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
 from poisson_ellipse_tpu_torch.utils.timing import PhaseTimer
 
-DTYPES = {"f32": torch.float32, "f64": torch.float64}
+DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
 
 
 @dataclass

@@ -80,7 +80,7 @@ def _stripped(problem: Problem, arrays, device, dtype) -> tuple:
     dev = resolve_device(device)
     out = []
     for x in arrays:
-        t = torch.from_numpy(np.ascontiguousarray(strip_padding(problem, x)))
+        t = tensor_from_numpy(np.ascontiguousarray(strip_padding(problem, x)))
         t = t.to(dev)
         out.append(t if dtype is None else t.to(dtype))
     return tuple(out)

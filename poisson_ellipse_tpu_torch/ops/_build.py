@@ -10,8 +10,9 @@ waits for them together.
 
 The whole-solve libraries (``resident_pcg``, ``streamed_pcg``, ``xl_pcg``)
 each export ``pe_<library>_launch_query``: the cooperative-launch
-attribute of a device and their kernel's occupancy at a dynamic
-shared-memory size (``launch_query``).
+attribute of a device and their f32 kernel's occupancy at a dynamic
+shared-memory size (``launch_query``); ``xl_pcg``, whose grid is its
+occupancy, also ``pe_xl_pcg_<form>_launch_query`` for its other forms.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc``.
@@ -141,11 +142,15 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     return lib
 
 
-def launch_query(name: str, device: int, smem_bytes: int) -> tuple[int, int]:
+def launch_query(name: str, device: int, smem_bytes: int,
+                 form: str = "f32") -> tuple[int, int]:
     """(cooperative-launch attribute of ``device``, blocks of library
-    ``name``'s whole-solve kernel that fit on one SM with ``smem_bytes``
-    of dynamic shared memory), from ``pe_<name>_launch_query``."""
-    symbol = f"pe_{name}_launch_query"
+    ``name``'s whole-solve kernel in ``form`` that fit on one SM with
+    ``smem_bytes`` of dynamic shared memory), from
+    ``pe_<name>_launch_query`` (the f32 form) or
+    ``pe_<name>_<form>_launch_query``."""
+    symbol = (f"pe_{name}_launch_query" if form == "f32"
+              else f"pe_{name}_{form}_launch_query")
     ptr = ctypes.POINTER(ctypes.c_int)
     lib = load(name, {
         symbol: (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ptr, ptr]),

@@ -84,7 +84,17 @@ def assemble_numpy(problem: Problem):
 
 
 def to_device(x: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
-    """One host array rounded once to ``dtype`` and copied to ``device``."""
+    """One host array rounded to ``dtype`` as the JAX package's numpy
+    ``astype`` rounds it, and copied to ``device``.
+
+    numpy has no bfloat16; the JAX package's ``astype`` goes through
+    ml_dtypes, which rounds f64 to bf16 through f32 (1 + 2⁻⁸ + 2⁻³⁰ gives
+    1.0, where one rounding from f64 gives 1 + 2⁻⁷). PyTorch's cast from an
+    f64 tensor rounds the same way, so bf16 takes it; every other dtype
+    is numpy's own ``astype``, one rounding from f64."""
+    x = np.ascontiguousarray(x)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(x).to(dtype).to(device)
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     return torch.from_numpy(np.ascontiguousarray(x.astype(np_dtype))).to(device)
 

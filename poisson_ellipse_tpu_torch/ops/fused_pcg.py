@@ -28,6 +28,13 @@ the JAX operand set).
 Each wrapper (``k1``, ``k2``) runs its plain PyTorch version (``k1_plain``,
 ``k2_plain``) only for CPU tensors; for CUDA tensors it launches the
 kernel or raises.
+
+The loop runs at f32 or bf16 (``DTYPES``), as the JAX K1/K2 run at the
+solve's dtype: every value is computed in float and rounded to bf16 where
+it is stored, in the kernels and in the plain versions alike
+(``whole_solve.rounder``). The bf16 form's sums are taken in double and
+rounded through float (``grid_sum``); the f32 form sums in float, as
+before.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch.nn.functional as F
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import _build, assembly
+from poisson_ellipse_tpu_torch.ops import whole_solve as ws
 from poisson_ellipse_tpu_torch.ops.stencil import spacing
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
@@ -49,13 +57,15 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     PCGResult,
     Solver,
     run_chunked,
-    unported,
 )
 from poisson_ellipse_tpu_torch.utils.device import resolve_device
 
 LIBRARY = "fused_pcg"
 K1 = "fused_k1"
 K2 = "fused_k2"
+
+# the kernels' forms: run dtype → the launchers' suffix
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 # the device-resident scalar carry; csrc/fused_pcg.cu holds the same layout
 SCAL_ZR, SCAL_BETA, SCAL_DIFF, SCAL_DENOM, SCAL_ALPHA = range(5)
@@ -146,10 +156,26 @@ class FusedCarry:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pe_fused_scratch_len": (_I, [_I, _I]),
-    "pe_fused_k1_f32": (_I, [_P] * 12 + [_I] * 3 + [_F, _F, _P]),
-    "pe_fused_k2_f32": (_I, [_P] * 9 + [_I] * 3 + [_F, _F, _F, _I, _P]),
+    **{f"pe_fused_k1_{form}": (_I, [_P] * 12 + [_I] * 3 + [_F, _F, _P])
+       for form in DTYPES.values()},
+    **{f"pe_fused_k2_{form}": (_I, [_P] * 9 + [_I] * 3 + [_F, _F, _F, _I, _P])
+       for form in DTYPES.values()},
     "pe_fused_error_string": (ctypes.c_char_p, [_I]),
 }
+
+
+def grid_sum(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Σx (x held in f32) as the kernels of the ``dtype`` form take it:
+    in float for f32; in double, rounded to float, for bf16 (the caller
+    rounds it on to bf16 where it is stored)."""
+    if dtype == torch.float32:
+        return torch.sum(x)
+    return torch.sum(x, dtype=torch.float64).float()
+
+
+def partials_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulator the kernels keep their per-block sums in."""
+    return torch.float32 if dtype == torch.float32 else torch.float64
 
 
 @functools.lru_cache(maxsize=16)
@@ -175,7 +201,8 @@ def rotated_state0(r0: torch.Tensor, z0: torch.Tensor,
         ap=torch.empty_like(r0),
         scal=scal,
         flags=torch.zeros(N_FLAGS, dtype=torch.int32, device=dev),
-        partials=torch.empty(n_partials, dtype=dtype, device=dev),
+        partials=torch.empty(n_partials, dtype=partials_dtype(dtype),
+                             device=dev),
     )
 
 
@@ -187,23 +214,26 @@ def _loop_active(flags: torch.Tensor, max_iter: int) -> bool:
 def k1_plain(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials, *,
              max_iter: int, h1: float, h2: float) -> None:
     """The plain version of K1: writes pn, ap, scal[DENOM], scal[ALPHA] and
-    flags[PENDING_BREAKDOWN]; nothing once the loop has exited."""
+    flags[PENDING_BREAKDOWN]; nothing once the loop has exited. Computed in
+    f32, each stored value rounded to the run dtype (``ws.rounder``)."""
     if not _loop_active(flags, max_iter):
         return
-    h1t, h2t = spacing(h1, z), spacing(h2, z)
-    pn_new = z + scal[SCAL_BETA] * p
+    ct = z.dtype
+    q = ws.rounder(ct)
+    h1t, h2t = (ws.held(spacing(h, z)) for h in (h1, h2))
+    z, p, an, as_, bw, be, d, s = (ws.held(x) for x in
+                                   (z, p, an, as_, bw, be, d, scal))
+    pn_new = q(z + s[SCAL_BETA] * p)
     ext = F.pad(pn_new, (1, 1, 1, 1))  # outside the grid pn is 0
-    ap_new = d * pn_new - (
+    ap_new = q(d * pn_new - (
         an * ext[:-2, 1:-1]
         + as_ * ext[2:, 1:-1]
         + bw * ext[1:-1, :-2]
         + be * ext[1:-1, 2:]
-    )
-    denom = torch.sum(ap_new * pn_new) * h1t * h2t
-    breakdown = denom < DENOM_GUARD
-    alpha = scal[SCAL_ZR] / torch.where(breakdown, torch.ones_like(denom),
-                                        denom)
-    alpha = torch.where(breakdown, torch.zeros_like(alpha), alpha)
+    ))
+    denom = q(q(grid_sum(ap_new * pn_new, ct)) * h1t * h2t)
+    breakdown = ws.below_guard(denom, ct)
+    alpha = ws.guarded_alpha(s[SCAL_ZR], denom, q, ct)
     pn.copy_(pn_new)
     ap.copy_(ap_new)
     scal[SCAL_DENOM] = denom
@@ -212,16 +242,18 @@ def k1_plain(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials, *,
 
 
 def rotated_next_state(scal, flags, zr_new, dw2, h1t, h2t, delta,
-                       weighted: bool) -> None:
+                       weighted: bool, q) -> None:
     """The plain scalar tail of one rotated iteration, in place on the
     carry: convergence test, breakdown holds (zr, β, diff frozen, as the
-    reference exits before touching them), the next β, k + 1."""
+    reference exits before touching them), the next β, k + 1. The
+    scalars are held in f32 and rounded by ``q`` where they are stored."""
     breakdown = flags[FLAG_PENDING_BREAKDOWN].to(torch.bool)
-    zr, beta, diff = scal[SCAL_ZR], scal[SCAL_BETA], scal[SCAL_DIFF]
-    ndiff = torch.sqrt(dw2 * h1t * h2t) if weighted else torch.sqrt(dw2)
+    zr, beta, diff = (ws.held(scal[i]) for i in
+                      (SCAL_ZR, SCAL_BETA, SCAL_DIFF))
+    ndiff = q(torch.sqrt(dw2 * h1t * h2t) if weighted else torch.sqrt(dw2))
     converged = ~breakdown & (ndiff < delta)
     ndiff = torch.where(breakdown, diff, ndiff)
-    beta_new = zr_new / torch.where(breakdown, torch.ones_like(zr), zr)
+    beta_new = q(zr_new / torch.where(breakdown, torch.ones_like(zr), zr))
     scal[:3] = torch.stack([
         torch.where(breakdown, zr, zr_new),
         torch.where(breakdown, beta, beta_new),
@@ -237,28 +269,34 @@ def rotated_next_state(scal, flags, zr_new, dw2, h1t, h2t, delta,
 def k2_plain(w, r, pn, ap, dinv, z, scal, flags, partials, *, max_iter: int,
              h1: float, h2: float, delta: float, weighted: bool) -> None:
     """The plain version of K2: updates w, r, z in place and runs the
-    scalar tail; nothing once the loop has exited."""
+    scalar tail; nothing once the loop has exited. Computed in f32, each
+    stored value rounded to the run dtype (``ws.rounder``)."""
     if not _loop_active(flags, max_iter):
         return
-    h1t, h2t = spacing(h1, w), spacing(h2, w)
-    alpha = scal[SCAL_ALPHA]
-    w_new = w + alpha * pn
-    r_new = r - alpha * ap
-    z_new = r_new * dinv
-    dw = w_new - w  # the realised increment, not α·p
-    sums = torch.stack([torch.sum(z_new * r_new), torch.sum(dw * dw)])
+    ct = w.dtype
+    q = ws.rounder(ct)
+    h1t, h2t, delta_t = (ws.held(spacing(x, w)) for x in (h1, h2, delta))
+    w_old, r_old, pn_h, ap_h, dinv_h = (ws.held(x) for x in
+                                         (w, r, pn, ap, dinv))
+    alpha = ws.held(scal[SCAL_ALPHA])
+    w_new = q(w_old + alpha * pn_h)
+    r_new = q(r_old - alpha * ap_h)
+    z_new = q(r_new * dinv_h)
+    dw = w_new - w_old  # the realised increment, not α·p
+    sums = torch.stack([q(grid_sum(z_new * r_new, ct)),
+                        q(grid_sum(dw * dw, ct))])
     w.copy_(w_new)
     r.copy_(r_new)
     z.copy_(z_new)
-    rotated_next_state(scal, flags, sums[0] * h1t * h2t, sums[1], h1t, h2t,
-                       spacing(delta, w), weighted)
+    rotated_next_state(scal, flags, q(sums[0] * h1t * h2t), sums[1], h1t,
+                       h2t, delta_t, weighted, q)
 
 
 def _check(kernel: str, arrays: dict, scal, flags, partials) -> None:
     ref = next(iter(arrays.values()))
-    if ref.dtype != torch.float32:
-        raise ValueError(f"{kernel}: the kernel is built for float32, got "
-                         f"{ref.dtype}")
+    if ref.dtype not in DTYPES:
+        raise ValueError(f"{kernel}: the kernel is built for float32 and "
+                         f"bfloat16, got {ref.dtype}")
     if ref.dim() != 2:
         raise ValueError(f"{kernel}: need 2-D arrays, got {tuple(ref.shape)}")
     for name, t in arrays.items():
@@ -275,9 +313,12 @@ def _check(kernel: str, arrays: dict, scal, flags, partials) -> None:
     if (flags.shape != (N_FLAGS,) or flags.dtype != torch.int32
             or flags.device != ref.device):
         raise ValueError(f"{kernel}: flags must be ({N_FLAGS},) int32")
-    if (partials.dtype != ref.dtype or partials.device != ref.device
+    if (partials.dtype != partials_dtype(ref.dtype)
+            or partials.device != ref.device
             or partials.numel() < scratch_len(*ref.shape)):
-        raise ValueError(f"{kernel}: partials scratch too small")
+        raise ValueError(f"{kernel}: partials scratch must be "
+                         f"{partials_dtype(ref.dtype)}, of "
+                         f"{scratch_len(*ref.shape)} at least")
 
 
 def k1(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials, *,
@@ -290,13 +331,16 @@ def k1(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials, *,
     _check(K1, arrays, scal, flags, partials)
     lib = _build.load(LIBRARY, _SIGNATURES)
     g1, g2 = z.shape
-    rc = lib.pe_fused_k1_f32(
+    # h1, h2 as the plain version holds them, rounded to the run dtype on
+    # the host (a device tensor's float() would sync every launch)
+    rc = getattr(lib, f"pe_fused_k1_{DTYPES[z.dtype]}")(
         *(t.data_ptr() for t in arrays.values()), partials.data_ptr(),
-        scal.data_ptr(), flags.data_ptr(), g1, g2, max_iter, h1, h2,
+        scal.data_ptr(), flags.data_ptr(), g1, g2, max_iter,
+        ws.rounded(h1, z.dtype), ws.rounded(h2, z.dtype),
         _build.stream_handle(z.device),
     )
     _build.check(lib.pe_fused_error_string, K1, rc)
-    _build.count_launch(K1)
+    _build.count_launch(ws.counter(K1, DTYPES[z.dtype]))
 
 
 def k2(w, r, pn, ap, dinv, z, scal, flags, partials, *, max_iter: int,
@@ -310,22 +354,27 @@ def k2(w, r, pn, ap, dinv, z, scal, flags, partials, *, max_iter: int,
     _check(K2, arrays, scal, flags, partials)
     lib = _build.load(LIBRARY, _SIGNATURES)
     g1, g2 = w.shape
-    rc = lib.pe_fused_k2_f32(
+    rc = getattr(lib, f"pe_fused_k2_{DTYPES[w.dtype]}")(
         *(t.data_ptr() for t in arrays.values()), partials.data_ptr(),
-        scal.data_ptr(), flags.data_ptr(), g1, g2, max_iter, h1, h2, delta,
-        int(weighted), _build.stream_handle(w.device),
+        scal.data_ptr(), flags.data_ptr(), g1, g2, max_iter,
+        ws.rounded(h1, w.dtype), ws.rounded(h2, w.dtype),
+        ws.rounded(delta, w.dtype), int(weighted),
+        _build.stream_handle(w.device),
     )
     _build.check(lib.pe_fused_error_string, K2, rc)
-    _build.count_launch(K2)
+    _build.count_launch(ws.counter(K2, DTYPES[w.dtype]))
 
 
 def _run_fused(problem: Problem, coeffs, r0: torch.Tensor,
                chunk: int = DEFAULT_CHUNK):
     """The rotated loop over prebuilt operands; returns (result, host reads)."""
     an, as_, bw, be, d, dinv = coeffs
-    h1t, h2t = spacing(problem.h1, r0), spacing(problem.h2, r0)
-    z0 = r0 * dinv
-    carry = rotated_state0(r0, z0, torch.sum(z0 * r0) * h1t * h2t)
+    ct = r0.dtype
+    q = ws.rounder(ct)
+    h1t, h2t = (ws.held(spacing(h, r0)) for h in (problem.h1, problem.h2))
+    z0 = q(ws.held(r0) * ws.held(dinv))
+    zr0 = q(q(grid_sum(z0 * ws.held(r0), ct)) * h1t * h2t)
+    carry = rotated_state0(r0, z0.to(ct), zr0.to(ct))
     limit = problem.max_iterations
     consts = dict(max_iter=limit, h1=problem.h1, h2=problem.h2)
     bodies = [0]
@@ -352,11 +401,9 @@ def _run_fused(problem: Problem, coeffs, r0: torch.Tensor,
 
 
 def _check_dtype(dtype: torch.dtype) -> None:
-    if dtype == torch.float64:
-        raise ValueError("the fused solver supports float32; use the xla "
-                         "engine for f64")
-    if dtype != torch.float32:
-        raise unported(f"the fused engine in {dtype}", "Queue B item 10")
+    if dtype not in DTYPES:
+        raise ValueError(f"the fused solver supports float32 and bfloat16, "
+                         f"not {dtype}; use the xla engine for f64")
 
 
 def pcg_fused(problem: Problem, a, b, rhs,

@@ -17,6 +17,12 @@ mask are formed from them, which gives the masked set's element values.
 
 The gate (``fits_resident``) and the launch's dynamic shared memory come
 from one function, ``layout``, so the two cannot disagree.
+
+The kernel runs at f32 or bf16 compute (``ws.COMPUTE_FORMS``), as the JAX
+engine runs at its solve dtype; a bf16 block holds twice the span, and
+each of its threads keeps 32 ap values where an f32 thread keeps 16
+(``PER_THREAD``), so the bf16 gate admits grids of up to twice as many
+nodes (H100: 1100×1650, which f32 sends to ``streamed``).
 """
 
 from __future__ import annotations
@@ -43,9 +49,10 @@ LIBRARY = "resident_pcg"
 KERNEL = "resident"
 
 # csrc/resident_pcg.cu: threads a block, ap values a thread keeps in
-# registers, and the arrays a block holds in shared memory
+# registers (by the compute type's bytes), and the arrays a block holds in
+# shared memory
 THREADS = 512
-PER_THREAD = 16
+PER_THREAD = {4: 16, 2: 32}
 ARRAYS = 7  # an, bw, d, dinv, w, r, p
 
 
@@ -61,14 +68,16 @@ class ResidentLayout:
 
 def layout(problem: Problem, cap: DeviceCapacity,
            dtype=torch.float32) -> ResidentLayout:
-    """The launch shape on ``cap``: the same arithmetic as the size check
-    of ``pe_resident_pcg_f32`` in the kernel's source."""
+    """The launch shape on ``cap`` at ``dtype``: the same arithmetic as the
+    size check of ``pe_resident_pcg_<form>`` in the kernel's source (no
+    kernel form for other dtypes: nothing fits)."""
     item = torch.empty((), dtype=dtype).element_size()
     g1, g2 = problem.node_shape
     nblocks = cap.sm_count
     span = -(-g1 * g2 // nblocks)
     smem = ARRAYS * span * item + ws.REDUCE_BYTES
-    fits = span <= THREADS * PER_THREAD and smem <= cap.smem_per_block
+    per_thread = PER_THREAD.get(item, 0)
+    fits = span <= THREADS * per_thread and smem <= cap.smem_per_block
     return ResidentLayout(nblocks, span, smem, fits)
 
 
@@ -93,42 +102,46 @@ def resident_operands(problem: Problem, dtype=torch.float32, device=None):
 def resident_plain(problem: Problem, an, bw, d, dinv, r0
                    ) -> tuple[PCGResult, int]:
     """The plain version of the resident kernel: the same per-element
-    expressions in the same order, one Python loop step per iteration.
-    Returns (result, host reads: one per loop test)."""
+    expressions in the same order, one Python loop step per iteration,
+    in f32 with each stored value rounded to r0's dtype
+    (``ws.rounder``). Returns (result, host reads: one per loop test)."""
+    ct = r0.dtype
+    q = ws.rounder(ct)
+    hh = ws.held(ws.h1h2(problem, r0))
+    delta = ws.held(ws.scalar(problem.delta, r0))
+    an, bw, d, dinv, r0 = (ws.held(x) for x in (an, bw, d, dinv, r0))
+    weighted = problem.norm == "weighted"
     inside = ws.interior(problem, r0)
     zero = torch.zeros_like(r0)
     an_m = torch.where(inside, an, zero)
     as_m = torch.where(inside, ws.next_row(an), zero)
     bw_m = torch.where(inside, bw, zero)
     be_m = torch.where(inside, ws.next_col(bw), zero)
-    hh = ws.h1h2(problem, r0)
-    delta = ws.scalar(problem.delta, r0)
-    weighted = problem.norm == "weighted"
 
     z0 = r0 * dinv
-    carry = ws.Carry(ws.total(z0 * r0) * hh)
+    carry = ws.Carry(q(q(ws.total(z0 * r0)) * hh), q)
     w, r, p = zero, r0, zero
     k, reads = 0, 0
     while True:
         reads += 1
         if not (k < problem.max_iterations and carry.active()):
             break
-        pn = r * dinv + carry.beta * p
+        pn = q(r * dinv + carry.beta * p)
         p = pn
         pu, pd, pl, pr = ws.neighbours(pn)
-        ap = d * pn - (an_m * pu + as_m * pd + bw_m * pl + be_m * pr)
-        denom = ws.total(ap * pn) * hh
-        breakdown = denom < DENOM_GUARD
-        alpha = ws.guarded_alpha(carry.zr, denom)
-        w_new = w + alpha * pn
-        r_new = r - alpha * ap
+        ap = q(d * pn - (an_m * pu + as_m * pd + bw_m * pl + be_m * pr))
+        denom = q(q(ws.total(ap * pn)) * hh)
+        breakdown = ws.below_guard(denom, ct)
+        alpha = ws.guarded_alpha(carry.zr, denom, q, ct)
+        w_new = q(w + alpha * pn)
+        r_new = q(r - alpha * ap)
         dw = w_new - w  # the realised step, not alpha*pn
-        dw2 = ws.total(dw * dw)
-        zr_raw = ws.total((r_new * dinv) * r_new)
+        dw2 = q(ws.total(dw * dw))
+        zr_raw = q(ws.total((r_new * dinv) * r_new))
         w, r = w_new, r_new
         carry.advance(breakdown, dw2, zr_raw, hh, delta, weighted)
         k += 1
-    return ws.plain_result(w, k, carry), reads
+    return ws.plain_result(w, k, carry, ct), reads
 
 
 _SIGNATURE = [ws.PTR] * 11 + [ws.INT] * 6 + [ws.FLOAT, ws.FLOAT, ws.INT,
@@ -137,15 +150,20 @@ _SIGNATURE = [ws.PTR] * 11 + [ws.INT] * 6 + [ws.FLOAT, ws.FLOAT, ws.INT,
 
 def resident(problem: Problem, an, bw, d, dinv, r0,
              cap: DeviceCapacity | None = None) -> tuple[PCGResult, int]:
-    """The whole solve: the kernel for CUDA tensors, its plain version for
-    CPU tensors. Returns (result, host reads). ``cap`` is the card's
-    capacity (read from the device when None)."""
+    """The whole solve: the kernel for CUDA tensors (its form at r0's
+    dtype, f32 or bf16), its plain version for CPU tensors. Returns
+    (result, host reads). ``cap`` is the card's capacity (read from the
+    device when None)."""
     if r0.device.type == "cpu":
         return resident_plain(problem, an, bw, d, dinv, r0)
+    form = ws.form_of(r0.dtype)
+    if form not in ws.COMPUTE_FORMS:
+        raise ValueError(f"{KERNEL}: no kernel form {form}")
     arrays = dict(an=an, bw=bw, d=d, dinv=dinv, r0=r0)
-    ws.check_operands(KERNEL, problem, arrays)
+    ws.check_operands(KERNEL, problem, arrays,
+                      dict.fromkeys(arrays, r0.dtype))
     cap = cap if cap is not None else device_capacity(r0.device)
-    lay = layout(problem, cap)
+    lay = layout(problem, cap, r0.dtype)
     if not lay.fits:
         raise ValueError(
             f"grid {problem.M}x{problem.N} does not fit the resident "
@@ -155,15 +173,18 @@ def resident(problem: Problem, an, bw, d, dinv, r0,
         )
     g1, g2 = problem.node_shape
     w = torch.empty_like(r0)
-    zpub, ppub = torch.empty_like(r0), torch.empty_like(r0)
+    # the span halo is float in every form (csrc/grid_sync.cuh)
+    zpub = torch.empty_like(r0, dtype=torch.float32)
+    ppub = torch.empty_like(zpub)
     status, diff, partials = ws.scratch(r0, lay.nblocks)
     ws.launch(
-        LIBRARY, KERNEL, "pe_resident_pcg_f32", _SIGNATURE,
+        LIBRARY, ws.counter(KERNEL, form), f"pe_resident_pcg_{form}",
+        _SIGNATURE,
         *(t.data_ptr() for t in (an, bw, d, dinv, r0, w, zpub, ppub,
                                  partials, status, diff)),
         g1, g2, lay.span, lay.nblocks, lay.smem_bytes,
-        problem.max_iterations, float(problem.h1) * float(problem.h2),
-        problem.delta,
+        problem.max_iterations, ws.h1h2_rounded(problem, r0.dtype),
+        ws.rounded(problem.delta, r0.dtype),
         int(problem.norm == "weighted"),
         torch.cuda.current_stream(r0.device).cuda_stream,
     )
@@ -176,8 +197,9 @@ def build_resident_solver(problem: Problem, dtype=torch.float32, device=None,
     may be called many times. The gate is checked here against ``cap``
     (on the card, default: its own capacity; on the CPU, only when
     given)."""
-    if dtype != torch.float32:
-        raise ValueError(f"the resident engine runs float32, not {dtype}")
+    if ws.DTYPE_NAMES.get(dtype) not in ws.COMPUTE_FORMS:
+        raise ValueError(f"the resident engine runs float32 or bfloat16, "
+                         f"not {dtype}")
     dev = resolve_device(device)
     if dev.type == "cuda" and cap is None:
         cap = device_capacity(dev)

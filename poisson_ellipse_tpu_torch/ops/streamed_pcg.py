@@ -25,6 +25,14 @@ The regime follows from the plan, as in the JAX kernel:
 The stencil is the unmasked, output-masked form (``:330-369``) on the
 operand set of ``streamed_operand_set`` (``:538-571``): (dinv, an, bw, r0)
 with an = a/h1² and bw = b/h2² unmasked, here unpadded.
+
+The forms (``ws.FORMS``): f32 or bf16 compute, and f32 compute with the
+operands dinv, an and bw streamed at a narrow storage dtype
+(``build_streamed_solver(storage_dtype=)``, the JAX ``_read`` upcast,
+``:258``): they are rounded once from their f32 form, and r0 and the state
+stay at f32 (``:583-588``). The plan budgets every operand at the compute
+width, as JAX's does (``:598-600``), so a storage dtype never changes the
+plan a grid gets, nor the rung ``auto`` takes.
 """
 
 from __future__ import annotations
@@ -37,6 +45,10 @@ from poisson_ellipse_tpu_torch.ops import whole_solve as ws
 from poisson_ellipse_tpu_torch.ops.fused_pcg import (
     interior_normalized,
     normalized_unmasked,
+)
+from poisson_ellipse_tpu_torch.ops.precision import (
+    resolve_storage_dtype,
+    store,
 )
 from poisson_ellipse_tpu_torch.solver.pcg import DENOM_GUARD, PCGResult, Solver
 from poisson_ellipse_tpu_torch.utils.device import (
@@ -122,32 +134,45 @@ def fits_streamed(problem: Problem, dtype, cap: DeviceCapacity) -> bool:
     return StreamPlan(problem, cap, dtype).fits
 
 
-def streamed_operands(problem: Problem, dtype=torch.float32, device=None):
+def streamed_operands(problem: Problem, dtype=torch.float32, device=None,
+                      storage_dtype=None):
     """(dinv, an, bw, r0): the guarded 1/D, the unmasked an = a/h1² and
     bw = b/h2², and the RHS, computed in f64 on the host and rounded once
     to ``dtype`` on ``device``. The operand set of the streamed and xl
-    engines (the JAX ``streamed_operand_set`` without its padding)."""
+    engines (the JAX ``streamed_operand_set`` without its padding). With
+    ``storage_dtype`` (an ``ops.precision`` name or dtype), dinv, an and bw
+    are then rounded from their ``dtype`` form to it, as the JAX
+    ``build_streamed_solver``/``build_xl_solver`` round them; r0 stays at
+    ``dtype``."""
     dev = resolve_device(device)
+    st = resolve_storage_dtype(storage_dtype, dtype)
     a64, b64, rhs64 = assembly.assemble_numpy(problem)
     dinv = interior_normalized(problem, a64, b64)[5]
     an, bw = normalized_unmasked(problem, a64, b64)
-    return tuple(assembly.to_device(x, dtype, dev)
-                 for x in (dinv, an, bw, rhs64))
+    dinv, an, bw, r0 = (assembly.to_device(x, dtype, dev)
+                        for x in (dinv, an, bw, rhs64))
+    return (*(store(x, st) for x in (dinv, an, bw)), r0)
 
 
 def streamed_plain(problem: Problem, dinv, an, bw, r0, zstate: bool = False
                    ) -> tuple[PCGResult, int]:
     """The plain version of the streamed kernel in the regime ``zstate``
     selects: the same per-element expressions in the same order, one
-    Python loop step per iteration. Returns (result, host reads)."""
-    inside = ws.interior(problem, r0)
-    hh = ws.h1h2(problem, r0)
-    delta = ws.scalar(problem.delta, r0)
+    Python loop step per iteration, on the operands upcast to f32, each
+    stored value rounded to r0's dtype (``ws.rounder``). Returns (result,
+    host reads)."""
+    ct = r0.dtype
+    q = ws.rounder(ct)
+    hh = ws.held(ws.h1h2(problem, r0))
+    delta = ws.held(ws.scalar(problem.delta, r0))
+    dinv, an, bw, r0 = (ws.held(x.to(ct)) for x in (dinv, an, bw, r0))
     weighted = problem.norm == "weighted"
+    inside = ws.interior(problem, r0)
     d = ws.guarded_reciprocal(dinv) if zstate else None
 
-    z0 = r0 * dinv
-    carry = ws.Carry(ws.total(z0 * r0) * hh)
+    # z0 is stored (the state) in the z-state regime only
+    z0 = q(r0 * dinv) if zstate else r0 * dinv
+    carry = ws.Carry(q(q(ws.total(z0 * r0)) * hh), q)
     state = z0 if zstate else r0
     w = p = torch.zeros_like(r0)
     k, reads = 0, 0
@@ -156,24 +181,24 @@ def streamed_plain(problem: Problem, dinv, an, bw, r0, zstate: bool = False
         if not (k < problem.max_iterations and carry.active()):
             break
         z = state if zstate else state * dinv
-        p = z + carry.beta * p
-        ap = ws.stencil_unmasked(p, an, bw, inside)
-        denom = ws.total(ap * p) * hh
-        breakdown = denom < DENOM_GUARD
-        alpha = ws.guarded_alpha(carry.zr, denom)
-        w_new = w + alpha * p
+        p = q(z + carry.beta * p)
+        ap = q(ws.stencil_unmasked(p, an, bw, inside))
+        denom = q(q(ws.total(ap * p)) * hh)
+        breakdown = ws.below_guard(denom, ct)
+        alpha = ws.guarded_alpha(carry.zr, denom, q, ct)
+        w_new = q(w + alpha * p)
         dw = w_new - w  # the realised step, not alpha*p
         w = w_new
         if zstate:
-            state = state - alpha * (dinv * ap)
-            zr_raw = ws.total((state * state) * d)
+            state = q(state - alpha * (dinv * ap))
+            zr_raw = q(ws.total((state * state) * d))
         else:
-            state = state - alpha * ap
-            zr_raw = ws.total((state * dinv) * state)
-        carry.advance(breakdown, ws.total(dw * dw), zr_raw, hh, delta,
+            state = q(state - alpha * ap)
+            zr_raw = q(ws.total((state * dinv) * state))
+        carry.advance(breakdown, q(ws.total(dw * dw)), zr_raw, hh, delta,
                       weighted)
         k += 1
-    return ws.plain_result(w, k, carry), reads
+    return ws.plain_result(w, k, carry, ct), reads
 
 
 _SIGNATURE = [ws.PTR] * 11 + [ws.INT] * 7 + [ws.FLOAT, ws.FLOAT, ws.INT,
@@ -182,41 +207,51 @@ _SIGNATURE = [ws.PTR] * 11 + [ws.INT] * 7 + [ws.FLOAT, ws.FLOAT, ws.INT,
 
 def streamed(problem: Problem, dinv, an, bw, r0,
              plan: StreamPlan) -> tuple[PCGResult, int]:
-    """The whole solve under ``plan``: the kernel for CUDA tensors, its
-    plain version (in the plan's regime) for CPU tensors. Returns (result,
-    host reads)."""
+    """The whole solve under ``plan``: the kernel for CUDA tensors (its
+    form at r0's dtype with the operands at dinv's), its plain version (in
+    the plan's regime) for CPU tensors. Returns (result, host reads)."""
     if r0.device.type == "cpu":
         return streamed_plain(problem, dinv, an, bw, r0, plan.zstate)
+    form = ws.form_of(r0.dtype, dinv.dtype)
     arrays = dict(dinv=dinv, an=an, bw=bw, r0=r0)
-    ws.check_operands(KERNEL, problem, arrays)
+    ws.check_operands(KERNEL, problem, arrays,
+                      dict(dinv=dinv.dtype, an=dinv.dtype, bw=dinv.dtype,
+                           r0=r0.dtype))
     if plan.cap is None or not plan.fits:
         raise ValueError(f"grid {problem.M}x{problem.N}: the kernel needs a "
                          "plan that fits a card's capacity")
     g1, g2 = problem.node_shape
     w = torch.empty_like(r0)
     ap = torch.empty_like(r0) if not plan.resident["ap"] else w.new_empty(0)
-    zpub, ppub = torch.empty_like(r0), torch.empty_like(r0)
+    # the span halo is float in every form (csrc/grid_sync.cuh)
+    zpub = torch.empty_like(r0, dtype=torch.float32)
+    ppub = torch.empty_like(zpub)
     status, diff, partials = ws.scratch(r0, plan.nblocks)
     ws.launch(
-        LIBRARY, KERNEL, "pe_streamed_pcg_f32", _SIGNATURE,
+        LIBRARY, ws.counter(KERNEL, form), f"pe_streamed_pcg_{form}",
+        _SIGNATURE,
         *(t.data_ptr() for t in (dinv, an, bw, r0, w, ap, zpub, ppub,
                                  partials, status, diff)),
         g1, g2, plan.span, plan.resident_bits, plan.nblocks, plan.smem_bytes,
-        problem.max_iterations, float(problem.h1) * float(problem.h2),
-        problem.delta, int(problem.norm == "weighted"),
+        problem.max_iterations, ws.h1h2_rounded(problem, r0.dtype),
+        ws.rounded(problem.delta, r0.dtype),
+        int(problem.norm == "weighted"),
         torch.cuda.current_stream(r0.device).cuda_stream,
     )
     return ws.launch_result(KERNEL, w, status, diff)
 
 
 def build_streamed_solver(problem: Problem, dtype=torch.float32, device=None,
-                          cap: DeviceCapacity | None = None):
+                          cap: DeviceCapacity | None = None,
+                          storage_dtype=None):
     """(solver, args) with args = ``streamed_operands``; ``solver(*args)``
     may be called many times. On the card the plan reads ``cap`` (default:
     the card's own capacity); on the CPU ``cap=None`` plans every operand
-    resident, and a given ``cap`` plans as it would on that card."""
-    if dtype != torch.float32:
-        raise ValueError(f"the streamed engine runs float32, not {dtype}")
+    resident, and a given ``cap`` plans as it would on that card.
+    ``storage_dtype`` streams dinv, an and bw at that width (f32 compute
+    only); the plan stays the compute width's."""
+    st = resolve_storage_dtype(storage_dtype, dtype)
+    ws.form_of(dtype, st)  # raises for a form no kernel has
     dev = resolve_device(device)
     if dev.type == "cuda" and cap is None:
         cap = device_capacity(dev)
@@ -227,7 +262,7 @@ def build_streamed_solver(problem: Problem, dtype=torch.float32, device=None,
             f"exceeds the shared memory of {cap.name}; use the xl engine "
             "(auto's pick there)"
         )
-    args = streamed_operands(problem, dtype, dev)
+    args = streamed_operands(problem, dtype, dev, st)
     solver = Solver(lambda *ops: streamed(problem, *ops, plan=plan))
     return solver, args
 

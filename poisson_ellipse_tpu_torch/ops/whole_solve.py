@@ -15,19 +15,35 @@ and ``chip_smoke.py`` holds each kernel against it on the card. No wrapper
 falls back to it: a build or launch failure raises.
 
 The kernels accumulate every sum in double from its float terms and round
-it once to float; the plain versions do the same (``total``). So the two
+it once to float (then to bf16 in a bf16 form); the plain versions do the
+same (``total``). So the two
 agree bitwise in practice, though their sums run in different orders: a
 float sum's order alone moves α and β in their last bits, and the
 resident form's cancelling stencil grows that to 6e-5 of w's scale within
 7 iterations at 401×601.
 
+The dtype axes (``FORMS``): each kernel is a template on its compute
+type, float or bf16, and the streamed and xl kernels also on the load type
+of their operands (dinv, an, bw), f32 compute with bf16 or f16 operand
+streams. A narrow stream is upcast exactly after its load, so that form is
+the f32 kernel on the upcast operands. A bf16-compute form stores bf16:
+every array element, every grid sum and every scalar of the carry is a
+bf16 value, computed in float from stored values and rounded once where it
+is stored; the plain versions do the same on f32 tensors (``rounder``).
+That tracks the JAX kernels' bf16 counts; rounding each operation
+instead, as PyTorch's bf16 ops do, loses the cancelling stencil
+d·p − Σ(neighbours) of the resident and fused kernels: at 40×40, δ = 1e-4,
+fused then takes 45 iterations against the JAX package's 33 (32 this way).
+
 The helpers here are the plain versions' shared pieces: the sum, the
-interior mask, the neighbour shifts, the stencil form and the scalar tail.
+interior mask, the neighbour shifts, the stencil form and the scalar tail;
+and the forms' names, checks and launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -56,10 +72,57 @@ def scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=like.dtype, device=like.device)
 
 
+# the short names of the kernels' types
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16"}
+
+# the (compute, load) forms of the streamed and xl kernels; the resident
+# kernel and K-b/K-c have the compute forms only
+FORMS = ("f32", "bf16", "f32_bf16", "f32_f16")
+COMPUTE_FORMS = ("f32", "bf16")
+
+
+def form_of(compute: torch.dtype, load: torch.dtype | None = None) -> str:
+    """The kernel form that computes at ``compute`` and loads its operands
+    at ``load`` (None: at ``compute``): "f32", "bf16", "f32_bf16" or
+    "f32_f16". Raises for a pair no kernel is built for."""
+    load = compute if load is None else load
+    name = DTYPE_NAMES.get(compute, str(compute))
+    if load != compute:
+        name += "_" + DTYPE_NAMES.get(load, str(load))
+    if name not in FORMS:
+        raise ValueError(
+            f"no kernel computes at {compute} with operands at {load}: the "
+            f"forms are {', '.join(FORMS)} (compute, then operand loads)")
+    return name
+
+
+def counter(kernel: str, form: str) -> str:
+    """The launch counter (``_build.LAUNCHES``) of ``kernel``'s ``form``:
+    the kernel's own name for f32, ``<kernel>_<form>`` for the others."""
+    return kernel if form == "f32" else f"{kernel}_{form}"
+
+
 def total(x: torch.Tensor) -> torch.Tensor:
-    """Σx accumulated in double and rounded once to x's dtype, as the
-    kernels sum (``csrc/grid_sync.cuh``)."""
-    return torch.sum(x, dtype=torch.float64).to(x.dtype)
+    """Σx accumulated in double and rounded once to x's dtype, through
+    float when that is narrower, as the kernels sum
+    (``csrc/grid_sync.cuh``)."""
+    s = torch.sum(x, dtype=torch.float64)
+    return s.to(x.dtype) if x.dtype.itemsize >= 4 else s.float().to(x.dtype)
+
+
+def held(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a plain version holds it: a narrow tensor upcast to f32
+    (exact), a wider one as it is."""
+    return x if x.dtype.itemsize >= 4 else x.float()
+
+
+def rounder(dtype: torch.dtype):
+    """q(x): a held value rounded to the compute dtype ``dtype``, where a
+    kernel stores it (the identity from f32 up)."""
+    if dtype.itemsize >= 4:
+        return lambda x: x
+    return lambda x: x.to(dtype).float()
 
 
 def h1h2(problem: Problem, like: torch.Tensor) -> torch.Tensor:
@@ -103,10 +166,17 @@ def stencil_unmasked(pn, an, bw, inside):
     return torch.where(inside, ax + ay, torch.zeros_like(pn))
 
 
-def guarded_alpha(zr, denom):
-    """α = zr/denom, 0 when the denominator guard trips."""
-    guard = denom < DENOM_GUARD
-    alpha = zr / torch.where(guard, torch.ones_like(denom), denom)
+def below_guard(denom, dtype: torch.dtype):
+    """The breakdown test, the guard rounded to the compute dtype as a
+    comparison of a ``dtype`` tensor with the Python float rounds it."""
+    return denom < rounded(DENOM_GUARD, dtype)
+
+
+def guarded_alpha(zr, denom, q, dtype: torch.dtype):
+    """α = zr/denom rounded by ``q`` to the compute ``dtype``, 0 when the
+    denominator guard trips."""
+    guard = below_guard(denom, dtype)
+    alpha = q(zr / torch.where(guard, torch.ones_like(denom), denom))
     return torch.where(guard, torch.zeros_like(alpha), alpha)
 
 
@@ -119,9 +189,11 @@ def guarded_reciprocal(dinv):
 
 
 class Carry:
-    """The plain loops' scalar carry (0-dim tensors)."""
+    """The plain loops' scalar carry (0-dim tensors), each value rounded by
+    ``q`` (``rounder``) where it is formed."""
 
-    def __init__(self, zr: torch.Tensor):
+    def __init__(self, zr: torch.Tensor, q=None):
+        self.q = q or (lambda x: x)
         self.zr = zr
         self.beta = torch.zeros_like(zr)
         self.diff = torch.full_like(zr, float("inf"))
@@ -136,45 +208,66 @@ class Carry:
         (resident_pcg.py:179-184 of the JAX package): convergence on the
         realised step norm; on breakdown zr, β and diff are held, as the
         reference exits before touching them."""
-        zr_new = zr_raw * hh
-        ndiff = torch.sqrt(dw2 * hh) if weighted else torch.sqrt(dw2)
+        q = self.q
+        zr_new = q(zr_raw * hh)
+        ndiff = q(torch.sqrt(dw2 * hh) if weighted else torch.sqrt(dw2))
         converged = ~breakdown & (ndiff < delta)
         self.diff = torch.where(breakdown, self.diff, ndiff)
-        self.beta = torch.where(breakdown, self.beta, zr_new / self.zr)
+        self.beta = torch.where(breakdown, self.beta, q(zr_new / self.zr))
         self.zr = torch.where(breakdown, self.zr, zr_new)
         self.converged = converged
         self.breakdown = breakdown
 
 
-def plain_result(w, iters: int, carry: Carry) -> PCGResult:
+def plain_result(w, iters: int, carry: Carry, dtype=None) -> PCGResult:
+    """The result of a plain loop, w and diff at the compute ``dtype``
+    (default: w's)."""
+    dtype = dtype or w.dtype
     return PCGResult(
-        w=w,
+        w=w.to(dtype),
         iters=torch.tensor(iters, dtype=torch.int32, device=w.device),
-        diff=carry.diff,
+        diff=carry.diff.to(dtype),
         converged=carry.converged,
         breakdown=carry.breakdown,
     )
 
 
-def check_operands(kernel: str, problem: Problem, arrays: dict) -> None:
-    """Raise for what the kernels do not take: every array float32, 2-D of
-    the node grid's shape, contiguous, on one CUDA device."""
+def check_operands(kernel: str, problem: Problem, arrays: dict,
+                   dtypes: dict) -> None:
+    """Raise for what the kernels do not take: every array of the dtype
+    ``dtypes`` names for it (its form's compute or load type), 2-D of the
+    node grid's shape, contiguous, on one CUDA device."""
     shape = problem.node_shape
     first = next(iter(arrays.values()))
     if shape[0] * shape[1] >= 2**31:
         raise ValueError(f"{kernel}: grid {shape} exceeds 32-bit indexing")
     for name, t in arrays.items():
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+        if (t.dtype != dtypes[name] or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.device != first.device):
             raise ValueError(
                 f"{kernel}: {name} is {t.dtype} {tuple(t.shape)} on "
                 f"{t.device} (contiguous={t.is_contiguous()}); expected "
-                f"contiguous float32 {shape} on {first.device}"
+                f"contiguous {dtypes[name]} {shape} on {first.device}"
             )
 
 
+@functools.lru_cache(maxsize=256)
+def rounded(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (through float, as PyTorch rounds a
+    Python float to bf16), as the float a launcher takes: the kernels
+    compare and multiply by the values their plain versions hold. Rounded
+    on the host, so a launch reads nothing back from the card."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def h1h2_rounded(problem: Problem, dtype: torch.dtype) -> float:
+    """``h1h2`` as the float a whole-solve launcher takes."""
+    return rounded(float(problem.h1) * float(problem.h2), dtype)
+
+
 def scratch(like: torch.Tensor, nblocks: int):
-    """(status, diff, partials) for one launch of ``nblocks`` blocks."""
+    """(status, diff, partials) for one launch of ``nblocks`` blocks; diff
+    at ``like``'s (the compute) dtype."""
     status = torch.zeros(N_STATUS, dtype=torch.int32, device=like.device)
     diff = torch.empty(1, dtype=like.dtype, device=like.device)
     partials = torch.empty(N_PARTIALS * nblocks, dtype=torch.float64,

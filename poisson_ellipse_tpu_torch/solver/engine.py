@@ -36,8 +36,11 @@ The ``-pallas`` batched rows are the port's names for the JAX
 for the single-lane loops.
 
 Policy (``select_engine``), as in the JAX package: f64 takes ``xla``; f32
-walks the capacity ladder resident → streamed → xl and takes the first
-whose gate admits the grid. The pipelined and s-step engines are on no
+and bf16 walk the capacity ladder resident → streamed → xl and take the
+first whose gate admits the grid, the gates sized at the dtype's bytes a
+node (H100, f32: resident to 800×1200, streamed at 1100×1650, xl from
+1600×2400; bf16: resident to 1100×1650, streamed at 1600×2400, xl at
+2400×3200). The pipelined and s-step engines are on no
 rung: ``auto`` never picks them, as in the JAX package. The gates are
 computed from the card's own shared memory (``utils.device.capacity``),
 from the same functions that size each kernel's launch, so a gate that
@@ -55,10 +58,16 @@ to build or a cooperative launch the card refuses raises.
 the engines whose row says ``storage``, as in the JAX table: ``xla``,
 ``pallas`` (K-g in place of K-a), ``pipelined``, ``pipelined-pallas`` (K-h
 in place of K-d, K-g for the rebuilds), ``sstep``, ``sstep-pallas`` (K-g
-in the basis chain) and ``batched``. ``streamed`` and ``xl`` have a
-storage form in JAX (bf16 operand streams) that is not ported yet (ROADMAP
-Queue A item 18); every other engine, ``auto`` included, refuses it with
-the JAX error.
+in the basis chain) and ``batched`` store the state narrow; ``streamed``
+and ``xl`` stream their operands dinv, a and b narrow, the state and r0 at
+the compute width (their kernels' f32_bf16 and f32_f16 forms). Every
+other engine, ``auto`` included, refuses it with the JAX error.
+
+bf16 compute (``dtype=torch.bfloat16``) runs on ``xla``, ``fused`` (K-b
+and K-c in bf16), ``resident``, ``streamed`` and ``xl`` (their bf16
+forms), the engines whose JAX counterparts the JAX package's own tests run
+at bf16; the other kernel engines are f32 only (ROADMAP Queue A item
+20).
 """
 
 from __future__ import annotations
@@ -76,7 +85,6 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     init_state,
     reject_unported,
     result_of,
-    unported,
 )
 from poisson_ellipse_tpu_torch.utils.device import (
     DeviceCapacity,
@@ -94,22 +102,25 @@ from poisson_ellipse_tpu_torch.utils.device import (
 #              the engine launches
 #   capacity — the engine's rung on the capacity ladder "auto" walks
 #              (None: not on it)
+#              (of their f32 forms; a kernel's other forms count under
+#              ``<kernel>_<form>``, ``ops.whole_solve.counter``)
 #   dtypes   — the dtypes the engine accepts
-#   storage  — accepts ``storage_dtype`` (the JAX table's column; the port
-#              of streamed's and xl's form is ROADMAP Queue A item 18)
+#   storage  — accepts ``storage_dtype`` (the JAX table's column)
+_WHOLE = (torch.float32, torch.bfloat16)
 ENGINE_CAPS = {
     "resident": dict(family="megakernel", kernels=("resident",), capacity=0,
-                     dtypes=(torch.float32,), storage=False),
+                     dtypes=_WHOLE, storage=False),
     "streamed": dict(family="megakernel", kernels=("streamed",), capacity=1,
-                     dtypes=(torch.float32,), storage=True),
+                     dtypes=_WHOLE, storage=True),
     "xl": dict(family="megakernel", kernels=("xl",), capacity=2,
-               dtypes=(torch.float32,), storage=True),
+               dtypes=_WHOLE, storage=True),
     "xla": dict(family="loop", kernels=(), capacity=None,
-                dtypes=(torch.float32, torch.float64), storage=True),
+                dtypes=(torch.float32, torch.float64, torch.bfloat16),
+                storage=True),
     "pallas": dict(family="loop", kernels=("stencil",), capacity=None,
                    dtypes=(torch.float32,), storage=True),
     "fused": dict(family="fused", kernels=("fused_k1", "fused_k2"),
-                  capacity=None, dtypes=(torch.float32,), storage=False),
+                  capacity=None, dtypes=_WHOLE, storage=False),
     "pipelined": dict(family="pipelined", kernels=(), capacity=None,
                       dtypes=(torch.float32, torch.float64), storage=True),
     "pipelined-pallas": dict(family="pipelined",
@@ -157,9 +168,10 @@ CAPACITY_LADDER = tuple(sorted(
 
 def select_engine(problem: Problem, dtype=torch.float32,
                   capacity: DeviceCapacity | None = None) -> str:
-    """The engine "auto" resolves to: ``xla`` for f64; else the first rung
-    of resident → streamed → xl whose gate admits the grid on
-    ``capacity``. Without a capacity (the CPU) that is ``xl``."""
+    """The engine "auto" resolves to: ``xla`` for f64; else (f32, bf16)
+    the first rung of resident → streamed → xl whose gate, sized at
+    ``dtype``'s bytes a node, admits the grid on ``capacity``. Without a
+    capacity (the CPU) that is ``xl``."""
     from poisson_ellipse_tpu_torch.ops.resident_pcg import fits_resident
     from poisson_ellipse_tpu_torch.ops.streamed_pcg import fits_streamed
 
@@ -219,10 +231,6 @@ def build_solver(problem: Problem, engine: str = "auto",
             f"engine {engine!r} has no storage-dtype form; choose from "
             f"{', '.join(STORAGE_ENGINES)} (or drop --storage-dtype)"
         )
-    if storage_dtype is not None and ENGINE_CAPS[engine]["family"] == \
-            "megakernel":
-        raise unported(f"storage_dtype= on the {engine!r} engine",
-                       "Queue A item 18")
     if engine in BATCHED_ENGINES:
         if history:
             raise ValueError(
@@ -260,12 +268,14 @@ def build_solver(problem: Problem, engine: str = "auto",
             build_streamed_solver,
         )
 
-        solver, args = build_streamed_solver(problem, dtype, dev, capacity)
+        solver, args = build_streamed_solver(problem, dtype, dev, capacity,
+                                             storage_dtype)
         return solver, args, engine
     if engine == "xl":
         from poisson_ellipse_tpu_torch.ops.xl_pcg import build_xl_solver
 
-        solver, args = build_xl_solver(problem, dtype, dev, capacity)
+        solver, args = build_xl_solver(problem, dtype, dev, capacity,
+                                       storage_dtype)
         return solver, args, engine
 
     family = ENGINE_CAPS[engine]["family"]

@@ -53,26 +53,29 @@ class DeviceCapacity:
     total_memory: int
     index: Optional[int] = None
 
-    def _launch_query(self, library: str, smem_bytes: int) -> tuple[int, int]:
+    def _launch_query(self, library: str, smem_bytes: int,
+                      form: str = "f32") -> tuple[int, int]:
         if self.index is None:
             raise ValueError(
                 f"{self.name}: a hand-built capacity has no kernel occupancy"
             )
         from poisson_ellipse_tpu_torch.ops import _build
 
-        return _build.launch_query(library, self.index, smem_bytes)
+        return _build.launch_query(library, self.index, smem_bytes, form)
 
     def cooperative_launch(self, library: str) -> bool:
         """The card's cooperative-launch attribute, read through
         ``library``'s launch query (which builds that library)."""
         return bool(self._launch_query(library, 0)[0])
 
-    def max_co_resident(self, library: str, smem_bytes: int) -> int:
-        """How many blocks of ``library``'s whole-solve kernel, each with
+    def max_co_resident(self, library: str, smem_bytes: int,
+                        form: str = "f32") -> int:
+        """How many blocks of ``library``'s whole-solve kernel in ``form``
+        (its dtype form, ``ops.whole_solve.FORMS``), each with
         ``smem_bytes`` of dynamic shared memory, can be resident on the
         card at once: the limit of a cooperative launch. Raises if the
         card takes no cooperative launch at all."""
-        cooperative, per_sm = self._launch_query(library, smem_bytes)
+        cooperative, per_sm = self._launch_query(library, smem_bytes, form)
         if not cooperative:
             raise RuntimeError(f"{self.name} does not take cooperative "
                                "launches, which the whole-solve kernels need")

@@ -23,6 +23,10 @@ storage axis's K-g and K-h widen their narrow loads exactly, so they are
 held bitwise against their plain versions and against K-a / K-d on the
 upcast inputs (K-h's sums to rel 1e-6 of the plain version's, bitwise
 K-d's); ``pallas`` with bf16 storage takes ``xla``'s iterations and flags.
+The dtype forms (bf16 compute; f32 compute with bf16 or f16 operand
+streams) are held like their f32 forms, NaN in the same places where an f16
+stream overflows, and bitwise on seeded finite operands; K-b / K-c bf16,
+which sum in double on both sides, bitwise in their arrays.
 """
 
 import dataclasses
@@ -40,6 +44,7 @@ from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
 from poisson_ellipse_tpu_torch.ops import pipelined_pcg as pp
 from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
 from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
+from poisson_ellipse_tpu_torch.ops import whole_solve as ws
 from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
 from poisson_ellipse_tpu_torch.solver import engine
 from poisson_ellipse_tpu_torch.utils.device import capacity
@@ -678,3 +683,160 @@ def test_narrow_recurrences_on_the_card(cuda, engine_name):
                             "stencil_mixed": 4 * ((bodies - 1) // 8)}
     else:
         assert set(launches) == {"stencil_mixed"}
+
+
+# -- the dtype axes: bf16 compute, narrow operand streams --------------------
+
+# (engine, compute dtype, storage dtype, forced resident operands)
+FORM_CASES = [
+    ("resident", torch.bfloat16, None, None),
+    ("xl", torch.bfloat16, None, None),
+    ("xl", torch.float32, "bf16", None),
+    ("xl", torch.float32, "f16", None),
+    ("streamed", torch.bfloat16, None, ("ap", "dinv", "a", "b")),
+    ("streamed", torch.bfloat16, None, ()),
+    ("streamed", torch.float32, "bf16", ("dinv",)),
+    ("streamed", torch.float32, "bf16", ()),
+    ("streamed", torch.float32, "f16", ("ap", "a", "b")),
+    ("streamed", torch.float32, "f16", ()),
+]
+FORM_SHAPES = [(60, 90), (257, 301)]
+NARROW = {"bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def _form(name, problem, dev, dtype, storage, resident, seeded=False):
+    """(kernel run, plain run) of one dtype form of a whole-solve engine;
+    ``seeded`` streams numpy-seeded finite operands in place of the real
+    ones (which overflow f16)."""
+    cap = capacity(dev)
+    if name == "resident":
+        ops = rp.resident_operands(problem, dtype, dev)
+        return (lambda: rp.resident(problem, *ops, cap=cap),
+                lambda: rp.resident_plain(problem, *ops))
+    if seeded:
+        g = problem.node_shape
+        st = NARROW[storage]
+        ops = (_rand(g, dev, 0, lo=0.1).mul_(0.1).to(st),
+               _rand(g, dev, 1, lo=1.0).to(st),
+               _rand(g, dev, 2, lo=1.0).to(st), _rand(g, dev, 3))
+    else:
+        ops = sp.streamed_operands(problem, dtype, dev, storage)
+    if name == "xl":
+        return (lambda: xp.xl(problem, *ops, cap=cap),
+                lambda: xp.xl_plain(problem, *ops))
+    plan = sp.StreamPlan(problem, cap, dtype, resident=resident)
+    return (lambda: sp.streamed(problem, *ops, plan=plan),
+            lambda: sp.streamed_plain(problem, *ops, zstate=plan.zstate))
+
+
+def _assert_form_close(got, want):
+    """As _assert_whole_close, with NaN (an overflowed f16 stream) in the
+    same places."""
+    nan = torch.isnan(want.w)
+    assert torch.equal(torch.isnan(got.w), nan)
+    if bool(nan.any()):
+        for f in ("iters", "converged", "breakdown"):
+            assert int(getattr(got, f)) == int(getattr(want, f)), f
+        return
+    _assert_whole_close(got, want)
+
+
+@pytest.mark.parametrize("name,dtype,storage,resident", FORM_CASES)
+@pytest.mark.parametrize("M,N", FORM_SHAPES)
+def test_dtype_form_matches_plain_on_capped_runs(cuda, name, dtype, storage,
+                                                 resident, M, N):
+    form = ws.form_of(dtype, NARROW.get(storage))
+    for max_iter in (1, 2, 7):
+        problem = Problem(M=M, N=N, max_iter=max_iter)
+        kernel, plain = _form(name, problem, cuda, dtype, storage, resident)
+        _build.reset_launches()
+        got, reads = kernel()
+        assert reads == 1 and _build.LAUNCHES == {ws.counter(name, form): 1}
+        want, _ = plain()
+        # a bf16 resident solve may break down before the cap (its
+        # cancelling stencil): the plain version then stops with it
+        assert got.w.dtype == dtype and int(got.iters) <= max_iter
+        _assert_form_close(got, want)
+
+
+@pytest.mark.parametrize("name", ["xl", "streamed"])
+@pytest.mark.parametrize("storage", ["bf16", "f16"])
+def test_narrow_loads_on_seeded_operands_match_plain(cuda, name, storage):
+    """Finite seeded operands inside f16's range: the load path of each
+    narrow form bitwise its plain version on the upcast operands."""
+    for max_iter in (1, 2, 7):
+        problem = Problem(M=257, N=301, max_iter=max_iter)
+        kernel, plain = _form(name, problem, cuda, torch.float32, storage,
+                              ("dinv",) if name == "streamed" else None,
+                              seeded=True)
+        got, _ = kernel()
+        want, _ = plain()
+        assert bool(torch.isfinite(want.w).all())
+        assert torch.equal(got.w, want.w)
+        assert int(got.iters) == int(want.iters) == max_iter
+
+
+@pytest.mark.parametrize("M,N", SHAPES)
+def test_fused_bf16_kernels_match_plain(cuda, M, N):
+    problem = Problem(M=M, N=N)
+    g = problem.node_shape
+    an, as_, bw, be, d, dinv = fp.fused_operands(problem, torch.bfloat16,
+                                                 cuda)
+    z, p, w, r = (_rand(g, cuda, s, torch.bfloat16) for s in range(4))
+    partials = torch.empty(fp.scratch_len(*g), dtype=torch.float64,
+                           device=cuda)
+    _build.reset_launches()
+
+    def carry(alpha=0.0):
+        scal = torch.tensor([1.5, 0.7, float("inf"), 0.0, alpha],
+                            dtype=torch.bfloat16, device=cuda)
+        return scal, torch.zeros(fp.N_FLAGS, dtype=torch.int32, device=cuda)
+
+    outs = []
+    for k1 in (fp.k1, fp.k1_plain):
+        scal, flags = carry()
+        pn, ap = torch.empty_like(z), torch.empty_like(z)
+        k1(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials,
+           max_iter=NEVER, h1=problem.h1, h2=problem.h2)
+        outs.append((pn, ap, scal, flags))
+    (pn, ap, scal, flags), (pn_p, ap_p, scal_p, flags_p) = outs
+    assert torch.equal(pn, pn_p) and torch.equal(ap, ap_p)
+    _scalar_close(scal[fp.SCAL_DENOM].float(), scal_p[fp.SCAL_DENOM].float())
+    assert torch.equal(flags[:4], flags_p[:4])
+    outs = []
+    for k2 in (fp.k2, fp.k2_plain):
+        scal, flags = carry(alpha=0.3)
+        ww, rr, zz = w.clone(), r.clone(), torch.empty_like(w)
+        k2(ww, rr, pn_p, ap_p, dinv, zz, scal, flags, partials,
+           max_iter=NEVER, h1=problem.h1, h2=problem.h2, delta=problem.delta,
+           weighted=True)
+        outs.append((ww, rr, zz, scal, flags))
+    (ww, rr, zz, scal, flags), (ww_p, rr_p, zz_p, scal_p, flags_p) = outs
+    for x, y in ((ww, ww_p), (rr, rr_p), (zz, zz_p)):
+        assert torch.equal(x, y)
+    for i in (fp.SCAL_ZR, fp.SCAL_BETA, fp.SCAL_DIFF):
+        _scalar_close(scal[i].float(), scal_p[i].float())
+    assert torch.equal(flags[:3], flags_p[:3])
+    assert _build.LAUNCHES == {"fused_k1_bf16": 1, "fused_k2_bf16": 1}
+
+
+def test_bf16_engines_on_the_card_take_their_forms(cuda):
+    """auto at bf16 walks the ladder with its own forms, one launch a
+    solve; fused at bf16 runs K-b / K-c bf16; each converges at 40²,
+    δ = 1e-4, as on the CPU."""
+    problem = Problem(M=40, N=40, delta=1e-4)
+    for name, counters in (("auto", ("resident_bf16",)),
+                           ("streamed", ("streamed_bf16",)),
+                           ("xl", ("xl_bf16",)),
+                           ("fused", ("fused_k1_bf16", "fused_k2_bf16"))):
+        _build.reset_launches()
+        got = engine.solve(problem, name, torch.bfloat16, device=cuda)
+        assert set(_build.LAUNCHES) == set(counters), name
+        assert bool(got.converged) and got.w.dtype == torch.bfloat16, name
+        assert abs(int(got.iters) - 32) <= 3, name
+
+
+def test_xl_forms_answer_their_own_occupancy(cuda):
+    cap = capacity(cuda)
+    for form in ws.FORMS:
+        assert cap.max_co_resident(xp.LIBRARY, 0, form) >= cap.sm_count

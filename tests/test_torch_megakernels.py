@@ -173,7 +173,8 @@ def test_auto_walks_the_ladder_on_an_h100(M, N, want):
 def test_ladder_and_the_cpu_rule():
     assert engine.CAPACITY_LADDER == ("resident", "streamed", "xl")
     for name in engine.CAPACITY_LADDER:
-        assert engine.ENGINE_CAPS[name]["dtypes"] == (torch.float32,)
+        assert engine.ENGINE_CAPS[name]["dtypes"] == (torch.float32,
+                                                      torch.bfloat16)
         assert engine.ENGINE_CAPS[name]["kernels"] == (name,)
     # without a capacity (the CPU) auto takes the xl plain version
     problem = Problem(M=20, N=20)

@@ -177,10 +177,6 @@ def test_select_engine_policy():
 @pytest.mark.parametrize("kw,item", [
     (dict(geometry="ellipse"), "Queue A item 11"),
     (dict(history=True), "Queue A item 8"),
-    # the JAX streamed and xl engines stream bf16 operands; that form is
-    # not ported (the other storage engines are: test_storage_dtype_runs)
-    (dict(engine="streamed", storage_dtype=torch.bfloat16), "Queue A item 18"),
-    (dict(engine="xl", storage_dtype=torch.bfloat16), "Queue A item 18"),
     (dict(precond="mg"), "Queue A item 11"),
     (dict(recycle=8), "Queue A item 13"),
 ])
@@ -238,5 +234,6 @@ def test_engine_rejects_what_it_does_not_run():
     with pytest.raises(ValueError, match="unknown engine"):
         engine.build_solver(Problem(M=10, N=10), "megakernel", torch.float32,
                             "cpu")
-    with pytest.raises(NotImplementedError, match="Queue B item 10"):
-        fp.build_fused_solver(Problem(M=10, N=10), torch.bfloat16, "cpu")
+    # bf16 is a fused form now (tests/test_torch_bf16.py); f16 is none
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        fp.build_fused_solver(Problem(M=10, N=10), torch.float16, "cpu")

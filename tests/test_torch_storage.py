@@ -675,11 +675,16 @@ def test_cli_storage_dtype(capsys):
                      "bf16", "--device", "cpu", "--json"]) == 0
     d = json.loads(capsys.readouterr().out)
     assert d["storage_dtype"] == "bf16" and d["iters"] == 18
-    # no storage form: the JAX error, exit 2; not ported: exit 2
-    for name in ("fused", "streamed"):
+    # no storage form: the JAX error, exit 2
+    for name in ("fused", "resident"):
         assert cli_main(["10", "10", "--engine", name, "--storage-dtype",
                          "bf16", "--device", "cpu"]) == 2
     assert "storage" in capsys.readouterr().err
+    # streamed streams its operands narrow, its state at f32: f32's 15
+    assert cli_main(["10", "10", "--engine", "streamed", "--storage-dtype",
+                     "bf16", "--device", "cpu", "--json"]) == 0
+    d = json.loads(capsys.readouterr().out)
+    assert d["storage_dtype"] == "bf16" and d["iters"] == 15
 
 
 def test_roofline_counts_storage_bytes():
