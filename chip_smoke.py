@@ -61,10 +61,10 @@ result line):
               400x600, 800x1200, 1100x1650 and 2400x3200; K-d against its
               82.6 us bound; T_solver of pipelined, pipelined-pallas, sstep
               and sstep-pallas (s = 4) at 400x600, 800x1200 and 2400x3200.
-7. profile  — one solve of each whole-solve engine, of fused and pallas,
-              and of pipelined-pallas and sstep-pallas at 2400x3200 under
-              torch.profiler: device time by kernel and the device's idle
-              share.
+7. profile  — one solve of each whole-solve engine and of fused, and of
+              pallas, pipelined-pallas and sstep-pallas capped at 256
+              iterations, at 2400x3200 under torch.profiler: device time by
+              kernel and the device's idle share.
 8. batched  — the lane-batched path. K-e and K-f lane by lane against K-a
               and K-d on that lane (bitwise) and against their plain
               versions (arrays bitwise, K-f's sums within rel 1e-6), at
@@ -112,7 +112,7 @@ result line):
               T_solver of pallas bf16 beside f32 at 400x600, 800x1200 and
               2400x3200; the capped recurrences' time per iteration in bf16
               beside f32; one torch.profiler breakdown of pallas bf16 at
-              2400x3200.
+              2400x3200, capped at 256 iterations.
 
 10. dtypes  — bf16 compute and the narrow operand streams. Every new
               form against its plain version on capped solves (max_iter 1,
@@ -138,6 +138,28 @@ result line):
               1100x1650 in f32, bf16, f32 + bf16 and f32 + f16 streams,
               resident at 800x1200 in f32 and bf16, against their pass
               bounds; K-b / K-c bf16 against f32 per launch.
+
+11. mesh     — the sharded path (--mode sharded), its ranks processes of a
+              torch.distributed group. K1-shard and K2-shard against their
+              plain versions on numpy-seeded inputs at one rank's block of
+              2401x3201 on 2x2 (1201x1601 and its halo) and at the uneven
+              7x5 block of 13x17 on 2x4: arrays bitwise, the rank's sums
+              (per-block partials added in double) equal once rounded to
+              f32, their double gap printed; both do nothing once the flags
+              say the loop has exited. The harness entry point (run_once,
+              as the command line runs it in every rank; each run's counts
+              set to 0 just before its timed solve and read just after):
+              fused on a 1x1 mesh over NCCL at 2400x3200 (2449 +- 2, l2 <
+              1e-3); on 2x2, four ranks sharing the card over gloo, fused
+              and xla at 400x600 and 800x1200 (546 / 989 +- 2), fused at
+              2400x3200 (2449 +- 2), pallas at 400x600 (546 +- 2); the
+              command line with --mesh 1 2 --dtype f64 at 40x40 (exactly
+              50). On every rank: K1-shard and K2-shard (K-a for pallas)
+              once per issued body, 1 halo exchange and 2 reductions per
+              body, the report's mesh and backend. Then K1-shard and
+              K2-shard timed with CUDA events at the 1201x1601 block
+              against their bounds and plain versions, and T_solver of each
+              sharded run.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -215,6 +237,14 @@ def require(cond: bool, what: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def mark(done: str) -> None:
+    """The script's elapsed time after a phase."""
+    say(f"[{done} done at {time.perf_counter() - _START:.1f} s]")
 
 
 def card_line() -> str:
@@ -698,8 +728,7 @@ def phase_main(cap) -> dict:
         require(math.isfinite(gap) and gap < 1e-3,
                 f"{engine} f32 strays from f64")
     return dict(counts=counts, whole=whole, problem=problem,
-                solver_f=solver_f, args_f=args_f,
-                solver_p=solver_p, args_p=args_p)
+                solver_f=solver_f, args_f=args_f)
 
 
 def expected_pipelined_launches(iters: int, chunk: int = 64) -> dict:
@@ -891,6 +920,27 @@ def profile_solve(label: str, solver, args) -> None:
     for name, (count, us) in top:
         say(f"    {us / 1e3:9.2f} ms {count:7d} x {us / count:8.2f} us  "
             f"{name[:90]}")
+
+
+# iterations of the profiled solves of the per-iteration kernel engines:
+# the per-body breakdown, without a whole solve's events (sorting those
+# took minutes)
+PROFILE_CAP = 256
+
+
+def profile_capped(engine: str, **options) -> None:
+    """``profile_solve`` of ``engine`` at 2400x3200, capped at PROFILE_CAP
+    iterations, after one warm-up solve."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1], max_iter=PROFILE_CAP)
+    solver, args, _ = build_solver(problem, engine, torch.float32, "cuda",
+                                   **options)
+    solver(*args)
+    extra = "".join(f" {k}={v}" for k, v in options.items())
+    profile_solve(f"{engine}{extra} 2400x3200, capped at {PROFILE_CAP}",
+                  solver, args)
 
 
 def time_plain(name, args, problem, cap):
@@ -2073,6 +2123,309 @@ def phase_dtype_timing(cap, card: str) -> list:
     return rows
 
 
+# -- phase 11: the mesh -------------------------------------------------------
+
+# one rank's block of 2401x3201 on 2x2, and 13x17 (14x18 nodes) on 2x4
+SHARD_BLOCKS = ((1201, 1601), (7, 5))
+SHARD_GRID = (2400, 3200)
+# operations per node: pn at the 5 points (10), the stencil tree (18), the
+# product and its sum (2); K2's updates, products and sums
+K1_SHARD_FLOPS = 30
+K2_SHARD_FLOPS = 10
+# run_once jobs on 2x2: (engine, dtype, grid, oracle iterations)
+MESH_RUNS = (("fused", "f32", (400, 600), 546), ("xla", "f32", (400, 600), 546),
+             ("pallas", "f32", (400, 600), 546),
+             ("fused", "f32", (800, 1200), 989),
+             ("xla", "f32", (800, 1200), 989),
+             ("fused", "f32", SHARD_GRID, MAIN_ITERS))
+MESH_KERNELS = {"fused": ("fused_sharded_k1", "fused_sharded_k2"),
+                "pallas": ("stencil",), "xla": ()}
+
+
+def shard_inputs(bm: int, bn: int, seed: int):
+    """One rank's halo-extended windows and owned blocks, numpy-seeded; d
+    is zero on the block's first row and column (the ring)."""
+    from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
+
+    rng = np.random.default_rng(seed)
+
+    def f32(shape, lo=None):
+        x = (rng.random(shape) + lo if lo is not None
+             else rng.standard_normal(shape))
+        return torch.from_numpy(x.astype(np.float32)).to("cuda")
+
+    ext, blk = (bm + 2, bn + 2), (bm, bn)
+    d = f32(blk, lo=1.0)
+    d[0, :] = 0.0
+    d[:, 0] = 0.0
+    scal = torch.zeros(fp.N_SCAL, device="cuda")
+    scal[fp.SCAL_BETA], scal[fp.SCAL_ZR], scal[fp.SCAL_DENOM] = 0.7, 1.5, 2.5
+    return dict(z=f32(ext), p=f32(ext), a=f32(ext, lo=0.5),
+                b=f32(ext, lo=0.5), d=d,
+                dinv=torch.where(d != 0, 1.0 / d, torch.zeros_like(d)),
+                w=f32(blk), r=f32(blk), scal=scal,
+                flags=torch.zeros(fp.N_FLAGS, dtype=torch.int32,
+                                  device="cuda"))
+
+
+def _shard_pair(inp, k1, k2, parts, h1, h2, max_iter=2**31 - 1):
+    """K1 then K2 (or their plain versions) on ``inp``: (pn, ap, w, r, z,
+    K1's rank sum, K2's two rank sums), sums in double."""
+    bm, bn = inp["d"].shape
+    pn = torch.full((bm, bn), 7.0, device="cuda")
+    ap = torch.full((bm, bn), 7.0, device="cuda")
+    k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap, inp["scal"],
+       inp["flags"], parts[0], max_iter=max_iter, h1=h1, h2=h2)
+    w, r = inp["w"].clone(), inp["r"].clone()
+    z = torch.full((bm, bn), 7.0, device="cuda")
+    k2(w, r, pn, ap, inp["dinv"], z, inp["scal"], inp["flags"], parts[1],
+       max_iter=max_iter)
+    torch.cuda.synchronize()
+    return pn, ap, w, r, z, parts[0].sum(), parts[1].sum(0)
+
+
+def phase_shard_kernels(seed: int) -> dict:
+    """K1-shard and K2-shard bitwise their plain versions, rank sums equal
+    once rounded to f32, and no writes after the exit."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
+    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
+
+    say("== phase 11: K1-shard and K2-shard against their plain versions")
+    problem = Problem(M=SHARD_GRID[0], N=SHARD_GRID[1])
+    h1, h2 = problem.h1, problem.h2
+    errs = {fs.K1: 0.0, fs.K2: 0.0}
+    for bm, bn in SHARD_BLOCKS:
+        inp = shard_inputs(bm, bn, seed)
+        got = _shard_pair(inp, fs.k1, fs.k2, fs.scratch(bm, bn, "cuda"), h1,
+                          h2)
+        one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
+               torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
+        want = _shard_pair(inp, fs.k1_plain, fs.k2_plain, one, h1, h2)
+        for name, kernel, i in (("pn", fs.K1, 0), ("ap", fs.K1, 1),
+                                ("w", fs.K2, 2), ("r", fs.K2, 3),
+                                ("z", fs.K2, 4)):
+            err = max_abs(got[i], want[i])
+            errs[kernel] = max(errs[kernel], err)
+            say(f"  {kernel} {bm}x{bn} {name}: max_abs_err {err:.3e} "
+                f"bitwise={torch.equal(got[i], want[i])}")
+            require(torch.equal(got[i], want[i]),
+                    f"{kernel} {name} at {bm}x{bn} is not bitwise its plain "
+                    "version's")
+        for kernel, g, wv in ((fs.K1, got[5][None], want[5][None]),
+                              (fs.K2, got[6], want[6])):
+            gap = float((g - wv).abs().max())
+            say(f"  {kernel} {bm}x{bn} rank sums: kernel {g.tolist()} plain "
+                f"{wv.tolist()}, double gap {gap:.3e}")
+            require(torch.equal(g.float(), wv.float()),
+                    f"{kernel} rank sums at {bm}x{bn} differ once rounded "
+                    "to f32")
+        require(bool(torch.all(got[1][0, :] == 0) & torch.all(got[1][:, 0]
+                                                              == 0)),
+                "K1-shard wrote a nonzero ap where d is 0")
+    # after the exit neither kernel writes
+    inp = shard_inputs(*SHARD_BLOCKS[0], seed)
+    inp["flags"][fp.FLAG_CONVERGED] = 1
+    parts = fs.scratch(*SHARD_BLOCKS[0], "cuda")
+    parts[0].fill_(3.0)
+    parts[1].fill_(3.0)
+    pn, ap, w, r, z, _, _ = _shard_pair(inp, fs.k1, fs.k2, parts, h1, h2)
+    require(bool(torch.all(pn == 7.0) & torch.all(ap == 7.0)
+                 & torch.all(z == 7.0)) and torch.equal(w, inp["w"])
+            and torch.equal(r, inp["r"]) and bool(torch.all(parts[0] == 3.0))
+            and bool(torch.all(parts[1] == 3.0)),
+            "K1-shard or K2-shard wrote after the loop's exit")
+    say("  no writes after the exit: ok")
+    return errs
+
+
+def _check_mesh_report(label: str, report, want_iters: int, engine: str,
+                       exact: bool = False) -> None:
+    say(f"  {label}: {report.iters} iterations, converged {report.converged},"
+        f" l2 {report.l2_error:.3e}, mesh {report.mesh_shape}, backend "
+        f"{report.backend}, T_solver {report.t_solver:.5f} s, {report.bodies}"
+        f" bodies, {report.host_syncs} host reads; rank launches "
+        f"{report.rank_launches}; rank collectives "
+        f"{report.rank_collectives}")
+    ok_iters = (report.iters == want_iters if exact
+                else abs(report.iters - want_iters) <= ITERS_ABS)
+    require(report.converged and ok_iters,
+            f"{label}: {report.iters} iterations, want {want_iters}"
+            + ("" if exact else f" +- {ITERS_ABS}"))
+    require(report.l2_error < 1e-3, f"{label}: l2 {report.l2_error}")
+    bodies = report.bodies
+    for rank, (launches, colls) in enumerate(zip(report.rank_launches,
+                                                 report.rank_collectives)):
+        want = {k: bodies for k in MESH_KERNELS[engine]}
+        require(launches == want, f"{label}: rank {rank} launched "
+                f"{launches}, want {want} (once per issued body)")
+        require(colls == {"halo": bodies + 2, "reduce": 2 * bodies + 1},
+                f"{label}: rank {rank} made {colls}, want 1 halo exchange "
+                "and 2 reductions a body (and the 2 coefficient halos and "
+                "zr0's reduction once)")
+    require(len(report.rank_launches) == report.mesh_shape[0]
+            * report.mesh_shape[1], f"{label}: not every rank reported")
+    d = report.json_dict()
+    require(d["mesh"] == list(report.mesh_shape) and "backend" in d,
+            f"{label}: the report does not name the mesh and the backend")
+
+
+def phase_mesh(card: str) -> dict:
+    """The sharded path through the harness entry point: 1x1 over NCCL,
+    2x2 ranks sharing the card over gloo, and the command line on 1x2."""
+    from poisson_ellipse_tpu_torch.harness.run import run_once
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.parallel import multihost
+
+    say(f"== phase 11: the mesh through the harness ({card})")
+    t0 = time.perf_counter()
+    one = run_once(Problem(M=SHARD_GRID[0], N=SHARD_GRID[1]), mode="sharded",
+                   engine="fused", mesh_shape=(1, 1))
+    require(one.backend == "nccl", f"the 1x1 mesh took {one.backend}, not "
+            "NCCL")
+    _check_mesh_report("fused 1x1 2400x3200", one, MAIN_ITERS, "fused")
+    # one spawn of the four ranks for every 2x2 run and the profile
+    jobs = [(run_once, (Problem(M=g[0], N=g[1]),),
+             dict(mode="sharded", dtype=dt, engine=e, mesh_shape=(2, 2),
+                  device="cuda"))
+            for e, dt, g, _ in MESH_RUNS]
+    jobs.append((profile_rank, (Problem(M=400, N=600), "fused"), {}))
+    *reports, profiled = multihost.spawn(multihost.run_jobs, 4, (jobs,))
+    counts = {}
+    for (e, dt, g, want), report in zip(MESH_RUNS, reports):
+        require(report.backend == "gloo", f"2x2 on one card took "
+                f"{report.backend}, not gloo")
+        _check_mesh_report(f"{e} 2x2 {g[0]}x{g[1]}", report, want, e)
+        if (e, g) == ("fused", SHARD_GRID):
+            counts = report.rank_launches[0]
+    out = subprocess.run(
+        [sys.executable, "-m", "poisson_ellipse_tpu_torch.harness", "40",
+         "40", "--mode", "sharded", "--mesh", "1", "2", "--dtype", "f64",
+         "--json"], capture_output=True, text=True, timeout=300, cwd=ROOT)
+    require(out.returncode == 0, f"the command line on 1x2 exited "
+            f"{out.returncode}: {out.stderr[-2000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    say(f"  command line f64 xla 1x2 40x40: {rec}")
+    require(rec["iters"] == 50 and rec["converged"] and rec["mesh"] == [1, 2]
+            and rec["backend"] == "gloo" and rec["engine"] == "xla",
+            "the command line on 1x2 did not give exactly 50 over gloo")
+    say(f"  T_solver on {card}: fused 1x1 NCCL 2400x3200 "
+        f"{one.t_solver:.5f} s; 2x2 gloo: " + ", ".join(
+            f"{e} {g[0]}x{g[1]} {r.t_solver:.5f} s"
+            for (e, _, g, _), r in zip(MESH_RUNS, reports)))
+    say(f"  phase 11 runs took {time.perf_counter() - t0:.1f} s")
+    show_mesh_profile(profiled, card)
+    return {"counts": counts, "one": one, "reports": reports}
+
+
+def profile_rank(problem, engine: str) -> dict:
+    """One sharded solve under torch.profiler on this rank (every rank runs
+    it together; ``multihost.run_jobs``): wall time, device busy time,
+    device time by kernel and host time by operation."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from poisson_ellipse_tpu_torch.parallel.mesh import make_mesh
+    from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
+        build_sharded_solver,
+    )
+
+    mesh = make_mesh(device="cuda")
+    solver, args = build_sharded_solver(problem, mesh, torch.float32,
+                                        stencil_impl=engine)
+    solver(*args, limit=64)  # warm-up, as run_once's
+    torch.cuda.synchronize()
+    dist.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver(*args)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            entry = device.setdefault(evt.name, [0, 0.0])
+            entry[0] += 1
+            entry[1] += evt.time_range.elapsed_us()
+    host = sorted(((e.key, e.count, e.self_cpu_time_total)
+                   for e in prof.key_averages()), key=lambda x: -x[2])[:8]
+    return dict(wall_us=wall_us, bodies=solver.bodies,
+                busy_us=sum(t for _, t in device.values()),
+                device=sorted(device.items(), key=lambda kv: -kv[1][1])[:6],
+                host=host)
+
+
+def show_mesh_profile(prof: dict, card: str) -> None:
+    """Where the time of one 2x2 fused run goes: rank 0 under the
+    profiler, four ranks sharing the card over gloo."""
+    say(f"== phase 11 (profile): fused 2x2 400x600, rank 0 ({card})")
+    wall, busy = prof["wall_us"], prof["busy_us"]
+    if not prof["device"]:
+        say("  device time not measured (no device events)")
+        return
+    say(f"  wall {wall / 1e3:.2f} ms (profiler on), {prof['bodies']} bodies,"
+        f" {wall / prof['bodies']:.1f} us a body; device busy "
+        f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall:.3f}")
+    for name, (n, us) in prof["device"]:
+        say(f"    device {us / 1e3:9.2f} ms {n:7d} x {us / n:8.2f} us  "
+            f"{name[:80]}")
+    for name, n, us in prof["host"]:
+        say(f"    host   {us / 1e3:9.2f} ms {n:7d} x {us / max(n, 1):8.2f} us"
+            f"  {name[:80]}")
+
+
+def phase_shard_timing(seed: int, card: str) -> list:
+    """K1-shard and K2-shard with CUDA events at the 1201x1601 block, beside
+    their plain versions and bounds."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
+
+    bm, bn = SHARD_BLOCKS[0]
+    say(f"== phase 11 (timing): K1-shard and K2-shard at {bm}x{bn} on {card}")
+    problem = Problem(M=SHARD_GRID[0], N=SHARD_GRID[1])
+    inp = shard_inputs(bm, bn, seed)
+    parts = fs.scratch(bm, bn, "cuda")
+    one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
+           torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
+    pn, ap = torch.empty((bm, bn), device="cuda"), torch.empty((bm, bn),
+                                                                device="cuda")
+    w, r, z = inp["w"].clone(), inp["r"].clone(), torch.empty_like(pn)
+    never = 2**31 - 1
+
+    def k1(fn=fs.k1, p=parts[0]):
+        fn(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap,
+           inp["scal"], inp["flags"], p, max_iter=never, h1=problem.h1,
+           h2=problem.h2)
+
+    def k2(fn=fs.k2, p=parts[1]):
+        fn(w, r, pn, ap, inp["dinv"], z, inp["scal"], inp["flags"], p,
+           max_iter=never)
+
+    n, n_ext = bm * bn, (bm + 2) * (bn + 2)
+    n1, n2 = fs.partial_counts(bm, bn)
+    rows = []
+    for name, fn, plain, nbytes, flops, line in (
+            (fs.K1, k1, lambda: k1(fs.k1_plain, one[0]),
+             4 * (4 * n_ext + 3 * n) + 8 * n1, K1_SHARD_FLOPS * n, 179),
+            (fs.K2, k2, lambda: k2(fs.k2_plain, one[1]),
+             4 * 8 * n + 16 * n2, K2_SHARD_FLOPS * n, 207)):
+        ms = time_ms(fn, 200)
+        plain_ms = time_ms(plain, 20)
+        bound_ms, bound_by = bound(nbytes, flops)
+        say(f"  {name} {bm}x{bn}: {ms * 1e3:.1f} us/launch, plain "
+            f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+            f"({bound_by}), {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="poisson_ellipse_tpu_torch/csrc/fused_sharded.cu",
+            replaces=f"poisson_ellipse_tpu/parallel/fused_sharded.py:{line}",
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2091,9 +2444,12 @@ def main(argv=None) -> int:
     problem, inp = kernel_inputs(args.seed)
     errs = phase_kernels(problem, inp)
     errs.update(phase_whole_kernels(cap))
+    mark("phases 1-3")
     phase_oracles(cap)
+    mark("phase 4")
     main_run = phase_main(cap)
     rec = phase_recurrence(cap)
+    mark("phase 5")
     timed = phase_timing(problem, inp, card)
     timed += phase_whole_timing(main_run, cap, card, errs)
     # the kernels in the order they were ported: K-d after the first six
@@ -2101,17 +2457,16 @@ def main(argv=None) -> int:
     phase_solver_times(cap, card)
     phase_recurrence_times(rec, card)
 
+    mark("phase 6")
     say(f"== phase 7: where the time goes (torch.profiler, {card})")
     for name in WHOLE_SOLVE:
         solver, solver_args, grid, _ = main_run["whole"][name]
         profile_solve(f"{name} {grid.M}x{grid.N}", solver, solver_args)
     profile_solve("fused 2400x3200", main_run["solver_f"], main_run["args_f"])
-    profile_solve("pallas 2400x3200", main_run["solver_p"],
-                  main_run["args_p"])
-    for engine in ("pipelined-pallas", "sstep-pallas"):
-        solver, solver_args, _ = rec["runs"][engine]
-        profile_solve(f"{engine} 2400x3200", solver, solver_args)
+    for engine in ("pallas", "pipelined-pallas", "sstep-pallas"):
+        profile_capped(engine)
 
+    mark("phase 7")
     errs.update(phase_batched_kernels(args.seed))
     batched = phase_batched(args.seed)
     timed += phase_batched_timing(args.seed, card)
@@ -2119,22 +2474,29 @@ def main(argv=None) -> int:
     solver, solver_args = batched["runs"][("batched-pallas", 400, 600)][:2]
     profile_solve("batched-pallas 400x600 B=32", solver, solver_args)
 
+    mark("phase 8")
     errs.update(phase_storage_kernels(args.seed))
     storage_main = phase_storage_main()
     storage_rec = phase_storage_recurrences(card)
     phase_storage_checks()
     timed += phase_storage_timing(args.seed, storage_main, storage_rec, card)
     phase_storage_f32_recurrence_times(storage_rec, card)
-    solver, solver_args = storage_main["runs"][("pallas", "bf16")][:2]
-    profile_solve("pallas bf16 2400x3200", solver, solver_args)
+    profile_capped("pallas", storage_dtype="bf16")
 
+    mark("phase 9")
     errs.update(phase_dtype_kernels(cap, args.seed, inp))
     dtype_main = phase_dtype_main(cap)
     timed += phase_dtype_timing(cap, card)
 
+    mark("phase 10")
+    errs.update(phase_shard_kernels(args.seed))
+    mesh = phase_mesh(card)
+    timed += phase_shard_timing(args.seed, card)
+    mark("phase 11")
+
     counts = {**rec["counts"], **main_run["counts"], **batched["counts"],
               **storage_main["counts"], **storage_rec["counts"],
-              **dtype_main["counts"]}
+              **dtype_main["counts"], **mesh["counts"]}
     for row in timed:
         row["launches"] = counts.get(row["name"], 0)
         row["max_abs_err"] = errs[row["name"]]

@@ -25,8 +25,12 @@ package's, so each module's counterpart has the same relative path:
   ``streamed``, ``xl``, ``pipelined``, ``pipelined-pallas``, ``sstep``,
   ``sstep-pallas``, ``batched``, ``batched-pipelined``, ``batched-pallas``,
   ``batched-pipelined-pallas``) and ``auto``'s capacity ladder;
+- ``parallel`` — the mesh: a grid of ``torch.distributed`` ranks, each
+  solving its block with the classical loop (``xla``, ``pallas``) or the
+  fused iteration (K1-shard / K2-shard), halo exchanges and gathered
+  reductions between them;
 - ``harness`` — ``run_once`` and the command line (``--lanes``,
-  ``--storage-dtype``);
+  ``--storage-dtype``, ``--mode sharded --mesh PX PY``);
 - ``interop`` — the JAX package's arrays into the port, for the tests.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -9,7 +9,8 @@
 //   ay = -(b[i,j+1]*(w[i,j+1]-w[i,j])/h2 - b[i,j]*(w[i,j]-w[i,j-1])/h2)/h2
 //   out = ax + ay
 // term for term in the reference's order (each difference divided by h
-// before the terms are combined). Built with -fmad=false, so no product is
+// before the terms are combined): stencil_tree.cuh, which K1-shard
+// (fused_sharded.cu) shares. Built with -fmad=false, so no product is
 // contracted into an FMA and the result is bitwise the plain PyTorch
 // version's on the same card.
 //
@@ -65,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "stencil_tree.cuh"
 #include "storage.cuh"
 
 namespace {
@@ -93,12 +95,9 @@ __global__ void stencil_kernel(const TW* __restrict__ w,
   if (i >= 0 && i < bm && j >= 0 && j < bn) {
     const int64_t ld = bn + 2;
     const int64_t c = (int64_t)(i + 1) * ld + (j + 1);
-    const float wc = up(w[c]);
-    const float ax = -(up(a[c + ld]) * (up(w[c + ld]) - wc) / h1
-                       - up(a[c]) * (wc - up(w[c - ld])) / h1) / h1;
-    const float ay = -(up(b[c + 1]) * (up(w[c + 1]) - wc) / h2
-                       - up(b[c]) * (wc - up(w[c - 1])) / h2) / h2;
-    val = ax + ay;
+    val = stencil_tree(up(w[c]), up(w[c - ld]), up(w[c + ld]),
+                       up(w[c - 1]), up(w[c + 1]), up(a[c]), up(a[c + ld]),
+                       up(b[c]), up(b[c + 1]), h1, h2);
   }
   out[(int64_t)oi * on + oj] = val;
 }

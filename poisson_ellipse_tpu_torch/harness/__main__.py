@@ -3,8 +3,15 @@
 The argv contract of ``python -m poisson_ellipse_tpu.harness``'s default
 command (``M N``, ``--grids``, ``--engine``, ``--dtype``, ``--norm``,
 ``--eps``, ``--delta``, ``--repeat``, ``--json``, ``--sstep-s``,
-``--lanes``, ``--storage-dtype``), plus ``--device``. It
-runs on the card unless ``--device cpu`` is given, and fails without one.
+``--lanes``, ``--storage-dtype``, ``--mode``, ``--mesh``), plus
+``--device``. It runs on the card unless ``--device cpu`` is given, and
+fails without one.
+
+``--mode sharded --mesh PX PY`` solves over a PX×PY mesh of ranks
+(``parallel``). Under torchrun (its ``RANK``/``WORLD_SIZE`` environment)
+this process is one rank and rank 0 prints; otherwise the command starts
+the PX·PY rank processes itself (``parallel.multihost.spawn``), runs every
+grid in them, and prints rank 0's reports.
 
 Exit codes: 0 converged, 1 not converged within the iteration cap,
 2 breakdown or bad input.
@@ -16,7 +23,12 @@ import argparse
 import json
 import sys
 
-from poisson_ellipse_tpu_torch.harness.run import DTYPES, run_once
+from poisson_ellipse_tpu_torch.harness.run import (
+    DTYPES,
+    check_sharded,
+    run_once,
+    run_sharded_jobs,
+)
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.solver.engine import ENGINES
 from poisson_ellipse_tpu_torch.utils.device import resolve_device
@@ -71,6 +83,13 @@ def main(argv=None) -> int:
                     "converges to the storage floor. On streamed and xl "
                     "(f32 compute) only the operands dinv, a and b are "
                     "stored in DT")
+    ap.add_argument("--mode", choices=("single", "sharded"),
+                    default="single",
+                    help="one device, or the mesh: --mesh PX PY ranks, each "
+                    "solving its block (engines auto/xla, pallas, fused)")
+    ap.add_argument("--mesh", type=int, nargs=2, metavar=("PX", "PY"),
+                    help="mesh shape for --mode sharded (default: every "
+                    "rank of torchrun's group, else 1 1)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="timed solves; T_solver is their median")
     ap.add_argument("--device", default="cuda",
@@ -94,28 +113,67 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
+    def problem_of(M, N):
+        return Problem(M=M, N=N, delta=args.delta, eps=args.eps,
+                       norm=args.norm)
+
+    if args.mode == "sharded":
+        try:
+            reports = _sharded(args, [problem_of(M, N) for M, N in grids])
+        except (ValueError, NotImplementedError, RuntimeError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if reports is None:
+            return 0  # a rank other than 0 under torchrun
+        return max(_show(report, args.json) for report in reports)
     rc = 0
     for M, N in grids:
         try:
-            problem = Problem(M=M, N=N, delta=args.delta, eps=args.eps,
-                              norm=args.norm)
-            report = run_once(problem, dtype=args.dtype, engine=args.engine,
-                              repeat=args.repeat, device=args.device,
-                              sstep_s=args.sstep_s, lanes=args.lanes,
+            report = run_once(problem_of(M, N), dtype=args.dtype,
+                              engine=args.engine, repeat=args.repeat,
+                              device=args.device, sstep_s=args.sstep_s,
+                              lanes=args.lanes,
                               storage_dtype=args.storage_dtype)
         except (ValueError, NotImplementedError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
-        if args.json:
-            print(json.dumps(report.json_dict()))
-        else:
-            print(report.summary())
-            print()
-        if report.breakdown:
-            rc = max(rc, 2)
-        elif not report.converged:
-            rc = max(rc, 1)
+        rc = max(rc, _show(report, args.json))
     return rc
+
+
+def _show(report, as_json: bool) -> int:
+    """Print one report; its exit code."""
+    if as_json:
+        print(json.dumps(report.json_dict()))
+    else:
+        print(report.summary())
+        print()
+    if report.breakdown:
+        return 2
+    return 0 if report.converged else 1
+
+
+def _sharded(args, problems):
+    """The sharded runs of every grid: in this rank under torchrun (None on
+    ranks other than 0), else in PX·PY rank processes started here."""
+    from poisson_ellipse_tpu_torch.parallel import multihost
+
+    check_sharded(args.engine, args.lanes, args.storage_dtype)
+    jobs = [dict(problem=p, dtype=args.dtype, engine=args.engine,
+                 repeat=args.repeat, mesh_shape=args.mesh) for p in problems]
+    if multihost.torchrun_env():
+        multihost.initialize_multihost(device=args.device)
+        try:
+            reports = run_sharded_jobs(jobs, args.device)
+        finally:
+            rank = multihost.process_info()[0]
+            multihost.shutdown_multihost()
+        return reports if rank == 0 else None
+    px, py = args.mesh or (1, 1)
+    for job in jobs:
+        job["mesh_shape"] = (px, py)
+    return multihost.spawn(run_sharded_jobs, px * py, (jobs, args.device),
+                           device=args.device)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,21 @@ only their operands narrow, those passes alone). ``dtype="bf16"`` is bf16
 compute on ``xla``, ``fused``, ``resident``, ``streamed`` and ``xl``
 (``auto`` walks their ladder with the gates at 2 bytes a node), as the JAX
 harness's ``--dtype bf16``.
+
+``mode="sharded"`` runs the mesh (``parallel``): ``mesh_shape`` (px, py)
+ranks of a ``torch.distributed`` group each solve their block with
+``engine`` ``xla`` (``auto``), ``pallas`` (K-a on every rank) or ``fused``
+(K1-shard and K2-shard). Inside a group (torchrun, ``multihost.spawn``)
+every rank calls ``run_once`` together and gets the report; without one,
+``run_once`` starts the px·py rank processes itself
+(``multihost.spawn``) and returns rank 0's. The backend follows the
+layout: NCCL when each rank has a card of its own, gloo on the CPU and
+when ranks share a card. The warm-up is one chunk of iterations (it loads
+the kernels and opens the group's connections); T_solver is rank 0's
+solve up to its owned block, after a barrier; the global w is gathered for
+the L2 error afterwards. The
+report names the mesh and the backend and counts the timed solve's loop
+bodies, collectives (every rank's) and kernel launches (every rank's).
 """
 
 from __future__ import annotations
@@ -29,14 +44,30 @@ import statistics
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 from poisson_ellipse_tpu_torch.harness.roofline import roofline
 from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.ops import _build
+from poisson_ellipse_tpu_torch.parallel.mesh import (
+    COLLECTIVES,
+    Mesh,
+    make_mesh,
+    reset_collectives,
+)
+from poisson_ellipse_tpu_torch.parallel.multihost import spawn
+from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
+    MESH_REST,
+    build_sharded_solver,
+    gather_w,
+)
 from poisson_ellipse_tpu_torch.solver.engine import (
     BATCHED_ENGINES,
+    ENGINES,
+    SHARDED_ENGINES,
     build_solver,
 )
-from poisson_ellipse_tpu_torch.solver.pcg import unported
+from poisson_ellipse_tpu_torch.solver.pcg import DEFAULT_CHUNK, unported
 from poisson_ellipse_tpu_torch.utils.device import capacity, resolve_device
 from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
 from poisson_ellipse_tpu_torch.utils.timing import PhaseTimer
@@ -74,6 +105,13 @@ class RunReport:
     # the storage width of the state and operands when one was asked for
     # ("bf16": ops.precision); None = storage == compute
     storage_dtype: str | None = None
+    # a sharded run: the group's backend ("gloo", "nccl", "none" for one
+    # rank without a group), the loop bodies the timed solve issued, and
+    # each rank's collectives and kernel launches in it
+    backend: str | None = None
+    bodies: int = 0
+    rank_collectives: list = field(default_factory=list)
+    rank_launches: list = field(default_factory=list)
 
     def summary(self) -> str:
         p = self.problem
@@ -87,6 +125,8 @@ class RunReport:
         lines = [
             f"Grid: {p.M} x {p.N}  (h1={p.h1:.6g}, h2={p.h2:.6g}, "
             f"eps={p.eps_value:.6g}, delta={p.delta:g}, norm={p.norm})",
+            *([f"Mesh: {self.mesh_shape[0]}x{self.mesh_shape[1]} ranks, "
+               f"backend {self.backend}"] if self.backend else []),
             f"Device: {self.device}  dtype={self.dtype}"
             + (f" (storage {self.storage_dtype})" if self.storage_dtype
                else "")
@@ -141,23 +181,153 @@ class RunReport:
                 "quarantined": self.quarantined} if self.lanes > 1 else {}),
             **({"storage_dtype": self.storage_dtype}
                if self.storage_dtype else {}),
+            **({"backend": self.backend} if self.backend else {}),
         }
+
+
+def resolve_mesh(mesh_shape: tuple[int, int] | None = None,
+                 device=None) -> Mesh:
+    """This rank's mesh: explicit PX×PY, or near-square over every rank
+    of the group (the reference's ``choose_process_grid`` policy); raises
+    when the shape does not match the group's size."""
+    return make_mesh(None if mesh_shape is None else tuple(mesh_shape),
+                     device)
+
+
+def check_sharded(engine: str, lanes: int = 1,
+                  storage_dtype: str | None = None) -> str:
+    """The engine a sharded run takes (``auto`` → ``xla``), or the JAX
+    harness's refusal; the sharded engines the port does not have yet
+    raise naming their ROADMAP item."""
+    if lanes != 1:
+        raise unported("lane-sharded batched runs (--lanes with --mode "
+                       "sharded)", MESH_REST)
+    if storage_dtype is not None:
+        raise ValueError(
+            "sharded --storage-dtype covers the sstep engine (whose "
+            "deep-halo exchange ships the narrow state); the classical/"
+            "pipelined/batched sharded forms run full width"
+        )
+    if engine in ("pipelined", "sstep", "sstep-pallas") or (
+            engine in BATCHED_ENGINES):
+        raise unported(f"--mode sharded --engine {engine}", MESH_REST)
+    if engine != "auto" and engine not in SHARDED_ENGINES:
+        raise ValueError(
+            f"engine {engine!r} is single-device only; sharded mode "
+            "runs the XLA block stencil ('xla', default), the "
+            "per-shard Pallas stencil kernel ('pallas'), the "
+            "two-kernel fused per-shard iteration ('fused', f32/bf16), "
+            "the one-psum-per-iteration pipelined recurrence "
+            "('pipelined'), the one-psum-per-s-iterations s-step "
+            "form ('sstep'), or the preconditioned forms ('mg-pcg' / "
+            "'cheb-pcg': V-cycle/Chebyshev per shard, halo-ppermute "
+            "only — the scalar-collective cadence stays classical)"
+        )
+    return "xla" if engine == "auto" else engine
+
+
+def run_sharded_jobs(jobs: list, device=None) -> list:
+    """``run_once(mode="sharded", **job)`` for each job on this rank of the
+    group, in order: the rank function the command line and ``run_once``
+    start their ranks with (``multihost.spawn``)."""
+    return [run_once(**job, mode="sharded", device=device) for job in jobs]
+
+
+def _rank_counts(mesh: Mesh, counts: dict) -> list:
+    """Every rank's ``counts``, in rank order."""
+    if mesh.backend == "none":
+        return [counts]
+    out = [None] * mesh.world
+    dist.all_gather_object(out, counts)
+    return out
+
+
+def _barrier(mesh: Mesh) -> None:
+    if mesh.backend != "none":
+        dist.barrier()
+
+
+def _run_sharded(problem: Problem, dtype: str, engine: str, repeat: int,
+                 device, mesh_shape) -> RunReport:
+    """The sharded run on this rank of an initialised group."""
+    mesh = resolve_mesh(mesh_shape, device)
+    tdtype = DTYPES[dtype]
+    timer = PhaseTimer(mesh.device)
+    with timer.phase("init"):
+        solver, args = build_sharded_solver(problem, mesh, tdtype,
+                                            stencil_impl=engine)
+    # warm-up, one chunk of bodies: it loads the kernels and opens the
+    # group's connections (a whole warm-up solve would double the run)
+    solver(*args, limit=DEFAULT_CHUNK)
+    times = []
+    for _ in range(repeat):
+        _barrier(mesh)
+        reset_collectives()
+        _build.reset_launches()
+        step = PhaseTimer(mesh.device)
+        with step.phase("solver"):
+            result = solver(*args)
+        times.append(step.totals["solver"])
+    counts = dict(COLLECTIVES), dict(_build.LAUNCHES)
+    timer.add("solver", statistics.median(times))
+    with timer.phase("finalize"):
+        w = gather_w(problem, mesh, result.w)
+        l2 = float(l2_error_vs_analytic(problem, w))
+    rank_counts = _rank_counts(mesh, counts)
+    return RunReport(
+        problem=problem,
+        mesh_shape=mesh.shape,
+        dtype=dtype,
+        engine=engine,
+        iters=int(result.iters),
+        converged=bool(result.converged),
+        breakdown=bool(result.breakdown),
+        diff=float(result.diff),
+        l2_error=l2,
+        t_init=timer.totals["init"],
+        t_solver=timer.totals["solver"],
+        times=times,
+        device=(torch.cuda.get_device_name(mesh.device)
+                if mesh.device.type == "cuda" else "cpu"),
+        host_syncs=solver.host_syncs,
+        backend=mesh.backend,
+        bodies=solver.bodies,
+        rank_collectives=[c for c, _ in rank_counts],
+        rank_launches=[n for _, n in rank_counts],
+    )
 
 
 def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
              engine: str = "auto", repeat: int = 1,
              device=None, sstep_s: int = 4, lanes: int = 1,
-             storage_dtype: str | None = None) -> RunReport:
-    """Assemble, warm up, and time ``repeat`` solves on one device;
+             storage_dtype: str | None = None,
+             mesh_shape: tuple[int, int] | None = None) -> RunReport:
+    """Assemble, warm up, and time ``repeat`` solves on one device, or
+    with ``mode="sharded"`` over a ``mesh_shape`` mesh of ranks;
     ``sstep_s`` is the s-step engines' block size, ``lanes`` the number of
     solves a batched engine runs together, ``storage_dtype`` the narrow
     width the state and operands are stored at."""
-    if mode not in ("single", "auto"):
-        raise unported(f"mode={mode!r}", "Queue A item 12")
+    if mode not in ("single", "auto", "sharded"):
+        raise ValueError(f"unknown mode: {mode!r}")
     if dtype not in DTYPES:
         raise ValueError(f"unknown dtype {dtype!r} (choose from {sorted(DTYPES)})")
     if repeat < 1:
         raise ValueError("repeat must be >= 1")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine: {engine!r} (choose from {ENGINES})")
+    if mode == "auto" and mesh_shape is not None:
+        mode = "sharded"  # as the JAX harness: an explicit mesh is sharded
+    if mode == "sharded":
+        engine = check_sharded(engine, lanes, storage_dtype)
+        if dist.is_initialized():
+            return _run_sharded(problem, dtype, engine, repeat, device,
+                                mesh_shape)
+        resolve_device(device)  # no card and no CPU request: raise here
+        px, py = (1, 1) if mesh_shape is None else mesh_shape
+        job = dict(problem=problem, dtype=dtype, engine=engine,
+                   repeat=repeat, mesh_shape=(px, py))
+        return spawn(run_sharded_jobs, px * py, ([job], device),
+                     device=device or "cuda")[0]
     if lanes > 1 and engine == "auto":
         engine = "batched"  # build_solver refuses lanes on any other engine
     dev = resolve_device(device)

@@ -1,5 +1,6 @@
 """Carry the JAX package's state into the port, so both compute on the
-same inputs: operands, and the classical, pipelined and batched carries.
+same inputs: operands (one rank's blocks of the sharded ones too), and the
+classical, pipelined and batched carries.
 
 The arguments are numpy arrays (or anything ``numpy.asarray`` accepts,
 such as a JAX array): this module imports neither JAX nor the JAX
@@ -77,11 +78,17 @@ def fused_operands_from_reference(problem: Problem, coeffs, *, device=None,
 def _stripped(problem: Problem, arrays, device, dtype) -> tuple:
     """Each of ``arrays`` without its zero padding, on ``device``, in its
     own dtype unless ``dtype`` is given."""
+    return _tensors([strip_padding(problem, x) for x in arrays], device,
+                    dtype)
+
+
+def _tensors(arrays, device, dtype) -> tuple:
+    """Host arrays as tensors on ``device``, in their own dtype unless
+    ``dtype`` is given."""
     dev = resolve_device(device)
     out = []
     for x in arrays:
-        t = tensor_from_numpy(np.ascontiguousarray(strip_padding(problem, x)))
-        t = t.to(dev)
+        t = tensor_from_numpy(np.ascontiguousarray(x)).to(dev)
         out.append(t if dtype is None else t.to(dtype))
     return tuple(out)
 
@@ -97,6 +104,39 @@ def streamed_operands_from_reference(problem: Problem, operands, *,
     if len(operands) != 4:
         raise ValueError("expected (dinv, an, bw, r0)")
     return _stripped(problem, operands, device, dtype)
+
+
+def sharded_operands_from_reference(problem: Problem, arrays, mesh_shape,
+                                    rank: int, *, halo: int = 0, device=None,
+                                    dtype=None) -> tuple:
+    """One rank's blocks of the JAX package's sharded operands: (a, b, rhs)
+    of ``build_sharded_solver``, or (a, b, d, dinv, rhs) of the fused form,
+    or any other global arrays, each (g1p, g2p) with JAX's padding (the
+    classical mesh multiple, or the fused form's (8·px, 128·py) tiles).
+
+    JAX's padding is stripped (after checking it holds only zeros), each
+    array is re-padded to the port's mesh multiple
+    (``parallel.mesh.padded_dims_of``), and rank ``rank``'s (bm, bn) block
+    of the ``mesh_shape`` mesh is returned, extended by ``halo`` nodes on
+    every side (zeros past the padded grid, the neighbours' values
+    elsewhere: what the halo exchange delivers). Values keep their dtype
+    unless ``dtype`` is given."""
+    from poisson_ellipse_tpu_torch.parallel.mesh import padded_dims_of
+
+    px, py = mesh_shape
+    if not 0 <= rank < px * py:
+        raise ValueError(f"rank {rank} is outside the {px}x{py} mesh")
+    g1p, g2p = padded_dims_of(problem.node_shape, px, py)
+    bm, bn = g1p // px, g2p // py
+    ix, iy = divmod(rank, py)
+    blocks = []
+    for x in arrays:
+        x = strip_padding(problem, x)
+        x = np.pad(x, ((halo, g1p - x.shape[0] + halo),
+                       (halo, g2p - x.shape[1] + halo)))
+        blocks.append(x[ix * bm:(ix + 1) * bm + 2 * halo,
+                        iy * bn:(iy + 1) * bn + 2 * halo])
+    return _tensors(blocks, device, dtype)
 
 
 _FLAGS = ("converged", "breakdown", "quarantined")

@@ -13,6 +13,12 @@ with eps = max(h1,h2)² by default, and symmetrically for b with h1.
 
 Only the closed-form ellipse is ported in this slice; the SDF geometry
 path (``geometry=``) is ROADMAP Queue A item 11.
+
+The global-index forms (``coefficients_at``, ``rhs_at``, ``interior_mask``)
+evaluate the same law at any outer product of global node indices in the
+tensors' own dtype, on their device: a rank of the mesh assembles its
+halo-extended block with them and no communication
+(``fictitious_regions_setup_local``, ``poisson_mpi_cuda2.cu:146-192``).
 """
 
 from __future__ import annotations
@@ -106,3 +112,46 @@ def assemble(problem: Problem, dtype: torch.dtype = torch.float32,
     assembles on the CPU before uploading (``poisson_mpi_cuda2.cu:716-759``)."""
     dev = resolve_device(device)
     return tuple(to_device(x, dtype, dev) for x in assemble_numpy(problem))
+
+
+def _node_coordinates(problem: Problem, gi, gj, dtype):
+    """x_i, y_j at the global indices, formed in ``dtype`` as the JAX
+    package forms them: a + index·h with h rounded to ``dtype``."""
+    h1 = torch.tensor(problem.h1, dtype=dtype, device=gi.device)
+    h2 = torch.tensor(problem.h2, dtype=dtype, device=gj.device)
+    return problem.a1 + gi.to(dtype) * h1, problem.a2 + gj.to(dtype) * h2
+
+
+def coefficients_at(problem: Problem, gi, gj, dtype=torch.float64):
+    """(a, b) at the outer product of global node indices gi × gj (1-D
+    integer tensors), in ``dtype`` on their device.
+
+    a[i,j] lives on the vertical face x = x_i − h1/2, y ∈ [y_j − h2/2,
+    y_j + h2/2]; b[i,j] on the horizontal face y = y_j − h2/2
+    (``stage0/Withoutopenmp1.cpp:49-54``). Valid for 1 ≤ gi ≤ M,
+    1 ≤ gj ≤ N; indices outside (the boundary ring, the mesh padding) give
+    0, as the reference's zero-initialised arrays hold."""
+    x, y = _node_coordinates(problem, gi, gj, dtype)
+    a, b = _coefficients_xp(problem, x, y, torch)
+    valid = (((gi >= 1) & (gi <= problem.M))[:, None]
+             & ((gj >= 1) & (gj <= problem.N))[None, :])
+    zero = torch.zeros((), dtype=dtype, device=gi.device)
+    return torch.where(valid, a, zero), torch.where(valid, b, zero)
+
+
+def rhs_at(problem: Problem, gi, gj, dtype=torch.float64):
+    """The indicator right-hand side at gi × gj: f_val at interior nodes
+    strictly inside the ellipse, else 0 (``stage0/Withoutopenmp1.cpp:57-60``)."""
+    x, y = _node_coordinates(problem, gi, gj, dtype)
+    inside = ellipse.is_in_d(x[:, None], y[None, :])
+    interior = interior_mask(problem, gi, gj)
+    return torch.where(
+        inside & interior,
+        torch.tensor(problem.f_val, dtype=dtype, device=gi.device),
+        torch.zeros((), dtype=dtype, device=gi.device))
+
+
+def interior_mask(problem: Problem, gi, gj):
+    """The mask of interior nodes 1 ≤ gi ≤ M−1, 1 ≤ gj ≤ N−1 at gi × gj."""
+    return (((gi >= 1) & (gi <= problem.M - 1))[:, None]
+            & ((gj >= 1) & (gj <= problem.N - 1))[None, :])

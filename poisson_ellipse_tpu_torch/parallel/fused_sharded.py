@@ -1,0 +1,339 @@
+"""Fused-sharded PCG: the two-kernel iteration on every rank of the mesh.
+
+The counterpart of ``poisson_ellipse_tpu.parallel.fused_sharded``, and the
+heir of the reference stage 4's composition (a kernel per rank in the hot
+loop, ringed by halo exchanges and scalar reductions,
+``poisson_mpi_cuda2.cu:846-939``). One iteration on every rank:
+
+  1 stacked halo exchange   (z, p) in one message a direction
+  K1-shard  pn = z + βp; ap = A(pn); the rank's Σap·pn      (one launch)
+  1 reduction               the denominator
+  K2-shard  α; w += α·pn; r −= α·ap; z = r·(1/D);
+            the rank's [Σz·r, Σ(Δw)²]                       (one launch)
+  1 reduction               the pair, stacked
+  the scalar tail           ``ops.fused_pcg.rotated_next_state`` on the
+                            device carry
+
+so 2 launches, 2 reductions and 1 halo exchange an iteration, as in the
+JAX package (``fused_sharded.py:10-17`` there). The loop is rotated as on
+one device (β is applied at the start of the next body), and its carry
+(scal, flags) has the layout of ``ops.fused_pcg``. The tail runs on
+device tensors, masked so that a body issued after the exit changes
+nothing; the host reads the flags once per 64-iteration chunk.
+
+The kernels (``csrc/fused_sharded.cu``): K1-shard runs the
+``apply_a_block`` tree (each difference divided by h), which keeps its
+count equal to the sharded ``xla`` loop's, on the exchanged
+(bm+2, bn+2) windows of z, p, a and b; K2-shard is K-c's body without the
+scalar tail. Each writes per-block partial sums in double; the rank adds
+them (``torch.sum`` in double) and ``Mesh.reduce`` adds the ranks' in rank
+order, rounded once to f32. Beside each kernel is its plain version
+(``k1_plain``, ``k2_plain``); the launcher takes it only for CPU tensors
+and otherwise launches the kernel or raises.
+
+The TPU's (8·px, 128·py) tile padding (``padded_dims_fused`` there) has no
+counterpart: the grid is padded to the mesh multiple (``padded_dims``).
+Padded nodes are exact zeros, so the stripped w is the same. f32 only:
+bf16 is ROADMAP Queue A item 20, and f64 raises as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.ops import _build, assembly
+from poisson_ellipse_tpu_torch.ops import whole_solve as ws
+from poisson_ellipse_tpu_torch.ops.fused_pcg import (
+    FLAG_BREAKDOWN,
+    FLAG_CONVERGED,
+    FLAG_K,
+    FLAG_PENDING_BREAKDOWN,
+    N_FLAGS,
+    N_SCAL,
+    SCAL_BETA,
+    SCAL_DENOM,
+    SCAL_DIFF,
+    SCAL_ZR,
+    interior_normalized,
+    rotated_next_state,
+)
+from poisson_ellipse_tpu_torch.ops.stencil import apply_a_block, spacing
+from poisson_ellipse_tpu_torch.parallel.halo import (
+    halo_extend,
+    halo_extend_stacked,
+)
+from poisson_ellipse_tpu_torch.parallel.mesh import Mesh, make_mesh, rank_sums
+from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
+    ShardedSolver,
+    block_shape,
+    rank_block,
+)
+from poisson_ellipse_tpu_torch.solver.pcg import (
+    DEFAULT_CHUNK,
+    PCGResult,
+    run_chunked,
+    unported,
+)
+
+LIBRARY = "fused_sharded"
+K1 = "fused_sharded_k1"
+K2 = "fused_sharded_k2"
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "pe_fused_sharded_k1_blocks": (_I, [_I, _I]),
+    "pe_fused_sharded_k2_blocks": (_I, [_I, _I]),
+    # z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1,
+    # h2, stream
+    "pe_fused_sharded_k1_f32": (_I, [_P] * 10 + [_I] * 3 + [_F, _F, _P]),
+    # w, r, pn, ap, dinv, z, partials, scal, flags, bm, bn, max_iter, stream
+    "pe_fused_sharded_k2_f32": (_I, [_P] * 9 + [_I] * 3 + [_P]),
+    "pe_fused_sharded_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+@functools.lru_cache(maxsize=16)
+def partial_counts(bm: int, bn: int) -> tuple[int, int]:
+    """(K1's, K2's) per-block partials for a (bm, bn) block on the card."""
+    lib = _build.load(LIBRARY, _SIGNATURES)
+    return (int(lib.pe_fused_sharded_k1_blocks(bm, bn)),
+            int(lib.pe_fused_sharded_k2_blocks(bm, bn)))
+
+
+def scratch(bm: int, bn: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' partials buffers in double, zeroed: (n1,) for K1 and
+    (n2, 2) for K2; one row each for the plain versions on the CPU."""
+    dev = torch.device(device)
+    n1, n2 = partial_counts(bm, bn) if dev.type == "cuda" else (1, 1)
+    return (torch.zeros(n1, dtype=torch.float64, device=dev),
+            torch.zeros((n2, 2), dtype=torch.float64, device=dev))
+
+
+def _loop_active(flags: torch.Tensor, max_iter: int) -> bool:
+    k, converged, breakdown = (int(v) for v in flags[:3].tolist())
+    return not converged and not breakdown and k < max_iter
+
+
+def k1_plain(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, partials,
+             *, max_iter: int, h1: float, h2: float) -> None:
+    """The plain version of K1-shard: writes pn, ap and the rank's Σap·pn
+    (in double, into ``partials[0]``); nothing once the loop has exited."""
+    if not _loop_active(flags, max_iter):
+        return
+    h1t, h2t = spacing(h1, z_ext), spacing(h2, z_ext)
+    pn_w = z_ext + scal[SCAL_BETA] * p_ext
+    wc = pn_w[1:-1, 1:-1]
+    ap_new = torch.where(d != 0.0, apply_a_block(pn_w, a_ext, b_ext, h1t, h2t),
+                         torch.zeros_like(wc))
+    pn.copy_(wc)
+    ap.copy_(ap_new)
+    partials.zero_()
+    partials[0] = torch.sum(ap_new * wc, dtype=torch.float64)
+
+
+def k2_plain(w, r, pn, ap, dinv, z, scal, flags, partials, *,
+             max_iter: int) -> None:
+    """The plain version of K2-shard: α from (zr, denom) of the carry with
+    the breakdown guard; w, r, z in place; the rank's [Σz·r, Σ(Δw)²] in
+    double into ``partials[0]``; no scalar tail; nothing once the loop has
+    exited."""
+    if not _loop_active(flags, max_iter):
+        return
+    alpha = ws.guarded_alpha(scal[SCAL_ZR], scal[SCAL_DENOM], lambda x: x,
+                             torch.float32)
+    w_old = w.clone()
+    w_new = w_old + alpha * pn
+    r_new = r - alpha * ap
+    z_new = r_new * dinv
+    dw = w_new - w_old
+    w.copy_(w_new)
+    r.copy_(r_new)
+    z.copy_(z_new)
+    partials.zero_()
+    partials[0] = rank_sums((z_new, r_new), (dw, dw))
+
+
+def _check(kernel: str, arrays: dict, shape, scal, flags, partials,
+           n_partials: int) -> None:
+    dev = scal.device
+    for name, t in arrays.items():
+        want = shape(name)
+        if (t.device != dev or t.dtype != torch.float32
+                or tuple(t.shape) != want or not t.is_contiguous()):
+            raise ValueError(
+                f"{kernel}: {name} is {t.dtype} {tuple(t.shape)} on "
+                f"{t.device} (contiguous={t.is_contiguous()}); expected "
+                f"contiguous float32 {want} on {dev}")
+    if scal.shape != (N_SCAL,) or scal.dtype != torch.float32:
+        raise ValueError(f"{kernel}: scal must be ({N_SCAL},) float32")
+    if (flags.shape != (N_FLAGS,) or flags.dtype != torch.int32
+            or flags.device != dev):
+        raise ValueError(f"{kernel}: flags must be ({N_FLAGS},) int32")
+    if (partials.dtype != torch.float64 or partials.device != dev
+            or partials.numel() < n_partials or not partials.is_contiguous()):
+        raise ValueError(f"{kernel}: partials must be contiguous float64 of "
+                         f"{n_partials} at least")
+
+
+def k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, partials, *,
+       max_iter: int, h1: float, h2: float) -> None:
+    """K1-shard: pn = z + βp and ap = A(pn) over this rank's block, the
+    rank's Σap·pn as per-block partials (``partials.sum()``): the port of
+    ``fused_sharded.py``'s K1."""
+    if z_ext.device.type == "cpu":
+        return k1_plain(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags,
+                        partials, max_iter=max_iter, h1=h1, h2=h2)
+    bm, bn = d.shape
+    ext = dict(z_ext=z_ext, p_ext=p_ext, a_ext=a_ext, b_ext=b_ext)
+    _check(K1, {**ext, "d": d, "pn": pn, "ap": ap},
+           lambda name: (bm + 2, bn + 2) if name in ext else (bm, bn),
+           scal, flags, partials, partial_counts(bm, bn)[0])
+    lib = _build.load(LIBRARY, _SIGNATURES)
+    rc = lib.pe_fused_sharded_k1_f32(
+        z_ext.data_ptr(), p_ext.data_ptr(), a_ext.data_ptr(),
+        b_ext.data_ptr(), d.data_ptr(), pn.data_ptr(), ap.data_ptr(),
+        partials.data_ptr(), scal.data_ptr(), flags.data_ptr(), bm, bn,
+        max_iter, h1, h2, _build.stream_handle(z_ext.device))
+    _build.check(lib.pe_fused_sharded_error_string, K1, rc)
+    _build.count_launch(K1)
+
+
+def k2(w, r, pn, ap, dinv, z, scal, flags, partials, *,
+       max_iter: int) -> None:
+    """K2-shard: α, the w, r, z updates and the rank's [Σz·r, Σ(Δw)²] as
+    per-block partials (``partials.sum(0)``): the port of
+    ``fused_sharded.py``'s K2 (``ops/fused_pcg.py`` ``_k2_kernel``)."""
+    if w.device.type == "cpu":
+        return k2_plain(w, r, pn, ap, dinv, z, scal, flags, partials,
+                        max_iter=max_iter)
+    bm, bn = w.shape
+    _check(K2, dict(w=w, r=r, pn=pn, ap=ap, dinv=dinv, z=z),
+           lambda name: (bm, bn), scal, flags, partials,
+           2 * partial_counts(bm, bn)[1])
+    lib = _build.load(LIBRARY, _SIGNATURES)
+    rc = lib.pe_fused_sharded_k2_f32(
+        w.data_ptr(), r.data_ptr(), pn.data_ptr(), ap.data_ptr(),
+        dinv.data_ptr(), z.data_ptr(), partials.data_ptr(), scal.data_ptr(),
+        flags.data_ptr(), bm, bn, max_iter, _build.stream_handle(w.device))
+    _build.check(lib.pe_fused_sharded_error_string, K2, rc)
+    _build.count_launch(K2)
+
+
+def _active(flags: torch.Tensor, max_iter: int) -> torch.Tensor:
+    """The loop's condition as a device boolean (no host read)."""
+    return ((flags[FLAG_K] < max_iter) & (flags[FLAG_CONVERGED] == 0)
+            & (flags[FLAG_BREAKDOWN] == 0))
+
+
+def _masked(active: torch.Tensor, target: torch.Tensor,
+            new: torch.Tensor) -> None:
+    target.copy_(torch.where(active, new, target))
+
+
+def _check_dtype(dtype: torch.dtype) -> None:
+    if dtype == torch.bfloat16:
+        raise unported("the bf16 fused-sharded iteration", "Queue A item 20")
+    if dtype != torch.float32:
+        raise ValueError(
+            "fused-sharded supports f32/bf16; use stencil_impl='xla' for f64"
+        )
+
+
+def _run(problem: Problem, mesh: Mesh, bm: int, bn: int, operands,
+         chunk: int, limit=None):
+    """This rank's rotated loop, to the cap or ``limit``; returns
+    (PCGResult over the owned block, host reads, bodies issued)."""
+    a_blk, b_blk, d_blk, dinv_blk, rhs_blk = operands
+    ct = torch.float32
+    # the one coefficient halo exchange of the solve
+    a_ext = halo_extend(a_blk, mesh)
+    b_ext = halo_extend(b_blk, mesh)
+    h1t, h2t = spacing(problem.h1, rhs_blk), spacing(problem.h2, rhs_blk)
+    delta_t = spacing(problem.delta, rhs_blk)
+    weighted = problem.norm == "weighted"
+    cap = problem.max_iterations
+    limit = cap if limit is None else min(int(limit), cap)
+    # iteration 0: w = p = 0, β = 0, z = r·(1/D), as K2 forms z
+    w = torch.zeros_like(rhs_blk)
+    r = rhs_blk.clone()
+    z = r * dinv_blk
+    p = torch.zeros_like(rhs_blk)
+    ap = torch.empty_like(rhs_blk)
+    scal = torch.zeros(N_SCAL, dtype=ct, device=rhs_blk.device)
+    scal[SCAL_ZR] = mesh.reduce(rank_sums((z, r)), ct)[0] * h1t * h2t
+    scal[SCAL_DIFF] = float("inf")
+    flags = torch.zeros(N_FLAGS, dtype=torch.int32, device=rhs_blk.device)
+    part1, part2 = scratch(bm, bn, rhs_blk.device)
+    consts = dict(max_iter=limit)
+    bodies = [0]
+
+    def step(_k):
+        bodies[0] += 1
+        active = _active(flags, limit)
+        zp = halo_extend_stacked(torch.stack([z, p]), mesh)
+        # K1 reads the exchanged copies, so pn is written over p
+        k1(zp[0], zp[1], a_ext, b_ext, d_blk, p, ap, scal, flags, part1,
+           h1=problem.h1, h2=problem.h2, **consts)
+        denom = mesh.reduce(part1.sum()[None], ct)[0] * h1t * h2t
+        _masked(active, scal[SCAL_DENOM], denom)
+        _masked(active, flags[FLAG_PENDING_BREAKDOWN],
+                ws.below_guard(denom, ct).to(flags.dtype))
+        k2(w, r, p, ap, dinv_blk, z, scal, flags, part2, **consts)
+        sums = mesh.reduce(part2.sum(0), ct)
+        new_scal, new_flags = scal.clone(), flags.clone()
+        rotated_next_state(new_scal, new_flags, sums[0] * h1t * h2t, sums[1],
+                           h1t, h2t, delta_t, weighted, lambda x: x)
+        _masked(active, scal, new_scal)
+        _masked(active, flags, new_flags)
+
+    syncs = run_chunked(step, lambda: flags[:3], limit, chunk)
+    return PCGResult(
+        w=w,
+        iters=flags[FLAG_K],
+        diff=scal[SCAL_DIFF],
+        converged=flags[FLAG_CONVERGED].to(torch.bool),
+        breakdown=flags[FLAG_BREAKDOWN].to(torch.bool),
+    ), syncs, bodies[0]
+
+
+def build_fused_sharded_solver(problem: Problem, mesh: Mesh | None = None,
+                               dtype=torch.float32, geometry=None, theta=None,
+                               chunk: int = DEFAULT_CHUNK):
+    """(solver, args) for this rank's part of the fused mesh-sharded solve.
+
+    args = (a, b, d, dinv, rhs), this rank's blocks of the host-f64
+    operand set rounded once to f32 (d and dinv from
+    ``ops.fused_pcg.interior_normalized``, as in the JAX package)."""
+    if geometry is not None or theta is not None:
+        raise unported("geometry=/theta=", "Queue A item 11")
+    _check_dtype(dtype)
+    if mesh is None:
+        mesh = make_mesh()
+    bm, bn = block_shape(problem, mesh)
+    args = _fused_sharded_args(problem, mesh, dtype)
+    return (ShardedSolver(lambda *ops, limit=None: _run(
+        problem, mesh, bm, bn, ops, chunk, limit)), args)
+
+
+def _fused_sharded_args(problem: Problem, mesh: Mesh, dtype):
+    """This rank's blocks of (a, b, d, dinv, rhs), computed in f64 on the
+    host and rounded once to ``dtype`` on its device."""
+    a64, b64, rhs64 = assembly.assemble_numpy(problem)
+    *_, d64, dinv64 = interior_normalized(problem, a64, b64)
+    return tuple(assembly.to_device(rank_block(problem, mesh, x), dtype,
+                                    mesh.device)
+                 for x in (a64, b64, d64, dinv64, rhs64))
+
+
+def solve_fused_sharded(problem: Problem, mesh: Mesh | None = None,
+                        dtype=torch.float32,
+                        chunk: int = DEFAULT_CHUNK) -> PCGResult:
+    """Assemble, shard and solve with the fused two-kernel iteration; ``w``
+    is this rank's block."""
+    solver, args = build_fused_sharded_solver(problem, mesh, dtype,
+                                              chunk=chunk)
+    return solver(*args)

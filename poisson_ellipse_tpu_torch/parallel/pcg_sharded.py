@@ -1,0 +1,396 @@
+"""Distributed PCG over the rank grid: the classical loop on every rank.
+
+The counterpart of ``poisson_ellipse_tpu.parallel.pcg_sharded``, and of the
+reference's distributed drivers (``solve_mpi``,
+``stage2-mpi/poisson_mpi_decomp.cpp:356-460``; ``gradient_solver_mpi``,
+``poisson_mpi_cuda2.cu:687-982``). Each rank owns one (bm, bn) block of the
+zero-padded node grid (``parallel.mesh.padded_dims``) and runs, an
+iteration:
+
+  1 halo exchange of p          (``parallel.halo``; the reference's 4
+                                 host-staged ``MPI_Sendrecv``)
+  A·p on its block              ("xla": the plain block stencil;
+                                 "pallas": K-a, ``csrc/stencil.cu``)
+  1 reduction                   the denominator (Ap, p)
+  1 reduction                   [Σz·r, Σ(Δw)²] stacked
+
+so 2 reductions and 1 halo exchange an iteration, the JAX package's
+``sharded_psum=2, sharded_halo=1`` (``ENGINE_CAPS`` there). A reduction
+gathers each rank's double partial and adds them in rank order
+(``Mesh.reduce``), so every rank takes the same branch at the same
+iteration.
+
+As on one device (``solver.pcg``) the carry and the scalar recurrence stay
+on the rank's device; the host reads the flags once per chunk, and a body
+issued after the exit changes nothing (α = 0, p and zr held), so a chunked
+run is a straight run. Under gloo each halo edge and each partial goes
+through the host, which is the reference's stage 4.
+
+``assembly_mode``: "host" assembles in f64 on the host, rounds once, and
+hands each rank its block (args = (a, b, rhs) blocks; the coefficient
+halos are exchanged once); "device" has each rank assemble its
+halo-extended block from global indices with no communication
+(``ops.assembly.coefficients_at``; args = ()). ``stencil_impl="fused"``
+is the two-kernel iteration of ``parallel.fused_sharded``.
+
+The solver returns each rank's owned block of w; ``gather_w`` assembles the
+global (M+1, N+1) solution (off the timed path: the JAX package never
+gathers its sharded result either).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.ops import assembly
+from poisson_ellipse_tpu_torch.ops.stencil import (
+    apply_a_block,
+    apply_dinv,
+    diag_d_block,
+    spacing,
+)
+from poisson_ellipse_tpu_torch.parallel.halo import halo_extend
+from poisson_ellipse_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    padded_dims,
+    rank_sums,
+)
+from poisson_ellipse_tpu_torch.solver.pcg import (
+    DEFAULT_CHUNK,
+    DENOM_GUARD,
+    PCGResult,
+    PCGState,
+    Solver,
+    run_chunked,
+    unported,
+)
+
+# the sharded stencils of the classical loop, and the fused iteration
+STENCIL_IMPLS = ("xla", "pallas", "fused")
+
+# ROADMAP.md's item for the rest of the mesh (the other sharded engines,
+# the stepper and recover builders, ABFT, the elastic mesh)
+MESH_REST = "Queue A item 21"
+
+
+def block_shape(problem: Problem, mesh: Mesh) -> tuple[int, int]:
+    """The (bm, bn) block each rank owns."""
+    g1p, g2p = padded_dims(problem.node_shape, mesh)
+    return g1p // mesh.px, g2p // mesh.py
+
+
+def global_indices(mesh: Mesh, bm: int, bn: int, halo: int = 0):
+    """The global node indices (gi, gj) of this rank's block, extended by
+    ``halo`` nodes on every side."""
+    gi = mesh.ix * bm - halo + torch.arange(bm + 2 * halo, device=mesh.device)
+    gj = mesh.iy * bn - halo + torch.arange(bn + 2 * halo, device=mesh.device)
+    return gi, gj
+
+
+def _shard_ops(problem: Problem, mesh: Mesh, bm: int, bn: int, a_ext, b_ext,
+               dtype, stencil_impl: str = "xla"):
+    """(stencil, pdot, d, maskd) for this rank's block: the stencil closure
+    exchanges p's halo and applies A masked to the global interior; pdot is
+    the h1·h2-weighted dot over the mesh; d the diagonal, zero outside the
+    interior, so ``apply_dinv`` keeps every iterate zero on the ring and
+    the padding."""
+    h1, h2 = spacing(problem.h1, a_ext), spacing(problem.h2, a_ext)
+    gi, gj = global_indices(mesh, bm, bn)
+    interior = assembly.interior_mask(problem, gi, gj)
+    d = torch.where(interior, diag_d_block(a_ext, b_ext, h1, h2),
+                    torch.zeros((), dtype=dtype, device=a_ext.device))
+    maskd = interior.to(dtype)
+    if stencil_impl == "pallas":
+        from poisson_ellipse_tpu_torch.ops.hopper_kernels import (
+            apply_a_block_kernel,
+        )
+
+        def stencil(p):
+            return apply_a_block_kernel(halo_extend(p, mesh), a_ext, b_ext,
+                                        problem.h1, problem.h2) * maskd
+    elif stencil_impl == "xla":
+        def stencil(p):
+            return apply_a_block(halo_extend(p, mesh), a_ext, b_ext, h1,
+                                 h2) * maskd
+    else:
+        raise ValueError(f"unknown stencil_impl: {stencil_impl!r}")
+
+    def pdot(u, v):
+        return mesh.reduce(rank_sums((u, v)), dtype)[0] * h1 * h2
+
+    return stencil, pdot, d, maskd
+
+
+def _reject(history=False, precond=None, abft=False, x0_blk=None) -> None:
+    if history:
+        raise unported("history=", "Queue A item 8")
+    if precond is not None:
+        raise unported("precond= on the mesh", MESH_REST)
+    if abft:
+        raise unported("abft=", MESH_REST)
+    if x0_blk is not None:
+        raise unported("x0_blk=", MESH_REST)
+
+
+def _shard_init(problem: Problem, pdot, d, rhs_blk, dtype,
+                history: bool = False, precond=None, abft: bool = False,
+                x0_blk=None) -> PCGState:
+    """The carry at iteration 0 on this rank: w = 0, r = rhs, p = D⁻¹r and
+    zr over the mesh (one reduction)."""
+    _reject(history, precond, abft, x0_blk)
+    dev = rhs_blk.device
+    z0 = apply_dinv(rhs_blk, d)
+    return PCGState(
+        k=torch.zeros((), dtype=torch.int32, device=dev),
+        w=torch.zeros_like(rhs_blk),
+        r=rhs_blk.clone(),
+        p=z0,
+        zr=pdot(z0, rhs_blk),
+        diff=torch.full((), float("inf"), dtype=dtype, device=dev),
+        converged=torch.zeros((), dtype=torch.bool, device=dev),
+        breakdown=torch.zeros((), dtype=torch.bool, device=dev),
+    )
+
+
+def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
+                   dtype, limit=None, chunk: int = DEFAULT_CHUNK,
+                   history: bool = False, precond=None, abft: bool = False):
+    """Advance this rank's carry until convergence, breakdown or iteration
+    ``limit`` (default ``max_iterations``); returns (carry, host reads,
+    bodies issued). Every rank must call it together: each body makes 1
+    halo exchange and 2 reductions."""
+    _reject(history, precond, abft)
+    cap = problem.max_iterations
+    limit = cap if limit is None else min(int(limit), cap)
+    like = state.r
+    h1, h2 = spacing(problem.h1, like), spacing(problem.h2, like)
+    delta = spacing(problem.delta, like)
+    one = torch.ones((), dtype=dtype, device=like.device)
+    zero = torch.zeros((), dtype=dtype, device=like.device)
+    weighted = problem.norm == "weighted"
+
+    def body(s: PCGState) -> PCGState:
+        active = (s.k < limit) & ~s.converged & ~s.breakdown
+        ap = stencil(s.p)
+        denom = mesh.reduce(rank_sums((ap, s.p)), dtype)[0] * h1 * h2
+        breakdown = denom < DENOM_GUARD
+        step = active & ~breakdown
+        # α = 0 once the loop has exited or on breakdown: w, r unchanged
+        alpha = torch.where(step, s.zr / torch.where(breakdown, one, denom),
+                            zero)
+        w_new = s.w + alpha * s.p
+        r_new = s.r - alpha * ap
+        z = apply_dinv(r_new, d)
+        # the realised increment, not α·p
+        dw = w_new - s.w
+        # one reduction for both scalars
+        sums = mesh.reduce(rank_sums((z, r_new), (dw, dw)), dtype)
+        zr_new = sums[0] * h1 * h2
+        dw2 = sums[1]
+        diff = torch.sqrt(dw2 * h1 * h2) if weighted else torch.sqrt(dw2)
+        converged = step & (diff < delta)
+        beta = zr_new / s.zr
+        advance = step & ~converged
+        return PCGState(
+            k=s.k + active.to(s.k.dtype),
+            w=w_new,
+            r=r_new,
+            p=torch.where(advance, z + beta * s.p, s.p),
+            zr=torch.where(advance, zr_new, s.zr),
+            diff=torch.where(step, diff, s.diff),
+            converged=s.converged | converged,
+            breakdown=s.breakdown | (active & breakdown),
+        )
+
+    carry = [state]
+    bodies = [0]
+
+    def step(_k):
+        carry[0] = body(carry[0])
+        bodies[0] += 1
+
+    def flags():
+        s = carry[0]
+        return torch.stack([s.k, s.converged.to(s.k.dtype),
+                            s.breakdown.to(s.k.dtype)])
+
+    syncs = run_chunked(step, flags, limit, chunk)
+    return carry[0], syncs, bodies[0]
+
+
+def _local_pcg(problem: Problem, mesh: Mesh, bm: int, bn: int, a_ext, b_ext,
+               rhs_blk, dtype, stencil_impl: str = "xla",
+               chunk: int = DEFAULT_CHUNK, limit=None):
+    """This rank's whole solve: init, then advance to the cap (or
+    ``limit``). Returns (PCGResult over the owned block, host reads, bodies
+    issued)."""
+    stencil, pdot, d, _maskd = _shard_ops(problem, mesh, bm, bn, a_ext, b_ext,
+                                          dtype, stencil_impl)
+    state = _shard_init(problem, pdot, d, rhs_blk, dtype)
+    state, syncs, bodies = _shard_advance(problem, mesh, stencil, d, state,
+                                          dtype, limit, chunk)
+    return PCGResult(w=state.w, iters=state.k, diff=state.diff,
+                     converged=state.converged,
+                     breakdown=state.breakdown), syncs, bodies
+
+
+class ShardedSolver(Solver):
+    """A built sharded solve: ``solver(*args)`` returns this rank's
+    ``PCGResult``, ``solver(*args, limit=n)`` stops at iteration n (the
+    harness's warm-up); ``host_syncs`` and ``bodies`` are the host reads and
+    the loop bodies its last call issued (each body makes the loop's
+    collectives and launches, also after the exit)."""
+
+    def __init__(self, run):
+        super().__init__(run)
+        self.bodies = 0
+
+    def __call__(self, *args, limit=None) -> PCGResult:
+        result, self.host_syncs, self.bodies = self._run(*args, limit=limit)
+        return result
+
+
+def build_sharded_solver(problem: Problem, mesh: Mesh | None = None,
+                         dtype=torch.float32, assembly_mode: str = "host",
+                         stencil_impl: str = "xla", history: bool = False,
+                         geometry=None, theta=None,
+                         chunk: int = DEFAULT_CHUNK):
+    """(solver, args) for this rank's part of the mesh-sharded solve.
+
+    Every rank of the mesh builds and calls it together. ``solver(*args)``
+    returns a ``PCGResult`` whose ``w`` is this rank's (bm, bn) block and
+    whose scalars are the same on every rank (a ``ShardedSolver``). ``stencil_impl``: "xla", "pallas"
+    (K-a on every rank) or "fused" (``parallel.fused_sharded``, host
+    assembly, f32); "pipelined" is not ported yet."""
+    if geometry is not None or theta is not None:
+        raise unported("geometry=/theta=", "Queue A item 11")
+    if history:
+        raise unported("history=", "Queue A item 8")
+    if stencil_impl == "pipelined":
+        raise unported("stencil_impl='pipelined'", MESH_REST)
+    if mesh is None:
+        mesh = make_mesh()
+    if stencil_impl == "fused":
+        if assembly_mode != "host":
+            raise ValueError(
+                "stencil_impl='fused' assembles on the host (the rounded-"
+                f"once operand set); got assembly_mode={assembly_mode!r}"
+            )
+        from poisson_ellipse_tpu_torch.parallel.fused_sharded import (
+            build_fused_sharded_solver,
+        )
+
+        return build_fused_sharded_solver(problem, mesh, dtype, chunk=chunk)
+    if stencil_impl not in STENCIL_IMPLS:
+        raise ValueError(f"unknown stencil_impl: {stencil_impl!r}")
+    bm, bn = block_shape(problem, mesh)
+
+    if assembly_mode == "host":
+        def run(a_blk, b_blk, rhs_blk, limit=None):
+            # the one coefficient halo exchange of the solve
+            a_ext = halo_extend(a_blk, mesh)
+            b_ext = halo_extend(b_blk, mesh)
+            return _local_pcg(problem, mesh, bm, bn, a_ext, b_ext, rhs_blk,
+                              dtype, stencil_impl, chunk, limit)
+
+        args = _host_sharded_args(problem, mesh, dtype)
+    elif assembly_mode == "device":
+        def run(limit=None):
+            gi, gj = global_indices(mesh, bm, bn, halo=1)
+            a_ext, b_ext = assembly.coefficients_at(problem, gi, gj, dtype)
+            rhs_blk = assembly.rhs_at(problem, gi[1:-1], gj[1:-1], dtype)
+            return _local_pcg(problem, mesh, bm, bn, a_ext, b_ext, rhs_blk,
+                              dtype, stencil_impl, chunk, limit)
+
+        args = ()
+    else:
+        raise ValueError(f"unknown assembly_mode: {assembly_mode!r}")
+    return ShardedSolver(run), args
+
+
+def build_sharded_stepper(*_args, **_kwargs):
+    """The chunked/resumable sharded stepper (``resilience.guard``'s mesh
+    path) is not ported yet."""
+    raise unported("build_sharded_stepper", MESH_REST)
+
+
+def build_sharded_recover(*_args, **_kwargs):
+    """The sharded true-residual restart is not ported yet."""
+    raise unported("build_sharded_recover", MESH_REST)
+
+
+def solve_sharded(problem: Problem, mesh: Mesh | None = None,
+                  dtype=torch.float32, assembly_mode: str = "host",
+                  stencil_impl: str = "xla", history: bool = False,
+                  chunk: int = DEFAULT_CHUNK) -> PCGResult:
+    """Assemble, shard and solve over the mesh; ``w`` is this rank's block
+    (``gather_w`` assembles the global solution)."""
+    solver, args = build_sharded_solver(problem, mesh, dtype, assembly_mode,
+                                        stencil_impl, history, chunk=chunk)
+    return solver(*args)
+
+
+def gather_w(problem: Problem, mesh: Mesh, w_blk) -> torch.Tensor:
+    """The global (M+1, N+1) solution from every rank's block, on every
+    rank (one gather; call it on every rank)."""
+    g1, g2 = problem.node_shape
+    return mesh.gather_blocks(w_blk)[:g1, :g2]
+
+
+def rank_block(problem: Problem, mesh: Mesh, arr: np.ndarray) -> np.ndarray:
+    """This rank's (bm, bn) block of a global (M+1, N+1) host array,
+    zero-padded to the mesh multiple."""
+    g1p, g2p = padded_dims(problem.node_shape, mesh)
+    bm, bn = g1p // mesh.px, g2p // mesh.py
+    padded = np.pad(arr, ((0, g1p - arr.shape[0]), (0, g2p - arr.shape[1])))
+    return padded[mesh.ix * bm:(mesh.ix + 1) * bm,
+                  mesh.iy * bn:(mesh.iy + 1) * bn]
+
+
+def _host_sharded_args(problem: Problem, mesh: Mesh, dtype):
+    """This rank's blocks of the host-f64-assembled a, b, rhs, rounded once
+    to ``dtype`` on its device (the "host" assembly mode's operand set)."""
+    return tuple(assembly.to_device(rank_block(problem, mesh, x), dtype,
+                                    mesh.device)
+                 for x in assembly.assemble_numpy(problem))
+
+
+def solve_report(problem: Problem, dtype=torch.float32,
+                 stencil_impl: str = "xla", assembly_mode: str = "host",
+                 chunk: int = DEFAULT_CHUNK, device=None) -> dict:
+    """One sharded solve on this rank, for a caller that compares it: the
+    global w gathered to a host array, the scalars, the bodies and host
+    reads, and every rank's collectives and launches during the solve.
+    Every rank calls it together (``multihost.run_jobs``), with the
+    ``device`` type its group was started on."""
+    import torch.distributed as dist
+
+    from poisson_ellipse_tpu_torch.ops import _build
+    from poisson_ellipse_tpu_torch.parallel.mesh import (
+        COLLECTIVES,
+        reset_collectives,
+    )
+
+    mesh = make_mesh(device=device)
+    solver, args = build_sharded_solver(problem, mesh, dtype, assembly_mode,
+                                        stencil_impl, chunk=chunk)
+    reset_collectives()
+    _build.reset_launches()
+    result = solver(*args)
+    counts = {"collectives": dict(COLLECTIVES),
+              "launches": dict(_build.LAUNCHES)}
+    per_rank = [counts]
+    if mesh.backend != "none":
+        per_rank = [None] * mesh.world
+        dist.all_gather_object(per_rank, counts)
+    w = gather_w(problem, mesh, result.w)
+    return dict(
+        w=w.cpu().numpy(), block=tuple(result.w.shape),
+        iters=int(result.iters), converged=bool(result.converged),
+        breakdown=bool(result.breakdown), diff=float(result.diff),
+        bodies=solver.bodies, host_syncs=solver.host_syncs,
+        ranks=per_rank, mesh=mesh.shape, backend=mesh.backend,
+    )

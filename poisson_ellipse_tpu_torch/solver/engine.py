@@ -106,6 +106,10 @@ from poisson_ellipse_tpu_torch.utils.device import (
 #              ``<kernel>_<form>``, ``ops.whole_solve.counter``)
 #   dtypes   — the dtypes the engine accepts
 #   storage  — accepts ``storage_dtype`` (the JAX table's column)
+#   sharded_reductions, sharded_halo — the engine's mesh form
+#              (``parallel``, ``run_once(mode="sharded")``): reductions and
+#              halo exchanges an iteration, the JAX table's ``sharded_psum``
+#              and ``sharded_halo``; absent where the port has no mesh form
 _WHOLE = (torch.float32, torch.bfloat16)
 ENGINE_CAPS = {
     "resident": dict(family="megakernel", kernels=("resident",), capacity=0,
@@ -116,11 +120,13 @@ ENGINE_CAPS = {
                dtypes=_WHOLE, storage=True),
     "xla": dict(family="loop", kernels=(), capacity=None,
                 dtypes=(torch.float32, torch.float64, torch.bfloat16),
-                storage=True),
+                storage=True, sharded_reductions=2, sharded_halo=1),
     "pallas": dict(family="loop", kernels=("stencil",), capacity=None,
-                   dtypes=(torch.float32,), storage=True),
+                   dtypes=(torch.float32,), storage=True,
+                   sharded_reductions=2, sharded_halo=1),
     "fused": dict(family="fused", kernels=("fused_k1", "fused_k2"),
-                  capacity=None, dtypes=_WHOLE, storage=False),
+                  capacity=None, dtypes=_WHOLE, storage=False,
+                  sharded_reductions=2, sharded_halo=1),
     "pipelined": dict(family="pipelined", kernels=(), capacity=None,
                       dtypes=(torch.float32, torch.float64), storage=True),
     "pipelined-pallas": dict(family="pipelined",
@@ -158,6 +164,12 @@ BATCHED_ENGINES = tuple(
 
 # the engines that accept ``storage_dtype`` (the JAX package's tuple)
 STORAGE_ENGINES = tuple(e for e, c in ENGINE_CAPS.items() if c["storage"])
+
+# the engines with a mesh form (``parallel``); there "pallas" runs K-a and
+# "fused" K1-shard / K2-shard (f32)
+SHARDED_ENGINES = tuple(
+    e for e, c in ENGINE_CAPS.items() if "sharded_halo" in c
+)
 
 # the capacity ladder "auto" walks: the rungs in order
 CAPACITY_LADDER = tuple(sorted(

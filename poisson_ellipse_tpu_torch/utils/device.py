@@ -15,6 +15,7 @@ of published sizes.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -34,6 +35,37 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def rank_device(device=None, rank: int = 0, world: int = 1) -> torch.device:
+    """The device rank ``rank`` of ``world`` runs on: the CPU when asked
+    for, else a card. A rank takes the card of its local rank (torchrun's
+    ``LOCAL_RANK``, else ``rank``) when there is a card a rank; ranks that
+    outnumber the cards share them, all of them the one card of a
+    one-card machine.
+
+    Raises ``RuntimeError`` when the rank should have a card and none is
+    visible: there is no fallback to the CPU.
+    """
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.index is not None and world == 1:
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def backend_for(device, world: int) -> str:
+    """The ``torch.distributed`` backend of a ``world``-rank group on
+    ``device``'s type: ``nccl`` when every rank has a card of its own,
+    ``gloo`` on the CPU and when ranks share a card (NCCL takes one rank a
+    card; under gloo each message goes through the host, as the
+    reference's stage 4 stages its halos and sums)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and world <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,7 +26,12 @@ K-d's); ``pallas`` with bf16 storage takes ``xla``'s iterations and flags.
 The dtype forms (bf16 compute; f32 compute with bf16 or f16 operand
 streams) are held like their f32 forms, NaN in the same places where an f16
 stream overflows, and bitwise on seeded finite operands; K-b / K-c bf16,
-which sum in double on both sides, bitwise in their arrays.
+which sum in double on both sides, bitwise in their arrays. K1-shard and
+K2-shard (the mesh's kernels) are held bitwise in their arrays against
+their plain versions, and their per-block sums, added in double and
+rounded once to f32, equal to the plain version's rounded sums; the
+sharded path runs through ``run_once`` on one rank over NCCL and on two
+ranks sharing the card over gloo.
 """
 
 import dataclasses
@@ -46,6 +51,8 @@ from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
 from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
 from poisson_ellipse_tpu_torch.ops import whole_solve as ws
 from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
+from poisson_ellipse_tpu_torch.harness.run import run_once
+from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
 from poisson_ellipse_tpu_torch.solver import engine
 from poisson_ellipse_tpu_torch.utils.device import capacity
 
@@ -840,3 +847,114 @@ def test_xl_forms_answer_their_own_occupancy(cuda):
     cap = capacity(cuda)
     for form in ws.FORMS:
         assert cap.max_co_resident(xp.LIBRARY, 0, form) >= cap.sm_count
+
+
+# one rank's block of 2401x3201 on 2x2, and 13x17 over 2x4 (padding on both
+# axes, blocks narrower than a 32-wide thread block)
+SHARD_BLOCKS = [(1201, 1601), (7, 5)]
+
+
+def _shard_inputs(bm, bn, dev, seed=0):
+    """Seeded halo-extended windows and owned blocks of one rank, d zero on
+    its first row and column (the ring), the carry at β = 0.7, zr = 1.5,
+    denom = 2.5."""
+    rng = np.random.default_rng(seed)
+
+    def f32(shape, lo=None):
+        x = rng.random(shape) + lo if lo is not None else rng.standard_normal(
+            shape)
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    ext, blk = (bm + 2, bn + 2), (bm, bn)
+    d = f32(blk, lo=1.0)
+    d[0, :] = 0.0
+    d[:, 0] = 0.0
+    scal = torch.zeros(fp.N_SCAL, device=dev)
+    scal[fp.SCAL_BETA], scal[fp.SCAL_ZR], scal[fp.SCAL_DENOM] = 0.7, 1.5, 2.5
+    return dict(z=f32(ext), p=f32(ext), a=f32(ext, lo=0.5), b=f32(ext, lo=0.5),
+                d=d, dinv=torch.where(d != 0, 1.0 / d, torch.zeros_like(d)),
+                w=f32(blk), r=f32(blk), scal=scal,
+                flags=torch.zeros(fp.N_FLAGS, dtype=torch.int32, device=dev))
+
+
+def _shard_run(inp, k1, k2, partials):
+    bm, bn = inp["d"].shape
+    pn, ap = (torch.full((bm, bn), 7.0, device=inp["d"].device)
+              for _ in range(2))
+    k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap, inp["scal"],
+       inp["flags"], partials[0], max_iter=NEVER, h1=0.05, h2=0.03)
+    w, r, z = inp["w"].clone(), inp["r"].clone(), torch.full_like(pn, 7.0)
+    k2(w, r, pn, ap, inp["dinv"], z, inp["scal"], inp["flags"], partials[1],
+       max_iter=NEVER)
+    return (pn, ap, w, r, z, partials[0].sum(), partials[1].sum(0))
+
+
+@pytest.mark.parametrize("bm,bn", SHARD_BLOCKS)
+def test_fused_sharded_kernels_match_plain(cuda, bm, bn):
+    """Arrays bitwise; the rank's sums, in double, equal once rounded to
+    f32 (their terms are added in another order)."""
+    inp = _shard_inputs(bm, bn, cuda)
+    _build.reset_launches()
+    got = _shard_run(inp, fs.k1, fs.k2, fs.scratch(bm, bn, cuda))
+    assert _build.LAUNCHES == {fs.K1: 1, fs.K2: 1}
+    one = (torch.zeros(1, dtype=torch.float64, device=cuda),
+           torch.zeros((1, 2), dtype=torch.float64, device=cuda))
+    want = _shard_run(inp, fs.k1_plain, fs.k2_plain, one)
+    for x, y in zip(got[:5], want[:5]):
+        assert torch.equal(x, y)
+    for x, y in zip(got[5:], want[5:]):
+        assert torch.equal(x.float(), y.float())
+    # the ring: ap is exactly 0 where d is 0
+    assert torch.all(got[1][0, :] == 0) and torch.all(got[1][:, 0] == 0)
+
+
+def test_fused_sharded_kernels_do_nothing_after_exit(cuda):
+    inp = _shard_inputs(44, 70, cuda)
+    inp["flags"][fp.FLAG_CONVERGED] = 1
+    parts = fs.scratch(44, 70, cuda)
+    parts[0].fill_(3.0)
+    parts[1].fill_(3.0)
+    pn, ap, w, r, z, s1, s2 = _shard_run(inp, fs.k1, fs.k2, parts)
+    assert torch.all(pn == 7.0) and torch.all(ap == 7.0)
+    assert torch.equal(w, inp["w"]) and torch.equal(r, inp["r"])
+    assert torch.all(z == 7.0)
+    assert torch.all(parts[0] == 3.0) and torch.all(parts[1] == 3.0)
+
+
+def test_fused_sharded_kernels_reject_what_they_do_not_take(cuda):
+    inp = _shard_inputs(8, 8, cuda)
+    parts = fs.scratch(8, 8, cuda)
+    with pytest.raises(ValueError, match="z_ext"):
+        fs.k1(inp["z"][:-1], inp["p"], inp["a"], inp["b"], inp["d"],
+              inp["w"], inp["r"], inp["scal"], inp["flags"], parts[0],
+              max_iter=NEVER, h1=0.1, h2=0.1)
+    with pytest.raises(ValueError, match="partials"):
+        fs.k2(inp["w"], inp["r"], inp["w"], inp["r"], inp["dinv"],
+              inp["w"].clone(), inp["scal"], inp["flags"], parts[0],
+              max_iter=NEVER)
+
+
+def test_sharded_fused_on_one_rank_over_nccl(cuda):
+    """The 1x1 mesh on the card runs on NCCL: 546 +- 2 at 400x600, K1-shard
+    and K2-shard once a body, 2 reductions and 1 halo exchange a body."""
+    report = run_once(Problem(M=400, N=600), mode="sharded", engine="fused",
+                      mesh_shape=(1, 1))
+    assert report.backend == "nccl" and report.mesh_shape == (1, 1)
+    assert report.converged and abs(report.iters - 546) <= 2
+    assert report.l2_error < 1e-3
+    assert report.rank_launches == [{fs.K1: report.bodies,
+                                     fs.K2: report.bodies}]
+    assert report.rank_collectives == [{"halo": report.bodies + 2,
+                                        "reduce": 2 * report.bodies + 1}]
+
+
+def test_sharded_on_two_ranks_sharing_the_card_over_gloo(cuda):
+    """Two ranks on one card take gloo: the 50 of 40² for fused and pallas,
+    each kernel once a body on both ranks."""
+    for name, kernels in (("fused", (fs.K1, fs.K2)), ("pallas", ("stencil",))):
+        report = run_once(Problem(M=40, N=40), mode="sharded", engine=name,
+                          mesh_shape=(1, 2))
+        assert report.backend == "gloo" and report.iters == 50, name
+        assert report.converged, name
+        for launches in report.rank_launches:
+            assert launches == {k: report.bodies for k in kernels}, name

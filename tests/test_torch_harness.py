@@ -109,8 +109,13 @@ def test_entry_points_raise_without_a_card(no_card, capsys):
 
 
 def test_run_once_ports_single_mode_only():
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        run_once(Problem(M=10, N=10), mode="sharded", device="cpu")
+    # the mesh's classical and fused loops are ported (test_torch_parallel);
+    # its other engines are ROADMAP Queue A item 21, and no other mode runs
+    with pytest.raises(NotImplementedError, match="Queue A item 21"):
+        run_once(Problem(M=10, N=10), mode="sharded", engine="pipelined",
+                 device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        run_once(Problem(M=10, N=10), mode="native", device="cpu")
 
 
 def test_resolve_device_rejects_other_devices():

@@ -39,6 +39,7 @@ from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import _build
 from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
 from poisson_ellipse_tpu_torch.ops import pipelined_pcg as pp
+from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
 from poisson_ellipse_tpu_torch.solver import engine
 from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
 
@@ -327,18 +328,20 @@ def _c_kinds(library: str, symbol: str) -> list:
 
 
 @pytest.mark.parametrize("library,signatures", [
-    (hk.KERNEL, hk._SIGNATURES), (hk.DOTS_KERNEL, hk._DOTS_SIGNATURES)])
+    (hk.KERNEL, hk._SIGNATURES), (hk.DOTS_KERNEL, hk._DOTS_SIGNATURES),
+    (fs.LIBRARY, fs._SIGNATURES)])
 def test_launcher_signatures_match_the_c_prototypes(library, signatures):
-    """Each ctypes argument list of K-a's and K-d's libraries is its C
-    prototype's, argument for argument: a mismatch is no error to ctypes
-    and only misreads arguments on the card."""
+    """Each ctypes argument list of K-a's and K-d's libraries, and of the
+    mesh's K1-shard / K2-shard, is its C prototype's, argument for
+    argument: a mismatch is no error to ctypes and only misreads arguments
+    on the card."""
     names = {ctypes.c_int: "int", ctypes.c_float: "float",
              ctypes.c_void_p: "ptr"}
     # the storage axis's entries (K-g, K-h) are in the tables too
     mixed = {hk.KERNEL: {f"pe_stencil_mixed_{w}_{ab}" for ab in
                          ("bf16", "f16") for w in (ab, "f32")},
              hk.DOTS_KERNEL: {"pe_stencil_dots_mixed_bf16",
-                              "pe_stencil_dots_mixed_f16"}}[library]
+                              "pe_stencil_dots_mixed_f16"}}.get(library, set())
     assert mixed <= set(signatures)
     for symbol, (restype, argtypes) in signatures.items():
         if restype is not ctypes.c_int:
