@@ -161,6 +161,28 @@ result line):
               against their bounds and plain versions, and T_solver of each
               sharded run.
 
+12. stage 4 — the last four TPU kernels and bf16 on the kernel loops.
+              The stage-4 kernels (csrc/stage4.cu: dinv, dot, update_w_r,
+              update_p) against their plain versions at 2401x3201 in f32
+              and f64 on numpy-seeded inputs, D a tenth zeros: arrays
+              bitwise, dot and dw2 within rel 1e-6 (f32) / 1e-12 (f64), two
+              launches the same bits. K-a's and K-d's bf16 forms against
+              their plain versions at 2401x3201 on the bf16 operands: arrays
+              and sums bitwise. The reference's stage-4 iteration composed
+              from K-a and the four (a host read an iteration, not an
+              engine) at 400x600: f32 546 +- 2, l2 < 1e-3, each kernel's
+              launches as the count predicts (read just after the run); f64
+              (the plain stencil: K-a has no f64 form) exactly the f64 xla
+              count. bf16 pallas at 400x600 through build_solver: converged,
+              l2 < 3e-2, K-a bf16 once a body, its count beside bf16 xla's
+              on the card; pallas, pipelined-pallas and sstep-pallas at
+              2400x3200 in bf16 and f32, capped at 256: bf16 launches as
+              the body count predicts (K-d bf16 once a body, K-a bf16 for
+              w0, the rebuilds every 8 and the basis), us an iteration
+              beside f32's. Then the six kernels timed with CUDA events
+              beside their bounds and plain versions, dot and update_p
+              beside torch.dot and torch.add(alpha=).
+
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2426,6 +2448,404 @@ def phase_shard_timing(seed: int, card: str) -> list:
     return rows
 
 
+# -- phase 12: the stage-4 kernels and the bf16 kernel loops ----------------
+
+# the reference's stage-4 loop at 400x600: f32 held to the oracle +-2, f64
+# to the port's f64 xla count on the card, exactly
+STAGE4_GRID = (400, 600)
+STAGE4_SUM_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+# per node: dinv 1 division; dot a product and a sum; update_w_r two
+# products, three sums, the increment's square and its sum; update_p 2
+STAGE4_KERNELS = (
+    # name, pallas_call line, passes, operations a node
+    ("dinv", 570, 3, 1),
+    ("dot", 610, 2, 2),
+    ("update_w_r", 662, 6, 7),
+    ("update_p", 699, 3, 2),
+)
+# bf16 compute on the single-device kernel loops: pallas uncapped at
+# 400x600 (the JAX package's CPU run: 290 iterations, converged, diff
+# 3.67e-7), the three kernel loops capped for their time per iteration
+BF16_LOOP_CAP = 256
+JAX_BF16_PALLAS_400x600 = 290
+BF16_LOOPS = ("pallas", "pipelined-pallas", "sstep-pallas")
+
+
+def stage4_inputs(dtype, seed: int) -> dict:
+    """numpy-seeded operands of the stage-4 kernels at the 2401x3201 node
+    grid, on the card; D has a tenth of its nodes at 0 (dinv's guard)."""
+    rng = np.random.default_rng(seed)
+    g = (MAIN_GRID[0] + 1, MAIN_GRID[1] + 1)
+    out = {k: torch.from_numpy(rng.standard_normal(g)).to("cuda", dtype)
+           for k in ("w", "r", "p", "ap", "z", "x", "y")}
+    d = rng.random(g) + 0.5
+    d[rng.random(g) < 0.1] = 0.0
+    out["d"] = torch.from_numpy(d).to("cuda", dtype)
+    out["alpha"] = torch.tensor(0.37, dtype=dtype, device="cuda")
+    out["beta"] = torch.tensor(0.9, dtype=dtype, device="cuda")
+    return out
+
+
+def stage4_solve(problem, a, b, rhs, stencil):
+    """The reference's stage-4 iteration (its solver loop,
+    poisson_mpi_cuda2.cu:992-1034, with the semantics of solver.pcg)
+    composed from ``stencil`` and the four stage-4 dispatchers, not an
+    engine: (w, iterations, converged). The stopping test reads the device
+    once an iteration, as the reference's host loop does."""
+    from poisson_ellipse_tpu_torch.ops import stage4_kernels as s4
+    from poisson_ellipse_tpu_torch.ops.stencil import diag_d, spacing
+    from poisson_ellipse_tpu_torch.solver.pcg import DENOM_GUARD
+
+    h1, h2 = problem.h1, problem.h2
+    hw = spacing(h1, rhs) * spacing(h2, rhs)
+    d = diag_d(a, b, spacing(h1, rhs), spacing(h2, rhs))
+    w, r = torch.zeros_like(rhs), rhs.clone()
+    z = s4.apply_dinv_pallas(r, d)
+    p = z
+    zr = s4.dot_pallas(z, r, h1, h2)
+    for k in range(1, problem.max_iterations + 1):
+        ap = stencil(p, a, b, h1, h2)
+        denom = s4.dot_pallas(ap, p, h1, h2)
+        alpha = zr / denom
+        w_new, r_new, dw2 = s4.update_w_r_pallas(alpha, w, r, p, ap)
+        z = s4.apply_dinv_pallas(r_new, d)
+        zr_new = s4.dot_pallas(z, r_new, h1, h2)
+        diff = (torch.sqrt(dw2 * hw) if problem.norm == "weighted"
+                else torch.sqrt(dw2))
+        broke, done = (bool(v) for v in torch.stack(
+            [denom < DENOM_GUARD, diff < problem.delta]).tolist())
+        if broke:
+            return w, k - 1, False
+        w, r = w_new, r_new
+        if done:
+            return w, k, True
+        p = s4.update_p_pallas(zr_new / zr, z, p)
+        zr = zr_new
+    return w, problem.max_iterations, False
+
+
+def phase_stage4_kernels(seed: int) -> dict:
+    """Each stage-4 kernel against its plain version at 2401x3201, f32 and
+    f64: arrays bitwise, dot and dw2 within rel 1e-6 / 1e-12, two
+    launches the same bits."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import stage4_kernels as s4
+
+    say("== phase 12: the stage-4 kernels against their plain versions, "
+        "2401x3201, f32 and f64")
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+    h1, h2 = problem.h1, problem.h2
+    errs = {name: 0.0 for name, *_ in STAGE4_KERNELS}
+    for dtype in (torch.float32, torch.float64):
+        inp = stage4_inputs(dtype, seed)
+        tag = s4.DTYPES[dtype]
+        rtol = STAGE4_SUM_RTOL[dtype]
+
+        def bitwise(kernel, label, got, want):
+            same = torch.equal(got, want)
+            err = max_abs(got, want)
+            say(f"  {label} {tag}: max_abs_err {err:.3e} bitwise={same}")
+            require(same, f"{label} {tag} differs from its plain version")
+            errs[kernel] = max(errs[kernel], err)
+
+        def close(kernel, label, got, want):
+            g, w = float(got), float(want)
+            rel = abs(g - w) / max(abs(w), 1e-300)
+            say(f"  {label} {tag}: kernel {g!r} plain {w!r} rel {rel:.3e}")
+            require(math.isfinite(g) and rel <= rtol,
+                    f"{label} {tag} differs beyond rel {rtol}")
+            errs[kernel] = max(errs[kernel], abs(g - w))
+
+        z = s4.apply_dinv_pallas(inp["r"], inp["d"])
+        bitwise("dinv", "dinv", z, s4.apply_dinv_plain(inp["r"], inp["d"]))
+        require(bool((z[inp["d"] == 0] == 0).all()),
+                "dinv is not 0 where D is 0")
+        got = s4.dot_pallas(inp["x"], inp["y"], h1, h2)
+        again = s4.dot_pallas(inp["x"], inp["y"], h1, h2)
+        close("dot", "dot", got, s4.dot_plain(inp["x"], inp["y"], h1, h2))
+        require(torch.equal(got, again), f"dot {tag}: two launches differ")
+        args = (inp["alpha"], inp["w"], inp["r"], inp["p"], inp["ap"])
+        got = s4.update_w_r_pallas(*args)
+        want = s4.update_w_r_plain(*args)
+        bitwise("update_w_r", "update_w_r w", got[0], want[0])
+        bitwise("update_w_r", "update_w_r r", got[1], want[1])
+        close("update_w_r", "update_w_r dw2", got[2], want[2])
+        require(torch.equal(got[2], s4.update_w_r_pallas(*args)[2]),
+                f"update_w_r {tag}: two launches differ in dw2")
+        args = (inp["beta"], inp["z"], inp["p"])
+        bitwise("update_p", "update_p", s4.update_p_pallas(*args),
+                s4.update_p_plain(*args))
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_stage4_loop() -> dict:
+    """The stage-4 iteration composed from K-a and the four kernels at
+    400x600: f32 within +-2 of 546, f64 (the plain stencil: K-a has no f64
+    form) exactly the port's f64 xla count on the card. Launch counts of
+    the f32 run, set to 0 just before it and read just after."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import _build, assembly
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+    from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+    problem = Problem(M=STAGE4_GRID[0], N=STAGE4_GRID[1])
+    say(f"== phase 12: the stage-4 loop at {problem.M}x{problem.N} from K-a "
+        "and the four stage-4 kernels")
+    oracle = LARGE[STAGE4_GRID]
+    a, b, rhs = assembly.assemble(problem, torch.float32, "cuda")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    w, iters, converged = stage4_solve(problem, a, b, rhs, hk.apply_a_kernel)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    l2 = float(l2_error_vs_analytic(problem, w))
+    want = {"stencil": iters, "dinv": iters + 1, "dot": 2 * iters + 1,
+            "update_w_r": iters, "update_p": iters - 1}
+    say(f"  f32: {iters} iterations, converged {converged}, l2 {l2:.6e}, "
+        f"{wall:.3f} s (a host read an iteration), launches {launches}")
+    require(converged and abs(iters - oracle) <= ITERS_ABS,
+            f"stage-4 loop f32: {iters} iterations, outside {oracle} "
+            f"+-{ITERS_ABS}")
+    require(math.isfinite(l2) and l2 < 1e-3, "stage-4 loop f32: l2 error")
+    require(launches == want, f"stage-4 loop launches {launches}, expected "
+            f"{want}")
+
+    a, b, rhs = assembly.assemble(problem, torch.float64, "cuda")
+    w64, iters64, conv64 = stage4_solve(problem, a, b, rhs, hk.apply_a_plain)
+    solver, args, _ = build_solver(problem, "xla", torch.float64, "cuda")
+    ref = solver(*args)
+    gap = max_abs(w64, ref.w)
+    say(f"  f64: {iters64} iterations, converged {conv64}; xla f64 "
+        f"{int(ref.iters)}; max|w - w_xla| {gap:.3e}")
+    require(conv64 and iters64 == int(ref.iters) == oracle,
+            f"stage-4 loop f64: {iters64} iterations, xla f64 "
+            f"{int(ref.iters)}, oracle {oracle}")
+    counts = {k: v for k, v in launches.items() if k != "stencil"}
+    return dict(counts=counts)
+
+
+def phase_bf16_kernels(seed: int) -> dict:
+    """K-a's and K-d's bf16 forms against their plain versions at
+    2401x3201 on the bf16 operands and seeded iterates: arrays bitwise,
+    sums bitwise (both rounded once from double)."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import assembly
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+
+    say("== phase 12: K-a and K-d bf16 forms against their plain versions, "
+        "2401x3201")
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+    h1, h2 = problem.h1, problem.h2
+    a, b, _ = assembly.assemble(problem, torch.bfloat16, "cuda")
+    rng = np.random.default_rng(seed)
+    vecs = [torch.from_numpy(rng.standard_normal(a.shape)).to(
+        "cuda", torch.bfloat16) for _ in range(6)]
+    w, pairs = vecs[0], _bundle(*vecs[1:])
+    errs = {}
+
+    def bits(name, got, want):
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        err = max_abs(got, want)
+        say(f"  {name}: max_abs_err {err:.3e} bitwise={same}")
+        require(got.dtype == torch.bfloat16 and same,
+                f"{name} differs from its plain version")
+        return err
+
+    errs["stencil_bf16"] = max(
+        bits("K-a bf16 (full grid)", hk.apply_a_kernel(w, a, b, h1, h2),
+             hk.apply_a_plain(w, a, b, h1, h2)),
+        bits("K-a bf16 (block)", hk.apply_a_block_kernel(w, a, b, h1, h2),
+             hk.apply_a_block_plain(w, a, b, h1, h2)))
+    n, sums = hk.apply_a_dots_kernel(w, a, b, h1, h2, pairs)
+    n_p, sums_p = hk.apply_a_dots_plain(w, a, b, h1, h2, pairs)
+    errs["stencil_dots_bf16"] = max(bits("K-d bf16 n", n, n_p),
+                                    bits("K-d bf16 sums", sums, sums_p))
+    require(torch.equal(n, hk.apply_a_kernel(w, a, b, h1, h2)),
+            "K-d bf16's n is not K-a bf16's")
+    torch.cuda.synchronize()
+    return errs
+
+
+def expected_bf16_launches(engine: str, iters: int, limit: int,
+                           chunk: int = 64) -> dict:
+    """The launches of a bf16 kernel loop that took ``iters`` iterations
+    under the cap ``limit``, the host reading once per ``chunk``: every
+    issued body launches K-a bf16 once (pallas) or K-d bf16 once with K-a
+    bf16 for w0 and four times a rebuild, every 8 iterations
+    (pipelined-pallas), or K-a bf16 2s-1 times a block plus once a
+    replacement (sstep-pallas)."""
+    from poisson_ellipse_tpu_torch.ops.precision import replace_every
+    from poisson_ellipse_tpu_torch.ops.sstep_pcg import replaces
+
+    cadence = replace_every(None, torch.bfloat16)
+    issued = min(limit, chunk * -(-iters // chunk))
+    if engine == "pallas":
+        return {"stencil_bf16": issued}
+    if engine == "pipelined-pallas":
+        return {"stencil_bf16": 1 + 4 * ((issued - 1) // cadence),
+                "stencil_dots_bf16": issued}
+    starts = range(0, issued, SSTEP_S)
+    return {"stencil_bf16": (2 * SSTEP_S - 1) * len(starts)
+            + sum(replaces(k, SSTEP_S, cadence) for k in starts)}
+
+
+def phase_bf16_loops(card: str) -> dict:
+    """bf16 pallas at 400x600 through build_solver, beside xla bf16 on the
+    card; the three kernel loops at 2400x3200 capped at BF16_LOOP_CAP:
+    launches a body and the time an iteration beside f32's."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+    from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+    problem = Problem(M=400, N=600)
+    say(f"== phase 12: bf16 pallas at {problem.M}x{problem.N} ({card})")
+    solver, args, resolved = build_solver(problem, "pallas", torch.bfloat16,
+                                          "cuda")
+    result, launches = _run_counted(solver, args)
+    iters = int(result.iters)
+    l2 = float(l2_error_vs_analytic(problem, result.w))
+    xla_solver, xla_args, _ = build_solver(problem, "xla", torch.bfloat16,
+                                           "cuda")
+    ref = xla_solver(*xla_args)
+    say(f"  pallas bf16: {iters} iterations, converged "
+        f"{bool(result.converged)}, breakdown {bool(result.breakdown)}, l2 "
+        f"{l2:.6e}, launches {launches}; xla bf16 on the card "
+        f"{int(ref.iters)} iterations, converged {bool(ref.converged)}, l2 "
+        f"{float(l2_error_vs_analytic(problem, ref.w)):.6e} (JAX package, "
+        f"CPU: {JAX_BF16_PALLAS_400x600} for both)")
+    require(resolved == "pallas" and result.w.dtype == torch.bfloat16,
+            "pallas bf16 did not run in bf16")
+    require(bool(result.converged) and not bool(result.breakdown),
+            "pallas bf16 did not converge at 400x600")
+    require(math.isfinite(l2) and l2 < BF16_XLA_L2, f"pallas bf16 l2 {l2}")
+    want = expected_bf16_launches("pallas", iters, problem.max_iterations)
+    require(launches == want, f"pallas bf16 launches {launches}, expected "
+            f"{want}")
+    counts = dict(launches)
+
+    big = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1], max_iter=BF16_LOOP_CAP)
+    say(f"== phase 12: the bf16 kernel loops at {big.M}x{big.N}, capped at "
+        f"{BF16_LOOP_CAP} ({card})")
+    for engine in BF16_LOOPS:
+        times = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            solver, args, _ = build_solver(big, engine, dtype, "cuda",
+                                           sstep_s=SSTEP_S)
+            got, launches = _run_counted(solver, args)
+            t = time_solver(solver, args, 1)
+            iters = int(got.iters)
+            times[dtype] = t / iters
+            if dtype != torch.bfloat16:
+                continue
+            want = expected_bf16_launches(engine, iters, BF16_LOOP_CAP)
+            say(f"  {engine} bf16: {iters} iterations, converged "
+                f"{bool(got.converged)}, breakdown {bool(got.breakdown)}, w "
+                f"finite {bool(torch.isfinite(got.w).all())}, launches "
+                f"{launches} (predicted {want})")
+            require(got.w.dtype == torch.bfloat16, f"{engine}: w not bf16")
+            require(launches == want, f"{engine} bf16 launches {launches}")
+            if engine == "pipelined-pallas":
+                counts.update((k, v) for k, v in launches.items()
+                              if k == "stencil_dots_bf16")
+        say(f"  {engine}: bf16 {times[torch.bfloat16] * 1e6:.2f} us/iter, "
+            f"f32 {times[torch.float32] * 1e6:.2f} us/iter")
+    return dict(counts=counts)
+
+
+def phase_stage4_timing(seed: int, card: str) -> list:
+    """The four stage-4 kernels at 2401x3201 f32 (f64 printed) and the two
+    bf16 forms, with CUDA events, beside their bounds, their plain versions
+    and, for dot and update_p, one PyTorch call of the same function."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import assembly
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops import stage4_kernels as s4
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+
+    say(f"== phase 12 (timing): the stage-4 kernels and the bf16 forms at "
+        f"2401x3201 on {card}")
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+    h1, h2 = problem.h1, problem.h2
+    nodes = (MAIN_GRID[0] + 1) * (MAIN_GRID[1] + 1)
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        inp = stage4_inputs(dtype, seed)
+        size = torch.empty((), dtype=dtype).element_size()
+        beta = float(inp["beta"])
+        calls = {
+            "dinv": (lambda: s4.apply_dinv_pallas(inp["r"], inp["d"]),
+                     lambda: s4.apply_dinv_plain(inp["r"], inp["d"]), None),
+            "dot": (lambda: s4.dot_pallas(inp["x"], inp["y"], h1, h2),
+                    lambda: s4.dot_plain(inp["x"], inp["y"], h1, h2),
+                    lambda: torch.dot(inp["x"].view(-1), inp["y"].view(-1))),
+            "update_w_r": (
+                lambda: s4.update_w_r_pallas(inp["alpha"], inp["w"],
+                                             inp["r"], inp["p"], inp["ap"]),
+                lambda: s4.update_w_r_plain(inp["alpha"], inp["w"],
+                                            inp["r"], inp["p"], inp["ap"]),
+                None),
+            "update_p": (
+                lambda: s4.update_p_pallas(inp["beta"], inp["z"], inp["p"]),
+                lambda: s4.update_p_plain(inp["beta"], inp["z"], inp["p"]),
+                lambda: torch.add(inp["z"], inp["p"], alpha=beta)),
+        }
+        for name, line, passes, ops in STAGE4_KERNELS:
+            fn, plain, library = calls[name]
+            ms = time_ms(fn, 200)
+            plain_ms = time_ms(plain, 20)
+            library_ms = None if library is None else time_ms(library, 200)
+            bound_ms, bound_by = bound(passes * size * nodes, ops * nodes)
+            lib_txt = ("" if library_ms is None
+                       else f", library {library_ms * 1e3:.1f} us")
+            say(f"  {name} {s4.DTYPES[dtype]}: {ms * 1e3:.1f} us/launch, "
+                f"plain {plain_ms * 1e3:.1f} us{lib_txt}, bound "
+                f"{bound_ms * 1e3:.1f} us ({bound_by}), "
+                f"{passes * size * nodes / (ms * 1e-3) / 1e9:.0f} GB/s")
+            if dtype == torch.float32:
+                rows.append(dict(
+                    name=name, route="cuda",
+                    source="poisson_ellipse_tpu_torch/csrc/stage4.cu",
+                    replaces=f"poisson_ellipse_tpu/ops/pallas_kernels.py:"
+                             f"{line}",
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=library_ms))
+
+    a, b, _ = assembly.assemble(problem, torch.bfloat16, "cuda")
+    rng = np.random.default_rng(seed)
+    vecs = [torch.from_numpy(rng.standard_normal(a.shape)).to(
+        "cuda", torch.bfloat16) for _ in range(6)]
+    w, pairs = vecs[0], _bundle(*vecs[1:])
+    forms = (
+        # name, source, pallas_call line, kernel, plain, bytes, flops
+        ("stencil_bf16", "csrc/stencil.cu", 169,
+         lambda: hk.apply_a_kernel(w, a, b, h1, h2),
+         lambda: hk.apply_a_plain(w, a, b, h1, h2), 4 * 2 * nodes,
+         18 * nodes),
+        ("stencil_dots_bf16", "csrc/stencil_dots.cu", 299,
+         lambda: hk.apply_a_dots_kernel(w, a, b, h1, h2, pairs),
+         lambda: hk.apply_a_dots_plain(w, a, b, h1, h2, pairs),
+         9 * 2 * nodes, KD_FLOPS * nodes),
+    )
+    for name, src, line, fn, plain, nbytes, flops in forms:
+        ms = time_ms(fn, 200)
+        plain_ms = time_ms(plain, 20)
+        bound_ms, bound_by = bound(nbytes, flops)
+        say(f"  {name}: {ms * 1e3:.1f} us/launch, plain {plain_ms * 1e3:.1f}"
+            f" us, bound {bound_ms * 1e3:.1f} us ({bound_by}), "
+            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s")
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"poisson_ellipse_tpu_torch/{src}",
+            replaces=f"poisson_ellipse_tpu/ops/pallas_kernels.py:{line}",
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2493,10 +2913,17 @@ def main(argv=None) -> int:
     mesh = phase_mesh(card)
     timed += phase_shard_timing(args.seed, card)
     mark("phase 11")
+    errs.update(phase_stage4_kernels(args.seed))
+    errs.update(phase_bf16_kernels(args.seed))
+    stage4 = phase_stage4_loop()
+    bf16_loops = phase_bf16_loops(card)
+    timed += phase_stage4_timing(args.seed, card)
+    mark("phase 12")
 
     counts = {**rec["counts"], **main_run["counts"], **batched["counts"],
               **storage_main["counts"], **storage_rec["counts"],
-              **dtype_main["counts"], **mesh["counts"]}
+              **dtype_main["counts"], **mesh["counts"], **stage4["counts"],
+              **bf16_loops["counts"]}
     for row in timed:
         row["launches"] = counts.get(row["name"], 0)
         row["max_abs_err"] = errs[row["name"]]

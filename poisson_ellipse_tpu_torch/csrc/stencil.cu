@@ -62,6 +62,20 @@
 // Design: K-a's. The TPU kernel's storage-width DMA windows and their
 // (8,128) padding have no counterpart: each thread loads its narrow values
 // and widens them in registers.
+//
+// The bf16 form of K-a is this kernel with w, a, b and out in bf16: each
+// load is widened exactly, the tree is computed in float, and the result is
+// rounded once to bf16 where it is stored (rn/down in storage.cuh, the rule
+// of the bf16 whole-solve forms, ops/whole_solve.py:rounder). h1 and h2 are
+// the bf16-rounded spacings, widened, as the bf16 loops use them.
+//
+// Replaces: the same _stencil_kernel at bf16 (apply_a_block_pallas's call
+// at pallas_kernels.py:169 with bf16 operands): the stencil of bf16
+// pallas, of sstep-pallas's basis chain and of pipelined-pallas's w0 and
+// rebuilds.
+//
+// What bounds it: bytes. 4 passes at 2 B: 61.5 MB at 2401x3201, 18.4 us at
+// 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -74,12 +88,13 @@ namespace {
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
-// TW: the type of w; TC: the type of a and b (float for K-a and K-e)
-template <typename TW, typename TC>
+// TW: the type of w; TC: the type of a and b; TO: the type of out (all
+// float for K-a and K-e)
+template <typename TW, typename TC, typename TO>
 __global__ void stencil_kernel(const TW* __restrict__ w,
                                const TC* __restrict__ a,
                                const TC* __restrict__ b,
-                               float* __restrict__ out, int bm, int bn,
+                               TO* __restrict__ out, int bm, int bn,
                                int pad, float h1, float h2) {
   const int on = bn + 2 * pad;
   const int om = bm + 2 * pad;
@@ -99,19 +114,19 @@ __global__ void stencil_kernel(const TW* __restrict__ w,
                        up(w[c - 1]), up(w[c + 1]), up(a[c]), up(a[c + ld]),
                        up(b[c]), up(b[c + 1]), h1, h2);
   }
-  out[(int64_t)oi * on + oj] = val;
+  out[(int64_t)oi * on + oj] = down<TO>(val);
 }
 
-template <typename TW, typename TC>
-int launch(const TW* w, const TC* a, const TC* b, float* out, int lanes,
+template <typename TW, typename TC, typename TO>
+int launch(const TW* w, const TC* a, const TC* b, TO* out, int lanes,
            int bm, int bn, int pad, float h1, float h2, void* stream) {
   const int on = bn + 2 * pad;
   const int om = bm + 2 * pad;
   dim3 block(kBlockX, kBlockY);
   dim3 grid((on + kBlockX - 1) / kBlockX, (om + kBlockY - 1) / kBlockY,
             lanes);
-  stencil_kernel<TW, TC><<<grid, block, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  stencil_kernel<TW, TC, TO><<<grid, block, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       w, a, b, out, bm, bn, pad, h1, h2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -162,6 +177,14 @@ int pe_stencil_mixed_f16_f16(const __half* w, const __half* a,
 int pe_stencil_mixed_f32_f16(const float* w, const __half* a,
                              const __half* b, float* out, int bm, int bn,
                              int pad, float h1, float h2, void* stream) {
+  return launch(w, a, b, out, 1, bm, bn, pad, h1, h2, stream);
+}
+
+// The bf16 form: w, a, b (bm+2, bn+2) and out (bm+2*pad, bn+2*pad) bf16;
+// h1, h2 the bf16-rounded spacings.
+int pe_stencil_bf16(const __nv_bfloat16* w, const __nv_bfloat16* a,
+                    const __nv_bfloat16* b, __nv_bfloat16* out, int bm,
+                    int bn, int pad, float h1, float h2, void* stream) {
   return launch(w, a, b, out, 1, bm, bn, pad, h1, h2, stream);
 }
 

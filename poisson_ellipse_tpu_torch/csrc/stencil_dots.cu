@@ -79,6 +79,21 @@
 // What bounds it: bytes. m (4 B), a and b (2 x 2 B), out (4 B) and the
 // bundle's 5 distinct operands (5 x 2 B): 22 B a node, 169 MB at 2401x3201,
 // 50.5 us at 3.35 TB/s.
+//
+// The bf16 form of K-d is this kernel with m, a, b, out and every pair
+// operand in bf16, and bf16 sums. Each load is widened exactly; the
+// stencil is computed in float and rounded once to bf16 where out is
+// stored (K-a's bf16 form); each product of two bf16 values is exact in
+// float, is widened to double and summed in double as in K-d, and each
+// sum is rounded once to bf16 where it is stored (through f32, as
+// PyTorch's and the JAX package's conversions from double round).
+//
+// Replaces: _stencil_dots_kernel at bf16 (apply_a_block_dots_pallas's call
+// at pallas_kernels.py:299 with bf16 operands, whose SMEM accumulator holds
+// bf16): the bf16 pipelined-pallas engine's one pass per iteration.
+//
+// What bounds it: bytes. 9 passes at 2 B: 138.3 MB at 2401x3201, 41.3 us
+// at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -136,14 +151,14 @@ __device__ double block_sums(double (&acc)[kMaxPairs], int n_pairs,
   return s;
 }
 
-// TC: the type of a and b; TX: the type of the pair operands (float for K-d
-// and K-f)
-template <typename TC, typename TX>
+// TW: the type of w; TC: the type of a and b; TX: the type of the pair
+// operands; TO: the type of out and sums (all float for K-d and K-f)
+template <typename TW, typename TC, typename TX, typename TO>
 __global__ void __launch_bounds__(kThreads)
-stencil_dots_kernel(const float* __restrict__ w, const TC* __restrict__ a,
-                    const TC* __restrict__ b, float* __restrict__ out,
+stencil_dots_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
+                    const TC* __restrict__ b, TO* __restrict__ out,
                     const Pairs<TX> pairs, int x_ld, int x_off,
-                    double* partials, int* ticket, float* sums, int bm,
+                    double* partials, int* ticket, TO* sums, int bm,
                     int bn, int pad, float h1, float h2) {
   __shared__ double s_warp[kMaxPairs][kWarps];
   __shared__ int s_last;
@@ -174,11 +189,11 @@ stencil_dots_kernel(const float* __restrict__ w, const TC* __restrict__ a,
     float val = 0.0f;
     if (i >= 0 && i < bm && j >= 0 && j < bn) {
       const int64_t c = (int64_t)(i + 1) * ld + (j + 1);
-      const float wc = w[c];
-      const float ax = -(up(a[c + ld]) * (w[c + ld] - wc) / h1
-                         - up(a[c]) * (wc - w[c - ld]) / h1) / h1;
-      const float ay = -(up(b[c + 1]) * (w[c + 1] - wc) / h2
-                         - up(b[c]) * (wc - w[c - 1]) / h2) / h2;
+      const float wc = up(w[c]);
+      const float ax = -(up(a[c + ld]) * (up(w[c + ld]) - wc) / h1
+                         - up(a[c]) * (wc - up(w[c - ld])) / h1) / h1;
+      const float ay = -(up(b[c + 1]) * (up(w[c + 1]) - wc) / h2
+                         - up(b[c]) * (wc - up(w[c - 1])) / h2) / h2;
       val = ax + ay;
 
       const int64_t xi = x_off + (int64_t)i * x_ld + j;
@@ -196,7 +211,7 @@ stencil_dots_kernel(const float* __restrict__ w, const TC* __restrict__ a,
         }
       }
     }
-    out[(int64_t)oi * on + oj] = val;
+    out[(int64_t)oi * on + oj] = down<TO>(val);
   }
 
   const double bsum = block_sums(acc, pairs.n_pairs, s_warp);
@@ -223,7 +238,7 @@ stencil_dots_kernel(const float* __restrict__ w, const TC* __restrict__ a,
   }
   __syncthreads();  // s_warp is read again below
   const double total = block_sums(acc, pairs.n_pairs, s_warp);
-  if (tid < pairs.n_pairs) sums[tid * lanes + lane] = (float)total;
+  if (tid < pairs.n_pairs) sums[tid * lanes + lane] = down<TO>((float)total);
 }
 
 dim3 grid_of(int bm, int bn, int pad, int lanes = 1) {
@@ -234,11 +249,11 @@ dim3 grid_of(int bm, int bn, int pad, int lanes = 1) {
 }
 
 // Checks the pair table and launches ``lanes`` lanes; see the entry points.
-template <typename TC, typename TX>
-int launch(const float* w, const TC* a, const TC* b, float* out,
+template <typename TW, typename TC, typename TX, typename TO>
+int launch(const TW* w, const TC* a, const TC* b, TO* out,
            const void* const* operands, int n_operands, const int* pair_x,
            const int* pair_y, int n_pairs, int x_ld, int x_off,
-           double* partials, int* ticket, float* sums, int lanes, int bm,
+           double* partials, int* ticket, TO* sums, int lanes, int bm,
            int bn, int pad, float h1, float h2, void* stream) {
   if (n_operands < 1 || n_operands > kMaxOperands || n_pairs < 1 ||
       n_pairs > kMaxPairs || lanes < 1) {
@@ -258,9 +273,9 @@ int launch(const float* w, const TC* a, const TC* b, float* out,
   }
   pairs.n_operands = n_operands;
   pairs.n_pairs = n_pairs;
-  stencil_dots_kernel<TC, TX><<<grid_of(bm, bn, pad, lanes),
-                                dim3(kBlockX, kBlockY), 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  stencil_dots_kernel<TW, TC, TX, TO><<<grid_of(bm, bn, pad, lanes),
+                                        dim3(kBlockX, kBlockY), 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
       w, a, b, out, pairs, x_ld, x_off, partials, ticket, sums, bm, bn, pad,
       h1, h2);
   return static_cast<int>(cudaGetLastError());
@@ -287,9 +302,9 @@ int pe_stencil_dots_f32(const float* w, const float* a, const float* b,
                         int n_pairs, int x_ld, int x_off, double* partials,
                         int* ticket, float* sums, int bm, int bn, int pad,
                         float h1, float h2, void* stream) {
-  return launch<float, float>(w, a, b, out, operands, n_operands, pair_x,
-                              pair_y, n_pairs, x_ld, x_off, partials, ticket,
-                              sums, 1, bm, bn, pad, h1, h2, stream);
+  return launch<float, float, float, float>(
+      w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
+      x_off, partials, ticket, sums, 1, bm, bn, pad, h1, h2, stream);
 }
 
 // K-f: w, out and each operand hold ``lanes`` lanes back to back; partials
@@ -303,9 +318,9 @@ int pe_batched_stencil_dots_f32(const float* w, const float* a,
                                 double* partials, int* ticket, float* sums,
                                 int lanes, int bm, int bn, int pad, float h1,
                                 float h2, void* stream) {
-  return launch<float, float>(w, a, b, out, operands, n_operands, pair_x,
-                              pair_y, n_pairs, x_ld, x_off, partials, ticket,
-                              sums, lanes, bm, bn, pad, h1, h2, stream);
+  return launch<float, float, float, float>(
+      w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
+      x_off, partials, ticket, sums, lanes, bm, bn, pad, h1, h2, stream);
 }
 
 // K-h: w (the stencil input m) f32; a, b and every operand in the storage
@@ -318,7 +333,7 @@ int pe_stencil_dots_mixed_bf16(const float* w, const __nv_bfloat16* a,
                                double* partials, int* ticket, float* sums,
                                int bm, int bn, int pad, float h1, float h2,
                                void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(
+  return launch<float, __nv_bfloat16, __nv_bfloat16, float>(
       w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
       x_off, partials, ticket, sums, 1, bm, bn, pad, h1, h2, stream);
 }
@@ -331,7 +346,22 @@ int pe_stencil_dots_mixed_f16(const float* w, const __half* a,
                               double* partials, int* ticket, float* sums,
                               int bm, int bn, int pad, float h1, float h2,
                               void* stream) {
-  return launch<__half, __half>(
+  return launch<float, __half, __half, float>(
+      w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
+      x_off, partials, ticket, sums, 1, bm, bn, pad, h1, h2, stream);
+}
+
+// The bf16 form: w (the stencil input m), a, b, out, every operand and
+// sums in bf16; h1, h2 the bf16-rounded spacings. Otherwise as
+// pe_stencil_dots_f32.
+int pe_stencil_dots_bf16(const __nv_bfloat16* w, const __nv_bfloat16* a,
+                         const __nv_bfloat16* b, __nv_bfloat16* out,
+                         const void* const* operands, int n_operands,
+                         const int* pair_x, const int* pair_y, int n_pairs,
+                         int x_ld, int x_off, double* partials, int* ticket,
+                         __nv_bfloat16* sums, int bm, int bn, int pad,
+                         float h1, float h2, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
       w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
       x_off, partials, ticket, sums, 1, bm, bn, pad, h1, h2, stream);
 }

@@ -62,8 +62,9 @@ def main(argv=None) -> int:
                     "batched-pipelined (and their -pallas forms) run --lanes "
                     "solves in one loop")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32",
-                    help="the compute dtype; bf16 runs on xla, fused, "
-                    "resident, streamed, xl and auto")
+                    help="the compute dtype; bf16 runs on xla, pallas, "
+                    "fused, resident, streamed, xl, auto, the pipelined and "
+                    "sstep engines and their -pallas forms")
     ap.add_argument("--norm", choices=("weighted", "unweighted"),
                     default="weighted")
     ap.add_argument("--eps", type=float, default=None)

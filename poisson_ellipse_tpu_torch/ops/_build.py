@@ -35,7 +35,7 @@ import tempfile
 from pathlib import Path
 
 SOURCES = ("stencil", "fused_pcg", "resident_pcg", "streamed_pcg",
-           "xl_pcg", "stencil_dots", "fused_sharded")
+           "xl_pcg", "stencil_dots", "fused_sharded", "stage4")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

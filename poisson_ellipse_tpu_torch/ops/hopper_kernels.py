@@ -25,7 +25,18 @@ kernels are ported:
   with typed loads): f32 m, a, b and the pair operands in the storage
   dtype; once a body of ``pipelined-pallas`` with ``storage_dtype``.
 
-The other kernels of that module are still queued (ROADMAP Queue B).
+K-a and K-d also have a bf16 form (``csrc/stencil.cu``
+``pe_stencil_bf16``, ``csrc/stencil_dots.cu`` ``pe_stencil_dots_bf16``),
+the JAX kernels at bf16: every input bf16, the arithmetic in float on the
+exactly widened loads, each result rounded once to bf16 where it is
+stored (the rule of the bf16 whole-solve forms,
+``ops.whole_solve.rounder``), and K-d's sums taken in double and rounded
+once to bf16. Their plain versions compute the same way. The bf16
+``pallas``, ``sstep-pallas`` and the w₀ and rebuilds of
+``pipelined-pallas`` run K-a's, the bf16 ``pipelined-pallas`` body K-d's.
+They count under ``stencil_bf16`` and ``stencil_dots_bf16``.
+
+The stage-4 vector kernels of that module are ``ops.stage4_kernels``.
 
 The plain versions index the last two axes only (``ops.stencil``), so the
 same plain function serves one grid and a (B, ·, ·) stack of lanes. The
@@ -43,7 +54,12 @@ import torch
 import torch.nn.functional as F
 
 from poisson_ellipse_tpu_torch.ops import _build
-from poisson_ellipse_tpu_torch.ops.stencil import apply_a_block, spacing
+from poisson_ellipse_tpu_torch.ops import whole_solve as ws
+from poisson_ellipse_tpu_torch.ops.stencil import (
+    apply_a_block,
+    rounded,
+    spacing,
+)
 
 # launch-counter names; K-e and K-f live in the libraries of K-a and K-d
 KERNEL = "stencil"
@@ -57,6 +73,10 @@ MIXED_DOTS_KERNEL = "stencil_dots_mixed"
 # the storage dtypes K-g and K-h load, by their names in the C entry points
 _STORAGE_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
+# the compute dtypes of K-a and K-d (one-lane launches); a form's C entry
+# point and launch counter are named as ``ops.whole_solve`` names them
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
 # K-d takes at most this many distinct pair operands and pairs
 MAX_OPERANDS = 8
 MAX_PAIRS = 8
@@ -65,6 +85,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pe_stencil_error_string": (ctypes.c_char_p, [_I]),
     "pe_stencil_f32": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P]),
+    "pe_stencil_bf16": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P]),
     # w, a, b, out, lanes, bm, bn, pad, h1, h2, stream
     "pe_batched_stencil_f32": (_I, [_P] * 4 + [_I] * 4 + [_F, _F, _P]),
     # K-g: pe_stencil_f32's arguments, w and a, b of the named types
@@ -76,8 +97,10 @@ _DOTS_SIGNATURES = {
     "pe_stencil_dots_blocks": (_I, [_I] * 3),
     # w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
     # x_off, partials, ticket, sums, bm, bn, pad, h1, h2, stream
-    "pe_stencil_dots_f32": (_I, [_P] * 5 + [_I] + [_P] * 2 + [_I] * 3
-                            + [_P] * 3 + [_I] * 3 + [_F, _F, _P]),
+    **{f"pe_stencil_dots_{form}": (_I, [_P] * 5 + [_I] + [_P] * 2
+                                   + [_I] * 3 + [_P] * 3 + [_I] * 3
+                                   + [_F, _F, _P])
+       for form in ("f32", "bf16")},
     # the same with lanes before bm
     "pe_batched_stencil_dots_f32": (_I, [_P] * 5 + [_I] + [_P] * 2
                                     + [_I] * 3 + [_P] * 3 + [_I] * 4
@@ -91,10 +114,14 @@ _DOTS_SIGNATURES = {
 
 
 def apply_a_block_plain(w_ext, a_ext, b_ext, h1: float, h2: float):
-    """The plain version of K-a in block layout: (bm+2, bn+2) → (bm, bn)."""
-    return apply_a_block(
-        w_ext, a_ext, b_ext, spacing(h1, w_ext), spacing(h2, w_ext)
-    )
+    """The plain version of K-a in block layout: (bm+2, bn+2) → (bm, bn).
+    At bf16 (K-a's bf16 form): the tree in float on the widened inputs,
+    with the bf16-rounded spacings widened, rounded once to bf16."""
+    hs = (spacing(h1, w_ext), spacing(h2, w_ext))
+    if w_ext.dtype == torch.bfloat16:
+        wide = (x.float() for x in (w_ext, a_ext, b_ext, *hs))
+        return apply_a_block(*wide).to(torch.bfloat16)
+    return apply_a_block(w_ext, a_ext, b_ext, *hs)
 
 
 def apply_a_plain(w, a, b, h1: float, h2: float):
@@ -119,9 +146,10 @@ def apply_a_kernel(w, a, b, h1: float, h2: float):
 
 
 def _check_stencil_inputs(kernel: str, w, a, b, lanes: bool = False) -> None:
-    """Raise unless w is a float32 block of at least 3x3 (a (B, ·, ·) stack
-    of them with ``lanes``) and a, b are one block of its shape, all
-    contiguous on one device."""
+    """Raise unless w is a float32 block of at least 3x3 (a bf16 one too
+    without ``lanes``; a (B, ·, ·) stack of f32 blocks with ``lanes``) and
+    a, b are one block of its shape and dtype, all contiguous on one
+    device."""
     grid = tuple(w.shape[1:]) if lanes else tuple(w.shape)
     for name, t in (("a", a), ("b", b)):
         if (t.device != w.device or t.dtype != w.dtype
@@ -130,8 +158,10 @@ def _check_stencil_inputs(kernel: str, w, a, b, lanes: bool = False) -> None:
                 f"{kernel}: {name} is {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}; w is {w.dtype} {tuple(w.shape)} on {w.device}"
             )
-    if w.dtype != torch.float32:
-        raise ValueError(f"{kernel}: the kernel runs float32, got {w.dtype}")
+    if w.dtype not in (COMPUTE_DTYPES[:1] if lanes else COMPUTE_DTYPES):
+        raise ValueError(f"{kernel}: the kernel runs "
+                         f"{'float32' if lanes else 'float32 or bfloat16'}, "
+                         f"got {w.dtype}")
     dims = 3 if lanes else 2
     if (w.dim() != dims or len(grid) != 2 or grid[0] < 3 or grid[1] < 3
             or (lanes and w.shape[0] < 1)):
@@ -144,16 +174,19 @@ def _check_stencil_inputs(kernel: str, w, a, b, lanes: bool = False) -> None:
 
 def _launch(w, a, b, h1, h2, pad: int):
     _check_stencil_inputs(KERNEL, w, a, b)
+    form = ws.form_of(w.dtype)
     bm, bn = w.shape[0] - 2, w.shape[1] - 2
     out = torch.empty((bm + 2 * pad, bn + 2 * pad), dtype=w.dtype,
                       device=w.device)
     lib = _build.load(KERNEL, _SIGNATURES)
-    rc = lib.pe_stencil_f32(
+    rc = getattr(lib, f"pe_stencil_{form}")(
         w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), bm, bn,
-        pad, h1, h2, _build.stream_handle(w.device),
+        pad, rounded(h1, w.dtype), rounded(h2, w.dtype),
+        _build.stream_handle(w.device),
     )
-    _build.check(lib.pe_stencil_error_string, KERNEL, rc)
-    _build.count_launch(KERNEL)
+    counter = ws.counter(KERNEL, form)
+    _build.check(lib.pe_stencil_error_string, counter, rc)
+    _build.count_launch(counter)
     return out
 
 
@@ -205,10 +238,13 @@ def _pair_tuple(pairs) -> tuple:
 
 def dot_sums_plain(pairs):
     """Σ x·y over the last two axes of each pair: each product rounded in
-    the operands' dtype, summed in double, rounded once back (K-d's
+    the operands' dtype (in float for bf16 operands, where it is exact),
+    summed in double, rounded once back through float (K-d's
     accumulation). (n_pairs,) for grids, (n_pairs, B) for lane stacks."""
-    return torch.stack([(x * y).double().sum(dim=(-2, -1))
-                        for x, y in pairs]).to(pairs[0][0].dtype)
+    dtype = pairs[0][0].dtype
+    sums = torch.stack([(ws.held(x) * ws.held(y)).double().sum(dim=(-2, -1))
+                        for x, y in pairs])
+    return sums.to(dtype) if dtype.itemsize >= 4 else sums.float().to(dtype)
 
 
 def apply_a_block_dots_plain(w_ext, a_ext, b_ext, h1: float, h2: float,
@@ -289,7 +325,8 @@ def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False,
     or K-h, the entry ``symbol`` counted as ``kernel``, whose inputs the
     caller has checked, with every operand in a's dtype."""
     if kernel is None:
-        kernel = BATCHED_DOTS_KERNEL if lanes else DOTS_KERNEL
+        kernel = (BATCHED_DOTS_KERNEL if lanes
+                  else ws.counter(DOTS_KERNEL, ws.form_of(w.dtype)))
     if len(pairs) > MAX_PAIRS:
         raise ValueError(f"{kernel}: at most {MAX_PAIRS} pairs, got "
                          f"{len(pairs)}")
@@ -315,9 +352,9 @@ def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False,
     x_off = pad * (x_ld + 1)
     lib = _build.load(DOTS_KERNEL, _DOTS_SIGNATURES)
     nblocks = lib.pe_stencil_dots_blocks(bm, bn, pad)
-    out = torch.empty(x_shape, dtype=torch.float32, device=w.device)
-    sums = torch.empty((len(pairs),) + lead, dtype=torch.float32,
-                       device=w.device)
+    # the form's dtype: w's (f32, or bf16 for K-d's bf16 form)
+    out = torch.empty(x_shape, dtype=w.dtype, device=w.device)
+    sums = torch.empty((len(pairs),) + lead, dtype=w.dtype, device=w.device)
     partials = torch.empty(len(pairs) * nblocks * n_lanes,
                            dtype=torch.float64, device=w.device)
     # the last-block tickets, one a lane: 0 before the launch
@@ -329,11 +366,13 @@ def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False,
     head = (w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), ptrs,
             len(operands), pair_x, pair_y, len(pairs), x_ld, x_off,
             partials.data_ptr(), ticket.data_ptr(), sums.data_ptr())
-    tail = (bm, bn, pad, h1, h2, _build.stream_handle(w.device))
+    tail = (bm, bn, pad, rounded(h1, w.dtype), rounded(h2, w.dtype),
+            _build.stream_handle(w.device))
     if lanes:
         rc = lib.pe_batched_stencil_dots_f32(*head, n_lanes, *tail)
     else:
-        rc = getattr(lib, symbol or "pe_stencil_dots_f32")(*head, *tail)
+        symbol = symbol or f"pe_stencil_dots_{ws.form_of(w.dtype)}"
+        rc = getattr(lib, symbol)(*head, *tail)
     _build.check(lib.pe_stencil_dots_error_string, kernel, rc)
     _build.count_launch(kernel)
     return out, sums

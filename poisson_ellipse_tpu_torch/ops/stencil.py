@@ -30,6 +30,12 @@ def spacing(h: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(h, dtype=like.dtype, device=like.device)
 
 
+def rounded(h: float, dtype: torch.dtype) -> float:
+    """``h`` rounded to ``dtype``, as ``spacing`` rounds it, as a Python
+    float: the spacing a kernel launch takes, read from no device."""
+    return float(torch.tensor(h, dtype=dtype))
+
+
 def apply_a(w, a, b, h1, h2):
     """A·w on the full node grid; boundary ring stays zero."""
     return F.pad(apply_a_block(w, a, b, h1, h2), (1, 1, 1, 1))

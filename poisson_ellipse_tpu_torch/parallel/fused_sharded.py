@@ -34,7 +34,7 @@ and otherwise launches the kernel or raises.
 The TPU's (8·px, 128·py) tile padding (``padded_dims_fused`` there) has no
 counterpart: the grid is padded to the mesh multiple (``padded_dims``).
 Padded nodes are exact zeros, so the stripped w is the same. f32 only:
-bf16 is ROADMAP Queue A item 20, and f64 raises as in the JAX package.
+bf16 is ROADMAP Queue A item 20b, and f64 raises as in the JAX package.
 """
 
 from __future__ import annotations
@@ -236,7 +236,7 @@ def _masked(active: torch.Tensor, target: torch.Tensor,
 
 def _check_dtype(dtype: torch.dtype) -> None:
     if dtype == torch.bfloat16:
-        raise unported("the bf16 fused-sharded iteration", "Queue A item 20")
+        raise unported("the bf16 fused-sharded iteration", "Queue A item 20b")
     if dtype != torch.float32:
         raise ValueError(
             "fused-sharded supports f32/bf16; use stencil_impl='xla' for f64"

@@ -65,9 +65,11 @@ other engine, ``auto`` included, refuses it with the JAX error.
 
 bf16 compute (``dtype=torch.bfloat16``) runs on ``xla``, ``fused`` (K-b
 and K-c in bf16), ``resident``, ``streamed`` and ``xl`` (their bf16
-forms), the engines whose JAX counterparts the JAX package's own tests run
-at bf16; the other kernel engines are f32 only (ROADMAP Queue A item
-20).
+forms), and on the single-device loops ``pallas``, ``pipelined``,
+``pipelined-pallas``, ``sstep`` and ``sstep-pallas`` (K-a's and K-d's
+bf16 forms), as the JAX ``build_solver`` runs them; the batched kernel
+engines are f32 only and the plain batched ones f32/f64 (ROADMAP Queue A
+item 20b).
 """
 
 from __future__ import annotations
@@ -103,40 +105,43 @@ from poisson_ellipse_tpu_torch.utils.device import (
 #   capacity — the engine's rung on the capacity ladder "auto" walks
 #              (None: not on it)
 #              (of their f32 forms; a kernel's other forms count under
-#              ``<kernel>_<form>``, ``ops.whole_solve.counter``)
+#              ``<kernel>_<form>``, ``ops.whole_solve.counter``: the bf16
+#              loops launch ``stencil_bf16`` and ``stencil_dots_bf16``)
 #   dtypes   — the dtypes the engine accepts
 #   storage  — accepts ``storage_dtype`` (the JAX table's column)
 #   sharded_reductions, sharded_halo — the engine's mesh form
 #              (``parallel``, ``run_once(mode="sharded")``): reductions and
 #              halo exchanges an iteration, the JAX table's ``sharded_psum``
 #              and ``sharded_halo``; absent where the port has no mesh form
-_WHOLE = (torch.float32, torch.bfloat16)
+# the kernels' compute dtypes, and the plain loops' (f64 too)
+_F32_BF16 = (torch.float32, torch.bfloat16)
+_ALL = (torch.float32, torch.float64, torch.bfloat16)
 ENGINE_CAPS = {
     "resident": dict(family="megakernel", kernels=("resident",), capacity=0,
-                     dtypes=_WHOLE, storage=False),
+                     dtypes=_F32_BF16, storage=False),
     "streamed": dict(family="megakernel", kernels=("streamed",), capacity=1,
-                     dtypes=_WHOLE, storage=True),
+                     dtypes=_F32_BF16, storage=True),
     "xl": dict(family="megakernel", kernels=("xl",), capacity=2,
-               dtypes=_WHOLE, storage=True),
+               dtypes=_F32_BF16, storage=True),
     "xla": dict(family="loop", kernels=(), capacity=None,
-                dtypes=(torch.float32, torch.float64, torch.bfloat16),
-                storage=True, sharded_reductions=2, sharded_halo=1),
+                dtypes=_ALL, storage=True, sharded_reductions=2,
+                sharded_halo=1),
     "pallas": dict(family="loop", kernels=("stencil",), capacity=None,
-                   dtypes=(torch.float32,), storage=True,
+                   dtypes=_F32_BF16, storage=True,
                    sharded_reductions=2, sharded_halo=1),
     "fused": dict(family="fused", kernels=("fused_k1", "fused_k2"),
-                  capacity=None, dtypes=_WHOLE, storage=False,
+                  capacity=None, dtypes=_F32_BF16, storage=False,
                   sharded_reductions=2, sharded_halo=1),
     "pipelined": dict(family="pipelined", kernels=(), capacity=None,
-                      dtypes=(torch.float32, torch.float64), storage=True),
+                      dtypes=_ALL, storage=True),
     "pipelined-pallas": dict(family="pipelined",
                              kernels=("stencil", "stencil_dots"),
-                             capacity=None, dtypes=(torch.float32,),
+                             capacity=None, dtypes=_F32_BF16,
                              storage=True),
     "sstep": dict(family="sstep", kernels=(), capacity=None,
-                  dtypes=(torch.float32, torch.float64), storage=True),
+                  dtypes=_ALL, storage=True),
     "sstep-pallas": dict(family="sstep", kernels=("stencil",), capacity=None,
-                         dtypes=(torch.float32,), storage=True),
+                         dtypes=_F32_BF16, storage=True),
     "batched": dict(family="batched", kernels=(), capacity=None,
                     dtypes=(torch.float32, torch.float64), storage=True),
     "batched-pipelined": dict(family="batched", kernels=(), capacity=None,

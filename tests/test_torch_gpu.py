@@ -31,7 +31,11 @@ K2-shard (the mesh's kernels) are held bitwise in their arrays against
 their plain versions, and their per-block sums, added in double and
 rounded once to f32, equal to the plain version's rounded sums; the
 sharded path runs through ``run_once`` on one rank over NCCL and on two
-ranks sharing the card over gloo.
+ranks sharing the card over gloo. The stage-4 kernels (dinv, dot,
+update_w_r, update_p; f32 and f64) are held bitwise in their arrays and
+their sums to rel 1e-6 (f32) / 1e-12 (f64), both summed in double; the bf16
+forms of K-a and K-d bitwise in arrays and sums, as their plain versions
+compute in float and round once where they store.
 """
 
 import dataclasses
@@ -48,6 +52,7 @@ from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
 from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
 from poisson_ellipse_tpu_torch.ops import pipelined_pcg as pp
 from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
+from poisson_ellipse_tpu_torch.ops import stage4_kernels as s4
 from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
 from poisson_ellipse_tpu_torch.ops import whole_solve as ws
 from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
@@ -958,3 +963,108 @@ def test_sharded_on_two_ranks_sharing_the_card_over_gloo(cuda):
         assert report.converged, name
         for launches in report.rank_launches:
             assert launches == {k: report.bodies for k in kernels}, name
+
+
+# -- the stage-4 kernels and the bf16 forms of K-a and K-d ------------------
+
+STAGE4_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M,N", SHAPES)
+def test_stage4_kernels_match_plain(cuda, M, N, dtype):
+    """dinv, dot, update_w_r and update_p: arrays bitwise their plain
+    versions, dot and dw2 within rel 1e-6 (f32) / 1e-12 (f64), D with
+    zeros, one launch each."""
+    g = (M + 1, N + 1)
+    w, r, p, ap, z, d = (_rand(g, cuda, s, dtype) for s in range(6))
+    d = torch.where(d.abs() < 0.3, torch.zeros_like(d), d)
+    alpha = torch.tensor(0.37, dtype=dtype, device=cuda)
+    beta = torch.tensor(0.9, dtype=dtype, device=cuda)
+    h1, h2 = 2.0 / M, 1.2 / N
+    _build.reset_launches()
+    got = s4.apply_dinv_pallas(r, d)
+    assert torch.equal(got, s4.apply_dinv_plain(r, d))
+    assert bool((got[d == 0] == 0).all())
+    dot = s4.dot_pallas(w, r, h1, h2)
+    assert dot.dim() == 0 and dot.device.type == "cuda"
+    assert float(dot) == pytest.approx(float(s4.dot_plain(w, r, h1, h2)),
+                                       rel=STAGE4_RTOL[dtype])
+    w_new, r_new, dw2 = s4.update_w_r_pallas(alpha, w, r, p, ap)
+    w_p, r_p, dw2_p = s4.update_w_r_plain(alpha, w, r, p, ap)
+    assert torch.equal(w_new, w_p) and torch.equal(r_new, r_p)
+    assert float(dw2) == pytest.approx(float(dw2_p), rel=STAGE4_RTOL[dtype])
+    assert torch.equal(s4.update_p_pallas(beta, z, p),
+                       s4.update_p_plain(beta, z, p))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"dinv": 1, "dot": 1, "update_w_r": 1,
+                               "update_p": 1}
+
+
+def test_stage4_kernels_refuse_bf16_and_cpu_scalars(cuda):
+    x = torch.zeros(5, 7, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        s4.apply_dinv_pallas(x, x)
+    f = torch.zeros(5, 7, device=cuda)
+    with pytest.raises(ValueError):
+        s4.update_p_pallas(torch.tensor(0.5), f, f)
+
+
+@pytest.mark.parametrize("M,N", SHAPES)
+def test_bf16_stencil_forms_match_plain(cuda, M, N):
+    """K-a and K-d in bf16: arrays bitwise their plain versions (float
+    arithmetic, rounded once where stored), K-d's sums bitwise once
+    rounded, K-d's n bitwise K-a's."""
+    g = (M + 1, N + 1)
+    bf = torch.bfloat16
+    w, a, b = (_rand(g, cuda, s, bf, lo=lo) for s, lo in
+               ((0, None), (1, 0.5), (2, 0.5)))
+    vecs = [_rand(g, cuda, 3 + s, bf) for s in range(5)]
+    pairs = pp._bundle(*vecs)
+    h1, h2 = 2.0 / M, 1.2 / N
+    _build.reset_launches()
+    full = hk.apply_a_kernel(w, a, b, h1, h2)
+    block = hk.apply_a_block_kernel(w, a, b, h1, h2)
+    n, sums = hk.apply_a_dots_kernel(w, a, b, h1, h2, pairs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"stencil_bf16": 2, "stencil_dots_bf16": 1}
+    n_p, sums_p = hk.apply_a_dots_plain(w, a, b, h1, h2, pairs)
+    for got, want in ((full, hk.apply_a_plain(w, a, b, h1, h2)),
+                      (block, hk.apply_a_block_plain(w, a, b, h1, h2)),
+                      (n, n_p), (sums, sums_p), (n, full)):
+        assert got.dtype == bf and torch.equal(got.view(torch.int16),
+                                               want.view(torch.int16))
+
+
+def test_stage4_loop_at_400x600(cuda):
+    """The reference's stage-4 iteration composed from K-a and the four
+    kernels (``chip_smoke.stage4_solve``): 546 +- 2 iterations in f32,
+    each kernel launched as the count predicts."""
+    from chip_smoke import stage4_solve
+
+    problem = Problem(M=400, N=600)
+    a, b, rhs = assembly.assemble(problem, torch.float32, cuda)
+    _build.reset_launches()
+    w, iters, converged = stage4_solve(problem, a, b, rhs, hk.apply_a_kernel)
+    torch.cuda.synchronize()
+    assert converged and abs(iters - 546) <= 2
+    assert _build.LAUNCHES == {"stencil": iters, "dinv": iters + 1,
+                               "dot": 2 * iters + 1, "update_w_r": iters,
+                               "update_p": iters - 1}
+
+
+@pytest.mark.parametrize("name,counters", [
+    ("pallas", ("stencil_bf16",)),
+    ("pipelined-pallas", ("stencil_bf16", "stencil_dots_bf16")),
+    ("sstep-pallas", ("stencil_bf16",)),
+])
+def test_bf16_kernel_loops_run_their_forms(cuda, name, counters):
+    """The bf16 kernel loops at 40², δ = 1e-4 launch only the bf16 forms;
+    pallas converges within 3 of 32 as on the CPU (and the JAX package)."""
+    problem = Problem(M=40, N=40, delta=1e-4)
+    _build.reset_launches()
+    got = engine.solve(problem, name, torch.bfloat16, device=cuda)
+    assert set(_build.LAUNCHES) == set(counters)
+    assert got.w.dtype == torch.bfloat16
+    if name == "pallas":
+        assert bool(got.converged) and abs(int(got.iters) - 32) <= 3
