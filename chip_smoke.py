@@ -166,7 +166,13 @@ result line):
               update_p) against their plain versions at 2401x3201 in f32
               and f64 on numpy-seeded inputs, D a tenth zeros: arrays
               bitwise, dot and dw2 within rel 1e-6 (f32) / 1e-12 (f64), two
-              launches the same bits. K-a's and K-d's bf16 forms against
+              launches the same bits; dot and update_p also at 1x1, 3x5,
+              401x601 and on views one element past an aligned buffer
+              (in one alignment class and in two), one device kernel a
+              call (torch.profiler, in a fresh process), and a launch
+              captured in a CUDA graph
+              (with and without a first call on the capture stream) equal
+              to the eager one. K-a's and K-d's bf16 forms against
               their plain versions at 2401x3201 on the bf16 operands: arrays
               and sums bitwise. The reference's stage-4 iteration composed
               from K-a and the four (a host read an iteration, not an
@@ -179,9 +185,18 @@ result line):
               2400x3200 in bf16 and f32, capped at 256: bf16 launches as
               the body count predicts (K-d bf16 once a body, K-a bf16 for
               w0, the rebuilds every 8 and the basis), us an iteration
-              beside f32's. Then the six kernels timed with CUDA events
-              beside their bounds and plain versions, dot and update_p
-              beside torch.dot and torch.add(alpha=).
+              beside f32's. Then the six kernels timed beside their
+              bounds and plain versions; each stage-4 kernel, and
+              torch.dot and torch.add(alpha=) beside dot and update_p,
+              three ways on 3 rotated input sets: device time (calls
+              captured in a CUDA graph, replays timed with CUDA events),
+              call time (CUDA events around eager calls) and host time
+              (the host clock around those calls, before the sync).
+
+`--only stage4` runs phases 1-2 and then phase 12's stage-4 checks, loop
+and timing alone; `--only stage4-timing` the timing alone (it also runs
+from the root of an older tree, to compare two trees' kernels in one
+call). Either prints the kernels' record and no result line.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -316,6 +331,81 @@ def time_ms(fn, n: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def call_times(calls, n: int, warmup: int = 3) -> tuple[float, float]:
+    """(call ms, host ms) per call: ``time_ms``'s CUDA events around n
+    calls that rotate over ``calls`` (one closure per input set), and
+    the host clock around the same n calls, read before the sync. The
+    call time is the device's pace of a loop of calls: the host's when
+    its work outlasts the kernel's."""
+    for fn in calls[:warmup]:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(n):
+        calls[i % len(calls)]()
+    host = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, host * 1e3 / n
+
+
+def device_ms(calls, n: int = 96, replays: int = 5) -> float:
+    """Device milliseconds per call: n calls rotating over ``calls``
+    captured in one CUDA graph on a stream of its own (warmed up there
+    first), and ``replays`` replays timed with CUDA events after one
+    untimed replay. A replay runs no host code, so this is the kernels'
+    time alone; the rotation (input sets larger than L2 together) makes
+    each launch read HBM."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for fn in calls:
+            fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for i in range(n):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (n * replays)
+    del graph
+    return ms
+
+
+def device_activities(fn, attempts: int = 3) -> int:
+    """Device activities (kernels, fills, copies) one call of ``fn``
+    issues, counted by torch.profiler after a warm-up call. A profile
+    that records no device activity at all (a call always issues one; a
+    test run of many profiles met one such empty profile) is taken again,
+    up to ``attempts`` profiles; -1 if every one was empty."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    return -1
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -2454,6 +2544,17 @@ def phase_shard_timing(seed: int, card: str) -> list:
 # to the port's f64 xla count on the card, exactly
 STAGE4_GRID = (400, 600)
 STAGE4_SUM_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+# dot and update_p beyond 2401x3201: (g1, g2, x's offset, y's offset) in
+# elements past an aligned buffer; one offset alone puts the operands in
+# different alignment classes (the kernels' scalar loop)
+STAGE4_SHAPES = ((1, 1, 0, 0), (3, 5, 0, 0), (401, 601, 0, 0),
+                 (401, 601, 1, 1), (401, 601, 1, 0), (2401, 3201, 1, 1))
+# input sets the stage-4 timing rotates over: a kernel's operands in all
+# sets (>= 184 MB at 2401x3201 f32) outsize the 50 MB L2
+STAGE4_SETS = 3
+# the one PyTorch call of each stage-4 kernel's function, where there is
+# one (timed beside the kernel, called nowhere in the port)
+LIBRARY_CALLS = {"dot": "torch.dot", "update_p": "torch.add(alpha=beta)"}
 # per node: dinv 1 division; dot a product and a sum; update_w_r two
 # products, three sums, the increment's square and its sum; update_p 2
 STAGE4_KERNELS = (
@@ -2527,7 +2628,9 @@ def stage4_solve(problem, a, b, rhs, stencil):
 def phase_stage4_kernels(seed: int) -> dict:
     """Each stage-4 kernel against its plain version at 2401x3201, f32 and
     f64: arrays bitwise, dot and dw2 within rel 1e-6 / 1e-12, two
-    launches the same bits."""
+    launches the same bits. dot and update_p also at the small and
+    unaligned STAGE4_SHAPES, one device kernel a call, and a launch
+    captured in a CUDA graph equal to an eager one."""
     from poisson_ellipse_tpu_torch.models.problem import Problem
     from poisson_ellipse_tpu_torch.ops import stage4_kernels as s4
 
@@ -2575,8 +2678,100 @@ def phase_stage4_kernels(seed: int) -> dict:
         args = (inp["beta"], inp["z"], inp["p"])
         bitwise("update_p", "update_p", s4.update_p_pallas(*args),
                 s4.update_p_plain(*args))
+
+        rng = np.random.default_rng(seed + 1)
+        for g1, g2, off_x, off_y in STAGE4_SHAPES:
+            label = f"{g1}x{g2} offsets ({off_x}, {off_y})"
+            x, y = (offset_view(rng, (g1, g2), dtype, off)
+                    for off in (off_x, off_y))
+            got = s4.dot_pallas(x, y, h1, h2)
+            close("dot", f"dot {label}", got, s4.dot_plain(x, y, h1, h2))
+            require(torch.equal(got, s4.dot_pallas(x, y, h1, h2)),
+                    f"dot {tag} {label}: two launches differ")
+            bitwise("update_p", f"update_p {label}",
+                    s4.update_p_pallas(inp["beta"], x, y),
+                    s4.update_p_plain(inp["beta"], x, y))
+
+        x, y = inp["x"], inp["y"]
+        calls = {"dot": lambda: s4.dot_pallas(x, y, h1, h2),
+                 "update_p": lambda: s4.update_p_pallas(inp["beta"], x, y)}
+        for name, fn in calls.items():
+            for warm in (True, False):
+                eager, captured = graph_and_eager(fn, warm)
+                require(torch.equal(eager, captured),
+                        f"{name} {tag}: the launch captured in a CUDA graph "
+                        f"(warm-up on its stream: {warm}) differs from the "
+                        "eager one")
+            say(f"  {name} {tag}: graph replay == eager launch (with and "
+                "without a warm-up on the capture stream)")
+    for label, acts in stage4_activities().items():
+        say(f"  {label}: {acts} device activities a call (a fresh process)")
+        require(acts == 1, f"{label}: {acts} device activities a call, not "
+                "one kernel")
     torch.cuda.synchronize()
     return errs
+
+
+def stage4_activities() -> dict:
+    """{"dot f32": n, ...}: the device activities one call of dot and of
+    update_p issues at 2401x3201, counted by ``count_stage4_activities``
+    in a child process. In the process that has run the earlier phases
+    (the mesh's, a dozen profiles) the profiler recorded no device
+    activity at all on the H100."""
+    code = ("import json, chip_smoke; "
+            "print(json.dumps(chip_smoke.count_stage4_activities()))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    require(res.returncode == 0, "counting the stage-4 kernels' device "
+            f"activities failed:\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def count_stage4_activities() -> dict:
+    """``device_activities`` of one call of dot and of update_p at
+    2401x3201, f32 and f64, after a first call on the stream."""
+    from poisson_ellipse_tpu_torch.ops import stage4_kernels as s4
+
+    g = (MAIN_GRID[0] + 1, MAIN_GRID[1] + 1)
+    counts = {}
+    for dtype in (torch.float32, torch.float64):
+        x, y = (torch.ones(g, dtype=dtype, device="cuda") for _ in range(2))
+        beta = torch.tensor(0.9, dtype=dtype, device="cuda")
+        tag = s4.DTYPES[dtype]
+        counts[f"dot {tag}"] = device_activities(
+            lambda: s4.dot_pallas(x, y, 0.1, 0.2))
+        counts[f"update_p {tag}"] = device_activities(
+            lambda: s4.update_p_pallas(beta, x, y))
+    return counts
+
+
+def offset_view(rng, shape, dtype, offset: int) -> torch.Tensor:
+    """numpy-seeded values of ``shape`` on the card, as a contiguous view
+    that starts ``offset`` elements into its buffer (unaligned for 1)."""
+    n = shape[0] * shape[1]
+    flat = torch.from_numpy(rng.standard_normal(n + offset)).to("cuda",
+                                                                dtype)
+    return flat[offset:].view(shape)
+
+
+def graph_and_eager(fn, warm: bool):
+    """(eager result, result of the same call captured in a CUDA graph on a
+    new stream and replayed twice); ``warm`` runs the call on that stream
+    before the capture."""
+    eager = fn()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    if warm:
+        with torch.cuda.stream(stream):
+            fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, captured.clone()
 
 
 def phase_stage4_loop() -> dict:
@@ -2758,8 +2953,10 @@ def phase_bf16_loops(card: str) -> dict:
 
 def phase_stage4_timing(seed: int, card: str) -> list:
     """The four stage-4 kernels at 2401x3201 f32 (f64 printed) and the two
-    bf16 forms, with CUDA events, beside their bounds, their plain versions
-    and, for dot and update_p, one PyTorch call of the same function."""
+    bf16 forms beside their bounds and plain versions. Each stage-4 kernel,
+    and for dot and update_p the one PyTorch call of the same function,
+    three ways on STAGE4_SETS rotated input sets: device time (graph
+    replay, ``device_ms``), call time and host time (``call_times``)."""
     from poisson_ellipse_tpu_torch.models.problem import Problem
     from poisson_ellipse_tpu_torch.ops import assembly
     from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
@@ -2773,37 +2970,57 @@ def phase_stage4_timing(seed: int, card: str) -> list:
     nodes = (MAIN_GRID[0] + 1) * (MAIN_GRID[1] + 1)
     rows = []
     for dtype in (torch.float32, torch.float64):
-        inp = stage4_inputs(dtype, seed)
+        base = stage4_inputs(dtype, seed)
+        sets = [base] + [{k: v.clone() for k, v in base.items()}
+                         for _ in range(STAGE4_SETS - 1)]
         size = torch.empty((), dtype=dtype).element_size()
-        beta = float(inp["beta"])
+        beta = float(base["beta"])
         calls = {
-            "dinv": (lambda: s4.apply_dinv_pallas(inp["r"], inp["d"]),
-                     lambda: s4.apply_dinv_plain(inp["r"], inp["d"]), None),
-            "dot": (lambda: s4.dot_pallas(inp["x"], inp["y"], h1, h2),
-                    lambda: s4.dot_plain(inp["x"], inp["y"], h1, h2),
-                    lambda: torch.dot(inp["x"].view(-1), inp["y"].view(-1))),
+            "dinv": (lambda i: s4.apply_dinv_pallas(i["r"], i["d"]),
+                     lambda i: s4.apply_dinv_plain(i["r"], i["d"]), None),
+            "dot": (lambda i: s4.dot_pallas(i["x"], i["y"], h1, h2),
+                    lambda i: s4.dot_plain(i["x"], i["y"], h1, h2),
+                    lambda i: torch.dot(i["x"].view(-1), i["y"].view(-1))),
             "update_w_r": (
-                lambda: s4.update_w_r_pallas(inp["alpha"], inp["w"],
-                                             inp["r"], inp["p"], inp["ap"]),
-                lambda: s4.update_w_r_plain(inp["alpha"], inp["w"],
-                                            inp["r"], inp["p"], inp["ap"]),
+                lambda i: s4.update_w_r_pallas(i["alpha"], i["w"], i["r"],
+                                               i["p"], i["ap"]),
+                lambda i: s4.update_w_r_plain(i["alpha"], i["w"], i["r"],
+                                              i["p"], i["ap"]),
                 None),
             "update_p": (
-                lambda: s4.update_p_pallas(inp["beta"], inp["z"], inp["p"]),
-                lambda: s4.update_p_plain(inp["beta"], inp["z"], inp["p"]),
-                lambda: torch.add(inp["z"], inp["p"], alpha=beta)),
+                lambda i: s4.update_p_pallas(i["beta"], i["z"], i["p"]),
+                lambda i: s4.update_p_plain(i["beta"], i["z"], i["p"]),
+                lambda i: torch.add(i["z"], i["p"], alpha=beta)),
         }
+        tag = s4.DTYPES[dtype]
+
+        def three(label, fn):
+            rotated = [(lambda s=s: fn(s)) for s in sets]
+            dev = device_ms(rotated)
+            call, host = call_times(rotated, 200)
+            acts = device_activities(rotated[0])
+            say(f"  {label} {tag}: device {dev * 1e3:.2f} us, call "
+                f"{call * 1e3:.2f} us, host {host * 1e3:.2f} us, "
+                f"{acts if acts > 0 else 'not measured (no profile)'} "
+                "device activities a call")
+            return dev, call, host
+
         for name, line, passes, ops in STAGE4_KERNELS:
             fn, plain, library = calls[name]
-            ms = time_ms(fn, 200)
-            plain_ms = time_ms(plain, 20)
-            library_ms = None if library is None else time_ms(library, 200)
+            ms, call_ms, host_ms = three(name, fn)
+            plain_ms = time_ms(lambda: plain(base), 20)
+            library_ms = library_call_ms = None
+            if library is not None:
+                library_ms, library_call_ms, _ = three(
+                    f"{name} library ({LIBRARY_CALLS[name]})", library)
             bound_ms, bound_by = bound(passes * size * nodes, ops * nodes)
             lib_txt = ("" if library_ms is None
-                       else f", library {library_ms * 1e3:.1f} us")
-            say(f"  {name} {s4.DTYPES[dtype]}: {ms * 1e3:.1f} us/launch, "
-                f"plain {plain_ms * 1e3:.1f} us{lib_txt}, bound "
-                f"{bound_ms * 1e3:.1f} us ({bound_by}), "
+                       else f", library {library_ms * 1e3:.2f} us "
+                            f"({ms / library_ms:.2f}x)")
+            say(f"  {name} {tag}: {ms * 1e3:.2f} us/launch (device), plain "
+                f"{plain_ms * 1e3:.1f} us{lib_txt}, bound "
+                f"{bound_ms * 1e3:.1f} us ({bound_by}, "
+                f"{bound_ms / ms:.0%} of it), "
                 f"{passes * size * nodes / (ms * 1e-3) / 1e9:.0f} GB/s")
             if dtype == torch.float32:
                 rows.append(dict(
@@ -2812,7 +3029,10 @@ def phase_stage4_timing(seed: int, card: str) -> list:
                     replaces=f"poisson_ellipse_tpu/ops/pallas_kernels.py:"
                              f"{line}",
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=library_ms))
+                    bound_by=bound_by, library_ms=library_ms,
+                    call_ms=call_ms, host_ms=host_ms,
+                    library_call_ms=library_call_ms))
+        del base, sets
 
     a, b, _ = assembly.assemble(problem, torch.bfloat16, "cuda")
     rng = np.random.default_rng(seed)
@@ -2849,6 +3069,12 @@ def phase_stage4_timing(seed: int, card: str) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument(
+        "--only", choices=("stage4", "stage4-timing"),
+        help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
+             "loop and timing (stage4) or its timing alone (stage4-timing, "
+             "which also runs on an older tree's kernels); prints the "
+             "kernels' record and no result line")
     args = ap.parse_args(argv)
 
     card, kind = phase_device()
@@ -2856,6 +3082,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    if args.only:
+        if args.only == "stage4":
+            phase_stage4_kernels(args.seed)
+            phase_stage4_loop()
+        timed = phase_stage4_timing(args.seed, card)
+        print(card, flush=True)
+        print(json.dumps({"kernels": timed}), flush=True)
+        return 0
     from poisson_ellipse_tpu_torch.utils.device import capacity
 
     cap = capacity(0)

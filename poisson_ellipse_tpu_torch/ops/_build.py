@@ -50,6 +50,8 @@ NVCC_FLAGS = (
 LAUNCHES: collections.Counter = collections.Counter()
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# the symbols whose signatures have been declared, by library
+_DECLARED: dict[str, set] = {}
 
 
 def count_launch(kernel: str) -> None:
@@ -128,17 +130,23 @@ def build(names=SOURCES) -> dict[str, str]:
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library ``name``, built first if it is missing, with
-    ``signatures`` ({symbol: (restype, [argtypes])}) declared."""
+    ``signatures`` ({symbol: (restype, [argtypes])}) declared. A symbol
+    is declared once: the wrappers call this on every launch, and a call
+    that brings no new symbol sets nothing."""
     lib = _LOADED.get(name)
     if lib is None:
         path = library_path(name)
         if not path.exists():
             build((name,))
         lib = _LOADED[name] = ctypes.CDLL(str(path))
-    for symbol, (restype, argtypes) in signatures.items():
-        fn = getattr(lib, symbol)
-        fn.restype = restype
-        fn.argtypes = argtypes
+    declared = _DECLARED.setdefault(name, set())
+    if not signatures.keys() <= declared:
+        for symbol, (restype, argtypes) in signatures.items():
+            if symbol not in declared:
+                fn = getattr(lib, symbol)
+                fn.restype = restype
+                fn.argtypes = argtypes
+                declared.add(symbol)
     return lib
 
 
@@ -172,8 +180,11 @@ def check(error_string, kernel: str, rc: int) -> None:
         )
 
 
-def stream_handle(device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device``, for a kernel launch."""
+def stream_handle(device) -> int:
+    """The handle of PyTorch's current stream on ``device`` (a tensor's
+    CUDA device, so indexed), for a kernel launch. It is read on every
+    launch, so it is read as PyTorch's own generated code reads it, with
+    no ``torch.cuda.Stream`` object built around it."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(device.index)

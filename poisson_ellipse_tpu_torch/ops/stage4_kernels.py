@@ -29,6 +29,14 @@ kernels do in another order, so they agree to one rounding of the dtype.
 
 A dispatcher runs the plain version for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. There is no fallback.
+
+The host path of a launch is kept short, since a loop of calls is paced by
+whichever of the host and the kernel is slower: the library's signatures
+are declared once (``_build.load``), h1 and h2 are rounded on the host
+without a tensor (``stencil.rounded``), and the sums' scratch (block
+partials and the last-block ticket) is allocated once per device and
+stream (``_scratch``): the kernels leave the ticket at 0, so a call
+issues its kernel and nothing else.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SCALAR = {"f32": ctypes.c_float, "f64": ctypes.c_double}
 SIGNATURES = {
     "pe_stage4_error_string": (ctypes.c_char_p, [_I]),
-    "pe_stage4_reduce_blocks": (_I, [_L]),
+    "pe_stage4_scratch_len": (_I, [_I]),
     **{sym: sig for form, h in _SCALAR.items() for sym, sig in (
         # r, d, z, n, stream
         (f"pe_dinv_{form}", (_I, [_P] * 3 + [_L, _P])),
@@ -103,11 +111,30 @@ def _contiguous(kernel: str, *tensors) -> None:
         raise ValueError(f"{kernel}: inputs must be contiguous")
 
 
-def _scratch(lib, n: int, device):
-    """(partials, ticket) for one reduction launch over n nodes."""
-    blocks = lib.pe_stage4_reduce_blocks(n)
-    return (torch.empty(blocks, dtype=torch.float64, device=device),
-            torch.zeros(1, dtype=torch.int32, device=device))
+# (partials, ticket) of the sums, by (device index, stream handle)
+_SCRATCH: dict = {}
+
+
+def _scratch(lib, device, stream: int):
+    """The sums' (partials, ticket) for launches on ``stream`` of
+    ``device``: allocated, and the ticket zeroed, on the first call there,
+    then reused (each launch leaves the ticket at 0, and launches on one
+    stream run in order). Inside a CUDA graph capture a new pair is made
+    for the call and not kept: its zeroing is a node of that graph only.
+    A graph captured on a stream that has a pair uses that pair: do not
+    replay it while launches run on the stream it was captured on."""
+    key = (device.index, stream)
+    pair = _SCRATCH.get(key)
+    if pair is None:
+        length = lib.pe_stage4_scratch_len(device.index)
+        if length < 0:
+            _build.check(lib.pe_stage4_error_string, "stage4 scratch",
+                         -length)
+        pair = (torch.empty(length, dtype=torch.float64, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device))
+        if not torch.cuda.is_current_stream_capturing():
+            _SCRATCH[key] = pair
+    return pair
 
 
 # -- z = r / D ---------------------------------------------------------------
@@ -156,17 +183,18 @@ def dot_pallas(x, y, h1: float, h2: float):
     tensor on the arrays' device: the port of ``dot_pallas``."""
     form = _form(DOT_KERNEL, x, y)
     _check_grids(DOT_KERNEL, x, y)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return dot_plain(x, y, h1, h2)
     _contiguous(DOT_KERNEL, x, y)
     lib = _build.load(LIBRARY, SIGNATURES)
-    n = x.numel()
-    partials, ticket = _scratch(lib, n, x.device)
-    out = torch.empty((), dtype=x.dtype, device=x.device)
+    device = x.device
+    stream = _build.stream_handle(device)
+    partials, ticket = _scratch(lib, device, stream)
+    out = x.new_empty(())
     rc = getattr(lib, f"pe_dot_{form}")(
-        x.data_ptr(), y.data_ptr(), n, rounded(h1, x.dtype),
-        rounded(h2, x.dtype), partials.data_ptr(),
-        ticket.data_ptr(), out.data_ptr(), _build.stream_handle(x.device))
+        x.data_ptr(), y.data_ptr(), x.numel(), rounded(h1, x.dtype),
+        rounded(h2, x.dtype), partials.data_ptr(), ticket.data_ptr(),
+        out.data_ptr(), stream)
     _build.check(lib.pe_stage4_error_string, DOT_KERNEL, rc)
     _build.count_launch(DOT_KERNEL)
     return out
@@ -197,15 +225,14 @@ def update_w_r_pallas(alpha, w, r, p, ap):
         return update_w_r_plain(alpha, w, r, p, ap)
     _contiguous(UPDATE_W_R_KERNEL, w, r, p, ap)
     lib = _build.load(LIBRARY, SIGNATURES)
-    n = w.numel()
-    partials, ticket = _scratch(lib, n, w.device)
+    stream = _build.stream_handle(w.device)
+    partials, ticket = _scratch(lib, w.device, stream)
     w_new, r_new = torch.empty_like(w), torch.empty_like(r)
     dw2 = torch.empty((), dtype=w.dtype, device=w.device)
     rc = getattr(lib, f"pe_update_w_r_{form}")(
         alpha.data_ptr(), w.data_ptr(), r.data_ptr(), p.data_ptr(),
-        ap.data_ptr(), w_new.data_ptr(), r_new.data_ptr(), n,
-        partials.data_ptr(), ticket.data_ptr(), dw2.data_ptr(),
-        _build.stream_handle(w.device))
+        ap.data_ptr(), w_new.data_ptr(), r_new.data_ptr(), w.numel(),
+        partials.data_ptr(), ticket.data_ptr(), dw2.data_ptr(), stream)
     _build.check(lib.pe_stage4_error_string, UPDATE_W_R_KERNEL, rc)
     _build.count_launch(UPDATE_W_R_KERNEL)
     return w_new, r_new, dw2
@@ -225,7 +252,7 @@ def update_p_pallas(beta, z, p):
     _check_grids(UPDATE_P_KERNEL, z, p)
     _check_scalar(UPDATE_P_KERNEL, "beta", beta)
     _form(UPDATE_P_KERNEL, z, beta)
-    if z.device.type == "cpu":
+    if z.is_cpu:
         return update_p_plain(beta, z, p)
     _contiguous(UPDATE_P_KERNEL, z, p)
     out = torch.empty_like(p)

@@ -21,6 +21,7 @@ PyTorch's CUDA division multiply by a rounded reciprocal instead.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -30,9 +31,18 @@ def spacing(h: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(h, dtype=like.dtype, device=like.device)
 
 
+# the dtypes numpy rounds to on the host as torch does (a C cast)
+_HOST_ROUND = {torch.float32: np.float32, torch.float64: float}
+
+
 def rounded(h: float, dtype: torch.dtype) -> float:
     """``h`` rounded to ``dtype``, as ``spacing`` rounds it, as a Python
-    float: the spacing a kernel launch takes, read from no device."""
+    float: the spacing a kernel launch takes, read from no device. Kernel
+    wrappers call this on every launch, so f32 and f64 round without
+    building a tensor."""
+    cast = _HOST_ROUND.get(dtype)
+    if cast is not None:
+        return float(cast(h))
     return float(torch.tensor(h, dtype=dtype))
 
 

@@ -33,7 +33,10 @@ rounded once to f32, equal to the plain version's rounded sums; the
 sharded path runs through ``run_once`` on one rank over NCCL and on two
 ranks sharing the card over gloo. The stage-4 kernels (dinv, dot,
 update_w_r, update_p; f32 and f64) are held bitwise in their arrays and
-their sums to rel 1e-6 (f32) / 1e-12 (f64), both summed in double; the bf16
+their sums to rel 1e-6 (f32) / 1e-12 (f64), both summed in double; dot and
+update_p also from 1x1 to 2401x3201 and on views one element past an
+aligned buffer, one device kernel a call, a CUDA graph's launch equal to
+the eager one, and dot the same bits on two launches; the bf16
 forms of K-a and K-d bitwise in arrays and sums, as their plain versions
 compute in float and round once where they store.
 """
@@ -1008,6 +1011,70 @@ def test_stage4_kernels_refuse_bf16_and_cpu_scalars(cuda):
     f = torch.zeros(5, 7, device=cuda)
     with pytest.raises(ValueError):
         s4.update_p_pallas(torch.tensor(0.5), f, f)
+
+
+# dot and update_p at the shapes their streaming design splits
+# differently: (g1, g2, x's offset, y's offset) in elements past an
+# aligned buffer. A lone offset puts x and y in different alignment
+# classes (the kernels' scalar loop); a shared one gives a scalar head.
+STREAM_CASES = [(1, 1, 0, 0), (3, 5, 0, 0), (401, 601, 0, 0),
+                (2401, 3201, 0, 0), (401, 601, 1, 1), (401, 601, 1, 0)]
+
+
+def _stream_operands(case, dev, dtype):
+    """x, y (as views at their offsets) and beta of one STREAM_CASES row."""
+    g1, g2, off_x, off_y = case
+    x, y = (_rand((g1 * g2 + off,), dev, seed, dtype)[off:].view(g1, g2)
+            for seed, off in ((11, off_x), (12, off_y)))
+    return x, y, torch.tensor(0.9, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_dot_and_update_p_at_edge_shapes(cuda, case, dtype):
+    """update_p bitwise its plain version; dot within rel 1e-6 (f32) /
+    1e-12 (f64) of its plain version and the same bits on two launches;
+    one launch counted a call."""
+    x, y, beta = _stream_operands(case, cuda, dtype)
+    h1, h2 = 2.0 / 400, 1.2 / 600
+    _build.reset_launches()
+    got = s4.dot_pallas(x, y, h1, h2)
+    again = s4.dot_pallas(x, y, h1, h2)
+    p_new = s4.update_p_pallas(beta, x, y)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"dot": 2, "update_p": 1}
+    assert torch.equal(got, again)
+    assert float(got) == pytest.approx(float(s4.dot_plain(x, y, h1, h2)),
+                                       rel=STAGE4_RTOL[dtype])
+    assert torch.equal(p_new, s4.update_p_plain(beta, x, y))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_dot_and_update_p_issue_one_device_kernel(cuda, case, dtype):
+    """After a first call on the stream, a call is its kernel alone: no
+    fill of the sums' ticket, no copy (torch.profiler)."""
+    from chip_smoke import device_activities
+
+    x, y, beta = _stream_operands(case, cuda, dtype)
+    assert device_activities(lambda: s4.dot_pallas(x, y, 0.1, 0.2)) == 1
+    assert device_activities(lambda: s4.update_p_pallas(beta, x, y)) == 1
+
+
+@pytest.mark.parametrize("warm", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_dot_and_update_p_in_a_cuda_graph(cuda, case, dtype, warm):
+    """A launch captured in a CUDA graph and replayed twice equals the
+    eager launch, with and without a first call on the capture stream
+    (without one, the graph zeroes its own ticket)."""
+    from chip_smoke import graph_and_eager
+
+    x, y, beta = _stream_operands(case, cuda, dtype)
+    for fn in (lambda: s4.dot_pallas(x, y, 0.1, 0.2),
+               lambda: s4.update_p_pallas(beta, x, y)):
+        eager, captured = graph_and_eager(fn, warm)
+        assert torch.equal(eager, captured)
 
 
 @pytest.mark.parametrize("M,N", SHAPES)
