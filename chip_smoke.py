@@ -26,7 +26,11 @@ result line):
               their scale. K-d (the stencil fused with the pipelined
               loop's 8-pair dot bundle of 5 distinct vectors): n bitwise
               equal to K-a's and to the plain version's, sums within rel
-              1e-6 (both sum in double and round once).
+              1e-6 (both sum in double and round once), the bundle with
+              each pair swapped (the generic instantiation) the same bits
+              as the bundle (compiled in); one device activity a call for K-d f32 and
+              bf16, K-h bf16 and f16 and K-f (torch.profiler, in a fresh
+              process).
 4. oracles  — xla in f64 on the card: exactly 17/31/61 (unweighted),
               15/26/50 (weighted) and 546; pallas, fused, resident,
               streamed and xl in f32: the exact small-grid counts, and
@@ -68,7 +72,9 @@ result line):
 8. batched  — the lane-batched path. K-e and K-f lane by lane against K-a
               and K-d on that lane (bitwise) and against their plain
               versions (arrays bitwise, K-f's sums within rel 1e-6), at
-              44x132 with B = 3 and 400x600 with B = 32. The harness entry
+              44x132 with B = 3, 400x600 with B = 32, 800x1200 with B = 8
+              and 2400x3200 with B = 2; K-f's generic instantiation (each
+              pair swapped) the same bits as the bundle's. The harness entry
               point (`--lanes 32 --engine batched-pallas` at 400x600,
               `--lanes 8` at 800x1200): every lane 546 / 989 +-2, lane 0's
               l2 < 1e-3, K-e launched 64*ceil(n/64) times a solve. batched,
@@ -92,7 +98,8 @@ result line):
               mixed stencil + the pipelined bundle of 5 distinct bf16
               operands): n bitwise its plain version's, K-g's and K-d's on
               the upcast inputs, sums within rel 1e-6 of the plain
-              version's and bitwise K-d's. The main path: run_once(pallas,
+              version's and bitwise K-d's, the generic instantiation (each
+              pair swapped) the same bits. The main path: run_once(pallas,
               storage_dtype="bf16") at 2400x3200, uncapped: converged, the
               report's "storage_dtype" "bf16", K-g once per issued body,
               one host read per 64-iteration chunk plus one; xla bf16 on
@@ -196,7 +203,16 @@ result line):
 `--only stage4` runs phases 1-2 and then phase 12's stage-4 checks, loop
 and timing alone; `--only stage4-timing` the timing alone (it also runs
 from the root of an older tree, to compare two trees' kernels in one
-call). Either prints the kernels' record and no result line.
+call). `--only stencil-dots-timing` runs phases 1-2 and then rule 2's
+queue by device time: K-d f32 and bf16 and K-h bf16 and f16 on the
+pipelined bundle at 2401x3201, K-f at 401x601 with B = 32, K-g, K-a, K1
+and K2 at 2401x3201, K-d f32 at 401x601, each three ways as phase 12 times the stage-4 kernels,
+with its device activities a call, its share of its bound and its loss on
+its path; the SASS instruction counts of the K-d and K-a libraries
+(`--sass-dir` writes the listings); and pipelined-pallas at 400x600 and
+2400x3200 f32 and with bf16 storage capped at 1024, us an iteration and
+launches a body. It too runs on an older tree's kernels. Each prints the
+kernels' record and no result line.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -206,6 +222,7 @@ kernels' JSON record and
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import statistics
@@ -295,6 +312,14 @@ def card_line() -> str:
 
 def max_abs(x: torch.Tensor, y: torch.Tensor) -> float:
     return float((x.double() - y.double()).abs().max())
+
+
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    return x.dtype == y.dtype and torch.equal(x.view(_INT_VIEW[x.dtype]),
+                                              y.view(_INT_VIEW[y.dtype]))
 
 
 def close_arrays(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -570,6 +595,15 @@ def phase_kernels(problem, inp) -> dict:
     require(torch.equal(again_n, got_n) and torch.equal(again_sums, got_sums),
             "two K-d launches differ")
     say("  a second launch: the same bits")
+    gen_n, gen_sums = hk.apply_a_dots_kernel(inp["w"], inp["a"], inp["b"],
+                                             h1, h2, swapped(pairs))
+    require(same_bits(gen_n, got_n) and same_bits(gen_sums, got_sums),
+            "K-d's generic instantiation differs from the bundle's")
+    say("  the generic instantiation (each pair swapped): the same bits")
+    for label, acts in child_activities("count_kd_activities").items():
+        say(f"  {label}: {acts} device activities a call (a fresh process)")
+        require(acts == 1, f"{label}: {acts} device activities a call, not "
+                "one kernel")
     return errs
 
 
@@ -578,6 +612,14 @@ def kd_bundle(inp):
     from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
 
     return _bundle(inp["r"], inp["u"], inp["z"], inp["s"], inp["p"])
+
+
+def swapped(pairs):
+    """``pairs`` with each pair's two operands swapped: the same products
+    (f32 multiplication commutes) in the same order under another table,
+    which the K-d family runs through its generic instantiation; the
+    bundle's own table runs compiled in."""
+    return tuple((y, x) for x, y in pairs)
 
 
 def _whole_runs(name, problem, cap, resident=None, dtype=torch.float32,
@@ -1148,29 +1190,43 @@ def phase_solver_times(cap, card: str) -> None:
                 f"us/iter ({passes:g} passes, {iter_by})")
 
 
+def timed_recurrence(problem, engine: str, warm=None, storage=None,
+                     repeat: int = 1):
+    """(result, seconds, launches) of a recurrence engine at ``problem`` in
+    f32: its solver built and warmed by one counted solve (``launches``,
+    set to 0 just before it), or ``warm``'s (solver, args), already warm
+    (``launches`` None); then the median of ``repeat`` timed solves, the
+    last of whose results is returned."""
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    launches = None
+    if warm is None:
+        solver, args, _ = build_solver(problem, engine, torch.float32, "cuda",
+                                       sstep_s=SSTEP_S, storage_dtype=storage)
+        _, launches = _run_counted(solver, args)
+    else:
+        solver, args = warm
+    out = []
+    t = time_solver(lambda: out.append(solver(*args)), (), repeat)
+    return out[-1], t, launches
+
+
 def phase_recurrence_times(rec, card: str) -> None:
     """T_solver of the recurrence engines: one timed solve each at 400x600
     and 800x1200 (after a warm-up solve) and at 2400x3200 (on phase 5's
     solvers, already warm)."""
     from poisson_ellipse_tpu_torch.harness.roofline import passes_per_iter
     from poisson_ellipse_tpu_torch.models.problem import Problem
-    from poisson_ellipse_tpu_torch.solver.engine import build_solver
 
     say(f"== phase 6 (T_solver, recurrence engines, s = {SSTEP_S}; {card})")
     for m, n in ((400, 600), (800, 1200), MAIN_GRID):
         problem = Problem(M=m, N=n)
         nodes = (m + 1) * (n + 1)
         for engine in RECURRENCE:
-            if (m, n) == MAIN_GRID and engine in rec["runs"]:
-                solver, args, _ = rec["runs"][engine]
-            else:
-                solver, args, _ = build_solver(problem, engine, torch.float32,
-                                               "cuda", sstep_s=SSTEP_S)
-                if (m, n) != MAIN_GRID:
-                    solver(*args)
-            out = []
-            t = time_solver(lambda: out.append(solver(*args)), (), 1)
-            iters = int(out[-1].iters)
+            warm = (rec["runs"][engine][:2]
+                    if (m, n) == MAIN_GRID and engine in rec["runs"] else None)
+            result, t, _ = timed_recurrence(problem, engine, warm)
+            iters = int(result.iters)
             passes = passes_per_iter(engine, problem, sstep_s=SSTEP_S)
             iter_ms, iter_by = bound(passes * nodes * 4,
                                      ITER_FLOPS[engine] * nodes)
@@ -1182,7 +1238,8 @@ def phase_recurrence_times(rec, card: str) -> None:
 # -- phase 8: the lane-batched path ------------------------------------------
 
 # every shape the batched path gives K-e and K-f, and a small one
-BATCHED_KERNEL_CASES = (((44, 132), 3), ((400, 600), 32), ((800, 1200), 8))
+BATCHED_KERNEL_CASES = (((44, 132), 3), ((400, 600), 32), ((800, 1200), 8),
+                        (MAIN_GRID, 2))
 BATCHED_ORACLE = (((400, 600), 32, 546), ((800, 1200), 8, 989))
 THROUGHPUT_GRIDS = ((400, 600), (800, 1200))
 THROUGHPUT_LANES = (1, 8, 32)
@@ -1190,19 +1247,21 @@ POISON_LANE, POISON_AT = 5, 10
 
 
 def batched_inputs(grid, lanes: int, seed: int):
-    """A lane stack w, lane-shared a, b and the pipelined bundle's five
-    distinct (B, g1, g2) operands on the card, from numpy's seed."""
+    """A lane stack w, lane-shared a, b in [0.5, 1.5) and the pipelined
+    bundle's five distinct (B, g1, g2) operands on the card, from numpy's
+    seed; with ``lanes`` 0, one (g1, g2) grid each."""
     g = (grid[0] + 1, grid[1] + 1)
+    lead = (lanes,) if lanes else ()
     rng = np.random.default_rng(seed)
 
     def dev_f32(x):
         return torch.from_numpy(x.astype(np.float32)).to("cuda")
 
     return dict(
-        w=dev_f32(rng.standard_normal((lanes,) + g)),
+        w=dev_f32(rng.standard_normal(lead + g)),
         a=dev_f32(rng.random(g) + 0.5),
         b=dev_f32(rng.random(g) + 0.5),
-        ops=[dev_f32(rng.standard_normal((lanes,) + g)) for _ in range(5)],
+        ops=[dev_f32(rng.standard_normal(lead + g)) for _ in range(5)],
     )
 
 
@@ -1251,6 +1310,11 @@ def phase_batched_kernels(seed: int) -> dict:
             f"version, bitwise {torch.equal(got_sums, want_sums)}")
         require(bool(torch.isfinite(got_sums).all()) and rel <= KD_SUM_RTOL,
                 f"K-f sums {label} differ beyond rel {KD_SUM_RTOL}")
+        gen_n, gen_sums = hk.apply_a_dots_batched_kernel(w, a, b, h1, h2,
+                                                         swapped(pairs))
+        require(same_bits(gen_n, got_n) and same_bits(gen_sums, got_sums),
+                f"K-f {label}: the generic instantiation differs from the "
+                "bundle's")
         errs["batched_stencil_dots"] = max(
             errs["batched_stencil_dots"], err,
             float((got_sums.double() - want_sums.double()).abs().max()))
@@ -1590,7 +1654,13 @@ def phase_storage_kernels(seed: int) -> dict:
                       float(want_sums[j]), KD_SUM_RTOL)
         require(torch.equal(got_sums, d_sums), f"K-h sums {label} are not "
                 "bitwise K-d's on the upcast inputs")
-        say(f"  K-h {label}: sums bitwise K-d's on the upcast operands")
+        gen_n, gen_sums = hk.apply_a_dots_mixed_kernel(m_f32, a, b, h1, h2,
+                                                       swapped(pairs))
+        require(same_bits(gen_n, got_n) and same_bits(gen_sums, got_sums),
+                f"K-h {label}: the generic instantiation differs from the "
+                "bundle's")
+        say(f"  K-h {label}: sums bitwise K-d's on the upcast operands; the "
+            "generic instantiation the same bits")
         errs["stencil_dots_mixed"] = max(
             errs["stencil_dots_mixed"], err,
             float((got_sums.double() - want_sums.double()).abs().max()))
@@ -2704,7 +2774,7 @@ def phase_stage4_kernels(seed: int) -> dict:
                         "eager one")
             say(f"  {name} {tag}: graph replay == eager launch (with and "
                 "without a warm-up on the capture stream)")
-    for label, acts in stage4_activities().items():
+    for label, acts in child_activities("count_stage4_activities").items():
         say(f"  {label}: {acts} device activities a call (a fresh process)")
         require(acts == 1, f"{label}: {acts} device activities a call, not "
                 "one kernel")
@@ -2712,19 +2782,53 @@ def phase_stage4_kernels(seed: int) -> dict:
     return errs
 
 
-def stage4_activities() -> dict:
-    """{"dot f32": n, ...}: the device activities one call of dot and of
-    update_p issues at 2401x3201, counted by ``count_stage4_activities``
-    in a child process. In the process that has run the earlier phases
-    (the mesh's, a dozen profiles) the profiler recorded no device
-    activity at all on the H100."""
+def child_activities(counter: str) -> dict:
+    """{label: n}: the device activities a call issues, counted by this
+    script's ``counter`` (``count_stage4_activities``,
+    ``count_kd_activities``) in a child process. In the process that has
+    run the earlier phases (the mesh's, a dozen profiles) the profiler
+    recorded no device activity at all on the H100."""
     code = ("import json, chip_smoke; "
-            "print(json.dumps(chip_smoke.count_stage4_activities()))")
+            f"print(json.dumps(chip_smoke.{counter}()))")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=600)
-    require(res.returncode == 0, "counting the stage-4 kernels' device "
-            f"activities failed:\n{res.stderr[-3000:]}")
+    require(res.returncode == 0, f"{counter} failed:\n{res.stderr[-3000:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def count_kd_activities() -> dict:
+    """``device_activities`` of one call of each K-d-family entry on the
+    pipelined bundle, after a first call on the stream: K-d f32 and bf16
+    and K-h bf16 and f16 at 2401x3201, K-f at 401x601 with B = 32."""
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+
+    g = (MAIN_GRID[0] + 1, MAIN_GRID[1] + 1)
+    h1, h2 = 2.0 / MAIN_GRID[0], 1.2 / MAIN_GRID[1]
+    counts = {}
+
+    def ones(shape, dtype=torch.float32):
+        return torch.ones(shape, dtype=dtype, device="cuda")
+
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        w, a, b = (ones(g, dtype) for _ in range(3))
+        pairs = _bundle(*(ones(g, dtype) for _ in range(5)))
+        counts[f"K-d {tag}"] = device_activities(
+            lambda: hk.apply_a_dots_kernel(w, a, b, h1, h2, pairs))
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        m = ones(g)
+        a, b = ones(g, dtype), ones(g, dtype)
+        pairs = _bundle(*(ones(g, dtype) for _ in range(5)))
+        counts[f"K-h {tag}"] = device_activities(
+            lambda: hk.apply_a_dots_mixed_kernel(m, a, b, h1, h2, pairs))
+    (m_, n_), lanes = QUEUE_BATCH
+    gb = (lanes, m_ + 1, n_ + 1)
+    w, a, b = ones(gb), ones(gb[1:]), ones(gb[1:])
+    pairs = _bundle(*(ones(gb) for _ in range(5)))
+    counts[f"K-f B={lanes}"] = device_activities(
+        lambda: hk.apply_a_dots_batched_kernel(w, a, b, 2.0 / m_, 1.2 / n_,
+                                               pairs))
+    return counts
 
 
 def count_stage4_activities() -> dict:
@@ -2859,6 +2963,9 @@ def phase_bf16_kernels(seed: int) -> dict:
     n_p, sums_p = hk.apply_a_dots_plain(w, a, b, h1, h2, pairs)
     errs["stencil_dots_bf16"] = max(bits("K-d bf16 n", n, n_p),
                                     bits("K-d bf16 sums", sums, sums_p))
+    gen_n, gen_sums = hk.apply_a_dots_kernel(w, a, b, h1, h2, swapped(pairs))
+    require(same_bits(gen_n, n) and same_bits(gen_sums, sums),
+            "K-d bf16: the generic instantiation differs from the bundle's")
     require(torch.equal(n, hk.apply_a_kernel(w, a, b, h1, h2)),
             "K-d bf16's n is not K-a bf16's")
     torch.cuda.synchronize()
@@ -3066,15 +3173,329 @@ def phase_stage4_timing(seed: int, card: str) -> list:
     return rows
 
 
+# -- rule 2's queue by device time ------------------------------------------
+
+# the input sets each timed kernel rotates over: K-d's in all sets (740 MB
+# at 2401x3201 f32) outsize the 50 MB L2
+QUEUE_SETS = 3
+# each kernel's launches on its path, from the whole script's kernels line
+# (K-d: pipelined-pallas at 2400x3200 f32; K-h: its bf16-storage form
+# capped at 1024; K-g: pallas with bf16 storage at 2400x3200; K-f:
+# batched-pipelined-pallas at 400x600, B = 32; K-a: pallas at 2400x3200;
+# K1 and K2: fused at 2400x3200)
+QUEUE_LAUNCHES = {"stencil_dots": 2496, "stencil_dots_mixed": 1024,
+                  "stencil_mixed": 3328, "fused_k1": 2496,
+                  "batched_stencil_dots": 576, "stencil": 2496,
+                  "fused_k2": 2496}
+QUEUE_BATCH = ((400, 600), 32)
+# K-d's launches in pipelined-pallas at 400x600 f32 (the grid of QUEUE_BATCH)
+QUEUE_SMALL_KD = 576
+# the SASS opcodes counted in each kernel function
+SASS_OPS = ("LDG", "STG", "LDS", "STS", "LDL", "STL", "SHFL", "F2F",
+            "DADD", "DFMA", "MUFU", "FCHK", "FMUL", "FADD", "FFMA", "SEL",
+            "FSEL", "ISETP", "IMAD", "IADD3", "LEA", "BRA", "CALL")
+
+
+def sass_report(library: str, out_dir=None) -> dict:
+    """{kernel function: (instructions, {opcode: count}, [loop lengths],
+    median instructions between two global stores)} from ``cuobjdump
+    -sass`` of a built library (the toolkit's, beside nvcc): the static
+    instruction count of each kernel and of each loop in it (a branch to
+    an earlier address; its length counts the instructions from the target
+    to the branch). With ``out_dir`` the listing is written there as
+    ``<library>.sass``."""
+    import re
+
+    from poisson_ellipse_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass",
+                          str(_build.library_path(library))],
+                         capture_output=True, text=True, timeout=300)
+    require(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    if out_dir is not None:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+        (Path(out_dir) / f"{library}.sass").write_text(res.stdout)
+    functions: dict = {}
+    name = None
+    for ln in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            functions[name] = ([], {}, [])
+            continue
+        if name is None:
+            continue
+        body, labels, pending = functions[name]
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[label] = addr
+            pending.clear()
+            body.append((addr, m.group(2).split()))
+    report = {}
+    for name, (body, labels, _) in functions.items():
+        ops = collections.Counter()
+        loops, stores = [], []
+        for i, (addr, words) in enumerate(body):
+            words = words[1:] if words[0].startswith("@") else words
+            op = words[0].split(".")[0]
+            ops[op] += 1
+            if op == "STG":
+                stores.append(i)
+            if op != "BRA":
+                continue
+            target = " ".join(words[1:])
+            m = re.search(r"(\.L_x_\d+)", target)
+            dest = (labels.get(m.group(1)) if m else
+                    int(target.split("0x")[1].split()[0], 16)
+                    if "0x" in target else None)
+            if dest is not None and dest <= addr:
+                start = next(j for j, (a, _) in enumerate(body) if a >= dest)
+                loops.append(i - start + 1)
+        gaps = [b - a for a, b in zip(stores, stores[1:])]
+        report[name] = (len(body), {k: ops[k] for k in SASS_OPS if ops[k]},
+                        loops, statistics.median(gaps) if gaps else None)
+    return report
+
+
+def show_sass(library: str, match: str, out_dir=None) -> None:
+    """``sass_report``'s lines for the functions whose name holds
+    ``match``: the instruction count, each loop's length (a loop of one
+    node a trip is the count a node), the median distance between two
+    global stores (in a march unrolled over rows, one out store a row:
+    the count a node) and the opcode counts."""
+    for name, (count, ops, loops, gap) in sass_report(library,
+                                                      out_dir).items():
+        if match in name:
+            say(f"  SASS {name}: {count} instructions, loops {loops}, "
+                f"median store gap {gap}, {ops}")
+
+
+def phase_queue_timing(seed: int, card: str, sass_dir=None) -> list:
+    """Rule 2's queue timed three ways (``device_ms``, ``call_times``,
+    ``device_activities``) on QUEUE_SETS rotated input sets, at the shapes
+    the main paths give them: K-d f32 and bf16 and K-h bf16 and f16 with
+    the pipelined bundle on the full 2401x3201 grid, as the engine calls
+    them; K-f at 401x601, B = 32; K-g (w, a, b bf16), K-a, K1 and K2 at
+    2401x3201; K-d f32 at 401x601, where pipelined-pallas at 400x600 calls
+    it. Each beside its bound, its share of it and its loss on its path,
+    launches x (device time - bound). Then the SASS of the K-d family, and
+    pipelined-pallas at 400x600 and 2400x3200 f32 (uncapped) and with
+    bf16 storage capped at STORAGE_CAP: us an iteration and launches a
+    body."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.fused_pcg import fused_operands
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+
+    say(f"== rule 2's queue by device time on {card}")
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+    h1, h2 = problem.h1, problem.h2
+    g1, g2 = problem.node_shape
+    nodes = g1 * g2
+    base = batched_inputs(MAIN_GRID, 0, seed)
+    bf, f16 = torch.bfloat16, torch.float16
+    rows = []
+
+    def sets(make):
+        """QUEUE_SETS copies of the arrays ``make`` builds from ``base``."""
+        return [make({k: ([o.clone() for o in v] if k == "ops"
+                          else v.clone()) for k, v in base.items()})
+                for _ in range(QUEUE_SETS)]
+
+    def timed(name, label, calls, plain, nbytes, flops, src, line,
+              launches=None, per=nodes):
+        dev = device_ms(calls)
+        call, host = call_times(calls, 200)
+        acts = device_activities(calls[0])
+        plain_ms = time_ms(plain, 10)
+        bound_ms, bound_by = bound(nbytes, flops)
+        if launches is None:
+            launches = QUEUE_LAUNCHES.get(name, 0)
+        say(f"  {label}: device {dev * 1e3:.2f} us, call {call * 1e3:.2f} "
+            f"us, host {host * 1e3:.2f} us, "
+            f"{acts if acts > 0 else 'not measured (no profile)'} device "
+            f"activities a call; plain {plain_ms * 1e3:.1f} us; bound "
+            f"{bound_ms * 1e3:.1f} us ({bound_by}, {nbytes / per:g} B a "
+            f"node), {bound_ms / dev:.0%} of it; loss {launches} x "
+            f"{(dev - bound_ms) * 1e3:.1f} us = "
+            f"{launches * (dev - bound_ms):.1f} ms")
+        rows.append(dict(name=name, label=label, route="cuda",
+                         source=f"poisson_ellipse_tpu_torch/{src}",
+                         replaces=f"poisson_ellipse_tpu/{line}", ms=dev,
+                         call_ms=call, host_ms=host, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None, activities=acts))
+
+    def kd(i, dtype=torch.float32):
+        w, a, b = (i[k].to(dtype) for k in "wab")
+        return w, a, b, _bundle(*(o.to(dtype) for o in i["ops"]))
+
+    kd32 = sets(kd)
+    timed("stencil_dots", "K-d f32",
+          [lambda s=s: hk.apply_a_dots_kernel(*s[:3], h1, h2, s[3])
+           for s in kd32],
+          lambda s=kd32[0]: hk.apply_a_dots_plain(*s[:3], h1, h2, s[3]),
+          36 * nodes, KD_FLOPS * nodes, "csrc/stencil_dots.cu",
+          "ops/pallas_kernels.py:299")
+    del kd32
+    kd16 = sets(lambda i: kd(i, bf))
+    timed("stencil_dots_bf16", "K-d bf16",
+          [lambda s=s: hk.apply_a_dots_kernel(*s[:3], h1, h2, s[3])
+           for s in kd16],
+          lambda s=kd16[0]: hk.apply_a_dots_plain(*s[:3], h1, h2, s[3]),
+          18 * nodes, KD_FLOPS * nodes, "csrc/stencil_dots.cu",
+          "ops/pallas_kernels.py:299")
+    del kd16
+    for st, dtype in (("bf16", bf), ("f16", f16)):
+        kh = sets(lambda i: (i["w"], i["a"].to(dtype), i["b"].to(dtype),
+                             _bundle(*(o.to(dtype) for o in i["ops"]))))
+        timed("stencil_dots_mixed" if st == "bf16" else None, f"K-h {st}",
+              [lambda s=s: hk.apply_a_dots_mixed_kernel(*s[:3], h1, h2, s[3])
+               for s in kh],
+              lambda s=kh[0]: hk.apply_a_dots_mixed_plain(*s[:3], h1, h2,
+                                                          s[3]),
+              22 * nodes, KD_FLOPS * nodes, "csrc/stencil_dots.cu",
+              "ops/pallas_kernels.py:910")
+        del kh
+    kg = sets(lambda i: tuple(i[k].to(bf) for k in "wab"))
+    timed("stencil_mixed", "K-g w, a, b bf16",
+          [lambda s=s: hk.apply_a_mixed_kernel(*s, h1, h2) for s in kg],
+          lambda s=kg[0]: hk.apply_a_mixed_plain(*s, h1, h2), 10 * nodes,
+          18 * nodes, "csrc/stencil.cu", "ops/pallas_kernels.py:784")
+    del kg
+    ka = sets(lambda i: (i["w"], i["a"], i["b"]))
+    timed("stencil", "K-a f32",
+          [lambda s=s: hk.apply_a_kernel(*s, h1, h2) for s in ka],
+          lambda s=ka[0]: hk.apply_a_plain(*s, h1, h2), 16 * nodes,
+          18 * nodes, "csrc/stencil.cu", "ops/pallas_kernels.py:169")
+    del ka
+
+    never = 2**31 - 1
+    coeffs = fused_operands(problem, torch.float32, torch.device("cuda"))
+
+    def fused_set(i):
+        scal = torch.zeros(fp.N_SCAL, device="cuda")
+        scal[fp.SCAL_ZR], scal[fp.SCAL_BETA] = 1.5, 0.7
+        scal[fp.SCAL_ALPHA] = 0.3
+        return dict(z=i["ops"][0], p=i["ops"][1], w=i["w"], r=i["ops"][2],
+                    pn=torch.empty_like(i["w"]), ap=torch.empty_like(i["w"]),
+                    zo=torch.empty_like(i["w"]), scal=scal,
+                    flags=torch.zeros(fp.N_FLAGS, dtype=torch.int32,
+                                      device="cuda"),
+                    coeffs=[c.clone() for c in coeffs],
+                    partials=torch.empty(fp.scratch_len(g1, g2),
+                                         device="cuda"))
+
+    def k1(s, fn=fp.k1):
+        an, as_, bw, be, d, _ = s["coeffs"]
+        fn(s["z"], s["p"], an, as_, bw, be, d, s["pn"], s["ap"], s["scal"],
+           s["flags"], s["partials"], max_iter=never, h1=h1, h2=h2)
+
+    # delta = 0: no timed K2 launch meets the stopping rule
+    def k2(s, fn=fp.k2):
+        fn(s["w"], s["r"], s["pn"], s["ap"], s["coeffs"][5], s["zo"],
+           s["scal"], s["flags"], s["partials"], max_iter=never, h1=h1,
+           h2=h2, delta=0.0, weighted=True)
+
+    fs = sets(fused_set)
+    timed("fused_k1", "K1 (fused)", [lambda s=s: k1(s) for s in fs],
+          lambda: k1(fs[0], fp.k1_plain), 36 * nodes, 15 * nodes,
+          "csrc/fused_pcg.cu", "ops/fused_pcg.py:229")
+    timed("fused_k2", "K2 (fused)", [lambda s=s: k2(s) for s in fs],
+          lambda: k2(fs[0], fp.k2_plain), 32 * nodes, 10 * nodes,
+          "csrc/fused_pcg.cu", "ops/fused_pcg.py:244")
+    del fs, coeffs, base
+
+    (m, n), lanes = QUEUE_BATCH
+    bh1, bh2 = 2.0 / m, 1.2 / n
+    bnodes = (m + 1) * (n + 1)
+    bbase = batched_inputs((m, n), lanes, seed)
+    kf = [(bbase["w"].clone(), bbase["a"], bbase["b"],
+           _bundle(*(o.clone() for o in bbase["ops"])))
+          for _ in range(QUEUE_SETS)]
+    timed("batched_stencil_dots", f"K-f {m + 1}x{n + 1} B={lanes}",
+          [lambda s=s: hk.apply_a_dots_batched_kernel(*s[:3], bh1, bh2, s[3])
+           for s in kf],
+          lambda s=kf[0]: hk.apply_a_dots_batched_plain(*s[:3], bh1, bh2,
+                                                       s[3]),
+          (2 + 7 * lanes) * bnodes * 4, KD_FLOPS * bnodes * lanes,
+          "csrc/stencil_dots.cu", "ops/pallas_kernels.py:529", per=bnodes)
+    del kf, bbase
+    # K-d f32 where pipelined-pallas at 400x600 calls it (QUEUE_SMALL_KD
+    # launches a solve)
+    sbase = batched_inputs((m, n), 0, seed)
+    kds = [(sbase["w"].clone(), sbase["a"], sbase["b"],
+            _bundle(*(o.clone() for o in sbase["ops"])))
+           for _ in range(QUEUE_SETS)]
+    timed(None, f"K-d f32 {m + 1}x{n + 1}",
+          [lambda s=s: hk.apply_a_dots_kernel(*s[:3], bh1, bh2, s[3])
+           for s in kds],
+          lambda s=kds[0]: hk.apply_a_dots_plain(*s[:3], bh1, bh2, s[3]),
+          36 * bnodes, KD_FLOPS * bnodes, "csrc/stencil_dots.cu",
+          "ops/pallas_kernels.py:299", launches=QUEUE_SMALL_KD, per=bnodes)
+    del kds, sbase
+    torch.cuda.synchronize()
+
+    say("  the K-d family's SASS (cuobjdump -sass)")
+    show_sass("stencil_dots", "stencil_dots", sass_dir)
+    show_sass("stencil", "stencil_kernel", sass_dir)
+    phase_pipelined_times(card)
+    return rows
+
+
+def phase_pipelined_times(card: str) -> None:
+    """The loops that launch K-d and K-h, timed (not held): pipelined-pallas
+    at 400x600 and 2400x3200 f32, uncapped, at their oracle counts; with
+    bf16 storage at 2400x3200 capped at STORAGE_CAP. us an iteration (the
+    median of three solves timed after the counted one) and launches a
+    body."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+
+    say(f"== the loops that launch K-d and K-h ({card})")
+    for (m, n), storage, cap in (((400, 600), None, None),
+                                 (MAIN_GRID, None, None),
+                                 (MAIN_GRID, "bf16", STORAGE_CAP)):
+        result, t, launches = timed_recurrence(
+            Problem(M=m, N=n, max_iter=cap), "pipelined-pallas",
+            storage=storage, repeat=3)
+        iters = int(result.iters)
+        kernel = "stencil_dots_mixed" if storage else "stencil_dots"
+        issued = 64 * -(-iters // 64)
+        issued = min(cap, issued) if cap else issued
+        say(f"  pipelined-pallas {m}x{n} f32"
+            f"{' storage ' + storage + f' capped at {cap}' if storage else ''}"
+            f": {iters} iterations, converged {bool(result.converged)}, "
+            f"{t:.5f} s, {t / iters * 1e6:.2f} us/iter, launches {launches}, "
+            f"{launches.get(kernel, 0) / issued:g} {kernel} a body")
+        if storage is None:
+            want = MAIN_ITERS if (m, n) == MAIN_GRID else LARGE[(m, n)]
+            require(bool(result.converged) and abs(iters - want) <= ITERS_ABS,
+                    f"pipelined-pallas {m}x{n}: {iters} iterations, outside "
+                    f"{want} +-{ITERS_ABS}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
-        "--only", choices=("stage4", "stage4-timing"),
+        "--only", choices=("stage4", "stage4-timing", "stencil-dots-timing"),
         help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
-             "loop and timing (stage4) or its timing alone (stage4-timing, "
-             "which also runs on an older tree's kernels); prints the "
+             "loop and timing (stage4), its timing alone (stage4-timing), or "
+             "rule 2's queue by device time, the K-d family's SASS and the "
+             "loops that launch K-d and K-h (stencil-dots-timing); the two "
+             "timings also run on an older tree's kernels; prints the "
              "kernels' record and no result line")
+    ap.add_argument("--sass-dir", help="with --only stencil-dots-timing, "
+                    "write the SASS listings of the K-d and K-a libraries "
+                    "to this directory")
     args = ap.parse_args(argv)
 
     card, kind = phase_device()
@@ -3082,11 +3503,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    if args.only:
+    if args.only == "stencil-dots-timing":
+        timed = phase_queue_timing(args.seed, card, args.sass_dir)
+    elif args.only:
         if args.only == "stage4":
             phase_stage4_kernels(args.seed)
             phase_stage4_loop()
         timed = phase_stage4_timing(args.seed, card)
+    if args.only:
         print(card, flush=True)
         print(json.dumps({"kernels": timed}), flush=True)
         return 0

@@ -10,15 +10,40 @@
 // -fmad=false, no product is contracted into an FMA, so a kernel that
 // calls it computes the plain PyTorch version's bits.
 //
-// K-a (stencil.cu) and K1-shard (fused_sharded.cu) share it.
+// The tree is four face fluxes, coef*(hi - lo)/h, combined. A face's flux
+// is one expression of the same operands from either node beside it: node
+// (i, j)'s south term a_s*(w_s - wc)/h1 is node (i+1, j)'s north term
+// a_c*(wc - w_n)/h1, and its east term node (i, j+1)'s west term. So a
+// kernel may compute a flux once and hand it to both nodes (stencil_dots.cu
+// does) and still compute this tree's bits.
+//
+// K-a (stencil.cu), K-d (stencil_dots.cu) and K1-shard (fused_sharded.cu)
+// share it.
 
 #pragma once
+
+// The flux through one face: coef*(hi - lo)/h, a rounded difference, a
+// rounded product, a rounded division.
+__device__ __forceinline__ float face_flux(float coef, float hi, float lo,
+                                           float h) {
+  return coef * (hi - lo) / h;
+}
+
+// A.w at a node from its four face fluxes (south, north, east, west).
+__device__ __forceinline__ float stencil_of_fluxes(float f_s, float f_n,
+                                                   float f_e, float f_w,
+                                                   float h1, float h2) {
+  const float ax = -(f_s - f_n) / h1;
+  const float ay = -(f_e - f_w) / h2;
+  return ax + ay;
+}
 
 __device__ __forceinline__ float stencil_tree(float wc, float w_n, float w_s,
                                               float w_w, float w_e, float a_c,
                                               float a_s, float b_c, float b_e,
                                               float h1, float h2) {
-  const float ax = -(a_s * (w_s - wc) / h1 - a_c * (wc - w_n) / h1) / h1;
-  const float ay = -(b_e * (w_e - wc) / h2 - b_c * (wc - w_w) / h2) / h2;
-  return ax + ay;
+  return stencil_of_fluxes(face_flux(a_s, w_s, wc, h1),
+                           face_flux(a_c, wc, w_n, h1),
+                           face_flux(b_e, w_e, wc, h2),
+                           face_flux(b_c, wc, w_w, h2), h1, h2);
 }

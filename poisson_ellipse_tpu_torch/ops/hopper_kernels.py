@@ -53,7 +53,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from poisson_ellipse_tpu_torch.ops import _build
+from poisson_ellipse_tpu_torch.ops import _build, scratch
 from poisson_ellipse_tpu_torch.ops import whole_solve as ws
 from poisson_ellipse_tpu_torch.ops.stencil import (
     apply_a_block,
@@ -92,24 +92,19 @@ _SIGNATURES = {
     **{f"pe_stencil_mixed_{w}_{ab}": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P])
        for ab in ("bf16", "f16") for w in (ab, "f32")},
 }
+# w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
+# x_off, partials, ticket, sums, bm, bn, pad, h1, h2, stream
+_DOTS_ARGS = ([_P] * 5 + [_I] + [_P] * 2 + [_I] * 3 + [_P] * 3 + [_I] * 3
+              + [_F, _F, _P])
 _DOTS_SIGNATURES = {
     "pe_stencil_dots_error_string": (ctypes.c_char_p, [_I]),
     "pe_stencil_dots_blocks": (_I, [_I] * 3),
-    # w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
-    # x_off, partials, ticket, sums, bm, bn, pad, h1, h2, stream
-    **{f"pe_stencil_dots_{form}": (_I, [_P] * 5 + [_I] + [_P] * 2
-                                   + [_I] * 3 + [_P] * 3 + [_I] * 3
-                                   + [_F, _F, _P])
-       for form in ("f32", "bf16")},
-    # the same with lanes before bm
-    "pe_batched_stencil_dots_f32": (_I, [_P] * 5 + [_I] + [_P] * 2
-                                    + [_I] * 3 + [_P] * 3 + [_I] * 4
-                                    + [_F, _F, _P]),
-    # K-h: pe_stencil_dots_f32's arguments, a, b and the operands narrow
-    **{f"pe_stencil_dots_mixed_{st}": (_I, [_P] * 5 + [_I] + [_P] * 2
-                                       + [_I] * 3 + [_P] * 3 + [_I] * 3
-                                       + [_F, _F, _P])
-       for st in ("bf16", "f16")},
+    # K-d and its bf16 form; K-h (a, b and the operands narrow)
+    **{f"pe_stencil_dots_{form}": (_I, _DOTS_ARGS)
+       for form in ("f32", "bf16", "mixed_bf16", "mixed_f16")},
+    # K-f: the same with lanes before bm
+    "pe_batched_stencil_dots_f32": (_I, _DOTS_ARGS[:14] + [_I]
+                                    + _DOTS_ARGS[14:]),
 }
 
 
@@ -323,7 +318,10 @@ def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False,
                  symbol: str | None = None, kernel: str | None = None):
     """K-d, or with ``lanes`` K-f over the (B, ·, ·) stacks w and operands;
     or K-h, the entry ``symbol`` counted as ``kernel``, whose inputs the
-    caller has checked, with every operand in a's dtype."""
+    caller has checked, with every operand in a's dtype. The library runs
+    the pipelined bundle's table compiled in and any other table generic;
+    the sums' scratch is ``ops.scratch``'s pair for the stream, so a call
+    is one kernel."""
     if kernel is None:
         kernel = (BATCHED_DOTS_KERNEL if lanes
                   else ws.counter(DOTS_KERNEL, ws.form_of(w.dtype)))
@@ -355,10 +353,10 @@ def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False,
     # the form's dtype: w's (f32, or bf16 for K-d's bf16 form)
     out = torch.empty(x_shape, dtype=w.dtype, device=w.device)
     sums = torch.empty((len(pairs),) + lead, dtype=w.dtype, device=w.device)
-    partials = torch.empty(len(pairs) * nblocks * n_lanes,
-                           dtype=torch.float64, device=w.device)
-    # the last-block tickets, one a lane: 0 before the launch
-    ticket = torch.zeros(n_lanes, dtype=torch.int32, device=w.device)
+    stream = _build.stream_handle(w.device)
+    # the block partials, and the last-block tickets, one a lane
+    partials, ticket = scratch.sums_scratch(
+        w.device, stream, len(pairs) * nblocks * n_lanes, n_lanes)
     ptrs = (ctypes.c_void_p * len(operands))(
         *(t.data_ptr() for t in operands))
     pair_x = (ctypes.c_int * len(pairs))(*xs)
@@ -366,8 +364,7 @@ def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False,
     head = (w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), ptrs,
             len(operands), pair_x, pair_y, len(pairs), x_ld, x_off,
             partials.data_ptr(), ticket.data_ptr(), sums.data_ptr())
-    tail = (bm, bn, pad, rounded(h1, w.dtype), rounded(h2, w.dtype),
-            _build.stream_handle(w.device))
+    tail = (bm, bn, pad, rounded(h1, w.dtype), rounded(h2, w.dtype), stream)
     if lanes:
         rc = lib.pe_batched_stencil_dots_f32(*head, n_lanes, *tail)
     else:

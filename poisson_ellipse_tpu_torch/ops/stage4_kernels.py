@@ -34,9 +34,9 @@ The host path of a launch is kept short, since a loop of calls is paced by
 whichever of the host and the kernel is slower: the library's signatures
 are declared once (``_build.load``), h1 and h2 are rounded on the host
 without a tensor (``stencil.rounded``), and the sums' scratch (block
-partials and the last-block ticket) is allocated once per device and
-stream (``_scratch``): the kernels leave the ticket at 0, so a call
-issues its kernel and nothing else.
+partials and the last-block ticket) is the pair ``ops.scratch`` keeps per
+device and stream (``_scratch``): the kernels leave the ticket at 0, so a
+call issues its kernel and nothing else.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ import ctypes
 
 import torch
 
-from poisson_ellipse_tpu_torch.ops import _build
+from poisson_ellipse_tpu_torch.ops import _build, scratch
 from poisson_ellipse_tpu_torch.ops.stencil import apply_dinv, rounded, spacing
 
 LIBRARY = "stage4"
@@ -111,30 +111,22 @@ def _contiguous(kernel: str, *tensors) -> None:
         raise ValueError(f"{kernel}: inputs must be contiguous")
 
 
-# (partials, ticket) of the sums, by (device index, stream handle)
-_SCRATCH: dict = {}
+# the doubles of partials the sums need on a device, by device index
+_LENGTHS: dict = {}
 
 
 def _scratch(lib, device, stream: int):
     """The sums' (partials, ticket) for launches on ``stream`` of
-    ``device``: allocated, and the ticket zeroed, on the first call there,
-    then reused (each launch leaves the ticket at 0, and launches on one
-    stream run in order). Inside a CUDA graph capture a new pair is made
-    for the call and not kept: its zeroing is a node of that graph only.
-    A graph captured on a stream that has a pair uses that pair: do not
-    replay it while launches run on the stream it was captured on."""
-    key = (device.index, stream)
-    pair = _SCRATCH.get(key)
-    if pair is None:
+    ``device``: the shared pair of ``ops.scratch``, at least the length
+    ``pe_stage4_scratch_len`` gives for the device (asked once a device)."""
+    length = _LENGTHS.get(device.index)
+    if length is None:
         length = lib.pe_stage4_scratch_len(device.index)
         if length < 0:
             _build.check(lib.pe_stage4_error_string, "stage4 scratch",
                          -length)
-        pair = (torch.empty(length, dtype=torch.float64, device=device),
-                torch.zeros(1, dtype=torch.int32, device=device))
-        if not torch.cuda.is_current_stream_capturing():
-            _SCRATCH[key] = pair
-    return pair
+        _LENGTHS[device.index] = length
+    return scratch.sums_scratch(device, stream, length)
 
 
 # -- z = r / D ---------------------------------------------------------------

@@ -9,7 +9,9 @@ host time the kernel waits behind). A fake CDLL placed in
 spacings a launch takes) must round f32 and f64 without a tensor, bitwise
 as a tensor does, and ``stage4_kernels._scratch`` must hand the same
 (partials, ticket) pair back for one (device, stream) and a new one for
-any other, and keep none made inside a CUDA graph capture.
+any other, and keep none made inside a CUDA graph capture: the pair of
+``ops.scratch``, which the K-d family shares
+(``tests/test_torch_stencil_dots.py``).
 """
 
 import ctypes
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from poisson_ellipse_tpu_torch.ops import _build
+from poisson_ellipse_tpu_torch.ops import scratch as sc
 from poisson_ellipse_tpu_torch.ops import stage4_kernels as s4
 from poisson_ellipse_tpu_torch.ops.stencil import rounded
 
@@ -131,7 +134,9 @@ def test_rounded_is_bitwise_the_tensor_rounding(dtype):
 @pytest.fixture
 def scratch(monkeypatch):
     """An empty scratch cache, outside any capture."""
-    monkeypatch.setattr(s4, "_SCRATCH", {})
+    monkeypatch.setattr(sc, "_SCRATCH", {})
+    monkeypatch.setattr(sc, "_RETIRED", [])
+    monkeypatch.setattr(s4, "_LENGTHS", {})
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
     return _FakeLib(scratch_len=16)
@@ -148,8 +153,9 @@ def test_scratch_is_kept_per_device_and_stream(scratch):
     other_device = s4._scratch(scratch, cpu, 11)
     for pair in (other_stream, other_device):
         assert pair[0] is not partials and pair[1] is not ticket
-    assert set(s4._SCRATCH) == {(0, 11), (0, 12), (None, 11)}
-    assert scratch.lengths_asked == [0, 0, None]
+    assert set(sc._SCRATCH) == {(0, 11), (0, 12), (None, 11)}
+    # the length is asked once a device
+    assert scratch.lengths_asked == [0, None]
 
 
 def test_scratch_made_inside_a_capture_is_not_kept(scratch, monkeypatch):
@@ -158,11 +164,11 @@ def test_scratch_made_inside_a_capture_is_not_kept(scratch, monkeypatch):
     first = s4._scratch(scratch, torch.device("cpu", 0), 11)
     second = s4._scratch(scratch, torch.device("cpu", 0), 11)
     assert first[1].tolist() == [0] and second[0] is not first[0]
-    assert s4._SCRATCH == {}
+    assert sc._SCRATCH == {}
 
 
 def test_scratch_length_error_raises(scratch):
     scratch.scratch_len = -101
     with pytest.raises(RuntimeError, match="101"):
         s4._scratch(scratch, torch.device("cpu", 0), 11)
-    assert s4._SCRATCH == {}
+    assert sc._SCRATCH == {} and s4._LENGTHS == {}

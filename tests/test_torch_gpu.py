@@ -38,7 +38,13 @@ update_p also from 1x1 to 2401x3201 and on views one element past an
 aligned buffer, one device kernel a call, a CUDA graph's launch equal to
 the eager one, and dot the same bits on two launches; the bf16
 forms of K-a and K-d bitwise in arrays and sums, as their plain versions
-compute in float and round once where they store.
+compute in float and round once where they store. The K-d family (K-d
+f32 and bf16, K-h bf16 and f16, K-f) gives the same bits on the pipelined
+bundle's table (compiled in) and on the bundle with each pair swapped
+(the generic instantiation), one device kernel a call, and a K-d / K-f
+launch captured in a CUDA graph equals the eager one. Device activities are counted in a fresh
+process (``activities``): after the graph tests the profiler recorded no
+activity for some calls.
 """
 
 import dataclasses
@@ -418,6 +424,97 @@ def test_stencil_dots_rejects_what_it_does_not_take(cuda):
         assert _build.LAUNCHES["stencil_dots"] == 0
 
 
+# the K-d family's entries: K-d f32 and bf16, K-h bf16 and f16, K-f
+DOTS_FORMS = ["f32", "bf16", "mixed_bf16", "mixed_f16", "lanes"]
+_INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _dots_call(form, M, N, dev):
+    """(call, counter): ``call()`` runs one K-d-family entry on the
+    pipelined bundle over numpy-seeded full (M+1, N+1) grids (3 lanes for
+    K-f) and returns (n, sums); ``call(True)`` runs it on the bundle with
+    each pair's operands swapped, a table the library runs generic;
+    ``counter`` is the launch counter it counts under."""
+    g = (M + 1, N + 1)
+    h1, h2 = 2.0 / M, 1.2 / N
+    if form == "lanes":
+        w = _rand((3,) + g, dev, 0)
+        a, b = _rand(g, dev, 1, lo=0.5), _rand(g, dev, 2, lo=0.5)
+        pairs = pp._bundle(*(_rand((3,) + g, dev, 10 + i) for i in range(5)))
+        return (lambda swap=False: hk.apply_a_dots_batched_kernel(
+            w, a, b, h1, h2, _swapped(pairs) if swap else pairs),
+            hk.BATCHED_DOTS_KERNEL)
+    if form.startswith("mixed"):
+        st = NARROW[form.split("_")[1]]
+        m = _rand(g, dev, 0)
+        a, b = (_rand(g, dev, s, lo=0.5).to(st) for s in (1, 2))
+        pairs = pp._bundle(*(_rand(g, dev, 10 + i).to(st) for i in range(5)))
+        return (lambda swap=False: hk.apply_a_dots_mixed_kernel(
+            m, a, b, h1, h2, _swapped(pairs) if swap else pairs),
+            hk.MIXED_DOTS_KERNEL)
+    dtype = torch.float32 if form == "f32" else torch.bfloat16
+    w, a, b = (_rand(g, dev, s, dtype, lo=lo) for s, lo in
+               ((0, None), (1, 0.5), (2, 0.5)))
+    pairs = pp._bundle(*(_rand(g, dev, 10 + i, dtype) for i in range(5)))
+    return (lambda swap=False: hk.apply_a_dots_kernel(
+        w, a, b, h1, h2, _swapped(pairs) if swap else pairs),
+            ws.counter(hk.DOTS_KERNEL, ws.form_of(dtype)))
+
+
+def _swapped(pairs):
+    """Each pair's operands swapped: the same products under another table."""
+    return tuple((y, x) for x, y in pairs)
+
+
+def _same_bits(x, y):
+    return x.dtype == y.dtype and torch.equal(x.view(_INT_VIEW[x.dtype]),
+                                              y.view(_INT_VIEW[y.dtype]))
+
+
+@pytest.mark.parametrize("form", DOTS_FORMS)
+@pytest.mark.parametrize("M,N", DOTS_SHAPES)
+def test_stencil_dots_bundle_and_generic_instantiations_agree(cuda, M, N,
+                                                              form):
+    """The bundle's table through its compiled instantiation, and the
+    bundle with each pair's operands swapped through the generic one: the
+    same products, the same node split and the same order of every sum,
+    so n and the sums are the same bits."""
+    call, counter = _dots_call(form, M, N, cuda)
+    _build.reset_launches()
+    n_b, sums_b = call()
+    n_g, sums_g = call(True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {counter: 2}
+    assert _same_bits(n_b, n_g) and _same_bits(sums_b, sums_g)
+
+
+@pytest.mark.parametrize("form", DOTS_FORMS)
+def test_stencil_dots_family_issues_one_device_kernel(cuda, activities,
+                                                      form):
+    """After a first call on the stream a call is its kernel alone: the
+    tickets the last block leaves at 0 are not filled again
+    (torch.profiler, in a fresh process: ``activities``)."""
+    assert activities[f"K-d {form}"] == 1
+
+
+@pytest.mark.parametrize("warm", [True, False])
+@pytest.mark.parametrize("form", ["f32", "lanes"])
+def test_stencil_dots_in_a_cuda_graph(cuda, form, warm):
+    """A K-d / K-f launch captured in a CUDA graph and replayed twice
+    equals the eager launch, with and without a first call on the capture
+    stream (without one, the graph zeroes its own tickets)."""
+    from chip_smoke import graph_and_eager
+
+    call, _ = _dots_call(form, 400, 600, cuda)
+
+    def fn():
+        n, sums = call()
+        return torch.cat((n.reshape(-1), sums.reshape(-1)))
+
+    eager, captured = graph_and_eager(fn, warm)
+    assert torch.equal(eager, captured)
+
+
 @pytest.mark.parametrize("engine_name", ["pipelined-pallas", "sstep-pallas"])
 def test_recurrence_engines_on_the_card(cuda, engine_name):
     """40² f32 within ±2 of the oracle counts, through the kernels: K-d
@@ -451,7 +548,7 @@ def test_pipelined_pallas_chunked_equals_straight_on_the_card(cuda):
 # -- K-e and K-f, the lane-batched kernels -----------------------------------
 
 BATCHED_SHAPES = [(44, 132, 3), (130, 20, 2), (400, 600, 32),
-                  (800, 1200, 8)]
+                  (800, 1200, 8), (2400, 3200, 2)]
 
 
 @pytest.mark.parametrize("form", ["full", "block"])
@@ -583,7 +680,7 @@ def test_batched_chunked_equals_straight_on_the_card(cuda, mod, stencil):
 
 # -- the storage axis: K-g and K-h -------------------------------------------
 
-MIXED_SHAPES = [(44, 132), (400, 600), (800, 1200)]
+MIXED_SHAPES = [(44, 132), (400, 600), (800, 1200), (2400, 3200)]
 NARROW = {"bf16": torch.bfloat16, "f16": torch.float16}
 
 
@@ -1049,16 +1146,64 @@ def test_dot_and_update_p_at_edge_shapes(cuda, case, dtype):
     assert torch.equal(p_new, s4.update_p_plain(beta, x, y))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", STREAM_CASES)
-def test_dot_and_update_p_issue_one_device_kernel(cuda, case, dtype):
-    """After a first call on the stream, a call is its kernel alone: no
-    fill of the sums' ticket, no copy (torch.profiler)."""
+def _count_activities() -> dict:
+    """The device activities one call issues, after a first call on the
+    stream (``chip_smoke.device_activities``): dot and update_p on every
+    STREAM_CASES row in f32 and f64, and each K-d-family entry at 400x600
+    (``_dots_call``)."""
     from chip_smoke import device_activities
 
-    x, y, beta = _stream_operands(case, cuda, dtype)
-    assert device_activities(lambda: s4.dot_pallas(x, y, 0.1, 0.2)) == 1
-    assert device_activities(lambda: s4.update_p_pallas(beta, x, y)) == 1
+    dev = torch.device("cuda")
+    counts = {}
+    for dtype in (torch.float32, torch.float64):
+        for case in STREAM_CASES:
+            x, y, beta = _stream_operands(case, dev, dtype)
+            counts[f"dot {case} {dtype}"] = device_activities(
+                lambda: s4.dot_pallas(x, y, 0.1, 0.2))
+            counts[f"update_p {case} {dtype}"] = device_activities(
+                lambda: s4.update_p_pallas(beta, x, y))
+    for form in DOTS_FORMS:
+        call, _ = _dots_call(form, 400, 600, dev)
+        counts[f"K-d {form}"] = device_activities(call)
+    return counts
+
+
+@pytest.fixture(scope="module")
+def activities():
+    """``_count_activities`` in a fresh process: in a process that has
+    captured and replayed CUDA graphs (the tests before these), the
+    profiler recorded no device activity at all for some calls on the
+    H100, as in chip_smoke.py's long run."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(here.parent), str(here)] + [p for p in (env.get("PYTHONPATH"),)
+                                         if p])
+    code = ("import json, test_torch_gpu as t; "
+            "print(json.dumps(t._count_activities()))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_dot_and_update_p_issue_one_device_kernel(cuda, activities, case,
+                                                  dtype):
+    """After a first call on the stream, a call is its kernel alone: no
+    fill of the sums' ticket, no copy (torch.profiler, in a fresh
+    process: ``activities``)."""
+    assert activities[f"dot {case} {dtype}"] == 1
+    assert activities[f"update_p {case} {dtype}"] == 1
 
 
 @pytest.mark.parametrize("warm", [True, False])
