@@ -1042,11 +1042,11 @@ def time_solver(solver, args, repeat: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def profile_solve(label: str, solver, args) -> None:
+def profile_solve(label: str, solver, args) -> dict:
     """One solve under torch.profiler: device time by kernel name and the
     device's idle share of the solve's wall time (host clock around the
     solve and a synchronize). Prints "not measured" where the profiler
-    records no device activity."""
+    records no device activity. Returns {kernel name: [launches, us]}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1066,7 +1066,7 @@ def profile_solve(label: str, solver, args) -> None:
     busy_us = sum(t for _, t in by_name.values())
     if not by_name:
         say(f"  profile {label}: device time not measured (no device events)")
-        return
+        return by_name
     say(f"  profile {label}: wall {wall_us / 1e3:.2f} ms (profiler on), "
         f"device busy {busy_us / 1e3:.2f} ms, idle share "
         f"{1 - busy_us / wall_us:.3f}")
@@ -1074,6 +1074,7 @@ def profile_solve(label: str, solver, args) -> None:
     for name, (count, us) in top:
         say(f"    {us / 1e3:9.2f} ms {count:7d} x {us / count:8.2f} us  "
             f"{name[:90]}")
+    return by_name
 
 
 # iterations of the profiled solves of the per-iteration kernel engines:
@@ -1082,9 +1083,9 @@ def profile_solve(label: str, solver, args) -> None:
 PROFILE_CAP = 256
 
 
-def profile_capped(engine: str, **options) -> None:
+def profile_capped(engine: str, **options) -> dict:
     """``profile_solve`` of ``engine`` at 2400x3200, capped at PROFILE_CAP
-    iterations, after one warm-up solve."""
+    iterations, after one warm-up solve; returns its table."""
     from poisson_ellipse_tpu_torch.models.problem import Problem
     from poisson_ellipse_tpu_torch.solver.engine import build_solver
 
@@ -1093,8 +1094,8 @@ def profile_capped(engine: str, **options) -> None:
                                    **options)
     solver(*args)
     extra = "".join(f" {k}={v}" for k, v in options.items())
-    profile_solve(f"{engine}{extra} 2400x3200, capped at {PROFILE_CAP}",
-                  solver, args)
+    return profile_solve(f"{engine}{extra} 2400x3200, capped at "
+                         f"{PROFILE_CAP}", solver, args)
 
 
 def time_plain(name, args, problem, cap):
@@ -3277,6 +3278,39 @@ def show_sass(library: str, match: str, out_dir=None) -> None:
                 f"median store gap {gap}, {ops}")
 
 
+def timed_row(rows: list, name, label, calls, plain, nbytes, flops, src,
+              line, launches=None, per=None) -> dict:
+    """One kernel timed three ways (``device_ms``, ``call_times``,
+    ``device_activities``) on its rotated input sets ``calls``, beside its
+    plain version, its bound, its share of it and its loss on its path,
+    launches x (device time - bound) (``launches`` default: its
+    QUEUE_LAUNCHES entry); the row is appended to ``rows`` and returned.
+    ``per``: the nodes a B-a-node figure divides by."""
+    dev = device_ms(calls)
+    call, host = call_times(calls, 200)
+    acts = device_activities(calls[0])
+    plain_ms = time_ms(plain, 10)
+    bound_ms, bound_by = bound(nbytes, flops)
+    if launches is None:
+        launches = QUEUE_LAUNCHES.get(name, 0)
+    say(f"  {label}: device {dev * 1e3:.2f} us, call {call * 1e3:.2f} "
+        f"us, host {host * 1e3:.2f} us, "
+        f"{acts if acts > 0 else 'not measured (no profile)'} device "
+        f"activities a call; plain {plain_ms * 1e3:.1f} us; bound "
+        f"{bound_ms * 1e3:.1f} us ({bound_by}"
+        + (f", {nbytes / per:g} B a node" if per else "")
+        + f"), {bound_ms / dev:.0%} of it; loss {launches} x "
+        f"{(dev - bound_ms) * 1e3:.1f} us = "
+        f"{launches * (dev - bound_ms):.1f} ms")
+    row = dict(name=name, label=label, route="cuda",
+               source=f"poisson_ellipse_tpu_torch/{src}",
+               replaces=f"poisson_ellipse_tpu/{line}", ms=dev, call_ms=call,
+               host_ms=host, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None, activities=acts)
+    rows.append(row)
+    return row
+
+
 def phase_queue_timing(seed: int, card: str, sass_dir=None) -> list:
     """Rule 2's queue timed three ways (``device_ms``, ``call_times``,
     ``device_activities``) on QUEUE_SETS rotated input sets, at the shapes
@@ -3312,27 +3346,8 @@ def phase_queue_timing(seed: int, card: str, sass_dir=None) -> list:
 
     def timed(name, label, calls, plain, nbytes, flops, src, line,
               launches=None, per=nodes):
-        dev = device_ms(calls)
-        call, host = call_times(calls, 200)
-        acts = device_activities(calls[0])
-        plain_ms = time_ms(plain, 10)
-        bound_ms, bound_by = bound(nbytes, flops)
-        if launches is None:
-            launches = QUEUE_LAUNCHES.get(name, 0)
-        say(f"  {label}: device {dev * 1e3:.2f} us, call {call * 1e3:.2f} "
-            f"us, host {host * 1e3:.2f} us, "
-            f"{acts if acts > 0 else 'not measured (no profile)'} device "
-            f"activities a call; plain {plain_ms * 1e3:.1f} us; bound "
-            f"{bound_ms * 1e3:.1f} us ({bound_by}, {nbytes / per:g} B a "
-            f"node), {bound_ms / dev:.0%} of it; loss {launches} x "
-            f"{(dev - bound_ms) * 1e3:.1f} us = "
-            f"{launches * (dev - bound_ms):.1f} ms")
-        rows.append(dict(name=name, label=label, route="cuda",
-                         source=f"poisson_ellipse_tpu_torch/{src}",
-                         replaces=f"poisson_ellipse_tpu/{line}", ms=dev,
-                         call_ms=call, host_ms=host, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None, activities=acts))
+        timed_row(rows, name, label, calls, plain, nbytes, flops, src, line,
+                  launches, per)
 
     def kd(i, dtype=torch.float32):
         w, a, b = (i[k].to(dtype) for k in "wab")
@@ -3482,17 +3497,598 @@ def phase_pipelined_times(card: str) -> None:
                     f"{want} +-{ITERS_ABS}")
 
 
+# -- xl's body by phase, the grid barrier, K-g's forms, in-loop time --------
+
+# bodies of the timed xl solves (delta = 0: none stops before the cap)
+XL_TIME_CAP = 256
+# the grids of the barrier timing: (label, engine, grid)
+BARRIER_GRIDS = (("xl 2401x3201", "xl", MAIN_GRID),
+                 ("resident 801x1201", "resident", (800, 1200)),
+                 ("streamed 1101x1651", "streamed", STREAMED_GRID))
+# csrc/streamed_pcg.cu: threads a block (a block an SM)
+STREAMED_THREADS = 1024
+# the barrier kernel's bodies: two runs, the difference over their gap
+BARRIER_BODIES = (100, 1100)
+BARRIER_MODES = ("grid_barrier", "grid_reduce", "grid_reduce2",
+                 "grid_reduce_wide, 1 sum", "grid_reduce_wide, 2 sums")
+# K-g's (w, a and b) type pairs, and the one on pallas's bf16 path
+KG_FORMS = (("bf16", "bf16"), ("f32", "bf16"), ("f16", "f16"), ("f32", "f16"))
+KG_MAIN = ("bf16", "bf16", 1)
+
+
+class ClockSampler:
+    """nvidia-smi's SM clock and power draw, sampled every 50 ms while the
+    block runs (the process is stopped on exit)."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        time.sleep(0.5)  # nvidia-smi's own start
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        samples = []
+        for ln in out.splitlines():
+            try:
+                mhz, watts = (float(x) for x in ln.split(","))
+            except ValueError:
+                continue
+            samples.append((mhz, watts))
+        self.text = ("not measured (no nvidia-smi sample)" if not samples
+                     else f"SM clock {statistics.median(m for m, _ in samples)}"
+                     f" MHz (min {min(m for m, _ in samples)}), power "
+                     f"{statistics.median(w for _, w in samples):.1f} W, "
+                     f"{len(samples)} samples")
+        return False
+
+
+def sustained(fn, seconds: float = 1.5) -> None:
+    """``fn`` again and again for ``seconds`` of host time, then a sync."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        fn()
+    torch.cuda.synchronize()
+
+
+def xl_phase_split(cap) -> None:
+    """xl f32 at 2400x3200 capped at XL_TIME_CAP bodies, through the
+    timing instantiation (``xl(stamps=)``): each body's stencil phase, first
+    barrier with its two sums, update phase and second barrier with its
+    sum on the device clock (block 0's stamps), and the spread of the
+    blocks' stencil-phase ends; medians over the bodies but the first and
+    the last. Beside it the uninstrumented solve's time a body."""
+    import inspect
+
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
+    from poisson_ellipse_tpu_torch.ops.streamed_pcg import streamed_operands
+
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1], max_iter=XL_TIME_CAP,
+                      delta=0.0)
+    ops = streamed_operands(problem, torch.float32, "cuda")
+    nb = xp.XLPlan(problem).nblocks(cap, "f32")
+    bodies = XL_TIME_CAP + 1
+    plain = time_solver(lambda: xp.xl(problem, *ops, cap=cap), (), 3)
+    say(f"  xl f32 {problem.M}x{problem.N}: {nb} blocks, "
+        f"{plain * 1e6 / bodies:.2f} us a body uninstrumented "
+        f"({bodies} bodies, median of 3)")
+    if "stamps" not in inspect.signature(xp.xl).parameters:
+        say("  the body by phase: not measured (this tree's kernel has no "
+            "timing instantiation)")
+        return
+    stamps = xp.stamps_buffer(problem, nb, "cuda")
+    xp.xl(problem, *ops, cap=cap, stamps=stamps)
+    t = stamps.cpu().numpy().astype(np.float64)
+    require(bool((t[:, :5] > 0).all()), "xl stamps: a body left no stamp")
+    body = t[1:-1]
+    nxt = t[2:]
+    ends = body[:, 5:5 + nb]
+    parts = {
+        "stencil phase": body[:, 1] - body[:, 0],
+        "barrier 1 + 2 sums": body[:, 2] - body[:, 1],
+        "update phase": body[:, 3] - body[:, 2],
+        "barrier 2 + sum": body[:, 4] - body[:, 3],
+        "scalar tail": nxt[:, 0] - body[:, 4],
+        "body": nxt[:, 0] - body[:, 0],
+    }
+    for label, ns in parts.items():
+        say(f"  xl body {label}: median {np.median(ns) / 1e3:.2f} us, mean "
+            f"{ns.mean() / 1e3:.2f} us")
+    spread = ends.max(axis=1) - ends.min(axis=1)
+    fast = ends.min(axis=1) - body[:, 0]
+    slow = ends.max(axis=1) - body[:, 0]
+    steps = np.diff(np.unique(body[:, :5]))
+    say(f"  xl stencil-phase ends over {nb} blocks: fastest block "
+        f"{np.median(fast) / 1e3:.2f} us, slowest {np.median(slow) / 1e3:.2f}"
+        f" us after block 0's start, spread median "
+        f"{np.median(spread) / 1e3:.2f} us (mean {spread.mean() / 1e3:.2f}); "
+        f"clock step {steps[steps > 0].min() if steps.size else 0:.0f} ns")
+    # each block's median end, by the blocks its SM holds (body 0's block
+    # slots hold the SM plus one where the kernel records it)
+    per_block = np.median(ends - body[:, :1], axis=0) / 1e3
+    sm = t[0, 5:5 + nb]
+    if 1 <= sm.min() and sm.max() <= 1024:
+        counts = collections.Counter(sm.astype(int).tolist())
+        load = np.array([counts[int(x)] for x in sm])
+        for k in sorted(set(load.tolist())):
+            sel = per_block[load == k]
+            say(f"    blocks on SMs holding {k}: {sel.size}, stencil-phase "
+                f"end median {np.median(sel):.2f} us, max {sel.max():.2f}")
+    q = np.percentile(per_block, [0, 10, 50, 90, 100])
+    say(f"    blocks' median ends, percentiles 0/10/50/90/100: "
+        + ", ".join(f"{x:.2f}" for x in q) + " us; slowest blocks "
+        + ", ".join(str(b) for b in np.argsort(per_block)[-5:][::-1]))
+
+
+def xl_sass() -> None:
+    show_sass("xl_pcg", "xl_kernelIffLb0E")
+
+
+def barrier_latency(cap) -> None:
+    """One grid barrier (``grid_sync.cuh``) alone, with one grid sum and
+    with two, at xl's grid at 2401x3201 and resident's at 801x1201: a
+    cooperative kernel of BARRIER_BODIES bodies each, us a body from the
+    difference of the two runs."""
+    import ctypes
+
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import _build
+    from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
+    from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
+    from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
+
+    try:
+        lib = _build.load("xl_pcg", {
+            "pe_xl_pcg_barrier_bench": (ctypes.c_int, [ctypes.c_int] * 4
+                                        + [ctypes.c_void_p] * 3),
+            "pe_xl_pcg_error_string": (ctypes.c_char_p, [ctypes.c_int])})
+    except AttributeError:
+        say("  the grid barrier: not measured (this tree has no barrier "
+            "kernel)")
+        return
+    for label, engine, (m, n) in BARRIER_GRIDS:
+        problem = Problem(M=m, N=n)
+        if engine == "xl":
+            nb = xp.XLPlan(problem).nblocks(cap, "f32")
+            threads = getattr(xp, "THREADS", 256)
+        elif engine == "resident":
+            nb, threads = rp.layout(problem, cap).nblocks, rp.THREADS
+        else:
+            nb = sp.StreamPlan(problem, cap).nblocks
+            threads = STREAMED_THREADS
+        partials = torch.zeros(4 * nb, dtype=torch.float64, device="cuda")
+        out = torch.zeros(1, device="cuda")
+        stream = _build.stream_handle(out.device)
+        for mode, name in enumerate(BARRIER_MODES):
+            def run(bodies):
+                rc = lib.pe_xl_pcg_barrier_bench(
+                    mode, nb, threads, bodies, partials.data_ptr(),
+                    out.data_ptr(), stream)
+                _build.check(lib.pe_xl_pcg_error_string, "barrier", rc)
+            t0, t1 = (time_ms(lambda b=b: run(b), 5) for b in BARRIER_BODIES)
+            per = (t1 - t0) * 1e3 / (BARRIER_BODIES[1] - BARRIER_BODIES[0])
+            say(f"  {label}, {nb} blocks of {threads}: {name} {per:.3f} us a"
+                f" body ({t0:.3f} / {t1:.3f} ms for {BARRIER_BODIES} bodies)")
+
+
+def kg_rows(seed: int) -> list:
+    """K-g's four (w, a and b) type pairs at 2401x3201, pad 1 and pad 0,
+    each timed as ``timed_row`` times rule 2's queue; K-a f32 on the same
+    values beside them; the SASS of the stencil library."""
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+
+    say("  K-g at 2401x3201 (device / call / host time, activities a call)")
+    g1, g2 = MAIN_GRID[0] + 1, MAIN_GRID[1] + 1
+    h1, h2 = 2.0 / MAIN_GRID[0], 1.2 / MAIN_GRID[1]
+    nodes = g1 * g2
+    rng = np.random.default_rng(seed)
+    base = [tuple(torch.from_numpy(x.astype(np.float32)).to("cuda")
+                  for x in (rng.standard_normal((g1, g2)),
+                            rng.random((g1, g2)) + 0.5,
+                            rng.random((g1, g2)) + 0.5))
+            for _ in range(QUEUE_SETS)]
+    width = {"f32": 4, "bf16": 2, "f16": 2}
+    # the tree's K-g routes, its own first (an older tree has one)
+    default = getattr(hk, "MIXED_ROUTE", None)
+    routes = [default] + [r for r in getattr(hk, "MIXED_ROUTES", {})
+                          if r != default]
+    rows = []
+    for w_st, ab_st in KG_FORMS:
+        sets = [(w if w_st == "f32" else w.to(NARROW[w_st]),
+                 a.to(NARROW[ab_st]), b.to(NARROW[ab_st]))
+                for w, a, b in base]
+        for pad in (1, 0):
+            full = pad == 1
+            plain = hk.apply_a_mixed_plain if full else \
+                hk.apply_a_mixed_block_plain
+            out_nodes = nodes if full else (g1 - 2) * (g2 - 2)
+            main = (w_st, ab_st, pad) == KG_MAIN
+            want = plain(*sets[0], h1, h2)
+            for route in routes:
+                if route is None:
+                    kernel = (hk.apply_a_mixed_kernel if full
+                              else hk.apply_a_mixed_block_kernel)
+                else:
+                    def kernel(*x, route=route, pad=pad):
+                        return hk._launch_mixed(*x, pad=pad, route=route)
+                require(same_bits(kernel(*sets[0], h1, h2), want),
+                        f"K-g route {route} w {w_st} a/b {ab_st} pad {pad}"
+                        " is not bitwise its plain version")
+                timed_row(
+                    rows, "stencil_mixed" if main and route == default
+                    else None,
+                    f"K-g{' ' + route if route else ''} w {w_st}, a/b "
+                    f"{ab_st}, pad {pad}",
+                    [lambda s=s, k=kernel: k(*s, h1, h2) for s in sets],
+                    lambda s=sets[0], k=plain: k(*s, h1, h2),
+                    (width[w_st] + 2 * width[ab_st]) * nodes
+                    + 4 * out_nodes, 18 * out_nodes, "csrc/stencil.cu",
+                    "ops/pallas_kernels.py:784",
+                    launches=(QUEUE_LAUNCHES["stencil_mixed"]
+                              if main and route == default else 0),
+                    per=nodes)
+        del sets
+    timed_row(rows, None, "K-a f32 (same values)",
+              [lambda s=s: hk.apply_a_kernel(*s, h1, h2) for s in base],
+              lambda s=base[0]: hk.apply_a_plain(*s, h1, h2), 16 * nodes,
+              18 * nodes, "csrc/stencil.cu", "ops/pallas_kernels.py:169",
+              launches=QUEUE_LAUNCHES["stencil"], per=nodes)
+    say("  the stencil libraries' SASS (cuobjdump -sass)")
+    show_sass("stencil", "stencil")
+    show_sass("stencil_dots", "Lb0EEEv")
+    return rows
+
+
+def _per_launch(table: dict, match, most: bool = True):
+    """(name, launches, us a launch) of the kernel in a profile ``table``
+    whose name ``match`` accepts, the one with the most launches."""
+    hits = [(n, c, us / c) for n, (c, us) in table.items() if match(n)]
+    if not hits:
+        return None
+    return max(hits, key=lambda h: h[1]) if most else hits[0]
+
+
+def _profiled_us(calls, n: int, match) -> str:
+    """``n`` eager rounds of ``calls`` (each a list of closures run in turn)
+    under torch.profiler: us a launch of the kernel ``match`` accepts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls[0]:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            for fn in calls[i % len(calls)]:
+                fn()
+        torch.cuda.synchronize()
+    table: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            entry = table.setdefault(evt.name, [0, 0.0])
+            entry[0] += 1
+            entry[1] += evt.time_range.elapsed_us()
+    hit = _per_launch(table, match)
+    return "not measured (no device events)" if hit is None else \
+        f"{hit[2]:.2f} us a launch ({hit[1]} launches)"
+
+
+def in_loop_times(seed: int) -> None:
+    """K-a, K-g (bf16) and K-d a launch inside their loops at 2400x3200
+    (torch.profiler over a solve capped at PROFILE_CAP, as phase 7 and
+    phase 9 profile them) beside their graph-replay time; then causes
+    tested on K-a: the profiler on K-a alone, K-a after a PyTorch kernel
+    that writes 31 MB (dirty lines in L2), after one that reads 92 MB of
+    other data (clean), on an input that kernel has just written (as in
+    the loop), and the SM clock under each; pallas with bf16 storage, us
+    an iteration capped at PROFILE_CAP."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    g1, g2 = MAIN_GRID[0] + 1, MAIN_GRID[1] + 1
+    h1, h2 = 2.0 / MAIN_GRID[0], 1.2 / MAIN_GRID[1]
+    rng = np.random.default_rng(seed)
+
+    def f32(lo=None):
+        x = rng.random((g1, g2)) + lo if lo is not None else \
+            rng.standard_normal((g1, g2))
+        return torch.from_numpy(x.astype(np.float32)).to("cuda")
+
+    sets = [(f32(), f32(0.5), f32(0.5)) for _ in range(QUEUE_SETS)]
+    ops = [f32() for _ in range(5)]
+    pairs = _bundle(*ops)
+    ka_calls = [lambda s=s: hk.apply_a_kernel(*s, h1, h2) for s in sets]
+    kg_sets = [tuple(x.to(torch.bfloat16) for x in s) for s in sets]
+    replay = {
+        "K-a f32": device_ms(ka_calls),
+        "K-g bf16": device_ms([lambda s=s: hk.apply_a_mixed_kernel(*s, h1, h2)
+                               for s in kg_sets]),
+        "K-d f32": device_ms([lambda s=s: hk.apply_a_dots_kernel(
+            *s, h1, h2, pairs) for s in sets]),
+    }
+    # the port's kernels live in anonymous namespaces, PyTorch's in
+    # at::native; the one launched most in a loop is its stencil
+    ours = lambda n: n.startswith("void (anonymous namespace)::")  # noqa
+    loops = (("K-a f32", "pallas", {}, ours),
+             ("K-g bf16", "pallas", {"storage_dtype": "bf16"}, ours),
+             ("K-d f32", "pipelined-pallas", {}, lambda n: "stencil_dots" in n))
+    for label, engine, options, match in loops:
+        table = profile_capped(engine, **options)
+        hit = _per_launch(table, match)
+        inside = "not measured" if hit is None else \
+            f"{hit[2]:.2f} us a launch ({hit[1]} launches, {hit[0][:60]})"
+        say(f"  in-loop {label} in {engine}{' bf16 storage' if options else ''}"
+            f": {inside}; graph replay {replay[label] * 1e3:.2f} us")
+
+    say("  the loop's data: K-a and K-g by graph replay on the assembled "
+        "a and b and the w of a solve capped at "
+        f"{PROFILE_CAP} (pallas), beside seeded values")
+    from poisson_ellipse_tpu_torch.ops import assembly
+    from poisson_ellipse_tpu_torch.solver import engine
+
+    capped = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1], max_iter=PROFILE_CAP)
+    a_r, b_r, _ = assembly.assemble(capped, torch.float32, "cuda")
+    w_r = engine.solve(capped, "pallas", torch.float32, device="cuda").w
+    tiny = torch.finfo(torch.float32).tiny
+    flux = a_r[1:] * (w_r[1:] - w_r[:-1])
+    for label, x in (("w", w_r), ("a*(w_s - w)", flux),
+                     ("a*(w_s - w)/h1", flux / h1)):
+        sub = int(((x != 0) & (x.abs() < tiny)).sum())
+        say(f"    {label}: {sub} subnormal of {x.numel()} "
+            f"({sub / x.numel():.3%}), {int((x == 0).sum())} zero")
+    real = [(w_r.clone(), a_r, b_r) for _ in range(QUEUE_SETS)]
+    zero = torch.zeros_like(w_r)
+    zero16 = zero.to(torch.bfloat16)
+    mixed = [tuple(x.to(torch.bfloat16) for x in r) for r in real]
+    for label, calls in (
+            ("K-a f32, the loop's w, a, b", [
+                lambda s=s: hk.apply_a_kernel(*s, h1, h2) for s in real]),
+            ("K-a f32, seeded w, the loop's a, b", [
+                lambda s=s: hk.apply_a_kernel(s[0], a_r, b_r, h1, h2)
+                for s in sets]),
+            ("K-a f32, w = 0, seeded a, b (every dividend 0)", [
+                lambda s=s: hk.apply_a_kernel(zero, s[1], s[2], h1, h2)
+                for s in sets]),
+            ("K-g bf16, w = 0, seeded a, b", [
+                lambda s=s: hk.apply_a_mixed_kernel(zero16, s[1], s[2], h1,
+                                                    h2)
+                for s in kg_sets]),
+            ("K-g bf16, the loop's w, a, b", [
+                lambda s=s: hk.apply_a_mixed_kernel(*s, h1, h2)
+                for s in mixed])):
+        say(f"    {label}: {device_ms(calls) * 1e3:.2f} us by graph replay")
+
+    x0 = sets[0][0]
+    o = torch.empty_like(x0)
+    for label, fn in (("torch.mul(x, 1.0): seeded in, seeded out",
+                       lambda: torch.mul(x0, 1.0, out=o)),
+                      ("torch.mul(x, 0.0): seeded in, zeros out",
+                       lambda: torch.mul(x0, 0.0, out=o)),
+                      ("torch.mul(0, 1.0): zeros in, zeros out",
+                       lambda: torch.mul(zero, 1.0, out=o))):
+        say(f"    {label}: {device_ms([fn]) * 1e3:.2f} us by graph replay")
+
+    say("  causes, tested on K-a f32 at 2401x3201 (torch.profiler, eager)")
+    ka = ours
+    x, y, o = f32(), f32(), torch.empty(g1, g2, device="cuda")
+    big = torch.ones(3 * g1 * g2, device="cuda")
+    z = f32()
+    w_in = torch.empty(g1, g2, device="cuda")
+    a0, b0 = sets[0][1], sets[0][2]
+    cases = (
+        ("alone, 3 rotated sets", [[f] for f in ka_calls]),
+        ("after torch.add writing 31 MB", [
+            [lambda: torch.add(x, y, out=o), f] for f in ka_calls]),
+        ("after torch.sum reading 92 MB", [
+            [lambda: big.sum(), f] for f in ka_calls]),
+        ("on an input torch.add has just written (the loop's order)", [[
+            lambda: torch.add(z, x, alpha=0.7, out=w_in),
+            lambda: hk.apply_a_kernel(w_in, a0, b0, h1, h2)]]),
+    )
+    for label, calls in cases:
+        with ClockSampler() as clocks:
+            us = _profiled_us(calls, 60, ka)
+            sustained(lambda: [fn() for fn in calls[0]])
+        say(f"    K-a {label}: {us}; {clocks.text}")
+    with ClockSampler() as clocks:
+        sustained(lambda: device_ms(ka_calls, n=48, replays=3), 2.0)
+    say(f"    K-a by graph replay: {replay['K-a f32'] * 1e3:.2f} us; "
+        f"{clocks.text}")
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1], max_iter=PROFILE_CAP)
+    solver, args, _ = build_solver(problem, "pallas", torch.float32, "cuda")
+    solver(*args)
+    with ClockSampler() as clocks:
+        sustained(lambda: solver(*args), 2.0)
+    say(f"    the pallas f32 loop capped at {PROFILE_CAP}: {clocks.text}")
+    solver, args, _ = build_solver(problem, "pallas", torch.float32, "cuda",
+                                   storage_dtype="bf16")
+    iters = int(solver(*args).iters)
+    t = time_solver(solver, args, 3)
+    say(f"  pallas bf16 storage {MAIN_GRID[0]}x{MAIN_GRID[1]} capped at "
+        f"{PROFILE_CAP}: {iters} iterations, {t * 1e6 / iters:.2f} us an "
+        "iteration (median of 3)")
+
+
+def xl_form_times(cap) -> list:
+    """xl at 2400x3200 in its four forms, capped at XL_TIME_CAP (delta =
+    0), in turns (f32, the others, the others again, f32): us an
+    iteration; then T_solver of the uncapped f32 xl and fused solves in
+    turns (xl, fused, fused, xl), medians of 3 each."""
+    from poisson_ellipse_tpu_torch.harness.roofline import passes_per_iter
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1], max_iter=XL_TIME_CAP,
+                      delta=0.0)
+    nodes = (MAIN_GRID[0] + 1) * (MAIN_GRID[1] + 1)
+    forms = (("f32", torch.float32, None), ("bf16", BF16, None),
+             ("f32_bf16", torch.float32, "bf16"),
+             ("f32_f16", torch.float32, "f16"))
+    built = {f: _timed_form("xl", problem, dt, st) for f, dt, st in forms}
+    times = {f: [] for f in built}
+    for f in list(built) + list(built)[::-1]:
+        solver, args, _ = built[f]
+        times[f].append(time_solver(solver, args, 1))
+    rows = []
+    for f, dt, st in forms:
+        iters = built[f][2]
+        ms = statistics.median(times[f]) * 1e3
+        say(f"  xl {f} {MAIN_GRID[0]}x{MAIN_GRID[1]} capped at {XL_TIME_CAP}:"
+            f" {iters} iterations, {ms * 1e3 / iters:.2f} us/iter "
+            f"({', '.join(f'{t * 1e6 / iters:.2f}' for t in times[f])})")
+        item = dt.itemsize
+        per_node = (passes_per_iter("xl", problem) * item
+                    if st is None and dt == torch.float32 else None)
+        rows.append(dict(name=ws_counter("xl", f), label=f"xl {f}",
+                         route="cuda",
+                         source="poisson_ellipse_tpu_torch/csrc/xl_pcg.cu",
+                         replaces=WHOLE_REPLACES["xl"], ms=ms,
+                         us_per_iter=ms * 1e3 / iters, iters=iters,
+                         plain_ms=None, bound_ms=None, bound_by=None,
+                         library_ms=None,
+                         bound_us_per_iter=(per_node * nodes / PEAK_BYTES_PER_S
+                                            * 1e6 if per_node else None)))
+    full = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+    runs = {e: build_solver(full, e, torch.float32, "cuda")[:2]
+            for e in ("xl", "fused")}
+    iters = {e: int(s(*a).iters) for e, (s, a) in runs.items()}
+    t_solver = {e: [] for e in runs}
+    for e in ("xl", "fused", "fused", "xl"):
+        t_solver[e].append(time_solver(*runs[e], 3))
+    for e, ts in t_solver.items():
+        say(f"  T_solver {MAIN_GRID[0]}x{MAIN_GRID[1]} {e}: "
+            f"{', '.join(f'{t:.5f}' for t in ts)} s, {iters[e]} iterations,"
+            f" {min(ts) * 1e6 / iters[e]:.2f} us/iter at the faster")
+    return rows
+
+
+def variant_sweep(cap, seed: int) -> None:
+    """The march variants a tree's kernels carry (``pe_xl_pcg_variant``,
+    ``pe_stencil_march_variant``), timed in turns: xl f32 at 2400x3200
+    capped at XL_TIME_CAP (us an iteration, and the phase split), K-g
+    (w, a and b bf16; w f32) pad 1 at 2401x3201 by device time, each
+    checked bitwise against its plain version. Variant 0 is left set."""
+    import ctypes
+
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import _build
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+
+    def setter(library, symbol):
+        try:
+            lib = _build.load(library, {symbol: (ctypes.c_int,
+                                                 [ctypes.c_int])})
+        except AttributeError:
+            return None
+        return getattr(lib, symbol)
+
+    set_xl = setter("xl_pcg", "pe_xl_pcg_variant")
+    if set_xl is not None:
+        n = set_xl(0)
+        problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1],
+                          max_iter=XL_TIME_CAP, delta=0.0)
+        times = {v: [] for v in range(n)}
+        built = {}
+        for v in list(range(n)) + list(range(n))[::-1]:
+            set_xl(v)
+            if v not in built:
+                built[v] = _timed_form("xl", problem, torch.float32, None)
+            solver, args, iters = built[v]
+            times[v].append(time_solver(solver, args, 1) * 1e6 / iters)
+        from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
+
+        want = xp.xl_plain(problem, *built[0][1])[0]
+        for v in range(n):
+            set_xl(v)
+            say(f"  xl f32 variant {v}: {statistics.median(times[v]):.2f} "
+                f"us/iter ({', '.join(f'{t:.2f}' for t in times[v])}), "
+                f"{built[v][2]} iterations")
+            close_solves(f"xl f32 variant {v}", built[v][0](*built[v][1]),
+                         want)
+            xl_phase_split(cap)
+        set_xl(0)
+    set_kg = setter("stencil", "pe_stencil_march_variant")
+    if set_kg is not None:
+        n = set_kg(0)
+        g1, g2 = MAIN_GRID[0] + 1, MAIN_GRID[1] + 1
+        h1, h2 = 2.0 / MAIN_GRID[0], 1.2 / MAIN_GRID[1]
+        rng = np.random.default_rng(seed)
+        base = [tuple(torch.from_numpy(x.astype(np.float32)).to("cuda")
+                      for x in (rng.standard_normal((g1, g2)),
+                                rng.random((g1, g2)) + 0.5,
+                                rng.random((g1, g2)) + 0.5))
+                for _ in range(QUEUE_SETS)]
+        for w_st in ("bf16", "f32"):
+            sets = [(w if w_st == "f32" else w.to(torch.bfloat16),
+                     a.to(torch.bfloat16), b.to(torch.bfloat16))
+                    for w, a, b in base]
+            want = hk.apply_a_mixed_plain(*sets[0], h1, h2)
+            got = {v: [] for v in range(n)}
+            for v in list(range(n)) + list(range(n))[::-1]:
+                set_kg(v)
+                require(same_bits(hk.apply_a_mixed_kernel(*sets[0], h1, h2),
+                                  want), f"K-g variant {v} is not bitwise")
+                got[v].append(device_ms(
+                    [lambda s=s: hk.apply_a_mixed_kernel(*s, h1, h2)
+                     for s in sets]) * 1e3)
+            for v in range(n):
+                say(f"  K-g march variant {v}, w {w_st}, a/b bf16, pad 1: "
+                    f"{statistics.median(got[v]):.2f} us device "
+                    f"({', '.join(f'{t:.2f}' for t in got[v])})")
+        set_kg(0)
+
+
+def ws_counter(kernel: str, form: str) -> str:
+    """The launch counter of ``kernel``'s ``form`` (ops.whole_solve)."""
+    return kernel if form == "f32" else f"{kernel}_{form}"
+
+
+def phase_xl_timing(seed: int, card: str) -> list:
+    """``--only xl-timing``: xl's four forms a body and T_solver beside
+    fused; xl's body by phase and its block imbalance; one grid barrier's
+    latency; K-g's four forms, both pads, three ways with the stencil
+    library's SASS; K-a, K-g and K-d in their loops beside their graph
+    replay. Runs on an older tree's kernels too (what that tree lacks is
+    printed as not measured)."""
+    from poisson_ellipse_tpu_torch.utils.device import capacity
+
+    cap = capacity(0)
+    say(f"== xl, the grid barrier, K-g and in-loop times on {card}")
+    rows = xl_form_times(cap)
+    xl_phase_split(cap)
+    xl_sass()
+    variant_sweep(cap, seed)
+    barrier_latency(cap)
+    rows += kg_rows(seed)
+    in_loop_times(seed)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
-        "--only", choices=("stage4", "stage4-timing", "stencil-dots-timing"),
+        "--only", choices=("stage4", "stage4-timing", "stencil-dots-timing",
+                           "xl-timing"),
         help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
-             "loop and timing (stage4), its timing alone (stage4-timing), or "
+             "loop and timing (stage4), its timing alone (stage4-timing), "
              "rule 2's queue by device time, the K-d family's SASS and the "
-             "loops that launch K-d and K-h (stencil-dots-timing); the two "
-             "timings also run on an older tree's kernels; prints the "
-             "kernels' record and no result line")
+             "loops that launch K-d and K-h (stencil-dots-timing), or xl's "
+             "forms and body by phase, the grid barrier, K-g's forms and "
+             "the in-loop times (xl-timing); the timings also run on an "
+             "older tree's kernels; prints the kernels' record and no "
+             "result line")
     ap.add_argument("--sass-dir", help="with --only stencil-dots-timing, "
                     "write the SASS listings of the K-d and K-a libraries "
                     "to this directory")
@@ -3505,6 +4101,8 @@ def main(argv=None) -> int:
     phase_build()
     if args.only == "stencil-dots-timing":
         timed = phase_queue_timing(args.seed, card, args.sass_dir)
+    elif args.only == "xl-timing":
+        timed = phase_xl_timing(args.seed, card)
     elif args.only:
         if args.only == "stage4":
             phase_stage4_kernels(args.seed)

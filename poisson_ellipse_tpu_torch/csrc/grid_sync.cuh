@@ -133,6 +133,75 @@ __device__ __forceinline__ void grid_reduce2(double v0, double v1,
   *s1 = static_cast<float>(grid_sum(partials1, gridDim.x, scratch));
 }
 
+// kSums sums at once, for the xl kernel: the block's sums of v[k] in a
+// fixed order (a shuffle tree in each warp, then warp 0 over the warp
+// sums), each stored as this block's partials[k], one barrier, and then
+// the grid's sums of all partials, added by every thread of every block
+// (thread t adds partials t, t + blockDim.x, ... in order, then the same
+// block tree), each rounded once to float, in every block. grid_sum's
+// one warp adds the partials of a 528-block grid in 17 dependent loads a
+// lane; here each thread has at most a few. ``scratch`` holds
+// kWideDoubles doubles of shared memory.
+constexpr int kWideDoubles = 2 * 33;
+
+template <int kSums>
+__device__ __forceinline__ void block_sums(double (&v)[kSums],
+                                           double* scratch) {
+  static_assert(kSums <= 2, "scratch holds two sums");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) {
+    for (int o = 16; o > 0; o >>= 1) {
+      v[k] += __shfl_down_sync(0xffffffffu, v[k], o);
+    }
+  }
+  __syncthreads();  // the previous call's readers are done with scratch
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) scratch[33 * k + warp] = v[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) {
+      double s = lane < nwarps ? scratch[33 * k + lane] : 0.0;
+      for (int o = 16; o > 0; o >>= 1) {
+        s += __shfl_down_sync(0xffffffffu, s, o);
+      }
+      if (lane == 0) scratch[33 * k + 32] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) v[k] = scratch[33 * k + 32];
+}
+
+template <int kSums>
+__device__ __forceinline__ void grid_reduce_wide(double (&v)[kSums],
+                                                 double* const (&partials)[kSums],
+                                                 double* scratch,
+                                                 float (&out)[kSums]) {
+  block_sums<kSums>(v, scratch);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) partials[k][blockIdx.x] = v[k];
+  }
+  grid_barrier();
+  double s[kSums];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) s[k] = 0.0;
+  for (int q = threadIdx.x; q < static_cast<int>(gridDim.x);
+       q += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) s[k] += __ldcg(partials[k] + q);
+  }
+  block_sums<kSums>(s, scratch);
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) out[k] = static_cast<float>(s[k]);
+}
+
 // The span halo of the resident and streamed kernels. A block owns the
 // nodes [s, s + len) of the row-major grid; its stencil needs pn one row
 // (g2 nodes) beyond either end, owned by blocks whose pn is computed in

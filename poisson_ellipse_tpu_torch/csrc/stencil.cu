@@ -79,6 +79,7 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 #include "stencil_tree.cuh"
 #include "storage.cuh"
@@ -115,6 +116,166 @@ __global__ void stencil_kernel(const TW* __restrict__ w,
                        up(b[c]), up(b[c + 1]), h1, h2);
   }
   out[(int64_t)oi * on + oj] = down<TO>(val);
+}
+
+// K-g's march: K-d's (stencil_dots.cu) with no pair and no sum. A lane
+// owns a column, a warp marches kMarchRows rows down it, kMarchWarps warps
+// stacked down the rows a block. Face fluxes once (stencil_tree.cuh): w and
+// a's row below and b's own row loaded once, the north flux carried down,
+// the west flux from w one lane west (a shuffle), the east flux the next
+// lane's west flux; the values the edge lanes lack formed once a tile,
+// lane k for row k. kMarchAhead rows of loads in flight. All-node tiles
+// take an unmasked march. 4 divisions a node where the one-thread-a-node
+// form takes 6.
+constexpr unsigned kFull = 0xffffffffu;
+// the march's variants (rows a warp, rows of loads in flight, blocks an SM
+// the registers are sized for), picked at run time by
+// pe_stencil_march_variant
+constexpr int kMarchVariants = 6;
+constexpr int kRowsOf[kMarchVariants] = {16, 16, 8, 32, 16, 16};
+constexpr int kAheadOf[kMarchVariants] = {2, 2, 2, 2, 4, 2};
+constexpr int kWarpsOf[kMarchVariants] = {4, 8, 4, 4, 4, 2};
+constexpr int kMinBlocksOf[kMarchVariants] = {8, 4, 8, 8, 8, 16};
+// warps side by side (a block 32 * kWarps columns wide) rather than
+// stacked; divisions through div_pos (zero dividends skip the slow path)
+constexpr bool kWideOf[kMarchVariants] = {true, true, true, true, true,
+                                          true};
+constexpr bool kGuardOf[kMarchVariants] = {true, true, true, true, true,
+                                           true};
+int g_march_variant = 0;
+
+template <typename TW, typename TC, int kVar>
+__global__ void __launch_bounds__(32 * kWarpsOf[kVar], kMinBlocksOf[kVar])
+march_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
+             const TC* __restrict__ b, float* __restrict__ out, int bm,
+             int bn, int pad, float h1, float h2) {
+  constexpr int kMarchRows = kRowsOf[kVar];
+  constexpr int kMarchWarps = kWarpsOf[kVar];
+  constexpr bool kGuard = kGuardOf[kVar];
+  const auto flux = [](float coef, float hi, float lo, float h) {
+    return kGuard ? face_flux_nz(coef, hi, lo, h)
+                  : face_flux(coef, hi, lo, h);
+  };
+  constexpr int kMarchAhead = kAheadOf[kVar];
+  const int lane = threadIdx.x;
+  const int on = bn + 2 * pad;
+  const int om = bm + 2 * pad;
+  const int ld = bn + 2;
+  constexpr bool kWide = kWideOf[kVar];
+  const int oj = (kWide ? blockIdx.x * kMarchWarps + threadIdx.y
+                        : blockIdx.x) * 32 + lane;
+  const int c = oj + 1 - pad;
+  const int c0 = c - lane;
+  const bool col_in = c <= bn + 1;
+  const bool col_node = c >= 1 && c <= bn;
+  const bool col_out = oj < on;
+  const int oi0 = (kWide ? blockIdx.y
+                         : blockIdx.y * kMarchWarps + threadIdx.y) *
+                  kMarchRows;
+  const int r0 = oi0 + 1 - pad;
+  if (oi0 >= om || oj - lane >= on) return;  // warp-uniform
+  float edge_w = 0.f, edge_f = 0.f;
+  {
+    const int r = r0 + lane;
+    const int ce = c0 + 32;
+    if (lane < kMarchRows && r <= bm + 1) {
+      const int row = r * ld;
+      if (c0 >= 1) edge_w = up(__ldg(w + row + c0 - 1));
+      if (ce <= bn + 1) {
+        edge_f = flux(up(__ldg(b + row + ce)), up(__ldg(w + row + ce)),
+                      up(__ldg(w + row + ce - 1)), h2);
+      }
+    }
+  }
+  int rc = r0 * ld + c;
+  float wc = 0.f, f_n = 0.f;
+  if (col_in) {
+    wc = up(__ldg(w + rc));
+    if (r0 >= 1) f_n = flux(up(__ldg(a + rc)), wc, up(__ldg(w + rc - ld)), h1);
+  }
+  struct Row {
+    float w_s, a_s, b_c;
+  };
+  auto march = [&](auto interior) {
+    constexpr bool kIn = decltype(interior)::value;
+    auto load = [&](int r, int at, Row& row) {
+      const bool in = kIn || (col_in && r <= bm + 1);
+      const bool down_in = kIn || (col_in && r + 1 <= bm + 1);
+      row.w_s = down_in ? up(__ldg(w + at + ld)) : 0.f;
+      row.a_s = down_in ? up(__ldg(a + at + ld)) : 0.f;
+      row.b_c = in ? up(__ldg(b + at)) : 0.f;
+    };
+    Row ring[kMarchAhead];
+#pragma unroll
+    for (int k = 0; k < kMarchAhead; ++k) {
+      ring[k] = Row{};
+      if (kIn || oi0 + k < om) load(r0 + k, rc + k * ld, ring[k]);
+    }
+#pragma unroll
+    for (int t = 0; t < kMarchRows; ++t) {
+      const int oi = oi0 + t;
+      if (!kIn && oi >= om) break;
+      const int r = r0 + t;
+      const Row cur = ring[t % kMarchAhead];
+      if (t + kMarchAhead < kMarchRows && (kIn || oi + kMarchAhead < om)) {
+        load(r + kMarchAhead, rc + kMarchAhead * ld, ring[t % kMarchAhead]);
+      }
+      const float f_s = flux(cur.a_s, cur.w_s, wc, h1);
+      float w_w = __shfl_up_sync(kFull, wc, 1);
+      const float e_w = __shfl_sync(kFull, edge_w, t);
+      if (lane == 0) w_w = e_w;
+      const float f_w = flux(cur.b_c, wc, w_w, h2);
+      float f_e = __shfl_down_sync(kFull, f_w, 1);
+      const float e_f = __shfl_sync(kFull, edge_f, t);
+      if (lane == 31) f_e = e_f;
+      float val = 0.f;
+      if (kIn || (col_node && r >= 1 && r <= bm)) {
+        val = kGuard ? stencil_of_fluxes_nz(f_s, f_n, f_e, f_w, h1, h2)
+                     : stencil_of_fluxes(f_s, f_n, f_e, f_w, h1, h2);
+      }
+      if (kIn || col_out) {
+        asm volatile("st.global.cs.f32 [%0], %1;" ::"l"(out + oi * on + oj),
+                     "f"(val));
+      }
+      f_n = f_s;
+      wc = cur.w_s;
+      rc += ld;
+    }
+  };
+  if (c0 >= 1 && c0 + 31 <= bn && r0 >= 1 && r0 + kMarchRows - 1 <= bm) {
+    march(std::true_type{});
+  } else {
+    march(std::false_type{});
+  }
+}
+
+template <typename TW, typename TC, int kVar>
+void launch_march_variant(const TW* w, const TC* a, const TC* b, float* out,
+                          int bm, int bn, int pad, float h1, float h2,
+                          void* stream) {
+  const int on = bn + 2 * pad;
+  const int om = bm + 2 * pad;
+  constexpr int kMarchWarps = kWarpsOf[kVar];
+  const int tile = kRowsOf[kVar] * (kWideOf[kVar] ? 1 : kMarchWarps);
+  const int span = 32 * (kWideOf[kVar] ? kMarchWarps : 1);
+  dim3 grid((on + span - 1) / span, (om + tile - 1) / tile);
+  march_kernel<TW, TC, kVar><<<grid, dim3(32, kMarchWarps), 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      w, a, b, out, bm, bn, pad, h1, h2);
+}
+
+template <typename TW, typename TC>
+int launch_march(const TW* w, const TC* a, const TC* b, float* out, int bm,
+                 int bn, int pad, float h1, float h2, void* stream) {
+  switch (g_march_variant) {
+    case 1: launch_march_variant<TW, TC, 1>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
+    case 2: launch_march_variant<TW, TC, 2>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
+    case 3: launch_march_variant<TW, TC, 3>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
+    case 4: launch_march_variant<TW, TC, 4>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
+    case 5: launch_march_variant<TW, TC, 5>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
+    default: launch_march_variant<TW, TC, 0>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TW, typename TC, typename TO>
@@ -178,6 +339,41 @@ int pe_stencil_mixed_f32_f16(const float* w, const __half* a,
                              const __half* b, float* out, int bm, int bn,
                              int pad, float h1, float h2, void* stream) {
   return launch(w, a, b, out, 1, bm, bn, pad, h1, h2, stream);
+}
+
+// The march's variant for later launches (0 to kMarchVariants - 1);
+// returns kMarchVariants.
+int pe_stencil_march_variant(int variant) {
+  g_march_variant = variant;
+  return kMarchVariants;
+}
+
+// K-g through the march (march_kernel): pe_stencil_mixed_*'s arguments.
+int pe_stencil_march_bf16_bf16(const __nv_bfloat16* w,
+                               const __nv_bfloat16* a,
+                               const __nv_bfloat16* b, float* out, int bm,
+                               int bn, int pad, float h1, float h2,
+                               void* stream) {
+  return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);
+}
+
+int pe_stencil_march_f32_bf16(const float* w, const __nv_bfloat16* a,
+                              const __nv_bfloat16* b, float* out, int bm,
+                              int bn, int pad, float h1, float h2,
+                              void* stream) {
+  return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);
+}
+
+int pe_stencil_march_f16_f16(const __half* w, const __half* a,
+                             const __half* b, float* out, int bm, int bn,
+                             int pad, float h1, float h2, void* stream) {
+  return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);
+}
+
+int pe_stencil_march_f32_f16(const float* w, const __half* a,
+                             const __half* b, float* out, int bm, int bn,
+                             int pad, float h1, float h2, void* stream) {
+  return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);
 }
 
 // The bf16 form: w, a, b (bm+2, bn+2) and out (bm+2*pad, bn+2*pad) bf16;

@@ -38,6 +38,34 @@ __device__ __forceinline__ float stencil_of_fluxes(float f_s, float f_n,
   return ax + ay;
 }
 
+// x / h for h > 0, bitwise IEEE division: a zero x is its own quotient
+// (+0 or -0), and only a nonzero x is divided. A zero dividend takes the
+// division's slow path (FCHK), so a grid whose fluxes are mostly zero (the
+// solver's state outside the ellipse) ran K-a at 90 us against 65 on
+// seeded values on the H100 (PERF.md, section 7).
+__device__ __forceinline__ float div_pos(float x, float h) {
+  // the division as PTX, so the compiler cannot fold the select into it
+  // and divide x itself
+  float q;
+  asm("div.rn.f32 %0, %1, %2;" : "=f"(q) : "f"(x == 0.0f ? 1.0f : x),
+      "f"(h));
+  return x == 0.0f ? x : q;
+}
+
+// face_flux and stencil_of_fluxes with div_pos: the same bits.
+__device__ __forceinline__ float face_flux_nz(float coef, float hi, float lo,
+                                              float h) {
+  return div_pos(coef * (hi - lo), h);
+}
+
+__device__ __forceinline__ float stencil_of_fluxes_nz(float f_s, float f_n,
+                                                      float f_e, float f_w,
+                                                      float h1, float h2) {
+  const float ax = div_pos(-(f_s - f_n), h1);
+  const float ay = div_pos(-(f_e - f_w), h2);
+  return ax + ay;
+}
+
 __device__ __forceinline__ float stencil_tree(float wc, float w_n, float w_s,
                                               float w_w, float w_e, float a_c,
                                               float a_s, float b_c, float b_e,

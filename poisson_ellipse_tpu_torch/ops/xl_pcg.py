@@ -2,9 +2,10 @@
 
 The counterpart of ``poisson_ellipse_tpu.ops.xl_pcg``, the engine for
 grids whose state does not fit on chip. The kernel (``csrc/xl_pcg.cu``) is
-persistent: a cooperative grid of as many blocks as the card holds at once
-(``cap.max_co_resident``), each walking 32×32 tiles, with the two scalar
-sync points of an iteration as grid barriers.
+persistent: a cooperative grid of at most as many blocks as the card holds
+at once (``cap.max_co_resident``), each warp marching down a strip of 32
+columns over a segment of rows, with the two scalar sync points of an
+iteration as grid barriers.
 
 The iteration is the JAX kernel's (``xl_pcg.py:237-400`` there):
 
@@ -16,17 +17,17 @@ The iteration is the JAX kernel's (``xl_pcg.py:237-400`` there):
   and the count reported is bodies − 1 when converged, else the body
   count capped at max_iter.
 
-``XLPlan`` is the tiling: the TPU's (tm, 128)-row tiles become 32×32
-tiles of a Hopper block, and its ``passes_per_iter`` model (``12 + 8/tm``
-there, the a-operand's 8-row halo window) becomes 12 passes plus the GPU
-tile's halo rereads.
+``XLPlan`` is the work split: the TPU's (tm, 128)-row tiles become units
+of a 32-column strip and a segment of rows, a unit a warp, and its
+``passes_per_iter`` model (``12 + 8/tm`` there, the a-operand's 8-row
+halo window) becomes 12 passes plus the march's halo rereads.
 
 The forms (``ws.FORMS``): f32 or bf16 compute, and f32 compute with dinv,
 an and bw streamed at a narrow storage dtype
 (``build_xl_solver(storage_dtype=)``, the JAX ``tile_of`` upcast,
 ``:162-169``), rounded once from their f32 form at build time
 (``:436-440``); the state scratch stays at the compute width. Of the pass
-model's 12.32 passes ``OPERAND_PASSES`` are operand reads: the share a
+model's 12.31 passes ``OPERAND_PASSES`` are operand reads: the share a
 narrow stream halves.
 """
 
@@ -48,31 +49,64 @@ from poisson_ellipse_tpu_torch.utils.device import (
 LIBRARY = "xl_pcg"
 KERNEL = "xl"
 
-# csrc/xl_pcg.cu: the square tile a block computes per step
-TILE = 32
+# csrc/xl_pcg.cu: threads (8 warps) a block, the columns a warp's strip
+# spans (a lane a column), and the fewest rows a unit is cut to
+THREADS = 256
+WARPS = THREADS // 32
+STRIP = 32
+MIN_ROWS = 8
 
 # Modelled device-memory array passes per iteration. Stencil phase: z, p,
 # w, an, bw read and w, p, ap written (8); update phase: z, dinv, ap read
-# and z written (4). Plus the tile halo: z and p over a (T+2)² window for a
-# T² tile, an one row on, bw one column on.
-PASSES_PER_ITER = 12.0 + 2.0 * ((TILE + 2) ** 2 - TILE**2) / TILE**2 + 2.0 / TILE
-# of which operand reads: an and bw in the stencil phase (each with its
-# one-row / one-column halo), dinv in the update phase
-OPERAND_PASSES = 3.0 + 2.0 / TILE
+# and z written (4). Plus the march's halo, at a nominal UNIT_ROWS rows a
+# unit: z and p one row above and one below a unit, an one below; z and
+# p one column west and one east of a strip, bw one east.
+UNIT_ROWS = 32
+PASSES_PER_ITER = 12.0 + 5.0 / UNIT_ROWS + 5.0 / STRIP
+# of which operand reads: an and bw in the stencil phase (an with its row
+# below a unit, bw with its column east of a strip), dinv in the update
+# phase
+OPERAND_PASSES = 3.0 + 1.0 / UNIT_ROWS + 1.0 / STRIP
 
 
 class XLPlan:
-    """The tiling of the xl solve (no residency choices: all streams)."""
+    """The work split of the xl solve (no residency choices: all streams).
+
+    A unit is a strip of STRIP columns and a segment of rows; the g1 rows
+    are cut into ``segs`` segments whose sizes differ by at most one, and
+    a warp takes a unit, the warps of a segment marching every strip over
+    the same rows. ``split(co_resident)`` sizes ``segs`` from the shape
+    and the blocks the card holds at once so that every warp has one unit
+    (of at least MIN_ROWS rows where the grid allows), and the grid to
+    those units: every block ends the stencil phase after the same rows,
+    within one."""
 
     def __init__(self, problem: Problem):
-        g1, g2 = problem.node_shape
-        self.tiles = -(-g1 // TILE) * -(-g2 // TILE)
+        self.g1, self.g2 = problem.node_shape
+        self.strips = -(-self.g2 // STRIP)
+
+    def split(self, co_resident: int) -> tuple[int, int]:
+        """(segs, nblocks) for a card that holds ``co_resident`` blocks of
+        the kernel at once."""
+        warps = WARPS * max(1, co_resident)
+        segs = max(1, min(-(-self.g1 // MIN_ROWS), warps // self.strips))
+        nblocks = min(max(1, co_resident),
+                      -(-self.strips * segs // WARPS))
+        return segs, nblocks
+
+    def rows(self, segs: int) -> list[int]:
+        """Each segment's rows, as the kernel cuts them."""
+        return [(k + 1) * self.g1 // segs - k * self.g1 // segs
+                for k in range(segs)]
+
+    def launch_shape(self, cap: DeviceCapacity,
+                     form: str = "f32") -> tuple[int, int]:
+        """(segs, nblocks) on ``cap`` for ``form``'s kernel."""
+        return self.split(cap.max_co_resident(LIBRARY, 0, form))
 
     def nblocks(self, cap: DeviceCapacity, form: str = "f32") -> int:
-        """The cooperative grid: every block of ``form``'s kernel the card
-        holds at once, and no more blocks than tiles."""
-        return max(1, min(self.tiles,
-                          cap.max_co_resident(LIBRARY, 0, form)))
+        """The cooperative grid of ``form``'s kernel on ``cap``."""
+        return self.launch_shape(cap, form)[1]
 
 
 def xl_plain(problem: Problem, dinv, an, bw, r0) -> tuple[PCGResult, int]:
@@ -130,17 +164,33 @@ def xl_plain(problem: Problem, dinv, an, bw, r0) -> tuple[PCGResult, int]:
     return ws.plain_result(w, iters, carry, ct), reads
 
 
-_SIGNATURE = [ws.PTR] * 12 + [ws.INT] * 4 + [ws.FLOAT, ws.FLOAT, ws.INT,
+_SIGNATURE = [ws.PTR] * 12 + [ws.INT] * 5 + [ws.FLOAT, ws.FLOAT, ws.INT,
                                              ws.PTR]
 
 
+# the timing instantiation's stamps a body besides one a block
+# (csrc/xl_pcg.cu kStampsPerBody)
+STAMPS_PER_BODY = 5
+
+
+def stamps_buffer(problem: Problem, nblocks: int, device) -> torch.Tensor:
+    """The zeroed stamps of one timed launch (``xl(stamps=)``): a row a
+    body, STAMPS_PER_BODY of block 0 and one a block."""
+    return torch.zeros((problem.max_iterations + 1,
+                        STAMPS_PER_BODY + nblocks), dtype=torch.int64,
+                       device=device)
+
+
 def xl(problem: Problem, dinv, an, bw, r0,
-       cap: DeviceCapacity | None = None) -> tuple[PCGResult, int]:
+       cap: DeviceCapacity | None = None,
+       stamps: torch.Tensor | None = None) -> tuple[PCGResult, int]:
     """The whole solve: the kernel for CUDA tensors (its form at r0's dtype
     with the operands at dinv's), its plain version for CPU tensors.
     Returns (result, host reads). ``cap`` is the card's capacity (read
     from the device when None); the grid is every block of the form's
-    kernel it holds at once."""
+    kernel it holds at once. ``stamps`` (``stamps_buffer``, f32 only)
+    runs the timing instantiation instead, counted as ``xl_stamps``: each
+    body's phase boundaries on the device clock, in ns."""
     if r0.device.type == "cpu":
         return xl_plain(problem, dinv, an, bw, r0)
     form = ws.form_of(r0.dtype, dinv.dtype)
@@ -149,21 +199,30 @@ def xl(problem: Problem, dinv, an, bw, r0,
                       dict(dinv=dinv.dtype, an=dinv.dtype, bw=dinv.dtype,
                            r0=r0.dtype))
     cap = cap if cap is not None else device_capacity(r0.device)
-    nblocks = XLPlan(problem).nblocks(cap, form)
+    segs, nblocks = XLPlan(problem).launch_shape(cap, form)
     g1, g2 = problem.node_shape
     w, z = torch.empty_like(r0), torch.empty_like(r0)
     p0, p1, ap = (torch.empty_like(r0) for _ in range(3))
     status, diff, partials = ws.scratch(r0, nblocks)
-    ws.launch(
-        LIBRARY, ws.counter(KERNEL, form), f"pe_xl_pcg_{form}", _SIGNATURE,
+    args = (
         *(t.data_ptr() for t in (dinv, an, bw, r0, w, z, p0, p1, ap,
                                  partials, status, diff)),
-        g1, g2, nblocks, problem.max_iterations,
+        g1, g2, nblocks, segs, problem.max_iterations,
         ws.h1h2_rounded(problem, r0.dtype),
         ws.rounded(problem.delta, r0.dtype),
         int(problem.norm == "weighted"),
         torch.cuda.current_stream(r0.device).cuda_stream,
     )
+    if stamps is None:
+        ws.launch(LIBRARY, ws.counter(KERNEL, form), f"pe_xl_pcg_{form}",
+                  _SIGNATURE, *args)
+    else:
+        if form != "f32" or tuple(stamps.shape) != (
+                problem.max_iterations + 1, STAMPS_PER_BODY + nblocks):
+            raise ValueError(f"{KERNEL}: stamps are f32 only, "
+                             f"(max_iter + 1, {STAMPS_PER_BODY} + blocks)")
+        ws.launch(LIBRARY, f"{KERNEL}_stamps", "pe_xl_pcg_stamps_f32",
+                  _SIGNATURE + [ws.PTR], *args, stamps.data_ptr())
     return ws.launch_result(KERNEL, w, status, diff)
 
 

@@ -314,6 +314,44 @@ def test_whole_solve_kernel_converges_as_its_plain_version(cuda, name,
     assert torch.equal(again.w, got.w)
 
 
+# xl's march at its split's edges: a 1-column strip and rows = 1 mod 32
+# (65x65), strips of 31 columns and rows = 31 mod 32 (95x127), a grid of
+# 2 units (11x11, one block, 6 warps idle), and units of 7-8 rows over 9
+# strips, the last of 31 columns (31x287)
+XL_SHAPES = WHOLE_SHAPES + [(64, 64), (94, 126), (10, 10), (30, 286)]
+
+
+@pytest.mark.parametrize("form", ws.FORMS)
+@pytest.mark.parametrize("M,N", XL_SHAPES)
+def test_xl_forms_match_plain_at_the_split_edges(cuda, form, M, N):
+    """Every xl form against xl_plain on capped runs, one launch and one
+    host read each, at the shapes where the march's units are ragged."""
+    dtype = torch.bfloat16 if form == "bf16" else torch.float32
+    storage = form.split("_")[1] if form.startswith("f32_") else None
+    for max_iter in (1, 2, 7):
+        problem = Problem(M=M, N=N, max_iter=max_iter)
+        kernel, plain = _form("xl", problem, cuda, dtype, storage, None)
+        _build.reset_launches()
+        got, reads = kernel()
+        assert reads == 1 and _build.LAUNCHES == {ws.counter("xl", form): 1}
+        want, _ = plain()
+        assert got.w.dtype == dtype and int(got.iters) <= max_iter
+        _assert_form_close(got, want)
+
+
+@pytest.mark.parametrize("M,N", [(94, 126), (30, 286)])
+def test_xl_converges_as_its_plain_version_at_the_split_edges(cuda, M, N):
+    problem = Problem(M=M, N=N)
+    _, kernel, plain = _whole("xl", problem, cuda)
+    got, _ = kernel()
+    again, _ = kernel()
+    want, _ = plain()
+    assert bool(got.converged) and int(got.iters) == int(want.iters)
+    torch.testing.assert_close(got.w, want.w, rtol=0, atol=5e-6)
+    assert int(again.iters) == int(got.iters)
+    assert torch.equal(again.w, got.w)
+
+
 @pytest.mark.parametrize("name", ["resident", "streamed", "xl"])
 def test_too_large_cooperative_launch_raises(cuda, name):
     """A capacity that claims 100 times the card's SMs makes each kernel's
@@ -680,7 +718,11 @@ def test_batched_chunked_equals_straight_on_the_card(cuda, mod, stencil):
 
 # -- the storage axis: K-g and K-h -------------------------------------------
 
-MIXED_SHAPES = [(44, 132), (400, 600), (800, 1200), (2400, 3200)]
+# and K-g's march edges: one 128-row tile of 16-row warps and a 1-column
+# strip past 32 (129x33), a ragged tile and strip (130x97), the smallest
+# block (3x3)
+MIXED_SHAPES = [(44, 132), (400, 600), (800, 1200), (2400, 3200),
+                (128, 32), (129, 96), (2, 2)]
 NARROW = {"bf16": torch.bfloat16, "f16": torch.float16}
 
 
@@ -690,8 +732,11 @@ def _narrow(g, dev, seed, st, lo=None):
     return x if st == "f32" else x.to(NARROW[st])
 
 
-@pytest.mark.parametrize("w_st,ab_st", [("bf16", "bf16"), ("f32", "bf16"),
-                                        ("f16", "f16"), ("f32", "f16")])
+MIXED_FORMS = [("bf16", "bf16"), ("f32", "bf16"), ("f16", "f16"),
+               ("f32", "f16")]
+
+
+@pytest.mark.parametrize("w_st,ab_st", MIXED_FORMS)
 @pytest.mark.parametrize("M,N", MIXED_SHAPES)
 def test_mixed_stencil_kernel_is_k_a_on_upcast_inputs(cuda, M, N, w_st,
                                                       ab_st):
@@ -708,6 +753,13 @@ def test_mixed_stencil_kernel_is_k_a_on_upcast_inputs(cuda, M, N, w_st,
     assert torch.equal(block, hk.apply_a_mixed_block_plain(w, a, b, h1, h2))
     up = [x.float().contiguous() for x in (w, a, b)]
     assert torch.equal(got, hk.apply_a_kernel(*up, h1, h2))
+
+
+@pytest.mark.parametrize("pad", [1, 0])
+@pytest.mark.parametrize("w_st,ab_st", MIXED_FORMS)
+def test_mixed_stencil_issues_one_device_kernel(cuda, activities, w_st,
+                                                ab_st, pad):
+    assert activities[f"K-g {w_st} {ab_st} pad {pad}"] == 1
 
 
 @pytest.mark.parametrize("st", ["bf16", "f16"])
@@ -1165,6 +1217,13 @@ def _count_activities() -> dict:
     for form in DOTS_FORMS:
         call, _ = _dots_call(form, 400, 600, dev)
         counts[f"K-d {form}"] = device_activities(call)
+    for w_st, ab_st in MIXED_FORMS:
+        w = _narrow((401, 601), dev, 0, w_st)
+        a, b = (_narrow((401, 601), dev, s, ab_st, lo=0.5) for s in (1, 2))
+        for pad, fn in ((1, hk.apply_a_mixed_kernel),
+                        (0, hk.apply_a_mixed_block_kernel)):
+            counts[f"K-g {w_st} {ab_st} pad {pad}"] = device_activities(
+                lambda: fn(w, a, b, 0.005, 0.002))
     return counts
 
 

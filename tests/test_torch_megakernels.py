@@ -213,6 +213,59 @@ def test_gates_and_launch_shapes_agree():
     assert not sp.fits_streamed(Problem(M=1600, N=2400), torch.float32, H100)
 
 
+# (M, N, blocks the card holds at once, segs, nblocks): the main grid at
+# 3 and 4 blocks an SM of an H100 (a 1-column strip: g2 = 3201 = 100*32 +
+# 1), strips of 31 columns, a grid cut to MIN_ROWS rows a unit, one of
+# fewer units than a block has warps, and a card too small for a unit a
+# warp
+XL_SPLITS = [
+    (2400, 3200, 528, 41, 518),
+    (2400, 3200, 396, 31, 392),
+    (94, 126, 528, 12, 6),
+    (60, 90, 528, 8, 3),
+    (10, 10, 528, 2, 1),
+    (2400, 3200, 8, 1, 8),
+]
+
+
+@pytest.mark.parametrize("M,N,co_resident,segs,nblocks", XL_SPLITS)
+def test_xl_work_split(M, N, co_resident, segs, nblocks):
+    """The march's units (a 32-column strip and a segment of rows, a warp
+    each) from the shape and the blocks the card holds: every warp has
+    one unit where the card has warps enough, and the segments' rows
+    differ by at most one, so every block ends the stencil phase after
+    the same rows within one."""
+    plan = xp.XLPlan(Problem(M=M, N=N))
+    assert plan.strips == -(-(N + 1) // xp.STRIP)
+    assert plan.split(co_resident) == (segs, nblocks)
+    rows = plan.rows(segs)
+    assert sum(rows) == M + 1 and max(rows) - min(rows) <= 1
+    units = plan.strips * segs
+    warps = xp.WARPS * nblocks
+    assert nblocks <= co_resident
+    if units <= xp.WARPS * co_resident:
+        # one unit a warp, and no block without one
+        assert warps - xp.WARPS < units <= warps
+    # no more segments than MIN_ROWS-row ones
+    assert segs <= -(-(M + 1) // xp.MIN_ROWS)
+
+
+def test_xl_nblocks_follows_the_forms_occupancy(monkeypatch):
+    """XLPlan.launch_shape and nblocks split for the blocks ``form``'s own
+    kernel holds at once (the launch query's answer)."""
+    asked = []
+
+    def co_resident(self, library, smem, form="f32"):
+        asked.append((library, smem, form))
+        return {"f32": 528, "bf16": 396}[form]
+
+    monkeypatch.setattr(DeviceCapacity, "max_co_resident", co_resident)
+    plan = xp.XLPlan(Problem(M=2400, N=3200))
+    assert plan.launch_shape(H100) == (41, 518)
+    assert plan.nblocks(H100, "bf16") == 392
+    assert asked == [("xl_pcg", 0, "f32"), ("xl_pcg", 0, "bf16")]
+
+
 def test_hand_built_capacity_answers_no_launch_query():
     """A capacity built by hand describes a card for the gates only: the
     cooperative-launch attribute and the occupancy are the card's own."""
@@ -233,8 +286,11 @@ def test_explicit_engine_past_its_gate_raises():
 
 def test_pass_models():
     assert roofline.passes_per_iter("resident") == 0.0
+    # 12 passes and the march's halo: z and p a row above and below a
+    # 32-row unit and a column either side of a 32-column strip, an a row
+    # below, bw a column east
     assert roofline.passes_per_iter("xl") == pytest.approx(
-        12.0 + 2 * 132 / 1024 + 2 / 32)
+        12.0 + 5 / 32 + 5 / 32)
     big = Problem(M=1100, N=1650)
     assert roofline.passes_per_iter("streamed", big, H100) == 3.0
     # on the CPU every operand is resident
