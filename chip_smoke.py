@@ -211,7 +211,21 @@ with its device activities a call, its share of its bound and its loss on
 its path; the SASS instruction counts of the K-d and K-a libraries
 (`--sass-dir` writes the listings); and pipelined-pallas at 400x600 and
 2400x3200 f32 and with bf16 storage capped at 1024, us an iteration and
-launches a body. It too runs on an older tree's kernels. Each prints the
+launches a body. It too runs on an older tree's kernels. `--only
+xl-timing` runs phases 1-2 and then: xl at 2400x3200 in its four forms,
+capped at 256 bodies in turns, and T_solver of xl beside fused; xl's body
+split by phase on the device clock (the kernel's timing instantiation:
+stencil phase, first barrier with its sums, update phase, second barrier
+with its sum, and the spread of the blocks' stencil-phase ends by the
+blocks their SM holds) with xl's SASS; one grid barrier alone, with
+grid_reduce, grid_reduce2 and grid_reduce_wide, at xl's, resident's and
+streamed's grids; K-g's four type pairs at 2401x3201, pad 1 and pad 0,
+bitwise their plain versions and timed three ways, with the stencil
+library's SASS; K-a, K-g and K-d a launch inside pallas (f32, bf16
+storage) and pipelined-pallas capped at 256 beside their graph replay, on
+the loop's own data and on w = 0, the SM clock under each, and pallas with
+bf16 storage us an iteration. What an older tree lacks (the timing
+instantiation, the barrier kernel) prints as not measured. Each prints the
 kernels' record and no result line.
 
 The last three lines are nvidia-smi's card name and power limit, the
@@ -3628,10 +3642,6 @@ def xl_phase_split(cap) -> None:
         + ", ".join(str(b) for b in np.argsort(per_block)[-5:][::-1]))
 
 
-def xl_sass() -> None:
-    show_sass("xl_pcg", "xl_kernelIffLb0E")
-
-
 def barrier_latency(cap) -> None:
     """One grid barrier (``grid_sync.cuh``) alone, with one grid sum and
     with two, at xl's grid at 2401x3201 and resident's at 801x1201: a
@@ -3696,10 +3706,6 @@ def kg_rows(seed: int) -> list:
                             rng.random((g1, g2)) + 0.5))
             for _ in range(QUEUE_SETS)]
     width = {"f32": 4, "bf16": 2, "f16": 2}
-    # the tree's K-g routes, its own first (an older tree has one)
-    default = getattr(hk, "MIXED_ROUTE", None)
-    routes = [default] + [r for r in getattr(hk, "MIXED_ROUTES", {})
-                          if r != default]
     rows = []
     for w_st, ab_st in KG_FORMS:
         sets = [(w if w_st == "f32" else w.to(NARROW[w_st]),
@@ -3707,53 +3713,42 @@ def kg_rows(seed: int) -> list:
                 for w, a, b in base]
         for pad in (1, 0):
             full = pad == 1
+            kernel = hk.apply_a_mixed_kernel if full else \
+                hk.apply_a_mixed_block_kernel
             plain = hk.apply_a_mixed_plain if full else \
                 hk.apply_a_mixed_block_plain
             out_nodes = nodes if full else (g1 - 2) * (g2 - 2)
             main = (w_st, ab_st, pad) == KG_MAIN
-            want = plain(*sets[0], h1, h2)
-            for route in routes:
-                if route is None:
-                    kernel = (hk.apply_a_mixed_kernel if full
-                              else hk.apply_a_mixed_block_kernel)
-                else:
-                    def kernel(*x, route=route, pad=pad):
-                        return hk._launch_mixed(*x, pad=pad, route=route)
-                require(same_bits(kernel(*sets[0], h1, h2), want),
-                        f"K-g route {route} w {w_st} a/b {ab_st} pad {pad}"
-                        " is not bitwise its plain version")
-                timed_row(
-                    rows, "stencil_mixed" if main and route == default
-                    else None,
-                    f"K-g{' ' + route if route else ''} w {w_st}, a/b "
-                    f"{ab_st}, pad {pad}",
-                    [lambda s=s, k=kernel: k(*s, h1, h2) for s in sets],
-                    lambda s=sets[0], k=plain: k(*s, h1, h2),
-                    (width[w_st] + 2 * width[ab_st]) * nodes
-                    + 4 * out_nodes, 18 * out_nodes, "csrc/stencil.cu",
-                    "ops/pallas_kernels.py:784",
-                    launches=(QUEUE_LAUNCHES["stencil_mixed"]
-                              if main and route == default else 0),
-                    per=nodes)
+            require(same_bits(kernel(*sets[0], h1, h2),
+                              plain(*sets[0], h1, h2)),
+                    f"K-g w {w_st} a/b {ab_st} pad {pad} is not bitwise its "
+                    "plain version")
+            timed_row(
+                rows, "stencil_mixed" if main else None,
+                f"K-g w {w_st}, a/b {ab_st}, pad {pad}",
+                [lambda s=s, k=kernel: k(*s, h1, h2) for s in sets],
+                lambda s=sets[0], k=plain: k(*s, h1, h2),
+                (width[w_st] + 2 * width[ab_st]) * nodes + 4 * out_nodes,
+                18 * out_nodes, "csrc/stencil.cu",
+                "ops/pallas_kernels.py:784",
+                launches=QUEUE_LAUNCHES["stencil_mixed"] if main else 0,
+                per=nodes)
         del sets
     timed_row(rows, None, "K-a f32 (same values)",
               [lambda s=s: hk.apply_a_kernel(*s, h1, h2) for s in base],
               lambda s=base[0]: hk.apply_a_plain(*s, h1, h2), 16 * nodes,
               18 * nodes, "csrc/stencil.cu", "ops/pallas_kernels.py:169",
               launches=QUEUE_LAUNCHES["stencil"], per=nodes)
-    say("  the stencil libraries' SASS (cuobjdump -sass)")
-    show_sass("stencil", "stencil")
-    show_sass("stencil_dots", "Lb0EEEv")
+    say("  the stencil library's SASS (cuobjdump -sass)")
+    show_sass("stencil", "_kernel")
     return rows
 
 
-def _per_launch(table: dict, match, most: bool = True):
+def _per_launch(table: dict, match):
     """(name, launches, us a launch) of the kernel in a profile ``table``
     whose name ``match`` accepts, the one with the most launches."""
     hits = [(n, c, us / c) for n, (c, us) in table.items() if match(n)]
-    if not hits:
-        return None
-    return max(hits, key=lambda h: h[1]) if most else hits[0]
+    return max(hits, key=lambda h: h[1]) if hits else None
 
 
 def _profiled_us(calls, n: int, match) -> str:
@@ -3927,6 +3922,7 @@ def xl_form_times(cap) -> list:
     turns (xl, fused, fused, xl), medians of 3 each."""
     from poisson_ellipse_tpu_torch.harness.roofline import passes_per_iter
     from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import whole_solve as ws
     from poisson_ellipse_tpu_torch.solver.engine import build_solver
 
     problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1], max_iter=XL_TIME_CAP,
@@ -3950,7 +3946,7 @@ def xl_form_times(cap) -> list:
         item = dt.itemsize
         per_node = (passes_per_iter("xl", problem) * item
                     if st is None and dt == torch.float32 else None)
-        rows.append(dict(name=ws_counter("xl", f), label=f"xl {f}",
+        rows.append(dict(name=ws.counter("xl", f), label=f"xl {f}",
                          route="cuda",
                          source="poisson_ellipse_tpu_torch/csrc/xl_pcg.cu",
                          replaces=WHOLE_REPLACES["xl"], ms=ms,
@@ -3973,87 +3969,6 @@ def xl_form_times(cap) -> list:
     return rows
 
 
-def variant_sweep(cap, seed: int) -> None:
-    """The march variants a tree's kernels carry (``pe_xl_pcg_variant``,
-    ``pe_stencil_march_variant``), timed in turns: xl f32 at 2400x3200
-    capped at XL_TIME_CAP (us an iteration, and the phase split), K-g
-    (w, a and b bf16; w f32) pad 1 at 2401x3201 by device time, each
-    checked bitwise against its plain version. Variant 0 is left set."""
-    import ctypes
-
-    from poisson_ellipse_tpu_torch.models.problem import Problem
-    from poisson_ellipse_tpu_torch.ops import _build
-    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
-
-    def setter(library, symbol):
-        try:
-            lib = _build.load(library, {symbol: (ctypes.c_int,
-                                                 [ctypes.c_int])})
-        except AttributeError:
-            return None
-        return getattr(lib, symbol)
-
-    set_xl = setter("xl_pcg", "pe_xl_pcg_variant")
-    if set_xl is not None:
-        n = set_xl(0)
-        problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1],
-                          max_iter=XL_TIME_CAP, delta=0.0)
-        times = {v: [] for v in range(n)}
-        built = {}
-        for v in list(range(n)) + list(range(n))[::-1]:
-            set_xl(v)
-            if v not in built:
-                built[v] = _timed_form("xl", problem, torch.float32, None)
-            solver, args, iters = built[v]
-            times[v].append(time_solver(solver, args, 1) * 1e6 / iters)
-        from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
-
-        want = xp.xl_plain(problem, *built[0][1])[0]
-        for v in range(n):
-            set_xl(v)
-            say(f"  xl f32 variant {v}: {statistics.median(times[v]):.2f} "
-                f"us/iter ({', '.join(f'{t:.2f}' for t in times[v])}), "
-                f"{built[v][2]} iterations")
-            close_solves(f"xl f32 variant {v}", built[v][0](*built[v][1]),
-                         want)
-            xl_phase_split(cap)
-        set_xl(0)
-    set_kg = setter("stencil", "pe_stencil_march_variant")
-    if set_kg is not None:
-        n = set_kg(0)
-        g1, g2 = MAIN_GRID[0] + 1, MAIN_GRID[1] + 1
-        h1, h2 = 2.0 / MAIN_GRID[0], 1.2 / MAIN_GRID[1]
-        rng = np.random.default_rng(seed)
-        base = [tuple(torch.from_numpy(x.astype(np.float32)).to("cuda")
-                      for x in (rng.standard_normal((g1, g2)),
-                                rng.random((g1, g2)) + 0.5,
-                                rng.random((g1, g2)) + 0.5))
-                for _ in range(QUEUE_SETS)]
-        for w_st in ("bf16", "f32"):
-            sets = [(w if w_st == "f32" else w.to(torch.bfloat16),
-                     a.to(torch.bfloat16), b.to(torch.bfloat16))
-                    for w, a, b in base]
-            want = hk.apply_a_mixed_plain(*sets[0], h1, h2)
-            got = {v: [] for v in range(n)}
-            for v in list(range(n)) + list(range(n))[::-1]:
-                set_kg(v)
-                require(same_bits(hk.apply_a_mixed_kernel(*sets[0], h1, h2),
-                                  want), f"K-g variant {v} is not bitwise")
-                got[v].append(device_ms(
-                    [lambda s=s: hk.apply_a_mixed_kernel(*s, h1, h2)
-                     for s in sets]) * 1e3)
-            for v in range(n):
-                say(f"  K-g march variant {v}, w {w_st}, a/b bf16, pad 1: "
-                    f"{statistics.median(got[v]):.2f} us device "
-                    f"({', '.join(f'{t:.2f}' for t in got[v])})")
-        set_kg(0)
-
-
-def ws_counter(kernel: str, form: str) -> str:
-    """The launch counter of ``kernel``'s ``form`` (ops.whole_solve)."""
-    return kernel if form == "f32" else f"{kernel}_{form}"
-
-
 def phase_xl_timing(seed: int, card: str) -> list:
     """``--only xl-timing``: xl's four forms a body and T_solver beside
     fused; xl's body by phase and its block imbalance; one grid barrier's
@@ -4067,8 +3982,7 @@ def phase_xl_timing(seed: int, card: str) -> list:
     say(f"== xl, the grid barrier, K-g and in-loop times on {card}")
     rows = xl_form_times(cap)
     xl_phase_split(cap)
-    xl_sass()
-    variant_sweep(cap, seed)
+    show_sass("xl_pcg", "xl_kernelIffLb0E")
     barrier_latency(cap)
     rows += kg_rows(seed)
     in_loop_times(seed)

@@ -44,11 +44,12 @@
 // and b again, but after the first lane they come from L2 (the pair is
 // 1.9 MB at 401x601, 7.7 MB at 801x1201, both inside the 50 MB L2).
 //
-// K-g, the mixed-precision form, is this kernel with typed loads: w in the
+// K-g, the mixed-precision form, computes K-a with typed loads: w in the
 // storage type (bf16 or f16) or f32, a and b in the storage type, out f32.
 // Each load is upcast with __bfloat162float / __half2float, which are
-// exact, and the arithmetic is K-a's in f32, so a narrow input gives bit
-// for bit what K-a gives on the upcast input.
+// exact, and the arithmetic is K-a's tree in f32 (each face flux computed
+// once serves both nodes beside it, the same bits), so a narrow input
+// gives bit for bit what K-a gives on the upcast input.
 //
 // Replaces: poisson_ellipse_tpu/ops/pallas_kernels.py:_stencil_kernel_mixed
 // (launched by apply_a_block_mixed_pallas / apply_a_mixed_pallas), the
@@ -59,9 +60,13 @@
 // writes one f32: 10 B with w narrow, 12 B with w f32; at 2401x3201 that is
 // 76.9 MB (22.9 us at 3.35 TB/s) and 92.2 MB (27.5 us).
 //
-// Design: K-a's. The TPU kernel's storage-width DMA windows and their
-// (8,128) padding have no counterpart: each thread loads its narrow values
-// and widens them in registers.
+// Design: march_kernel below, K-d's march without the dots (the first
+// form, K-a's one thread a node, ran at 43% of the bound on the H100 and
+// at 101 us a launch inside pallas against 54 alone: the loop's state is
+// exactly zero outside the ellipse, and a zero dividend takes IEEE
+// division's slow path; PERF.md, sections 6-7). The TPU kernel's
+// storage-width DMA windows and their (8,128) padding have no counterpart:
+// each lane loads its narrow values and widens them in registers.
 //
 // The bf16 form of K-a is this kernel with w, a, b and out in bf16: each
 // load is widened exactly, the tree is computed in float, and the result is
@@ -119,59 +124,38 @@ __global__ void stencil_kernel(const TW* __restrict__ w,
 }
 
 // K-g's march: K-d's (stencil_dots.cu) with no pair and no sum. A lane
-// owns a column, a warp marches kMarchRows rows down it, kMarchWarps warps
-// stacked down the rows a block. Face fluxes once (stencil_tree.cuh): w and
-// a's row below and b's own row loaded once, the north flux carried down,
-// the west flux from w one lane west (a shuffle), the east flux the next
-// lane's west flux; the values the edge lanes lack formed once a tile,
-// lane k for row k. kMarchAhead rows of loads in flight. All-node tiles
-// take an unmasked march. 4 divisions a node where the one-thread-a-node
-// form takes 6.
+// owns a column, a warp marches kMarchRows rows down it, and a block's
+// kMarchWarps warps march side by side (128 columns). Face fluxes once
+// (stencil_tree.cuh): w and a's row below and b's own row loaded once, the
+// north flux carried down, the west flux from w one lane west (a shuffle),
+// the east flux the next lane's west flux; the values the edge lanes lack
+// formed once a tile, lane k for row k. kMarchAhead rows of loads in
+// flight. All-node tiles take an unmasked march. 4 divisions a node where
+// the one-thread-a-node form takes 6, each through div_pos, so the zero
+// fluxes of the solver's state outside the ellipse skip the division's
+// slow path.
 constexpr unsigned kFull = 0xffffffffu;
-// the march's variants (rows a warp, rows of loads in flight, blocks an SM
-// the registers are sized for), picked at run time by
-// pe_stencil_march_variant
-constexpr int kMarchVariants = 6;
-constexpr int kRowsOf[kMarchVariants] = {16, 16, 8, 32, 16, 16};
-constexpr int kAheadOf[kMarchVariants] = {2, 2, 2, 2, 4, 2};
-constexpr int kWarpsOf[kMarchVariants] = {4, 8, 4, 4, 4, 2};
-constexpr int kMinBlocksOf[kMarchVariants] = {8, 4, 8, 8, 8, 16};
-// warps side by side (a block 32 * kWarps columns wide) rather than
-// stacked; divisions through div_pos (zero dividends skip the slow path)
-constexpr bool kWideOf[kMarchVariants] = {true, true, true, true, true,
-                                          true};
-constexpr bool kGuardOf[kMarchVariants] = {true, true, true, true, true,
-                                           true};
-int g_march_variant = 0;
+constexpr int kMarchRows = 16;
+constexpr int kMarchAhead = 2;
+constexpr int kMarchWarps = 4;
+constexpr int kMarchMinBlocks = 8;
 
-template <typename TW, typename TC, int kVar>
-__global__ void __launch_bounds__(32 * kWarpsOf[kVar], kMinBlocksOf[kVar])
+template <typename TW, typename TC>
+__global__ void __launch_bounds__(32 * kMarchWarps, kMarchMinBlocks)
 march_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
              const TC* __restrict__ b, float* __restrict__ out, int bm,
              int bn, int pad, float h1, float h2) {
-  constexpr int kMarchRows = kRowsOf[kVar];
-  constexpr int kMarchWarps = kWarpsOf[kVar];
-  constexpr bool kGuard = kGuardOf[kVar];
-  const auto flux = [](float coef, float hi, float lo, float h) {
-    return kGuard ? face_flux_nz(coef, hi, lo, h)
-                  : face_flux(coef, hi, lo, h);
-  };
-  constexpr int kMarchAhead = kAheadOf[kVar];
   const int lane = threadIdx.x;
   const int on = bn + 2 * pad;
   const int om = bm + 2 * pad;
   const int ld = bn + 2;
-  constexpr bool kWide = kWideOf[kVar];
-  const int oj = (kWide ? blockIdx.x * kMarchWarps + threadIdx.y
-                        : blockIdx.x) * 32 + lane;
+  const int oj = (blockIdx.x * kMarchWarps + threadIdx.y) * 32 + lane;
   const int c = oj + 1 - pad;
   const int c0 = c - lane;
   const bool col_in = c <= bn + 1;
   const bool col_node = c >= 1 && c <= bn;
   const bool col_out = oj < on;
-  const int oi0 = (kWide ? blockIdx.y
-                         : blockIdx.y * kMarchWarps + threadIdx.y) *
-                  kMarchRows;
+  const int oi0 = blockIdx.y * kMarchRows;
   const int r0 = oi0 + 1 - pad;
   if (oi0 >= om || oj - lane >= on) return;  // warp-uniform
   float edge_w = 0.f, edge_f = 0.f;
@@ -182,8 +166,9 @@ march_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
       const int row = r * ld;
       if (c0 >= 1) edge_w = up(__ldg(w + row + c0 - 1));
       if (ce <= bn + 1) {
-        edge_f = flux(up(__ldg(b + row + ce)), up(__ldg(w + row + ce)),
-                      up(__ldg(w + row + ce - 1)), h2);
+        edge_f = face_flux_nz(up(__ldg(b + row + ce)),
+                              up(__ldg(w + row + ce)),
+                              up(__ldg(w + row + ce - 1)), h2);
       }
     }
   }
@@ -191,7 +176,9 @@ march_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
   float wc = 0.f, f_n = 0.f;
   if (col_in) {
     wc = up(__ldg(w + rc));
-    if (r0 >= 1) f_n = flux(up(__ldg(a + rc)), wc, up(__ldg(w + rc - ld)), h1);
+    if (r0 >= 1) {
+      f_n = face_flux_nz(up(__ldg(a + rc)), wc, up(__ldg(w + rc - ld)), h1);
+    }
   }
   struct Row {
     float w_s, a_s, b_c;
@@ -220,18 +207,17 @@ march_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
       if (t + kMarchAhead < kMarchRows && (kIn || oi + kMarchAhead < om)) {
         load(r + kMarchAhead, rc + kMarchAhead * ld, ring[t % kMarchAhead]);
       }
-      const float f_s = flux(cur.a_s, cur.w_s, wc, h1);
+      const float f_s = face_flux_nz(cur.a_s, cur.w_s, wc, h1);
       float w_w = __shfl_up_sync(kFull, wc, 1);
       const float e_w = __shfl_sync(kFull, edge_w, t);
       if (lane == 0) w_w = e_w;
-      const float f_w = flux(cur.b_c, wc, w_w, h2);
+      const float f_w = face_flux_nz(cur.b_c, wc, w_w, h2);
       float f_e = __shfl_down_sync(kFull, f_w, 1);
       const float e_f = __shfl_sync(kFull, edge_f, t);
       if (lane == 31) f_e = e_f;
       float val = 0.f;
       if (kIn || (col_node && r >= 1 && r <= bm)) {
-        val = kGuard ? stencil_of_fluxes_nz(f_s, f_n, f_e, f_w, h1, h2)
-                     : stencil_of_fluxes(f_s, f_n, f_e, f_w, h1, h2);
+        val = stencil_of_fluxes_nz(f_s, f_n, f_e, f_w, h1, h2);
       }
       if (kIn || col_out) {
         asm volatile("st.global.cs.f32 [%0], %1;" ::"l"(out + oi * on + oj),
@@ -249,32 +235,20 @@ march_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
   }
 }
 
-template <typename TW, typename TC, int kVar>
-void launch_march_variant(const TW* w, const TC* a, const TC* b, float* out,
-                          int bm, int bn, int pad, float h1, float h2,
-                          void* stream) {
-  const int on = bn + 2 * pad;
-  const int om = bm + 2 * pad;
-  constexpr int kMarchWarps = kWarpsOf[kVar];
-  const int tile = kRowsOf[kVar] * (kWideOf[kVar] ? 1 : kMarchWarps);
-  const int span = 32 * (kWideOf[kVar] ? kMarchWarps : 1);
-  dim3 grid((on + span - 1) / span, (om + tile - 1) / tile);
-  march_kernel<TW, TC, kVar><<<grid, dim3(32, kMarchWarps), 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      w, a, b, out, bm, bn, pad, h1, h2);
-}
-
+// The march indexes in 32-bit: a larger grid is refused.
 template <typename TW, typename TC>
 int launch_march(const TW* w, const TC* a, const TC* b, float* out, int bm,
                  int bn, int pad, float h1, float h2, void* stream) {
-  switch (g_march_variant) {
-    case 1: launch_march_variant<TW, TC, 1>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
-    case 2: launch_march_variant<TW, TC, 2>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
-    case 3: launch_march_variant<TW, TC, 3>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
-    case 4: launch_march_variant<TW, TC, 4>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
-    case 5: launch_march_variant<TW, TC, 5>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
-    default: launch_march_variant<TW, TC, 0>(w, a, b, out, bm, bn, pad, h1, h2, stream); break;
+  if ((int64_t)(bm + 2) * (bn + 2) >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int on = bn + 2 * pad;
+  const int om = bm + 2 * pad;
+  const int span = 32 * kMarchWarps;
+  dim3 grid((on + span - 1) / span, (om + kMarchRows - 1) / kMarchRows);
+  march_kernel<TW, TC><<<grid, dim3(32, kMarchWarps), 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      w, a, b, out, bm, bn, pad, h1, h2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,65 +286,30 @@ int pe_batched_stencil_f32(const float* w, const float* a, const float* b,
   return launch(w, a, b, out, lanes, bm, bn, pad, h1, h2, stream);
 }
 
-// K-g: w (bm+2, bn+2) in the storage type or f32, a and b (bm+2, bn+2) in
-// the storage type, out (bm+2*pad, bn+2*pad) f32.
+// K-g (march_kernel): w (bm+2, bn+2) in the storage type or f32, a and b
+// (bm+2, bn+2) in the storage type, out (bm+2*pad, bn+2*pad) f32.
 int pe_stencil_mixed_bf16_bf16(const __nv_bfloat16* w,
                                const __nv_bfloat16* a,
                                const __nv_bfloat16* b, float* out, int bm,
                                int bn, int pad, float h1, float h2,
                                void* stream) {
-  return launch(w, a, b, out, 1, bm, bn, pad, h1, h2, stream);
+  return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);
 }
 
 int pe_stencil_mixed_f32_bf16(const float* w, const __nv_bfloat16* a,
                               const __nv_bfloat16* b, float* out, int bm,
                               int bn, int pad, float h1, float h2,
                               void* stream) {
-  return launch(w, a, b, out, 1, bm, bn, pad, h1, h2, stream);
+  return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);
 }
 
 int pe_stencil_mixed_f16_f16(const __half* w, const __half* a,
                              const __half* b, float* out, int bm, int bn,
                              int pad, float h1, float h2, void* stream) {
-  return launch(w, a, b, out, 1, bm, bn, pad, h1, h2, stream);
+  return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);
 }
 
 int pe_stencil_mixed_f32_f16(const float* w, const __half* a,
-                             const __half* b, float* out, int bm, int bn,
-                             int pad, float h1, float h2, void* stream) {
-  return launch(w, a, b, out, 1, bm, bn, pad, h1, h2, stream);
-}
-
-// The march's variant for later launches (0 to kMarchVariants - 1);
-// returns kMarchVariants.
-int pe_stencil_march_variant(int variant) {
-  g_march_variant = variant;
-  return kMarchVariants;
-}
-
-// K-g through the march (march_kernel): pe_stencil_mixed_*'s arguments.
-int pe_stencil_march_bf16_bf16(const __nv_bfloat16* w,
-                               const __nv_bfloat16* a,
-                               const __nv_bfloat16* b, float* out, int bm,
-                               int bn, int pad, float h1, float h2,
-                               void* stream) {
-  return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);
-}
-
-int pe_stencil_march_f32_bf16(const float* w, const __nv_bfloat16* a,
-                              const __nv_bfloat16* b, float* out, int bm,
-                              int bn, int pad, float h1, float h2,
-                              void* stream) {
-  return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);
-}
-
-int pe_stencil_march_f16_f16(const __half* w, const __half* a,
-                             const __half* b, float* out, int bm, int bn,
-                             int pad, float h1, float h2, void* stream) {
-  return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);
-}
-
-int pe_stencil_march_f32_f16(const float* w, const __half* a,
                              const __half* b, float* out, int bm, int bn,
                              int pad, float h1, float h2, void* stream) {
   return launch_march(w, a, b, out, bm, bn, pad, h1, h2, stream);

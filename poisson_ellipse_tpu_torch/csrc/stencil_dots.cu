@@ -226,10 +226,8 @@ __device__ double block_sums(double (&acc)[kMaxPairs], int n_pairs,
 // TW: the type of w; TC: the type of a and b; TX: the type of the pair
 // operands; TO: the type of out and sums (all float for K-d and K-f).
 // kBundle: the pair table is the compiled bundle's; kRows: rows_of.
-// kSums false: the stencil alone (K-g's march), no pair, no sum, no
-// ticket: pairs, x_ld, x_off, partials, ticket and sums are not read.
 template <typename TW, typename TC, typename TX, typename TO, bool kBundle,
-          int kRows, bool kSums = true>
+          int kRows>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 stencil_dots_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
                     const TC* __restrict__ b, TO* __restrict__ out,
@@ -239,9 +237,8 @@ stencil_dots_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
   constexpr int kTileRows = kWarps * kRows;
   __shared__ double s_warp[kMaxPairs][kWarps];
   __shared__ int s_last;
-  const int n_ops = !kSums ? 0 : kBundle ? kBundleOperands
-                                         : pairs.n_operands;
-  const int n_pairs = !kSums ? 0 : kBundle ? kBundlePairs : pairs.n_pairs;
+  const int n_ops = kBundle ? kBundleOperands : pairs.n_operands;
+  const int n_pairs = kBundle ? kBundlePairs : pairs.n_pairs;
   const int lane_id = threadIdx.x;
   const int tid = threadIdx.y * 32 + lane_id;
   const int nblocks = gridDim.x * gridDim.y;
@@ -320,9 +317,8 @@ stencil_dots_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
         const int64_t xi = x_lane + x_off + (int64_t)(r - 1) * x_ld + (c - 1);
 #pragma unroll
         for (int o = 0; o < kMaxOperands; ++o) {
-          row.v[o] = (kSums && node && o < n_ops)
-                         ? up(__ldg(pairs.ptr[o] + xi))
-                         : 0.0f;
+          row.v[o] = (node && o < n_ops) ? up(__ldg(pairs.ptr[o] + xi))
+                                         : 0.0f;
         }
       };
       // a ring of the next kAhead rows: a step loads the row kAhead down
@@ -358,8 +354,7 @@ stencil_dots_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
           val = stencil_of_fluxes(f_s, f_n, f_e, f_w, h1, h2);
 #pragma unroll
           for (int p = 0; p < kMaxPairs; ++p) {
-            if (!kSums) {
-            } else if (kBundle) {
+            if (kBundle) {
               acc[p] += (double)(cur.v[bundle_x(p)] * cur.v[bundle_y(p)]);
             } else if (p < n_pairs) {
               acc[p] += (double)(pick(cur.v, pairs.x[p]) *
@@ -377,14 +372,13 @@ stencil_dots_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
     };
     // warp-uniform: the tile's columns c0 .. c0+31 and rows r0 ..
     // r0+kRows-1 are all nodes
-    if ((!kSums || kUnmaskedInterior<TX>) && c0 >= 1 && c0 + 31 <= bn &&
-        r0 >= 1 && r0 + kRows - 1 <= bm) {
+    if (kUnmaskedInterior<TX> && c0 >= 1 && c0 + 31 <= bn && r0 >= 1 &&
+        r0 + kRows - 1 <= bm) {
       march(std::true_type{});
     } else {
       march(std::false_type{});
     }
   }
-  if (!kSums) return;
 
   const double bsum = block_sums(acc, n_pairs, s_warp);
   if (tid < n_pairs) {
@@ -484,26 +478,6 @@ int launch(const TW* w, const TC* a, const TC* b, TO* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K-g: the march with no pairs (kSums false), rows_of's rows.
-template <typename TW, typename TC>
-int launch_stencil(const TW* w, const TC* a, const TC* b, float* out, int bm,
-                   int bn, int pad, float h1, float h2, void* stream) {
-  const dim3 grid = grid_of(bm, bn, pad);
-  const dim3 block(32, kWarps);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Pairs<TC> none{};
-  if (rows_of(bm, bn, pad) == kMaxRows) {
-    stencil_dots_kernel<TW, TC, TC, float, false, kMaxRows, false>
-        <<<grid, block, 0, s>>>(w, a, b, out, none, 0, 0, nullptr, nullptr,
-                                nullptr, bm, bn, pad, h1, h2);
-  } else {
-    stencil_dots_kernel<TW, TC, TC, float, false, kMaxRows / 2, false>
-        <<<grid, block, 0, s>>>(w, a, b, out, none, 0, 0, nullptr, nullptr,
-                                nullptr, bm, bn, pad, h1, h2);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -590,38 +564,6 @@ int pe_stencil_dots_bf16(const __nv_bfloat16* w, const __nv_bfloat16* a,
   return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
       w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
       x_off, partials, ticket, sums, 1, bm, bn, pad, h1, h2, stream);
-}
-
-// K-g through the march (no pairs, no sums, one kernel): w (bm+2, bn+2)
-// in the storage type or f32, a and b in the storage type, out
-// (bm+2*pad, bn+2*pad) f32; csrc/stencil.cu's pe_stencil_mixed_* arguments.
-int pe_stencil_march_mixed_bf16_bf16(const __nv_bfloat16* w,
-                                     const __nv_bfloat16* a,
-                                     const __nv_bfloat16* b, float* out,
-                                     int bm, int bn, int pad, float h1,
-                                     float h2, void* stream) {
-  return launch_stencil(w, a, b, out, bm, bn, pad, h1, h2, stream);
-}
-
-int pe_stencil_march_mixed_f32_bf16(const float* w, const __nv_bfloat16* a,
-                                    const __nv_bfloat16* b, float* out,
-                                    int bm, int bn, int pad, float h1,
-                                    float h2, void* stream) {
-  return launch_stencil(w, a, b, out, bm, bn, pad, h1, h2, stream);
-}
-
-int pe_stencil_march_mixed_f16_f16(const __half* w, const __half* a,
-                                   const __half* b, float* out, int bm,
-                                   int bn, int pad, float h1, float h2,
-                                   void* stream) {
-  return launch_stencil(w, a, b, out, bm, bn, pad, h1, h2, stream);
-}
-
-int pe_stencil_march_mixed_f32_f16(const float* w, const __half* a,
-                                   const __half* b, float* out, int bm,
-                                   int bn, int pad, float h1, float h2,
-                                   void* stream) {
-  return launch_stencil(w, a, b, out, bm, bn, pad, h1, h2, stream);
 }
 
 const char* pe_stencil_dots_error_string(int code) {

@@ -58,7 +58,8 @@
 // 2401x3201 f32 one pass is 30.74 MB, so 12 passes are 369 MB: 110 us at
 // 3.35 TB/s; bf16 compute halves every pass, bf16 operand streams only the
 // ~3 operand passes. Each body also holds two grid barriers with their
-// sums (about 2 and 4 us alone at 528 blocks on the H100, PERF.md).
+// sums (2.1 and 2.7 us alone at 253 blocks on the H100; PERF.md, section
+// 6): 115 us a body in all.
 //
 // Design (the parent, 32x32 tiles a thread a node with a shared-memory pn
 // halo, spent 174 of its 239 us a body in the stencil phase on the H100,
@@ -71,7 +72,7 @@
 //   row's w and bw, once each; the west and east pn and the east bw come by
 //   shuffles, and the values a warp's edge lanes lack (pn one column west
 //   of lane 0, pn and bw one column east of lane 31) are formed once for
-//   every 32 rows, lane k for row k. A ring of kAhead rows is in flight
+//   every kChunk rows, lane k for row k. A ring of kAhead rows is in flight
 //   behind the row computed. The deferred w-update uses the p_old loaded
 //   for pn. No shared memory, no __syncthreads and no integer division in
 //   the march; the expression tree is xl_plain's, term for term.
@@ -81,19 +82,24 @@
 //   strip of the same rows side by side: at any moment the card reads a
 //   few dozen whole rows of each array, long runs of DRAM. (Runs of rows
 //   down one strip, or down a band of 8 strips a block, balanced the
-//   blocks' rows exactly but scattered the reads, and ran 8-14% slower
+//   blocks' rows exactly but scattered the reads, and ran 5-14% slower
 //   on the H100; PERF.md, section 6.) The host sizes segs from the shape
 //   and the grid the card holds (ops/xl_pcg.py:XLPlan) so that every warp
 //   has one unit: every block ends the stencil phase after the same
 //   number of rows, plus or minus one.
 // - The update phase streams z, dinv and ap in groups of 16 bytes of the
 //   compute type (4 f32 or 8 bf16 nodes), a group a thread in turn over
-//   the grid, with vector loads where the three arrays are aligned to
-//   them (scalar loads of the same groups otherwise, so the order of the
-//   sum does not depend on alignment).
+//   the grid, kUnroll groups' loads in flight, with vector loads where the
+//   three arrays are aligned to them (scalar loads of the same groups
+//   otherwise, so the order of the sum does not depend on alignment).
 // - The three sums take grid_reduce_wide: every thread of every block adds
 //   a few of the partials after the barrier, where grid_sum's one warp
-//   adds them in 17 dependent loads a lane at 528 blocks.
+//   adds them in 17 dependent loads a lane at 528 blocks (2 sums: 2.7
+//   against grid_reduce2's 4.8 us at 253 blocks on the H100).
+// - Registers against warps (Tune): the march holds kAhead rows of five
+//   arrays in registers. f32 ran best at 6 rows ahead and 2 blocks an SM,
+//   no spill: 253 blocks, so fewer partials and a narrower spread of the
+//   blocks' ends (7 us against 15-27 at 392-528 blocks).
 //
 // kStamps: the timing instantiation, which stamps the phases of every body
 // on the device clock (chip_smoke.py --only xl-timing). No engine runs it.
@@ -101,7 +107,6 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <cstring>
-#include <type_traits>
 
 #include "grid_sync.cuh"
 
@@ -112,38 +117,24 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kChunk = 24;  // rows whose edge values a warp forms at once
 
-// The march's variants (rows of loads in flight behind a row, blocks an SM
-// the registers are sized for), picked at run time by
-// pe_xl_pcg_variant for the f32 form.
-constexpr int kVariants = 6;
-constexpr int kAheadOf[kVariants] = {0, 8, 6, 4, 3, 6};
-constexpr int kMinBlocksOf[kVariants] = {0, 2, 2, 2, 2, 3};
-// update-phase groups whose loads a thread has in flight
-constexpr int kUnrollOf[kVariants] = {0, 4, 2, 4, 4, 4};
-int g_variant = 0;
-
-// Each form's march: rows in flight, blocks an SM the registers are sized
-// for, update-phase groups in flight (variant 0).
+// Each form's march: rows of loads in flight behind a row, blocks an SM
+// the registers are sized for, update-phase groups whose loads a thread
+// has in flight. Chosen on the H100 from a sweep (PERF.md, section 6):
+// the f32 form 174.3 us a body at 6 rows ahead and 2 blocks an SM (126
+// registers, no spill) against 180-186 at 3-4 rows and 3 blocks (80
+// registers, spilling); bf16 compute, whose loads move half the bytes,
+// wants more warps (4 blocks an SM).
 template <typename TC, typename TS>
 struct Tune {
   static constexpr int kAhead = 4, kMinBlocks = 3, kUnroll = 2;
 };
 template <>
 struct Tune<float, float> {
-  static constexpr int kAhead = 6, kMinBlocks = 2, kUnroll = 4;
+  static constexpr int kAhead = 6, kMinBlocks = 2, kUnroll = 2;
 };
 template <>
 struct Tune<__nv_bfloat16, __nv_bfloat16> {
   static constexpr int kAhead = 2, kMinBlocks = 4, kUnroll = 1;
-};
-template <typename TC, typename TS, int kVar>
-struct Knobs {
-  static constexpr int kAhead =
-      kVar == 0 ? Tune<TC, TS>::kAhead : kAheadOf[kVar];
-  static constexpr int kMinBlocks =
-      kVar == 0 ? Tune<TC, TS>::kMinBlocks : kMinBlocksOf[kVar];
-  static constexpr int kUnroll =
-      kVar == 0 ? Tune<TC, TS>::kUnroll : kUnrollOf[kVar];
 };
 
 // The device clock in ns (%globaltimer), the same on every SM.
@@ -207,8 +198,8 @@ __device__ __forceinline__ void load_group(const T* p, float (&out)[kV]) {
   for (int k = 0; k < kV; ++k) out[k] = up(v[k]);
 }
 
-template <typename TC, typename TS, bool kStamps = false, int kVar = 0>
-__global__ void __launch_bounds__(kThreads, Knobs<TC, TS, kVar>::kMinBlocks)
+template <typename TC, typename TS, bool kStamps = false>
+__global__ void __launch_bounds__(kThreads, Tune<TC, TS>::kMinBlocks)
 xl_kernel(const TS* __restrict__ dinv_g, const TS* __restrict__ an_g,
           const TS* __restrict__ bw_g, const TC* __restrict__ r0_g, TC* w,
           TC* z, TC* p0, TC* p1, TC* ap, double* partials, int* status,
@@ -216,8 +207,8 @@ xl_kernel(const TS* __restrict__ dinv_g, const TS* __restrict__ an_g,
           float h1h2, float delta, int weighted,
           unsigned long long* stamps) {
   constexpr int kV = kGroup<TC>;
-  constexpr int kAhead = Knobs<TC, TS, kVar>::kAhead;
-  constexpr int kUnroll = Knobs<TC, TS, kVar>::kUnroll;
+  constexpr int kAhead = Tune<TC, TS>::kAhead;
+  constexpr int kUnroll = Tune<TC, TS>::kUnroll;
   static_assert(kChunk % kAhead == 0, "the ring carries over chunks");
   __shared__ double scratch[pe::kWideDoubles];
   const int tid = threadIdx.x;
@@ -452,22 +443,6 @@ int aligned_groups(const TC* z, const TC* ap, const TS* dinv) {
          reinterpret_cast<uintptr_t>(dinv) % vs == 0;
 }
 
-template <typename TC, typename TS, bool kStamps>
-const void* kernel_of(int variant) {
-  if constexpr (std::is_same<TC, float>::value &&
-                std::is_same<TS, float>::value) {
-    switch (variant) {
-      case 1: return (const void*)xl_kernel<TC, TS, kStamps, 1>;
-      case 2: return (const void*)xl_kernel<TC, TS, kStamps, 2>;
-      case 3: return (const void*)xl_kernel<TC, TS, kStamps, 3>;
-      case 4: return (const void*)xl_kernel<TC, TS, kStamps, 4>;
-      case 5: return (const void*)xl_kernel<TC, TS, kStamps, 5>;
-      default: break;
-    }
-  }
-  return (const void*)xl_kernel<TC, TS, kStamps, 0>;
-}
-
 // h1h2 and delta are the TC-rounded values; nblocks and segs are
 // ops/xl_pcg.py:XLPlan's. With ``stamps`` the timing instantiation runs.
 template <typename TC, typename TS>
@@ -484,11 +459,11 @@ int launch(const TS* dinv, const TS* an, const TS* bw, const TC* r0, TC* w,
                   &status, &diff, &g1, &g2, &segs, &aligned, &max_iter,
                   &h1h2, &delta, &weighted, &stamps};
   if (stamps != nullptr) {
-    return pe::cooperative_launch(kernel_of<TC, TS, true>(g_variant),
-                                  nblocks, kThreads, 0, args, stream);
+    return pe::cooperative_launch(xl_kernel<TC, TS, true>, nblocks, kThreads,
+                                  0, args, stream);
   }
-  return pe::cooperative_launch(kernel_of<TC, TS, false>(g_variant), nblocks,
-                                kThreads, 0, args, stream);
+  return pe::cooperative_launch(xl_kernel<TC, TS>, nblocks, kThreads, 0, args,
+                                stream);
 }
 
 // A cooperative kernel of ``bodies`` bodies, each one grid barrier (kMode
@@ -600,16 +575,8 @@ int pe_xl_pcg_stamps_f32(const float* dinv, const float* an, const float* bw,
 
 int pe_xl_pcg_launch_query(int device, int smem, int* cooperative,
                            int* blocks_per_sm) {
-  return pe::launch_query(kernel_of<float, float, false>(g_variant),
-                          kThreads, device, smem, cooperative,
-                          blocks_per_sm);
-}
-
-// The f32 form's march variant for later launches and launch queries
-// (0 to kVariants - 1); returns kVariants.
-int pe_xl_pcg_variant(int variant) {
-  g_variant = variant;
-  return kVariants;
+  return pe::launch_query(xl_kernel<float, float>, kThreads, device, smem,
+                          cooperative, blocks_per_sm);
 }
 
 int pe_xl_pcg_bf16_launch_query(int device, int smem, int* cooperative,

@@ -15,8 +15,8 @@ One "pass" is one full node-array read or write against device memory.
                  operand of its plan costs 1 (dinv, a, b) or 2 (ap)
                  (``StreamPlan.streamed_passes_per_iter``)
   xl           — 12 plus the march's halo rereads, a row above and
-                 below a 32-row unit, a column beside a 32-column strip
-                 (``xl_pcg.PASSES_PER_ITER``) => 12.31
+                 below a 120-row unit, a column beside a 32-column strip
+                 (``xl_pcg.PASSES_PER_ITER``) => 12.20
 
 The recurrence engines are counted statement by statement as the port
 runs them (each statement reads each operand once and writes its result
@@ -56,8 +56,8 @@ replacement terms are amortised over ``replace_every(storage_dtype)`` (8)
 in place of 32: ``pipelined-pallas`` 25/8 and the s-step 7/8. The plain
 PyTorch loops also upcast in passes of their own that the model does not
 count. ``streamed`` and ``xl`` store only their operands narrow: their
-operand passes (dinv, a, b; ``xl_pcg.OPERAND_PASSES``, 3.06 of xl's
-12.31) move at the storage width, the rest at the compute width
+operand passes (dinv, a, b; ``xl_pcg.OPERAND_PASSES``, 3.04 of xl's
+12.20) move at the storage width, the rest at the compute width
 (``bytes_per_node``).
 
 The model counts unpadded node arrays and assumes each array streams

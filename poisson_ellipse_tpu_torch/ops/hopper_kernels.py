@@ -16,11 +16,11 @@ kernels are ported:
   ``batched-pipelined-pallas``;
 - ``_batched_stencil_dots_kernel`` as K-f (``csrc/stencil_dots.cu``, K-d
   with the lane on the grid): once a body of ``batched-pipelined-pallas``;
-- ``_stencil_kernel_mixed`` as K-g (``csrc/stencil.cu``, K-a with typed
-  loads): the storage axis's stencil, w in the storage dtype or f32, a and
-  b in the storage dtype, out f32; once a body of ``pallas`` with
-  ``storage_dtype``, in the rebuilds of ``pipelined-pallas`` and in the
-  basis chain of ``sstep-pallas``;
+- ``_stencil_kernel_mixed`` as K-g (``csrc/stencil.cu``, K-a's tree with
+  typed loads, marched as K-d marches): the storage axis's stencil, w in
+  the storage dtype or f32, a and b in the storage dtype, out f32; once a
+  body of ``pallas`` with ``storage_dtype``, in the rebuilds of
+  ``pipelined-pallas`` and in the basis chain of ``sstep-pallas``;
 - ``_stencil_dots_kernel_mixed`` as K-h (``csrc/stencil_dots.cu``, K-d
   with typed loads): f32 m, a, b and the pair operands in the storage
   dtype; once a body of ``pipelined-pallas`` with ``storage_dtype``.
@@ -89,9 +89,8 @@ _SIGNATURES = {
     # w, a, b, out, lanes, bm, bn, pad, h1, h2, stream
     "pe_batched_stencil_f32": (_I, [_P] * 4 + [_I] * 4 + [_F, _F, _P]),
     # K-g: pe_stencil_f32's arguments, w and a, b of the named types
-    **{f"pe_stencil_{k}_{w}_{ab}": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P])
-       for ab in ("bf16", "f16") for w in (ab, "f32")
-       for k in ("mixed", "march")},
+    **{f"pe_stencil_mixed_{w}_{ab}": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P])
+       for ab in ("bf16", "f16") for w in (ab, "f32")},
 }
 # w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
 # x_off, partials, ticket, sums, bm, bn, pad, h1, h2, stream
@@ -106,10 +105,6 @@ _DOTS_SIGNATURES = {
     # K-f: the same with lanes before bm
     "pe_batched_stencil_dots_f32": (_I, _DOTS_ARGS[:14] + [_I]
                                     + _DOTS_ARGS[14:]),
-    # K-g through K-d's march: pe_stencil_mixed_*'s arguments
-    **{f"pe_stencil_march_mixed_{w}_{ab}": (_I, [_P] * 4 + [_I] * 3
-                                            + [_F, _F, _P])
-       for ab in ("bf16", "f16") for w in (ab, "f32")},
 }
 
 
@@ -455,29 +450,18 @@ def _check_mixed_inputs(kernel: str, w, a, b) -> str:
     return st
 
 
-# K-g's routes: (library, entry prefix, its signatures, error string)
-MIXED_ROUTES = {
-    "node": (KERNEL, "pe_stencil_mixed", "_SIGNATURES", "pe_stencil"),
-    "march": (KERNEL, "pe_stencil_march", "_SIGNATURES", "pe_stencil"),
-    "dots": (DOTS_KERNEL, "pe_stencil_march_mixed", "_DOTS_SIGNATURES",
-             "pe_stencil_dots"),
-}
-MIXED_ROUTE = "march"
-
-
-def _launch_mixed(w, a, b, h1, h2, pad: int, route: str | None = None):
+def _launch_mixed(w, a, b, h1, h2, pad: int):
     st = _check_mixed_inputs(MIXED_KERNEL, w, a, b)
     w_name = "f32" if w.dtype == torch.float32 else st
     bm, bn = w.shape[0] - 2, w.shape[1] - 2
     out = torch.empty((bm + 2 * pad, bn + 2 * pad), dtype=torch.float32,
                       device=w.device)
-    library, prefix, sigs, err = MIXED_ROUTES[route or MIXED_ROUTE]
-    lib = _build.load(library, globals()[sigs])
-    rc = getattr(lib, f"{prefix}_{w_name}_{st}")(
+    lib = _build.load(KERNEL, _SIGNATURES)
+    rc = getattr(lib, f"pe_stencil_mixed_{w_name}_{st}")(
         w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), bm, bn,
         pad, h1, h2, _build.stream_handle(w.device),
     )
-    _build.check(getattr(lib, f"{err}_error_string"), MIXED_KERNEL, rc)
+    _build.check(lib.pe_stencil_error_string, MIXED_KERNEL, rc)
     _build.count_launch(MIXED_KERNEL)
     return out
 

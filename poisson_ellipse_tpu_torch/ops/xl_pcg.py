@@ -27,7 +27,7 @@ an and bw streamed at a narrow storage dtype
 (``build_xl_solver(storage_dtype=)``, the JAX ``tile_of`` upcast,
 ``:162-169``), rounded once from their f32 form at build time
 (``:436-440``); the state scratch stays at the compute width. Of the pass
-model's 12.31 passes ``OPERAND_PASSES`` are operand reads: the share a
+model's 12.20 passes ``OPERAND_PASSES`` are operand reads: the share a
 narrow stream halves.
 """
 
@@ -58,10 +58,11 @@ MIN_ROWS = 8
 
 # Modelled device-memory array passes per iteration. Stencil phase: z, p,
 # w, an, bw read and w, p, ap written (8); update phase: z, dinv, ap read
-# and z written (4). Plus the march's halo, at a nominal UNIT_ROWS rows a
-# unit: z and p one row above and one below a unit, an one below; z and
-# p one column west and one east of a strip, bw one east.
-UNIT_ROWS = 32
+# and z written (4). Plus the march's halo, at UNIT_ROWS rows a unit (the
+# main grid's on an H100: 2401 rows in 20 segments): z and p one row above
+# and one below a unit, an one below; z and p one column west and one
+# east of a strip, bw one east.
+UNIT_ROWS = 120
 PASSES_PER_ITER = 12.0 + 5.0 / UNIT_ROWS + 5.0 / STRIP
 # of which operand reads: an and bw in the stencil phase (an with its row
 # below a unit, bw with its column east of a strip), dinv in the update

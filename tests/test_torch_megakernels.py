@@ -287,10 +287,10 @@ def test_explicit_engine_past_its_gate_raises():
 def test_pass_models():
     assert roofline.passes_per_iter("resident") == 0.0
     # 12 passes and the march's halo: z and p a row above and below a
-    # 32-row unit and a column either side of a 32-column strip, an a row
+    # 120-row unit and a column either side of a 32-column strip, an a row
     # below, bw a column east
     assert roofline.passes_per_iter("xl") == pytest.approx(
-        12.0 + 5 / 32 + 5 / 32)
+        12.0 + 5 / 120 + 5 / 32)
     big = Problem(M=1100, N=1650)
     assert roofline.passes_per_iter("streamed", big, H100) == 3.0
     # on the CPU every operand is resident
