@@ -15,7 +15,9 @@ result line):
 3. kernels  — each kernel against its plain PyTorch version on the card.
               K-a, K1, K2 and K-d at the 2401x3201 f32 shapes, inputs from
               numpy.random.default_rng(seed): arrays within rel 1e-6 /
-              atol 1e-6 (bitwise expected: built with -fmad=false), sums
+              atol 1e-6 (bitwise expected: built with -fmad=false); K-a
+              and K-d's n also bitwise on w = +0, w = -0 and a seeded
+              ellipse with a signed-zero exterior; sums
               within rel 1e-5 (their order differs); and a no-op check once
               the loop's flags say it has exited. The whole-solve kernels
               on capped solves, max_iter 1, 2 and 7: xl at 2401x3201,
@@ -71,7 +73,8 @@ result line):
               kernel and the device's idle share.
 8. batched  — the lane-batched path. K-e and K-f lane by lane against K-a
               and K-d on that lane (bitwise) and against their plain
-              versions (arrays bitwise, K-f's sums within rel 1e-6), at
+              versions (arrays bitwise, K-f's sums within rel 1e-6; K-e
+              also on +0, -0 and signed-zero-exterior lanes), at
               44x132 with B = 3, 400x600 with B = 32, 800x1200 with B = 8
               and 2400x3200 with B = 2; K-f's generic instantiation (each
               pair swapped) the same bits as the bundle's. The harness entry
@@ -181,7 +184,8 @@ result line):
               (with and without a first call on the capture stream) equal
               to the eager one. K-a's and K-d's bf16 forms against
               their plain versions at 2401x3201 on the bf16 operands: arrays
-              and sums bitwise. The reference's stage-4 iteration composed
+              and sums bitwise (K-a also on +0, -0 and a signed-zero
+              exterior). The reference's stage-4 iteration composed
               from K-a and the four (a host read an iteration, not an
               engine) at 400x600: f32 546 +- 2, l2 < 1e-3, each kernel's
               launches as the count predicts (read just after the run); f64
@@ -225,8 +229,18 @@ library's SASS; K-a, K-g and K-d a launch inside pallas (f32, bf16
 storage) and pipelined-pallas capped at 256 beside their graph replay, on
 the loop's own data and on w = 0, the SM clock under each, and pallas with
 bf16 storage us an iteration. What an older tree lacks (the timing
-instantiation, the barrier kernel) prints as not measured. Each prints the
-kernels' record and no result line.
+instantiation, the barrier kernel) prints as not measured. `--only
+stencil-timing` runs phases 1-2 and then the plain-stencil family by
+input data: K-a f32 and bf16 at 2401x3201, pad 1 and pad 0, and K-e at
+401x601, B = 32 and 801x1201, B = 8, each on seeded values, on the loop's
+own data and on w = 0, bitwise its plain version and timed three ways;
+each a launch inside its loops (K-a in pallas and sstep-pallas, K-a bf16
+in pallas bf16, K-e in batched-pallas, capped at 256); K-g's four forms;
+K-d on seeded values, on m = 0 and inside pipelined-pallas; K1-shard on
+a rank's 1201x1601 block, seeded and with the loop's zero exterior, and
+K2-shard by device time; the stencil, K-d and K1-shard libraries' SASS.
+It too runs on an older tree's kernels. Each prints the kernels' record
+and no result line.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -334,6 +348,25 @@ _INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
 def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
     return x.dtype == y.dtype and torch.equal(x.view(_INT_VIEW[x.dtype]),
                                               y.view(_INT_VIEW[y.dtype]))
+
+
+def signed_zero_inputs(like: torch.Tensor, seed: int) -> dict:
+    """Iterates shaped and typed as ``like`` on which a stencil's dividends
+    are zero: all +0.0, all -0.0, and a numpy-seeded field inside the
+    ellipse x^2 + 4y^2 < 1 of the node grid on [-1, 1] x [-0.6, 0.6] with a
+    random mix of +0.0 and -0.0 outside it (the solver's state outside the
+    ellipse is exactly zero)."""
+    shape = tuple(like.shape)
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-1.0, 1.0, shape[-2])[:, None]
+    y = np.linspace(-0.6, 0.6, shape[-1])[None, :]
+    inside = np.broadcast_to(x * x + 4 * y * y < 1, shape)
+    mixed = np.where(inside, rng.standard_normal(shape),
+                     np.where(rng.random(shape) < 0.5, -0.0, 0.0))
+    return {"w = +0": torch.zeros_like(like),
+            "w = -0": torch.full_like(like, -0.0),
+            "zero exterior, signed zeros": torch.from_numpy(mixed).to(
+                like.device, like.dtype)}
 
 
 def close_arrays(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -522,6 +555,15 @@ def phase_kernels(problem, inp) -> dict:
     got = hk.apply_a_block_kernel(inp["w"], inp["a"], inp["b"], h1, h2)
     want = hk.apply_a_block_plain(inp["w"], inp["a"], inp["b"], h1, h2)
     errs["stencil"] = max(err, close_arrays("Aw block", got, want))
+    for kind, w0 in signed_zero_inputs(inp["w"], seed=1).items():
+        for label, kernel, plain in (
+                ("full grid", hk.apply_a_kernel, hk.apply_a_plain),
+                ("block", hk.apply_a_block_kernel, hk.apply_a_block_plain)):
+            require(same_bits(kernel(w0, inp["a"], inp["b"], h1, h2),
+                              plain(w0, inp["a"], inp["b"], h1, h2)),
+                    f"K-a {label} on {kind}: not bitwise its plain version")
+        say(f"  K-a on {kind}: bitwise its plain version (full grid and "
+            "block)")
 
     an, as_, bw, be, d, dinv = inp["coeffs"]
     g1, g2 = problem.node_shape
@@ -614,6 +656,16 @@ def phase_kernels(problem, inp) -> dict:
     require(same_bits(gen_n, got_n) and same_bits(gen_sums, got_sums),
             "K-d's generic instantiation differs from the bundle's")
     say("  the generic instantiation (each pair swapped): the same bits")
+    for kind, m0 in signed_zero_inputs(inp["w"], seed=4).items():
+        n0, _ = hk.apply_a_dots_kernel(m0, inp["a"], inp["b"], h1, h2, pairs)
+        require(same_bits(n0, hk.apply_a_dots_plain(m0, inp["a"], inp["b"],
+                                                     h1, h2, pairs)[0])
+                and same_bits(n0, hk.apply_a_kernel(m0, inp["a"], inp["b"],
+                                                    h1, h2)),
+                f"K-d's n on {kind}: not bitwise its plain version's and "
+                "K-a's")
+    say("  n on +0, -0 and a signed-zero exterior: bitwise its plain "
+        "version's and K-a's")
     for label, acts in child_activities("count_kd_activities").items():
         say(f"  {label}: {acts} device activities a call (a fresh process)")
         require(acts == 1, f"{label}: {acts} device activities a call, not "
@@ -1311,6 +1363,16 @@ def phase_batched_kernels(seed: int) -> dict:
             require(lanes_ok and torch.equal(got, plain(w, a, b, h1, h2)),
                     f"K-e {form} {label} is not bitwise K-a and its plain "
                     "version on every lane")
+            for kind, w0 in signed_zero_inputs(w, seed=2).items():
+                got = kernel(w0, a, b, h1, h2)
+                require(same_bits(got, plain(w0, a, b, h1, h2))
+                        and all(same_bits(got[l], single(w0[l].contiguous(),
+                                                         a, b, h1, h2))
+                                for l in range(lanes)),
+                        f"K-e {form} {label} on {kind}: not bitwise its "
+                        "plain version and K-a on every lane")
+            say(f"  K-e {form} {label} on +0, -0 and a signed-zero "
+                "exterior: bitwise its plain version and K-a on every lane")
         pairs = _bundle(*inp["ops"])
         got_n, got_sums = hk.apply_a_dots_batched_kernel(w, a, b, h1, h2,
                                                          pairs)
@@ -2974,6 +3036,13 @@ def phase_bf16_kernels(seed: int) -> dict:
              hk.apply_a_plain(w, a, b, h1, h2)),
         bits("K-a bf16 (block)", hk.apply_a_block_kernel(w, a, b, h1, h2),
              hk.apply_a_block_plain(w, a, b, h1, h2)))
+    for kind, w0 in signed_zero_inputs(w, seed=3).items():
+        bits(f"K-a bf16 (full grid) on {kind}",
+             hk.apply_a_kernel(w0, a, b, h1, h2),
+             hk.apply_a_plain(w0, a, b, h1, h2))
+        bits(f"K-a bf16 (block) on {kind}",
+             hk.apply_a_block_kernel(w0, a, b, h1, h2),
+             hk.apply_a_block_plain(w0, a, b, h1, h2))
     n, sums = hk.apply_a_dots_kernel(w, a, b, h1, h2, pairs)
     n_p, sums_p = hk.apply_a_dots_plain(w, a, b, h1, h2, pairs)
     errs["stencil_dots_bf16"] = max(bits("K-d bf16 n", n, n_p),
@@ -3475,7 +3544,7 @@ def phase_queue_timing(seed: int, card: str, sass_dir=None) -> list:
 
     say("  the K-d family's SASS (cuobjdump -sass)")
     show_sass("stencil_dots", "stencil_dots", sass_dir)
-    show_sass("stencil", "stencil_kernel", sass_dir)
+    show_sass("stencil", "_kernel", sass_dir)
     phase_pipelined_times(card)
     return rows
 
@@ -3989,20 +4058,239 @@ def phase_xl_timing(seed: int, card: str) -> list:
     return rows
 
 
+# -- the plain-stencil family by data: K-a, K-e, beside K-g, K-d, K1-shard ---
+
+# K-e's grids and lanes: batched-pallas's two throughput shapes
+KE_CASES = (((400, 600), 32), ((800, 1200), 8))
+# K-e's launches in batched-pallas at 400x600, B = 32 (546 iterations)
+KE_LAUNCHES = 576
+
+
+def _data_rows(rows, name, label, data, kernel, plain, h1, h2, nbytes,
+               flops, src, line, launches, per) -> None:
+    """``timed_row`` for each input kind of ``data`` ({kind: QUEUE_SETS
+    input tuples}), each kind first held bitwise to ``plain``; the row
+    named ``name`` (with ``launches``) is the seeded one."""
+    for kind, sets in data.items():
+        require(same_bits(kernel(*sets[0], h1, h2), plain(*sets[0], h1, h2)),
+                f"{label}, {kind}: not bitwise its plain version")
+        main = kind == "seeded"
+        timed_row(rows, name if main else None, f"{label}, {kind}",
+                  [lambda s=s: kernel(*s, h1, h2) for s in sets],
+                  lambda s=sets[0]: plain(*s, h1, h2), nbytes, flops, src,
+                  line, launches=launches if main else 0, per=per)
+
+
+def _in_loop(label: str, solver, args, match) -> None:
+    """One warm-up and one profiled run of ``solver``: us a launch of the
+    kernel ``match`` accepts."""
+    solver(*args)
+    hit = _per_launch(profile_solve(label, solver, args), match)
+    say(f"  in-loop {label}: " + ("not measured" if hit is None else
+        f"{hit[2]:.2f} us a launch ({hit[1]} launches, {hit[0][:60]})"))
+
+
+def phase_stencil_timing(seed: int, card: str) -> list:
+    """``--only stencil-timing``: the plain-stencil family by input data.
+    K-a f32 and bf16 at 2401x3201, pad 1 and pad 0, and K-e at 401x601, B =
+    32 and 801x1201, B = 8, each on seeded values, on the loop's own data
+    (a capped pallas / batched-pallas solve's w with the assembled a and b)
+    and on w = 0, bitwise its plain version and timed three ways
+    (``timed_row``); each a launch inside its loops capped at PROFILE_CAP
+    (K-a in pallas and sstep-pallas, K-a bf16 in pallas bf16, K-e in
+    batched-pallas). Then K-g's forms (``kg_rows``, with the stencil
+    library's SASS), K-d on seeded values and on m = 0 and a launch inside
+    pipelined-pallas, K1-shard on a rank's 1201x1601 block, seeded and
+    with the loop's zero exterior, and K2-shard, all by device time. Runs
+    on an older tree's kernels too."""
+    from poisson_ellipse_tpu_torch.batch.batched_pcg import batched_operands
+    from poisson_ellipse_tpu_torch.batch.driver import solve_batched
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import assembly
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    say(f"== the plain-stencil family by data on {card}")
+    ours = lambda n: n.startswith("void (anonymous namespace)::")  # noqa
+    rng = np.random.default_rng(seed)
+
+    def seeded(shape, lo=None, n=QUEUE_SETS):
+        return [torch.from_numpy(
+            (rng.random(shape) + lo if lo is not None
+             else rng.standard_normal(shape)).astype(np.float32)).to("cuda")
+            for _ in range(n)]
+
+    rows = []
+    capped = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1], max_iter=PROFILE_CAP)
+    h1, h2 = capped.h1, capped.h2
+    g = capped.node_shape
+    nodes = g[0] * g[1]
+    inner = (g[0] - 2) * (g[1] - 2)
+    sets32 = list(zip(seeded(g), seeded(g, 0.5), seeded(g, 0.5)))
+    loop_w = {}
+    for dtype, form in ((torch.float32, "f32"), (BF16, "bf16")):
+        a_r, b_r, _ = assembly.assemble(capped, dtype, "cuda")
+        solver, args, _ = build_solver(capped, "pallas", dtype, "cuda")
+        w_r = solver(*args).w
+        loop_w[form] = w_r
+        say(f"  the pallas {form} loop's w after {PROFILE_CAP} iterations: "
+            f"{int((w_r == 0).sum())} of {w_r.numel()} nodes exactly 0")
+        data = {
+            "seeded": [tuple(x.to(dtype) for x in s) for s in sets32],
+            "the loop's w, a, b": [(w_r.clone(), a_r.clone(), b_r.clone())
+                                   for _ in range(QUEUE_SETS)],
+            "w = 0": [(torch.zeros_like(w_r), a.to(dtype), b.to(dtype))
+                      for _, a, b in sets32],
+        }
+        item = dtype.itemsize
+        for pad in (1, 0):
+            out = nodes if pad else inner
+            _data_rows(rows, hk.KERNEL if form == "f32" else
+                       f"{hk.KERNEL}_{form}", f"K-a {form} pad {pad}", data,
+                       hk.apply_a_kernel if pad else hk.apply_a_block_kernel,
+                       hk.apply_a_plain if pad else hk.apply_a_block_plain,
+                       h1, h2, 3 * item * nodes + item * out, 18 * out,
+                       "csrc/stencil.cu", "ops/pallas_kernels.py:169",
+                       QUEUE_LAUNCHES["stencil"] if pad and form == "f32"
+                       else 0, nodes)
+        del data
+        for engine in ("pallas", "sstep-pallas") if form == "f32" else \
+                ("pallas",):
+            _in_loop(f"K-a {form} in {engine} capped at {PROFILE_CAP}",
+                     *build_solver(capped, engine, dtype, "cuda")[:2], ours)
+
+    for (m, n), lanes in KE_CASES:
+        prob = Problem(M=m, N=n, max_iter=PROFILE_CAP)
+        bg = prob.node_shape
+        bnodes = bg[0] * bg[1]
+        a_b, b_b, rhs = batched_operands(prob, lanes, device="cuda")
+
+        def batched(prob=prob, lanes=lanes, ops=(a_b, b_b, rhs)):
+            return solve_batched(prob, lanes, "batched-pallas",
+                                 operands=ops).result
+
+        w_l = batched().w
+        say(f"  batched-pallas {m}x{n} B={lanes} after {PROFILE_CAP} "
+            f"bodies: {int((w_l == 0).sum())} of {w_l.numel()} nodes "
+            "exactly 0")
+        a_s, b_s = seeded(bg, 0.5), seeded(bg, 0.5)
+        data = {
+            "seeded": list(zip(seeded((lanes,) + bg), a_s, b_s)),
+            "the loop's lanes": [(w_l.clone(), a_b.clone(), b_b.clone())
+                                 for _ in range(QUEUE_SETS)],
+            "w = 0": [(torch.zeros_like(w_l), a, b)
+                      for a, b in zip(a_s, b_s)],
+        }
+        main = (m, n) == QUEUE_BATCH[0]
+        _data_rows(rows, hk.BATCHED_KERNEL if main else None,
+                   f"K-e {bg[0]}x{bg[1]} B={lanes}", data,
+                   hk.apply_a_batched_kernel, hk.apply_a_batched_plain,
+                   prob.h1, prob.h2, (2 + 2 * lanes) * bnodes * 4,
+                   18 * bnodes * lanes, "csrc/stencil.cu",
+                   "ops/pallas_kernels.py:409", KE_LAUNCHES if main else 0,
+                   bnodes * lanes)
+        del data
+        if main:
+            _in_loop(f"K-e in batched-pallas {m}x{n} B={lanes} capped at "
+                     f"{PROFILE_CAP}", batched, (), ours)
+
+    rows += kg_rows(seed)
+
+    pairs = _bundle(*seeded(g, n=5))
+    zeros = [torch.zeros(g, device="cuda") for _ in range(QUEUE_SETS)]
+    _data_rows(rows, None, "K-d f32", {
+        "seeded": [(*s, pairs) for s in sets32],
+        "m = 0": [(z, *s[1:], pairs) for z, s in zip(zeros, sets32)]},
+        lambda w, a, b, p, h1, h2: hk.apply_a_dots_kernel(w, a, b, h1, h2,
+                                                          p)[0],
+        lambda w, a, b, p, h1, h2: hk.apply_a_dots_plain(w, a, b, h1, h2,
+                                                         p)[0],
+        h1, h2, 36 * nodes, KD_FLOPS * nodes, "csrc/stencil_dots.cu",
+        "ops/pallas_kernels.py:299", 0, nodes)
+    _in_loop(f"K-d f32 in pipelined-pallas capped at {PROFILE_CAP}",
+             *build_solver(capped, "pipelined-pallas", torch.float32,
+                           "cuda")[:2], lambda n: "stencil_dots" in n)
+    del pairs, zeros, sets32
+
+    bm, bn = SHARD_BLOCKS[0]
+    inp = shard_inputs(bm, bn, seed)
+    a_r, b_r, _ = assembly.assemble(capped, torch.float32, "cuda")
+    window = (slice(0, bm + 2), slice(0, bn + 2))
+    zero_ext = dict(inp, z=loop_w["f32"][window].contiguous(),
+                    p=loop_w["f32"][window].contiguous(),
+                    a=a_r[window].contiguous(), b=b_r[window].contiguous())
+    say(f"  K1-shard's zero exterior: the pallas f32 loop's w on the "
+        f"top-left {bm + 2}x{bn + 2} window as z and p, "
+        f"{int((zero_ext['z'] == 0).sum())} of {zero_ext['z'].numel()} "
+        "exactly 0")
+    n_own, n_ext = bm * bn, (bm + 2) * (bn + 2)
+    n1, n2 = fs.partial_counts(bm, bn)
+    never = 2**31 - 1
+
+    def shard_set(src):
+        return dict(src, pn=torch.empty((bm, bn), device="cuda"),
+                    ap=torch.empty((bm, bn), device="cuda"),
+                    w=src["w"].clone(), r=src["r"].clone(),
+                    zo=torch.empty((bm, bn), device="cuda"),
+                    parts=fs.scratch(bm, bn, "cuda"))
+
+    def k1(s, fn=fs.k1):
+        fn(s["z"], s["p"], s["a"], s["b"], s["d"], s["pn"], s["ap"],
+           s["scal"], s["flags"], s["parts"][0], max_iter=never, h1=h1,
+           h2=h2)
+
+    def k2(s, fn=fs.k2):
+        fn(s["w"], s["r"], s["pn"], s["ap"], s["dinv"], s["zo"], s["scal"],
+           s["flags"], s["parts"][1], max_iter=never)
+
+    for kind, src in (("seeded", inp), ("the loop's zero exterior",
+                                        zero_ext)):
+        sets = [shard_set(src) for _ in range(QUEUE_SETS)]
+        for s in sets:
+            k1(s)
+        plain_set = shard_set(src)
+        plain_set["parts"] = (torch.zeros(1, dtype=torch.float64,
+                                          device="cuda"),
+                              torch.zeros((1, 2), dtype=torch.float64,
+                                          device="cuda"))
+        timed_row(rows, None, f"K1-shard {bm}x{bn}, {kind}",
+                  [lambda s=s: k1(s) for s in sets],
+                  lambda: k1(plain_set, fs.k1_plain),
+                  4 * (4 * n_ext + 3 * n_own) + 8 * n1,
+                  K1_SHARD_FLOPS * n_own, "csrc/fused_sharded.cu",
+                  "parallel/fused_sharded.py:179", launches=0, per=n_own)
+        if kind == "seeded":
+            timed_row(rows, None, f"K2-shard {bm}x{bn}",
+                      [lambda s=s: k2(s) for s in sets],
+                      lambda: k2(plain_set, fs.k2_plain),
+                      4 * 8 * n_own + 16 * n2, K2_SHARD_FLOPS * n_own,
+                      "csrc/fused_sharded.cu",
+                      "parallel/fused_sharded.py:207", launches=0,
+                      per=n_own)
+        del sets
+    say("  the K-d and K1-shard libraries' SASS (cuobjdump -sass)")
+    show_sass("stencil_dots", "stencil_dots")
+    show_sass("fused_sharded", "k1")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--only", choices=("stage4", "stage4-timing", "stencil-dots-timing",
-                           "xl-timing"),
+                           "xl-timing", "stencil-timing"),
         help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
              "loop and timing (stage4), its timing alone (stage4-timing), "
              "rule 2's queue by device time, the K-d family's SASS and the "
              "loops that launch K-d and K-h (stencil-dots-timing), or xl's "
              "forms and body by phase, the grid barrier, K-g's forms and "
-             "the in-loop times (xl-timing); the timings also run on an "
-             "older tree's kernels; prints the kernels' record and no "
-             "result line")
+             "the in-loop times (xl-timing), or K-a and K-e by input data "
+             "and in their loops beside K-g, K-d and K1-shard "
+             "(stencil-timing); the timings also run on an older tree's "
+             "kernels; prints the kernels' record and no result line")
     ap.add_argument("--sass-dir", help="with --only stencil-dots-timing, "
                     "write the SASS listings of the K-d and K-a libraries "
                     "to this directory")
@@ -4017,6 +4305,8 @@ def main(argv=None) -> int:
         timed = phase_queue_timing(args.seed, card, args.sass_dir)
     elif args.only == "xl-timing":
         timed = phase_xl_timing(args.seed, card)
+    elif args.only == "stencil-timing":
+        timed = phase_stencil_timing(args.seed, card)
     elif args.only:
         if args.only == "stage4":
             phase_stage4_kernels(args.seed)

@@ -17,26 +17,10 @@
 // kernel may compute a flux once and hand it to both nodes (stencil_dots.cu
 // does) and still compute this tree's bits.
 //
-// K-a (stencil.cu), K-d (stencil_dots.cu) and K1-shard (fused_sharded.cu)
-// share it.
+// K-a, K-e and K-g (stencil.cu), the K-d family (stencil_dots.cu) and
+// K1-shard (fused_sharded.cu) share it.
 
 #pragma once
-
-// The flux through one face: coef*(hi - lo)/h, a rounded difference, a
-// rounded product, a rounded division.
-__device__ __forceinline__ float face_flux(float coef, float hi, float lo,
-                                           float h) {
-  return coef * (hi - lo) / h;
-}
-
-// A.w at a node from its four face fluxes (south, north, east, west).
-__device__ __forceinline__ float stencil_of_fluxes(float f_s, float f_n,
-                                                   float f_e, float f_w,
-                                                   float h1, float h2) {
-  const float ax = -(f_s - f_n) / h1;
-  const float ay = -(f_e - f_w) / h2;
-  return ax + ay;
-}
 
 // x / h for h > 0, bitwise IEEE division: a zero x is its own quotient
 // (+0 or -0), and only a nonzero x is divided. A zero dividend takes the
@@ -52,15 +36,17 @@ __device__ __forceinline__ float div_pos(float x, float h) {
   return x == 0.0f ? x : q;
 }
 
-// face_flux and stencil_of_fluxes with div_pos: the same bits.
-__device__ __forceinline__ float face_flux_nz(float coef, float hi, float lo,
-                                              float h) {
+// The flux through one face: coef*(hi - lo)/h, a rounded difference, a
+// rounded product, a rounded division (div_pos: the same bits).
+__device__ __forceinline__ float face_flux(float coef, float hi, float lo,
+                                           float h) {
   return div_pos(coef * (hi - lo), h);
 }
 
-__device__ __forceinline__ float stencil_of_fluxes_nz(float f_s, float f_n,
-                                                      float f_e, float f_w,
-                                                      float h1, float h2) {
+// A.w at a node from its four face fluxes (south, north, east, west).
+__device__ __forceinline__ float stencil_of_fluxes(float f_s, float f_n,
+                                                   float f_e, float f_w,
+                                                   float h1, float h2) {
   const float ax = div_pos(-(f_s - f_n), h1);
   const float ay = div_pos(-(f_e - f_w), h2);
   return ax + ay;

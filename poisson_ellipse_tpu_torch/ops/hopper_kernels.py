@@ -10,14 +10,15 @@ kernels are ported:
 - ``_stencil_dots_kernel`` as K-d (``csrc/stencil_dots.cu``): the stencil
   fused with up to eight dot products, the ``pipelined-pallas`` engine's
   one pass per iteration;
-- ``_batched_stencil_kernel`` as K-e (``csrc/stencil.cu``, K-a with the
-  lane on the grid): the stencil for B lanes with lane-shared coefficients,
+- ``_batched_stencil_kernel`` as K-e (``csrc/stencil.cu``, K-a's march
+  with the lane on the grid): the stencil for B lanes with lane-shared
+  coefficients,
   once a body of ``batched-pallas``, for w₀ and the rebuilds of
   ``batched-pipelined-pallas``;
 - ``_batched_stencil_dots_kernel`` as K-f (``csrc/stencil_dots.cu``, K-d
   with the lane on the grid): once a body of ``batched-pipelined-pallas``;
-- ``_stencil_kernel_mixed`` as K-g (``csrc/stencil.cu``, K-a's tree with
-  typed loads, marched as K-d marches): the storage axis's stencil, w in
+- ``_stencil_kernel_mixed`` as K-g (``csrc/stencil.cu``, K-a's march
+  with typed loads): the storage axis's stencil, w in
   the storage dtype or f32, a and b in the storage dtype, out f32; once a
   body of ``pallas`` with ``storage_dtype``, in the rebuilds of
   ``pipelined-pallas`` and in the basis chain of ``sstep-pallas``;
@@ -37,6 +38,13 @@ once to bf16. Their plain versions compute the same way. The bf16
 They count under ``stencil_bf16`` and ``stencil_dots_bf16``.
 
 The stage-4 vector kernels of that module are ``ops.stage4_kernels``.
+
+K-a, its bf16 form, K-e and K-g are four forms of one kernel, the march
+of ``csrc/stencil.cu`` (a lane a column, each face flux once, every
+division through ``stencil_tree.cuh``'s ``div_pos``, so a zero dividend
+skips IEEE division's slow path and gives the division's own signed
+zero): each is bitwise its plain version, and lane l of K-e bitwise K-a
+on lane l.
 
 The plain versions index the last two axes only (``ops.stencil``), so the
 same plain function serves one grid and a (B, ·, ·) stack of lanes. The

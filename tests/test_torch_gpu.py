@@ -106,9 +106,9 @@ def test_stencil_kernel_matches_plain(cuda, M, N):
     got = hk.apply_a_kernel(w, a, b, h1, h2)
     block = hk.apply_a_block_kernel(w, a, b, h1, h2)
     assert _build.LAUNCHES["stencil"] == 2
-    _close(got, hk.apply_a_plain(w, a, b, h1, h2))
-    _close(block, hk.apply_a_block_plain(w, a, b, h1, h2))
-    assert torch.equal(got[1:-1, 1:-1], block)
+    assert _same_bits(got, hk.apply_a_plain(w, a, b, h1, h2))
+    assert _same_bits(block, hk.apply_a_block_plain(w, a, b, h1, h2))
+    assert _same_bits(got[1:-1, 1:-1], block)
     assert not got[0].any() and not got[-1].any()
 
 
@@ -1224,6 +1224,8 @@ def _count_activities() -> dict:
                         (0, hk.apply_a_mixed_block_kernel)):
             counts[f"K-g {w_st} {ab_st} pad {pad}"] = device_activities(
                 lambda: fn(w, a, b, 0.005, 0.002))
+    for form in MARCH_FORMS:
+        counts[f"K-a {form}"] = device_activities(_march_call(form, dev))
     return counts
 
 
@@ -1339,3 +1341,123 @@ def test_bf16_kernel_loops_run_their_forms(cuda, name, counters):
     assert got.w.dtype == torch.bfloat16
     if name == "pallas":
         assert bool(got.converged) and abs(int(got.iters) - 32) <= 3
+
+
+# -- the plain-stencil march (K-a f32 and bf16, K-e) on the solver's zeros --
+
+MARCH_SHAPES = [(44, 132), (130, 20), (400, 600), (2400, 3200)]
+MARCH_KINDS = ["seeded", "all +0", "all -0", "zero exterior"]
+MARCH_LANES = [(44, 132, 1), (130, 20, 3), (400, 600, 32)]
+
+
+def _march_w(kind, shape, dev, seed, dtype=torch.float32):
+    """w of ``kind`` on a (..., g1, g2) grid: seeded; all +0.0; all -0.0;
+    or a seeded field inside the ellipse x² + 4y² < 1 of the node grid on
+    [-1, 1] x [-0.6, 0.6] and a random mix of +0.0 and -0.0 outside it (the
+    solver's state outside the ellipse is exactly zero)."""
+    if kind == "seeded":
+        return _rand(shape, dev, seed, dtype)
+    if kind in ("all +0", "all -0"):
+        return torch.full(shape, 0.0 if kind == "all +0" else -0.0,
+                          dtype=dtype, device=dev)
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-1.0, 1.0, shape[-2])[:, None]
+    y = np.linspace(-0.6, 0.6, shape[-1])[None, :]
+    inside = np.broadcast_to(x * x + 4 * y * y < 1, shape)
+    signs = np.where(rng.random(shape) < 0.5, -0.0, 0.0)
+    w = np.where(inside, rng.standard_normal(shape), signs)
+    return torch.from_numpy(w).to(dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("kind", MARCH_KINDS)
+@pytest.mark.parametrize("M,N", MARCH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil_march_is_bitwise_its_plain_version(cuda, dtype, M, N, kind):
+    """K-a f32 and bf16, pad 1 and pad 0, on the bits: a zero dividend
+    (div_pos) gives the division's own signed zero."""
+    g = (M + 1, N + 1)
+    w = _march_w(kind, g, cuda, M + N, dtype)
+    a, b = _rand(g, cuda, 1, dtype, lo=0.5), _rand(g, cuda, 2, dtype, lo=0.5)
+    h1, h2 = 2.0 / M, 1.2 / N
+    _build.reset_launches()
+    full = hk.apply_a_kernel(w, a, b, h1, h2)
+    block = hk.apply_a_block_kernel(w, a, b, h1, h2)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {ws.counter(hk.KERNEL, ws.form_of(dtype)): 2}
+    assert _same_bits(full, hk.apply_a_plain(w, a, b, h1, h2))
+    assert _same_bits(block, hk.apply_a_block_plain(w, a, b, h1, h2))
+
+
+@pytest.mark.parametrize("kind", MARCH_KINDS)
+@pytest.mark.parametrize("M,N,B", MARCH_LANES)
+def test_batched_march_is_k_a_on_every_lane_on_the_bits(cuda, M, N, B, kind):
+    """K-e at B = 1, 3 and 32: each lane bitwise K-a on that lane and the
+    whole bitwise its plain version, pad 1 and pad 0."""
+    g = (M + 1, N + 1)
+    w = _march_w(kind, (B,) + g, cuda, 5)
+    a, b = _rand(g, cuda, 1, lo=0.5), _rand(g, cuda, 2, lo=0.5)
+    h1, h2 = 2.0 / M, 1.2 / N
+    for kernel, plain, single in (
+            (hk.apply_a_batched_kernel, hk.apply_a_batched_plain,
+             hk.apply_a_kernel),
+            (hk.apply_a_batched_block_kernel, hk.apply_a_block_plain,
+             hk.apply_a_block_kernel)):
+        got = kernel(w, a, b, h1, h2)
+        assert _same_bits(got, plain(w, a, b, h1, h2))
+        for lane in range(B):
+            assert _same_bits(got[lane], single(w[lane].contiguous(), a, b,
+                                                h1, h2))
+
+
+@pytest.mark.parametrize("engine_name,dtype", [("pallas", torch.float32),
+                                               ("pallas", torch.bfloat16),
+                                               ("batched-pallas",
+                                                torch.float32)])
+def test_stencil_march_on_the_loops_data(cuda, engine_name, dtype):
+    """K-a / K-e on a capped solve's own w (zero outside the front the
+    Krylov space has reached) and the assembled a and b, bitwise."""
+    problem = Problem(M=400, N=600, max_iter=64)
+    h1, h2 = problem.h1, problem.h2
+    if engine_name == "batched-pallas":
+        from poisson_ellipse_tpu_torch.batch.driver import solve_batched
+
+        ops = bp.batched_operands(problem, 3, dtype, cuda)
+        w = solve_batched(problem, 3, engine_name, operands=ops).result.w
+        a, b = ops[:2]
+        kernel, plain = hk.apply_a_batched_kernel, hk.apply_a_batched_plain
+    else:
+        a, b, _ = assembly.assemble(problem, dtype, cuda)
+        w = engine.solve(problem, engine_name, dtype, device=cuda).w
+        kernel, plain = hk.apply_a_kernel, hk.apply_a_plain
+    assert (w == 0).any() and (w != 0).any()
+    assert _same_bits(kernel(w, a, b, h1, h2), plain(w, a, b, h1, h2))
+
+
+MARCH_FORMS = ["f32", "bf16", "lanes"]
+
+
+def _march_call(form, dev):
+    """A K-a f32 / bf16 or K-e (B = 3) call at 400x600 on zero-exterior w."""
+    g = (401, 601)
+    dtype = torch.bfloat16 if form == "bf16" else torch.float32
+    w = _march_w("zero exterior", ((3,) if form == "lanes" else ()) + g, dev,
+                 9, dtype)
+    a, b = _rand(g, dev, 1, dtype, lo=0.5), _rand(g, dev, 2, dtype, lo=0.5)
+    fn = hk.apply_a_batched_kernel if form == "lanes" else hk.apply_a_kernel
+    return lambda: fn(w, a, b, 0.005, 0.002)
+
+
+@pytest.mark.parametrize("warm", [True, False])
+@pytest.mark.parametrize("form", MARCH_FORMS)
+def test_stencil_march_in_a_cuda_graph(cuda, form, warm):
+    """A K-a / K-e launch captured in a CUDA graph and replayed twice
+    equals the eager launch, to the bit."""
+    from chip_smoke import graph_and_eager
+
+    eager, captured = graph_and_eager(_march_call(form, cuda), warm)
+    assert _same_bits(eager, captured)
+
+
+@pytest.mark.parametrize("form", MARCH_FORMS)
+def test_stencil_march_issues_one_device_kernel(cuda, activities, form):
+    assert activities[f"K-a {form}"] == 1
