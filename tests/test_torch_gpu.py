@@ -42,7 +42,11 @@ compute in float and round once where they store. The K-d family (K-d
 f32 and bf16, K-h bf16 and f16, K-f) gives the same bits on the pipelined
 bundle's table (compiled in) and on the bundle with each pair swapped
 (the generic instantiation), one device kernel a call, and a K-d / K-f
-launch captured in a CUDA graph equals the eager one. Device activities are counted in a fresh
+launch captured in a CUDA graph equals the eager one. The plain-stencil
+march (K-a f32 and bf16, K-e) is held bitwise, on integer views so the
+sign of a zero counts, on seeded, +0, -0 and zero-exterior inputs at
+ragged shapes, on capped solves' own w, lane by lane at B = 1, 3 and 32,
+and in a CUDA graph. Device activities are counted in a fresh
 process (``activities``): after the graph tests the profiler recorded no
 activity for some calls.
 """
@@ -1346,27 +1350,20 @@ def test_bf16_kernel_loops_run_their_forms(cuda, name, counters):
 # -- the plain-stencil march (K-a f32 and bf16, K-e) on the solver's zeros --
 
 MARCH_SHAPES = [(44, 132), (130, 20), (400, 600), (2400, 3200)]
-MARCH_KINDS = ["seeded", "all +0", "all -0", "zero exterior"]
+MARCH_KINDS = ["seeded", "w = +0", "w = -0", "zero exterior, signed zeros"]
 MARCH_LANES = [(44, 132, 1), (130, 20, 3), (400, 600, 32)]
 
 
 def _march_w(kind, shape, dev, seed, dtype=torch.float32):
-    """w of ``kind`` on a (..., g1, g2) grid: seeded; all +0.0; all -0.0;
-    or a seeded field inside the ellipse x² + 4y² < 1 of the node grid on
-    [-1, 1] x [-0.6, 0.6] and a random mix of +0.0 and -0.0 outside it (the
-    solver's state outside the ellipse is exactly zero)."""
+    """w of ``kind``: seeded, or one of ``chip_smoke.signed_zero_inputs``
+    (all +0.0; all -0.0; a seeded ellipse with a random mix of +0.0 and
+    -0.0 outside it, as the solver's state is exactly zero there)."""
+    from chip_smoke import signed_zero_inputs
+
     if kind == "seeded":
         return _rand(shape, dev, seed, dtype)
-    if kind in ("all +0", "all -0"):
-        return torch.full(shape, 0.0 if kind == "all +0" else -0.0,
-                          dtype=dtype, device=dev)
-    rng = np.random.default_rng(seed)
-    x = np.linspace(-1.0, 1.0, shape[-2])[:, None]
-    y = np.linspace(-0.6, 0.6, shape[-1])[None, :]
-    inside = np.broadcast_to(x * x + 4 * y * y < 1, shape)
-    signs = np.where(rng.random(shape) < 0.5, -0.0, 0.0)
-    w = np.where(inside, rng.standard_normal(shape), signs)
-    return torch.from_numpy(w).to(dtype=dtype, device=dev)
+    like = torch.empty(shape, dtype=dtype, device=dev)
+    return signed_zero_inputs(like, seed)[kind]
 
 
 @pytest.mark.parametrize("kind", MARCH_KINDS)
@@ -1440,8 +1437,8 @@ def _march_call(form, dev):
     """A K-a f32 / bf16 or K-e (B = 3) call at 400x600 on zero-exterior w."""
     g = (401, 601)
     dtype = torch.bfloat16 if form == "bf16" else torch.float32
-    w = _march_w("zero exterior", ((3,) if form == "lanes" else ()) + g, dev,
-                 9, dtype)
+    w = _march_w("zero exterior, signed zeros",
+                 ((3,) if form == "lanes" else ()) + g, dev, 9, dtype)
     a, b = _rand(g, dev, 1, dtype, lo=0.5), _rand(g, dev, 2, dtype, lo=0.5)
     fn = hk.apply_a_batched_kernel if form == "lanes" else hk.apply_a_kernel
     return lambda: fn(w, a, b, 0.005, 0.002)

@@ -7,13 +7,14 @@ dividend is its own quotient, signed as IEEE division signs it, and only a
 nonzero one is divided. Its plain versions divide plainly, so the two
 agree bit for bit; the card's tests (``tests/test_torch_gpu.py``) hold
 them so on zero, ``-0.0`` and zero-exterior inputs. Here, on the CPU, the
-plain versions meet the JAX package's stencils on the same data: w is a
-numpy-seeded field inside the ellipse and a mix of +0.0 and -0.0 outside
-it (the solver's state outside the ellipse is exactly zero), or all +0.0,
-or all -0.0; a and b are the assembled coefficients, rounded once to f32
-from the same f64 host arrays. Tolerance: 1e-6 of the output's scale, the
-port's K-a / K-e parity tolerance (XLA on the CPU may contract a*b+c into
-an FMA, ROADMAP Queue C); and the output is zero exactly where JAX's is.
+plain versions meet the JAX package's stencils on the same data: w from
+``chip_smoke.signed_zero_inputs``, a numpy-seeded field inside the
+ellipse and a mix of +0.0 and -0.0 outside it (the solver's state outside
+the ellipse is exactly zero), or all +0.0, or all -0.0; a and b are the
+assembled coefficients, rounded once to f32 from the same f64 host
+arrays. Tolerance: 1e-6 of the output's scale, the port's K-a / K-e
+parity tolerance (XLA on the CPU may contract a*b+c into an FMA, ROADMAP
+Queue C); and the output is zero exactly where JAX's is.
 """
 
 import re
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import signed_zero_inputs
 from poisson_ellipse_tpu.models.problem import Problem as JaxProblem
 from poisson_ellipse_tpu.ops import assembly as jax_assembly
 from poisson_ellipse_tpu.ops import pallas_kernels as jax_pk
@@ -33,7 +35,7 @@ from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
 
 REL = 1e-6
 SHAPES = [(44, 132), (24, 36)]
-KINDS = ["zero exterior", "all +0", "all -0"]
+KINDS = ["zero exterior, signed zeros", "w = +0", "w = -0"]
 LANES = 3
 CSRC = Path(hk.__file__).resolve().parent.parent / "csrc"
 
@@ -47,27 +49,14 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
-def _field(kind: str, rhs: np.ndarray, rng, lead=()) -> np.ndarray:
-    """w of ``kind`` on rhs's grid (with a leading lane shape): a seeded
-    field where the RHS is nonzero (inside the ellipse) and a random mix
-    of +0.0 and -0.0 elsewhere; or all +0.0; or all -0.0."""
-    shape = lead + rhs.shape
-    if kind == "all +0":
-        return np.zeros(shape, np.float32)
-    if kind == "all -0":
-        return np.full(shape, -0.0, np.float32)
-    signs = np.where(rng.random(shape) < 0.5, -0.0, 0.0).astype(np.float32)
-    inside = np.broadcast_to(rhs != 0, shape)
-    return np.where(inside, rng.standard_normal(shape),
-                    signs).astype(np.float32)
-
-
 def _inputs(M, N, kind, seed, lead=()):
-    """(w, a, b) as numpy f32 arrays and the f32-rounded spacings."""
+    """(w, a, b) as numpy f32 arrays and the f32-rounded spacings; w of
+    ``kind`` from ``chip_smoke.signed_zero_inputs``."""
     jp = JaxProblem(M=M, N=N)
-    a, b, rhs = jax_assembly.assemble_numpy(jp)
-    w = _field(kind, rhs, np.random.default_rng(seed), lead)
-    assert kind != "zero exterior" or (w == 0).mean() > 0.1
+    a, b, _ = jax_assembly.assemble_numpy(jp)
+    like = torch.empty(lead + a.shape, dtype=torch.float32)
+    w = signed_zero_inputs(like, seed)[kind].numpy()
+    assert not kind.startswith("zero exterior") or (w == 0).mean() > 0.1
     return w, a.astype(np.float32), b.astype(np.float32), jp.h1, jp.h2
 
 
