@@ -4058,6 +4058,180 @@ def phase_xl_timing(seed: int, card: str) -> list:
     return rows
 
 
+# -- the whole-solve kernels by phase: resident and streamed beside xl ------
+
+WHOLE_TIME_CAP = 256
+# (label, engine, grid, compute dtype, storage dtype, forced resident
+# operands): auto's grids for resident and streamed in every form, and
+# streamed with every operand on chip and in both regimes
+WHOLE_SPLITS = (
+    ("resident f32", "resident", (400, 600), torch.float32, None, None),
+    ("resident f32", "resident", (800, 1200), torch.float32, None, None),
+    ("resident bf16", "resident", STREAMED_GRID, BF16, None, None),
+    ("streamed f32, every operand on chip", "streamed", (800, 1200),
+     torch.float32, None, ("ap", "dinv", "a", "b")),
+    ("streamed f32, planned (z-state)", "streamed", STREAMED_GRID,
+     torch.float32, None, None),
+    ("streamed f32, dinv forced on chip (r-state)", "streamed",
+     STREAMED_GRID, torch.float32, None, ("dinv",)),
+    ("streamed bf16, planned", "streamed", (1600, 2400), BF16, None, None),
+    ("streamed f32_bf16, planned", "streamed", STREAMED_GRID, torch.float32,
+     "bf16", None),
+    ("streamed f32_f16, planned", "streamed", STREAMED_GRID, torch.float32,
+     "f16", None),
+)
+WHOLE_STAMP_PARTS = (("pn pass", 0, 1), ("stencil phase", 1, 2),
+                     ("sum 1 with its barrier", 2, 3),
+                     ("update phase", 3, 4),
+                     ("sums 2 with their barrier", 4, 5))
+
+
+def whole_split(label: str, stamps: torch.Tensor, nb: int,
+                bodies: int) -> None:
+    """The body by phase from a timing launch's stamps (grid_sync.cuh
+    whole_stamp) of ``bodies`` bodies: block 0's phases, medians and means
+    over the bodies but the first and the last, and the spread of the
+    blocks' stencil- and update-phase ends."""
+    t = stamps[:bodies].cpu().numpy().astype(np.float64)
+    require(bodies >= 4 and bool((t[:, :6] > 0).all()),
+            f"{label}: a body left no stamp")
+    body, nxt = t[1:-1], t[2:]
+    parts = [(name, body[:, b] - body[:, a]) for name, a, b in
+             WHOLE_STAMP_PARTS]
+    parts.append(("scalar tail", nxt[:, 0] - body[:, 5]))
+    parts.append(("body", nxt[:, 0] - body[:, 0]))
+    say(f"    {label} by phase (median / mean us over {len(body)} bodies): "
+        + "; ".join(f"{name} {np.median(ns) / 1e3:.2f} / "
+                    f"{ns.mean() / 1e3:.2f}" for name, ns in parts))
+    for name, col in (("stencil", 6), ("update", 6 + nb)):
+        ends = body[:, col:col + nb] - body[:, :1]
+        spread = ends.max(axis=1) - ends.min(axis=1)
+        q = np.percentile(np.median(ends, axis=0) / 1e3, [0, 50, 100])
+        say(f"      {name}-phase ends over {nb} blocks: spread median "
+            f"{np.median(spread) / 1e3:.2f} us (mean "
+            f"{spread.mean() / 1e3:.2f}); blocks' median ends 0/50/100%: "
+            + ", ".join(f"{x:.2f}" for x in q) + " us after block 0's start")
+
+
+def _whole_case(engine, problem, dtype, storage, resident, cap):
+    """(run(problem, stamps=None), blocks, what the launch shape is) of one
+    case of WHOLE_SPLITS on operands built once."""
+    import inspect
+
+    from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
+    from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
+
+    dev = torch.device("cuda")
+    if engine == "resident":
+        ops = rp.resident_operands(problem, dtype, dev)
+        lay = rp.layout(problem, cap, dtype)
+        shape = getattr(rp, "launch_shape", None)
+        what = (f"span {lay.span}, {lay.smem_bytes} B"
+                + (f", {shape(problem, cap, dtype)}" if shape else
+                   f", {rp.THREADS} threads"))
+        stamped = "stamps" in inspect.signature(rp.resident).parameters
+
+        def run(pr, stamps=None):
+            extra = {"stamps": stamps} if stamps is not None else {}
+            return rp.resident(pr, *ops, cap=cap, **extra)[0]
+        return run, lay.nblocks, what, stamped
+    ops = sp.streamed_operands(problem, dtype, dev, storage)
+    plan = sp.StreamPlan(problem, cap, dtype, resident=resident)
+    on_chip = [k for k, v in plan.resident.items() if v]
+    shape = getattr(plan, "launch_shape", None)
+    what = (f"span {plan.span}, on chip {on_chip or 'nothing'}, "
+            f"{'z' if plan.zstate else 'r'}-state, {plan.smem_bytes} B"
+            + (f", {shape()}" if shape else ""))
+    stamped = "stamps" in inspect.signature(sp.streamed).parameters
+
+    def run(pr, stamps=None):
+        extra = {"stamps": stamps} if stamps is not None else {}
+        return sp.streamed(pr, *ops, plan=plan, **extra)[0]
+    return run, plan.nblocks, what, stamped
+
+
+def _xl_at(problem, dtype, storage, cap):
+    """xl's run at ``problem``'s grid in a form: the yardstick a kernel that
+    keeps its state on chip has to beat."""
+    from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
+    from poisson_ellipse_tpu_torch.ops.streamed_pcg import streamed_operands
+
+    ops = streamed_operands(problem, dtype, "cuda", storage)
+    return lambda pr: xp.xl(pr, *ops, cap=cap)[0]
+
+
+def _us_and_t_solver(label, run, problem, uncapped, repeat=3):
+    """us an iteration of ``run`` capped at WHOLE_TIME_CAP (delta = 0) and
+    its T_solver on ``uncapped``, medians of ``repeat``; returns both."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+
+    capped = Problem(M=problem.M, N=problem.N, max_iter=WHOLE_TIME_CAP,
+                     delta=0.0)
+    iters = int(run(capped).iters)
+    ts = [time_solver(lambda: run(capped), (), 1) for _ in range(repeat)]
+    us = statistics.median(ts) * 1e6 / iters
+    full = run(uncapped)
+    n_full = int(full.iters)
+    tf = [time_solver(lambda: run(uncapped), (), 1) for _ in range(repeat)]
+    say(f"  {label}: {us:.2f} us/iter capped at {iters} ("
+        + ", ".join(f"{x * 1e6 / iters:.2f}" for x in ts)
+        + f"); T_solver {statistics.median(tf) * 1e3:.3f} ms ("
+        + ", ".join(f"{x * 1e3:.3f}" for x in tf)
+        + f") for {n_full} iterations, converged {bool(full.converged)}"
+        + (f" (capped at {uncapped.max_iterations})"
+           if uncapped.max_iter is not None else ""))
+    return us, statistics.median(tf)
+
+
+def phase_whole_timing_split(cap, card: str) -> list:
+    """``--only whole-timing``: each case of WHOLE_SPLITS capped at
+    WHOLE_TIME_CAP us an iteration and T_solver (f32 uncapped, the other
+    forms capped at DTYPE_CAP: they need not converge), its body by phase
+    through the timing instantiation, xl at the same grid and form beside
+    it, and the resident and streamed libraries' SASS. Runs on an older
+    tree's kernels too (what that tree lacks is printed as not
+    measured)."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import whole_solve as ws
+
+    say(f"== the whole-solve kernels by phase, beside xl, on {card}")
+    rows = []
+    for label, engine, (m, n), dtype, storage, resident in WHOLE_SPLITS:
+        problem = Problem(M=m, N=n)
+        uncapped = (problem if dtype == torch.float32 and storage is None
+                    else Problem(M=m, N=n, max_iter=DTYPE_CAP))
+        run, nb, what, stamped = _whole_case(engine, problem, dtype, storage,
+                                             resident, cap)
+        full = f"{label} {m + 1}x{n + 1}"
+        say(f"  {full}: {nb} blocks, {what}")
+        us, t = _us_and_t_solver(full, run, problem, uncapped)
+        if stamped:
+            capped = Problem(M=m, N=n, max_iter=WHOLE_TIME_CAP, delta=0.0)
+            stamps = ws.stamps_buffer(capped, nb, "cuda")
+            bodies = int(run(capped, stamps).iters)
+            whole_split(full, stamps, nb, bodies)
+        else:
+            say(f"    {full} by phase: not measured (this tree's kernel has "
+                "no timing instantiation)")
+        xl_run = _xl_at(problem, dtype, storage, cap)
+        xl_us, xl_t = _us_and_t_solver(f"xl {label.split(',')[0].split()[1]}"
+                                       f" {m + 1}x{n + 1}", xl_run, problem,
+                                       uncapped)
+        form = ws.form_of(dtype, NARROW[storage] if storage else None)
+        rows.append(dict(name=ws.counter(engine, form), label=full,
+                         route="cuda",
+                         source=f"poisson_ellipse_tpu_torch/csrc/{engine}"
+                                "_pcg.cu",
+                         replaces=WHOLE_REPLACES[engine], us_per_iter=us,
+                         t_solver_ms=t * 1e3, xl_us_per_iter=xl_us,
+                         xl_t_solver_ms=xl_t * 1e3, ms=None, plain_ms=None,
+                         bound_ms=None, bound_by=None, library_ms=None))
+    for library, match in (("resident_pcg", "resident_kernel"),
+                           ("streamed_pcg", "streamed_kernel")):
+        show_sass(library, match)
+    return rows
+
+
 # -- the plain-stencil family by data: K-a, K-e, beside K-g, K-d, K1-shard ---
 
 # K-e's grids and lanes: batched-pallas's two throughput shapes
@@ -4281,7 +4455,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--only", choices=("stage4", "stage4-timing", "stencil-dots-timing",
-                           "xl-timing", "stencil-timing"),
+                           "xl-timing", "stencil-timing", "whole-timing"),
         help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
              "loop and timing (stage4), its timing alone (stage4-timing), "
              "rule 2's queue by device time, the K-d family's SASS and the "
@@ -4289,7 +4463,8 @@ def main(argv=None) -> int:
              "forms and body by phase, the grid barrier, K-g's forms and "
              "the in-loop times (xl-timing), or K-a and K-e by input data "
              "and in their loops beside K-g, K-d and K1-shard "
-             "(stencil-timing); the timings also run on an older tree's "
+             "(stencil-timing), or resident and streamed by phase beside "
+             "xl (whole-timing); the timings also run on an older tree's "
              "kernels; prints the kernels' record and no result line")
     ap.add_argument("--sass-dir", help="with --only stencil-dots-timing, "
                     "write the SASS listings of the K-d and K-a libraries "
@@ -4307,6 +4482,10 @@ def main(argv=None) -> int:
         timed = phase_xl_timing(args.seed, card)
     elif args.only == "stencil-timing":
         timed = phase_stencil_timing(args.seed, card)
+    elif args.only == "whole-timing":
+        from poisson_ellipse_tpu_torch.utils.device import capacity
+
+        timed = phase_whole_timing_split(capacity(0), card)
     elif args.only:
         if args.only == "stage4":
             phase_stage4_kernels(args.seed)

@@ -284,6 +284,53 @@ __device__ __forceinline__ void write_status(int* status, TC* diff_out,
   }
 }
 
+// The device clock in ns (%globaltimer), the same on every SM.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The timing instantiation of the resident and streamed kernels
+// (kStamps; chip_smoke.py --only whole-timing, no engine runs it). Body i
+// writes row i of ``stamps``, kWholeStamps + 2 * gridDim.x u64: block 0
+// the start of the body (k = 0), the end of its pn pass (1), of its
+// stencil phase (2), the return of the first grid sum (3), the end of its
+// update phase (4) and the return of the second sums (5); every block b
+// the end of its own stencil phase (kWholeStamps + b) and update phase
+// (kWholeStamps + gridDim.x + b), except that body 0's stencil slots hold
+// each block's SM plus one. A phase's end is taken after a
+// __syncthreads, so it is the block's.
+constexpr int kWholeStamps = 6;
+enum WholeStamp {
+  kBodyStart = 0,
+  kPnEnd = 1,
+  kStencilEnd = 2,
+  kSum1 = 3,
+  kUpdateEnd = 4,
+  kSum2 = 5,
+};
+
+template <bool kStamps>
+__device__ __forceinline__ void whole_stamp(unsigned long long* stamps,
+                                            int i, int k, bool sync) {
+  if (kStamps) {
+    if (sync) __syncthreads();
+    if (threadIdx.x != 0) return;
+    unsigned long long* row =
+        stamps + (long long)i * (kWholeStamps + 2 * gridDim.x);
+    const unsigned long long t = global_ns();
+    if (blockIdx.x == 0) row[k] = t;
+    if (k == kStencilEnd) {
+      unsigned sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      row[kWholeStamps + blockIdx.x] = i == 0 ? sm + 1 : t;
+    } else if (k == kUpdateEnd) {
+      row[kWholeStamps + gridDim.x + blockIdx.x] = t;
+    }
+  }
+}
+
 // The cooperative launch of a whole-solve kernel: raises the dynamic
 // shared-memory limit (needed above 48 KB), then launches. A grid larger
 // than the card can hold at once is refused with

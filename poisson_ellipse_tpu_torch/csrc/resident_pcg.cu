@@ -66,14 +66,15 @@ struct PerThread {
   static constexpr int value = sizeof(TC) == 4 ? 16 : 32;
 };
 
-template <typename TC>
+template <typename TC, bool kStamps = false>
 __global__ void __launch_bounds__(kThreads, 1)
 resident_kernel(const TC* __restrict__ an_g, const TC* __restrict__ bw_g,
                 const TC* __restrict__ d_g, const TC* __restrict__ dinv_g,
                 const TC* __restrict__ r0_g, TC* __restrict__ w_out,
                 float* zpub, float* ppub, double* partials, int* status,
                 TC* diff_out, int g1, int g2, int span, int max_iter,
-                float h1h2, float delta, int weighted) {
+                float h1h2, float delta, int weighted,
+                unsigned long long* stamps) {
   constexpr int kPerThread = PerThread<TC>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* scratch = reinterpret_cast<double*>(smem_raw);
@@ -134,10 +135,12 @@ resident_kernel(const TC* __restrict__ an_g, const TC* __restrict__ bw_g,
   };
   while (k < max_iter && !c.converged && !c.breakdown) {
     // -- stencil phase: pn over the span, then ap and the (ap, pn) partial
+    pe::whole_stamp<kStamps>(stamps, k, pe::kBodyStart, false);
     for (int l = tid; l < len; l += kThreads) {
       s_p[l] = down<TC>(up(s_r[l]) * up(s_dinv[l]) + c.beta * up(s_p[l]));
     }
     __syncthreads();
+    pe::whole_stamp<kStamps>(stamps, k, pe::kPnEnd, false);
     float ap[kPerThread];
     acc = 0.0;
 #pragma unroll
@@ -163,8 +166,10 @@ resident_kernel(const TC* __restrict__ an_g, const TC* __restrict__ bw_g,
       }
       ap[j] = v;
     }
+    pe::whole_stamp<kStamps>(stamps, k, pe::kStencilEnd, true);
     const float denom =
         R(R(pe::grid_reduce(acc, part_denom, scratch)) * h1h2);
+    pe::whole_stamp<kStamps>(stamps, k, pe::kSum1, false);
     const bool breakdown = pe::below_guard<TC>(denom);
     const float alpha = pe::guarded_alpha<TC>(c.zr, denom);
 
@@ -190,8 +195,10 @@ resident_kernel(const TC* __restrict__ an_g, const TC* __restrict__ bw_g,
         }
       }
     }
+    pe::whole_stamp<kStamps>(stamps, k, pe::kUpdateEnd, true);
     float dw2_sum, zr_sum;
     pe::grid_reduce2(dw2, zrs, part_dw2, part_zr, scratch, &dw2_sum, &zr_sum);
+    pe::whole_stamp<kStamps>(stamps, k, pe::kSum2, false);
     pe::next_carry<TC>(c, breakdown, R(dw2_sum), R(zr_sum), h1h2, delta,
                        weighted);
     ++k;
@@ -210,7 +217,7 @@ int launch(const TC* an, const TC* bw, const TC* d, const TC* dinv,
            const TC* r0, TC* w, float* zpub, float* ppub, double* partials,
            int* status, TC* diff, int g1, int g2, int span, int nblocks,
            int smem, int max_iter, float h1h2, float delta, int weighted,
-           void* stream) {
+           void* stream, unsigned long long* stamps = nullptr) {
   const long need =
       static_cast<long>(sizeof(TC)) * kArrays * span + pe::kReduceBytes;
   if (span > kThreads * PerThread<TC>::value || smem < need) {
@@ -218,7 +225,11 @@ int launch(const TC* an, const TC* bw, const TC* d, const TC* dinv,
   }
   void* args[] = {&an,   &bw,     &d,    &dinv, &r0, &w,        &zpub,
                   &ppub, &partials, &status, &diff, &g1, &g2, &span,
-                  &max_iter, &h1h2, &delta, &weighted};
+                  &max_iter, &h1h2, &delta, &weighted, &stamps};
+  if (stamps != nullptr) {
+    return pe::cooperative_launch(resident_kernel<TC, true>, nblocks,
+                                  kThreads, smem, args, stream);
+  }
   return pe::cooperative_launch(resident_kernel<TC>, nblocks, kThreads, smem,
                                 args, stream);
 }
@@ -249,6 +260,34 @@ int pe_resident_pcg_bf16(const __nv_bfloat16* an, const __nv_bfloat16* bw,
   return launch(an, bw, d, dinv, r0, w, zpub, ppub, partials, status, diff,
                 g1, g2, span, nblocks, smem, max_iter, h1h2, delta, weighted,
                 stream);
+}
+
+// The timing instantiations: each form's arguments and ``stamps``,
+// max_iter * (kWholeStamps + 2 * nblocks) zeroed u64 (grid_sync.cuh:
+// whole_stamp).
+int pe_resident_pcg_stamps_f32(const float* an, const float* bw,
+                               const float* d, const float* dinv,
+                               const float* r0, float* w, float* zpub,
+                               float* ppub, double* partials, int* status,
+                               float* diff, int g1, int g2, int span,
+                               int nblocks, int smem, int max_iter,
+                               float h1h2, float delta, int weighted,
+                               void* stream, unsigned long long* stamps) {
+  return launch(an, bw, d, dinv, r0, w, zpub, ppub, partials, status, diff,
+                g1, g2, span, nblocks, smem, max_iter, h1h2, delta, weighted,
+                stream, stamps);
+}
+
+int pe_resident_pcg_stamps_bf16(
+    const __nv_bfloat16* an, const __nv_bfloat16* bw, const __nv_bfloat16* d,
+    const __nv_bfloat16* dinv, const __nv_bfloat16* r0, __nv_bfloat16* w,
+    float* zpub, float* ppub, double* partials, int* status,
+    __nv_bfloat16* diff, int g1, int g2, int span, int nblocks, int smem,
+    int max_iter, float h1h2, float delta, int weighted, void* stream,
+    unsigned long long* stamps) {
+  return launch(an, bw, d, dinv, r0, w, zpub, ppub, partials, status, diff,
+                g1, g2, span, nblocks, smem, max_iter, h1h2, delta, weighted,
+                stream, stamps);
 }
 
 int pe_resident_pcg_launch_query(int device, int smem, int* cooperative,

@@ -81,14 +81,15 @@ __device__ __forceinline__ float operand_at(int x, int s, int len,
   return up(__ldg(g_op + x));
 }
 
-template <typename TC, typename TS>
+template <typename TC, typename TS, bool kStamps = false>
 __global__ void __launch_bounds__(kThreads, 1)
 streamed_kernel(const TS* __restrict__ dinv_g, const TS* __restrict__ an_g,
                 const TS* __restrict__ bw_g, const TC* __restrict__ r0_g,
                 TC* __restrict__ w_out, TC* __restrict__ ap_g, float* zpub,
                 float* ppub, double* partials, int* status, TC* diff_out,
                 int g1, int g2, int span, int resident, int max_iter,
-                float h1h2, float delta, int weighted) {
+                float h1h2, float delta, int weighted,
+                unsigned long long* stamps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* scratch = reinterpret_cast<double*>(smem_raw);
   TC* s_w = reinterpret_cast<TC*>(smem_raw + pe::kReduceBytes);
@@ -153,12 +154,14 @@ streamed_kernel(const TS* __restrict__ dinv_g, const TS* __restrict__ an_g,
   };
   while (k < max_iter && !c.converged && !c.breakdown) {
     // -- stencil phase: pn over the span, then ap and the (ap, pn) partial
+    pe::whole_stamp<kStamps>(stamps, k, pe::kBodyStart, false);
     for (int l = tid; l < len; l += kThreads) {
       const float z =
           zstate ? up(s_r[l]) : up(s_r[l]) * op(s + l, s_dinv, dinv_g);
       s_p[l] = down<TC>(z + c.beta * up(s_p[l]));
     }
     __syncthreads();
+    pe::whole_stamp<kStamps>(stamps, k, pe::kPnEnd, false);
     acc = 0.0;
     for (int l = tid; l < len; l += kThreads) {
       const int q = s + l;
@@ -184,8 +187,10 @@ streamed_kernel(const TS* __restrict__ dinv_g, const TS* __restrict__ an_g,
         ap_g[q] = down<TC>(v);
       }
     }
+    pe::whole_stamp<kStamps>(stamps, k, pe::kStencilEnd, true);
     const float denom =
         R(R(pe::grid_reduce(acc, part_denom, scratch)) * h1h2);
+    pe::whole_stamp<kStamps>(stamps, k, pe::kSum1, false);
     const bool breakdown = pe::below_guard<TC>(denom);
     const float alpha = pe::guarded_alpha<TC>(c.zr, denom);
 
@@ -219,8 +224,10 @@ streamed_kernel(const TS* __restrict__ dinv_g, const TS* __restrict__ an_g,
         ppub[q] = pn;
       }
     }
+    pe::whole_stamp<kStamps>(stamps, k, pe::kUpdateEnd, true);
     float dw2_sum, zr_sum;
     pe::grid_reduce2(dw2, zrs, part_dw2, part_zr, scratch, &dw2_sum, &zr_sum);
+    pe::whole_stamp<kStamps>(stamps, k, pe::kSum2, false);
     pe::next_carry<TC>(c, breakdown, R(dw2_sum), R(zr_sum), h1h2, delta,
                        weighted);
     ++k;
@@ -239,14 +246,18 @@ int launch(const TS* dinv, const TS* an, const TS* bw, const TC* r0, TC* w,
            TC* ap, float* zpub, float* ppub, double* partials, int* status,
            TC* diff, int g1, int g2, int span, int resident, int nblocks,
            int smem, int max_iter, float h1h2, float delta, int weighted,
-           void* stream) {
+           void* stream, unsigned long long* stamps = nullptr) {
   const int arrays = 3 + __builtin_popcount(static_cast<unsigned>(resident & 15));
   const long need =
       static_cast<long>(sizeof(TC)) * arrays * span + pe::kReduceBytes;
   if (smem < need) return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&dinv,    &an,   &bw,     &r0,   &w,   &ap,   &zpub,
                   &ppub,    &partials, &status, &diff, &g1, &g2, &span,
-                  &resident, &max_iter, &h1h2, &delta, &weighted};
+                  &resident, &max_iter, &h1h2, &delta, &weighted, &stamps};
+  if (stamps != nullptr) {
+    return pe::cooperative_launch(streamed_kernel<TC, TS, true>, nblocks,
+                                  kThreads, smem, args, stream);
+  }
   return pe::cooperative_launch(streamed_kernel<TC, TS>, nblocks, kThreads,
                                 smem, args, stream);
 }
@@ -305,6 +316,25 @@ int pe_streamed_pcg_f32_f16(const __half* dinv, const __half* an,
   return launch(dinv, an, bw, r0, w, ap, zpub, ppub, partials, status, diff,
                 g1, g2, span, resident, nblocks, smem, max_iter, h1h2, delta,
                 weighted, stream);
+}
+
+// The timing instantiations: each form's arguments and ``stamps``,
+// max_iter * (kWholeStamps + 2 * nblocks) zeroed u64 (grid_sync.cuh:
+// whole_stamp).
+int pe_streamed_pcg_stamps_f32(const float* dinv, const float* an, const float* bw, const float* r0, float* w, float* ap, float* zpub, float* ppub, double* partials, int* status, float* diff, int g1, int g2, int span, int resident, int nblocks, int smem, int max_iter, float h1h2, float delta, int weighted, void* stream, unsigned long long* stamps) {
+  return launch(dinv, an, bw, r0, w, ap, zpub, ppub, partials, status, diff, g1, g2, span, resident, nblocks, smem, max_iter, h1h2, delta, weighted, stream, stamps);
+}
+
+int pe_streamed_pcg_stamps_bf16(const __nv_bfloat16* dinv, const __nv_bfloat16* an, const __nv_bfloat16* bw, const __nv_bfloat16* r0, __nv_bfloat16* w, __nv_bfloat16* ap, float* zpub, float* ppub, double* partials, int* status, __nv_bfloat16* diff, int g1, int g2, int span, int resident, int nblocks, int smem, int max_iter, float h1h2, float delta, int weighted, void* stream, unsigned long long* stamps) {
+  return launch(dinv, an, bw, r0, w, ap, zpub, ppub, partials, status, diff, g1, g2, span, resident, nblocks, smem, max_iter, h1h2, delta, weighted, stream, stamps);
+}
+
+int pe_streamed_pcg_stamps_f32_bf16(const __nv_bfloat16* dinv, const __nv_bfloat16* an, const __nv_bfloat16* bw, const float* r0, float* w, float* ap, float* zpub, float* ppub, double* partials, int* status, float* diff, int g1, int g2, int span, int resident, int nblocks, int smem, int max_iter, float h1h2, float delta, int weighted, void* stream, unsigned long long* stamps) {
+  return launch(dinv, an, bw, r0, w, ap, zpub, ppub, partials, status, diff, g1, g2, span, resident, nblocks, smem, max_iter, h1h2, delta, weighted, stream, stamps);
+}
+
+int pe_streamed_pcg_stamps_f32_f16(const __half* dinv, const __half* an, const __half* bw, const float* r0, float* w, float* ap, float* zpub, float* ppub, double* partials, int* status, float* diff, int g1, int g2, int span, int resident, int nblocks, int smem, int max_iter, float h1h2, float delta, int weighted, void* stream, unsigned long long* stamps) {
+  return launch(dinv, an, bw, r0, w, ap, zpub, ppub, partials, status, diff, g1, g2, span, resident, nblocks, smem, max_iter, h1h2, delta, weighted, stream, stamps);
 }
 
 int pe_streamed_pcg_launch_query(int device, int smem, int* cooperative,

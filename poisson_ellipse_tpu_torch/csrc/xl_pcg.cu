@@ -137,13 +137,6 @@ struct Tune<__nv_bfloat16, __nv_bfloat16> {
   static constexpr int kAhead = 2, kMinBlocks = 4, kUnroll = 1;
 };
 
-// The device clock in ns (%globaltimer), the same on every SM.
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // Body i of the timing instantiation writes stamps[i * (kStampsPerBody +
 // gridDim.x) + k]: block 0 the start of its stencil phase (k = 0), its end
 // (1), the return of the first grid sums (2), the end of the update phase
@@ -158,7 +151,7 @@ __device__ __forceinline__ void stamp(unsigned long long* stamps, int i,
   if (kStamps) {
     if (sync) __syncthreads();
     if (threadIdx.x == 0 && (blockIdx.x == 0 || k >= kStampsPerBody)) {
-      unsigned long long t = global_ns();
+      unsigned long long t = pe::global_ns();
       if (i == 0 && k >= kStampsPerBody) {
         // body 0's block slots: the block's SM, plus one
         unsigned sm;

@@ -149,11 +149,14 @@ _SIGNATURE = [ws.PTR] * 11 + [ws.INT] * 6 + [ws.FLOAT, ws.FLOAT, ws.INT,
 
 
 def resident(problem: Problem, an, bw, d, dinv, r0,
-             cap: DeviceCapacity | None = None) -> tuple[PCGResult, int]:
+             cap: DeviceCapacity | None = None,
+             stamps: torch.Tensor | None = None) -> tuple[PCGResult, int]:
     """The whole solve: the kernel for CUDA tensors (its form at r0's
     dtype, f32 or bf16), its plain version for CPU tensors. Returns
     (result, host reads). ``cap`` is the card's capacity (read from the
-    device when None)."""
+    device when None). ``stamps`` (``ws.stamps_buffer``) runs the timing
+    instantiation instead: each body's phase boundaries on the device
+    clock, in ns."""
     if r0.device.type == "cpu":
         return resident_plain(problem, an, bw, d, dinv, r0)
     form = ws.form_of(r0.dtype)
@@ -177,9 +180,7 @@ def resident(problem: Problem, an, bw, d, dinv, r0,
     zpub = torch.empty_like(r0, dtype=torch.float32)
     ppub = torch.empty_like(zpub)
     status, diff, partials = ws.scratch(r0, lay.nblocks)
-    ws.launch(
-        LIBRARY, ws.counter(KERNEL, form), f"pe_resident_pcg_{form}",
-        _SIGNATURE,
+    args = (
         *(t.data_ptr() for t in (an, bw, d, dinv, r0, w, zpub, ppub,
                                  partials, status, diff)),
         g1, g2, lay.span, lay.nblocks, lay.smem_bytes,
@@ -188,6 +189,9 @@ def resident(problem: Problem, an, bw, d, dinv, r0,
         int(problem.norm == "weighted"),
         torch.cuda.current_stream(r0.device).cuda_stream,
     )
+    ws.launch_form(LIBRARY, KERNEL, form, _SIGNATURE, args, stamps,
+                   (problem.max_iterations,
+                    ws.WHOLE_STAMPS + 2 * lay.nblocks))
     return ws.launch_result(KERNEL, w, status, diff)
 
 

@@ -205,11 +205,13 @@ _SIGNATURE = [ws.PTR] * 11 + [ws.INT] * 7 + [ws.FLOAT, ws.FLOAT, ws.INT,
                                              ws.PTR]
 
 
-def streamed(problem: Problem, dinv, an, bw, r0,
-             plan: StreamPlan) -> tuple[PCGResult, int]:
+def streamed(problem: Problem, dinv, an, bw, r0, plan: StreamPlan,
+             stamps: torch.Tensor | None = None) -> tuple[PCGResult, int]:
     """The whole solve under ``plan``: the kernel for CUDA tensors (its
     form at r0's dtype with the operands at dinv's), its plain version (in
-    the plan's regime) for CPU tensors. Returns (result, host reads)."""
+    the plan's regime) for CPU tensors. Returns (result, host reads).
+    ``stamps`` (``ws.stamps_buffer``) runs the timing instantiation
+    instead: each body's phase boundaries on the device clock, in ns."""
     if r0.device.type == "cpu":
         return streamed_plain(problem, dinv, an, bw, r0, plan.zstate)
     form = ws.form_of(r0.dtype, dinv.dtype)
@@ -227,9 +229,7 @@ def streamed(problem: Problem, dinv, an, bw, r0,
     zpub = torch.empty_like(r0, dtype=torch.float32)
     ppub = torch.empty_like(zpub)
     status, diff, partials = ws.scratch(r0, plan.nblocks)
-    ws.launch(
-        LIBRARY, ws.counter(KERNEL, form), f"pe_streamed_pcg_{form}",
-        _SIGNATURE,
+    args = (
         *(t.data_ptr() for t in (dinv, an, bw, r0, w, ap, zpub, ppub,
                                  partials, status, diff)),
         g1, g2, plan.span, plan.resident_bits, plan.nblocks, plan.smem_bytes,
@@ -238,6 +238,9 @@ def streamed(problem: Problem, dinv, an, bw, r0,
         int(problem.norm == "weighted"),
         torch.cuda.current_stream(r0.device).cuda_stream,
     )
+    ws.launch_form(LIBRARY, KERNEL, form, _SIGNATURE, args, stamps,
+                   (problem.max_iterations,
+                    ws.WHOLE_STAMPS + 2 * plan.nblocks))
     return ws.launch_result(KERNEL, w, status, diff)
 
 

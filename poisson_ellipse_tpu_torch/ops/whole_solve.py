@@ -275,6 +275,36 @@ def scratch(like: torch.Tensor, nblocks: int):
     return status, diff, partials
 
 
+# the timing instantiations of the resident and streamed kernels: block
+# 0's stamps a body besides two a block (csrc/grid_sync.cuh kWholeStamps)
+WHOLE_STAMPS = 6
+
+
+def stamps_buffer(problem: Problem, nblocks: int, device) -> torch.Tensor:
+    """The zeroed stamps of one timed launch of the resident or streamed
+    kernel (their ``stamps=``): a row a body, WHOLE_STAMPS of block 0, then
+    each block's stencil-phase end and each block's update-phase end."""
+    return torch.zeros((problem.max_iterations, WHOLE_STAMPS + 2 * nblocks),
+                       dtype=torch.int64, device=device)
+
+
+def launch_form(library: str, kernel: str, form: str, signature: list,
+                args: tuple, stamps: torch.Tensor | None,
+                stamp_shape: tuple) -> None:
+    """Launch ``form`` of a whole-solve kernel, or with ``stamps`` its
+    timing instantiation (counted as ``<counter>_stamps``); ``stamps``
+    must have ``stamp_shape``."""
+    if stamps is None:
+        launch(library, counter(kernel, form), f"pe_{library}_{form}",
+               signature, *args)
+        return
+    if tuple(stamps.shape) != stamp_shape or stamps.dtype != torch.int64:
+        raise ValueError(f"{kernel}: stamps must be int64 {stamp_shape}")
+    launch(library, f"{counter(kernel, form)}_stamps",
+           f"pe_{library}_stamps_{form}", signature + [PTR], *args,
+           stamps.data_ptr())
+
+
 def launch(library: str, kernel: str, symbol: str, signature: list,
            *args) -> None:
     """Call a whole-solve library's launcher, raise on its CUDA error code
