@@ -25,7 +25,11 @@ result line):
               streamed at 1101x1651 with dinv on chip (r-state) and with
               dinv streamed (z-state), each forced by its plan. Iterations
               and flags equal, w and the step norm within rel 1e-5 of
-              their scale. K-d (the stencil fused with the pipelined
+              their scale. resident and streamed in both regimes also at
+              the march's edge grids (MARCH_EDGES: spans of one node and
+              empty blocks at 11x11, one whole row a block at 132x201, 66
+              strips of one step at 131x2101, where resident keeps ap in
+              device memory), w bitwise. K-d (the stencil fused with the pipelined
               loop's 8-pair dot bundle of 5 distinct vectors): n bitwise
               equal to K-a's and to the plain version's, sums within rel
               1e-6 (both sum in double and round once), the bundle with
@@ -239,8 +243,19 @@ in pallas bf16, K-e in batched-pallas, capped at 256); K-g's four forms;
 K-d on seeded values, on m = 0 and inside pipelined-pallas; K1-shard on
 a rank's 1201x1601 block, seeded and with the loop's zero exterior, and
 K2-shard by device time; the stencil, K-d and K1-shard libraries' SASS.
-It too runs on an older tree's kernels. Each prints the kernels' record
-and no result line.
+It too runs on an older tree's kernels. `--only whole-timing` runs phases
+1-2 and then resident and streamed by phase (WHOLE_SPLITS: resident f32
+at 401x601 and 801x1201 and bf16 at 1101x1651; streamed f32 at 801x1201
+with every operand on chip and at 1101x1651 planned (z-state) and with
+dinv forced on chip (r-state), bf16 at 1601x2401, f32_bf16 and f32_f16
+at 1101x1651): us an iteration capped at 256, T_solver (f32 uncapped,
+the other forms capped at 8192), a solve of one iteration, the body split
+on the device clock by the kernels' timing instantiation (pn pass,
+stencil phase, first sum with its barrier, update phase, second sums with
+their barrier, the spread of the blocks' phase ends), xl at the same grid
+and form, and the two libraries' SASS. It too runs on an older tree's
+kernels (the split prints as not measured where the tree lacks it). Each
+prints the kernels' record and no result line.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -285,6 +300,10 @@ MAIN_ITERS = 2449
 WHOLE_SOLVE = ("resident", "streamed", "xl")
 WHOLE_RTOL = 1e-5
 CAPS = (1, 2, 7)
+# the march's edge grids (csrc/grid_sync.cuh march_split), held bitwise in
+# phase 3: 121 nodes over 132 blocks, one whole row a block, and 66 strips
+# of one step (resident's ap in device memory)
+MARCH_EDGES = ((10, 10), (131, 200), (130, 2100))
 # published grids, largest first (README.md:1139-1144), and the grid
 # between the resident and streamed gates
 PUBLISHED = ((2400, 3200), (1600, 2400), (800, 1200), (400, 600))
@@ -755,6 +774,13 @@ def phase_whole_kernels(cap) -> dict:
         ("streamed", STREAMED_GRID, ("dinv",), "streamed r-state"),
         ("streamed", STREAMED_GRID, ("ap",), "streamed z-state"),
     ]
+    # the march's edges, held bitwise: spans of one node and empty blocks,
+    # one whole row a block, and a split whose warps outgrow the registers
+    # (resident's ap in device memory)
+    for m, n in MARCH_EDGES:
+        cases += [("resident", (m, n), None, "resident"),
+                  ("streamed", (m, n), None, "streamed r-state"),
+                  ("streamed", (m, n), ("ap",), "streamed z-state")]
     errs = {}
     for name, (m, n), resident, label in cases:
         kernel, plain = _whole_runs(name, Problem(M=m, N=n), cap, resident)
@@ -767,6 +793,10 @@ def phase_whole_kernels(cap) -> dict:
                     f"{max_iter}")
             err = close_solves(f"{label} {m}x{n} max_iter={max_iter}", got,
                                want)
+            if (m, n) in MARCH_EDGES:
+                require(same_bits(got.w, want.w),
+                        f"{label} {m}x{n} max_iter={max_iter}: w is not "
+                        "its plain version's bitwise")
             errs[name] = max(errs.get(name, 0.0), err)
     return errs
 
@@ -3588,12 +3618,14 @@ XL_TIME_CAP = 256
 BARRIER_GRIDS = (("xl 2401x3201", "xl", MAIN_GRID),
                  ("resident 801x1201", "resident", (800, 1200)),
                  ("streamed 1101x1651", "streamed", STREAMED_GRID))
-# csrc/streamed_pcg.cu: threads a block (a block an SM)
-STREAMED_THREADS = 1024
 # the barrier kernel's bodies: two runs, the difference over their gap
 BARRIER_BODIES = (100, 1100)
-BARRIER_MODES = ("grid_barrier", "grid_reduce", "grid_reduce2",
-                 "grid_reduce_wide, 1 sum", "grid_reduce_wide, 2 sums")
+BARRIER_MODES = ("grid_barrier", "grid_reduce_warp, 1 sum",
+                 "grid_reduce_warp, 2 sums", "grid_reduce_wide, 1 sum",
+                 "grid_reduce_wide, 2 sums")
+# what modes 1 and 2 were before grid_reduce_warp (an older tree's bench)
+BARRIER_MODES_BEFORE = ("grid_barrier", "grid_reduce", "grid_reduce2",
+                        "grid_reduce_wide, 1 sum", "grid_reduce_wide, 2 sums")
 # K-g's (w, a and b) type pairs, and the one on pallas's bf16 path
 KG_FORMS = (("bf16", "bf16"), ("f32", "bf16"), ("f16", "f16"), ("f32", "f16"))
 KG_MAIN = ("bf16", "bf16", 1)
@@ -3739,14 +3771,22 @@ def barrier_latency(cap) -> None:
             nb = xp.XLPlan(problem).nblocks(cap, "f32")
             threads = getattr(xp, "THREADS", 256)
         elif engine == "resident":
-            nb, threads = rp.layout(problem, cap).nblocks, rp.THREADS
+            lay = rp.layout(problem, cap)
+            nb = lay.nblocks
+            threads = (lay.threads if getattr(lay, "split", None)
+                       else getattr(rp, "THREADS", 512))
         else:
-            nb = sp.StreamPlan(problem, cap).nblocks
-            threads = STREAMED_THREADS
+            plan = sp.StreamPlan(problem, cap)
+            nb = plan.nblocks
+            threads = (plan.launch_shape().threads
+                       if hasattr(plan, "launch_shape") else 1024)
         partials = torch.zeros(4 * nb, dtype=torch.float64, device="cuda")
         out = torch.zeros(1, device="cuda")
         stream = _build.stream_handle(out.device)
-        for mode, name in enumerate(BARRIER_MODES):
+        header = (PACKAGE / "csrc" / "grid_sync.cuh").read_text()
+        names = (BARRIER_MODES if "grid_reduce_warp" in header
+                 else BARRIER_MODES_BEFORE)
+        for mode, name in enumerate(names):
             def run(bodies):
                 rc = lib.pe_xl_pcg_barrier_bench(
                     mode, nb, threads, bodies, partials.data_ptr(),
@@ -4125,10 +4165,11 @@ def _whole_case(engine, problem, dtype, storage, resident, cap):
     if engine == "resident":
         ops = rp.resident_operands(problem, dtype, dev)
         lay = rp.layout(problem, cap, dtype)
-        shape = getattr(rp, "launch_shape", None)
-        what = (f"span {lay.span}, {lay.smem_bytes} B"
-                + (f", {shape(problem, cap, dtype)}" if shape else
-                   f", {rp.THREADS} threads"))
+        split = getattr(lay, "split", None)
+        what = (f"span {lay.span}, {lay.smem_bytes} B, "
+                + (f"{split}, ap in "
+                   f"{'registers' if lay.ap_in_registers else 'memory'}"
+                   if split else f"{rp.THREADS} threads"))
         stamped = "stamps" in inspect.signature(rp.resident).parameters
 
         def run(pr, stamps=None):
@@ -4170,6 +4211,11 @@ def _us_and_t_solver(label, run, problem, uncapped, repeat=3):
     iters = int(run(capped).iters)
     ts = [time_solver(lambda: run(capped), (), 1) for _ in range(repeat)]
     us = statistics.median(ts) * 1e6 / iters
+    # a solve of one iteration: the launch, the operand loads and the
+    # status read, what a solve costs beside its iterations
+    one = Problem(M=problem.M, N=problem.N, max_iter=1, delta=0.0)
+    t1 = statistics.median(time_solver(lambda: run(one), (), 1)
+                           for _ in range(repeat))
     full = run(uncapped)
     n_full = int(full.iters)
     tf = [time_solver(lambda: run(uncapped), (), 1) for _ in range(repeat)]
@@ -4177,7 +4223,8 @@ def _us_and_t_solver(label, run, problem, uncapped, repeat=3):
         + ", ".join(f"{x * 1e6 / iters:.2f}" for x in ts)
         + f"); T_solver {statistics.median(tf) * 1e3:.3f} ms ("
         + ", ".join(f"{x * 1e3:.3f}" for x in tf)
-        + f") for {n_full} iterations, converged {bool(full.converged)}"
+        + f") for {n_full} iterations, converged {bool(full.converged)}; "
+        f"one iteration {t1 * 1e3:.3f} ms"
         + (f" (capped at {uncapped.max_iterations})"
            if uncapped.max_iter is not None else ""))
     return us, statistics.median(tf)
@@ -4226,6 +4273,10 @@ def phase_whole_timing_split(cap, card: str) -> list:
                          t_solver_ms=t * 1e3, xl_us_per_iter=xl_us,
                          xl_t_solver_ms=xl_t * 1e3, ms=None, plain_ms=None,
                          bound_ms=None, bound_by=None, library_ms=None))
+    # xl at its own grid: the kernels share grid_sync.cuh's sums
+    main = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+    _us_and_t_solver(f"xl f32 {MAIN_GRID[0] + 1}x{MAIN_GRID[1] + 1}",
+                     _xl_at(main, torch.float32, None, cap), main, main)
     for library, match in (("resident_pcg", "resident_kernel"),
                            ("streamed_pcg", "streamed_kernel")):
         show_sass(library, match)

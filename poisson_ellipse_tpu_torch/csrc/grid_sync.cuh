@@ -1,7 +1,8 @@
 // What the three whole-solve kernels (resident_pcg.cu, streamed_pcg.cu,
 // xl_pcg.cu) share: the grid barrier, the deterministic cross-block sum,
-// the scalar tail of one PCG iteration, the span halo of the resident and
-// streamed kernels, and the cooperative launch.
+// the scalar tail of one PCG iteration, the span halo and the march of the
+// resident and streamed kernels, the timing instantiation's stamps, and
+// the cooperative launch.
 //
 // A whole-solve kernel is persistent: one launch runs every iteration, and
 // the two scalar sync points of PCG (alpha needs the global (Ap, p), beta
@@ -15,7 +16,7 @@
 //   letting it deadlock;
 // - a sum over the grid is deterministic without float atomics: each block
 //   writes its partial, then after the barrier EVERY block adds all
-//   partials in one fixed order (grid_sum). Every block runs the same
+//   partials in one fixed order (grid_reduce_*). Every block runs the same
 //   instructions on the same values, so each holds the same bits, takes
 //   the same exit decision, and a rerun repeats them. The next barrier of
 //   the loop separates these reads from the partials' next writes, so no
@@ -56,11 +57,12 @@ namespace pe {
 // (stage0/Withoutopenmp1.cpp:128; DENOM_GUARD in solver/pcg.py)
 constexpr float kDenomGuard = 1e-15f;
 
-// doubles of shared memory each block keeps for block_sum/grid_sum: one per
-// warp of a 1024-thread block and the broadcast slot; at the start of the
-// dynamic shared memory of the resident and streamed kernels
-constexpr int kReduceDoubles = 40;
-constexpr int kReduceBytes = kReduceDoubles * static_cast<int>(sizeof(double));
+// doubles of shared memory each block keeps for its sums (block_sums of two
+// sums: a slot a warp of a 1024-thread block and the broadcast slot, each);
+// at the start of the dynamic shared memory of the resident and streamed
+// kernels
+constexpr int kWideDoubles = 2 * 33;
+constexpr int kReduceBytes = kWideDoubles * static_cast<int>(sizeof(double));
 
 // Status word the kernels leave for the host: iterations, converged,
 // breakdown, and 1 once the kernel ran to its end (ops/whole_solve.py).
@@ -70,79 +72,15 @@ __device__ __forceinline__ void grid_barrier() {
   cooperative_groups::this_grid().sync();
 }
 
-// Sum of v over a 1-D block in a fixed order: a shuffle tree in each warp,
-// then warp 0 over the warp sums. Every thread gets the sum. ``scratch``
-// holds kReduceDoubles doubles of shared memory.
-__device__ __forceinline__ double block_sum(double v, double* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  __syncthreads();  // the previous call's readers are done with scratch
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    double s = lane < nwarps ? scratch[lane] : 0.0;
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-    if (lane == 0) scratch[32] = s;
-  }
-  __syncthreads();
-  return scratch[32];
-}
-
-// Sum of partials[0..n) in block-index order after a grid barrier: lane l
-// of warp 0 adds partials[l], partials[l+32], ... in turn, then a fixed
-// shuffle tree. The same bits in every block. Every thread gets the sum.
-__device__ __forceinline__ double grid_sum(const double* partials, int n,
-                                           double* scratch) {
-  __syncthreads();  // the previous call's readers are done with scratch
-  if (threadIdx.x < 32) {
-    double s = 0.0;
-    for (int q = threadIdx.x; q < n; q += 32) s += __ldcg(partials + q);
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-    if (threadIdx.x == 0) scratch[32] = s;
-  }
-  __syncthreads();
-  return scratch[32];
-}
-
-// Block sum of v stored as this block's partial, the barrier, and the
-// grid's sum of all partials rounded once to float, in every block.
-__device__ __forceinline__ float grid_reduce(double v, double* partials,
-                                             double* scratch) {
-  const double b = block_sum(v, scratch);
-  if (threadIdx.x == 0) partials[blockIdx.x] = b;
-  grid_barrier();
-  return static_cast<float>(grid_sum(partials, gridDim.x, scratch));
-}
-
-// Two sums with one barrier.
-__device__ __forceinline__ void grid_reduce2(double v0, double v1,
-                                             double* partials0,
-                                             double* partials1,
-                                             double* scratch, float* s0,
-                                             float* s1) {
-  const double b0 = block_sum(v0, scratch);
-  const double b1 = block_sum(v1, scratch);
-  if (threadIdx.x == 0) {
-    partials0[blockIdx.x] = b0;
-    partials1[blockIdx.x] = b1;
-  }
-  grid_barrier();
-  *s0 = static_cast<float>(grid_sum(partials0, gridDim.x, scratch));
-  *s1 = static_cast<float>(grid_sum(partials1, gridDim.x, scratch));
-}
-
 // kSums sums at once, for the xl kernel: the block's sums of v[k] in a
 // fixed order (a shuffle tree in each warp, then warp 0 over the warp
-// sums), each stored as this block's partials[k], one barrier, and then
-// the grid's sums of all partials, added by every thread of every block
-// (thread t adds partials t, t + blockDim.x, ... in order, then the same
-// block tree), each rounded once to float, in every block. grid_sum's
-// one warp adds the partials of a 528-block grid in 17 dependent loads a
-// lane; here each thread has at most a few. ``scratch`` holds
-// kWideDoubles doubles of shared memory.
-constexpr int kWideDoubles = 2 * 33;
+// sums: block_sums), each stored as this block's partials[k], one barrier,
+// and then the grid's sums of all partials, added by every thread of every
+// block (thread t adds partials t, t + blockDim.x, ... in order, then the
+// same block tree), each rounded once to float, in every block. One warp
+// would add the partials of a 528-block grid in 17 dependent loads a lane;
+// here each thread has at most a few. ``scratch`` holds kWideDoubles
+// doubles of shared memory.
 
 template <int kSums>
 __device__ __forceinline__ void block_sums(double (&v)[kSums],
@@ -157,7 +95,9 @@ __device__ __forceinline__ void block_sums(double (&v)[kSums],
       v[k] += __shfl_down_sync(0xffffffffu, v[k], o);
     }
   }
-  __syncthreads();  // the previous call's readers are done with scratch
+  // no __syncthreads first: every call ends in one after warp 0's last
+  // read of the warp slots, and the slots the others read last (33k + 32)
+  // are written only after the next call's barrier below
   if (lane == 0) {
 #pragma unroll
     for (int k = 0; k < kSums; ++k) scratch[33 * k + warp] = v[k];
@@ -202,29 +142,211 @@ __device__ __forceinline__ void grid_reduce_wide(double (&v)[kSums],
   for (int k = 0; k < kSums; ++k) out[k] = static_cast<float>(s[k]);
 }
 
+// kSums sums at once for the resident and streamed kernels, whose grid is
+// one block an SM: block_sums as in grid_reduce_wide, the barrier, and
+// then warp 0 alone adds the partials (lane l adds partials l, l + 32, ...
+// in turn, kMaxPartials / 32 independent loads in flight, then the fixed
+// shuffle tree) and broadcasts the sums with one __syncthreads, where
+// grid_reduce_wide's second block_sums takes two and a tree across the
+// warps. The same order in every block. ``nb`` at most kMaxPartials.
+// ``after_barrier()`` runs in every thread right after the barrier: loads
+// it issues of what other blocks wrote before it are in flight while warp
+// 0 waits for the partials (the closing __syncthreads waits for both).
+constexpr int kMaxPartials = 256;
+
+template <int kSums, typename AfterBarrier>
+__device__ __forceinline__ void grid_reduce_warp(
+    double (&v)[kSums], double* const (&partials)[kSums], double* scratch,
+    float (&out)[kSums], AfterBarrier&& after_barrier) {
+  block_sums<kSums>(v, scratch);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) partials[k][blockIdx.x] = v[k];
+  }
+  grid_barrier();
+  after_barrier();
+  const int nb = gridDim.x;
+  if (threadIdx.x < 32) {
+    double got[kSums][kMaxPartials / 32];
+#pragma unroll
+    for (int j = 0; j < kMaxPartials / 32; ++j) {
+      const int q = threadIdx.x + 32 * j;
+#pragma unroll
+      for (int k = 0; k < kSums; ++k) {
+        got[k][j] = q < nb ? __ldcg(partials[k] + q) : 0.0;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) {
+      double s = 0.0;
+#pragma unroll
+      for (int j = 0; j < kMaxPartials / 32; ++j) s += got[k][j];
+      for (int o = 16; o > 0; o >>= 1) {
+        s += __shfl_down_sync(0xffffffffu, s, o);
+      }
+      if (threadIdx.x == 0) scratch[33 * k + 32] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) {
+    out[k] = static_cast<float>(scratch[33 * k + 32]);
+  }
+}
+
+template <int kSums>
+__device__ __forceinline__ void grid_reduce_warp(
+    double (&v)[kSums], double* const (&partials)[kSums], double* scratch,
+    float (&out)[kSums]) {
+  grid_reduce_warp<kSums>(v, partials, scratch, out, [] {});
+}
+
 // The span halo of the resident and streamed kernels. A block owns the
 // nodes [s, s + len) of the row-major grid; its stencil needs pn one row
 // (g2 nodes) beyond either end, owned by blocks whose pn is computed in
 // the same phase. So each block publishes z and p for its nodes within one
 // row of its span's ends (at_span_edge) in the update phase, and a
-// neighbour forms pn = z + beta*p from them after the barrier, with the
-// owner's roundings in the owner's order: the same bits. The barrier that
-// closes the update phase separates those writes from the reads, and the
-// one that closes the stencil phase separates the reads from the next
-// writes, so one buffer suffices.
+// neighbour forms pn = z + beta*p from them after the barrier
+// (load_halo), with the owner's roundings in the owner's order: the same
+// bits. The barrier that closes the update phase separates those writes
+// from the reads, and the one that closes the stencil phase separates the
+// reads from the next writes, so one buffer suffices.
 __device__ __forceinline__ bool at_span_edge(int l, int len, int g2) {
   return l < g2 || l >= len - g2;
 }
 
-// pn at global node x: from the block's shared memory inside its span,
-// else rebuilt from the published z and p.
-template <typename TC>
-__device__ __forceinline__ float span_pn(int x, int s, int len, const TC* s_p,
-                                        const float* zpub, const float* ppub,
-                                        float beta) {
-  const int l = x - s;
-  if (l >= 0 && l < len) return up(s_p[l]);
-  return rn<TC>(__ldcg(zpub + x) + beta * __ldcg(ppub + x));
+// The march of the resident and streamed kernels. A block reads its span
+// as span-local rows of g2 nodes: node l is step t = l / g2 of the lane
+// whose column is m = l % g2, and the node g2 on is the same grid column
+// one grid row down (a span starts anywhere in a row, so a lane's grid
+// column is its own, formed once a unit). A warp marches a strip of 32
+// such columns, all its lanes on the same step, over a segment of the
+// steps; a unit is a strip and a segment. The segments cut the span's
+// ``rows`` steps into ``segs`` pieces of at most ``steps`` steps (a
+// kernel's unrolled loop), whose sizes differ by at most one; unit u is
+// strip u % strips of segment u / strips; warp w marches units w, w +
+// warps, ..., at most ``per_warp`` of them, and ``warps`` is the fewest
+// warps (at most ``max_warps``) that take every unit so. A lane's steps
+// stop at its last node in the span (t_last), so each node of the span is
+// one step of one lane of one unit (tests/test_torch_megakernels.py holds
+// ops/whole_solve.py:march_nodes, this split's mirror, to it). No
+// division a node, nor a unit where the strips are not cut (segs = 1).
+struct MarchSplit {
+  int strips;    // 32-column strips over the first min(span, g2) columns
+  int segs;      // segments each strip's steps are cut into
+  int rows;      // steps of the span's longest lane: ceil(span / g2)
+  int warps;     // warps a block
+  int per_warp;  // units a warp marches, at most
+};
+
+inline MarchSplit march_split(int span, int g2, int steps, int max_warps) {
+  MarchSplit sp;
+  const int width = span < g2 ? span : g2;
+  sp.strips = (width + 31) / 32;
+  sp.rows = (span + g2 - 1) / g2;
+  sp.segs = (sp.rows + steps - 1) / steps;
+  const int units = sp.strips * sp.segs;
+  sp.warps = units < max_warps ? units : max_warps;
+  sp.per_warp = (units + sp.warps - 1) / sp.warps;
+  sp.warps = (units + sp.per_warp - 1) / sp.per_warp;
+  return sp;
+}
+
+// A block's span of ``len`` nodes from node s: whole span-local rows and
+// the rest (lanes m < lr have lq + 1 steps, the others lq), and the grid
+// row and column of its first node.
+struct SpanGeom {
+  int lq, lr, srow, scol;
+};
+
+__device__ __forceinline__ SpanGeom span_geom(int s, int len, int g2) {
+  SpanGeom g;
+  g.lq = len / g2;
+  g.lr = len - g.lq * g2;
+  g.srow = s / g2;
+  g.scol = s - g.srow * g2;
+  return g;
+}
+
+// A warp's units in turn: (strip, seg) of its first, then ``warps`` on;
+// a unit exists while seg < segs.
+struct UnitIter {
+  int strip, seg;
+};
+
+__device__ __forceinline__ UnitIter first_unit(const MarchSplit& sp,
+                                               int warp) {
+  UnitIter it;
+  it.seg = warp / sp.strips;
+  it.strip = warp - it.seg * sp.strips;
+  return it;
+}
+
+__device__ __forceinline__ void next_unit(const MarchSplit& sp,
+                                          UnitIter& it) {
+  it.strip += sp.warps;
+  while (it.strip >= sp.strips) {
+    it.strip -= sp.strips;
+    ++it.seg;
+  }
+}
+
+// One lane's part of a unit: its column m, the unit's steps [t0, t1)
+// clipped to its own last step t_last, whether it has any, and the grid
+// row and column of its node at t0.
+struct MarchUnit {
+  int m, t0, t1, t_last, row, col;
+  bool active;
+};
+
+__device__ __forceinline__ MarchUnit march_unit(const MarchSplit& sp,
+                                                UnitIter it, int lane, int g2,
+                                                const SpanGeom& g) {
+  MarchUnit mu;
+  mu.m = 32 * it.strip + lane;
+  int t1 = sp.rows;
+  mu.t0 = 0;
+  if (sp.segs > 1) {
+    mu.t0 = it.seg * sp.rows / sp.segs;
+    t1 = (it.seg + 1) * sp.rows / sp.segs;
+  }
+  mu.t_last = g.lq - (mu.m >= g.lr ? 1 : 0);
+  mu.t1 = min(t1, mu.t_last + 1);
+  mu.active = it.seg < sp.segs && mu.m < g2 && mu.t0 < mu.t1;
+  const int c = g.scol + mu.m;  // below 2 * g2
+  const bool wrap = c >= g2;
+  mu.col = wrap ? c - g2 : c;
+  mu.row = g.srow + mu.t0 + (wrap ? 1 : 0);
+  return mu;
+}
+
+// The published z (and p, where ``ppub`` is given) of a unit's halo nodes:
+// one row above the lane's first node where the unit starts the lane's
+// column, and one row below its last node where the unit ends it (0 where
+// there is none). Without ``ppub`` the caller holds p there itself: the pn
+// it formed at the same node the iteration before, which is the owner's p
+// bit for bit (the same expression on the same values), so only z moves.
+struct UnitHalo {
+  float zn, pn, zs, ps;
+};
+
+__device__ __forceinline__ UnitHalo load_halo(const MarchUnit& mu,
+                                              const float* zpub,
+                                              const float* ppub, int s,
+                                              int g2, int n) {
+  UnitHalo h{0.f, 0.f, 0.f, 0.f};
+  if (!mu.active) return h;
+  const int first = s + mu.m + mu.t0 * g2;
+  if (mu.t0 == 0 && first >= g2) {
+    h.zn = __ldcg(zpub + first - g2);
+    if (ppub != nullptr) h.pn = __ldcg(ppub + first - g2);
+  }
+  const int below = s + mu.m + (mu.t_last + 1) * g2;
+  if (mu.t1 > mu.t_last && below < n) {
+    h.zs = __ldcg(zpub + below);
+    if (ppub != nullptr) h.ps = __ldcg(ppub + below);
+  }
+  return h;
 }
 
 // The breakdown test on the (Ap, p) denominator, with the guard rounded to

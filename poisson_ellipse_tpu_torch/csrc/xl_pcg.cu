@@ -93,9 +93,9 @@
 //   three arrays are aligned to them (scalar loads of the same groups
 //   otherwise, so the order of the sum does not depend on alignment).
 // - The three sums take grid_reduce_wide: every thread of every block adds
-//   a few of the partials after the barrier, where grid_sum's one warp
-//   adds them in 17 dependent loads a lane at 528 blocks (2 sums: 2.7
-//   against grid_reduce2's 4.8 us at 253 blocks on the H100).
+//   a few of the partials after the barrier, where one warp adding them in
+//   17 dependent loads a lane at 528 blocks took longer (2 sums: 2.7
+//   against 4.8 us at 253 blocks on the H100, PR 11).
 // - Registers against warps (Tune): the march holds kAhead rows of five
 //   arrays in registers. f32 ran best at 6 rows ahead and 2 blocks an SM,
 //   no spill: 253 blocks, so fewer partials and a narrower spread of the
@@ -460,12 +460,11 @@ int launch(const TS* dinv, const TS* an, const TS* bw, const TC* r0, TC* w,
 }
 
 // A cooperative kernel of ``bodies`` bodies, each one grid barrier (kMode
-// 0), or one pe::grid_reduce (1: the block's sum, its partial, the barrier
-// and the sum of all partials by one warp of every block), or one
-// pe::grid_reduce2 (2), or grid_reduce_wide with one sum (3) or two (4):
-// the synchronisation cost of a whole-solve body alone. Consecutive bodies
-// use alternate partials, as the solve's sums do, so no block overwrites a
-// partial another still reads.
+// 0), or one pe::grid_reduce_warp with one sum (1) or two (2: the sums of
+// the resident and streamed kernels), or grid_reduce_wide with one sum (3)
+// or two (4): the synchronisation cost of a whole-solve body alone.
+// Consecutive bodies use alternate partials, as the solve's sums do, so no
+// block overwrites a partial another still reads.
 template <int kMode>
 __global__ void barrier_bench_kernel(double* partials, float* out,
                                      int bodies) {
@@ -478,11 +477,17 @@ __global__ void barrier_bench_kernel(double* partials, float* out,
     if (kMode == 0) {
       pe::grid_barrier();
     } else if (kMode == 1) {
-      acc += pe::grid_reduce(v, part, scratch);
+      double vs[1] = {v};
+      double* const parts[1] = {part};
+      float s[1];
+      pe::grid_reduce_warp<1>(vs, parts, scratch, s);
+      acc += s[0];
     } else if (kMode == 2) {
-      float s0, s1;
-      pe::grid_reduce2(v, -v, part, part + nb, scratch, &s0, &s1);
-      acc += s0 + s1;
+      double vs[2] = {v, -v};
+      double* const parts[2] = {part, part + nb};
+      float s[2];
+      pe::grid_reduce_warp<2>(vs, parts, scratch, s);
+      acc += s[0] + s[1];
     } else if (kMode == 3) {
       double vs[1] = {v};
       double* const parts[1] = {part};
@@ -591,9 +596,13 @@ int pe_xl_pcg_f32_f16_launch_query(int device, int smem, int* cooperative,
 }
 
 // barrier_bench_kernel<mode> (modes 0-4) on ``nblocks`` blocks of
-// ``threads``; partials: 4 * nblocks doubles; out: one float.
+// ``threads``; partials: 4 * nblocks doubles; out: one float. Modes 1-2
+// take at most pe::kMaxPartials blocks.
 int pe_xl_pcg_barrier_bench(int mode, int nblocks, int threads, int bodies,
                             double* partials, float* out, void* stream) {
+  if ((mode == 1 || mode == 2) && nblocks > pe::kMaxPartials) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   void* args[] = {&partials, &out, &bodies};
   switch (mode) {
     case 0:

@@ -3,9 +3,9 @@
 The counterpart of ``poisson_ellipse_tpu.ops.resident_pcg``. The kernel
 (``csrc/resident_pcg.cu``) keeps the operands and the state in the shared
 memory of all SMs for the whole solve, one block per SM with a contiguous
-span of ``span`` nodes each, and ap in registers; device memory is touched
-to load the operands, to store w, and for the halo rows each block
-publishes to its neighbours.
+span of ``span`` nodes each; device memory is touched to load the
+operands, to store w, and for the halo rows each block publishes to its
+neighbours.
 
 The iteration is the JAX kernel's (``resident_pcg.py:150-184`` there): z
 is eliminated (pn = r·dinv + β·p), the stencil is
@@ -19,10 +19,15 @@ The gate (``fits_resident``) and the launch's dynamic shared memory come
 from one function, ``layout``, so the two cannot disagree.
 
 The kernel runs at f32 or bf16 compute (``ws.COMPUTE_FORMS``), as the JAX
-engine runs at its solve dtype; a bf16 block holds twice the span, and
-each of its threads keeps 32 ap values where an f32 thread keeps 16
-(``PER_THREAD``), so the bf16 gate admits grids of up to twice as many
+engine runs at its solve dtype; a bf16 block holds twice the span
+(``SPAN_LIMIT``), so the bf16 gate admits grids of up to twice as many
 nodes (H100: 1100×1650, which f32 sends to ``streamed``).
+
+The kernel marches (``ws.march_split``): a warp a strip of 32 columns of
+the span down its rows, ap carried across the first barrier in registers
+where each warp has at most ``AP_UNITS`` units of ``MARCH_STEPS`` steps
+(every published grid), else in a device-memory scratch the wrapper
+allocates (``ResidentLayout.ap_in_registers``).
 """
 
 from __future__ import annotations
@@ -48,37 +53,53 @@ from poisson_ellipse_tpu_torch.utils.device import (
 LIBRARY = "resident_pcg"
 KERNEL = "resident"
 
-# csrc/resident_pcg.cu: threads a block, ap values a thread keeps in
-# registers (by the compute type's bytes), and the arrays a block holds in
-# shared memory
-THREADS = 512
-PER_THREAD = {4: 16, 2: 32}
+# csrc/resident_pcg.cu Form: the largest span a block takes (by the
+# compute type's bytes; the kernel before the march kept 16 / 32 nodes a
+# thread over 512 threads), the march's steps a unit and the units a lane
+# keeps ap for in registers, and the arrays a block holds in shared memory
+SPAN_LIMIT = {4: 8192, 2: 16384}
+MARCH_STEPS = {4: 8, 2: 10}
+AP_UNITS = 2
+MAX_WARPS = {4: 19, 2: 26}  # Form::kMaxWarps, by the compute type's bytes
 ARRAYS = 7  # an, bw, d, dinv, w, r, p
 
 
 @dataclasses.dataclass(frozen=True)
 class ResidentLayout:
-    """One block per SM, each holding ``span`` nodes of all seven arrays."""
+    """One block per SM, each holding ``span`` nodes of all seven arrays,
+    and the march's split of a span (``ws.march_split``): ap in registers
+    where each warp has at most AP_UNITS units, else in a device-memory
+    scratch."""
 
     nblocks: int
     span: int
     smem_bytes: int   # dynamic shared memory of one block
     fits: bool
+    split: ws.MarchSplit | None = None
+
+    @property
+    def threads(self) -> int:
+        return self.split.threads
+
+    @property
+    def ap_in_registers(self) -> bool:
+        return self.split.per_warp <= AP_UNITS
 
 
 def layout(problem: Problem, cap: DeviceCapacity,
            dtype=torch.float32) -> ResidentLayout:
     """The launch shape on ``cap`` at ``dtype``: the same arithmetic as the
-    size check of ``pe_resident_pcg_<form>`` in the kernel's source (no
-    kernel form for other dtypes: nothing fits)."""
+    size check and the split of ``pe_resident_pcg_<form>`` in the kernel's
+    source (no kernel form for other dtypes: nothing fits)."""
     item = torch.empty((), dtype=dtype).element_size()
     g1, g2 = problem.node_shape
     nblocks = cap.sm_count
     span = -(-g1 * g2 // nblocks)
     smem = ARRAYS * span * item + ws.REDUCE_BYTES
-    per_thread = PER_THREAD.get(item, 0)
-    fits = span <= THREADS * per_thread and smem <= cap.smem_per_block
-    return ResidentLayout(nblocks, span, smem, fits)
+    fits = span <= SPAN_LIMIT.get(item, 0) and smem <= cap.smem_per_block
+    split = (ws.march_split(span, g2, MARCH_STEPS[item], MAX_WARPS[item])
+             if item in MARCH_STEPS else None)
+    return ResidentLayout(nblocks, span, smem, fits, split)
 
 
 def fits_resident(problem: Problem, dtype, cap: DeviceCapacity) -> bool:
@@ -144,7 +165,7 @@ def resident_plain(problem: Problem, an, bw, d, dinv, r0
     return ws.plain_result(w, k, carry, ct), reads
 
 
-_SIGNATURE = [ws.PTR] * 11 + [ws.INT] * 6 + [ws.FLOAT, ws.FLOAT, ws.INT,
+_SIGNATURE = [ws.PTR] * 12 + [ws.INT] * 6 + [ws.FLOAT, ws.FLOAT, ws.INT,
                                               ws.PTR]
 
 
@@ -176,12 +197,14 @@ def resident(problem: Problem, an, bw, d, dinv, r0,
         )
     g1, g2 = problem.node_shape
     w = torch.empty_like(r0)
+    # ap's scratch, where the march's split does not fit the registers
+    ap = w.new_empty(0) if lay.ap_in_registers else torch.empty_like(r0)
     # the span halo is float in every form (csrc/grid_sync.cuh)
     zpub = torch.empty_like(r0, dtype=torch.float32)
     ppub = torch.empty_like(zpub)
     status, diff, partials = ws.scratch(r0, lay.nblocks)
     args = (
-        *(t.data_ptr() for t in (an, bw, d, dinv, r0, w, zpub, ppub,
+        *(t.data_ptr() for t in (an, bw, d, dinv, r0, w, ap, zpub, ppub,
                                  partials, status, diff)),
         g1, g2, lay.span, lay.nblocks, lay.smem_bytes,
         problem.max_iterations, ws.h1h2_rounded(problem, r0.dtype),

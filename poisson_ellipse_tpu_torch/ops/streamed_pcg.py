@@ -7,8 +7,11 @@ stays in shared memory for the whole solve; each operand of
 {ap, dinv, a, b} is either held there too or read from device memory each
 iteration, as ``StreamPlan`` decides from the card's shared memory.
 
-``StreamPlan`` is the JAX plan's greedy residency (``streamed_pcg.py:
-133-183`` there) with the H100's budget: after the state, the operands are
+The kernel marches as the resident one does (``ws.march_split``: a warp
+a strip of 32 columns of a block's span, down its rows; the block's
+threads from ``StreamPlan.launch_shape``). ``StreamPlan`` is the JAX
+plan's greedy residency (``streamed_pcg.py:133-183`` there) with the
+H100's budget: after the state, the operands are
 made resident in the order of the device-memory passes each saves (ap 2,
 dinv 1, a 1, b 1) while they fit. There are no double-buffered tiles: a
 streamed operand is read in place, so resident or not, an operand costs
@@ -65,6 +68,10 @@ KERNEL = "streamed"
 OPERANDS = ("ap", "dinv", "a", "b")
 RESIDENT_BITS = {"ap": 1, "dinv": 2, "a": 4, "b": 8}
 STATE_ARRAYS = 3  # w, r (or z), p
+# csrc/streamed_pcg.cu kSteps, kMaxWarps: the march's steps a unit, and
+# warps a block, at most
+MARCH_STEPS = 10
+MAX_WARPS = 26
 
 
 class StreamPlan:
@@ -82,6 +89,7 @@ class StreamPlan:
                  dtype=torch.float32, resident=None):
         g1, g2 = problem.node_shape
         item = torch.empty((), dtype=dtype).element_size()
+        self.g2 = g2
         self.cap = cap
         self.nblocks = cap.sm_count if cap is not None else 1
         self.span = -(-g1 * g2 // self.nblocks)
@@ -108,6 +116,11 @@ class StreamPlan:
             self.resident = {name: name in resident for name in OPERANDS}
         self.smem_bytes = self.state_bytes + self.operand_bytes * sum(
             self.resident.values())
+
+    def launch_shape(self) -> ws.MarchSplit:
+        """The kernel's march over a span (``ws.march_split``): its warps
+        are the block's threads."""
+        return ws.march_split(self.span, self.g2, MARCH_STEPS, MAX_WARPS)
 
     @property
     def zstate(self) -> bool:

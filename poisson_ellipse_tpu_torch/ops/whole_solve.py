@@ -43,6 +43,7 @@ and the forms' names, checks and launch.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -57,14 +58,77 @@ STATUS_ITERS, STATUS_CONVERGED, STATUS_BREAKDOWN, STATUS_DONE = range(4)
 N_STATUS = 4
 
 # bytes of shared memory each block keeps for its sums
-# (csrc/grid_sync.cuh kReduceBytes: 40 doubles)
-REDUCE_BYTES = 320
+# (csrc/grid_sync.cuh kReduceBytes: 66 doubles, two sums at once)
+REDUCE_BYTES = 528
 
 # per-block partial sums a kernel keeps, in double: three sums per iteration
 N_PARTIALS = 3
 
 # ctypes argument types of the launchers
 PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+# The march of the resident and streamed kernels (csrc/grid_sync.cuh
+# march_split, march_unit): a block reads its span of ``length`` nodes as
+# span-local rows of g2 nodes; a lane owns a column m < g2 and marches its
+# steps t (node m + t*g2), a warp a strip of 32 columns; a unit is a strip
+# and a segment of the steps, warp w marching units w, w + warps, ...
+
+
+@dataclasses.dataclass(frozen=True)
+class MarchSplit:
+    """The kernels' work split of a span (``march_split``)."""
+
+    strips: int    # 32-column strips over the first min(span, g2) columns
+    segs: int      # segments each strip's steps are cut into
+    rows: int      # steps of the span's longest lane
+    warps: int     # warps a block
+    per_warp: int  # units a warp marches, at most
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    @property
+    def units(self) -> int:
+        return self.strips * self.segs
+
+
+def march_split(span: int, g2: int, steps: int,
+                max_warps: int) -> MarchSplit:
+    """The split of a ``span``-node span of a grid g2 nodes wide, a unit at
+    most ``steps`` steps (the kernel's unrolled loop), over at most
+    ``max_warps`` warps: the arithmetic of ``pe::march_split``."""
+    width = min(span, g2)
+    strips = -(-width // 32)
+    rows = -(-span // g2)
+    segs = -(-rows // steps)
+    units = strips * segs
+    warps = min(units, max_warps)
+    per_warp = -(-units // warps)
+    return MarchSplit(strips, segs, rows, -(-units // per_warp), per_warp)
+
+
+def march_nodes(split: MarchSplit, length: int, g2: int):
+    """Every step of the march over a block's ``length`` nodes, as the
+    kernel takes them (``pe::march_unit``): yields (warp, j, lane, step,
+    span-local node) for unit j of each warp."""
+    lq, lr = divmod(length, g2)
+    for warp in range(split.warps):
+        for j in range(split.per_warp):
+            u = warp + j * split.warps
+            if u >= split.units:
+                continue
+            seg, strip = divmod(u, split.strips)
+            t0 = seg * split.rows // split.segs
+            t1 = (seg + 1) * split.rows // split.segs
+            for lane in range(32):
+                m = 32 * strip + lane
+                t_last = lq - (1 if m >= lr else 0)
+                if m >= g2:
+                    continue
+                for t in range(t0, min(t1, t_last + 1)):
+                    yield warp, j, lane, t, m + t * g2
 
 
 def scalar(x: float, like: torch.Tensor) -> torch.Tensor:

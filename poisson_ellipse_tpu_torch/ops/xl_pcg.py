@@ -214,16 +214,10 @@ def xl(problem: Problem, dinv, an, bw, r0,
         int(problem.norm == "weighted"),
         torch.cuda.current_stream(r0.device).cuda_stream,
     )
-    if stamps is None:
-        ws.launch(LIBRARY, ws.counter(KERNEL, form), f"pe_xl_pcg_{form}",
-                  _SIGNATURE, *args)
-    else:
-        if form != "f32" or tuple(stamps.shape) != (
-                problem.max_iterations + 1, STAMPS_PER_BODY + nblocks):
-            raise ValueError(f"{KERNEL}: stamps are f32 only, "
-                             f"(max_iter + 1, {STAMPS_PER_BODY} + blocks)")
-        ws.launch(LIBRARY, f"{KERNEL}_stamps", "pe_xl_pcg_stamps_f32",
-                  _SIGNATURE + [ws.PTR], *args, stamps.data_ptr())
+    if stamps is not None and form != "f32":
+        raise ValueError(f"{KERNEL}: stamps are f32 only")
+    ws.launch_form(LIBRARY, KERNEL, form, _SIGNATURE, args, stamps,
+                   (problem.max_iterations + 1, STAMPS_PER_BODY + nblocks))
     return ws.launch_result(KERNEL, w, status, diff)
 
 

@@ -359,11 +359,14 @@ def test_auto_walks_the_ladder_at_two_bytes_a_node(M, N, f32, bf16):
 
 
 def test_resident_gate_scales_with_the_element_size():
-    """At bf16 a block holds twice the span and a thread 32 ap values:
-    1100×1650 needs 13771 nodes a block, 192 KB of 227 KB."""
+    """At bf16 a block holds twice the span (a span limit of 16384 nodes
+    against f32's 8192): 1100×1650 needs 13771 nodes a block, 193 KB of
+    227 KB, marched by 26 warps of two strips, ap in registers."""
     lay = rp.layout(Problem(M=1100, N=1650), H100, torch.bfloat16)
     assert lay.fits and lay.span == 13771
-    assert lay.smem_bytes == 7 * 13771 * 2 + 320
+    assert lay.smem_bytes == 7 * 13771 * 2 + 528
+    assert rp.SPAN_LIMIT == {4: 8192, 2: 16384}
+    assert lay.threads == 832 and lay.ap_in_registers
     assert not rp.layout(Problem(M=1100, N=1650), H100, torch.float32).fits
     assert not rp.layout(Problem(M=1600, N=2400), H100, torch.bfloat16).fits
     assert not rp.layout(Problem(M=10, N=10), H100, torch.float64).fits

@@ -249,7 +249,9 @@ def test_fused_on_the_card_matches_its_plain_run(cuda):
 
 # -- the whole-solve kernels ------------------------------------------------
 
-WHOLE_SHAPES = [(60, 90), (200, 132), (257, 301)]
+# the march's edges too: spans of one node and 11 empty blocks (10x10),
+# one whole row a block (131x200)
+WHOLE_SHAPES = [(60, 90), (200, 132), (257, 301), (10, 10), (131, 200)]
 WHOLE_RTOL = 1e-5
 
 
@@ -925,6 +927,78 @@ def test_dtype_form_matches_plain_on_capped_runs(cuda, name, dtype, storage,
         # cancelling stencil): the plain version then stops with it
         assert got.w.dtype == dtype and int(got.iters) <= max_iter
         _assert_form_close(got, want)
+
+
+# the resident kernel's bf16 form, and each other form of the streamed
+# kernel in every regime of WHOLE_CASES
+WHOLE_FORM_CASES = [("resident", torch.bfloat16, None, None)] + [
+    ("streamed", dtype, storage, resident)
+    for dtype, storage in ((torch.bfloat16, None), (torch.float32, "bf16"),
+                           (torch.float32, "f16"))
+    for name, resident in WHOLE_CASES if name == "streamed"]
+
+
+@pytest.mark.parametrize("name,dtype,storage,resident", WHOLE_FORM_CASES)
+@pytest.mark.parametrize("M,N", WHOLE_SHAPES)
+def test_whole_solve_forms_match_plain_on_capped_runs(cuda, name, dtype,
+                                                      storage, resident, M,
+                                                      N):
+    test_dtype_form_matches_plain_on_capped_runs(cuda, name, dtype, storage,
+                                                 resident, M, N)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resident_with_ap_in_memory_matches_plain(cuda, dtype):
+    """A split whose warps march 4 units (66 strips of one step at
+    131x2101) keeps ap in the device-memory scratch."""
+    for max_iter in (1, 2, 7):
+        problem = Problem(M=130, N=2100, max_iter=max_iter)
+        assert not rp.layout(problem, capacity(cuda), dtype).ap_in_registers
+        kernel, plain = _form("resident", problem, cuda, dtype, None, None)
+        _build.reset_launches()
+        got, reads = kernel()
+        assert reads == 1 and _build.LAUNCHES == {
+            ws.counter("resident", ws.form_of(dtype)): 1}
+        want, _ = plain()
+        assert int(got.iters) <= max_iter
+        _assert_form_close(got, want)
+
+
+@pytest.mark.parametrize("name,resident", [("resident", None),
+                                           ("streamed", None),
+                                           ("streamed", ("dinv",))])
+def test_timing_instantiation_solves_as_the_kernel(cuda, name, resident):
+    """The timing instantiation (``stamps=``) gives the kernel's bits and
+    stamps every phase of every body in order; every block ends a phase
+    after block 0 has ended the phase before it (a grid barrier lies
+    between)."""
+    problem = Problem(M=257, N=301, max_iter=7)
+    cap = capacity(cuda)
+    if name == "resident":
+        ops = rp.resident_operands(problem, torch.float32, cuda)
+        nb = rp.layout(problem, cap).nblocks
+        run = lambda **kw: rp.resident(problem, *ops, cap=cap, **kw)[0]
+    else:
+        ops = sp.streamed_operands(problem, torch.float32, cuda)
+        plan = sp.StreamPlan(problem, cap, resident=resident)
+        nb = plan.nblocks
+        run = lambda **kw: sp.streamed(problem, *ops, plan=plan, **kw)[0]
+    want = run()
+    stamps = ws.stamps_buffer(problem, nb, cuda)
+    _build.reset_launches()
+    got = run(stamps=stamps)
+    assert _build.LAUNCHES == {f"{name}_stamps": 1}
+    assert int(got.iters) == int(want.iters) == 7
+    assert torch.equal(got.w, want.w)
+    t = stamps.cpu()
+    k = ws.WHOLE_STAMPS
+    assert bool((t[:, :k] > 0).all())
+    assert bool((t[:, :k].diff(dim=1) >= 0).all())
+    # stencil ends (body 0's slots hold the SMs) after the previous body's
+    # update end, update ends after the body's stencil end
+    assert bool((t[1:, k:k + nb] >= t[:-1, 4:5]).all())
+    assert bool((t[:, k + nb:] >= t[:, 2:3]).all())
+    assert bool((t[0, k:k + nb] >= 1).all())
 
 
 @pytest.mark.parametrize("name", ["xl", "streamed"])

@@ -11,6 +11,7 @@ The gate tests use a hand-built H100 capacity (132 SMs, 232448 B of shared
 memory a block may opt into), so they hold on a machine without a card.
 """
 
+import collections
 import ctypes
 import re
 
@@ -31,6 +32,7 @@ from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import _build
 from poisson_ellipse_tpu_torch.ops import resident_pcg as rp
 from poisson_ellipse_tpu_torch.ops import streamed_pcg as sp
+from poisson_ellipse_tpu_torch.ops import whole_solve as ws
 from poisson_ellipse_tpu_torch.ops import xl_pcg as xp
 from poisson_ellipse_tpu_torch.solver import engine
 from poisson_ellipse_tpu_torch.utils.device import DeviceCapacity
@@ -189,18 +191,58 @@ def test_ladder_and_the_cpu_rule():
     assert resolved == "resident"
 
 
+@pytest.mark.parametrize("M,N,want", [
+    (10, 10, "resident"), (400, 600, "resident"), (800, 1200, "resident"),
+    (1100, 1650, "resident"), (1600, 2400, "streamed"), (2400, 3200, "xl"),
+])
+def test_auto_walks_the_bf16_ladder_on_an_h100(M, N, want):
+    """At bf16 a block holds twice the span: resident to 1100x1650,
+    streamed at 1600x2400, xl at 2400x3200."""
+    problem = Problem(M=M, N=N)
+    assert engine.select_engine(problem, torch.bfloat16, H100) == want
+
+
+def _resident_gate_before_the_march(problem, item):
+    """The resident gate as it was before the march: 512 threads of 16
+    (f32) or 32 (bf16) nodes, and seven arrays and 40 doubles of sums
+    within a block's shared memory."""
+    g1, g2 = problem.node_shape
+    span = -(-g1 * g2 // H100.sm_count)
+    return (span <= 512 * {4: 16, 2: 32}[item]
+            and 7 * span * item + 320 <= H100.smem_per_block)
+
+
+@pytest.mark.parametrize("item,dtype", [(4, torch.float32),
+                                        (2, torch.bfloat16)])
+def test_resident_gate_admits_the_grids_it_admitted(item, dtype):
+    """The march keeps the span limit: every grid on a sweep across the
+    gate's edge is admitted exactly when it was before."""
+    for m in range(100, 1500, 37):
+        for n in (m, 3 * m // 2, 2 * m):
+            problem = Problem(M=m, N=n)
+            assert (rp.fits_resident(problem, dtype, H100)
+                    == _resident_gate_before_the_march(problem, item)), (m, n)
+
+
 def test_gates_and_launch_shapes_agree():
     """The gate is the layout that sizes the launch: at 800x1200 a block
-    holds 7288 nodes of seven arrays (204 KB) within 227 KB; at 1100x1650
+    holds 7288 nodes of seven arrays (204 KB) within 227 KB, marched by
+    19 warps of two 32-column strips each, ap in registers; at 1100x1650
     the resident arrays would take 386 KB, the streamed state 166 KB."""
     mid = rp.layout(Problem(M=800, N=1200), H100)
     assert (mid.nblocks, mid.span) == (132, 7288) and mid.fits
-    assert mid.smem_bytes == 7 * 7288 * 4 + 320 <= H100.smem_per_block
+    assert mid.smem_bytes == 7 * 7288 * 4 + 528 <= H100.smem_per_block
+    assert (mid.threads, mid.split.per_warp, mid.split.rows) == (608, 2, 7)
+    assert mid.ap_in_registers
     big = Problem(M=1100, N=1650)
     assert not rp.fits_resident(big, torch.float32, H100)
     plan = sp.StreamPlan(big, H100)
     assert plan.fits and plan.span == 13771
     assert plan.smem_bytes <= H100.smem_per_block
+    # 52 strips of 9 steps, a warp two of them
+    shape = plan.launch_shape()
+    assert (shape.strips, shape.rows, shape.per_warp) == (52, 9, 2)
+    assert shape.threads == 832
     # room for ap beside the state, not for dinv: the z-state regime
     assert plan.resident == {"ap": True, "dinv": False, "a": False,
                              "b": False}
@@ -211,6 +253,78 @@ def test_gates_and_launch_shapes_agree():
     with pytest.raises(ValueError, match="do not fit"):
         sp.StreamPlan(big, H100, resident=("ap", "dinv"))
     assert not sp.fits_streamed(Problem(M=1600, N=2400), torch.float32, H100)
+
+
+# ---------------------------------------------------------------- the march
+
+# the edge cases of the march's split (spans of 1 node and empty blocks;
+# 43-node spans in 91-node rows; one whole row a block) and auto's grids
+MARCH_GRIDS = [(10, 10), (60, 90), (131, 200), (400, 600), (800, 1200),
+               (1100, 1650)]
+
+
+def _block_lengths(problem, span):
+    """The distinct span lengths of a launch's blocks (the march's split
+    is span-local: a block's nodes depend on its length alone)."""
+    g1, g2 = problem.node_shape
+    n = g1 * g2
+    return sorted({max(0, min(n, (b + 1) * span) - b * span)
+                   for b in range(H100.sm_count)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N", MARCH_GRIDS)
+def test_march_covers_every_node_of_every_span_once(M, N, dtype):
+    """Each kernel's split (``ws.march_split``, as csrc/grid_sync.cuh cuts
+    it) walked as the kernel walks it (``ws.march_nodes``): every node of
+    every block's span is one step of one lane, the lanes of a warp on one
+    step hold consecutive nodes (one shared-memory row, no bank
+    conflict), and no lane takes more steps in a unit than the kernel's
+    unrolled loop holds."""
+    problem = Problem(M=M, N=N)
+    g2 = problem.node_shape[1]
+    item = torch.empty((), dtype=dtype).element_size()
+    lay = rp.layout(problem, H100, dtype)
+    plan = sp.StreamPlan(problem, H100, dtype)
+    for split, steps, span, warps in (
+            (lay.split, rp.MARCH_STEPS[item], lay.span, rp.MAX_WARPS[item]),
+            (plan.launch_shape(), sp.MARCH_STEPS, plan.span, sp.MAX_WARPS)):
+        assert split.warps <= warps
+        assert split.warps * split.per_warp >= split.units
+        assert split.rows <= split.segs * steps
+        for length in _block_lengths(problem, span):
+            visits = list(ws.march_nodes(split, length, g2))
+            assert sorted(v[-1] for v in visits) == list(range(length))
+            lane_steps = collections.Counter(v[:3] for v in visits)
+            assert max(lane_steps.values(), default=0) <= steps
+            rows = collections.defaultdict(list)
+            for warp, j, lane, t, node in visits:
+                rows[warp, j, t].append((lane, node))
+            for row in rows.values():
+                row.sort()
+                assert all(b - a == lb - la
+                           for (la, a), (lb, b) in zip(row, row[1:]))
+
+
+@pytest.mark.parametrize("M,N,dtype,warps,per_warp", [
+    (400, 600, torch.float32, 19, 1), (800, 1200, torch.float32, 19, 2),
+    (400, 600, torch.bfloat16, 19, 1), (800, 1200, torch.bfloat16, 19, 2),
+    (1100, 1650, torch.bfloat16, 26, 2),
+])
+def test_resident_keeps_ap_in_registers_on_autos_grids(M, N, dtype, warps,
+                                                       per_warp):
+    lay = rp.layout(Problem(M=M, N=N), H100, dtype)
+    assert lay.fits and lay.ap_in_registers
+    assert (lay.split.warps, lay.split.per_warp) == (warps, per_warp)
+
+
+def test_resident_ap_goes_to_memory_where_the_split_outgrows_registers():
+    """A wide grid of short spans (2086 nodes in 2101-node rows: 66 strips
+    of one step) gives a warp 4 units (19 warps at most): ap in the
+    device-memory scratch."""
+    lay = rp.layout(Problem(M=130, N=2100), H100)
+    assert lay.fits and lay.split.strips == 66 and lay.split.per_warp == 4
+    assert not lay.ap_in_registers
 
 
 # (M, N, blocks the card holds at once, segs, nblocks): the main grid at
@@ -329,8 +443,6 @@ def test_resident_operands_hold_the_masked_set_values():
     ref = interop.fused_operands_from_reference(
         problem, jax_fused.fused_operands(_jax_problem(problem), 32, 128,
                                           jnp.float32), device="cpu")
-    from poisson_ellipse_tpu_torch.ops import whole_solve as ws
-
     inside = ws.interior(problem, an)
     zero = torch.zeros_like(an)
     ours = (torch.where(inside, an, zero),
@@ -364,13 +476,25 @@ def _ctypes_kind(t) -> str:
     return "ptr"
 
 
-@pytest.mark.parametrize("module", [rp, sp, xp])
-def test_launcher_signature_matches_the_c_prototype(module):
+# each whole-solve library's launchers: its forms, and the forms of its
+# timing instantiation (the form's arguments and the stamps)
+LAUNCHERS = {
+    rp: ("f32", "bf16", "stamps_f32", "stamps_bf16"),
+    sp: ("f32", "bf16", "f32_bf16", "f32_f16", "stamps_f32", "stamps_bf16",
+         "stamps_f32_bf16", "stamps_f32_f16"),
+    xp: ("f32", "bf16", "f32_bf16", "f32_f16", "stamps_f32"),
+}
+
+
+@pytest.mark.parametrize("module,form", [(m, f) for m, forms in
+                                         LAUNCHERS.items() for f in forms])
+def test_launcher_signature_matches_the_c_prototype(module, form):
     """The ctypes argument list of each whole-solve launcher is the C
     prototype's, argument for argument: a mismatch is no error to ctypes
     and only misreads arguments on the card."""
-    symbol = f"pe_{module.LIBRARY}_f32"
-    assert ([_ctypes_kind(t) for t in module._SIGNATURE]
+    symbol = f"pe_{module.LIBRARY}_{form}"
+    stamps = [ws.PTR] if form.startswith("stamps") else []
+    assert ([_ctypes_kind(t) for t in module._SIGNATURE + stamps]
             == _c_parameters(module.LIBRARY, symbol))
     assert _c_parameters(module.LIBRARY, f"pe_{module.LIBRARY}_launch_query"
                          ) == ["int", "int", "ptr", "ptr"]
