@@ -48,7 +48,7 @@
 // only the halo (z one row beyond each end of the span, from L2) and the
 // partials move. The floor per iteration is about 24 flops a node plus two
 // grid barriers with their sums (1.95-2.35 us each alone on the H100).
-// The parent kernel (a thread a node in strided 1-D loops, PR 12) took
+// The kernel before the march (a thread a node in strided 1-D loops) took
 // 14.6 us a body at 801x1201 (chip_smoke.py --only whole-timing on the
 // H100; PERF.md, section 6): its stencil phase 6.1 us, with an integer
 // division, four branchy pn reads and two branchy coefficient reads a

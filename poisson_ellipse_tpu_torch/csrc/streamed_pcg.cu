@@ -56,8 +56,8 @@
 // operand fits on chip, else the streamed operands' reads. Each streamed
 // operand is one array pass an iteration (ap two: written, then read);
 // at 1101x1651 f32 the plan streams dinv, an and bw, 21.8 MB an iteration,
-// which the 50 MB L2 holds. The parent kernel (a thread a node in strided
-// 1-D loops, PR 12) took 28.2 us a body there (chip_smoke.py --only
+// which the 50 MB L2 holds. The kernel before the march (a thread a node
+// in strided 1-D loops) took 28.2 us a body there (chip_smoke.py --only
 // whole-timing on the H100; PERF.md, section 6): the stencil phase 12.8
 // (four operand loads, an integer division and four branchy pn reads a
 // node), the update phase 6.4, the sums 4.3 and 3.6 (2.3 of the first the

@@ -95,7 +95,7 @@
 // - The three sums take grid_reduce_wide: every thread of every block adds
 //   a few of the partials after the barrier, where one warp adding them in
 //   17 dependent loads a lane at 528 blocks took longer (2 sums: 2.7
-//   against 4.8 us at 253 blocks on the H100, PR 11).
+//   against 4.8 us at 253 blocks on the H100; PERF.md).
 // - Registers against warps (Tune): the march holds kAhead rows of five
 //   arrays in registers. f32 ran best at 6 rows ahead and 2 blocks an SM,
 //   no spill: 253 blocks, so fewer partials and a narrower spread of the
