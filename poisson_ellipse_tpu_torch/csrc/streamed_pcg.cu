@@ -70,9 +70,10 @@
 // the step before: a step loads pn one row down and one column either
 // side (shared memory), an one row down, bw and bw one column east (each
 // operand through one pointer chosen once, to shared or device memory as
-// the plan says: no branch a read), no integer division. ap goes to its
-// array (shared or device memory), so any number of units a warp fits;
-// the update phase walks the same units in the same order, so each
+// the plan says: no branch a read), no integer division; the narrow and
+// bf16 forms issue a step's operand loads two steps ahead (Lead). ap goes
+// to its array (shared or device memory), so any number of units a warp
+// fits; the update phase walks the same units in the same order, so each
 // thread reads back the ap it wrote, and loads a unit's ap and dinv all
 // at once before its updates. The halo and the sums are
 // resident_pcg.cu's: the first kAhead units' halo (z only) rides the
@@ -97,6 +98,19 @@ constexpr int kMaxThreads = 32 * kMaxWarps;
 // halo loads ride the barrier before their stencil phase
 constexpr int kSteps = 10;
 constexpr int kAhead = 2;
+
+// Steps ahead a march issues its operand loads: two for the narrow loads
+// and bf16 (on the H100 bf16 at 1601x2401 59.6 -> 47.6 us a body, the
+// narrow streams at 1101x1651 19.8-20.2 -> 18.3-18.6), none at f32, whose
+// stencil phase ran slower so (5.5 -> 6.2 us; PERF.md).
+template <typename TC, typename TS>
+struct Lead {
+  static constexpr int value = 2;
+};
+template <>
+struct Lead<float, float> {
+  static constexpr int value = 0;
+};
 
 // resident-operand bits (ops/streamed_pcg.py:RESIDENT_BITS holds the same)
 constexpr int kResAp = 1;
@@ -242,29 +256,70 @@ streamed_kernel(const TS* __restrict__ dinv_g, const TS* __restrict__ an_g,
     if (mu.t1 > mu.t_last) hp[1] = hs;
     float pc = up(s_p[l]);
     float an_c = up(an_l[l]);
+    // an one row down (carried to the next step; 0 past the grid), bw and
+    // bw one column east on the interior, past the span from device memory
+    float an_s, bw_c, bw_e;
+    // With a lead, a step's operand loads are issued Lead steps ahead: a
+    // step past the unit, or past the span, reads an in-bounds node
+    // instead, so none waits on a branch.
+    constexpr int kLead = Lead<TC, TS>::value;
+    const int l0 = l;
+    const int steps = mu.t1 - mu.t0;
+    struct Ops {
+      float an_s, bw, bw_e;
+    };
+    const auto ops_at = [&](int k) {
+      const int lk = k < steps ? l0 + k * g2 : l0;
+      const bool below = k < steps && mu.t0 + k < mu.t_last;
+      Ops o;
+      o.an_s = up(an_l[below ? lk + g2 : lk]);
+      o.bw = up(bw_l[lk]);
+      o.bw_e = up(bw_l[lk + 1 < len ? lk + 1 : lk]);
+      return o;
+    };
+    Ops ring[kLead > 0 ? kLead : 1];
+#pragma unroll
+    for (int j = 0; j < kLead; ++j) ring[j] = ops_at(j);
 #pragma unroll
     for (int k = 0; k < kSteps; ++k) {
       if (mu.t0 + k >= mu.t1) break;
       const bool below = mu.t0 + k < mu.t_last;  // the row below: in the span
       const bool inner = col_in && i >= 1 && i <= M - 1;
       const float pd = below ? up(s_p[l + g2]) : hs;
-      // an one row down: carried to the next step (0 past the grid)
-      float an_s = 0.f;
-      if (below) {
-        an_s = up(an_l[l + g2]);
-      } else if (inner) {
-        an_s = up(__ldg(an_g + q + g2));
-      }
       float v = 0.f;
-      if (inner) {
-        const bool east = l + 1 < len;
-        const float pl = l >= 1 ? up(s_p[l - 1]) : hw;
-        const float pr = east ? up(s_p[l + 1]) : he;
-        const float bw_e = east ? up(bw_l[l + 1]) : up(__ldg(bw_g + q + 1));
-        const float ax = an_c * (pc - pu) + an_s * (pc - pd);
-        const float ay = up(bw_l[l]) * (pc - pl) + bw_e * (pc - pr);
-        v = R(ax + ay);
-        acc[0] += v * pc;
+      if constexpr (kLead > 0) {
+        const Ops o = ring[k % kLead];
+        ring[k % kLead] = ops_at(k + kLead);
+        an_s = below ? o.an_s : (inner ? up(__ldg(an_g + q + g2)) : 0.f);
+        if (inner) {
+          const bool east = l + 1 < len;
+          const float pl = l >= 1 ? up(s_p[l - 1]) : hw;
+          const float pr = east ? up(s_p[l + 1]) : he;
+          bw_c = o.bw;
+          bw_e = east ? o.bw_e : up(__ldg(bw_g + q + 1));
+          const float ax = an_c * (pc - pu) + an_s * (pc - pd);
+          const float ay = bw_c * (pc - pl) + bw_e * (pc - pr);
+          v = R(ax + ay);
+          acc[0] += v * pc;
+        }
+      } else {
+        an_s = 0.f;
+        if (below) {
+          an_s = up(an_l[l + g2]);
+        } else if (inner) {
+          an_s = up(__ldg(an_g + q + g2));
+        }
+        if (inner) {
+          const bool east = l + 1 < len;
+          const float pl = l >= 1 ? up(s_p[l - 1]) : hw;
+          const float pr = east ? up(s_p[l + 1]) : he;
+          bw_e = east ? up(bw_l[l + 1]) : up(__ldg(bw_g + q + 1));
+          const float ax = an_c * (pc - pu) + an_s * (pc - pd);
+          bw_c = up(bw_l[l]);
+          const float ay = bw_c * (pc - pl) + bw_e * (pc - pr);
+          v = R(ax + ay);
+          acc[0] += v * pc;
+        }
       }
       ap_l[l] = down<TC>(v);
       pu = pc;
