@@ -254,8 +254,17 @@ on the device clock by the kernels' timing instantiation (pn pass,
 stencil phase, first sum with its barrier, update phase, second sums with
 their barrier, the spread of the blocks' phase ends), xl at the same grid
 and form, and the two libraries' SASS. It too runs on an older tree's
-kernels (the split prints as not measured where the tree lacks it). Each
-prints the kernels' record and no result line.
+kernels (the split prints as not measured where the tree lacks it).
+`--only fused-timing` runs phases 1-2 and then the fused pair: K1 and K2
+in f32 and bf16 at 2401x3201 and 401x601, each bitwise its plain version
+and timed three ways beside its bound and its loss on its path (working
+launches x (device - bound)); K1 by part (its timing instantiation: the
+kernel whole, the tile pass without the cross-block sum, that sum and the
+scalar tail alone); us a launch inside fused (bf16 at 400x600 and
+2400x3200, f32 at 400x600), working launches apart from those that return
+early; the fused library's SASS. It too runs on an older tree's kernels
+(the parts print as not measured there). Each prints the kernels' record
+and no result line.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -2052,6 +2061,10 @@ BF16_AUTO_GRIDS = ((400, 600), (800, 1200), STREAMED_GRID, (1600, 2400),
 # iterations, l2 0.0719 (the cancelling stencil; ROADMAP Queue C)
 BF16_XLA_L2 = 3e-2
 JAX_BF16_400 = {"xla": "290, l2 1.55e-2", "resident": "33, l2 0.0719"}
+# bf16 fused on the card: (iterations, converged, breakdown) at 400x600 and
+# 2400x3200, as PR 13's kernels ran it (K1 bf16's arrays are bitwise its
+# plain version, its sum adds the same products in double)
+FUSED_BF16_RUNS = {(400, 600): (34, True, False), MAIN_GRID: (1, False, True)}
 # capped solves timed per iteration (the forms stop at different counts
 # uncapped, if at all)
 TIME_CAP = 256
@@ -2249,6 +2262,10 @@ def phase_dtype_main(cap) -> dict:
             require(launches.get(k, 0) >= max(iters, 1),
                     f"{k} launched fewer times than iterations")
         require(bool(torch.isfinite(result.w).all()), "w not finite")
+        run = (iters, bool(result.converged), bool(result.breakdown))
+        require(run == FUSED_BF16_RUNS[(m, n)],
+                f"fused bf16 {m}x{n}: (iterations, converged, breakdown) "
+                f"{run}, not {FUSED_BF16_RUNS[(m, n)]}")
 
     for engine, (m, n) in (("xl", MAIN_GRID), ("streamed", STREAMED_GRID)):
         problem = Problem(M=m, N=n)
@@ -4501,12 +4518,214 @@ def phase_stencil_timing(seed: int, card: str) -> list:
     return rows
 
 
+# -- the fused pair by device time, and K1 by part --------------------------
+
+FUSED_GRIDS = (MAIN_GRID, (400, 600))
+# each form's working launches where fused runs at that grid: f32 the
+# oracle counts, bf16 phase 10's (FUSED_BF16_RUNS). A 64-body chunk
+# launches both kernels 64 times; past the loop's exit they read the
+# flags and return.
+FUSED_WORKING = {("f32", MAIN_GRID): MAIN_ITERS, ("f32", (400, 600)): 546,
+                 ("bf16", MAIN_GRID): 1, ("bf16", (400, 600)): 34}
+# flops a node: K1 pn 2, ap 9, the sum 2 (+ rounding); K2 10
+K1_FLOPS, K2_FLOPS = 15, 10
+K1_PASSES, K2_PASSES = 9, 8
+
+
+def _fused_set(problem, dtype, coeffs, rng) -> dict:
+    """One seeded input set of K1 and K2 at ``problem``'s grid in
+    ``dtype``: z, p, w, r standard normal, the carry at zr = 1.5, beta =
+    0.7, alpha = 0.3, pn, ap and K2's z out, the partials scratch."""
+    from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
+
+    g = problem.node_shape
+    dev = torch.device("cuda")
+
+    def seeded():
+        return torch.from_numpy(rng.standard_normal(g).astype(
+            np.float32)).to(dev, dtype)
+
+    scal = torch.zeros(fp.N_SCAL, dtype=dtype, device=dev)
+    scal[fp.SCAL_ZR], scal[fp.SCAL_BETA] = 1.5, 0.7
+    scal[fp.SCAL_ALPHA] = 0.3
+    return dict(z=seeded(), p=seeded(), w=seeded(), r=seeded(),
+                pn=torch.empty(g, dtype=dtype, device=dev),
+                ap=torch.empty(g, dtype=dtype, device=dev),
+                zo=torch.empty(g, dtype=dtype, device=dev), scal=scal,
+                flags=torch.zeros(fp.N_FLAGS, dtype=torch.int32, device=dev),
+                coeffs=[c.clone() for c in coeffs],
+                partials=torch.empty(fp.scratch_len(*g),
+                                     dtype=fp.partials_dtype(dtype),
+                                     device=dev))
+
+
+def _launch_us(solver, args, match) -> list:
+    """Device us of each launch of the kernel ``match`` accepts in one
+    solve under torch.profiler, in launch order (after a warm-up solve)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    solver(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver(*args)
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and match(e.name)),
+                  key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() for e in evts]
+
+
+def phase_fused_timing(seed: int, card: str, sass_dir=None) -> list:
+    """``--only fused-timing``: K1 and K2 in f32 and bf16 at 2401x3201 and
+    401x601 on QUEUE_SETS seeded input sets, each first held to its plain
+    version (arrays bitwise, the scalars within SUM_RTOL, the flags equal),
+    then timed three ways (``timed_row``) beside its bound, its share of it
+    and its loss on its path, FUSED_WORKING x (device - bound); K1 by part
+    (``fused_pcg.k1_part``: the kernel whole, its tile pass without the
+    cross-block sum, that sum and the scalar tail alone) by device time; us
+    a launch inside fused (bf16 at 400x600 and 2400x3200, f32 at 400x600;
+    torch.profiler), the working launches apart from those that return
+    early; the fused library's SASS. Runs on an older tree's kernels too
+    (the parts print as not measured where the tree lacks them)."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    say(f"== the fused pair by device time on {card}")
+    rows = []
+    rng = np.random.default_rng(seed)
+    never = 2**31 - 1
+    has_parts = hasattr(fp, "k1_part")
+    for form, dtype in (("f32", torch.float32), ("bf16", BF16)):
+        for m, n in FUSED_GRIDS:
+            problem = Problem(M=m, N=n)
+            h1, h2 = problem.h1, problem.h2
+            g1, g2 = problem.node_shape
+            nodes = g1 * g2
+            coeffs = fp.fused_operands(problem, dtype, torch.device("cuda"))
+            sets = [_fused_set(problem, dtype, coeffs, rng)
+                    for _ in range(QUEUE_SETS)]
+
+            def k1(s, fn=fp.k1):
+                an, as_, bw, be, d, _ = s["coeffs"]
+                fn(s["z"], s["p"], an, as_, bw, be, d, s["pn"], s["ap"],
+                   s["scal"], s["flags"], s["partials"], max_iter=never,
+                   h1=h1, h2=h2)
+
+            # delta = 0: no timed K2 launch meets the stopping rule
+            def k2(s, fn=fp.k2):
+                fn(s["w"], s["r"], s["pn"], s["ap"], s["coeffs"][5],
+                   s["zo"], s["scal"], s["flags"], s["partials"],
+                   max_iter=never, h1=h1, h2=h2, delta=0.0, weighted=True)
+
+            def part(s, which):
+                an, as_, bw, be, d, _ = s["coeffs"]
+                fp.k1_part(which, s["z"], s["p"], an, as_, bw, be, d,
+                           s["pn"], s["ap"], s["scal"], s["flags"],
+                           s["partials"], max_iter=never, h1=h1, h2=h2)
+
+            label = f"{form} {g1}x{g2}"
+
+            def copy(src):
+                return {k: (v.clone() if torch.is_tensor(v) else v)
+                        for k, v in src.items()}
+
+            # K1 on copies of set 0; then K2 on copies with the plain K1's
+            # pn and ap and set 0's carry (alpha = 0.3)
+            got, want = copy(sets[0]), copy(sets[0])
+            k1(got)
+            k1(want, fp.k1_plain)
+            for what in ("pn", "ap"):
+                require(same_bits(got[what], want[what]),
+                        f"K1 {label}: {what} not bitwise its plain version")
+            for i, nm in ((fp.SCAL_DENOM, "denom"), (fp.SCAL_ALPHA, "alpha")):
+                close_sum(f"K1 {label} {nm}", float(got["scal"][i]),
+                          float(want["scal"][i]))
+            require(torch.equal(got["flags"], want["flags"]),
+                    f"K1 {label}: flags differ")
+            got = dict(copy(sets[0]), pn=want["pn"], ap=want["ap"])
+            want = dict(copy(sets[0]), pn=want["pn"], ap=want["ap"])
+            k2(got)
+            k2(want, fp.k2_plain)
+            for what in ("w", "r", "zo"):
+                require(same_bits(got[what], want[what]),
+                        f"K2 {label}: {what} not bitwise its plain version")
+            for i, nm in ((fp.SCAL_ZR, "zr"), (fp.SCAL_BETA, "beta"),
+                          (fp.SCAL_DIFF, "diff")):
+                close_sum(f"K2 {label} {nm}", float(got["scal"][i]),
+                          float(want["scal"][i]))
+            require(torch.equal(got["flags"], want["flags"]),
+                    f"K2 {label}: flags differ")
+            say(f"  K1, K2 {label}: pn, ap, w, r, z bitwise their plain "
+                "versions, the flags equal")
+            del got, want
+
+            main = (m, n) == MAIN_GRID
+            working = FUSED_WORKING[(form, (m, n))]
+            item = dtype.itemsize
+            for kernel, fn, plain, passes, flops, line in (
+                    ("fused_k1", k1, fp.k1_plain, K1_PASSES, K1_FLOPS,
+                     "ops/fused_pcg.py:229"),
+                    ("fused_k2", k2, fp.k2_plain, K2_PASSES, K2_FLOPS,
+                     "ops/fused_pcg.py:244")):
+                name = kernel if form == "f32" else f"{kernel}_{form}"
+                timed_row(rows, name if main else None,
+                          f"{kernel} {label} (working launches on its "
+                          f"path: {working})",
+                          [lambda s=s: fn(s) for s in sets],
+                          lambda: fn(sets[0], plain), passes * item * nodes,
+                          flops * nodes, "csrc/fused_pcg.cu", line,
+                          launches=working, per=nodes)
+            if not has_parts:
+                say(f"  K1 {label} by part: not measured (this tree has no "
+                    "timing instantiation)")
+                continue
+            ms = {which: device_ms([lambda s=s, w=which: part(s, w)
+                                    for s in sets])
+                  for which in fp.PARTS}
+            say(f"  K1 {label} by part (device us): "
+                + ", ".join(f"{w} {t * 1e3:.2f}" for w, t in ms.items())
+                + f"; whole - tile {(ms['whole'] - ms['tile']) * 1e3:.2f}")
+            del sets
+
+    say("  fused a launch inside its loop (torch.profiler; the first "
+        "`iterations` launches work, the rest read the flags and return)")
+    for form, dtype, (m, n) in (("bf16", BF16, (400, 600)),
+                                ("bf16", BF16, MAIN_GRID),
+                                ("f32", torch.float32, (400, 600))):
+        problem = Problem(M=m, N=n, max_iter=DTYPE_CAP)
+        solver, args, _ = build_solver(problem, "fused", dtype, "cuda")
+        iters = int(solver(*args).iters)
+        for kernel in ("k1", "k2"):
+            us = _launch_us(solver, args, lambda nm, k=kernel: f"::{k}_" in nm)
+            if not us:
+                say(f"    fused {form} {m}x{n} {kernel}: not measured (no "
+                    "device events)")
+                continue
+            work, idle = us[:iters], us[iters:]
+            say(f"    fused {form} {m}x{n} {kernel}: {len(us)} launches; "
+                f"{len(work)} working, median "
+                f"{statistics.median(work):.2f} us, mean "
+                f"{statistics.mean(work):.2f}; "
+                + (f"{len(idle)} returning early, median "
+                   f"{statistics.median(idle):.2f} us, mean "
+                   f"{statistics.mean(idle):.2f}" if idle else
+                   "none returning early"))
+    say("  the fused library's SASS (cuobjdump -sass)")
+    show_sass("fused_pcg", "k1", sass_dir)
+    show_sass("fused_pcg", "k2")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--only", choices=("stage4", "stage4-timing", "stencil-dots-timing",
-                           "xl-timing", "stencil-timing", "whole-timing"),
+                           "xl-timing", "stencil-timing", "whole-timing",
+                           "fused-timing"),
         help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
              "loop and timing (stage4), its timing alone (stage4-timing), "
              "rule 2's queue by device time, the K-d family's SASS and the "
@@ -4515,11 +4734,14 @@ def main(argv=None) -> int:
              "the in-loop times (xl-timing), or K-a and K-e by input data "
              "and in their loops beside K-g, K-d and K1-shard "
              "(stencil-timing), or resident and streamed by phase beside "
-             "xl (whole-timing); the timings also run on an older tree's "
-             "kernels; prints the kernels' record and no result line")
-    ap.add_argument("--sass-dir", help="with --only stencil-dots-timing, "
-                    "write the SASS listings of the K-d and K-a libraries "
-                    "to this directory")
+             "xl (whole-timing), or K1 and K2 by device time with K1 by "
+             "part and in its loop (fused-timing); the timings also run on "
+             "an older tree's kernels; prints the kernels' record and no "
+             "result line")
+    ap.add_argument("--sass-dir", help="with --only stencil-dots-timing "
+                    "or fused-timing, write the SASS listings of the K-d "
+                    "and K-a libraries, or of the fused library, to this "
+                    "directory")
     args = ap.parse_args(argv)
 
     card, kind = phase_device()
@@ -4537,6 +4759,8 @@ def main(argv=None) -> int:
         from poisson_ellipse_tpu_torch.utils.device import capacity
 
         timed = phase_whole_timing_split(capacity(0), card)
+    elif args.only == "fused-timing":
+        timed = phase_fused_timing(args.seed, card, args.sass_dir)
     elif args.only:
         if args.only == "stage4":
             phase_stage4_kernels(args.seed)

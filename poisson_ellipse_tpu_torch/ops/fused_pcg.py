@@ -153,10 +153,18 @@ class FusedCarry:
     partials: torch.Tensor  # the kernels' per-block sums (empty on the CPU)
 
 
+# K1's timing instantiation (csrc/fused_pcg.cu Part), which no engine
+# launches: the kernel whole, its tile pass with each block's own sum but
+# no cross-block sum, and the cross-block sum with the scalar tail alone
+PARTS = {"whole": 0, "tile": 1, "tail": 2}
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_K1_ARGS = [_P] * 12 + [_I] * 3 + [_F, _F, _P]
 _SIGNATURES = {
-    "pe_fused_scratch_len": (_I, [_I, _I]),
-    **{f"pe_fused_k1_{form}": (_I, [_P] * 12 + [_I] * 3 + [_F, _F, _P])
+    **{f"pe_fused_scratch_len_{form}": (_I, [_I, _I])
+       for form in DTYPES.values()},
+    **{f"pe_fused_k1_{form}": (_I, _K1_ARGS) for form in DTYPES.values()},
+    **{f"pe_fused_k1_part_{form}": (_I, [_I] + _K1_ARGS)
        for form in DTYPES.values()},
     **{f"pe_fused_k2_{form}": (_I, [_P] * 9 + [_I] * 3 + [_F, _F, _F, _I, _P])
        for form in DTYPES.values()},
@@ -179,9 +187,57 @@ def partials_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 @functools.lru_cache(maxsize=16)
-def scratch_len(g1: int, g2: int) -> int:
-    """Per-block partial sums one solve needs at (g1, g2) on the card."""
-    return int(_build.load(LIBRARY, _SIGNATURES).pe_fused_scratch_len(g1, g2))
+def scratch_len(g1: int, g2: int, dtype: torch.dtype = torch.float32) -> int:
+    """Per-block partial sums one solve of the ``dtype`` form needs at
+    (g1, g2) on the card (``pe_fused_scratch_len_<form>``;
+    ``partials_count`` computes the same on the host)."""
+    lib = _build.load(LIBRARY, _SIGNATURES)
+    return int(getattr(lib, f"pe_fused_scratch_len_{DTYPES[dtype]}")(g1, g2))
+
+
+# the kernels' launch shapes (csrc/fused_pcg.cu): K1 f32's 32x32 tiles;
+# K1 bf16's march, a warp a strip of 64 columns over march_rows rows, 8
+# warps a block, 16 rows or as few as 4 to give 132 blocks; K2's 256-thread
+# blocks, at most 1024
+K1_TILE = 32
+MARCH_STRIP, MARCH_WARPS = 64, 8
+MARCH_MAX_ROWS, MARCH_MIN_ROWS, MARCH_FILL_BLOCKS = 16, 4, 132
+K2_THREADS, K2_MAX_BLOCKS = 256, 1024
+
+
+def march_strips(g2: int) -> int:
+    """K1 bf16's strips a row: a row's ceil(g2 / 2) two-column words (in
+    either frame, csrc/pn_march.cuh), 32 a strip."""
+    return -(-(-(-g2 // 2)) // (MARCH_STRIP // 2))
+
+
+def march_rows(g1: int, g2: int) -> int:
+    """The rows a warp of K1 bf16 marches: MARCH_MAX_ROWS, halved (down to
+    MARCH_MIN_ROWS) while its units would fill fewer than
+    MARCH_FILL_BLOCKS blocks."""
+    rows = MARCH_MAX_ROWS
+    while (rows > MARCH_MIN_ROWS and march_strips(g2) * -(-g1 // rows)
+           < MARCH_FILL_BLOCKS * MARCH_WARPS):
+        rows //= 2
+    return rows
+
+
+def k1_blocks(g1: int, g2: int, dtype: torch.dtype) -> int:
+    """K1's blocks at (g1, g2), its partials: f32 one a 32x32 tile; bf16
+    one a row of MARCH_WARPS units, a unit a strip over march_rows rows,
+    numbered row tile by row tile."""
+    if dtype == torch.float32:
+        return -(-g1 // K1_TILE) * -(-g2 // K1_TILE)
+    units = march_strips(g2) * -(-g1 // march_rows(g1, g2))
+    return -(-units // MARCH_WARPS)
+
+
+def partials_count(g1: int, g2: int, dtype: torch.dtype) -> int:
+    """The partials scratch of the ``dtype`` form at (g1, g2), from the
+    grid's shape alone, as ``pe_fused_scratch_len_<form>`` counts it:
+    K1's blocks or two a K2 block, whichever is more."""
+    k2 = 2 * min(-(-g1 * g2 // K2_THREADS), K2_MAX_BLOCKS)
+    return max(k1_blocks(g1, g2, dtype), k2)
 
 
 def rotated_state0(r0: torch.Tensor, z0: torch.Tensor,
@@ -192,7 +248,7 @@ def rotated_state0(r0: torch.Tensor, z0: torch.Tensor,
     scal = torch.zeros(N_SCAL, dtype=dtype, device=dev)
     scal[SCAL_ZR] = zr0
     scal[SCAL_DIFF] = float("inf")
-    n_partials = scratch_len(*r0.shape) if dev.type == "cuda" else 0
+    n_partials = scratch_len(*r0.shape, dtype) if dev.type == "cuda" else 0
     return FusedCarry(
         w=torch.zeros_like(r0),
         r=r0.clone(),
@@ -313,12 +369,38 @@ def _check(kernel: str, arrays: dict, scal, flags, partials) -> None:
     if (flags.shape != (N_FLAGS,) or flags.dtype != torch.int32
             or flags.device != ref.device):
         raise ValueError(f"{kernel}: flags must be ({N_FLAGS},) int32")
+    need = scratch_len(*ref.shape, ref.dtype)
     if (partials.dtype != partials_dtype(ref.dtype)
-            or partials.device != ref.device
-            or partials.numel() < scratch_len(*ref.shape)):
+            or partials.device != ref.device or partials.numel() < need):
         raise ValueError(f"{kernel}: partials scratch must be "
-                         f"{partials_dtype(ref.dtype)}, of "
-                         f"{scratch_len(*ref.shape)} at least")
+                         f"{partials_dtype(ref.dtype)}, of {need} at least")
+    if (kernel == K1 and ref.dtype == torch.bfloat16
+            and any(t.data_ptr() % 4 for t in arrays.values())):
+        raise ValueError(f"{kernel}: the bf16 form loads and stores "
+                         "aligned pairs of nodes; every array must start "
+                         "at a multiple of 4 bytes")
+
+
+def _launch_k1(name: str, lead: tuple, z, p, an, as_, bw, be, d, pn, ap,
+               scal, flags, partials, max_iter: int, h1: float,
+               h2: float) -> None:
+    """Launch ``pe_fused_<name>_<form>`` with ``lead`` before K1's
+    arguments, and count it under ``<name>``'s counter of the form."""
+    arrays = dict(z=z, p=p, an=an, as_=as_, bw=bw, be=be, d=d, pn=pn, ap=ap)
+    _check(K1, arrays, scal, flags, partials)
+    lib = _build.load(LIBRARY, _SIGNATURES)
+    g1, g2 = z.shape
+    form = DTYPES[z.dtype]
+    # h1, h2 as the plain version holds them, rounded to the run dtype on
+    # the host (a device tensor's float() would sync every launch)
+    rc = getattr(lib, f"pe_fused_{name}_{form}")(
+        *lead, *(t.data_ptr() for t in arrays.values()), partials.data_ptr(),
+        scal.data_ptr(), flags.data_ptr(), g1, g2, max_iter,
+        ws.rounded(h1, z.dtype), ws.rounded(h2, z.dtype),
+        _build.stream_handle(z.device),
+    )
+    _build.check(lib.pe_fused_error_string, f"fused_{name}", rc)
+    _build.count_launch(ws.counter(f"fused_{name}", form))
 
 
 def k1(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials, *,
@@ -327,20 +409,22 @@ def k1(z, p, an, as_, bw, be, d, pn, ap, scal, flags, partials, *,
     if z.device.type == "cpu":
         return k1_plain(z, p, an, as_, bw, be, d, pn, ap, scal, flags,
                         partials, max_iter=max_iter, h1=h1, h2=h2)
-    arrays = dict(z=z, p=p, an=an, as_=as_, bw=bw, be=be, d=d, pn=pn, ap=ap)
-    _check(K1, arrays, scal, flags, partials)
-    lib = _build.load(LIBRARY, _SIGNATURES)
-    g1, g2 = z.shape
-    # h1, h2 as the plain version holds them, rounded to the run dtype on
-    # the host (a device tensor's float() would sync every launch)
-    rc = getattr(lib, f"pe_fused_k1_{DTYPES[z.dtype]}")(
-        *(t.data_ptr() for t in arrays.values()), partials.data_ptr(),
-        scal.data_ptr(), flags.data_ptr(), g1, g2, max_iter,
-        ws.rounded(h1, z.dtype), ws.rounded(h2, z.dtype),
-        _build.stream_handle(z.device),
-    )
-    _build.check(lib.pe_fused_error_string, K1, rc)
-    _build.count_launch(ws.counter(K1, DTYPES[z.dtype]))
+    _launch_k1("k1", (), z, p, an, as_, bw, be, d, pn, ap, scal, flags,
+               partials, max_iter, h1, h2)
+
+
+def k1_part(part: str, z, p, an, as_, bw, be, d, pn, ap, scal, flags,
+            partials, *, max_iter: int, h1: float, h2: float) -> None:
+    """K1's timing instantiation on the card (``PARTS``): "whole" is K1,
+    "tile" its tile pass with each block's own sum but no cross-block sum
+    (pn and ap as K1 writes them; no denominator), "tail" the cross-block
+    sum and the scalar tail alone on zero partials. No engine launches
+    it; counted as ``fused_k1_part``."""
+    if z.device.type == "cpu":
+        raise ValueError("k1_part: the timing instantiation runs only on "
+                         "the card")
+    _launch_k1("k1_part", (PARTS[part],), z, p, an, as_, bw, be, d, pn, ap,
+               scal, flags, partials, max_iter, h1, h2)
 
 
 def k2(w, r, pn, ap, dinv, z, scal, flags, partials, *, max_iter: int,

@@ -1304,6 +1304,7 @@ def _count_activities() -> dict:
                 lambda: fn(w, a, b, 0.005, 0.002))
     for form in MARCH_FORMS:
         counts[f"K-a {form}"] = device_activities(_march_call(form, dev))
+    counts["K1 bf16"] = device_activities(_k1_bf16_call(dev)[0])
     return counts
 
 
@@ -1532,3 +1533,177 @@ def test_stencil_march_in_a_cuda_graph(cuda, form, warm):
 @pytest.mark.parametrize("form", MARCH_FORMS)
 def test_stencil_march_issues_one_device_kernel(cuda, activities, form):
     assert activities[f"K-a {form}"] == 1
+
+
+# -- K1 bf16's march (csrc/fused_pcg.cu k1_march_kernel) --------------------
+
+# (g1, g2): the two grids fused runs its bf16 path at, 1x1, odd and even
+# widths, widths that are no multiple of the 64-column strip, fewer rows
+# than a 16-row tile
+K1_MARCH_GRIDS = [(2401, 3201), (401, 601), (1, 1), (17, 33), (45, 133),
+                  (46, 130), (33, 128), (16, 65), (130, 20)]
+K1_MARCH_KINDS = MARCH_KINDS
+
+
+def _k1_bf16_inputs(g, kind, dev, seed=0):
+    """z and p of ``kind`` (``_march_w``: seeded, +0, -0, or a seeded
+    ellipse with a signed-zero exterior, as the loop's state is), and
+    seeded coefficients an, as_, bw, be in [0.5, 1.5) with d their sum,
+    all bf16."""
+    z = _march_w(kind, g, dev, seed, torch.bfloat16)
+    p = _march_w(kind, g, dev, seed + 1, torch.bfloat16)
+    c = [_rand(g, dev, seed + 2 + k, torch.bfloat16, lo=0.5)
+         for k in range(4)]
+    d = (c[0].float() + c[1].float() + c[2].float() + c[3].float()).to(
+        torch.bfloat16)
+    return z, p, (*c, d)
+
+
+def _bf16_carry(dev, beta=0.7):
+    scal = torch.tensor([1.5, beta, float("inf"), 0.0, 0.0],
+                        dtype=torch.bfloat16, device=dev)
+    return scal, torch.zeros(fp.N_FLAGS, dtype=torch.int32, device=dev)
+
+
+def _k1_bf16_run(k1, z, p, coeffs, g, dev, beta=0.7, max_iter=NEVER):
+    """(pn, ap, scal, flags) of one K1 call (kernel, plain version or a
+    part), pn and ap first filled with NaN so a node left unwritten
+    shows."""
+    scal, flags = _bf16_carry(dev, beta)
+    pn = torch.full(g, float("nan"), dtype=torch.bfloat16, device=dev)
+    ap = torch.full_like(pn, float("nan"))
+    partials = torch.empty(fp.scratch_len(*g, torch.bfloat16),
+                           dtype=torch.float64, device=dev)
+    k1(z, p, *coeffs, pn, ap, scal, flags, partials, max_iter=max_iter,
+       h1=0.005, h2=0.002)
+    return pn, ap, scal, flags
+
+
+@pytest.mark.parametrize("kind", K1_MARCH_KINDS)
+@pytest.mark.parametrize("g", K1_MARCH_GRIDS)
+def test_k1_bf16_march_is_bitwise_its_plain_version(cuda, g, kind):
+    """pn and ap on the bits (a signed zero counts), every node written,
+    the denominator and alpha within SUM_RTOL (the sums' order differs),
+    the flags equal, the ticket back at 0, one launch counted."""
+    z, p, coeffs = _k1_bf16_inputs(g, kind, cuda)
+    _build.reset_launches()
+    pn, ap, scal, flags = _k1_bf16_run(fp.k1, z, p, coeffs, g, cuda)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {"fused_k1_bf16": 1}
+    pn_p, ap_p, scal_p, flags_p = _k1_bf16_run(fp.k1_plain, z, p, coeffs, g,
+                                               cuda)
+    assert not pn.isnan().any() and not ap.isnan().any()
+    assert _same_bits(pn, pn_p) and _same_bits(ap, ap_p)
+    for i in (fp.SCAL_DENOM, fp.SCAL_ALPHA):
+        _scalar_close(scal[i].float(), scal_p[i].float())
+    assert torch.equal(flags[:4], flags_p[:4])
+    assert int(flags[fp.FLAG_TICKET_K1]) == 0
+
+
+@pytest.mark.parametrize("g", [(401, 601), (17, 33), (46, 130)])
+def test_k1_bf16_march_writes_nothing_once_the_loop_has_exited(cuda, g):
+    z, p, coeffs = _k1_bf16_inputs(g, "seeded", cuda)
+    for flag in (fp.FLAG_CONVERGED, fp.FLAG_BREAKDOWN, fp.FLAG_K):
+        scal, flags = _bf16_carry(cuda)
+        flags[flag] = 5  # k = 5 is the cap below
+        pn, ap = torch.zeros_like(z), torch.zeros_like(z)
+        partials = torch.zeros(fp.scratch_len(*g, torch.bfloat16),
+                               dtype=torch.float64, device=cuda)
+        state = (pn, ap, scal, flags, partials)
+        before = [t.clone() for t in state]
+        fp.k1(z, p, *coeffs, pn, ap, scal, flags, partials, max_iter=5,
+              h1=0.005, h2=0.002)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(before, state))
+
+
+def test_k1_bf16_refuses_arrays_off_a_4_byte_boundary(cuda):
+    g = (17, 33)
+    z, p, coeffs = _k1_bf16_inputs(g, "seeded", cuda)
+    buf = torch.zeros(1 + g[0] * g[1], dtype=torch.bfloat16, device=cuda)
+    off = buf[1:].view(g)
+    scal, flags = _bf16_carry(cuda)
+    partials = torch.empty(fp.scratch_len(*g, torch.bfloat16),
+                           dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="4 bytes"):
+        fp.k1(z, p, *coeffs, off, torch.empty_like(z), scal, flags,
+              partials, max_iter=NEVER, h1=0.005, h2=0.002)
+
+
+def test_fused_scratch_len_is_the_shape_only_count(cuda):
+    for g in K1_MARCH_GRIDS:
+        for dtype in fp.DTYPES:
+            assert fp.scratch_len(*g, dtype) == fp.partials_count(*g, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_timing_instantiation_parts(cuda, dtype):
+    """k1_part "whole" is K1 to the bit; "tile" writes the same pn and ap
+    and leaves the ticket and the scalars alone; "tail" writes neither
+    array, and its zero sum leaves the denominator 0 and a breakdown
+    pending, the ticket back at 0."""
+    g = (401, 601)
+    z, p, coeffs = _k1_bf16_inputs(g, "seeded", cuda)
+    if dtype == torch.float32:
+        z, p, coeffs = z.float(), p.float(), tuple(c.float() for c in coeffs)
+
+    def run(k1):
+        scal = torch.tensor([1.5, 0.7, float("inf"), 0.0, 0.0], dtype=dtype,
+                            device=cuda)
+        flags = torch.zeros(fp.N_FLAGS, dtype=torch.int32, device=cuda)
+        pn = torch.full(g, float("nan"), dtype=dtype, device=cuda)
+        ap = torch.full_like(pn, float("nan"))
+        partials = torch.empty(fp.scratch_len(*g, dtype),
+                               dtype=fp.partials_dtype(dtype), device=cuda)
+        k1(z, p, *coeffs, pn, ap, scal, flags, partials, max_iter=NEVER,
+           h1=0.005, h2=0.002)
+        return pn, ap, scal, flags
+
+    def part(name):
+        return lambda *a, **k: fp.k1_part(name, *a, **k)
+
+    pn, ap, scal, flags = run(fp.k1)
+    whole = run(part("whole"))
+    assert _same_bits(whole[0], pn) and _same_bits(whole[1], ap)
+    assert torch.equal(whole[2], scal) and torch.equal(whole[3], flags)
+    tile = run(part("tile"))
+    assert _same_bits(tile[0], pn) and _same_bits(tile[1], ap)
+    assert float(tile[2][fp.SCAL_DENOM]) == 0.0
+    assert not tile[3].any()
+    tail = run(part("tail"))
+    assert tail[0].isnan().all() and tail[1].isnan().all()
+    assert float(tail[2][fp.SCAL_DENOM]) == 0.0
+    assert int(tail[3][fp.FLAG_PENDING_BREAKDOWN]) == 1
+    assert int(tail[3][fp.FLAG_TICKET_K1]) == 0
+
+
+def _k1_bf16_call(dev):
+    """(a K1 bf16 launch at 401x601 on zero-exterior z and p, what it
+    wrote: pn, ap and the carry in one tensor)."""
+    g = (401, 601)
+    z, p, coeffs = _k1_bf16_inputs(g, "zero exterior, signed zeros", dev)
+    scal, flags = _bf16_carry(dev)
+    pn, ap = torch.empty_like(z), torch.empty_like(z)
+    partials = torch.zeros(fp.scratch_len(*g, torch.bfloat16),
+                           dtype=torch.float64, device=dev)
+
+    def launch():
+        fp.k1(z, p, *coeffs, pn, ap, scal, flags, partials, max_iter=NEVER,
+              h1=0.005, h2=0.002)
+
+    return launch, lambda: torch.cat((pn.reshape(-1), ap.reshape(-1), scal))
+
+
+@pytest.mark.parametrize("warm", [True, False])
+def test_k1_bf16_march_in_a_cuda_graph(cuda, warm):
+    """A K1 bf16 launch captured in a CUDA graph and replayed twice equals
+    the eager launch, the carry included (the ticket is back at 0)."""
+    from chip_smoke import graph_and_eager
+
+    launch, wrote = _k1_bf16_call(cuda)
+    eager, captured = graph_and_eager(lambda: (launch(), wrote())[1], warm)
+    assert _same_bits(eager, captured)
+
+
+def test_k1_bf16_march_issues_one_device_kernel(cuda, activities):
+    assert activities["K1 bf16"] == 1
