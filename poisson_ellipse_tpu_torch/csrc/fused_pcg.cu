@@ -40,15 +40,20 @@
 //   barrier and no integer division a node. At an odd width the rows
 //   alternate between two word frames; a row moves into the other frame
 //   through the same shuffles as its west or east neighbours. A row's
-//   seven loads are issued a trip (kMarchAhead rows) ahead. The grid is a
-//   warp a unit, 8 units a block: 963 blocks at 2401x3201 where the tile
-//   kernel took 7676, so the last block adds 963 partials and an early
-//   return costs less. Measured on the H100 against the tile kernel (by
-//   device time, PERF.md section 6): the split of the tile kernel gave its
-//   tail (the ticket and the last block's sum of 7676 partials) 21-23 us
-//   of 90; a fully unrolled march ran 126 us (8000 instructions, bound by
-//   instruction fetch), a masked load that combined two 2-byte loads where
-//   it loaded them 84 us (every masked unit waited out each load).
+//   seven loads are issued a trip (kMarchAhead rows) ahead, and a unit's
+//   first loads and its edges together. The grid is a warp a unit, 8 units
+//   a block (963 blocks at 2401x3201, where the tile kernel took 7676; 4
+//   rows a unit at 401x601, 127 blocks, where 16 would leave 99 SMs idle),
+//   so the last block adds hundreds of partials and an early return costs
+//   less. Every unit takes one masked path. Measured on the H100 (PERF.md,
+//   section 6): the tile kernel's tail (the ticket and the last block
+//   adding 7676 partials) was 21-23 us of its 90; a fully unrolled march
+//   ran 126 us (8000 instructions, bound by instruction fetch); a masked
+//   word built from two loads where they were issued, or two predicated
+//   loads into one register, made every masked unit wait out its loads
+//   (67.5 against 60.2 us); an acq_rel ticket in place of the fences, 2 or
+//   4 rows ahead, 2 to 4 blocks an SM and a separate unmasked path for
+//   interior units all landed within 59.8-62.7 us.
 // - K2 is a grid-stride elementwise pass; w and r are updated in place.
 // - Cross-block sums: the TPU kernels carry one sum across a sequential
 //   grid. Here blocks run in parallel and in no fixed order, so each block
@@ -105,24 +110,9 @@ constexpr int kK1ThreadsY = 8;
 // unit starts in frame 0; at most 30, lane k holding row r0 - 1 + k's
 // edges) are kMaxMarchRows, or half or a quarter as many where the grid
 // of those units would give fewer than kFillBlocks blocks.
-#ifndef SWEEP_WARPS
-#define SWEEP_WARPS 8
-#endif
-#ifndef SWEEP_AHEAD
-#define SWEEP_AHEAD 4
-#endif
-#ifndef SWEEP_MIN_BLOCKS
-#define SWEEP_MIN_BLOCKS 2
-#endif
-#ifndef SWEEP_TAIL
-#define SWEEP_TAIL 1
-#endif
-#ifndef SWEEP_MASKED
-#define SWEEP_MASKED 1
-#endif
-constexpr int kMarchWarps = SWEEP_WARPS;
-constexpr int kMarchAhead = SWEEP_AHEAD;
-constexpr int kMarchMinBlocks = SWEEP_MIN_BLOCKS;
+constexpr int kMarchWarps = 8;
+constexpr int kMarchAhead = 4;
+constexpr int kMarchMinBlocks = 2;
 constexpr int kMaxMarchRows = 16;
 constexpr int kFillBlocks = 132;  // a block for each of an H100's SMs
 static_assert(kMaxMarchRows % kMarchAhead == 0 && kMaxMarchRows + 2 <= 32,
@@ -304,11 +294,9 @@ k1_kernel(const T* __restrict__ z, const T* __restrict__ p,
 // r0 .. r0 + rows - 1, r0 even, kMarchAhead rows a trip so that each row's
 // frame is known where it is compiled: at an odd g2 (kOdd) row r0 + t is
 // in frame t & 1, else every row in frame 0. A row's loads are issued a
-// trip ahead. kIn: every node the unit touches is in the grid (rows r0 - 1
-// .. r0 + rows, the strip's columns in both frames), so nothing is masked;
-// else a lane's masks are fixed by its frame, and rows outside the grid are
-// skipped by the whole warp.
-template <bool kOdd, bool kIn>
+// trip ahead. A lane's masks are fixed by the frame; a row outside the
+// grid is skipped by the whole warp.
+template <bool kOdd>
 __device__ __forceinline__ void march_unit(
     const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ p,
     const __nv_bfloat16* __restrict__ an,
@@ -334,40 +322,55 @@ __device__ __forceinline__ void march_unit(
   const bool vx0 = c0 < g2, vy0 = c0 + 1 < g2;
   const bool vx1 = c0 >= 1 && c0 - 1 < g2, vy1 = c0 < g2;
   const auto row_in = [&](int t) { return r0 + t >= 0 && r0 + t < g1; };
-  const auto word = [&](const __nv_bfloat16* a, int t, int f) -> W {
+  // the word of ``a`` in row r0 + t (frame f), 0 where neither half is in
+  // the grid; ``last``: the grid's last row of an odd-length array, whose
+  // last word holds one element
+  const auto word = [&](const __nv_bfloat16* a, int t, int f,
+                        bool last) -> W {
     const int o = base + t * g2 - f;
-    if (kIn) return X::load(a + o);
-    return X::load(a, o, n, row_in(t) && (f ? vx1 : vx0),
-                   row_in(t) && (f ? vy1 : vy0));
+    const bool x = row_in(t) && (f ? vx1 : vx0);
+    const bool y = row_in(t) && (f ? vy1 : vy0);
+    return last ? X::load_end(a, o, n, x, y) : X::load(a + o, x || y);
   };
+  const auto last_row = [&](int t) { return (n & 1) && r0 + t == g1 - 1; };
   // pn of row r0 + t in frame f, +0 outside the grid
   const auto pn_row = [&](W zw, W pw, int t, int f) -> W {
-    const W w = pm::pn_of(zw, pw, beta);
-    if (kIn) return w;
-    return row_in(t) ? X::keep(w, f ? vx1 : vx0, f ? vy1 : vy0) : 0u;
+    return row_in(t) ? X::keep(pm::pn_of(zw, pw, beta), f ? vx1 : vx0,
+                               f ? vy1 : vy0)
+                     : 0u;
   };
 
-  // step t: z and p of row t + 1, the coefficients of row t (frame f)
+  // step t: z and p of row t + 1, the coefficients of row t (frame f); a
+  // step that reaches the last row of an odd-length array reads that row's
+  // last word element by element (warp-uniform)
   struct Step {
     W z, p, an, as, bw, be, d;
   };
   const auto load = [&](int t, int f, Step& st) {
     const int fn = kOdd ? 1 - f : 0;
-    st.z = word(z, t + 1, fn);
-    st.p = word(p, t + 1, fn);
-    st.an = word(an, t, f);
-    st.as = word(as_, t, f);
-    st.bw = word(bw, t, f);
-    st.be = word(be, t, f);
-    st.d = word(d, t, f);
+    const auto fill = [&](bool end_z, bool end_c) {
+      st.z = word(z, t + 1, fn, end_z);
+      st.p = word(p, t + 1, fn, end_z);
+      st.an = word(an, t, f, end_c);
+      st.as = word(as_, t, f, end_c);
+      st.bw = word(bw, t, f, end_c);
+      st.be = word(be, t, f, end_c);
+      st.d = word(d, t, f, end_c);
+    };
+    if (last_row(t) || last_row(t + 1)) {
+      fill(last_row(t + 1), last_row(t));
+    } else {
+      fill(false, false);
+    }
   };
   // every load of the first trip, rows r0 - 1 and r0, and the edges
   // issued before any is used
   Step ring[kA];
 #pragma unroll
   for (int k = 0; k < kA; ++k) load(k, k & kOther, ring[k]);
-  const W z_m1 = word(z, -1, kOther), p_m1 = word(p, -1, kOther);
-  const W z_0 = word(z, 0, 0), p_0 = word(p, 0, 0);
+  const W z_m1 = word(z, -1, kOther, false);
+  const W p_m1 = word(p, -1, kOther, false);
+  const W z_0 = word(z, 0, 0, last_row(0)), p_0 = word(p, 0, 0, last_row(0));
   // lane k: the edges of row r0 - 1 + k, pn one column west of the
   // strip's first column and one east of its last, in the row's frame
   __nv_bfloat16 ez_w, ep_w, ez_e, ep_e;
@@ -442,14 +445,9 @@ __device__ __forceinline__ void march_unit(
                         cbe.y * e_c.y));
     const float2 av = X::unpack(aw);
     const int o = base + t * g2 - F;
-    const bool x = kIn || (F ? vx1 : vx0), y = kIn || (F ? vy1 : vy0);
-    if (kIn) {
-      X::store(pn + o, pw_c);
-      X::store(ap + o, aw);
-    } else {
-      X::store(pn + o, pw_c, x, y);
-      X::store(ap + o, aw, x, y);
-    }
+    const bool x = F ? vx1 : vx0, y = F ? vy1 : vy0;
+    X::store(pn + o, pw_c, x, y);
+    X::store(ap + o, aw, x, y);
     // each product in float, added in double
     if (x) acc += av.x * r_c.x;
     if (y) acc += av.y * r_c.y;
@@ -465,51 +463,11 @@ __device__ __forceinline__ void march_unit(
   for (int t = 0; t < rows; t += kA) {
 #pragma unroll
     for (int k = 0; k < kA; k += 2) {
-      if (!kIn && r0 + t + k >= g1) return;  // warp-uniform
+      if (r0 + t + k >= g1) return;  // warp-uniform
       step(t + k, ring[k], std::integral_constant<int, 0>{});
-      if (!kIn && r0 + t + k + 1 >= g1) return;
+      if (r0 + t + k + 1 >= g1) return;
       step(t + k + 1, ring[k + 1], std::integral_constant<int, kOther>{});
     }
-  }
-}
-
-// The march's sums after its pass, as k1_sums, with the block's partial
-// released by its ticket (an acq_rel atomic) and acquired by the block
-// that draws the last one, so no block waits on a full fence; zr was read
-// with the flags, before the pass.
-__device__ __forceinline__ void march_sums(double acc, double* partials,
-                                           __nv_bfloat16* scal, int* flags,
-                                           float zr, float h1, float h2,
-                                           double* s_warp, int* s_last) {
-  const auto R = [](float x) { return rn<__nv_bfloat16>(x); };
-  const int tid = threadIdx.x;
-  const double bsum = block_sum(acc, s_warp);
-  const int nblocks = gridDim.x;
-  if (tid == 0) {
-    partials[blockIdx.x] = bsum;
-    int ticket;
-    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;"
-                 : "=r"(ticket)
-                 : "l"(&flags[kTicketK1]), "r"(1)
-                 : "memory");
-    *s_last = ticket == nblocks - 1;
-  }
-  __syncthreads();
-  if (!*s_last) return;
-  // thread 0 acquired every partial; the barrier orders the block's loads
-  // after it
-  asm volatile("fence.acq_rel.gpu;" ::: "memory");
-  const double total = sum_partials(partials, nblocks, 1, 0, s_warp);
-  if (tid == 0) {
-    const float denom = R(R(static_cast<float>(total)) * h1 * h2);
-    // DENOM_GUARD, rounded to the run dtype
-    const bool bd = denom < rn<__nv_bfloat16>(1e-15f);
-    float alpha = R(zr / (bd ? 1.f : denom));
-    alpha = bd ? 0.f : alpha;
-    scal[kDenom] = down<__nv_bfloat16>(denom);
-    scal[kAlpha] = down<__nv_bfloat16>(alpha);
-    flags[kPendingBreakdown] = bd ? 1 : 0;
-    flags[kTicketK1] = 0;
   }
 }
 
@@ -529,44 +487,22 @@ k1_march_kernel(const __nv_bfloat16* __restrict__ z,
                 __nv_bfloat16* __restrict__ pn, __nv_bfloat16* __restrict__ ap,
                 double* partials, __nv_bfloat16* scal, int* flags, int g1,
                 int g2, int rows, int max_iter, float h1, float h2) {
-  namespace pm = pn_march;
-  // the carry's beta and zr read with the flags, in one round trip
+  // beta read with the flags, in one round trip
   const float beta = up(scal[kBeta]);
-  const float zr = up(scal[kZr]);
   if (!loop_active(flags, max_iter)) return;
   __shared__ double s_warp[32];
   __shared__ int s_last;
-  const int nstrips = pm::strips(g2);
+  const int nstrips = pn_march::strips(g2);
   const int unit = blockIdx.x * kMarchWarps + (threadIdx.x >> 5);
   double acc = 0.0;
   if (P != kTail && unit < nstrips * ((g1 + rows - 1) / rows)) {
     const int tile = unit / nstrips;  // warp-uniform
     const int s = unit - tile * nstrips;
-    const int r0 = tile * rows;
-#ifndef SWEEP_ONEPATH
-#define SWEEP_ONEPATH 0
-#endif
-    if (!SWEEP_ONEPATH && s >= 1 && pm::kStrip * (s + 1) <= g2 && r0 >= 1 &&
-        r0 + rows < g1) {
-      march_unit<kOdd, true>(z, p, an, as_, bw, be, d, pn, ap, g1, g2, r0,
-                             rows, s, beta, acc);
-    } else {
-      march_unit<kOdd, false>(z, p, an, as_, bw, be, d, pn, ap, g1, g2, r0,
-                              rows, s, beta, acc);
-    }
+    march_unit<kOdd>(z, p, an, as_, bw, be, d, pn, ap, g1, g2, tile * rows,
+                     rows, s, beta, acc);
   }
-  if (P == kTile) {
-    const double bsum = block_sum(acc, s_warp);
-    if (threadIdx.x == 0) partials[blockIdx.x] = bsum;
-    return;
-  }
-#if SWEEP_TAIL
-  march_sums(acc, partials, scal, flags, zr, h1, h2, s_warp, &s_last);
-#else
-  (void)zr;
   k1_sums<__nv_bfloat16, P>(acc, partials, scal, flags, h1, h2, s_warp,
                             &s_last);
-#endif
 }
 
 template <typename T>

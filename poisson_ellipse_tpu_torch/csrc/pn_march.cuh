@@ -21,10 +21,13 @@
 //
 // Masks. A word may hold a column outside the grid (column -1, the last
 // element of the row above, or column g2, the first of the row below). A
-// masked load reads the whole word where either half is in the grid, and
-// pn's halves outside it are set to 0 (keep); a masked store writes only
-// the halves inside, so no word is written by two strips or two rows, and
-// nothing computed outside the grid is stored or summed.
+// masked load reads the whole word where either half is in the grid, with
+// one predicated load (two loads into one register would wait for each
+// other), and pn's halves outside the grid are set to 0 (keep); a masked
+// store writes only the halves inside, so no word is written by two strips
+// or two rows, and nothing computed outside the grid is stored or summed.
+// The last element of an array of odd length starts a word that would end
+// past the array: that row is read element by element (load_end).
 
 #pragma once
 
@@ -32,10 +35,6 @@
 #include <cstdint>
 
 #include "storage.cuh"
-
-#ifndef SWEEP_MASKED
-#define SWEEP_MASKED 1
-#endif
 
 namespace pn_march {
 
@@ -55,36 +54,25 @@ struct Two {
   static __device__ __forceinline__ W load(const __nv_bfloat16* p) {
     return __ldg(reinterpret_cast<const unsigned int*>(p));
   }
-  // The word at element o of an array of n, where a half of it is inside
-  // the grid (vx: the first, vy: the second); 0 where neither is. The
-  // other half holds what the array has there (a node of the next or the
-  // previous row): whoever uses it masks it (keep, the masked store). No
-  // value is combined here, so the load is not waited for until it is
-  // used; only the array's last element, when it starts a word, is read
+  // The word at p where either half is in the grid, 0 where neither is:
+  // one predicated load. The half outside the grid holds what the array
+  // has there (a node of the next or the previous row); whoever uses it
+  // masks it (keep, the masked store). Nothing is combined here, so the
+  // load is not waited for until it is used.
+  static __device__ __forceinline__ W load(const __nv_bfloat16* p,
+                                           bool any) {
+    W w = 0u;
+    if (any) w = load(p);
+    return w;
+  }
+  // The same at element o of an array of n, where the word may end past
+  // the array (its last element starting a word): that element is read
   // alone.
-  static __device__ __forceinline__ W load(const __nv_bfloat16* a,
-                                           int64_t o, int64_t n, bool vx,
-                                           bool vy) {
-#if SWEEP_MASKED == 2
-    (void)n;
-    W w = 0u;
-    if (vx || vy) w = load(a + o);
-    return w;
-#elif SWEEP_MASKED
-    const bool whole = (vx || vy) && o + 1 < n;
-    W w = 0u;
-    if (whole) w = load(a + o);
-    if (vx && !whole) w = __bfloat16_as_ushort(__ldg(a + o));
-    return w;
-#else
-    W w = 0u;
-    if ((vx || vy) && o + 1 < n) {
-      w = load(a + o);
-    } else if (vx) {
-      w = __bfloat16_as_ushort(__ldg(a + o));
-    }
-    return w;
-#endif
+  static __device__ __forceinline__ W load_end(const __nv_bfloat16* a,
+                                               int64_t o, int64_t n, bool vx,
+                                               bool vy) {
+    if (o + 1 < n) return load(a + o, vx || vy);
+    return vx ? W(__bfloat16_as_ushort(__ldg(a + o))) : 0u;
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, W w) {
     *reinterpret_cast<unsigned int*>(p) = w;

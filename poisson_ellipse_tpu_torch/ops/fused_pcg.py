@@ -34,7 +34,10 @@ solve's dtype: every value is computed in float and rounded to bf16 where
 it is stored, in the kernels and in the plain versions alike
 (``whole_solve.rounder``). The bf16 form's sums are taken in double and
 rounded through float (``grid_sum``); the f32 form sums in float, as
-before.
+before. K1's bf16 form marches two nodes a lane, one 4-byte word of each
+array (csrc/pn_march.cuh), so its wrapper refuses an array that does not
+start on a 4-byte boundary; its launch shape comes from the grid's shape
+alone (``partials_count`` mirrors it on the host).
 """
 
 from __future__ import annotations
@@ -208,7 +211,8 @@ K2_THREADS, K2_MAX_BLOCKS = 256, 1024
 def march_strips(g2: int) -> int:
     """K1 bf16's strips a row: a row's ceil(g2 / 2) two-column words (in
     either frame, csrc/pn_march.cuh), 32 a strip."""
-    return -(-(-(-g2 // 2)) // (MARCH_STRIP // 2))
+    words = (g2 + 1) // 2
+    return -(-words // (MARCH_STRIP // 2))
 
 
 def march_rows(g1: int, g2: int) -> int:
