@@ -2062,8 +2062,9 @@ BF16_AUTO_GRIDS = ((400, 600), (800, 1200), STREAMED_GRID, (1600, 2400),
 BF16_XLA_L2 = 3e-2
 JAX_BF16_400 = {"xla": "290, l2 1.55e-2", "resident": "33, l2 0.0719"}
 # bf16 fused on the card: (iterations, converged, breakdown) at 400x600 and
-# 2400x3200, as PR 13's kernels ran it (K1 bf16's arrays are bitwise its
-# plain version, its sum adds the same products in double)
+# 2400x3200, as K1's tile kernel ran it before the march (the march's
+# arrays are bitwise its plain version, its sum adds the same products in
+# double)
 FUSED_BF16_RUNS = {(400, 600): (34, True, False), MAIN_GRID: (1, False, True)}
 # capped solves timed per iteration (the forms stop at different counts
 # uncapped, if at all)
