@@ -92,11 +92,22 @@ result line):
               lane-quarantine event, the healthy lanes bitwise a clean
               batch's. Then K-e and K-f timed against their bounds, solves/s
               of batched-pallas and batched at 400x600 and 800x1200 for
-              lanes 1, 8 and 32, of batched-pipelined-pallas at 32 lanes,
+              lanes 8 and 32, of batched-pipelined-pallas at 32 lanes,
               beside B sequential auto (resident) solves, and one
               torch.profiler breakdown of batched-pallas at 400x600, B = 32.
               Whether lane 0 is bitwise the single pallas / xla solve is
-              printed, not required.
+              printed, not required. In bf16: K-e's and K-f's bf16 forms
+              bitwise their plain versions and, lane by lane, K-a's and
+              K-d's bf16 forms at 401x601 with B = 32, 801x1201 with B = 8,
+              45x133 with B = 3 and 3x3 with B = 1 (K-e on seeded, +0, -0
+              and zero-exterior iterates in both layouts; K-f's n and sums,
+              its generic table the same bits); the four batched engines in
+              bf16 at 400x600 with B = 32 through build_solver (capped:
+              4096 classical, 512 pipelined): every lane the same count,
+              each converged lane's l2 < 2e-2, the classical ones
+              converged, the launches as the body count predicts (the
+              rebuilds every 8 iterations at bf16); run_once batched-pallas
+              bf16 with 32 lanes.
 9. storage  — the storage axis (state and operands stored in bf16 or f16,
               f32 arithmetic). K-g (the mixed stencil) at 45x133, 801x1201
               and 2401x3201 with w bf16 or f32 and a, b bf16, and with w,
@@ -164,9 +175,8 @@ result line):
               as the command line runs it in every rank; each run's counts
               set to 0 just before its timed solve and read just after):
               fused on a 1x1 mesh over NCCL at 2400x3200 (2449 +- 2, l2 <
-              1e-3); on 2x2, four ranks sharing the card over gloo, fused
-              and xla at 400x600 and 800x1200 (546 / 989 +- 2), fused at
-              2400x3200 (2449 +- 2), pallas at 400x600 (546 +- 2); the
+              1e-3); on 2x2, four ranks sharing the card over gloo, fused,
+              xla and pallas at 400x600 (546 +- 2); the
               command line with --mesh 1 2 --dtype f64 at 40x40 (exactly
               50). On every rank: K1-shard and K2-shard (K-a for pallas)
               once per issued body, 1 halo exchange and 2 reductions per
@@ -174,6 +184,23 @@ result line):
               K2-shard timed with CUDA events at the 1201x1601 block
               against their bounds and plain versions, and T_solver of each
               sharded run.
+              In bf16: K1-shard's and K2-shard's bf16 forms bitwise their
+              plain versions at blocks 1201x1601, 1200x1600, 1x1, 7x5, 8x9
+              and 33x62, the z and p windows the halves of one stacked
+              tensor as the halo exchange gives them (p starts mid-word
+              where (bm+2)(bn+2) is odd), rank sums equal in f32, nothing
+              written once the flags say the loop has exited (converged,
+              breakdown, k at the cap); run_once fused bf16 on 1x1 over
+              NCCL at 400x600 and 2400x3200 (capped at 2048 and 4096) and,
+              in phase 11's 2x2 spawn, fused and pallas bf16 at 400x600:
+              the same (converged, breakdown) as single-device bf16 pallas
+              at the grid and cap (K1-shard computes its stencil tree;
+              single-device fused's normalised stencil, which ends early in
+              bf16, is printed beside), l2 < 3e-2 where converged, fused on
+              2x2 the count of fused on 1x1, each rank's bf16 kernels once
+              a body. Then K-e, K-f, K1-shard and K2-shard bf16 by device
+              time (CUDA-graph replay) beside their plain versions and
+              bounds.
 
 12. stage 4 — the last four TPU kernels and bf16 on the kernel loops.
               The stage-4 kernels (csrc/stage4.cu: dinv, dot, update_w_r,
@@ -255,7 +282,11 @@ stencil phase, first sum with its barrier, update phase, second sums with
 their barrier, the spread of the blocks' phase ends), xl at the same grid
 and form, and the two libraries' SASS. It too runs on an older tree's
 kernels (the split prints as not measured where the tree lacks it).
-`--only fused-timing` runs phases 1-2 and then the fused pair: K1 and K2
+`--only batched-mesh-bf16` runs phases 1-2 and then the bf16 forms of
+K-e, K-f, K1-shard and K2-shard: bitwise their plain versions as phases 8
+and 11 hold them, then by device, call and host time beside their f32
+forms and bounds, with their device activities a call (counted in a child
+process). `--only fused-timing` runs phases 1-2 and then the fused pair: K1 and K2
 in f32 and bf16 at 2401x3201 and 401x601, each bitwise its plain version
 and timed three ways beside its bound and its loss on its path (working
 launches x (device - bound)); K1 by part (its timing instantiation: the
@@ -1348,7 +1379,7 @@ BATCHED_KERNEL_CASES = (((44, 132), 3), ((400, 600), 32), ((800, 1200), 8),
                         (MAIN_GRID, 2))
 BATCHED_ORACLE = (((400, 600), 32, 546), ((800, 1200), 8, 989))
 THROUGHPUT_GRIDS = ((400, 600), (800, 1200))
-THROUGHPUT_LANES = (1, 8, 32)
+THROUGHPUT_LANES = (8, 32)
 POISON_LANE, POISON_AT = 5, 10
 
 
@@ -2441,10 +2472,7 @@ K1_SHARD_FLOPS = 30
 K2_SHARD_FLOPS = 10
 # run_once jobs on 2x2: (engine, dtype, grid, oracle iterations)
 MESH_RUNS = (("fused", "f32", (400, 600), 546), ("xla", "f32", (400, 600), 546),
-             ("pallas", "f32", (400, 600), 546),
-             ("fused", "f32", (800, 1200), 989),
-             ("xla", "f32", (800, 1200), 989),
-             ("fused", "f32", SHARD_GRID, MAIN_ITERS))
+             ("pallas", "f32", (400, 600), 546))
 MESH_KERNELS = {"fused": ("fused_sharded_k1", "fused_sharded_k2"),
                 "pallas": ("stencil",), "xla": ()}
 
@@ -2591,20 +2619,21 @@ def phase_mesh(card: str) -> dict:
     require(one.backend == "nccl", f"the 1x1 mesh took {one.backend}, not "
             "NCCL")
     _check_mesh_report("fused 1x1 2400x3200", one, MAIN_ITERS, "fused")
+    counts = one.rank_launches[0]
     # one spawn of the four ranks for every 2x2 run and the profile
     jobs = [(run_once, (Problem(M=g[0], N=g[1]),),
              dict(mode="sharded", dtype=dt, engine=e, mesh_shape=(2, 2),
                   device="cuda"))
             for e, dt, g, _ in MESH_RUNS]
+    jobs += mesh_bf16_jobs()
     jobs.append((profile_rank, (Problem(M=400, N=600), "fused"), {}))
     *reports, profiled = multihost.spawn(multihost.run_jobs, 4, (jobs,))
-    counts = {}
+    bf16_reports = reports[len(MESH_RUNS):]
+    reports = reports[:len(MESH_RUNS)]
     for (e, dt, g, want), report in zip(MESH_RUNS, reports):
         require(report.backend == "gloo", f"2x2 on one card took "
                 f"{report.backend}, not gloo")
         _check_mesh_report(f"{e} 2x2 {g[0]}x{g[1]}", report, want, e)
-        if (e, g) == ("fused", SHARD_GRID):
-            counts = report.rank_launches[0]
     out = subprocess.run(
         [sys.executable, "-m", "poisson_ellipse_tpu_torch.harness", "40",
          "40", "--mode", "sharded", "--mesh", "1", "2", "--dtype", "f64",
@@ -2622,7 +2651,8 @@ def phase_mesh(card: str) -> dict:
             for (e, _, g, _), r in zip(MESH_RUNS, reports)))
     say(f"  phase 11 runs took {time.perf_counter() - t0:.1f} s")
     show_mesh_profile(profiled, card)
-    return {"counts": counts, "one": one, "reports": reports}
+    return {"counts": counts, "one": one, "reports": reports,
+            "bf16_reports": bf16_reports}
 
 
 def profile_rank(problem, engine: str) -> dict:
@@ -2732,6 +2762,492 @@ def phase_shard_timing(seed: int, card: str) -> list:
             library_ms=None))
     return rows
 
+
+# -- bf16 on the lane-batched engines and the mesh (phases 8 and 11) --------
+
+# the shapes the bf16 batched path gives K-e and K-f (400x600, B = 32; the
+# 801x1201, B = 8 of phase 8's f32 grid), and ragged ones
+BATCHED_BF16_CASES = (((400, 600), 32), ((800, 1200), 8), ((44, 132), 3),
+                      ((2, 2), 1))
+BATCHED_BF16_GRID, BATCHED_BF16_LANES = (400, 600), 32
+# the bf16 batched solves are capped: the recurrences do not converge in
+# bf16 (in either package), and a stalled classical solve would run to
+# (M-1)(N-1)
+BATCHED_BF16_CAPS = {"batched": 4096, "batched-pallas": 4096,
+                     "batched-pipelined": 512,
+                     "batched-pipelined-pallas": 512}
+BATCHED_BF16_L2 = 2e-2
+# K1-shard and K2-shard bf16: a rank's 1201x1601 block of 2401x3201 (bn + 2
+# odd, the halo exchange's p window mid-word), 1200x1600 (even), a 1x1
+# block and ragged ones
+SHARD_BF16_BLOCKS = ((1201, 1601), (1200, 1600), (1, 1), (7, 5), (8, 9),
+                     (33, 62))
+# the mesh in bf16, each run capped (a bf16 count is chaotic, and a stalled
+# solve would run to (M-1)(N-1)): fused on 1x1 (NCCL) at 400x600 and
+# 2400x3200; on 2x2 (gloo) fused and the classical pallas at 400x600.
+# Their single-device twin is bf16 pallas, whose stencil tree K1-shard
+# computes in both packages; single-device fused runs the normalised
+# stencil, which ends early in bf16 (34 iterations at 400x600, l2 0.072;
+# a breakdown at 2400x3200), and is printed beside them
+MESH_BF16_CAPS = {(400, 600): 2048, SHARD_GRID: 4096}
+# l2 where a bf16 mesh run converged: bf16's floor (on the card xla bf16
+# reaches 1.33e-2 at 400x600 and 2.08e-2 at 2400x3200; the JAX package's
+# bf16 storage 4.1e-2 there), under the 7.24e-2 of w = 0; fused's step
+# norm falls under delta sooner at 2400x3200 (258 iterations, l2 4.14e-2,
+# on an H100 80GB HBM3 at 700 W)
+MESH_BF16_L2 = {(400, 600): BF16_XLA_L2, SHARD_GRID: 5e-2}
+MESH_BF16_RUNS = (("fused", (400, 600)), ("pallas", (400, 600)))
+# each form's row: counter, source, the pallas_call it replaces, its f32
+# form's counter
+BF16_FORM_ROWS = (
+    ("batched_stencil_bf16", "csrc/stencil.cu",
+     "poisson_ellipse_tpu/ops/pallas_kernels.py:409", "batched_stencil"),
+    ("batched_stencil_dots_bf16", "csrc/stencil_dots.cu",
+     "poisson_ellipse_tpu/ops/pallas_kernels.py:529",
+     "batched_stencil_dots"),
+    ("fused_sharded_k1_bf16", "csrc/fused_sharded.cu",
+     "poisson_ellipse_tpu/parallel/fused_sharded.py:179",
+     "fused_sharded_k1"),
+    ("fused_sharded_k2_bf16", "csrc/fused_sharded.cu",
+     "poisson_ellipse_tpu/parallel/fused_sharded.py:207",
+     "fused_sharded_k2"),
+)
+
+
+def lane_inputs(grid, lanes: int, seed: int, dtype=torch.bfloat16):
+    """``batched_inputs`` in ``dtype``: a (B, g1, g2) stack w, lane-shared
+    a, b in [0.5, 1.5) and the bundle's five (B, g1, g2) operands."""
+    return {k: ([o.to(dtype) for o in v] if k == "ops" else v.to(dtype))
+            for k, v in batched_inputs(grid, lanes, seed).items()}
+
+
+def phase_batched_bf16_kernels(seed: int) -> dict:
+    """K-e and K-f bf16 bitwise their plain versions and, lane by lane,
+    K-a and K-d bf16: K-e on seeded, +0, -0 and zero-exterior iterates, in
+    both layouts; K-f's n and sums, the bundle's table and the generic one
+    the same bits."""
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+
+    say("== phase 8: K-e and K-f bf16 against their plain versions, lane by "
+        "lane against K-a and K-d bf16")
+    errs = {"batched_stencil_bf16": 0.0, "batched_stencil_dots_bf16": 0.0}
+    for (m, n), lanes in BATCHED_BF16_CASES:
+        inp = lane_inputs((m, n), lanes, seed)
+        w, a, b = inp["w"], inp["a"], inp["b"]
+        h1, h2 = 2.0 / m, 1.2 / n
+        label = f"{m + 1}x{n + 1} B={lanes}"
+        for form, kernel, plain, single in (
+                ("full", hk.apply_a_batched_kernel, hk.apply_a_batched_plain,
+                 hk.apply_a_kernel),
+                ("block", hk.apply_a_batched_block_kernel,
+                 hk.apply_a_block_plain, hk.apply_a_block_kernel)):
+            for kind, x in (("seeded", w),
+                            *signed_zero_inputs(w, seed=2).items()):
+                got = kernel(x, a, b, h1, h2)
+                want = plain(x, a, b, h1, h2)
+                errs["batched_stencil_bf16"] = max(
+                    errs["batched_stencil_bf16"], max_abs(got, want))
+                require(same_bits(got, want) and all(
+                    same_bits(got[l], single(x[l].contiguous(), a, b, h1,
+                                             h2)) for l in range(lanes)),
+                        f"K-e bf16 {form} {label} on {kind}: not bitwise its "
+                        "plain version and K-a bf16 on every lane")
+            say(f"  K-e bf16 {form} {label}: seeded, +0, -0, signed-zero "
+                "exterior bitwise its plain version and K-a bf16 on every "
+                "lane")
+        pairs = _bundle(*inp["ops"])
+        got_n, got_sums = hk.apply_a_dots_batched_kernel(w, a, b, h1, h2,
+                                                         pairs)
+        want_n, want_sums = hk.apply_a_dots_batched_plain(w, a, b, h1, h2,
+                                                          pairs)
+        errs["batched_stencil_dots_bf16"] = max(
+            errs["batched_stencil_dots_bf16"], max_abs(got_n, want_n),
+            max_abs(got_sums, want_sums))
+        require(same_bits(got_n, want_n) and same_bits(got_sums, want_sums),
+                f"K-f bf16 {label}: n or sums not bitwise its plain version")
+        gen_n, gen_sums = hk.apply_a_dots_batched_kernel(w, a, b, h1, h2,
+                                                         swapped(pairs))
+        require(same_bits(gen_n, got_n) and same_bits(gen_sums, got_sums),
+                f"K-f bf16 {label}: the generic instantiation differs from "
+                "the bundle's")
+        for l in range(lanes):
+            lane_ops = [o[l].contiguous() for o in inp["ops"]]
+            n_l, sums_l = hk.apply_a_dots_kernel(w[l].contiguous(), a, b, h1,
+                                                 h2, _bundle(*lane_ops))
+            require(same_bits(got_n[l], n_l)
+                    and same_bits(got_sums[:, l], sums_l),
+                    f"K-f bf16 lane {l} {label} is not K-d bf16 on it")
+        say(f"  K-f bf16 {label}: n and sums bitwise its plain version, "
+            "the generic table's and K-d bf16's on every lane")
+    torch.cuda.synchronize()
+    return errs
+
+
+def expected_batched_bf16_launches(engine: str, iters: int, limit: int,
+                                   chunk: int = 64) -> dict:
+    """The launches of a bf16 batched solve whose slowest lane took
+    ``iters`` iterations under the cap ``limit``: each issued body
+    launches K-e bf16 (batched-pallas) or K-f bf16 with K-e bf16 for w0
+    and four times a rebuild, every 8 iterations at bf16
+    (batched-pipelined-pallas); the plain engines none."""
+    from poisson_ellipse_tpu_torch.ops.precision import replace_every
+
+    issued = min(limit, chunk * -(-iters // chunk))
+    if engine == "batched-pallas":
+        return {"batched_stencil_bf16": issued}
+    if engine == "batched-pipelined-pallas":
+        cadence = replace_every(None, torch.bfloat16)
+        return {"batched_stencil_dots_bf16": issued,
+                "batched_stencil_bf16": 1 + 4 * ((issued - 1) // cadence)}
+    return {}
+
+
+def phase_batched_bf16(card: str) -> dict:
+    """The four batched engines in bf16 at 400x600 with B = 32 (the JAX
+    bench's throughput shape) through build_solver, capped: every lane the
+    same count, every lane that converges under BATCHED_BF16_L2, the
+    launches as the body count predicts; then the harness entry point
+    (run_once) with batched-pallas."""
+    from poisson_ellipse_tpu_torch.harness.run import run_once
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+    from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+    m, n = BATCHED_BF16_GRID
+    lanes = BATCHED_BF16_LANES
+    say(f"== phase 8: the batched engines in bf16 at {m}x{n}, B = {lanes} "
+        f"({card})")
+    counts = {}
+    for engine, cap in BATCHED_BF16_CAPS.items():
+        problem = Problem(M=m, N=n, max_iter=cap)
+        solver, args, resolved = build_solver(problem, engine,
+                                              torch.bfloat16, "cuda",
+                                              lanes=lanes)
+        result, launches = _run_counted(solver, args)
+        t = time_solver(solver, args, 1)
+        iters = result.iters.tolist()
+        conv = result.converged.tolist()
+        l2 = [float(l2_error_vs_analytic(problem, result.w[l]))
+              for l in range(lanes)]
+        want = expected_batched_bf16_launches(engine, max(iters), cap)
+        say(f"  {engine} bf16 (cap {cap}): iterations {sorted(set(iters))}, "
+            f"converged {sum(conv)}/{lanes}, breakdown "
+            f"{int(result.breakdown.sum())}, quarantined "
+            f"{int(result.quarantined.sum())}, lane 0 l2 {l2[0]:.6e}, "
+            f"{t / max(iters) * 1e6:.1f} us/iter; launches {launches} "
+            f"(predicted {want})")
+        require(resolved == engine and result.w.dtype == torch.bfloat16,
+                f"{engine} bf16 did not run in bf16")
+        require(len(set(iters)) == 1, f"{engine} bf16: lanes took "
+                f"different counts {sorted(set(iters))}")
+        require(all(x < BATCHED_BF16_L2 for x, c in zip(l2, conv) if c),
+                f"{engine} bf16: a converged lane's l2 is "
+                f"{BATCHED_BF16_L2} or more")
+        require(launches == want, f"{engine} bf16 launches {launches}, "
+                f"expected {want}")
+        if "pipelined" not in engine:
+            require(all(conv), f"{engine} bf16 did not converge")
+        # each kernel's count from the engine it runs once a body in
+        main = {"batched-pallas": "batched_stencil_bf16",
+                "batched-pipelined-pallas": "batched_stencil_dots_bf16"}
+        if engine in main:
+            counts[main[engine]] = launches[main[engine]]
+    rep = run_once(Problem(M=m, N=n, max_iter=BATCHED_BF16_CAPS[
+        "batched-pallas"]), engine="batched-pallas", dtype="bf16",
+        lanes=lanes)
+    say(f"  run_once batched-pallas bf16 --lanes {lanes}: {rep.iters} "
+        f"iterations, converged {rep.converged}, l2 {rep.l2_error:.6e}, "
+        f"solves/s {rep.solves_per_sec:.2f}, dtype {rep.dtype}")
+    require(rep.dtype == "bf16" and rep.lanes == lanes and rep.converged
+            and rep.l2_error < BATCHED_BF16_L2,
+            "run_once batched-pallas bf16 failed")
+    return dict(counts=counts)
+
+
+def shard_bf16_inputs(bm: int, bn: int, seed: int):
+    """``shard_inputs`` rounded to bf16, the windows z and p the two halves
+    of one stacked tensor, as the halo exchange hands them over (p starts
+    mid-word when (bm+2)(bn+2) is odd)."""
+    inp = {k: (v.to(torch.bfloat16) if v.is_floating_point() else v)
+           for k, v in shard_inputs(bm, bn, seed).items()}
+    zp = torch.stack([inp["z"], inp["p"]])
+    inp["z"], inp["p"] = zp[0], zp[1]
+    return inp
+
+
+def _shard_bf16_pair(inp, k1, k2, parts, h1, h2, max_iter=2**31 - 1):
+    """``_shard_pair`` on bf16 arrays."""
+    bm, bn = inp["d"].shape
+    pn, ap = (torch.full((bm, bn), 7.0, dtype=torch.bfloat16, device="cuda")
+              for _ in range(2))
+    k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap, inp["scal"],
+       inp["flags"], parts[0], max_iter=max_iter, h1=h1, h2=h2)
+    w, r = inp["w"].clone(), inp["r"].clone()
+    z = torch.full_like(pn, 7.0)
+    k2(w, r, pn, ap, inp["dinv"], z, inp["scal"], inp["flags"], parts[1],
+       max_iter=max_iter)
+    torch.cuda.synchronize()
+    return pn, ap, w, r, z, parts[0].sum(), parts[1].sum(0)
+
+
+def phase_shard_bf16_kernels(seed: int) -> dict:
+    """K1-shard and K2-shard bf16 bitwise their plain versions at every
+    SHARD_BF16_BLOCKS block, the rank sums equal once rounded to f32, and
+    nothing written after the loop's exit."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
+    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
+
+    say("== phase 11: K1-shard and K2-shard bf16 against their plain "
+        "versions")
+    problem = Problem(M=SHARD_GRID[0], N=SHARD_GRID[1])
+    h1, h2 = problem.h1, problem.h2
+    bf = torch.bfloat16
+    k1_name, k2_name = (f"{k}_bf16" for k in (fs.K1, fs.K2))
+    errs = {k1_name: 0.0, k2_name: 0.0}
+    for bm, bn in SHARD_BF16_BLOCKS:
+        inp = shard_bf16_inputs(bm, bn, seed)
+        got = _shard_bf16_pair(inp, fs.k1, fs.k2,
+                               fs.scratch(bm, bn, "cuda", bf), h1, h2)
+        one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
+               torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
+        want = _shard_bf16_pair(inp, fs.k1_plain, fs.k2_plain, one, h1, h2)
+        for name, kernel, i in (("pn", k1_name, 0), ("ap", k1_name, 1),
+                                ("w", k2_name, 2), ("r", k2_name, 3),
+                                ("z", k2_name, 4)):
+            errs[kernel] = max(errs[kernel], max_abs(got[i], want[i]))
+            require(same_bits(got[i], want[i]), f"{kernel} {name} at "
+                    f"{bm}x{bn} is not bitwise its plain version's")
+        for kernel, g, wv in ((k1_name, got[5][None], want[5][None]),
+                              (k2_name, got[6], want[6])):
+            require(torch.equal(g.float(), wv.float()),
+                    f"{kernel} rank sums at {bm}x{bn} differ once rounded "
+                    f"to f32: {g.tolist()} {wv.tolist()}")
+        require(bool(torch.all(got[1][0, :] == 0) & torch.all(got[1][:, 0]
+                                                              == 0)),
+                "K1-shard bf16 wrote a nonzero ap where d is 0")
+        say(f"  {bm}x{bn} (bn+2 {'odd' if bn % 2 else 'even'}, p window "
+            f"{'mid-word' if inp['p'].data_ptr() % 4 else 'aligned'}): pn, "
+            f"ap, w, r, z bitwise, rank sums equal in f32 (double gaps "
+            f"{abs(float(got[5] - want[5])):.3e}, "
+            f"{float((got[6] - want[6]).abs().max()):.3e})")
+    for flag in (fp.FLAG_CONVERGED, fp.FLAG_BREAKDOWN, fp.FLAG_K):
+        inp = shard_bf16_inputs(*SHARD_BF16_BLOCKS[0], seed)
+        inp["flags"][flag] = 5
+        parts = fs.scratch(*SHARD_BF16_BLOCKS[0], "cuda", bf)
+        parts[0].fill_(3.0)
+        parts[1].fill_(3.0)
+        pn, ap, w, r, z, _, _ = _shard_bf16_pair(inp, fs.k1, fs.k2, parts,
+                                                 h1, h2, max_iter=5)
+        require(bool(torch.all(pn == 7.0) & torch.all(ap == 7.0)
+                     & torch.all(z == 7.0)) and torch.equal(w, inp["w"])
+                and torch.equal(r, inp["r"])
+                and bool(torch.all(parts[0] == 3.0))
+                and bool(torch.all(parts[1] == 3.0)),
+                "K1-shard or K2-shard bf16 wrote after the loop's exit")
+    say("  no writes after the exit (converged, breakdown, k at the cap): ok")
+    return errs
+
+
+def mesh_bf16_jobs() -> list:
+    """The 2x2 bf16 run_once jobs (phase_mesh spawns them with its own)."""
+    from poisson_ellipse_tpu_torch.harness.run import run_once
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+
+    return [(run_once, (Problem(M=g[0], N=g[1], max_iter=MESH_BF16_CAPS[g]),),
+             dict(mode="sharded", dtype="bf16", engine=e, mesh_shape=(2, 2),
+                  device="cuda")) for e, g in MESH_BF16_RUNS]
+
+
+def _check_mesh_bf16(label, report, single, fused, engine: str,
+                     l2_bound: float) -> None:
+    """A bf16 mesh run beside the single-device bf16 pallas solve at its
+    grid and cap (and fused's, printed): the same (converged, breakdown)
+    as pallas, l2 under ``l2_bound`` where it converged, each rank
+    launching its bf16 kernels once a body with 1 halo exchange and 2
+    reductions."""
+    kernels = {"fused": ("fused_sharded_k1_bf16", "fused_sharded_k2_bf16"),
+               "pallas": ("stencil_bf16",)}[engine]
+    say(f"  {label}: {report.iters} iterations, converged {report.converged},"
+        f" breakdown {report.breakdown}, l2 {report.l2_error:.3e}, backend "
+        f"{report.backend}, {report.bodies} bodies, T_solver "
+        f"{report.t_solver:.5f} s; single-device bf16 pallas "
+        f"{int(single.iters)} ({bool(single.converged)}, "
+        f"{bool(single.breakdown)}), fused {int(fused.iters)} "
+        f"({bool(fused.converged)}, {bool(fused.breakdown)}); rank launches "
+        f"{report.rank_launches}")
+    require(report.dtype == "bf16", f"{label}: dtype {report.dtype}")
+    require((report.converged, report.breakdown)
+            == (bool(single.converged), bool(single.breakdown)),
+            f"{label}: (converged, breakdown) differ from single-device "
+            "pallas bf16")
+    require(not report.converged or report.l2_error < l2_bound,
+            f"{label}: l2 {report.l2_error}, not under {l2_bound}")
+    bodies = report.bodies
+    for rank, (launches, colls) in enumerate(zip(report.rank_launches,
+                                                 report.rank_collectives)):
+        require(launches == {k: bodies for k in kernels},
+                f"{label}: rank {rank} launched {launches}")
+        require(colls == {"halo": bodies + 2, "reduce": 2 * bodies + 1},
+                f"{label}: rank {rank} made {colls}")
+
+
+def phase_mesh_bf16(card: str, mesh: dict) -> dict:
+    """fused bf16 on 1x1 over NCCL (run_once) at 400x600 and 2400x3200,
+    and the 2x2 gloo bf16 runs of phase_mesh's spawn, beside single-device
+    bf16 pallas and fused; fused on 2x2 the count of fused on 1x1 (each
+    reduction adds the rank sums in double and rounds once)."""
+    from poisson_ellipse_tpu_torch.harness.run import run_once
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.solver import engine as eng
+
+    say(f"== phase 11: the mesh in bf16 ({card})")
+    ones, singles = {}, {}
+    for g, cap in MESH_BF16_CAPS.items():
+        problem = Problem(M=g[0], N=g[1], max_iter=cap)
+        singles[g] = tuple(eng.solve(problem, e, torch.bfloat16,
+                                     device="cuda")
+                           for e in ("pallas", "fused"))
+        ones[g] = run_once(problem, mode="sharded", engine="fused",
+                           dtype="bf16", mesh_shape=(1, 1))
+        require(ones[g].backend == "nccl", f"the 1x1 mesh took "
+                f"{ones[g].backend}")
+        _check_mesh_bf16(f"fused bf16 1x1 {g[0]}x{g[1]} (cap {cap})",
+                         ones[g], *singles[g], "fused", MESH_BF16_L2[g])
+    for (e, g), report in zip(MESH_BF16_RUNS, mesh["bf16_reports"]):
+        require(report.backend == "gloo", f"2x2 took {report.backend}")
+        _check_mesh_bf16(f"{e} bf16 2x2 {g[0]}x{g[1]}", report, *singles[g],
+                         e, MESH_BF16_L2[g])
+        if e == "fused":
+            require(report.iters == ones[g].iters, f"fused bf16 at "
+                    f"{g[0]}x{g[1]}: 2x2 took {report.iters}, 1x1 "
+                    f"{ones[g].iters}")
+    return {"counts": ones[SHARD_GRID].rank_launches[0]}
+
+
+def bf16_form_calls(seed: int, dtype=torch.bfloat16) -> dict:
+    """{counter: (calls over 3 rotated input sets, plain call, bytes,
+    operations)} for the four forms of this slice at their path's shapes
+    (K-e and K-f at 401x601, B = 32; K1-shard and K2-shard on a
+    1201x1601 block) in ``dtype`` (bf16, or f32 for the f32 forms)."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
+
+    size = torch.empty((), dtype=dtype).element_size()
+    (m, n), lanes = BATCHED_BF16_GRID, BATCHED_BF16_LANES
+    h1, h2 = 2.0 / m, 1.2 / n
+    nodes = (m + 1) * (n + 1)
+    sets = [lane_inputs((m, n), lanes, seed + s, dtype) for s in range(3)]
+    for s in sets:
+        s["pairs"] = _bundle(*s["ops"])
+    bm, bn = SHARD_BLOCKS[0]
+    problem = Problem(M=SHARD_GRID[0], N=SHARD_GRID[1])
+    shards = [{k: (v.to(dtype) if v.is_floating_point() else v)
+               for k, v in shard_inputs(bm, bn, seed + s).items()}
+              for s in range(3)]
+    for s in shards:
+        # the windows as the halo exchange stacks them: p mid-word at
+        # 1203x1603
+        zp = torch.stack([s["z"], s["p"]])
+        s["z"], s["p"] = zp[0], zp[1]
+        s["pn"], s["ap"] = (torch.empty((bm, bn), dtype=dtype, device="cuda")
+                            for _ in range(2))
+        s["z_out"] = torch.empty_like(s["pn"])
+        s["parts"] = fs.scratch(bm, bn, "cuda", dtype)
+    one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
+           torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
+    never = 2**31 - 1
+
+    def k1(s, fn=fs.k1, part=None):
+        fn(s["z"], s["p"], s["a"], s["b"], s["d"], s["pn"], s["ap"],
+           s["scal"], s["flags"], s["parts"][0] if part is None else part,
+           max_iter=never, h1=problem.h1, h2=problem.h2)
+
+    def k2(s, fn=fs.k2, part=None):
+        fn(s["w"], s["r"], s["pn"], s["ap"], s["dinv"], s["z_out"],
+           s["scal"], s["flags"], s["parts"][1] if part is None else part,
+           max_iter=never)
+
+    n_blk, n_ext = bm * bn, (bm + 2) * (bn + 2)
+    n1, n2 = fs.partial_counts(bm, bn, dtype)
+    tag = "" if dtype == torch.float32 else "_bf16"
+    return {
+        f"batched_stencil{tag}": (
+            [lambda s=s: hk.apply_a_batched_kernel(s["w"], s["a"], s["b"],
+                                                   h1, h2) for s in sets],
+            lambda: hk.apply_a_batched_plain(sets[0]["w"], sets[0]["a"],
+                                             sets[0]["b"], h1, h2),
+            (2 + 2 * lanes) * size * nodes, 18 * nodes * lanes),
+        f"batched_stencil_dots{tag}": (
+            [lambda s=s: hk.apply_a_dots_batched_kernel(
+                s["w"], s["a"], s["b"], h1, h2, s["pairs"]) for s in sets],
+            lambda: hk.apply_a_dots_batched_plain(
+                sets[0]["w"], sets[0]["a"], sets[0]["b"], h1, h2,
+                sets[0]["pairs"]),
+            (2 + 7 * lanes) * size * nodes, KD_FLOPS * nodes * lanes),
+        f"fused_sharded_k1{tag}": (
+            [lambda s=s: k1(s) for s in shards],
+            lambda: k1(shards[0], fs.k1_plain, one[0]),
+            size * (4 * n_ext + 3 * n_blk) + 8 * n1,
+            K1_SHARD_FLOPS * n_blk),
+        f"fused_sharded_k2{tag}": (
+            [lambda s=s: k2(s) for s in shards],
+            lambda: k2(shards[0], fs.k2_plain, one[1]),
+            size * 8 * n_blk + 16 * n2, K2_SHARD_FLOPS * n_blk),
+    }
+
+
+def count_lane_mesh_bf16_activities() -> dict:
+    """``device_activities`` of one call of each bf16 form of this slice at
+    its path's shape, after a first call on the stream."""
+    return {name: device_activities(calls[0])
+            for name, (calls, *_rest) in bf16_form_calls(0).items()}
+
+
+def phase_bf16_forms_timing(seed: int, card: str, full: bool = False) -> list:
+    """The four bf16 forms by device time (graph replay over 3 rotated
+    input sets, ``device_ms``) beside their plain versions and bounds; with
+    ``full`` (``--only batched-mesh-bf16``) also their call and host times,
+    device activities a call (in a child process), share of the bound, and
+    the f32 forms beside them by device time."""
+    say(f"== phases 8 and 11 (timing): K-e, K-f, K1-shard and K2-shard bf16 "
+        f"on {card}")
+    forms = bf16_form_calls(seed)
+    f32 = bf16_form_calls(seed, torch.float32) if full else {}
+    acts = child_activities("count_lane_mesh_bf16_activities") if full else {}
+    rows = []
+    for name, src, replaces, f32_name in BF16_FORM_ROWS:
+        calls, plain, nbytes, flops = forms[name]
+        ms = device_ms(calls)
+        plain_ms = time_ms(plain, 10)
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = dict(name=name, route="cuda",
+                   source=f"poisson_ellipse_tpu_torch/{src}",
+                   replaces=replaces, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        extra = ""
+        if full:
+            call_ms, host_ms = call_times(calls, 200)
+            f32_calls, _, f32_bytes, f32_flops = f32[f32_name]
+            f32_ms = device_ms(f32_calls)
+            f32_bound, _ = bound(f32_bytes, f32_flops)
+            row.update(call_ms=call_ms, host_ms=host_ms, f32_ms=f32_ms,
+                       f32_bound_ms=f32_bound, activities=acts[name])
+            extra = (f", call {call_ms * 1e3:.2f} us, host "
+                     f"{host_ms * 1e3:.2f} us, {acts[name]} device "
+                     f"activities a call; f32 form {f32_ms * 1e3:.2f} us "
+                     f"(bound {f32_bound * 1e3:.2f} us, "
+                     f"{f32_bound / f32_ms:.0%} of it)")
+        say(f"  {name}: device {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+            f"({bound_by}, {bound_ms / ms:.0%} of it), "
+            f"{nbytes / (ms * 1e-3) / 1e9:.0f} GB/s{extra}")
+        rows.append(row)
+    del forms, f32
+    return rows
 
 # -- phase 12: the stage-4 kernels and the bf16 kernel loops ----------------
 
@@ -4726,7 +5242,7 @@ def main(argv=None) -> int:
     ap.add_argument(
         "--only", choices=("stage4", "stage4-timing", "stencil-dots-timing",
                            "xl-timing", "stencil-timing", "whole-timing",
-                           "fused-timing"),
+                           "fused-timing", "batched-mesh-bf16"),
         help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
              "loop and timing (stage4), its timing alone (stage4-timing), "
              "rule 2's queue by device time, the K-d family's SASS and the "
@@ -4736,9 +5252,11 @@ def main(argv=None) -> int:
              "and in their loops beside K-g, K-d and K1-shard "
              "(stencil-timing), or resident and streamed by phase beside "
              "xl (whole-timing), or K1 and K2 by device time with K1 by "
-             "part and in its loop (fused-timing); the timings also run on "
-             "an older tree's kernels; prints the kernels' record and no "
-             "result line")
+             "part and in its loop (fused-timing), or K-e, K-f, K1-shard "
+             "and K2-shard bf16 bitwise their plain versions and by device "
+             "time beside their f32 forms (batched-mesh-bf16); the timings "
+             "also run on an older tree's kernels; prints the kernels' "
+             "record and no result line")
     ap.add_argument("--sass-dir", help="with --only stencil-dots-timing "
                     "or fused-timing, write the SASS listings of the K-d "
                     "and K-a libraries, or of the fused library, to this "
@@ -4762,6 +5280,10 @@ def main(argv=None) -> int:
         timed = phase_whole_timing_split(capacity(0), card)
     elif args.only == "fused-timing":
         timed = phase_fused_timing(args.seed, card, args.sass_dir)
+    elif args.only == "batched-mesh-bf16":
+        phase_batched_bf16_kernels(args.seed)
+        phase_shard_bf16_kernels(args.seed)
+        timed = phase_bf16_forms_timing(args.seed, card, full=True)
     elif args.only:
         if args.only == "stage4":
             phase_stage4_kernels(args.seed)
@@ -4808,6 +5330,8 @@ def main(argv=None) -> int:
     phase_throughput(batched, card)
     solver, solver_args = batched["runs"][("batched-pallas", 400, 600)][:2]
     profile_solve("batched-pallas 400x600 B=32", solver, solver_args)
+    errs.update(phase_batched_bf16_kernels(args.seed))
+    batched_bf16 = phase_batched_bf16(card)
 
     mark("phase 8")
     errs.update(phase_storage_kernels(args.seed))
@@ -4827,6 +5351,9 @@ def main(argv=None) -> int:
     errs.update(phase_shard_kernels(args.seed))
     mesh = phase_mesh(card)
     timed += phase_shard_timing(args.seed, card)
+    errs.update(phase_shard_bf16_kernels(args.seed))
+    mesh_bf16 = phase_mesh_bf16(card, mesh)
+    timed += phase_bf16_forms_timing(args.seed, card)
     mark("phase 11")
     errs.update(phase_stage4_kernels(args.seed))
     errs.update(phase_bf16_kernels(args.seed))
@@ -4838,7 +5365,8 @@ def main(argv=None) -> int:
     counts = {**rec["counts"], **main_run["counts"], **batched["counts"],
               **storage_main["counts"], **storage_rec["counts"],
               **dtype_main["counts"], **mesh["counts"], **stage4["counts"],
-              **bf16_loops["counts"]}
+              **bf16_loops["counts"], **batched_bf16["counts"],
+              **mesh_bf16["counts"]}
     for row in timed:
         row["launches"] = counts.get(row["name"], 0)
         row["max_abs_err"] = errs[row["name"]]

@@ -35,13 +35,18 @@ with the single solve in iterations and to round-off in w, not bitwise as
 the JAX package's lane 0 does.
 
 ``stencil="pallas"`` takes K-e (``ops.hopper_kernels.apply_a_batched_kernel``)
-for A·p. It needs lane-shared coefficients and the problem's own spacings
-(the kernel takes h as scalars).
+for A·p, in f32 or in its bf16 form. It needs lane-shared coefficients
+and the problem's own spacings (the kernel takes h as scalars, rounded to
+the run dtype as the plain loop's spacings are). At bf16 the lane fields,
+the (B,) scalars and the stencil's output are bf16, as in the JAX bf16
+body; the kernel computes the stencil in float and rounds it once, where
+the plain ``xla`` stencil rounds each operation.
 
 ``storage_dtype`` (``ops.precision``) stores the lane fields w, r and p
 narrow, with a, b and D rounded once; the per-lane scalars stay at compute
-width. As in the JAX package it rides the plain stencil: K-e is f32 only,
-and ``stencil="pallas"`` with a storage dtype is refused.
+width. As in the JAX package it rides the plain stencil: K-e reads its
+compute dtype only, and ``stencil="pallas"`` with a storage dtype is
+refused.
 """
 
 from __future__ import annotations
@@ -356,7 +361,7 @@ def pcg_batched(problem: Problem, a, b, rhs, mask=None, stencil: str = "xla",
     """Run batched PCG on pre-assembled operands on their device: ``rhs``
     (B, M+1, N+1), ``a``/``b`` (M+1, N+1) shared or (B, M+1, N+1) per
     lane. ``stencil``: "xla" (plain PyTorch, any operands) or "pallas"
-    (K-e; lane-shared coefficients, f32). ``storage_dtype``: the lane
+    (K-e; lane-shared coefficients, f32 or bf16). ``storage_dtype``: the lane
     fields stored narrow ("xla" only)."""
     state = init_state(problem, a, b, rhs, mask=mask,
                        storage_dtype=storage_dtype)

@@ -8,8 +8,15 @@ one stacked reduction, and the iteration's stencil does not depend on it.
 
 Per-lane semantics are ``ops.pipelined_pcg``'s: the expanded α
 denominator, breakdown under ``DENOM_GUARD`` discarding the iteration's
-update, residual replacement every ``REPLACE_EVERY`` iterations keyed on
-the global counter, and the ±2-of-classical iteration-count contract.
+update, residual replacement keyed on the global counter, and the
+±2-of-classical iteration-count contract. The replacement comes every
+``ops.precision.replace_every`` iterations of the run dtype, the single
+engine's cadence: 32 at f32 and f64, 8 at bf16. (The JAX batched engine
+keeps 32 at bf16 too. There its bf16 recurrence grows without bound from
+iteration 9 or so, γ by 2-10× an iteration, until the rebuild at 32, and
+whether a lane's denominator first dips under the guard depends on how
+the stencil rounds: with the bf16 stencil rounded once, as K-e's and
+K-f's bf16 forms round it, 40×40 broke down at iteration 14.)
 Lane freezing, quarantine and the bucket-embedding arguments follow
 ``batch.batched_pcg``.
 
@@ -26,7 +33,8 @@ and straight runs are bitwise equal.
 
 ``stencil="pallas"`` runs K-f (``ops.hopper_kernels.apply_a_dots_batched_kernel``)
 once a body for n and the whole (8, B) bundle, and K-e for w₀ and the
-rebuilds.
+rebuilds, in f32 or in their bf16 forms (the bundle's sums in double,
+rounded once to bf16).
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from poisson_ellipse_tpu_torch.batch.batched_pcg import (
     stencil_closure,
 )
 from poisson_ellipse_tpu_torch.models.problem import Problem
-from poisson_ellipse_tpu_torch.ops.pipelined_pcg import REPLACE_EVERY
+from poisson_ellipse_tpu_torch.ops.precision import replace_every
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
     DENOM_GUARD,
@@ -143,6 +151,7 @@ def make_lane_step(rhs, a3, b3, d, m3, h1, h2, delta, weighted: bool,
     active while it has neither converged, broken down nor been
     quarantined, and k is below ``limit`` (None: no limit)."""
     hw = h1 * h2
+    cadence = replace_every(None, rhs.dtype)
     apply_stencil = _stencil_closure(a3, b3, m3, h1, h2, stencil, hs)
     one = torch.ones((), dtype=rhs.dtype, device=rhs.device)
 
@@ -169,7 +178,7 @@ def make_lane_step(rhs, a3, b3, d, m3, h1, h2, delta, weighted: bool,
         if limit is not None:
             active = active & (st.k < limit)
         r, u, w, z, s = st.r, st.u, st.w, st.z, st.s
-        if k > 0 and k % REPLACE_EVERY == 0:
+        if k > 0 and k % cadence == 0:
             # residual replacement from the ground-truth x and p, all
             # lanes at once
             r = rhs - apply_stencil(st.x)

@@ -49,6 +49,13 @@
 // coefficients are re-read for every lane, from L2 after the first (1.9
 // MB at 401x601, 7.7 MB at 801x1201).
 //
+// K-e's bf16 form: K-e with w, a, b and out in bf16, computed as K-a's bf16
+// form computes (the same template with the lane on gridDim.z), so lane l
+// is bitwise K-a bf16 on lane l. Replaces _batched_stencil_kernel at bf16
+// (apply_a_batched_block_pallas's call at pallas_kernels.py:409 with bf16
+// operands): the bf16 batched-pallas engine's stencil. Bound: (2 + 2B)
+// passes at 2 B; at 401x601 with B = 32, 31.8 MB, 9.5 us.
+//
 // K-g, the mixed-precision form: w in the storage type (bf16 or f16) or
 // f32, a and b in the storage type, out f32. Each load is upcast exactly
 // (__bfloat162float / __half2float), so a narrow input gives bit for bit
@@ -270,6 +277,16 @@ int pe_stencil_f32(const float* w, const float* a, const float* b, float* out,
 int pe_batched_stencil_f32(const float* w, const float* a, const float* b,
                            float* out, int lanes, int bm, int bn, int pad,
                            float h1, float h2, void* stream) {
+  return launch_march<true>(w, a, b, out, lanes, bm, bn, pad, h1, h2,
+                            stream);
+}
+
+// K-e's bf16 form: as pe_batched_stencil_f32 with every array bf16; h1, h2
+// the bf16-rounded spacings.
+int pe_batched_stencil_bf16(const __nv_bfloat16* w, const __nv_bfloat16* a,
+                            const __nv_bfloat16* b, __nv_bfloat16* out,
+                            int lanes, int bm, int bn, int pad, float h1,
+                            float h2, void* stream) {
   return launch_march<true>(w, a, b, out, lanes, bm, bn, pad, h1, h2,
                             stream);
 }

@@ -128,6 +128,14 @@
 //
 // What bounds it: bytes. 9 passes at 2 B: 138.3 MB at 2401x3201, 41.3 us
 // at 3.35 TB/s.
+//
+// K-f's bf16 form is K-d's bf16 form with the lane on gridDim.z, as K-f is
+// K-d's: lane l's n and sums[:, l] are bitwise K-d bf16's on that lane.
+// Replaces _batched_stencil_dots_kernel at bf16
+// (apply_a_dots_batched_pallas's call at pallas_kernels.py:529 with bf16
+// operands, whose SMEM accumulator holds bf16): the bf16
+// batched-pipelined-pallas engine's one pass per iteration. Bound: (2 +
+// 7B) passes at 2 B, 32.5 us at 401x601 with B = 32.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -564,6 +572,19 @@ int pe_stencil_dots_bf16(const __nv_bfloat16* w, const __nv_bfloat16* a,
   return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
       w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
       x_off, partials, ticket, sums, 1, bm, bn, pad, h1, h2, stream);
+}
+
+// K-f's bf16 form: as pe_batched_stencil_dots_f32 with w, a, b, out, every
+// operand and sums in bf16; h1, h2 the bf16-rounded spacings.
+int pe_batched_stencil_dots_bf16(
+    const __nv_bfloat16* w, const __nv_bfloat16* a, const __nv_bfloat16* b,
+    __nv_bfloat16* out, const void* const* operands, int n_operands,
+    const int* pair_x, const int* pair_y, int n_pairs, int x_ld, int x_off,
+    double* partials, int* ticket, __nv_bfloat16* sums, int lanes, int bm,
+    int bn, int pad, float h1, float h2, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
+      w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
+      x_off, partials, ticket, sums, lanes, bm, bn, pad, h1, h2, stream);
 }
 
 const char* pe_stencil_dots_error_string(int code) {

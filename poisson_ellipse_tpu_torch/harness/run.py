@@ -17,9 +17,10 @@ breakdown if any lane broke down, the L2 error of lane 0, and
 split (``ops.precision``); the report carries it, and the roofline counts
 the bytes at the storage width (on ``streamed`` and ``xl``, which store
 only their operands narrow, those passes alone). ``dtype="bf16"`` is bf16
-compute on ``xla``, ``fused``, ``resident``, ``streamed`` and ``xl``
-(``auto`` walks their ladder with the gates at 2 bytes a node), as the JAX
-harness's ``--dtype bf16``.
+compute on every engine the JAX harness runs it on (``auto`` walks the
+resident → streamed → xl ladder with the gates at 2 bytes a node), the
+lane-batched engines and the mesh's ``xla``, ``pallas`` and ``fused``
+included, as the JAX harness's ``--dtype bf16``.
 
 ``mode="sharded"`` runs the mesh (``parallel``): ``mesh_shape`` (px, py)
 ranks of a ``torch.distributed`` group each solve their block with
@@ -196,9 +197,12 @@ def resolve_mesh(mesh_shape: tuple[int, int] | None = None,
 
 def check_sharded(engine: str, lanes: int = 1,
                   storage_dtype: str | None = None) -> str:
-    """The engine a sharded run takes (``auto`` → ``xla``), or the JAX
-    harness's refusal; the sharded engines the port does not have yet
-    raise naming their ROADMAP item."""
+    """The engine a sharded run takes (``auto`` → ``xla``): ``xla`` in
+    f32, f64 and bf16, ``pallas`` (K-a) and ``fused`` (K1-shard and
+    K2-shard) in f32 and bf16, f64 raising in the builder as in the JAX
+    package. A single-device engine gets the JAX harness's refusal, whose
+    text names the JAX package's sharded engines; the ones the port does
+    not have yet raise naming their ROADMAP item."""
     if lanes != 1:
         raise unported("lane-sharded batched runs (--lanes with --mode "
                        "sharded)", MESH_REST)

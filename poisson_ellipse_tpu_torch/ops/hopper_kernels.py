@@ -26,16 +26,20 @@ kernels are ported:
   with typed loads): f32 m, a, b and the pair operands in the storage
   dtype; once a body of ``pipelined-pallas`` with ``storage_dtype``.
 
-K-a and K-d also have a bf16 form (``csrc/stencil.cu``
-``pe_stencil_bf16``, ``csrc/stencil_dots.cu`` ``pe_stencil_dots_bf16``),
-the JAX kernels at bf16: every input bf16, the arithmetic in float on the
-exactly widened loads, each result rounded once to bf16 where it is
-stored (the rule of the bf16 whole-solve forms,
-``ops.whole_solve.rounder``), and K-d's sums taken in double and rounded
-once to bf16. Their plain versions compute the same way. The bf16
-``pallas``, ``sstep-pallas`` and the w₀ and rebuilds of
-``pipelined-pallas`` run K-a's, the bf16 ``pipelined-pallas`` body K-d's.
-They count under ``stencil_bf16`` and ``stencil_dots_bf16``.
+K-a, K-d, K-e and K-f also have a bf16 form (``csrc/stencil.cu``
+``pe_stencil_bf16``, ``pe_batched_stencil_bf16``, ``csrc/stencil_dots.cu``
+``pe_stencil_dots_bf16``, ``pe_batched_stencil_dots_bf16``), the JAX
+kernels at bf16: every input bf16, the arithmetic in float on the exactly
+widened loads, each result rounded once to bf16 where it is stored (the
+rule of the bf16 whole-solve forms, ``ops.whole_solve.rounder``), and the
+sums of K-d and K-f taken in double and rounded once to bf16. Their plain
+versions compute the same way. The bf16 ``pallas``, ``sstep-pallas`` and
+the w₀ and rebuilds of ``pipelined-pallas`` run K-a's, the bf16
+``pipelined-pallas`` body K-d's, the bf16 ``batched-pallas`` body and the
+w₀ and rebuilds of ``batched-pipelined-pallas`` K-e's, and the bf16
+``batched-pipelined-pallas`` body K-f's. They count under
+``stencil_bf16``, ``stencil_dots_bf16``, ``batched_stencil_bf16`` and
+``batched_stencil_dots_bf16``.
 
 The stage-4 vector kernels of that module are ``ops.stage4_kernels``.
 
@@ -95,7 +99,8 @@ _SIGNATURES = {
     "pe_stencil_f32": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P]),
     "pe_stencil_bf16": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P]),
     # w, a, b, out, lanes, bm, bn, pad, h1, h2, stream
-    "pe_batched_stencil_f32": (_I, [_P] * 4 + [_I] * 4 + [_F, _F, _P]),
+    **{f"pe_batched_stencil_{form}": (_I, [_P] * 4 + [_I] * 4 + [_F, _F, _P])
+       for form in ("f32", "bf16")},
     # K-g: pe_stencil_f32's arguments, w and a, b of the named types
     **{f"pe_stencil_mixed_{w}_{ab}": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P])
        for ab in ("bf16", "f16") for w in (ab, "f32")},
@@ -110,9 +115,10 @@ _DOTS_SIGNATURES = {
     # K-d and its bf16 form; K-h (a, b and the operands narrow)
     **{f"pe_stencil_dots_{form}": (_I, _DOTS_ARGS)
        for form in ("f32", "bf16", "mixed_bf16", "mixed_f16")},
-    # K-f: the same with lanes before bm
-    "pe_batched_stencil_dots_f32": (_I, _DOTS_ARGS[:14] + [_I]
-                                    + _DOTS_ARGS[14:]),
+    # K-f and its bf16 form: the same with lanes before bm
+    **{f"pe_batched_stencil_dots_{form}": (_I, _DOTS_ARGS[:14] + [_I]
+                                           + _DOTS_ARGS[14:])
+       for form in ("f32", "bf16")},
 }
 
 
@@ -149,10 +155,9 @@ def apply_a_kernel(w, a, b, h1: float, h2: float):
 
 
 def _check_stencil_inputs(kernel: str, w, a, b, lanes: bool = False) -> None:
-    """Raise unless w is a float32 block of at least 3x3 (a bf16 one too
-    without ``lanes``; a (B, ·, ·) stack of f32 blocks with ``lanes``) and
-    a, b are one block of its shape and dtype, all contiguous on one
-    device."""
+    """Raise unless w is a float32 or bfloat16 block of at least 3x3 (a
+    (B, ·, ·) stack of them with ``lanes``) and a, b are one block of its
+    shape and dtype, all contiguous on one device."""
     grid = tuple(w.shape[1:]) if lanes else tuple(w.shape)
     for name, t in (("a", a), ("b", b)):
         if (t.device != w.device or t.dtype != w.dtype
@@ -161,9 +166,8 @@ def _check_stencil_inputs(kernel: str, w, a, b, lanes: bool = False) -> None:
                 f"{kernel}: {name} is {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}; w is {w.dtype} {tuple(w.shape)} on {w.device}"
             )
-    if w.dtype not in (COMPUTE_DTYPES[:1] if lanes else COMPUTE_DTYPES):
-        raise ValueError(f"{kernel}: the kernel runs "
-                         f"{'float32' if lanes else 'float32 or bfloat16'}, "
+    if w.dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"{kernel}: the kernel runs float32 or bfloat16, "
                          f"got {w.dtype}")
     dims = 3 if lanes else 2
     if (w.dim() != dims or len(grid) != 2 or grid[0] < 3 or grid[1] < 3
@@ -219,16 +223,19 @@ def apply_a_batched_kernel(w, a, b, h1: float, h2: float):
 
 def _launch_batched(w, a, b, h1, h2, pad: int):
     _check_stencil_inputs(BATCHED_KERNEL, w, a, b, lanes=True)
+    form = ws.form_of(w.dtype)
     lanes, bm, bn = w.shape[0], w.shape[1] - 2, w.shape[2] - 2
     out = torch.empty((lanes, bm + 2 * pad, bn + 2 * pad), dtype=w.dtype,
                       device=w.device)
     lib = _build.load(KERNEL, _SIGNATURES)
-    rc = lib.pe_batched_stencil_f32(
+    rc = getattr(lib, f"pe_batched_stencil_{form}")(
         w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes, bm,
-        bn, pad, h1, h2, _build.stream_handle(w.device),
+        bn, pad, rounded(h1, w.dtype), rounded(h2, w.dtype),
+        _build.stream_handle(w.device),
     )
-    _build.check(lib.pe_stencil_error_string, BATCHED_KERNEL, rc)
-    _build.count_launch(BATCHED_KERNEL)
+    counter = ws.counter(BATCHED_KERNEL, form)
+    _build.check(lib.pe_stencil_error_string, counter, rc)
+    _build.count_launch(counter)
     return out
 
 
@@ -331,8 +338,8 @@ def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False,
     the sums' scratch is ``ops.scratch``'s pair for the stream, so a call
     is one kernel."""
     if kernel is None:
-        kernel = (BATCHED_DOTS_KERNEL if lanes
-                  else ws.counter(DOTS_KERNEL, ws.form_of(w.dtype)))
+        kernel = ws.counter(BATCHED_DOTS_KERNEL if lanes else DOTS_KERNEL,
+                            ws.form_of(w.dtype))
     if len(pairs) > MAX_PAIRS:
         raise ValueError(f"{kernel}: at most {MAX_PAIRS} pairs, got "
                          f"{len(pairs)}")
@@ -374,7 +381,8 @@ def _launch_dots(w, a, b, h1, h2, pairs, pad: int, lanes: bool = False,
             partials.data_ptr(), ticket.data_ptr(), sums.data_ptr())
     tail = (bm, bn, pad, rounded(h1, w.dtype), rounded(h2, w.dtype), stream)
     if lanes:
-        rc = lib.pe_batched_stencil_dots_f32(*head, n_lanes, *tail)
+        rc = getattr(lib, f"pe_batched_stencil_dots_{ws.form_of(w.dtype)}")(
+            *head, n_lanes, *tail)
     else:
         symbol = symbol or f"pe_stencil_dots_{ws.form_of(w.dtype)}"
         rc = getattr(lib, symbol)(*head, *tail)

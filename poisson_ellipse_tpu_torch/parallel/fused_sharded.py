@@ -31,10 +31,19 @@ order, rounded once to f32. Beside each kernel is its plain version
 (``k1_plain``, ``k2_plain``); the launcher takes it only for CPU tensors
 and otherwise launches the kernel or raises.
 
+The loop runs at f32 or bf16, as the JAX K1/K2 run at the solve's dtype.
+At bf16 the arrays and the scalar carry are bf16; every value is computed
+in float on the widened operands and rounded once to bf16 where it is
+stored (``ops.whole_solve.rounder``), in the kernels' bf16 forms and in
+the plain versions alike: pn, ap, w, r, z, and the reduced sums (double,
+then float, then bf16) before they are scaled by h1·h2 and rounded again,
+as the single-device bf16 ``fused`` engine rounds them. Each term of a sum
+is a product of two bf16 values, exact in float, added in double.
+
 The TPU's (8·px, 128·py) tile padding (``padded_dims_fused`` there) has no
 counterpart: the grid is padded to the mesh multiple (``padded_dims``).
-Padded nodes are exact zeros, so the stripped w is the same. f32 only:
-bf16 is ROADMAP Queue A item 20b, and f64 raises as in the JAX package.
+Padded nodes are exact zeros, so the stripped w is the same. f64 raises as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.ops import _build, assembly
 from poisson_ellipse_tpu_torch.ops import whole_solve as ws
 from poisson_ellipse_tpu_torch.ops.fused_pcg import (
+    DTYPES,
     FLAG_BREAKDOWN,
     FLAG_CONVERGED,
     FLAG_K,
@@ -85,30 +95,38 @@ K2 = "fused_sharded_k2"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "pe_fused_sharded_k1_blocks": (_I, [_I, _I]),
-    "pe_fused_sharded_k2_blocks": (_I, [_I, _I]),
+    **{f"pe_fused_sharded_k{k}_blocks_{form}": (_I, [_I, _I])
+       for k in (1, 2) for form in DTYPES.values()},
     # z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1,
     # h2, stream
-    "pe_fused_sharded_k1_f32": (_I, [_P] * 10 + [_I] * 3 + [_F, _F, _P]),
+    **{f"pe_fused_sharded_k1_{form}": (_I, [_P] * 10 + [_I] * 3
+                                       + [_F, _F, _P])
+       for form in DTYPES.values()},
     # w, r, pn, ap, dinv, z, partials, scal, flags, bm, bn, max_iter, stream
-    "pe_fused_sharded_k2_f32": (_I, [_P] * 9 + [_I] * 3 + [_P]),
+    **{f"pe_fused_sharded_k2_{form}": (_I, [_P] * 9 + [_I] * 3 + [_P])
+       for form in DTYPES.values()},
     "pe_fused_sharded_error_string": (ctypes.c_char_p, [_I]),
 }
 
 
 @functools.lru_cache(maxsize=16)
-def partial_counts(bm: int, bn: int) -> tuple[int, int]:
-    """(K1's, K2's) per-block partials for a (bm, bn) block on the card."""
+def partial_counts(bm: int, bn: int,
+                   dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    """(K1's, K2's) per-block partials for a (bm, bn) block on the card,
+    in the ``dtype`` form."""
     lib = _build.load(LIBRARY, _SIGNATURES)
-    return (int(lib.pe_fused_sharded_k1_blocks(bm, bn)),
-            int(lib.pe_fused_sharded_k2_blocks(bm, bn)))
+    form = DTYPES[dtype]
+    return tuple(int(getattr(lib, f"pe_fused_sharded_k{k}_blocks_{form}")(
+        bm, bn)) for k in (1, 2))
 
 
-def scratch(bm: int, bn: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def scratch(bm: int, bn: int, device, dtype: torch.dtype = torch.float32
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernels' partials buffers in double, zeroed: (n1,) for K1 and
-    (n2, 2) for K2; one row each for the plain versions on the CPU."""
+    (n2, 2) for K2 of the ``dtype`` form; one row each for the plain
+    versions on the CPU."""
     dev = torch.device(device)
-    n1, n2 = partial_counts(bm, bn) if dev.type == "cuda" else (1, 1)
+    n1, n2 = partial_counts(bm, bn, dtype) if dev.type == "cuda" else (1, 1)
     return (torch.zeros(n1, dtype=torch.float64, device=dev),
             torch.zeros((n2, 2), dtype=torch.float64, device=dev))
 
@@ -121,13 +139,17 @@ def _loop_active(flags: torch.Tensor, max_iter: int) -> bool:
 def k1_plain(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, partials,
              *, max_iter: int, h1: float, h2: float) -> None:
     """The plain version of K1-shard: writes pn, ap and the rank's Σap·pn
-    (in double, into ``partials[0]``); nothing once the loop has exited."""
+    (in double, into ``partials[0]``); nothing once the loop has exited.
+    Computed in float, pn and ap rounded to the run dtype
+    (``ws.rounder``)."""
     if not _loop_active(flags, max_iter):
         return
-    h1t, h2t = spacing(h1, z_ext), spacing(h2, z_ext)
-    pn_w = z_ext + scal[SCAL_BETA] * p_ext
+    q = ws.rounder(z_ext.dtype)
+    h1t, h2t = (ws.held(spacing(h, z_ext)) for h in (h1, h2))
+    z, p, a, b = (ws.held(x) for x in (z_ext, p_ext, a_ext, b_ext))
+    pn_w = q(z + ws.held(scal[SCAL_BETA]) * p)
     wc = pn_w[1:-1, 1:-1]
-    ap_new = torch.where(d != 0.0, apply_a_block(pn_w, a_ext, b_ext, h1t, h2t),
+    ap_new = torch.where(d != 0.0, q(apply_a_block(pn_w, a, b, h1t, h2t)),
                          torch.zeros_like(wc))
     pn.copy_(wc)
     ap.copy_(ap_new)
@@ -140,87 +162,114 @@ def k2_plain(w, r, pn, ap, dinv, z, scal, flags, partials, *,
     """The plain version of K2-shard: α from (zr, denom) of the carry with
     the breakdown guard; w, r, z in place; the rank's [Σz·r, Σ(Δw)²] in
     double into ``partials[0]``; no scalar tail; nothing once the loop has
-    exited."""
+    exited. Computed in float, each stored value rounded to the run dtype
+    (``ws.rounder``)."""
     if not _loop_active(flags, max_iter):
         return
-    alpha = ws.guarded_alpha(scal[SCAL_ZR], scal[SCAL_DENOM], lambda x: x,
-                             torch.float32)
-    w_old = w.clone()
-    w_new = w_old + alpha * pn
-    r_new = r - alpha * ap
-    z_new = r_new * dinv
-    dw = w_new - w_old
+    ct = w.dtype
+    q = ws.rounder(ct)
+    w_old, r_old, pn_h, ap_h, dinv_h = (ws.held(x) for x in
+                                         (w, r, pn, ap, dinv))
+    alpha = ws.guarded_alpha(ws.held(scal[SCAL_ZR]),
+                             ws.held(scal[SCAL_DENOM]), q, ct)
+    w_new = q(w_old + alpha * pn_h)
+    r_new = q(r_old - alpha * ap_h)
+    z_new = q(r_new * dinv_h)
+    dw = w_new - w_old  # the realised increment, not α·pn
+    sums = rank_sums((z_new, r_new), (dw, dw))
     w.copy_(w_new)
     r.copy_(r_new)
     z.copy_(z_new)
     partials.zero_()
-    partials[0] = rank_sums((z_new, r_new), (dw, dw))
+    partials[0] = sums
 
 
 def _check(kernel: str, arrays: dict, shape, scal, flags, partials,
-           n_partials: int) -> None:
+           n_partials) -> None:
+    """Raise unless every array is contiguous in the form's dtype (the
+    first array's: float32 or bfloat16) at its ``shape(name)`` on scal's
+    device, scal is (N_SCAL,) of that dtype, flags (N_FLAGS,) int32 and
+    partials double of ``n_partials(dtype)`` at least."""
     dev = scal.device
+    dtype = next(iter(arrays.values())).dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"{kernel}: the kernel is built for float32 and "
+                         f"bfloat16, got {dtype}")
     for name, t in arrays.items():
         want = shape(name)
-        if (t.device != dev or t.dtype != torch.float32
+        if (t.device != dev or t.dtype != dtype
                 or tuple(t.shape) != want or not t.is_contiguous()):
             raise ValueError(
                 f"{kernel}: {name} is {t.dtype} {tuple(t.shape)} on "
                 f"{t.device} (contiguous={t.is_contiguous()}); expected "
-                f"contiguous float32 {want} on {dev}")
-    if scal.shape != (N_SCAL,) or scal.dtype != torch.float32:
-        raise ValueError(f"{kernel}: scal must be ({N_SCAL},) float32")
+                f"contiguous {dtype} {want} on {dev}")
+    if scal.shape != (N_SCAL,) or scal.dtype != dtype:
+        raise ValueError(f"{kernel}: scal must be ({N_SCAL},) {dtype}")
     if (flags.shape != (N_FLAGS,) or flags.dtype != torch.int32
             or flags.device != dev):
         raise ValueError(f"{kernel}: flags must be ({N_FLAGS},) int32")
+    need = n_partials(dtype)
     if (partials.dtype != torch.float64 or partials.device != dev
-            or partials.numel() < n_partials or not partials.is_contiguous()):
+            or partials.numel() < need or not partials.is_contiguous()):
         raise ValueError(f"{kernel}: partials must be contiguous float64 of "
-                         f"{n_partials} at least")
+                         f"{need} at least")
 
 
 def k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, partials, *,
        max_iter: int, h1: float, h2: float) -> None:
     """K1-shard: pn = z + βp and ap = A(pn) over this rank's block, the
     rank's Σap·pn as per-block partials (``partials.sum()``): the port of
-    ``fused_sharded.py``'s K1."""
+    ``fused_sharded.py``'s K1, in f32 or in its bf16 form. The bf16 form
+    stores pn and ap a 4-byte word at a time, so d, pn and ap must start
+    on a 4-byte boundary; the windows may start anywhere."""
     if z_ext.device.type == "cpu":
         return k1_plain(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags,
                         partials, max_iter=max_iter, h1=h1, h2=h2)
     bm, bn = d.shape
     ext = dict(z_ext=z_ext, p_ext=p_ext, a_ext=a_ext, b_ext=b_ext)
-    _check(K1, {**ext, "d": d, "pn": pn, "ap": ap},
+    blocks = dict(d=d, pn=pn, ap=ap)
+    _check(K1, {**ext, **blocks},
            lambda name: (bm + 2, bn + 2) if name in ext else (bm, bn),
-           scal, flags, partials, partial_counts(bm, bn)[0])
+           scal, flags, partials, lambda dt: partial_counts(bm, bn, dt)[0])
+    form = DTYPES[z_ext.dtype]
+    if form == "bf16" and any(t.data_ptr() % 4 for t in blocks.values()):
+        raise ValueError(f"{K1}: the bf16 form stores aligned pairs of "
+                         "nodes; d, pn and ap must start at a multiple of "
+                         "4 bytes")
     lib = _build.load(LIBRARY, _SIGNATURES)
-    rc = lib.pe_fused_sharded_k1_f32(
+    rc = getattr(lib, f"pe_fused_sharded_k1_{form}")(
         z_ext.data_ptr(), p_ext.data_ptr(), a_ext.data_ptr(),
         b_ext.data_ptr(), d.data_ptr(), pn.data_ptr(), ap.data_ptr(),
         partials.data_ptr(), scal.data_ptr(), flags.data_ptr(), bm, bn,
-        max_iter, h1, h2, _build.stream_handle(z_ext.device))
-    _build.check(lib.pe_fused_sharded_error_string, K1, rc)
-    _build.count_launch(K1)
+        max_iter, ws.rounded(h1, z_ext.dtype), ws.rounded(h2, z_ext.dtype),
+        _build.stream_handle(z_ext.device))
+    counter = ws.counter(K1, form)
+    _build.check(lib.pe_fused_sharded_error_string, counter, rc)
+    _build.count_launch(counter)
 
 
 def k2(w, r, pn, ap, dinv, z, scal, flags, partials, *,
        max_iter: int) -> None:
     """K2-shard: α, the w, r, z updates and the rank's [Σz·r, Σ(Δw)²] as
     per-block partials (``partials.sum(0)``): the port of
-    ``fused_sharded.py``'s K2 (``ops/fused_pcg.py`` ``_k2_kernel``)."""
+    ``fused_sharded.py``'s K2 (``ops/fused_pcg.py`` ``_k2_kernel``), in
+    f32 or in its bf16 form."""
     if w.device.type == "cpu":
         return k2_plain(w, r, pn, ap, dinv, z, scal, flags, partials,
                         max_iter=max_iter)
     bm, bn = w.shape
     _check(K2, dict(w=w, r=r, pn=pn, ap=ap, dinv=dinv, z=z),
            lambda name: (bm, bn), scal, flags, partials,
-           2 * partial_counts(bm, bn)[1])
+           lambda dt: 2 * partial_counts(bm, bn, dt)[1])
+    form = DTYPES[w.dtype]
     lib = _build.load(LIBRARY, _SIGNATURES)
-    rc = lib.pe_fused_sharded_k2_f32(
+    rc = getattr(lib, f"pe_fused_sharded_k2_{form}")(
         w.data_ptr(), r.data_ptr(), pn.data_ptr(), ap.data_ptr(),
         dinv.data_ptr(), z.data_ptr(), partials.data_ptr(), scal.data_ptr(),
         flags.data_ptr(), bm, bn, max_iter, _build.stream_handle(w.device))
-    _build.check(lib.pe_fused_sharded_error_string, K2, rc)
-    _build.count_launch(K2)
+    counter = ws.counter(K2, form)
+    _build.check(lib.pe_fused_sharded_error_string, counter, rc)
+    _build.count_launch(counter)
 
 
 def _active(flags: torch.Tensor, max_iter: int) -> torch.Tensor:
@@ -235,9 +284,7 @@ def _masked(active: torch.Tensor, target: torch.Tensor,
 
 
 def _check_dtype(dtype: torch.dtype) -> None:
-    if dtype == torch.bfloat16:
-        raise unported("the bf16 fused-sharded iteration", "Queue A item 20b")
-    if dtype != torch.float32:
+    if dtype not in DTYPES:
         raise ValueError(
             "fused-sharded supports f32/bf16; use stencil_impl='xla' for f64"
         )
@@ -248,26 +295,31 @@ def _run(problem: Problem, mesh: Mesh, bm: int, bn: int, operands,
     """This rank's rotated loop, to the cap or ``limit``; returns
     (PCGResult over the owned block, host reads, bodies issued)."""
     a_blk, b_blk, d_blk, dinv_blk, rhs_blk = operands
-    ct = torch.float32
+    ct = rhs_blk.dtype
+    # each value held in float, rounded to the run dtype where stored; a
+    # reduced sum comes back in float (double, rounded once)
+    q = ws.rounder(ct)
+    f32 = torch.float32
     # the one coefficient halo exchange of the solve
     a_ext = halo_extend(a_blk, mesh)
     b_ext = halo_extend(b_blk, mesh)
-    h1t, h2t = spacing(problem.h1, rhs_blk), spacing(problem.h2, rhs_blk)
-    delta_t = spacing(problem.delta, rhs_blk)
+    h1t, h2t, delta_t = (ws.held(spacing(x, rhs_blk)) for x in
+                         (problem.h1, problem.h2, problem.delta))
     weighted = problem.norm == "weighted"
     cap = problem.max_iterations
     limit = cap if limit is None else min(int(limit), cap)
     # iteration 0: w = p = 0, β = 0, z = r·(1/D), as K2 forms z
     w = torch.zeros_like(rhs_blk)
     r = rhs_blk.clone()
-    z = r * dinv_blk
+    z = q(ws.held(r) * ws.held(dinv_blk)).to(ct)
     p = torch.zeros_like(rhs_blk)
     ap = torch.empty_like(rhs_blk)
     scal = torch.zeros(N_SCAL, dtype=ct, device=rhs_blk.device)
-    scal[SCAL_ZR] = mesh.reduce(rank_sums((z, r)), ct)[0] * h1t * h2t
+    zr0 = mesh.reduce(rank_sums((ws.held(z), ws.held(r))), f32)[0]
+    scal[SCAL_ZR] = q(q(zr0) * h1t * h2t)
     scal[SCAL_DIFF] = float("inf")
     flags = torch.zeros(N_FLAGS, dtype=torch.int32, device=rhs_blk.device)
-    part1, part2 = scratch(bm, bn, rhs_blk.device)
+    part1, part2 = scratch(bm, bn, rhs_blk.device, ct)
     consts = dict(max_iter=limit)
     bodies = [0]
 
@@ -278,15 +330,15 @@ def _run(problem: Problem, mesh: Mesh, bm: int, bn: int, operands,
         # K1 reads the exchanged copies, so pn is written over p
         k1(zp[0], zp[1], a_ext, b_ext, d_blk, p, ap, scal, flags, part1,
            h1=problem.h1, h2=problem.h2, **consts)
-        denom = mesh.reduce(part1.sum()[None], ct)[0] * h1t * h2t
+        denom = q(q(mesh.reduce(part1.sum()[None], f32)[0]) * h1t * h2t)
         _masked(active, scal[SCAL_DENOM], denom)
         _masked(active, flags[FLAG_PENDING_BREAKDOWN],
                 ws.below_guard(denom, ct).to(flags.dtype))
         k2(w, r, p, ap, dinv_blk, z, scal, flags, part2, **consts)
-        sums = mesh.reduce(part2.sum(0), ct)
+        sums = q(mesh.reduce(part2.sum(0), f32))
         new_scal, new_flags = scal.clone(), flags.clone()
-        rotated_next_state(new_scal, new_flags, sums[0] * h1t * h2t, sums[1],
-                           h1t, h2t, delta_t, weighted, lambda x: x)
+        rotated_next_state(new_scal, new_flags, q(sums[0] * h1t * h2t),
+                           sums[1], h1t, h2t, delta_t, weighted, q)
         _masked(active, scal, new_scal)
         _masked(active, flags, new_flags)
 
@@ -306,7 +358,7 @@ def build_fused_sharded_solver(problem: Problem, mesh: Mesh | None = None,
     """(solver, args) for this rank's part of the fused mesh-sharded solve.
 
     args = (a, b, d, dinv, rhs), this rank's blocks of the host-f64
-    operand set rounded once to f32 (d and dinv from
+    operand set rounded once to ``dtype``, f32 or bf16 (d and dinv from
     ``ops.fused_pcg.interior_normalized``, as in the JAX package)."""
     if geometry is not None or theta is not None:
         raise unported("geometry=/theta=", "Queue A item 11")

@@ -387,6 +387,8 @@ def solve_report(problem: Problem, dtype=torch.float32,
         per_rank = [None] * mesh.world
         dist.all_gather_object(per_rank, counts)
     w = gather_w(problem, mesh, result.w)
+    # numpy has no bf16: a bf16 w crosses as its exact f32 widening
+    w = w if w.dtype.itemsize >= 4 else w.float()
     return dict(
         w=w.cpu().numpy(), block=tuple(result.w.shape),
         iters=int(result.iters), converged=bool(result.converged),

@@ -65,11 +65,12 @@ other engine, ``auto`` included, refuses it with the JAX error.
 
 bf16 compute (``dtype=torch.bfloat16``) runs on ``xla``, ``fused`` (K-b
 and K-c in bf16), ``resident``, ``streamed`` and ``xl`` (their bf16
-forms), and on the single-device loops ``pallas``, ``pipelined``,
+forms), on the single-device loops ``pallas``, ``pipelined``,
 ``pipelined-pallas``, ``sstep`` and ``sstep-pallas`` (K-a's and K-d's
-bf16 forms), as the JAX ``build_solver`` runs them; the batched kernel
-engines are f32 only and the plain batched ones f32/f64 (ROADMAP Queue A
-item 20b).
+bf16 forms), and on the lane-batched ``batched``, ``batched-pipelined``,
+``batched-pallas`` and ``batched-pipelined-pallas`` (K-e's and K-f's bf16
+forms), as the JAX ``build_solver`` runs them. f64 runs on the plain
+engines only: the kernel engines refuse it.
 """
 
 from __future__ import annotations
@@ -143,16 +144,14 @@ ENGINE_CAPS = {
     "sstep-pallas": dict(family="sstep", kernels=("stencil",), capacity=None,
                          dtypes=_F32_BF16, storage=True),
     "batched": dict(family="batched", kernels=(), capacity=None,
-                    dtypes=(torch.float32, torch.float64), storage=True),
+                    dtypes=_ALL, storage=True),
     "batched-pipelined": dict(family="batched", kernels=(), capacity=None,
-                              dtypes=(torch.float32, torch.float64),
-                              storage=False),
+                              dtypes=_ALL, storage=False),
     "batched-pallas": dict(family="batched", kernels=("batched_stencil",),
-                           capacity=None, dtypes=(torch.float32,),
-                           storage=False),
+                           capacity=None, dtypes=_F32_BF16, storage=False),
     "batched-pipelined-pallas": dict(
         family="batched", kernels=("batched_stencil", "batched_stencil_dots"),
-        capacity=None, dtypes=(torch.float32,), storage=False),
+        capacity=None, dtypes=_F32_BF16, storage=False),
 }
 
 ENGINES = ("auto",) + tuple(ENGINE_CAPS)

@@ -268,6 +268,50 @@ def test_f32_general_grid_classical_counts_and_pipelined_band(engine_name):
     assert got.converged.all()
 
 
+@pytest.mark.parametrize("stencil", ["xla", "pallas"])
+def test_bf16_lane_pipelined_takes_the_jax_triple_at_40(stencil):
+    """The bf16 lane-pipelined engine at 40², B = 2, δ = 1e-4 on the
+    engine's tiled operands: every lane gives the JAX engine's (iterations,
+    converged, breakdown), (1521, False, False). With the f32 cadence of
+    32 iterations between residual replacements (where the single-device
+    engines of both packages replace every 8 at bf16), the recurrence grew
+    without bound and the K-f plain version's once-rounded stencil broke
+    down at iteration 14 (ROADMAP Queue C)."""
+    problem = Problem(M=40, N=40, delta=1e-4)
+    ours = bp.batched_operands(problem, 2, torch.bfloat16, "cpu")
+    theirs = jax_bp.batched_operands(_jax_problem(problem), 2, jnp.bfloat16)
+    got = bpp.pcg_batched_pipelined(problem, *ours, stencil=stencil)
+    ref = jax_bpp.pcg_batched_pipelined(_jax_problem(problem), *theirs,
+                                        stencil=stencil, interpret=True)
+    want = [(int(i), bool(c), bool(b)) for i, c, b in
+            zip(*(np.asarray(x) for x in (ref.iters, ref.converged,
+                                          ref.breakdown)))]
+    triples = list(zip(got.iters.tolist(), got.converged.tolist(),
+                       got.breakdown.tolist()))
+    assert triples == want == [(1521, False, False)] * 2
+    assert got.w.dtype == torch.bfloat16 and not got.quarantined.any()
+
+
+@pytest.mark.parametrize("stencil", ["xla", "pallas"])
+def test_bf16_lanes_are_bitwise_the_single_pipelined_solve(stencil):
+    """Lanes of distinct right-hand sides at bf16: each lane is the
+    single-device bf16 pipelined engine on its own right-hand side, bit for
+    bit in w and in (iterations, breakdown): one residual-replacement
+    cadence, the per-lane sums the single engine's sums."""
+    from poisson_ellipse_tpu_torch.ops import pipelined_pcg as pp
+
+    problem = Problem(M=40, N=40, delta=1e-4)
+    (a, b, rhs), _ = _operands(problem, 2, torch.float64)
+    a, b, rhs = (x.to(torch.bfloat16) for x in (a, b, rhs))
+    got = bpp.pcg_batched_pipelined(problem, a, b, rhs, stencil=stencil)
+    for lane in range(2):
+        one = pp.pcg_pipelined(problem, a, b, rhs[lane].contiguous(),
+                               stencil=stencil)
+        assert (got.iters[lane].item(), got.breakdown[lane].item()) == (
+            int(one.iters), bool(one.breakdown))
+        assert torch.equal(got.w[lane], one.w)
+
+
 @pytest.mark.parametrize("engine_name", list(MODULES))
 def test_lane_is_bitwise_the_single_solve_on_the_cpu(engine_name):
     """On the CPU the per-lane sums add in the order of the single
@@ -554,6 +598,12 @@ def test_build_solver_lane_rules():
     for name in ("batched-pallas", "batched-pipelined-pallas"):
         with pytest.raises(ValueError, match="does not run"):
             engine.build_solver(problem, name, torch.float64, "cpu", lanes=2)
+        # the kernels' bf16 forms: admitted, bf16 lanes out
+        solver, args, resolved = engine.build_solver(
+            problem, name, torch.bfloat16, "cpu", lanes=2)
+        assert resolved == name and all(
+            a.dtype == torch.bfloat16 for a in args)
+        assert solver(*args).w.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="Queue A item 11"):
         engine.build_solver(problem, "batched", torch.float32, "cpu",
                             lanes=2, geometry="ellipse")

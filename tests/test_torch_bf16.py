@@ -381,14 +381,18 @@ def test_harness_runs_bf16(capsys):
                      "--device", "cpu", "--json"]) == 0
     out = json.loads(capsys.readouterr().out)
     assert out["dtype"] == "bf16" and out["engine"] == "xla"
-    # bf16 reaches the kernel loops too (tests/test_torch_bf16_loops.py);
-    # the batched kernel engines still refuse it (ROADMAP Queue A 20b)
+    # bf16 reaches the kernel loops too (tests/test_torch_bf16_loops.py),
+    # and the batched kernel engines (K-e's bf16 form)
     assert cli_main(["20", "20", "--dtype", "bf16", "--engine", "pallas",
                      "--device", "cpu", "--json"]) == 0
     out = json.loads(capsys.readouterr().out)
     assert out["dtype"] == "bf16" and out["engine"] == "pallas"
     assert cli_main(["20", "20", "--dtype", "bf16", "--engine",
-                     "batched-pallas", "--device", "cpu"]) == 2
+                     "batched-pallas", "--lanes", "2", "--device", "cpu",
+                     "--json"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert (out["dtype"], out["engine"], out["lanes"]) == (
+        "bf16", "batched-pallas", 2) and out["converged"]
 
 
 def test_auto_with_a_storage_dtype_is_refused_as_in_jax():

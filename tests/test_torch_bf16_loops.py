@@ -294,9 +294,11 @@ def test_engine_rows_open_bf16(name):
     assert resolved == name and all(a.dtype == BF16 for a in args)
     got = solver(*args)
     assert got.w.dtype == BF16 and int(got.iters) > 0
-    # the batched kernel engines stay f32 (ROADMAP Queue A item 20b)
+    # the batched kernel engines run bf16 too (K-e's and K-f's bf16
+    # forms), f64 not
     for other in ("batched-pallas", "batched-pipelined-pallas"):
-        assert BF16 not in engine.ENGINE_CAPS[other]["dtypes"]
+        assert BF16 in engine.ENGINE_CAPS[other]["dtypes"]
+        assert torch.float64 not in engine.ENGINE_CAPS[other]["dtypes"]
 
 
 def test_roofline_counts_the_bf16_loops_at_two_bytes():

@@ -1305,6 +1305,8 @@ def _count_activities() -> dict:
     for form in MARCH_FORMS:
         counts[f"K-a {form}"] = device_activities(_march_call(form, dev))
     counts["K1 bf16"] = device_activities(_k1_bf16_call(dev)[0])
+    for name, call in _lane_mesh_bf16_calls(dev).items():
+        counts[name] = device_activities(call)
     return counts
 
 
@@ -1707,3 +1709,244 @@ def test_k1_bf16_march_in_a_cuda_graph(cuda, warm):
 
 def test_k1_bf16_march_issues_one_device_kernel(cuda, activities):
     assert activities["K1 bf16"] == 1
+
+
+# -- bf16 on the lane-batched engines and on the fused mesh ------------------
+
+BF16 = torch.bfloat16
+# K-e and K-f bf16 at their path's shapes (401x601 B = 32, 801x1201 B = 8)
+# and ragged ones
+BATCHED_BF16_SHAPES = [(44, 132, 3), (130, 20, 2), (2, 2, 1), (400, 600, 32),
+                       (800, 1200, 8)]
+# K1-shard bf16: a rank's 1201x1601 block (bn + 2 odd) and 1200x1600 (even),
+# a 1x1 block, ragged ones of both parities
+SHARD_BF16_BLOCKS = [(1201, 1601), (1200, 1600), (1, 1), (7, 5), (8, 9),
+                     (33, 62)]
+
+
+def _bf16_lane_inputs(M, N, B, dev, seed=0):
+    g = (M + 1, N + 1)
+    w = _rand((B,) + g, dev, seed, BF16)
+    a, b = _rand(g, dev, seed + 1, BF16, lo=0.5), _rand(g, dev, seed + 2,
+                                                          BF16, lo=0.5)
+    ops = [_rand((B,) + g, dev, seed + 10 + i, BF16) for i in range(5)]
+    return w, a, b, ops
+
+
+@pytest.mark.parametrize("form", ["full", "block"])
+@pytest.mark.parametrize("M,N,B", BATCHED_BF16_SHAPES)
+def test_batched_stencil_bf16_is_its_plain_version_and_k_a_bf16(cuda, M, N,
+                                                                 B, form):
+    """K-e bf16 bitwise its plain version and, lane by lane, K-a bf16, on
+    seeded, +0, -0 and zero-exterior iterates."""
+    from chip_smoke import signed_zero_inputs
+
+    w, a, b, _ = _bf16_lane_inputs(M, N, B, cuda)
+    h1, h2 = 2.0 / M, 1.2 / N
+    if form == "full":
+        kernel, plain, single = (hk.apply_a_batched_kernel,
+                                 hk.apply_a_batched_plain, hk.apply_a_kernel)
+    else:
+        kernel, plain, single = (hk.apply_a_batched_block_kernel,
+                                 hk.apply_a_block_plain,
+                                 hk.apply_a_block_kernel)
+    for x in [w, *signed_zero_inputs(w, seed=2).values()]:
+        _build.reset_launches()
+        got = kernel(x, a, b, h1, h2)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"batched_stencil_bf16": 1}
+        assert got.dtype == BF16 and _same_bits(got, plain(x, a, b, h1, h2))
+        for lane in range(B):
+            assert _same_bits(got[lane], single(x[lane].contiguous(), a, b,
+                                                h1, h2))
+
+
+@pytest.mark.parametrize("M,N,B", BATCHED_BF16_SHAPES)
+def test_batched_stencil_dots_bf16_is_its_plain_version_and_k_d_bf16(cuda, M,
+                                                                      N, B):
+    """K-f bf16: n and sums bitwise its plain version (both round the
+    double sums once), lane by lane K-d bf16, and the bundle's compiled
+    table and the generic one the same bits."""
+    w, a, b, ops = _bf16_lane_inputs(M, N, B, cuda)
+    h1, h2 = 2.0 / M, 1.2 / N
+    def table(n_pairs, operands):
+        return (pp._bundle(*operands) if n_pairs == 8
+                else _dots_pairs(n_pairs, operands))
+
+    for n_pairs in (1, 8):
+        pairs = table(n_pairs, ops)
+        _build.reset_launches()
+        n, sums = hk.apply_a_dots_batched_kernel(w, a, b, h1, h2, pairs)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"batched_stencil_dots_bf16": 1}
+        assert sums.shape == (n_pairs, B) and sums.dtype == BF16
+        n_p, sums_p = hk.apply_a_dots_batched_plain(w, a, b, h1, h2, pairs)
+        assert _same_bits(n, n_p) and _same_bits(sums, sums_p)
+        gen_n, gen_sums = hk.apply_a_dots_batched_kernel(w, a, b, h1, h2,
+                                                         _swapped(pairs))
+        assert _same_bits(gen_n, n) and _same_bits(gen_sums, sums)
+        for lane in range(B):
+            # the same table on one lane: its aliases stay aliases
+            lane_pairs = table(n_pairs, [o[lane].contiguous() for o in ops])
+            n_l, sums_l = hk.apply_a_dots_kernel(w[lane].contiguous(), a, b,
+                                                 h1, h2, lane_pairs)
+            assert _same_bits(n[lane], n_l)
+            assert _same_bits(sums[:, lane], sums_l)
+
+
+@pytest.mark.parametrize("engine_name,counters", [
+    ("batched-pallas", ("batched_stencil_bf16",)),
+    ("batched-pipelined-pallas", ("batched_stencil_bf16",
+                                  "batched_stencil_dots_bf16")),
+])
+def test_batched_bf16_kernel_engines_on_the_card(cuda, engine_name,
+                                                 counters):
+    """40², δ = 1e-4, three identical lanes: only the bf16 forms launch,
+    every lane takes the same count, batched-pallas converges within 3 of
+    32 (the CPU's and the JAX package's count)."""
+    problem = Problem(M=40, N=40, delta=1e-4)
+    solver, args, _ = engine.build_solver(problem, engine_name, BF16, cuda,
+                                          lanes=3)
+    _build.reset_launches()
+    got = solver(*args)
+    torch.cuda.synchronize()
+    assert set(_build.LAUNCHES) == set(counters)
+    assert got.w.dtype == BF16 and len(set(got.iters.tolist())) == 1
+    if engine_name == "batched-pallas":
+        assert got.converged.all() and abs(int(got.iters[0]) - 32) <= 3
+
+
+def _shard_bf16_inputs(bm, bn, dev, seed=0):
+    """``_shard_inputs`` rounded to bf16, with the windows z and p as the
+    halo exchange hands them over: the two halves of one stacked tensor,
+    so p starts mid-word when (bm+2)(bn+2) is odd."""
+    inp = {k: (v.to(BF16) if v.is_floating_point() else v)
+           for k, v in _shard_inputs(bm, bn, dev, seed).items()}
+    zp = torch.stack([inp["z"], inp["p"]])
+    inp["z"], inp["p"] = zp[0], zp[1]
+    return inp
+
+
+def _shard_bf16_run(inp, k1, k2, partials):
+    bm, bn = inp["d"].shape
+    pn, ap = (torch.full((bm, bn), 7.0, dtype=BF16, device=inp["d"].device)
+              for _ in range(2))
+    k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap, inp["scal"],
+       inp["flags"], partials[0], max_iter=NEVER, h1=0.05, h2=0.03)
+    w, r, z = inp["w"].clone(), inp["r"].clone(), torch.full_like(pn, 7.0)
+    k2(w, r, pn, ap, inp["dinv"], z, inp["scal"], inp["flags"], partials[1],
+       max_iter=NEVER)
+    return (pn, ap, w, r, z, partials[0].sum(), partials[1].sum(0))
+
+
+@pytest.mark.parametrize("bm,bn", SHARD_BF16_BLOCKS)
+def test_fused_sharded_bf16_kernels_match_plain(cuda, bm, bn):
+    """K1-shard and K2-shard bf16: arrays bitwise their plain versions;
+    the rank's sums, in double, equal once rounded to f32."""
+    inp = _shard_bf16_inputs(bm, bn, cuda)
+    assert (inp["p"].data_ptr() % 4 == 0) == ((bm + 2) * (bn + 2) % 2 == 0)
+    _build.reset_launches()
+    got = _shard_bf16_run(inp, fs.k1, fs.k2, fs.scratch(bm, bn, cuda, BF16))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"fused_sharded_k1_bf16": 1,
+                                     "fused_sharded_k2_bf16": 1}
+    one = (torch.zeros(1, dtype=torch.float64, device=cuda),
+           torch.zeros((1, 2), dtype=torch.float64, device=cuda))
+    want = _shard_bf16_run(inp, fs.k1_plain, fs.k2_plain, one)
+    for x, y in zip(got[:5], want[:5]):
+        assert x.dtype == BF16 and _same_bits(x, y)
+    for x, y in zip(got[5:], want[5:]):
+        assert torch.equal(x.float(), y.float())
+    # the ring: ap is exactly 0 where d is 0
+    assert torch.all(got[1][0, :] == 0) and torch.all(got[1][:, 0] == 0)
+
+
+def test_fused_sharded_bf16_kernels_do_nothing_after_exit(cuda):
+    for flag in (fp.FLAG_CONVERGED, fp.FLAG_BREAKDOWN, fp.FLAG_K):
+        inp = _shard_bf16_inputs(45, 71, cuda)
+        inp["flags"][flag] = 5
+        parts = fs.scratch(45, 71, cuda, BF16)
+        parts[0].fill_(3.0)
+        parts[1].fill_(3.0)
+        pn, ap = (torch.full((45, 71), 7.0, dtype=BF16, device=cuda)
+                  for _ in range(2))
+        w, r, z = inp["w"].clone(), inp["r"].clone(), torch.full_like(pn, 7.0)
+        fs.k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap,
+              inp["scal"], inp["flags"], parts[0], max_iter=5, h1=0.05,
+              h2=0.03)
+        fs.k2(w, r, pn, ap, inp["dinv"], z, inp["scal"], inp["flags"],
+              parts[1], max_iter=5)
+        torch.cuda.synchronize()
+        assert torch.all(pn == 7.0) and torch.all(ap == 7.0)
+        assert torch.equal(w, inp["w"]) and torch.equal(r, inp["r"])
+        assert torch.all(z == 7.0)
+        assert torch.all(parts[0] == 3.0) and torch.all(parts[1] == 3.0)
+
+
+def test_fused_sharded_bf16_refuses_blocks_off_a_4_byte_boundary(cuda):
+    inp = _shard_bf16_inputs(7, 5, cuda)
+    buf = torch.zeros(1 + 35, dtype=BF16, device=cuda)
+    off = buf[1:].view(7, 5)
+    parts = fs.scratch(7, 5, cuda, BF16)
+    with pytest.raises(ValueError, match="4 bytes"):
+        fs.k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], off,
+              torch.empty_like(off), inp["scal"], inp["flags"], parts[0],
+              max_iter=NEVER, h1=0.05, h2=0.03)
+
+
+def test_sharded_fused_bf16_on_one_and_two_ranks(cuda):
+    """fused bf16 at 400x600 on 1x1 (NCCL) and 1x2 (two ranks sharing the
+    card over gloo): the same count (each reduction adds the rank sums in
+    double and rounds once), converged at bf16's floor as single-device
+    bf16 pallas, whose stencil tree K1-shard computes (single-device
+    fused's normalised stencil ends early in bf16, in both packages), and
+    K1-shard and K2-shard bf16 once a body."""
+    from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+    problem = Problem(M=400, N=600, max_iter=2048)
+    single = engine.solve(problem, "pallas", BF16, device=cuda)
+    reports = [run_once(problem, mode="sharded", engine="fused",
+                        dtype="bf16", mesh_shape=shape)
+               for shape in ((1, 1), (1, 2))]
+    assert [r.backend for r in reports] == ["nccl", "gloo"]
+    assert reports[0].iters == reports[1].iters
+    for report in reports:
+        assert report.dtype == "bf16" and report.converged
+        assert not report.breakdown and bool(single.converged)
+        assert report.l2_error < 3e-2
+        for launches in report.rank_launches:
+            assert launches == {"fused_sharded_k1_bf16": report.bodies,
+                                "fused_sharded_k2_bf16": report.bodies}
+    assert float(l2_error_vs_analytic(problem, single.w)) < 3e-2
+
+
+def _lane_mesh_bf16_calls(dev) -> dict:
+    """One call of each bf16 form of this slice at its path's shape: K-e
+    and K-f at 401x601 with B = 32, K1-shard and K2-shard on a 1201x1601
+    block (chip_smoke.py phase 8 and 11 count the same)."""
+    w, a, b, ops = _bf16_lane_inputs(400, 600, 32, dev)
+    pairs = pp._bundle(*ops)
+    inp = _shard_bf16_inputs(1201, 1601, dev)
+    parts = fs.scratch(1201, 1601, dev, BF16)
+    pn, ap = (torch.empty((1201, 1601), dtype=BF16, device=dev)
+              for _ in range(2))
+    w2, r2, z2 = inp["w"].clone(), inp["r"].clone(), torch.empty_like(pn)
+    return {
+        "K-e bf16": lambda: hk.apply_a_batched_kernel(w, a, b, 0.005, 0.002),
+        "K-f bf16": lambda: hk.apply_a_dots_batched_kernel(w, a, b, 0.005,
+                                                           0.002, pairs),
+        "K1-shard bf16": lambda: fs.k1(
+            inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap,
+            inp["scal"], inp["flags"], parts[0], max_iter=NEVER, h1=0.05,
+            h2=0.03),
+        "K2-shard bf16": lambda: fs.k2(
+            w2, r2, pn, ap, inp["dinv"], z2, inp["scal"], inp["flags"],
+            parts[1], max_iter=NEVER),
+    }
+
+
+@pytest.mark.parametrize("name", ["K-e bf16", "K-f bf16", "K1-shard bf16",
+                                  "K2-shard bf16"])
+def test_lane_and_mesh_bf16_forms_issue_one_device_kernel(cuda, activities,
+                                                          name):
+    assert activities[name] == 1

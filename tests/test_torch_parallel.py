@@ -333,28 +333,39 @@ def _round_up(n, m):
     return -(-n // m) * m
 
 
-@pytest.fixture(scope="module")
-def shard_inputs():
+def _shard_inputs(jdtype):
     """One rank's (rank 3 of 2x2) inputs at 40², from the JAX package's
-    fused-sharded operand set through the interop, and seeded z, p."""
+    fused-sharded operand set at ``jdtype`` through the interop (a bf16
+    set bit for bit), and seeded z, p rounded once to it."""
     problem = Problem(M=40, N=40)
     jp = _jax_problem(40, 40)
     jm = _jax_mesh(2, 2)
     g1p, g2p = jfs.padded_dims_fused(jp.node_shape, jm)
     spec = P(jmesh.AXIS_X, jmesh.AXIS_Y)
     a, b, d, dinv, rhs = (np.asarray(x) for x in jfs._fused_sharded_args(
-        jp, jm, jnp.float32, g1p, g2p, spec))
+        jp, jm, jdtype, g1p, g2p, spec))
     rng = np.random.default_rng(7)
     interior = np.zeros(problem.node_shape, bool)
     interior[1:-1, 1:-1] = True
     z, p = (np.pad(np.where(interior, rng.standard_normal(interior.shape),
                             0.0).astype(np.float32),
-                   ((0, g1p - 41), (0, g2p - 41))) for _ in range(2))
+                   ((0, g1p - 41), (0, g2p - 41))).astype(jdtype)
+            for _ in range(2))
     ext = interop.sharded_operands_from_reference(
         problem, (z, p, a, b), (2, 2), 3, halo=1, device="cpu")
     blk = interop.sharded_operands_from_reference(
         problem, (d, dinv, rhs, z), (2, 2), 3, device="cpu")
     return problem, ext, blk
+
+
+@pytest.fixture(scope="module")
+def shard_inputs():
+    return _shard_inputs(jnp.float32)
+
+
+@pytest.fixture(scope="module")
+def shard_inputs_bf16():
+    return _shard_inputs(jnp.bfloat16)
 
 
 def _jax_pad(x, rows, cols):
@@ -446,6 +457,137 @@ def test_k1_k2_shard_do_nothing_after_exit(shard_inputs):
     assert not p1.any() and not p2.any()
 
 
+# -- K1-shard and K2-shard bf16 ------------------------------------------------
+#
+# The bf16 forms compute in float and round once where they store; the JAX
+# kernels in interpret mode round every operation in bf16. β = 0.5 makes
+# β·p exact, so pn = z + βp is one rounding in both and equal bit for bit;
+# ap then differs only by the stencil's rounding points, within 2⁻⁵ of its
+# term magnitude (the K-a bf16 tolerance, tests/test_torch_bf16_loops.py);
+# w, r and z within 2⁻⁶ of their scale (JAX rounds α·pn and α·ap before
+# adding: two roundings where the port has one); each sum within 2⁻⁶ of
+# Σ|x·y| (JAX rounds each product and its accumulator to bf16).
+
+BF16 = torch.bfloat16
+BF16_TERM_TOL = 2.0**-5
+BF16_ARRAY_TOL = 2.0**-6
+BF16_SUM_TOL = 2.0**-6
+
+
+def _bf16_port(x) -> torch.Tensor:
+    return interop.tensor_from_numpy(np.asarray(x))
+
+
+def _bf16_jax_pad(x, rows, cols):
+    return jnp.asarray(np.pad(x.float().numpy(),
+                              ((0, rows - x.shape[0]), (0, cols - x.shape[1]))),
+                       jnp.bfloat16)
+
+
+def _stencil_terms(w, a, b, h1, h2) -> torch.Tensor:
+    """Σ|coefficient·difference|/h² at each owned node of a window."""
+    w, a, b = (x.double() for x in (w, a, b))
+    h1, h2 = (float(torch.tensor(h, dtype=BF16)) for h in (h1, h2))
+    wc = w[1:-1, 1:-1]
+    return (((a[2:, 1:-1] * (w[2:, 1:-1] - wc)).abs()
+             + (a[1:-1, 1:-1] * (wc - w[:-2, 1:-1])).abs()) / h1**2
+            + ((b[1:-1, 2:] * (w[1:-1, 2:] - wc)).abs()
+               + (b[1:-1, 1:-1] * (wc - w[1:-1, :-2])).abs()) / h2**2)
+
+
+def test_k1_shard_bf16_plain_matches_jax_kernel(shard_inputs_bf16):
+    problem, (z_ext, p_ext, a_ext, b_ext), (d, *_rest) = shard_inputs_bf16
+    assert z_ext.dtype == d.dtype == BF16
+    bm, bn = d.shape
+    beta = 0.5
+    scal = torch.zeros(fp.N_SCAL, dtype=BF16)
+    scal[fp.SCAL_BETA] = beta
+    flags = torch.zeros(fp.N_FLAGS, dtype=torch.int32)
+    pn, ap = (torch.empty(bm, bn, dtype=BF16) for _ in range(2))
+    part = fs.scratch(bm, bn, "cpu", BF16)[0]
+    fs.k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, part,
+          max_iter=10, h1=problem.h1, h2=problem.h2)
+    bma, bna = _round_up(bm, 8), _round_up(bn, 128)
+    kern = jfs.build_shard_kernels(bma, bna, problem.h1, problem.h2,
+                                   jnp.bfloat16, True)
+    jpn, jap, jden = kern.k1(
+        jnp.bfloat16(beta), _bf16_jax_pad(d, bma, bna),
+        *(_bf16_jax_pad(x, bma + 8, bna + 128) for x in (z_ext, p_ext,
+                                                          a_ext, b_ext)))
+    jpn, jap = (_bf16_port(x)[:bm, :bn] for x in (jpn, jap))
+    assert torch.equal(pn.view(torch.int16), jpn.view(torch.int16))
+    pn_w = (z_ext.float() + beta * p_ext.float()).to(BF16)
+    terms = _stencil_terms(pn_w, a_ext, b_ext, problem.h1, problem.h2)
+    gap = (ap.double() - jap.double()).abs()
+    assert bool((gap <= BF16_TERM_TOL * terms).all())
+    assert not ap[d.float() == 0].float().any()
+    # the form's definition: the tree in float on the rounded pn, once
+    exact = float((ap.double() * pn.double()).sum())
+    assert float(part.sum()) == exact
+    mag = float((ap.double() * pn.double()).abs().sum())
+    assert abs(float(jden[0]) - exact) <= BF16_SUM_TOL * mag
+
+
+def test_k2_shard_bf16_plain_matches_jax_kernel(shard_inputs_bf16):
+    problem, _ext, (d, dinv, rhs, _z) = shard_inputs_bf16
+    bm, bn = d.shape
+    rng = np.random.default_rng(11)
+    w, pn, ap = (torch.from_numpy(rng.standard_normal((bm, bn))).to(BF16)
+                 for _ in range(3))
+    zr, denom = 1.25, 3.5
+    scal = torch.zeros(fp.N_SCAL, dtype=BF16)
+    scal[fp.SCAL_ZR], scal[fp.SCAL_DENOM] = zr, denom
+    flags = torch.zeros(fp.N_FLAGS, dtype=torch.int32)
+    ww, rr, zz = w.clone(), rhs.clone(), torch.empty(bm, bn, dtype=BF16)
+    part = fs.scratch(bm, bn, "cpu", BF16)[1]
+    fs.k2(ww, rr, pn, ap, dinv, zz, scal, flags, part, max_iter=10)
+    assert ww.dtype == rr.dtype == zz.dtype == BF16
+    bma, bna = _round_up(bm, 8), _round_up(bn, 128)
+    kern = jfs.build_shard_kernels(bma, bna, problem.h1, problem.h2,
+                                   jnp.bfloat16, True)
+    jw, jr, jz, jsums = kern.k2(
+        jnp.bfloat16(zr), jnp.bfloat16(denom),
+        *(_bf16_jax_pad(x, bma, bna) for x in (w, rhs, pn, ap, dinv)))
+    for got, want in ((ww, jw), (rr, jr), (zz, jz)):
+        want = _bf16_port(want)[:bm, :bn].double()
+        gap = (got.double() - want).abs().max()
+        assert float(gap) <= BF16_ARRAY_TOL * float(want.abs().max())
+    # the form's definition: α, w, r, z in float, each rounded once
+    alpha = float(torch.tensor(zr / denom, dtype=torch.float32).to(BF16))
+    w_new = (w.float() + alpha * pn.float()).to(BF16)
+    r_new = (rhs.float() - alpha * ap.float()).to(BF16)
+    z_new = (r_new.float() * dinv.float()).to(BF16)
+    for got, want in ((ww, w_new), (rr, r_new), (zz, z_new)):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    dw = w_new.float() - w.float()
+    pairs = ((z_new.float() * r_new.float()).double(), (dw * dw).double())
+    for got, want, terms in zip(part.sum(0), np.asarray(jsums, np.float64),
+                                pairs):
+        assert float(got) == float(terms.sum())
+        assert abs(float(got) - want) <= BF16_SUM_TOL * float(
+            terms.abs().sum())
+
+
+def test_k1_k2_shard_bf16_do_nothing_after_exit(shard_inputs_bf16):
+    problem, (z_ext, p_ext, a_ext, b_ext), (d, dinv, rhs, _z) = (
+        shard_inputs_bf16)
+    bm, bn = d.shape
+    scal = torch.zeros(fp.N_SCAL, dtype=BF16)
+    flags = torch.zeros(fp.N_FLAGS, dtype=torch.int32)
+    flags[fp.FLAG_BREAKDOWN] = 1
+    pn, ap = (torch.full((bm, bn), 7.0, dtype=BF16) for _ in range(2))
+    p1, p2 = fs.scratch(bm, bn, "cpu", BF16)
+    fs.k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, p1,
+          max_iter=10, h1=problem.h1, h2=problem.h2)
+    w, r = torch.ones(bm, bn, dtype=BF16), rhs.clone()
+    z = torch.full((bm, bn), 7.0, dtype=BF16)
+    fs.k2(w, r, pn, ap, dinv, z, scal, flags, p2, max_iter=10)
+    assert torch.all(pn == 7.0) and torch.all(ap == 7.0)
+    assert torch.all(w == 1.0) and torch.equal(r, rhs)
+    assert torch.all(z == 7.0)
+    assert not p1.any() and not p2.any()
+
+
 # -- the harness --------------------------------------------------------------
 
 
@@ -527,10 +669,13 @@ def _mesh1():
 
 
 def test_fused_sharded_rejects_f64_and_defers_bf16():
+    """f64 raises with the JAX text; bf16, once deferred, now solves."""
     with pytest.raises(ValueError, match="f32/bf16"):
         fs.solve_fused_sharded(Problem(M=10, N=10), _mesh1(), torch.float64)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        fs.solve_fused_sharded(Problem(M=10, N=10), _mesh1(), torch.bfloat16)
+    got = fs.solve_fused_sharded(Problem(M=10, N=10), _mesh1(),
+                                 torch.bfloat16)
+    assert got.w.dtype == torch.bfloat16 and bool(got.converged)
+    assert int(got.iters) > 0 and not bool(got.breakdown)
 
 
 def test_fused_sharded_rejects_device_assembly():
