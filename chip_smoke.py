@@ -92,7 +92,7 @@ result line):
               lane-quarantine event, the healthy lanes bitwise a clean
               batch's. Then K-e and K-f timed against their bounds, solves/s
               of batched-pallas and batched at 400x600 and 800x1200 for
-              lanes 8 and 32, of batched-pipelined-pallas at 32 lanes,
+              lanes 1, 8 and 32, of batched-pipelined-pallas at 32 lanes,
               beside B sequential auto (resident) solves, and one
               torch.profiler breakdown of batched-pallas at 400x600, B = 32.
               Whether lane 0 is bitwise the single pallas / xla solve is
@@ -175,8 +175,9 @@ result line):
               as the command line runs it in every rank; each run's counts
               set to 0 just before its timed solve and read just after):
               fused on a 1x1 mesh over NCCL at 2400x3200 (2449 +- 2, l2 <
-              1e-3); on 2x2, four ranks sharing the card over gloo, fused,
-              xla and pallas at 400x600 (546 +- 2); the
+              1e-3); on 2x2, four ranks sharing the card over gloo, fused
+              and xla at 400x600 and 800x1200 (546 / 989 +- 2), fused at
+              2400x3200 (2449 +- 2), pallas at 400x600 (546 +- 2); the
               command line with --mesh 1 2 --dtype f64 at 40x40 (exactly
               50). On every rank: K1-shard and K2-shard (K-a for pallas)
               once per issued body, 1 halo exchange and 2 reductions per
@@ -1379,7 +1380,7 @@ BATCHED_KERNEL_CASES = (((44, 132), 3), ((400, 600), 32), ((800, 1200), 8),
                         (MAIN_GRID, 2))
 BATCHED_ORACLE = (((400, 600), 32, 546), ((800, 1200), 8, 989))
 THROUGHPUT_GRIDS = ((400, 600), (800, 1200))
-THROUGHPUT_LANES = (8, 32)
+THROUGHPUT_LANES = (1, 8, 32)
 POISON_LANE, POISON_AT = 5, 10
 
 
@@ -2472,7 +2473,10 @@ K1_SHARD_FLOPS = 30
 K2_SHARD_FLOPS = 10
 # run_once jobs on 2x2: (engine, dtype, grid, oracle iterations)
 MESH_RUNS = (("fused", "f32", (400, 600), 546), ("xla", "f32", (400, 600), 546),
-             ("pallas", "f32", (400, 600), 546))
+             ("pallas", "f32", (400, 600), 546),
+             ("fused", "f32", (800, 1200), 989),
+             ("xla", "f32", (800, 1200), 989),
+             ("fused", "f32", SHARD_GRID, MAIN_ITERS))
 MESH_KERNELS = {"fused": ("fused_sharded_k1", "fused_sharded_k2"),
                 "pallas": ("stencil",), "xla": ()}
 
@@ -2619,7 +2623,6 @@ def phase_mesh(card: str) -> dict:
     require(one.backend == "nccl", f"the 1x1 mesh took {one.backend}, not "
             "NCCL")
     _check_mesh_report("fused 1x1 2400x3200", one, MAIN_ITERS, "fused")
-    counts = one.rank_launches[0]
     # one spawn of the four ranks for every 2x2 run and the profile
     jobs = [(run_once, (Problem(M=g[0], N=g[1]),),
              dict(mode="sharded", dtype=dt, engine=e, mesh_shape=(2, 2),
@@ -2630,10 +2633,13 @@ def phase_mesh(card: str) -> dict:
     *reports, profiled = multihost.spawn(multihost.run_jobs, 4, (jobs,))
     bf16_reports = reports[len(MESH_RUNS):]
     reports = reports[:len(MESH_RUNS)]
+    counts = {}
     for (e, dt, g, want), report in zip(MESH_RUNS, reports):
         require(report.backend == "gloo", f"2x2 on one card took "
                 f"{report.backend}, not gloo")
         _check_mesh_report(f"{e} 2x2 {g[0]}x{g[1]}", report, want, e)
+        if (e, g) == ("fused", SHARD_GRID):
+            counts = report.rank_launches[0]
     out = subprocess.run(
         [sys.executable, "-m", "poisson_ellipse_tpu_torch.harness", "40",
          "40", "--mode", "sharded", "--mesh", "1", "2", "--dtype", "f64",
@@ -2965,11 +2971,12 @@ def phase_batched_bf16(card: str) -> dict:
     return dict(counts=counts)
 
 
-def shard_bf16_inputs(bm: int, bn: int, seed: int):
-    """``shard_inputs`` rounded to bf16, the windows z and p the two halves
-    of one stacked tensor, as the halo exchange hands them over (p starts
-    mid-word when (bm+2)(bn+2) is odd)."""
-    inp = {k: (v.to(torch.bfloat16) if v.is_floating_point() else v)
+def stacked_shard_inputs(bm: int, bn: int, seed: int,
+                         dtype=torch.bfloat16):
+    """``shard_inputs`` rounded to ``dtype``, the windows z and p the two
+    halves of one stacked tensor, as the halo exchange hands them over (in
+    bf16, p starts mid-word when (bm+2)(bn+2) is odd)."""
+    inp = {k: (v.to(dtype) if v.is_floating_point() else v)
            for k, v in shard_inputs(bm, bn, seed).items()}
     zp = torch.stack([inp["z"], inp["p"]])
     inp["z"], inp["p"] = zp[0], zp[1]
@@ -3007,7 +3014,7 @@ def phase_shard_bf16_kernels(seed: int) -> dict:
     k1_name, k2_name = (f"{k}_bf16" for k in (fs.K1, fs.K2))
     errs = {k1_name: 0.0, k2_name: 0.0}
     for bm, bn in SHARD_BF16_BLOCKS:
-        inp = shard_bf16_inputs(bm, bn, seed)
+        inp = stacked_shard_inputs(bm, bn, seed)
         got = _shard_bf16_pair(inp, fs.k1, fs.k2,
                                fs.scratch(bm, bn, "cuda", bf), h1, h2)
         one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
@@ -3033,7 +3040,7 @@ def phase_shard_bf16_kernels(seed: int) -> dict:
             f"{abs(float(got[5] - want[5])):.3e}, "
             f"{float((got[6] - want[6]).abs().max()):.3e})")
     for flag in (fp.FLAG_CONVERGED, fp.FLAG_BREAKDOWN, fp.FLAG_K):
-        inp = shard_bf16_inputs(*SHARD_BF16_BLOCKS[0], seed)
+        inp = stacked_shard_inputs(*SHARD_BF16_BLOCKS[0], seed)
         inp["flags"][flag] = 5
         parts = fs.scratch(*SHARD_BF16_BLOCKS[0], "cuda", bf)
         parts[0].fill_(3.0)
@@ -3145,14 +3152,9 @@ def bf16_form_calls(seed: int, dtype=torch.bfloat16) -> dict:
         s["pairs"] = _bundle(*s["ops"])
     bm, bn = SHARD_BLOCKS[0]
     problem = Problem(M=SHARD_GRID[0], N=SHARD_GRID[1])
-    shards = [{k: (v.to(dtype) if v.is_floating_point() else v)
-               for k, v in shard_inputs(bm, bn, seed + s).items()}
+    shards = [stacked_shard_inputs(bm, bn, seed + s, dtype)
               for s in range(3)]
     for s in shards:
-        # the windows as the halo exchange stacks them: p mid-word at
-        # 1203x1603
-        zp = torch.stack([s["z"], s["p"]])
-        s["z"], s["p"] = zp[0], zp[1]
         s["pn"], s["ap"] = (torch.empty((bm, bn), dtype=dtype, device="cuda")
                             for _ in range(2))
         s["z_out"] = torch.empty_like(s["pn"])
@@ -3248,6 +3250,115 @@ def phase_bf16_forms_timing(seed: int, card: str, full: bool = False) -> list:
         rows.append(row)
     del forms, f32
     return rows
+
+def mesh_bf16_witness(card: str) -> None:
+    """fused bf16 on one rank (no process group) at MESH_BF16_CAPS' grids
+    and caps, on the card and through the kernels' plain versions on the
+    host's CPU: (iterations, converged, breakdown) and l2 side by side,
+    the host's run a second witness of the card's count."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.parallel.fused_sharded import (
+        solve_fused_sharded,
+    )
+    from poisson_ellipse_tpu_torch.parallel.mesh import make_mesh
+    from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+    say(f"== the bf16 mesh on the card and on the host ({card}; host "
+        f"{torch.get_num_threads()} threads)")
+    for g, cap in MESH_BF16_CAPS.items():
+        problem = Problem(M=g[0], N=g[1], max_iter=cap)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            r = solve_fused_sharded(problem, make_mesh(device=dev),
+                                    torch.bfloat16)
+            got[dev] = (int(r.iters), bool(r.converged), bool(r.breakdown),
+                        float(l2_error_vs_analytic(problem, r.w.float())))
+            say(f"  fused bf16 1x1 {g[0]}x{g[1]} (cap {cap}) on {dev}: "
+                f"{got[dev][0]} iterations, converged {got[dev][1]}, "
+                f"breakdown {got[dev][2]}, l2 {got[dev][3]:.4e} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        require(got["cuda"][1:3] == got["cpu"][1:3]
+                and abs(got["cuda"][0] - got["cpu"][0]) <= ITERS_ABS,
+                f"fused bf16 at {g[0]}x{g[1]}: the card's "
+                f"{got['cuda'][:3]}, the host's {got['cpu'][:3]}")
+
+
+def k1_shard_bf16_designs(seed: int, card: str) -> None:
+    """K1-shard bf16's two designs: the word kernel
+    (pe_fused_sharded_k1_bf16, a lane two columns) and the f32 tile kernel
+    templated on bf16 (pe_fused_sharded_k1_bf16_tile, a node a thread),
+    each bitwise the plain version at every SHARD_BF16_BLOCKS block, then
+    by device time in turns (word, tile, tile, word) at the path's block
+    and its even twin."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import _build
+    from poisson_ellipse_tpu_torch.ops import whole_solve as ws
+    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
+
+    say(f"== K1-shard bf16: the word kernel against the tile kernel on "
+        f"bf16 ({card})")
+    problem = Problem(M=SHARD_GRID[0], N=SHARD_GRID[1])
+    h1, h2 = problem.h1, problem.h2
+    bf = torch.bfloat16
+    lib = _build.load(fs.LIBRARY, fs._SIGNATURES)
+    never = 2**31 - 1
+
+    def tile(s, part):
+        bm, bn = s["d"].shape
+        rc = lib.pe_fused_sharded_k1_bf16_tile(
+            s["z"].data_ptr(), s["p"].data_ptr(), s["a"].data_ptr(),
+            s["b"].data_ptr(), s["d"].data_ptr(), s["pn"].data_ptr(),
+            s["ap"].data_ptr(), part.data_ptr(), s["scal"].data_ptr(),
+            s["flags"].data_ptr(), bm, bn, never, ws.rounded(h1, bf),
+            ws.rounded(h2, bf), _build.stream_handle(s["d"].device))
+        require(rc == 0, f"the tile kernel failed: {rc}")
+
+    def word(s, part):
+        fs.k1(s["z"], s["p"], s["a"], s["b"], s["d"], s["pn"], s["ap"],
+              s["scal"], s["flags"], part, max_iter=never, h1=h1, h2=h2)
+
+    def prepared(bm, bn, seed):
+        s = stacked_shard_inputs(bm, bn, seed)
+        s["pn"], s["ap"] = (torch.full((bm, bn), 7.0, dtype=bf,
+                                       device="cuda") for _ in range(2))
+        s["word"] = fs.scratch(bm, bn, "cuda", bf)[0]
+        s["tile"] = fs.scratch(bm, bn, "cuda", torch.float32)[0]
+        return s
+
+    for bm, bn in SHARD_BF16_BLOCKS:
+        s = prepared(bm, bn, seed)
+        plain = torch.zeros(1, dtype=torch.float64, device="cuda")
+        fs.k1_plain(s["z"], s["p"], s["a"], s["b"], s["d"], s["pn"],
+                    s["ap"], s["scal"], s["flags"], plain, max_iter=never,
+                    h1=h1, h2=h2)
+        want = s["pn"].clone(), s["ap"].clone()
+        for name, fn in (("word", word), ("tile", tile)):
+            s["pn"].fill_(7.0)
+            s["ap"].fill_(7.0)
+            fn(s, s[name])
+            torch.cuda.synchronize()
+            same = (same_bits(s["pn"], want[0]),
+                    same_bits(s["ap"], want[1]),
+                    torch.equal(s[name].sum().float(), plain.sum().float()))
+            require(all(same), f"K1-shard bf16 {name} at {bm}x{bn} is not "
+                    f"its plain version (pn, ap, sum in f32 the same: "
+                    f"{same})")
+        say(f"  {bm}x{bn}: word and tile bitwise the plain version, sums "
+            "equal in f32")
+    for bm, bn in SHARD_BF16_BLOCKS[:2]:
+        sets = [prepared(bm, bn, seed + k) for k in range(3)]
+        times = {"word": [], "tile": []}
+        for name in ("word", "tile", "tile", "word"):
+            fn = word if name == "word" else tile
+            times[name].append(device_ms(
+                [lambda s=s, fn=fn, name=name: fn(s, s[name])
+                 for s in sets]))
+        say(f"  {bm}x{bn} device us: " + "; ".join(
+            f"{k} " + ", ".join(f"{t * 1e3:.2f}" for t in v)
+            for k, v in times.items()))
+        del sets
+
 
 # -- phase 12: the stage-4 kernels and the bf16 kernel loops ----------------
 
@@ -5284,6 +5395,8 @@ def main(argv=None) -> int:
         phase_batched_bf16_kernels(args.seed)
         phase_shard_bf16_kernels(args.seed)
         timed = phase_bf16_forms_timing(args.seed, card, full=True)
+        k1_shard_bf16_designs(args.seed, card)
+        mesh_bf16_witness(card)
     elif args.only:
         if args.only == "stage4":
             phase_stage4_kernels(args.seed)

@@ -11,12 +11,20 @@ denominator, breakdown under ``DENOM_GUARD`` discarding the iteration's
 update, residual replacement keyed on the global counter, and the
 ±2-of-classical iteration-count contract. The replacement comes every
 ``ops.precision.replace_every`` iterations of the run dtype, the single
-engine's cadence: 32 at f32 and f64, 8 at bf16. (The JAX batched engine
-keeps 32 at bf16 too. There its bf16 recurrence grows without bound from
-iteration 9 or so, γ by 2-10× an iteration, until the rebuild at 32, and
-whether a lane's denominator first dips under the guard depends on how
-the stencil rounds: with the bf16 stencil rounded once, as K-e's and
-K-f's bf16 forms round it, 40×40 broke down at iteration 14.)
+engine's cadence: 32 at f32 and f64, 8 at bf16. At bf16 this departs, on
+purpose, from the JAX batched engine
+(``poisson_ellipse_tpu/batch/batched_pipelined.py``), which replaces
+every 32 iterations at every dtype: there the bf16 recurrence grows
+without bound from iteration 9 or so, γ by 2-10× an iteration, until the
+rebuild at 32, and whether a lane's denominator first dips under the
+guard depends on how the stencil rounds (with the bf16 stencil rounded
+once, as K-e's and K-f's bf16 forms round it, 40×40 broke down at
+iteration 14). So a bf16 lane here is the single-device bf16 pipelined
+solve of its right-hand side, and where a JAX lane breaks down before
+its first rebuild, the port's lane runs on: on lanes of distinct
+scalings at 40² the JAX lanes break down at 15-18 and the port's run to
+the cap (``tests/test_torch_batched.py``
+``test_bf16_lane_pipelined_departs_from_jax_on_scaled_lanes``).
 Lane freezing, quarantine and the bucket-embedding arguments follow
 ``batch.batched_pcg``.
 

@@ -118,30 +118,36 @@ __device__ double block_sum(double v, double* s_warp) {
   return s;
 }
 
+// K1-shard in the run type T: float, or bf16 (each load widened, pn and ap
+// rounded once to T where they are stored).
+template <typename T>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-k1_shard_kernel(const float* __restrict__ z, const float* __restrict__ p,
-                const float* __restrict__ a, const float* __restrict__ b,
-                const float* __restrict__ d, float* __restrict__ pn,
-                float* __restrict__ ap, double* __restrict__ partials,
-                const float* __restrict__ scal, const int* __restrict__ flags,
+k1_shard_kernel(const T* __restrict__ z, const T* __restrict__ p,
+                const T* __restrict__ a, const T* __restrict__ b,
+                const T* __restrict__ d, T* __restrict__ pn,
+                T* __restrict__ ap, double* __restrict__ partials,
+                const T* __restrict__ scal, const int* __restrict__ flags,
                 int bm, int bn, int max_iter, float h1, float h2) {
   if (!loop_active(flags, max_iter)) return;
   __shared__ double s_warp[32];
-  const float beta = scal[kBeta];
+  const float beta = up(scal[kBeta]);
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   double term = 0.0;
   if (i < bm && j < bn) {
     const int64_t ld = bn + 2;
     const int64_t c = (int64_t)(i + 1) * ld + (j + 1);
-    const auto at = [&](int64_t o) { return z[o] + beta * p[o]; };
+    const auto at = [&](int64_t o) {
+      return rn<T>(up(z[o]) + beta * up(p[o]));
+    };
     const float wc = at(c);
-    float v = stencil_tree(wc, at(c - ld), at(c + ld), at(c - 1), at(c + 1),
-                           a[c], a[c + ld], b[c], b[c + 1], h1, h2);
+    float v = rn<T>(stencil_tree(wc, at(c - ld), at(c + ld), at(c - 1),
+                                 at(c + 1), up(a[c]), up(a[c + ld]),
+                                 up(b[c]), up(b[c + 1]), h1, h2));
     const int64_t o = (int64_t)i * bn + j;
-    v = d[o] != 0.f ? v : 0.f;
-    pn[o] = wc;
-    ap[o] = v;
+    v = up(d[o]) != 0.f ? v : 0.f;
+    pn[o] = down<T>(wc);
+    ap[o] = down<T>(v);
     term = static_cast<double>(v * wc);
   }
   const double s = block_sum(term, s_warp);
@@ -352,8 +358,27 @@ int pe_fused_sharded_k1_f32(const float* z, const float* p, const float* a,
                             const int* flags, int bm, int bn, int max_iter,
                             float h1, float h2, void* stream) {
   if (bm < 1 || bn < 1) return static_cast<int>(cudaErrorInvalidValue);
-  k1_shard_kernel<<<k1_grid(bm, bn), dim3(kBlockX, kBlockY), 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  k1_shard_kernel<float><<<k1_grid(bm, bn), dim3(kBlockX, kBlockY), 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1, h2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1-shard bf16 as the f32 kernel templated on bf16 (a node a thread,
+// 2-byte loads), beside the word kernel to time the two designs; its
+// partials: k1_blocks_f32 doubles.
+int pe_fused_sharded_k1_bf16_tile(const __nv_bfloat16* z,
+                                  const __nv_bfloat16* p,
+                                  const __nv_bfloat16* a,
+                                  const __nv_bfloat16* b,
+                                  const __nv_bfloat16* d, __nv_bfloat16* pn,
+                                  __nv_bfloat16* ap, double* partials,
+                                  const __nv_bfloat16* scal, const int* flags,
+                                  int bm, int bn, int max_iter, float h1,
+                                  float h2, void* stream) {
+  if (bm < 1 || bn < 1) return static_cast<int>(cudaErrorInvalidValue);
+  k1_shard_kernel<__nv_bfloat16><<<k1_grid(bm, bn), dim3(kBlockX, kBlockY),
+                                   0, static_cast<cudaStream_t>(stream)>>>(
       z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1, h2);
   return static_cast<int>(cudaGetLastError());
 }

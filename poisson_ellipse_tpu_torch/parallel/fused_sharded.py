@@ -102,6 +102,9 @@ _SIGNATURES = {
     **{f"pe_fused_sharded_k1_{form}": (_I, [_P] * 10 + [_I] * 3
                                        + [_F, _F, _P])
        for form in DTYPES.values()},
+    # K1-shard bf16's tile design, timed beside the word kernel
+    "pe_fused_sharded_k1_bf16_tile": (_I, [_P] * 10 + [_I] * 3
+                                      + [_F, _F, _P]),
     # w, r, pn, ap, dinv, z, partials, scal, flags, bm, bn, max_iter, stream
     **{f"pe_fused_sharded_k2_{form}": (_I, [_P] * 9 + [_I] * 3 + [_P])
        for form in DTYPES.values()},

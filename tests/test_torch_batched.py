@@ -293,6 +293,33 @@ def test_bf16_lane_pipelined_takes_the_jax_triple_at_40(stencil):
 
 
 @pytest.mark.parametrize("stencil", ["xla", "pallas"])
+def test_bf16_lane_pipelined_departs_from_jax_on_scaled_lanes(stencil,
+                                                              monkeypatch):
+    """A deliberate departure from the JAX lane engine, stated: at bf16 the
+    port replaces the residual every ``replace_every(None, bf16)`` = 8
+    iterations, the single-device engines' cadence, where the JAX lane
+    engine keeps its f32 constant of 32. On lanes of distinct scalings
+    (seed 0, B = 2, 40², δ = 1e-4) every JAX lane breaks down before its
+    first rebuild (at 18 and 15), and every lane of the port runs to the
+    cap with no flag; at the JAX cadence the port's lanes break down
+    before 32 too, so the cadence is the whole gap."""
+    problem = Problem(M=40, N=40, delta=1e-4)
+    ours, theirs = _operands(problem, 2, torch.float32)
+    ours = tuple(x.to(torch.bfloat16) for x in ours)
+    theirs = tuple(jnp.asarray(x, jnp.bfloat16) for x in theirs)
+    ref = jax_bpp.pcg_batched_pipelined(_jax_problem(problem), *theirs,
+                                        stencil=stencil, interpret=True)
+    assert np.asarray(ref.breakdown).all()
+    assert (np.asarray(ref.iters) < 32).all()
+    got = bpp.pcg_batched_pipelined(problem, *ours, stencil=stencil)
+    assert list(zip(got.iters.tolist(), got.converged.tolist(),
+                    got.breakdown.tolist())) == [(1521, False, False)] * 2
+    monkeypatch.setattr(bpp, "replace_every", lambda s, dtype: 32)
+    at_32 = bpp.pcg_batched_pipelined(problem, *ours, stencil=stencil)
+    assert at_32.breakdown.any() and int(at_32.iters.min()) < 32
+
+
+@pytest.mark.parametrize("stencil", ["xla", "pallas"])
 def test_bf16_lanes_are_bitwise_the_single_pipelined_solve(stencil):
     """Lanes of distinct right-hand sides at bf16: each lane is the
     single-device bf16 pipelined engine on its own right-hand side, bit for
