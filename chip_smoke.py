@@ -197,9 +197,12 @@ result line):
               the same (converged, breakdown) as single-device bf16 pallas
               at the grid and cap (K1-shard computes its stencil tree;
               single-device fused's normalised stencil, which ends early in
-              bf16, is printed beside), l2 < 3e-2 where converged, fused on
-              2x2 the count of fused on 1x1, each rank's bf16 kernels once
-              a body. Then K-e, K-f, K1-shard and K2-shard bf16 by device
+              bf16, is printed beside), l2 where converged under 3e-2 at
+              400x600 and 5e-2 at 2400x3200 (MESH_BF16_L2), fused on 1x1
+              within +- 2 of the count its plain versions take on the
+              host's CPU (MESH_BF16_WITNESS: 238 and 258), fused on 2x2 the
+              count of fused on 1x1, each rank's bf16 kernels once a
+              body. Then K-e, K-f, K1-shard and K2-shard bf16 by device
               time (CUDA-graph replay) beside their plain versions and
               bounds.
 
@@ -287,7 +290,10 @@ kernels (the split prints as not measured where the tree lacks it).
 K-e, K-f, K1-shard and K2-shard: bitwise their plain versions as phases 8
 and 11 hold them, then by device, call and host time beside their f32
 forms and bounds, with their device activities a call (counted in a child
-process). `--only fused-timing` runs phases 1-2 and then the fused pair: K1 and K2
+process); last, fused bf16 on one rank at 400x600 and 2400x3200 on the card
+and through the plain versions on the host's CPU, the witness of
+MESH_BF16_WITNESS (about two minutes on the host).
+`--only fused-timing` runs phases 1-2 and then the fused pair: K1 and K2
 in f32 and bf16 at 2401x3201 and 401x601, each bitwise its plain version
 and timed three ways beside its bound and its loss on its path (working
 launches x (device - bound)); K1 by part (its timing instantiation: the
@@ -2796,12 +2802,18 @@ SHARD_BF16_BLOCKS = ((1201, 1601), (1200, 1600), (1, 1), (7, 5), (8, 9),
 # stencil, which ends early in bf16 (34 iterations at 400x600, l2 0.072;
 # a breakdown at 2400x3200), and is printed beside them
 MESH_BF16_CAPS = {(400, 600): 2048, SHARD_GRID: 4096}
-# l2 where a bf16 mesh run converged: bf16's floor (on the card xla bf16
-# reaches 1.33e-2 at 400x600 and 2.08e-2 at 2400x3200; the JAX package's
-# bf16 storage 4.1e-2 there), under the 7.24e-2 of w = 0; fused's step
-# norm falls under delta sooner at 2400x3200 (258 iterations, l2 4.14e-2,
-# on an H100 80GB HBM3 at 700 W)
+# l2 where a bf16 mesh run converged, above the sound bf16 runs' largest
+# and under the control's, w = 0's 7.24e-2. At 400x600 the runs reach
+# 8.2e-3 (fused), 1.33e-2 (xla), 1.47e-2 (pallas) on an H100 80GB HBM3 at
+# 700 W, the JAX package 1.55e-2 (its CPU run), so 3e-2. At 2400x3200: xla
+# bf16 2.08e-2 on the card, the JAX package's bf16 storage 4.1e-2, fused
+# bf16 4.14e-2 in 258 iterations, the same count and l2 through the plain
+# versions on the host's CPU (mesh_bf16_witness), so 5e-2
 MESH_BF16_L2 = {(400, 600): BF16_XLA_L2, SHARD_GRID: 5e-2}
+# fused bf16's count on one rank through the kernels' plain versions on the
+# host's CPU at each MESH_BF16_CAPS grid (mesh_bf16_witness; an H100
+# machine's host, 8 threads): the card's count is held to it +- ITERS_ABS
+MESH_BF16_WITNESS = {(400, 600): 238, SHARD_GRID: 258}
 MESH_BF16_RUNS = (("fused", (400, 600)), ("pallas", (400, 600)))
 # each form's row: counter, source, the pallas_call it replaces, its f32
 # form's counter
@@ -3016,7 +3028,7 @@ def phase_shard_bf16_kernels(seed: int) -> dict:
     for bm, bn in SHARD_BF16_BLOCKS:
         inp = stacked_shard_inputs(bm, bn, seed)
         got = _shard_bf16_pair(inp, fs.k1, fs.k2,
-                               fs.scratch(bm, bn, "cuda", bf), h1, h2)
+                               fs.scratch(bm, bn, "cuda"), h1, h2)
         one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
                torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
         want = _shard_bf16_pair(inp, fs.k1_plain, fs.k2_plain, one, h1, h2)
@@ -3042,7 +3054,7 @@ def phase_shard_bf16_kernels(seed: int) -> dict:
     for flag in (fp.FLAG_CONVERGED, fp.FLAG_BREAKDOWN, fp.FLAG_K):
         inp = stacked_shard_inputs(*SHARD_BF16_BLOCKS[0], seed)
         inp["flags"][flag] = 5
-        parts = fs.scratch(*SHARD_BF16_BLOCKS[0], "cuda", bf)
+        parts = fs.scratch(*SHARD_BF16_BLOCKS[0], "cuda")
         parts[0].fill_(3.0)
         parts[1].fill_(3.0)
         pn, ap, w, r, z, _, _ = _shard_bf16_pair(inp, fs.k1, fs.k2, parts,
@@ -3122,6 +3134,10 @@ def phase_mesh_bf16(card: str, mesh: dict) -> dict:
                 f"{ones[g].backend}")
         _check_mesh_bf16(f"fused bf16 1x1 {g[0]}x{g[1]} (cap {cap})",
                          ones[g], *singles[g], "fused", MESH_BF16_L2[g])
+        require(abs(ones[g].iters - MESH_BF16_WITNESS[g]) <= ITERS_ABS,
+                f"fused bf16 1x1 {g[0]}x{g[1]}: {ones[g].iters} iterations, "
+                f"the plain versions on the host took "
+                f"{MESH_BF16_WITNESS[g]}")
     for (e, g), report in zip(MESH_BF16_RUNS, mesh["bf16_reports"]):
         require(report.backend == "gloo", f"2x2 took {report.backend}")
         _check_mesh_bf16(f"{e} bf16 2x2 {g[0]}x{g[1]}", report, *singles[g],
@@ -3158,7 +3174,7 @@ def bf16_form_calls(seed: int, dtype=torch.bfloat16) -> dict:
         s["pn"], s["ap"] = (torch.empty((bm, bn), dtype=dtype, device="cuda")
                             for _ in range(2))
         s["z_out"] = torch.empty_like(s["pn"])
-        s["parts"] = fs.scratch(bm, bn, "cuda", dtype)
+        s["parts"] = fs.scratch(bm, bn, "cuda")
     one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
            torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
     never = 2**31 - 1
@@ -3174,7 +3190,7 @@ def bf16_form_calls(seed: int, dtype=torch.bfloat16) -> dict:
            max_iter=never)
 
     n_blk, n_ext = bm * bn, (bm + 2) * (bn + 2)
-    n1, n2 = fs.partial_counts(bm, bn, dtype)
+    n1, n2 = fs.partial_counts(bm, bn)
     tag = "" if dtype == torch.float32 else "_bf16"
     return {
         f"batched_stencil{tag}": (
@@ -3282,82 +3298,6 @@ def mesh_bf16_witness(card: str) -> None:
                 and abs(got["cuda"][0] - got["cpu"][0]) <= ITERS_ABS,
                 f"fused bf16 at {g[0]}x{g[1]}: the card's "
                 f"{got['cuda'][:3]}, the host's {got['cpu'][:3]}")
-
-
-def k1_shard_bf16_designs(seed: int, card: str) -> None:
-    """K1-shard bf16's two designs: the word kernel
-    (pe_fused_sharded_k1_bf16, a lane two columns) and the f32 tile kernel
-    templated on bf16 (pe_fused_sharded_k1_bf16_tile, a node a thread),
-    each bitwise the plain version at every SHARD_BF16_BLOCKS block, then
-    by device time in turns (word, tile, tile, word) at the path's block
-    and its even twin."""
-    from poisson_ellipse_tpu_torch.models.problem import Problem
-    from poisson_ellipse_tpu_torch.ops import _build
-    from poisson_ellipse_tpu_torch.ops import whole_solve as ws
-    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
-
-    say(f"== K1-shard bf16: the word kernel against the tile kernel on "
-        f"bf16 ({card})")
-    problem = Problem(M=SHARD_GRID[0], N=SHARD_GRID[1])
-    h1, h2 = problem.h1, problem.h2
-    bf = torch.bfloat16
-    lib = _build.load(fs.LIBRARY, fs._SIGNATURES)
-    never = 2**31 - 1
-
-    def tile(s, part):
-        bm, bn = s["d"].shape
-        rc = lib.pe_fused_sharded_k1_bf16_tile(
-            s["z"].data_ptr(), s["p"].data_ptr(), s["a"].data_ptr(),
-            s["b"].data_ptr(), s["d"].data_ptr(), s["pn"].data_ptr(),
-            s["ap"].data_ptr(), part.data_ptr(), s["scal"].data_ptr(),
-            s["flags"].data_ptr(), bm, bn, never, ws.rounded(h1, bf),
-            ws.rounded(h2, bf), _build.stream_handle(s["d"].device))
-        require(rc == 0, f"the tile kernel failed: {rc}")
-
-    def word(s, part):
-        fs.k1(s["z"], s["p"], s["a"], s["b"], s["d"], s["pn"], s["ap"],
-              s["scal"], s["flags"], part, max_iter=never, h1=h1, h2=h2)
-
-    def prepared(bm, bn, seed):
-        s = stacked_shard_inputs(bm, bn, seed)
-        s["pn"], s["ap"] = (torch.full((bm, bn), 7.0, dtype=bf,
-                                       device="cuda") for _ in range(2))
-        s["word"] = fs.scratch(bm, bn, "cuda", bf)[0]
-        s["tile"] = fs.scratch(bm, bn, "cuda", torch.float32)[0]
-        return s
-
-    for bm, bn in SHARD_BF16_BLOCKS:
-        s = prepared(bm, bn, seed)
-        plain = torch.zeros(1, dtype=torch.float64, device="cuda")
-        fs.k1_plain(s["z"], s["p"], s["a"], s["b"], s["d"], s["pn"],
-                    s["ap"], s["scal"], s["flags"], plain, max_iter=never,
-                    h1=h1, h2=h2)
-        want = s["pn"].clone(), s["ap"].clone()
-        for name, fn in (("word", word), ("tile", tile)):
-            s["pn"].fill_(7.0)
-            s["ap"].fill_(7.0)
-            fn(s, s[name])
-            torch.cuda.synchronize()
-            same = (same_bits(s["pn"], want[0]),
-                    same_bits(s["ap"], want[1]),
-                    torch.equal(s[name].sum().float(), plain.sum().float()))
-            require(all(same), f"K1-shard bf16 {name} at {bm}x{bn} is not "
-                    f"its plain version (pn, ap, sum in f32 the same: "
-                    f"{same})")
-        say(f"  {bm}x{bn}: word and tile bitwise the plain version, sums "
-            "equal in f32")
-    for bm, bn in SHARD_BF16_BLOCKS[:2]:
-        sets = [prepared(bm, bn, seed + k) for k in range(3)]
-        times = {"word": [], "tile": []}
-        for name in ("word", "tile", "tile", "word"):
-            fn = word if name == "word" else tile
-            times[name].append(device_ms(
-                [lambda s=s, fn=fn, name=name: fn(s, s[name])
-                 for s in sets]))
-        say(f"  {bm}x{bn} device us: " + "; ".join(
-            f"{k} " + ", ".join(f"{t * 1e3:.2f}" for t in v)
-            for k, v in times.items()))
-        del sets
 
 
 # -- phase 12: the stage-4 kernels and the bf16 kernel loops ----------------
@@ -5395,7 +5335,6 @@ def main(argv=None) -> int:
         phase_batched_bf16_kernels(args.seed)
         phase_shard_bf16_kernels(args.seed)
         timed = phase_bf16_forms_timing(args.seed, card, full=True)
-        k1_shard_bf16_designs(args.seed, card)
         mesh_bf16_witness(card)
     elif args.only:
         if args.only == "stage4":

@@ -47,38 +47,22 @@
 //
 // The bf16 forms (pe_fused_sharded_k1_bf16, pe_fused_sharded_k2_bf16)
 // replace the same two pallas_calls at bf16 (:179 and :207 with bf16
-// operands). Every array and the scalar carry are bf16; each load is
-// widened exactly, every value is computed in float and rounded once to
-// bf16 where it is stored (rn/down, storage.cuh): pn = rn(z + beta*p),
-// ap = rn(A(pn)) with the same tree on the bf16-rounded h1, h2, w, r, z as
-// K-c's bf16 form computes them. The sums add products of two bf16 values
-// (exact in float) in double, per block, as the f32 forms do.
-//
-// K1-shard bf16 is a kernel of its own, not the f32 one on bf16 loads,
-// which would move 2 bytes a load: a lane owns two output columns, one
-// 4-byte word of pn, ap and d (pn_march.cuh's Two), and a warp one row of
-// 64 columns. The (bm, bn) block and the (bm+2, bn+2) windows do not share
-// a layout: a block row starts mid-word at an odd bn (the row's frame, as
-// in pn_march.cuh), and a window's pair of columns starts mid-word wherever
-// its address is odd in 2-byte units (the windows are views of the halo
-// exchange's stack, so either parity occurs; the parity is the warp's, a
-// row's columns being an even distance apart). A pair of a window is read
-// as the aligned word holding it, or as the halves of the two words around
-// it. pn is formed at the lane's columns in the rows above, at and below
-// its own; each node's west and east neighbours in its own row come from
-// the neighbouring lanes (pn_march.cuh's west and east shuffles), the two a
-// warp lacks from the window's halo columns, z and p one column west of
-// lane 0's first and one east of lane 31's second. So every node's pn is
-// formed three times, by the warps of its row and of the rows beside it,
-// and the window is read three times, the second and third from cache:
-// this kernel is right first, not fast (a march down the rows, as K1 bf16
-// in fused_pcg.cu, is later work). Bound: 7 passes at 2 B, 26.9 MB on a
-// 1201x1601 block, 8.0 us; K2-shard bf16 8 passes, 30.8 MB, 9.2 us.
+// operands): each kernel templated on its run type, every array and the
+// scalar carry bf16, each load widened exactly, every value computed in
+// float and rounded once to bf16 where it is stored (rn/down, storage.cuh):
+// pn = rn(z + beta*p), ap = rn(A(pn)) with the same tree on the
+// bf16-rounded h1, h2, and w, r, z as K-c's bf16 form computes them. The
+// sums add products of two bf16 values (exact in float) in double, per
+// block, as the f32 forms do. A kernel of two columns a lane (one 4-byte
+// word of pn, ap and d, pn_march.cuh's) was tried and was the slower on
+// an H100, 34.6 us against 22.5 at 1201x1601: the windows' pairs start
+// mid-word wherever the halo exchange's stack puts them, and it formed
+// each pn at three rows. Bound: 7 passes at 2 B, 26.9 MB on a 1201x1601 block,
+// 8.0 us; K2-shard bf16 8 passes, 30.8 MB, 9.2 us.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "pn_march.cuh"
 #include "stencil_tree.cuh"
 #include "storage.cuh"
 
@@ -92,8 +76,6 @@ constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kK2Threads = 256;
 constexpr int kK2MaxBlocks = 1024;
-// K1-shard bf16: a warp a row of 32 words, rows a block
-constexpr int kPairRows = 8;
 
 __device__ __forceinline__ bool loop_active(const int* flags, int max_iter) {
   return flags[kConverged] == 0 && flags[kBreakdown] == 0 &&
@@ -156,107 +138,6 @@ k1_shard_kernel(const T* __restrict__ z, const T* __restrict__ p,
   }
 }
 
-// One element of a, 0 outside [0, n).
-__device__ __forceinline__ float ld1(const __nv_bfloat16* __restrict__ a,
-                                     int64_t e, int64_t n) {
-  return e >= 0 && e < n ? up(__ldg(a + e)) : 0.f;
-}
-
-// Elements e and e + 1 of a, widened: the aligned word that holds them, or
-// the high half of the word before and the low half of the word after;
-// element by element where a word would reach outside [0, n).
-__device__ __forceinline__ float2 pair(const __nv_bfloat16* __restrict__ a,
-                                       int64_t e, int64_t n) {
-  using X = pn_march::Two;
-  if (((reinterpret_cast<uintptr_t>(a) + 2 * e) & 3) == 0) {
-    if (e >= 0 && e + 1 < n) return X::unpack(X::load(a + e));
-  } else if (e >= 1 && e + 2 < n) {
-    const float2 lo = X::unpack(X::load(a + e - 1));
-    const float2 hi = X::unpack(X::load(a + e + 1));
-    return make_float2(lo.y, hi.x);
-  }
-  return make_float2(ld1(a, e, n), ld1(a, e + 1, n));
-}
-
-__global__ void __launch_bounds__(32 * kPairRows)
-k1_shard_bf16_kernel(const __nv_bfloat16* __restrict__ z,
-                     const __nv_bfloat16* __restrict__ p,
-                     const __nv_bfloat16* __restrict__ a,
-                     const __nv_bfloat16* __restrict__ b,
-                     const __nv_bfloat16* __restrict__ d,
-                     __nv_bfloat16* __restrict__ pn,
-                     __nv_bfloat16* __restrict__ ap,
-                     double* __restrict__ partials,
-                     const __nv_bfloat16* __restrict__ scal,
-                     const int* __restrict__ flags, int bm, int bn,
-                     int max_iter, float h1, float h2) {
-  namespace pm = pn_march;
-  using X = pm::Two;
-  if (!loop_active(flags, max_iter)) return;
-  __shared__ double s_warp[32];
-  const float beta = up(scal[kBeta]);
-  const int lane = threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  double acc = 0.0;
-  if (i < bm) {  // warp-uniform: a warp is a row
-    const int64_t ld = bn + 2;
-    const int64_t n_ext = (int64_t)(bm + 2) * ld;
-    const int64_t n_blk = (int64_t)bm * bn;
-    // the row's start in the block; its frame (d, pn and ap start on a
-    // 4-byte boundary): the lane's word starts at column j
-    const int64_t ob = (int64_t)i * bn;
-    const int j = 2 * (static_cast<int>(blockIdx.x) * 32 + lane) -
-                  static_cast<int>(ob & 1);
-    const bool vx = j >= 0 && j < bn;
-    const bool vy = j + 1 < bn;
-    // the window's node of column j, row i
-    const int64_t rc = (int64_t)(i + 1) * ld + j + 1;
-    const auto pn_at = [&](int64_t e) {
-      const float2 zz = pair(z, e, n_ext);
-      const float2 pp = pair(p, e, n_ext);
-      return make_float2(rn<__nv_bfloat16>(zz.x + beta * pp.x),
-                         rn<__nv_bfloat16>(zz.y + beta * pp.y));
-    };
-    const float2 c_n = pn_at(rc - ld);
-    const float2 c_c = pn_at(rc);
-    const float2 c_s = pn_at(rc + ld);
-    // the warp's edges in its row, from the window's halo columns at the
-    // block's sides
-    float e_w = 0.f, e_e = 0.f, b_e31 = 0.f;
-    if (lane == 0) {
-      e_w = rn<__nv_bfloat16>(ld1(z, rc - 1, n_ext) +
-                              beta * ld1(p, rc - 1, n_ext));
-    }
-    if (lane == 31) {
-      e_e = rn<__nv_bfloat16>(ld1(z, rc + 2, n_ext) +
-                              beta * ld1(p, rc + 2, n_ext));
-      b_e31 = ld1(b, rc + 2, n_ext);
-    }
-    const float2 c_w = pm::west(c_c, e_w, lane);
-    const float2 c_e = pm::east(c_c, e_e, lane);
-    const float2 a_c = pair(a, rc, n_ext);
-    const float2 a_s = pair(a, rc + ld, n_ext);
-    const float2 b_c = pair(b, rc, n_ext);
-    const float2 b_e = pm::east(b_c, b_e31, lane);
-    const float2 dd = pair(d, ob + j, n_blk);
-    float vx_ap = rn<__nv_bfloat16>(stencil_tree(
-        c_c.x, c_n.x, c_s.x, c_w.x, c_e.x, a_c.x, a_s.x, b_c.x, b_e.x, h1, h2));
-    float vy_ap = rn<__nv_bfloat16>(stencil_tree(
-        c_c.y, c_n.y, c_s.y, c_w.y, c_e.y, a_c.y, a_s.y, b_c.y, b_e.y, h1, h2));
-    vx_ap = dd.x != 0.f ? vx_ap : 0.f;
-    vy_ap = dd.y != 0.f ? vy_ap : 0.f;
-    X::store(pn + ob + j, X::pack(c_c.x, c_c.y), vx, vy);
-    X::store(ap + ob + j, X::pack(vx_ap, vy_ap), vx, vy);
-    // each product in float (exact), added in double
-    if (vx) acc += static_cast<double>(vx_ap * c_c.x);
-    if (vy) acc += static_cast<double>(vy_ap * c_c.y);
-  }
-  const double s = block_sum(acc, s_warp);
-  if (threadIdx.x == 0 && threadIdx.y == 0) {
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
-  }
-}
-
 // K2-shard in the run type T: float, or bf16 (K-c's bf16 form's body).
 template <typename T>
 __global__ void __launch_bounds__(kK2Threads)
@@ -302,16 +183,21 @@ dim3 k1_grid(int bm, int bn) {
   return dim3((bn + kBlockX - 1) / kBlockX, (bm + kBlockY - 1) / kBlockY);
 }
 
-// K1-shard bf16: a row's words in either frame, ceil((bn + 1) / 2), 32 a
-// warp; kPairRows rows a block
-dim3 k1_bf16_grid(int bm, int bn) {
-  const int words = (bn + 2) / 2;
-  return dim3((words + 31) / 32, (bm + kPairRows - 1) / kPairRows);
-}
-
 int k2_blocks(int64_t n) {
   const int64_t want = (n + kK2Threads - 1) / kK2Threads;
   return static_cast<int>(want < kK2MaxBlocks ? want : kK2MaxBlocks);
+}
+
+template <typename T>
+int launch_k1(const T* z, const T* p, const T* a, const T* b, const T* d,
+              T* pn, T* ap, double* partials, const T* scal, const int* flags,
+              int bm, int bn, int max_iter, float h1, float h2,
+              void* stream) {
+  if (bm < 1 || bn < 1) return static_cast<int>(cudaErrorInvalidValue);
+  k1_shard_kernel<T><<<k1_grid(bm, bn), dim3(kBlockX, kBlockY), 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1, h2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -330,23 +216,14 @@ int launch_k2(T* w, T* r, const T* pn, const T* ap, const T* dinv, T* z,
 
 extern "C" {
 
-// Blocks each kernel launches for one (bm, bn) block: K1 writes one
-// partial a block, K2 two.
-int pe_fused_sharded_k1_blocks_f32(int bm, int bn) {
+// Blocks each kernel launches for one (bm, bn) block, in either form: K1
+// writes one partial a block, K2 two.
+int pe_fused_sharded_k1_blocks(int bm, int bn) {
   const dim3 g = k1_grid(bm, bn);
   return static_cast<int>(g.x * g.y);
 }
 
-int pe_fused_sharded_k1_blocks_bf16(int bm, int bn) {
-  const dim3 g = k1_bf16_grid(bm, bn);
-  return static_cast<int>(g.x * g.y);
-}
-
-int pe_fused_sharded_k2_blocks_f32(int bm, int bn) {
-  return k2_blocks((int64_t)bm * bn);
-}
-
-int pe_fused_sharded_k2_blocks_bf16(int bm, int bn) {
+int pe_fused_sharded_k2_blocks(int bm, int bn) {
   return k2_blocks((int64_t)bm * bn);
 }
 
@@ -357,35 +234,11 @@ int pe_fused_sharded_k1_f32(const float* z, const float* p, const float* a,
                             float* ap, double* partials, const float* scal,
                             const int* flags, int bm, int bn, int max_iter,
                             float h1, float h2, void* stream) {
-  if (bm < 1 || bn < 1) return static_cast<int>(cudaErrorInvalidValue);
-  k1_shard_kernel<float><<<k1_grid(bm, bn), dim3(kBlockX, kBlockY), 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1, h2);
-  return static_cast<int>(cudaGetLastError());
+  return launch_k1(z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn,
+                   max_iter, h1, h2, stream);
 }
 
-// K1-shard bf16 as the f32 kernel templated on bf16 (a node a thread,
-// 2-byte loads), beside the word kernel to time the two designs; its
-// partials: k1_blocks_f32 doubles.
-int pe_fused_sharded_k1_bf16_tile(const __nv_bfloat16* z,
-                                  const __nv_bfloat16* p,
-                                  const __nv_bfloat16* a,
-                                  const __nv_bfloat16* b,
-                                  const __nv_bfloat16* d, __nv_bfloat16* pn,
-                                  __nv_bfloat16* ap, double* partials,
-                                  const __nv_bfloat16* scal, const int* flags,
-                                  int bm, int bn, int max_iter, float h1,
-                                  float h2, void* stream) {
-  if (bm < 1 || bn < 1) return static_cast<int>(cudaErrorInvalidValue);
-  k1_shard_kernel<__nv_bfloat16><<<k1_grid(bm, bn), dim3(kBlockX, kBlockY),
-                                   0, static_cast<cudaStream_t>(stream)>>>(
-      z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1, h2);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The bf16 form: every array, scal bf16; d, pn and ap start on a 4-byte
-// boundary (the wrapper checks), the windows anywhere; partials:
-// k1_blocks_bf16 doubles; h1, h2 rounded to bf16.
+// The bf16 form: every array and scal bf16; h1, h2 rounded to bf16.
 int pe_fused_sharded_k1_bf16(const __nv_bfloat16* z, const __nv_bfloat16* p,
                              const __nv_bfloat16* a, const __nv_bfloat16* b,
                              const __nv_bfloat16* d, __nv_bfloat16* pn,
@@ -393,14 +246,8 @@ int pe_fused_sharded_k1_bf16(const __nv_bfloat16* z, const __nv_bfloat16* p,
                              const __nv_bfloat16* scal, const int* flags,
                              int bm, int bn, int max_iter, float h1, float h2,
                              void* stream) {
-  const dim3 grid = k1_bf16_grid(bm, bn);
-  if (bm < 1 || bn < 1 || grid.y > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  k1_shard_bf16_kernel<<<grid, dim3(32, kPairRows), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1, h2);
-  return static_cast<int>(cudaGetLastError());
+  return launch_k1(z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn,
+                   max_iter, h1, h2, stream);
 }
 
 // w, r, pn, ap, dinv, z: (bm, bn); w, r updated in place; partials:

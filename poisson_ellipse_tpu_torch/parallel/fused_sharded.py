@@ -95,16 +95,12 @@ K2 = "fused_sharded_k2"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    **{f"pe_fused_sharded_k{k}_blocks_{form}": (_I, [_I, _I])
-       for k in (1, 2) for form in DTYPES.values()},
+    **{f"pe_fused_sharded_k{k}_blocks": (_I, [_I, _I]) for k in (1, 2)},
     # z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1,
     # h2, stream
     **{f"pe_fused_sharded_k1_{form}": (_I, [_P] * 10 + [_I] * 3
                                        + [_F, _F, _P])
        for form in DTYPES.values()},
-    # K1-shard bf16's tile design, timed beside the word kernel
-    "pe_fused_sharded_k1_bf16_tile": (_I, [_P] * 10 + [_I] * 3
-                                      + [_F, _F, _P]),
     # w, r, pn, ap, dinv, z, partials, scal, flags, bm, bn, max_iter, stream
     **{f"pe_fused_sharded_k2_{form}": (_I, [_P] * 9 + [_I] * 3 + [_P])
        for form in DTYPES.values()},
@@ -113,23 +109,19 @@ _SIGNATURES = {
 
 
 @functools.lru_cache(maxsize=16)
-def partial_counts(bm: int, bn: int,
-                   dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+def partial_counts(bm: int, bn: int) -> tuple[int, int]:
     """(K1's, K2's) per-block partials for a (bm, bn) block on the card,
-    in the ``dtype`` form."""
+    in either form."""
     lib = _build.load(LIBRARY, _SIGNATURES)
-    form = DTYPES[dtype]
-    return tuple(int(getattr(lib, f"pe_fused_sharded_k{k}_blocks_{form}")(
-        bm, bn)) for k in (1, 2))
+    return (int(lib.pe_fused_sharded_k1_blocks(bm, bn)),
+            int(lib.pe_fused_sharded_k2_blocks(bm, bn)))
 
 
-def scratch(bm: int, bn: int, device, dtype: torch.dtype = torch.float32
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def scratch(bm: int, bn: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernels' partials buffers in double, zeroed: (n1,) for K1 and
-    (n2, 2) for K2 of the ``dtype`` form; one row each for the plain
-    versions on the CPU."""
+    (n2, 2) for K2; one row each for the plain versions on the CPU."""
     dev = torch.device(device)
-    n1, n2 = partial_counts(bm, bn, dtype) if dev.type == "cuda" else (1, 1)
+    n1, n2 = partial_counts(bm, bn) if dev.type == "cuda" else (1, 1)
     return (torch.zeros(n1, dtype=torch.float64, device=dev),
             torch.zeros((n2, 2), dtype=torch.float64, device=dev))
 
@@ -188,11 +180,11 @@ def k2_plain(w, r, pn, ap, dinv, z, scal, flags, partials, *,
 
 
 def _check(kernel: str, arrays: dict, shape, scal, flags, partials,
-           n_partials) -> None:
+           n_partials: int) -> None:
     """Raise unless every array is contiguous in the form's dtype (the
     first array's: float32 or bfloat16) at its ``shape(name)`` on scal's
     device, scal is (N_SCAL,) of that dtype, flags (N_FLAGS,) int32 and
-    partials double of ``n_partials(dtype)`` at least."""
+    partials double of ``n_partials`` at least."""
     dev = scal.device
     dtype = next(iter(arrays.values())).dtype
     if dtype not in DTYPES:
@@ -211,34 +203,27 @@ def _check(kernel: str, arrays: dict, shape, scal, flags, partials,
     if (flags.shape != (N_FLAGS,) or flags.dtype != torch.int32
             or flags.device != dev):
         raise ValueError(f"{kernel}: flags must be ({N_FLAGS},) int32")
-    need = n_partials(dtype)
     if (partials.dtype != torch.float64 or partials.device != dev
-            or partials.numel() < need or not partials.is_contiguous()):
+            or partials.numel() < n_partials
+            or not partials.is_contiguous()):
         raise ValueError(f"{kernel}: partials must be contiguous float64 of "
-                         f"{need} at least")
+                         f"{n_partials} at least")
 
 
 def k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, partials, *,
        max_iter: int, h1: float, h2: float) -> None:
     """K1-shard: pn = z + βp and ap = A(pn) over this rank's block, the
     rank's Σap·pn as per-block partials (``partials.sum()``): the port of
-    ``fused_sharded.py``'s K1, in f32 or in its bf16 form. The bf16 form
-    stores pn and ap a 4-byte word at a time, so d, pn and ap must start
-    on a 4-byte boundary; the windows may start anywhere."""
+    ``fused_sharded.py``'s K1, in f32 or in its bf16 form."""
     if z_ext.device.type == "cpu":
         return k1_plain(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags,
                         partials, max_iter=max_iter, h1=h1, h2=h2)
     bm, bn = d.shape
     ext = dict(z_ext=z_ext, p_ext=p_ext, a_ext=a_ext, b_ext=b_ext)
-    blocks = dict(d=d, pn=pn, ap=ap)
-    _check(K1, {**ext, **blocks},
+    _check(K1, {**ext, "d": d, "pn": pn, "ap": ap},
            lambda name: (bm + 2, bn + 2) if name in ext else (bm, bn),
-           scal, flags, partials, lambda dt: partial_counts(bm, bn, dt)[0])
+           scal, flags, partials, partial_counts(bm, bn)[0])
     form = DTYPES[z_ext.dtype]
-    if form == "bf16" and any(t.data_ptr() % 4 for t in blocks.values()):
-        raise ValueError(f"{K1}: the bf16 form stores aligned pairs of "
-                         "nodes; d, pn and ap must start at a multiple of "
-                         "4 bytes")
     lib = _build.load(LIBRARY, _SIGNATURES)
     rc = getattr(lib, f"pe_fused_sharded_k1_{form}")(
         z_ext.data_ptr(), p_ext.data_ptr(), a_ext.data_ptr(),
@@ -263,7 +248,7 @@ def k2(w, r, pn, ap, dinv, z, scal, flags, partials, *,
     bm, bn = w.shape
     _check(K2, dict(w=w, r=r, pn=pn, ap=ap, dinv=dinv, z=z),
            lambda name: (bm, bn), scal, flags, partials,
-           lambda dt: 2 * partial_counts(bm, bn, dt)[1])
+           2 * partial_counts(bm, bn)[1])
     form = DTYPES[w.dtype]
     lib = _build.load(LIBRARY, _SIGNATURES)
     rc = getattr(lib, f"pe_fused_sharded_k2_{form}")(
@@ -322,7 +307,7 @@ def _run(problem: Problem, mesh: Mesh, bm: int, bn: int, operands,
     scal[SCAL_ZR] = q(q(zr0) * h1t * h2t)
     scal[SCAL_DIFF] = float("inf")
     flags = torch.zeros(N_FLAGS, dtype=torch.int32, device=rhs_blk.device)
-    part1, part2 = scratch(bm, bn, rhs_blk.device, ct)
+    part1, part2 = scratch(bm, bn, rhs_blk.device)
     consts = dict(max_iter=limit)
     bodies = [0]
 

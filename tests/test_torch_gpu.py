@@ -1846,7 +1846,7 @@ def test_fused_sharded_bf16_kernels_match_plain(cuda, bm, bn):
     inp = _shard_bf16_inputs(bm, bn, cuda)
     assert (inp["p"].data_ptr() % 4 == 0) == ((bm + 2) * (bn + 2) % 2 == 0)
     _build.reset_launches()
-    got = _shard_bf16_run(inp, fs.k1, fs.k2, fs.scratch(bm, bn, cuda, BF16))
+    got = _shard_bf16_run(inp, fs.k1, fs.k2, fs.scratch(bm, bn, cuda))
     torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {"fused_sharded_k1_bf16": 1,
                                      "fused_sharded_k2_bf16": 1}
@@ -1865,7 +1865,7 @@ def test_fused_sharded_bf16_kernels_do_nothing_after_exit(cuda):
     for flag in (fp.FLAG_CONVERGED, fp.FLAG_BREAKDOWN, fp.FLAG_K):
         inp = _shard_bf16_inputs(45, 71, cuda)
         inp["flags"][flag] = 5
-        parts = fs.scratch(45, 71, cuda, BF16)
+        parts = fs.scratch(45, 71, cuda)
         parts[0].fill_(3.0)
         parts[1].fill_(3.0)
         pn, ap = (torch.full((45, 71), 7.0, dtype=BF16, device=cuda)
@@ -1883,15 +1883,27 @@ def test_fused_sharded_bf16_kernels_do_nothing_after_exit(cuda):
         assert torch.all(parts[0] == 3.0) and torch.all(parts[1] == 3.0)
 
 
-def test_fused_sharded_bf16_refuses_blocks_off_a_4_byte_boundary(cuda):
+def test_fused_sharded_bf16_takes_blocks_at_any_offset(cuda):
+    """K1-shard bf16 reads and writes a node at a time, so pn and ap may
+    start mid-word: the same bits as the plain version's."""
     inp = _shard_bf16_inputs(7, 5, cuda)
-    buf = torch.zeros(1 + 35, dtype=BF16, device=cuda)
-    off = buf[1:].view(7, 5)
-    parts = fs.scratch(7, 5, cuda, BF16)
-    with pytest.raises(ValueError, match="4 bytes"):
-        fs.k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], off,
-              torch.empty_like(off), inp["scal"], inp["flags"], parts[0],
-              max_iter=NEVER, h1=0.05, h2=0.03)
+    bufs = [torch.full((1 + 35,), 7.0, dtype=BF16, device=cuda)
+            for _ in range(2)]
+    pn, ap = (buf[1:].view(7, 5) for buf in bufs)
+    assert pn.data_ptr() % 4 and ap.data_ptr() % 4
+    parts = fs.scratch(7, 5, cuda)
+    fs.k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap,
+          inp["scal"], inp["flags"], parts[0], max_iter=NEVER, h1=0.05,
+          h2=0.03)
+    want = [torch.full((7, 5), 7.0, dtype=BF16, device=cuda)
+            for _ in range(2)]
+    fs.k1_plain(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], *want,
+                inp["scal"], inp["flags"],
+                torch.zeros(1, dtype=torch.float64, device=cuda),
+                max_iter=NEVER, h1=0.05, h2=0.03)
+    torch.cuda.synchronize()
+    assert _same_bits(pn, want[0]) and _same_bits(ap, want[1])
+    assert torch.all(bufs[0][0] == 7.0) and torch.all(bufs[1][0] == 7.0)
 
 
 def test_sharded_fused_bf16_on_one_and_two_ranks(cuda):
@@ -1927,7 +1939,7 @@ def _lane_mesh_bf16_calls(dev) -> dict:
     w, a, b, ops = _bf16_lane_inputs(400, 600, 32, dev)
     pairs = pp._bundle(*ops)
     inp = _shard_bf16_inputs(1201, 1601, dev)
-    parts = fs.scratch(1201, 1601, dev, BF16)
+    parts = fs.scratch(1201, 1601, dev)
     pn, ap = (torch.empty((1201, 1601), dtype=BF16, device=dev)
               for _ in range(2))
     w2, r2, z2 = inp["w"].clone(), inp["r"].clone(), torch.empty_like(pn)

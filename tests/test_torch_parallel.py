@@ -504,7 +504,7 @@ def test_k1_shard_bf16_plain_matches_jax_kernel(shard_inputs_bf16):
     scal[fp.SCAL_BETA] = beta
     flags = torch.zeros(fp.N_FLAGS, dtype=torch.int32)
     pn, ap = (torch.empty(bm, bn, dtype=BF16) for _ in range(2))
-    part = fs.scratch(bm, bn, "cpu", BF16)[0]
+    part = fs.scratch(bm, bn, "cpu")[0]
     fs.k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, part,
           max_iter=10, h1=problem.h1, h2=problem.h2)
     bma, bna = _round_up(bm, 8), _round_up(bn, 128)
@@ -539,7 +539,7 @@ def test_k2_shard_bf16_plain_matches_jax_kernel(shard_inputs_bf16):
     scal[fp.SCAL_ZR], scal[fp.SCAL_DENOM] = zr, denom
     flags = torch.zeros(fp.N_FLAGS, dtype=torch.int32)
     ww, rr, zz = w.clone(), rhs.clone(), torch.empty(bm, bn, dtype=BF16)
-    part = fs.scratch(bm, bn, "cpu", BF16)[1]
+    part = fs.scratch(bm, bn, "cpu")[1]
     fs.k2(ww, rr, pn, ap, dinv, zz, scal, flags, part, max_iter=10)
     assert ww.dtype == rr.dtype == zz.dtype == BF16
     bma, bna = _round_up(bm, 8), _round_up(bn, 128)
@@ -576,7 +576,7 @@ def test_k1_k2_shard_bf16_do_nothing_after_exit(shard_inputs_bf16):
     flags = torch.zeros(fp.N_FLAGS, dtype=torch.int32)
     flags[fp.FLAG_BREAKDOWN] = 1
     pn, ap = (torch.full((bm, bn), 7.0, dtype=BF16) for _ in range(2))
-    p1, p2 = fs.scratch(bm, bn, "cpu", BF16)
+    p1, p2 = fs.scratch(bm, bn, "cpu")
     fs.k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, p1,
           max_iter=10, h1=problem.h1, h2=problem.h2)
     w, r = torch.ones(bm, bn, dtype=BF16), rhs.clone()
