@@ -2778,9 +2778,16 @@ def phase_shard_timing(seed: int, card: str) -> list:
 # -- bf16 on the lane-batched engines and the mesh (phases 8 and 11) --------
 
 # the shapes the bf16 batched path gives K-e and K-f (400x600, B = 32; the
-# 801x1201, B = 8 of phase 8's f32 grid), and ragged ones
+# 801x1201, B = 8 of phase 8's f32 grid), and ragged ones; then the lane
+# march's frames (csrc/lane_march.cuh): an odd g1 g2 with B >= 2 (odd lanes
+# in the other frame from a and b) below and just past a 64-column strip,
+# B = 1, odd B (a lone last lane of K-e's pairs), even widths (pad 0's out
+# in the other frame) of one strip and just past it, an even g1 at an odd
+# width
 BATCHED_BF16_CASES = (((400, 600), 32), ((800, 1200), 8), ((44, 132), 3),
-                      ((2, 2), 1))
+                      ((2, 2), 1), ((130, 20), 2), ((10, 64), 2),
+                      ((44, 132), 1), ((12, 63), 3), ((5, 65), 1),
+                      ((7, 62), 3), ((16, 127), 5))
 BATCHED_BF16_GRID, BATCHED_BF16_LANES = (400, 600), 32
 # the bf16 batched solves are capped: the recurrences do not converge in
 # bf16 (in either package), and a stalled classical solve would run to
@@ -3154,10 +3161,8 @@ def bf16_form_calls(seed: int, dtype=torch.bfloat16) -> dict:
     operations)} for the four forms of this slice at their path's shapes
     (K-e and K-f at 401x601, B = 32; K1-shard and K2-shard on a
     1201x1601 block) in ``dtype`` (bf16, or f32 for the f32 forms)."""
-    from poisson_ellipse_tpu_torch.models.problem import Problem
     from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
     from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
-    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
 
     size = torch.empty((), dtype=dtype).element_size()
     (m, n), lanes = BATCHED_BF16_GRID, BATCHED_BF16_LANES
@@ -3166,7 +3171,36 @@ def bf16_form_calls(seed: int, dtype=torch.bfloat16) -> dict:
     sets = [lane_inputs((m, n), lanes, seed + s, dtype) for s in range(3)]
     for s in sets:
         s["pairs"] = _bundle(*s["ops"])
-    bm, bn = SHARD_BLOCKS[0]
+    k1_calls, k2_calls = shard_calls(*SHARD_BLOCKS[0], seed, dtype)
+    tag = "" if dtype == torch.float32 else "_bf16"
+    return {
+        f"batched_stencil{tag}": (
+            [lambda s=s: hk.apply_a_batched_kernel(s["w"], s["a"], s["b"],
+                                                   h1, h2) for s in sets],
+            lambda: hk.apply_a_batched_plain(sets[0]["w"], sets[0]["a"],
+                                             sets[0]["b"], h1, h2),
+            (2 + 2 * lanes) * size * nodes, 18 * nodes * lanes),
+        f"batched_stencil_dots{tag}": (
+            [lambda s=s: hk.apply_a_dots_batched_kernel(
+                s["w"], s["a"], s["b"], h1, h2, s["pairs"]) for s in sets],
+            lambda: hk.apply_a_dots_batched_plain(
+                sets[0]["w"], sets[0]["a"], sets[0]["b"], h1, h2,
+                sets[0]["pairs"]),
+            (2 + 7 * lanes) * size * nodes, KD_FLOPS * nodes * lanes),
+        f"fused_sharded_k1{tag}": k1_calls,
+        f"fused_sharded_k2{tag}": k2_calls,
+    }
+
+
+def shard_calls(bm: int, bn: int, seed: int, dtype=torch.bfloat16):
+    """K1-shard's and K2-shard's (calls over 3 rotated input sets, plain
+    call, bytes, operations) on a (bm, bn) block of SHARD_GRID in
+    ``dtype``, the windows z and p stacked as the halo exchange hands
+    them over."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
+
+    size = torch.empty((), dtype=dtype).element_size()
     problem = Problem(M=SHARD_GRID[0], N=SHARD_GRID[1])
     shards = [stacked_shard_inputs(bm, bn, seed + s, dtype)
               for s in range(3)]
@@ -3191,31 +3225,13 @@ def bf16_form_calls(seed: int, dtype=torch.bfloat16) -> dict:
 
     n_blk, n_ext = bm * bn, (bm + 2) * (bn + 2)
     n1, n2 = fs.partial_counts(bm, bn)
-    tag = "" if dtype == torch.float32 else "_bf16"
-    return {
-        f"batched_stencil{tag}": (
-            [lambda s=s: hk.apply_a_batched_kernel(s["w"], s["a"], s["b"],
-                                                   h1, h2) for s in sets],
-            lambda: hk.apply_a_batched_plain(sets[0]["w"], sets[0]["a"],
-                                             sets[0]["b"], h1, h2),
-            (2 + 2 * lanes) * size * nodes, 18 * nodes * lanes),
-        f"batched_stencil_dots{tag}": (
-            [lambda s=s: hk.apply_a_dots_batched_kernel(
-                s["w"], s["a"], s["b"], h1, h2, s["pairs"]) for s in sets],
-            lambda: hk.apply_a_dots_batched_plain(
-                sets[0]["w"], sets[0]["a"], sets[0]["b"], h1, h2,
-                sets[0]["pairs"]),
-            (2 + 7 * lanes) * size * nodes, KD_FLOPS * nodes * lanes),
-        f"fused_sharded_k1{tag}": (
-            [lambda s=s: k1(s) for s in shards],
-            lambda: k1(shards[0], fs.k1_plain, one[0]),
-            size * (4 * n_ext + 3 * n_blk) + 8 * n1,
-            K1_SHARD_FLOPS * n_blk),
-        f"fused_sharded_k2{tag}": (
-            [lambda s=s: k2(s) for s in shards],
-            lambda: k2(shards[0], fs.k2_plain, one[1]),
-            size * 8 * n_blk + 16 * n2, K2_SHARD_FLOPS * n_blk),
-    }
+    return (([lambda s=s: k1(s) for s in shards],
+             lambda: k1(shards[0], fs.k1_plain, one[0]),
+             size * (4 * n_ext + 3 * n_blk) + 8 * n1,
+             K1_SHARD_FLOPS * n_blk),
+            ([lambda s=s: k2(s) for s in shards],
+             lambda: k2(shards[0], fs.k2_plain, one[1]),
+             size * 8 * n_blk + 16 * n2, K2_SHARD_FLOPS * n_blk))
 
 
 def count_lane_mesh_bf16_activities() -> dict:
@@ -5287,13 +5303,161 @@ def phase_fused_timing(seed: int, card: str, sass_dir=None) -> list:
     return rows
 
 
+# -- K-e and K-f bf16, the lane marches, by device time ---------------------
+
+# the shapes their paths give them: bf16 batched-pallas and
+# batched-pipelined-pallas at 400x600, B = 32 (phase 8), and phase 8's
+# 801x1201, B = 8
+LANE_BF16_CASES = (((400, 600), 32), ((800, 1200), 8))
+# launches on those paths at 400x600, B = 32 (phase 8's counts): K-e bf16
+# 256 in batched-pallas (241 iterations) and 253 in
+# batched-pipelined-pallas (w0 and 4 a rebuild every 8 iterations, capped
+# at 512); K-f bf16 512 there
+LANE_BF16_LAUNCHES = {"batched_stencil_bf16": 256 + 253,
+                      "batched_stencil_dots_bf16": 512}
+# the lane loops profiled for us a launch, capped
+LANE_BF16_LOOP_CAP = 64
+# K1-shard bf16 on its path: fused bf16 on a 1x1 mesh at 2400x3200, whose
+# block is the whole padded grid (parallel/pcg_sharded.py block_shape),
+# 320 launches (258 iterations in 64-body chunks, phase 11)
+K1_SHARD_PATH_BLOCK = (2401, 3201)
+K1_SHARD_PATH_LAUNCHES = 320
+
+
+def phase_lane_bf16_timing(seed: int, card: str) -> list:
+    """``--only lane-bf16-timing``: K-e and K-f bf16 first held bitwise as
+    phase 8 holds them (``phase_batched_bf16_kernels``), then timed three
+    ways (``timed_row``) at LANE_BF16_CASES beside their bounds, shares of
+    them and losses on their paths; K-e bf16 with one and two lanes a
+    thread by device time in turns (1, 2, 2, 1), where the tree has the
+    grouped entry; us a launch of each inside bf16 batched-pallas and
+    batched-pipelined-pallas at 400x600, B = 32, capped at
+    LANE_BF16_LOOP_CAP (torch.profiler); K1-shard bf16 at its path's
+    1x1 block of 2400x3200, bitwise its plain version, by device time; the
+    two libraries' SASS for the lane kernels. Runs on an older tree's
+    kernels too (what it lacks prints as not measured)."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
+    from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
+    from poisson_ellipse_tpu_torch.solver.engine import build_solver
+
+    phase_batched_bf16_kernels(seed)
+    say(f"== K-e and K-f bf16 by device time on {card}")
+    rows, aside = [], []
+    grouped = hasattr(hk, "LANE_GROUP")
+    for (m, n), lanes in LANE_BF16_CASES:
+        sets = [lane_inputs((m, n), lanes, seed + s)
+                for s in range(QUEUE_SETS)]
+        for s in sets:
+            s["pairs"] = _bundle(*s["ops"])
+        h1, h2 = 2.0 / m, 1.2 / n
+        nodes = (m + 1) * (n + 1)
+        label = f"{m + 1}x{n + 1} B={lanes}"
+        out = rows if (m, n) == BATCHED_BF16_GRID else aside
+        for name, calls, plain, passes, flops, src, line in (
+                ("batched_stencil_bf16",
+                 [lambda s=s: hk.apply_a_batched_kernel(
+                     s["w"], s["a"], s["b"], h1, h2) for s in sets],
+                 lambda: hk.apply_a_batched_plain(
+                     sets[0]["w"], sets[0]["a"], sets[0]["b"], h1, h2),
+                 2 + 2 * lanes, 18, "csrc/stencil.cu",
+                 "ops/pallas_kernels.py:409"),
+                ("batched_stencil_dots_bf16",
+                 [lambda s=s: hk.apply_a_dots_batched_kernel(
+                     s["w"], s["a"], s["b"], h1, h2, s["pairs"])
+                  for s in sets],
+                 lambda: hk.apply_a_dots_batched_plain(
+                     sets[0]["w"], sets[0]["a"], sets[0]["b"], h1, h2,
+                     sets[0]["pairs"]),
+                 2 + 7 * lanes, KD_FLOPS, "csrc/stencil_dots.cu",
+                 "ops/pallas_kernels.py:529")):
+            timed_row(out, name, f"{name} {label}", calls, plain,
+                      passes * 2 * nodes, flops * nodes * lanes, src, line,
+                      launches=LANE_BF16_LAUNCHES[name], per=nodes * lanes)
+        if not grouped:
+            say(f"  K-e bf16 {label} by lanes a thread: not measured (this "
+                "tree has one form)")
+            continue
+        by = {1: [], 2: []}
+        for group in (1, 2, 2, 1):
+            by[group].append(device_ms([
+                lambda s=s, g=group: hk._launch_batched(
+                    s["w"], s["a"], s["b"], h1, h2, 1, group=g)
+                for s in sets]))
+        say(f"  K-e bf16 {label} device us, in turns 1, 2, 2, 1 lanes a "
+            f"thread: one {', '.join(f'{t * 1e3:.2f}' for t in by[1])}; "
+            f"two {', '.join(f'{t * 1e3:.2f}' for t in by[2])} (the "
+            f"engines take {hk.LANE_GROUP})")
+        del sets
+
+    say("  a launch inside the bf16 lane loops at 400x600, B = 32 "
+        f"(torch.profiler, capped at {LANE_BF16_LOOP_CAP})")
+    (m, n), lanes = BATCHED_BF16_GRID, BATCHED_BF16_LANES
+    for engine in ("batched-pallas", "batched-pipelined-pallas"):
+        problem = Problem(M=m, N=n, max_iter=LANE_BF16_LOOP_CAP)
+        solver, args, _ = build_solver(problem, engine, BF16, "cuda",
+                                       lanes=lanes)
+        for label, match in (
+                ("K-e bf16", lambda nm: "lane_stencil_kernel" in nm
+                 or "march_kernel" in nm),
+                ("K-f bf16", lambda nm: "stencil_dots_kernel" in nm)):
+            us = _launch_us(solver, args, match)
+            if us:
+                say(f"    {engine} bf16 {label}: {len(us)} launches, median "
+                    f"{statistics.median(us):.2f} us, mean "
+                    f"{statistics.mean(us):.2f}")
+            elif label == "K-f bf16" and engine == "batched-pallas":
+                continue
+            else:
+                say(f"    {engine} bf16 {label}: not measured (no device "
+                    "events)")
+
+    bm, bn = K1_SHARD_PATH_BLOCK
+    k1_calls, _ = shard_calls(bm, bn, seed)
+    calls, plain, nbytes, flops = k1_calls
+    say(f"  K1-shard bf16 at its path's block {bm}x{bn} (fused bf16, 1x1, "
+        f"{SHARD_GRID[0]}x{SHARD_GRID[1]})")
+    check_k1_shard_block(bm, bn, seed)
+    timed_row(rows, "fused_sharded_k1_bf16", f"fused_sharded_k1_bf16 "
+              f"{bm}x{bn}", calls, plain, nbytes, flops,
+              "csrc/fused_sharded.cu", "parallel/fused_sharded.py:179",
+              launches=K1_SHARD_PATH_LAUNCHES, per=bm * bn)
+    say("  the lane kernels' SASS (cuobjdump -sass)")
+    show_sass("stencil", "lane_stencil_kernel")
+    show_sass("stencil_dots", "lane_stencil_dots_kernel")
+    return rows
+
+
+def check_k1_shard_block(bm: int, bn: int, seed: int) -> None:
+    """K1-shard and K2-shard bf16 on one seeded (bm, bn) block as phase 11
+    holds them: arrays bitwise their plain versions', the rank sums equal
+    once rounded to f32."""
+    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
+
+    h1, h2 = 2.0 / SHARD_GRID[0], 1.2 / SHARD_GRID[1]
+    inp = stacked_shard_inputs(bm, bn, seed)
+    got = _shard_bf16_pair(inp, fs.k1, fs.k2, fs.scratch(bm, bn, "cuda"),
+                           h1, h2)
+    one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
+           torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
+    want = _shard_bf16_pair(inp, fs.k1_plain, fs.k2_plain, one, h1, h2)
+    require(all(same_bits(g, w) for g, w in zip(got[:5], want[:5]))
+            and torch.equal(got[5].float(), want[5].float())
+            and torch.equal(got[6].float(), want[6].float()),
+            f"K1-shard / K2-shard bf16 at {bm}x{bn}: not bitwise their "
+            "plain versions")
+    say(f"  K1-shard, K2-shard bf16 {bm}x{bn}: pn, ap, w, r, z bitwise "
+        "their plain versions, rank sums equal in f32")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
         "--only", choices=("stage4", "stage4-timing", "stencil-dots-timing",
                            "xl-timing", "stencil-timing", "whole-timing",
-                           "fused-timing", "batched-mesh-bf16"),
+                           "fused-timing", "batched-mesh-bf16",
+                           "lane-bf16-timing"),
         help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
              "loop and timing (stage4), its timing alone (stage4-timing), "
              "rule 2's queue by device time, the K-d family's SASS and the "
@@ -5305,7 +5469,10 @@ def main(argv=None) -> int:
              "xl (whole-timing), or K1 and K2 by device time with K1 by "
              "part and in its loop (fused-timing), or K-e, K-f, K1-shard "
              "and K2-shard bf16 bitwise their plain versions and by device "
-             "time beside their f32 forms (batched-mesh-bf16); the timings "
+             "time beside their f32 forms (batched-mesh-bf16), or K-e and "
+             "K-f bf16 bitwise and by device time, in their loops and by "
+             "lanes a thread, with K1-shard bf16 at its path's block "
+             "(lane-bf16-timing); the timings "
              "also run on an older tree's kernels; prints the kernels' "
              "record and no result line")
     ap.add_argument("--sass-dir", help="with --only stencil-dots-timing "
@@ -5336,6 +5503,8 @@ def main(argv=None) -> int:
         phase_shard_bf16_kernels(args.seed)
         timed = phase_bf16_forms_timing(args.seed, card, full=True)
         mesh_bf16_witness(card)
+    elif args.only == "lane-bf16-timing":
+        timed = phase_lane_bf16_timing(args.seed, card)
     elif args.only:
         if args.only == "stage4":
             phase_stage4_kernels(args.seed)

@@ -49,13 +49,20 @@
 // coefficients are re-read for every lane, from L2 after the first (1.9
 // MB at 401x601, 7.7 MB at 801x1201).
 //
-// K-e's bf16 form: K-e with w, a, b and out in bf16, computed as K-a's bf16
-// form computes (the same template with the lane on gridDim.z), so lane l
-// is bitwise K-a bf16 on lane l. Replaces _batched_stencil_kernel at bf16
-// (apply_a_batched_block_pallas's call at pallas_kernels.py:409 with bf16
-// operands): the bf16 batched-pallas engine's stencil. Bound: (2 + 2B)
-// passes at 2 B; at 401x601 with B = 32, 31.8 MB, 9.5 us.
-//
+// K-e's bf16 form: K-e with w, a, b and out in bf16, each node computed as
+// K-a's bf16 form computes it, so lane l is bitwise K-a bf16 on lane l.
+// Replaces _batched_stencil_kernel at bf16 (apply_a_batched_block_pallas's
+// call at pallas_kernels.py:409 with bf16 operands): the bf16
+// batched-pallas engine's stencil, and the w0 and rebuilds of bf16
+// batched-pipelined-pallas. Bound: (2 + 2B) passes at 2 B; at 401x601
+// with B = 32, 31.8 MB, 9.5 us. Its kernel is the vector-lane march of
+// csrc/lane_march.cuh (lane_stencil_kernel below), not march_kernel: with a
+// lane a column and 2-byte loads the march took as many instructions a node
+// as in f32 and ran at 18-19% of its bound (PERF.md, section 6). A lane owns
+// two columns, one aligned 4-byte word of each array, a warp a 64-column
+// strip; kLaneGroup lanes of one strip share a thread, so a and b are
+// loaded and moved into the fixed columns once for them.
+
 // K-g, the mixed-precision form: w in the storage type (bf16 or f16) or
 // f32, a and b in the storage type, out f32. Each load is upcast exactly
 // (__bfloat162float / __half2float), so a narrow input gives bit for bit
@@ -89,6 +96,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "lane_march.cuh"
 #include "stencil_tree.cuh"
 #include "storage.cuh"
 
@@ -262,6 +270,102 @@ int launch_march(const TW* w, const TC* a, const TC* b, TO* out, int lanes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K-e bf16's march (csrc/lane_march.cuh): a thread the same two columns
+// of kK lanes, a warp a unit (a 64-column strip over ``rows`` rows), a
+// block kWarps units of one lane group, the group (blockIdx.z, even groups
+// first) of lanes kK g .. kK g + kK - 1. kOdd: g2 is odd; kD1: odd lanes
+// are in the other frame from a and b (an odd g1 g2); kFlip: out is in
+// the other frame from w (pad 0 at an even width). Rows in flight and
+// blocks an SM: LaneShape.
+template <int kK>
+struct LaneShape {
+  static constexpr int kAhead = 2;
+  static constexpr int kMinBlocks = 3;
+};
+// lanes a thread in pe_batched_stencil_bf16
+constexpr int kLaneGroup = 2;
+
+namespace lm = lane_march;
+
+template <int kK, bool kOdd, bool kFlip, bool kD1>
+__global__ void __launch_bounds__(lm::kThreads, LaneShape<kK>::kMinBlocks)
+lane_stencil_kernel(const __nv_bfloat16* __restrict__ w,
+                    const __nv_bfloat16* __restrict__ a,
+                    const __nv_bfloat16* __restrict__ b,
+                    __nv_bfloat16* __restrict__ out, int lanes, lm::Geo g) {
+  constexpr int kA = LaneShape<kK>::kAhead;
+  const int groups = (lanes + kK - 1) / kK;
+  const int l = lm::group_of(blockIdx.z, groups) * kK;
+  const int lane_size = g.g1 * g.g2;
+  const int out_size = (g.g1 - 2 + 2 * g.pad) * (g.g2 - 2 + 2 * g.pad);
+  const int nstrips = lm::strips(g.g2);
+  const int unit = blockIdx.x * lm::kWarps + (threadIdx.x >> 5);
+  if (unit >= nstrips * lm::tiles(g.g1, g.pad, g.rows)) return;
+  const int tile = unit / nstrips;  // warp-uniform
+  const int s = unit - tile * nstrips;
+  w += l * (int64_t)lane_size;
+  out += l * (int64_t)out_size;
+  lm::NoDots none;
+  if constexpr (kK == 2) {
+    if (l + 1 < lanes) {
+      lm::march<2, kOdd, kFlip, kD1, kA>(w, lane_size, a, b, out, out_size,
+                                         g, tile * g.rows, s, none);
+      return;
+    }
+  } else if constexpr (kD1) {
+    if (l & 1) {
+      lm::march<1, kOdd, kFlip, true, kA>(w, lane_size, a, b, out, out_size,
+                                          g, tile * g.rows, s, none);
+      return;
+    }
+  }
+  // an even lane alone: in a's frame
+  lm::march<1, kOdd, kFlip, false, kA>(w, lane_size, a, b, out, out_size, g,
+                                       tile * g.rows, s, none);
+}
+
+bool aligned4(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 3) == 0;
+}
+
+// K-e bf16's launch, kK lanes a thread. The march indexes a lane's grid
+// in 32 bits and loads words: a larger grid, an array off a 4-byte
+// boundary or more lane groups than gridDim.z holds is refused with
+// cudaErrorInvalidValue.
+template <int kK>
+int launch_lanes(const __nv_bfloat16* w, const __nv_bfloat16* a,
+                 const __nv_bfloat16* b, __nv_bfloat16* out, int lanes,
+                 int bm, int bn, int pad, float h1, float h2, void* stream) {
+  const int g1 = bm + 2, g2 = bn + 2;
+  const int groups = (lanes + kK - 1) / kK;
+  if (lanes < 1 || groups > 65535 || bm < 1 || bn < 1 ||
+      (pad != 0 && pad != 1) ||
+      (int64_t)(g1 + 2) * g2 >= (int64_t{1} << 31) || !aligned4(w) ||
+      !aligned4(a) || !aligned4(b) || !aligned4(out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const lm::Geo geo{g1, g2, pad, lm::rows_of(g1, g2, pad, groups), h1, h2};
+  const dim3 grid(
+      static_cast<unsigned>(lm::group_blocks(g1, g2, pad, geo.rows)), 1,
+      groups);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool odd = g2 & 1;
+  if (odd && (g1 & 1)) {
+    lane_stencil_kernel<kK, true, false, true>
+        <<<grid, lm::kThreads, 0, st>>>(w, a, b, out, lanes, geo);
+  } else if (odd) {
+    lane_stencil_kernel<kK, true, false, false>
+        <<<grid, lm::kThreads, 0, st>>>(w, a, b, out, lanes, geo);
+  } else if (pad == 0) {
+    lane_stencil_kernel<kK, false, true, false>
+        <<<grid, lm::kThreads, 0, st>>>(w, a, b, out, lanes, geo);
+  } else {
+    lane_stencil_kernel<kK, false, false, false>
+        <<<grid, lm::kThreads, 0, st>>>(w, a, b, out, lanes, geo);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -281,14 +385,31 @@ int pe_batched_stencil_f32(const float* w, const float* a, const float* b,
                             stream);
 }
 
-// K-e's bf16 form: as pe_batched_stencil_f32 with every array bf16; h1, h2
-// the bf16-rounded spacings.
+// K-e's bf16 form: as pe_batched_stencil_f32 with every array bf16 and
+// 4-byte aligned; h1, h2 the bf16-rounded spacings.
 int pe_batched_stencil_bf16(const __nv_bfloat16* w, const __nv_bfloat16* a,
                             const __nv_bfloat16* b, __nv_bfloat16* out,
                             int lanes, int bm, int bn, int pad, float h1,
                             float h2, void* stream) {
-  return launch_march<true>(w, a, b, out, lanes, bm, bn, pad, h1, h2,
-                            stream);
+  return launch_lanes<kLaneGroup>(w, a, b, out, lanes, bm, bn, pad, h1, h2,
+                                  stream);
+}
+
+// The same with ``group`` (1 or 2) lanes a thread: the timing's
+// instantiation; the engines launch pe_batched_stencil_bf16.
+int pe_batched_stencil_bf16_grouped(const __nv_bfloat16* w,
+                                    const __nv_bfloat16* a,
+                                    const __nv_bfloat16* b,
+                                    __nv_bfloat16* out, int lanes, int bm,
+                                    int bn, int pad, float h1, float h2,
+                                    int group, void* stream) {
+  if (group == 1) {
+    return launch_lanes<1>(w, a, b, out, lanes, bm, bn, pad, h1, h2, stream);
+  }
+  if (group == 2) {
+    return launch_lanes<2>(w, a, b, out, lanes, bm, bn, pad, h1, h2, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K-g: w (bm+2, bn+2) in the storage type or f32, a and b (bm+2, bn+2) in

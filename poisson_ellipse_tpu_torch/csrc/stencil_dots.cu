@@ -129,18 +129,35 @@
 // What bounds it: bytes. 9 passes at 2 B: 138.3 MB at 2401x3201, 41.3 us
 // at 3.35 TB/s.
 //
-// K-f's bf16 form is K-d's bf16 form with the lane on gridDim.z, as K-f is
-// K-d's: lane l's n and sums[:, l] are bitwise K-d bf16's on that lane.
-// Replaces _batched_stencil_dots_kernel at bf16
+// K-f's bf16 form computes what K-d's bf16 form computes on each lane:
+// lane l's n is bitwise K-d bf16's on that lane, and sums[:, l] its double
+// sums of the same exact products, added in another fixed order and rounded
+// once. Replaces _batched_stencil_dots_kernel at bf16
 // (apply_a_dots_batched_pallas's call at pallas_kernels.py:529 with bf16
 // operands, whose SMEM accumulator holds bf16): the bf16
 // batched-pipelined-pallas engine's one pass per iteration. Bound: (2 +
 // 7B) passes at 2 B, 32.5 us at 401x601 with B = 32.
+//
+// Its kernel is the vector-lane march of csrc/lane_march.cuh
+// (lane_stencil_dots_kernel), not K-d's: K-d's bf16 instantiation with the
+// lane on the grid (a lane a column, 2-byte loads) ran at 28-29% of its
+// bound, paced by instructions and not bytes (PERF.md, section 6). A lane
+// owns two columns, one aligned 4-byte word of each array; a warp marches
+// a 64-column strip; the stencil is K-e bf16's. Each pair operand is read
+// as its own word of the row (the lane's two columns, or at the other
+// frame the column before and the first), each product of two bf16 values
+// is formed in float (exact), widened to double and added down the lane's
+// rows, low half then high; then the warps as K-d's, the block's partials,
+// the last block's ticket. The grid, the split of the nodes and so the
+// order of the sums follow (g1, g2, lanes): the partials a lane are
+// pe_batched_stencil_dots_bf16_blocks. It takes the full-grid layout its
+// one caller launches (pad 1, x_ld = bn + 2, x_off = bn + 3).
 
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <type_traits>
 
+#include "lane_march.cuh"
 #include "stencil_tree.cuh"
 #include "storage.cuh"
 
@@ -231,6 +248,49 @@ __device__ double block_sums(double (&acc)[kMaxPairs], int n_pairs,
   return s;
 }
 
+// Each block's sums of its threads' acc into its lane's partials; the
+// block that takes the lane's last ticket adds every block's partials in a
+// fixed order, rounds each sum once into sums[:, lane] and leaves the
+// ticket at 0. ``partials``: the lane's, n_pairs x gridDim.x x gridDim.y.
+template <typename TO>
+__device__ __forceinline__ void finish_sums(double (&acc)[kMaxPairs],
+                                            int n_pairs,
+                                            double (*s_warp)[kWarps],
+                                            int* s_last, double* partials,
+                                            int* ticket, TO* sums, int lane,
+                                            int lanes) {
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int nblocks = gridDim.x * gridDim.y;
+  const int bid = blockIdx.y * gridDim.x + blockIdx.x;
+  const double bsum = block_sums(acc, n_pairs, s_warp);
+  if (tid < n_pairs) {
+    partials[(int64_t)tid * nblocks + bid] = bsum;
+    __threadfence();
+  }
+  __syncthreads();
+  if (tid == 0) *s_last = atomicAdd(ticket + lane, 1) == nblocks - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  // every block has taken its ticket: leave it 0 for the next launch
+  if (tid == 0) ticket[lane] = 0;
+
+  // the last block: every pair's partials in a fixed order
+#pragma unroll
+  for (int p = 0; p < kMaxPairs; ++p) {
+    double s = 0.0;
+    if (p < n_pairs) {
+      for (int q = tid; q < nblocks; q += kThreads) {
+        s += __ldcg(&partials[(int64_t)p * nblocks + q]);
+      }
+    }
+    acc[p] = s;
+  }
+  __syncthreads();  // s_warp is read again below
+  const double total = block_sums(acc, n_pairs, s_warp);
+  if (tid < n_pairs) sums[tid * lanes + lane] = down<TO>((float)total);
+}
+
 // TW: the type of w; TC: the type of a and b; TX: the type of the pair
 // operands; TO: the type of out and sums (all float for K-d and K-f).
 // kBundle: the pair table is the compiled bundle's; kRows: rows_of.
@@ -248,9 +308,7 @@ stencil_dots_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
   const int n_ops = kBundle ? kBundleOperands : pairs.n_operands;
   const int n_pairs = kBundle ? kBundlePairs : pairs.n_pairs;
   const int lane_id = threadIdx.x;
-  const int tid = threadIdx.y * 32 + lane_id;
   const int nblocks = gridDim.x * gridDim.y;
-  const int bid = blockIdx.y * gridDim.x + blockIdx.x;
   const int on = bn + 2 * pad;
   const int om = bm + 2 * pad;
   const int64_t ld = bn + 2;
@@ -388,33 +446,8 @@ stencil_dots_kernel(const TW* __restrict__ w, const TC* __restrict__ a,
     }
   }
 
-  const double bsum = block_sums(acc, n_pairs, s_warp);
-  if (tid < n_pairs) {
-    partials[(int64_t)tid * nblocks + bid] = bsum;
-    __threadfence();
-  }
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(ticket + lane, 1) == nblocks - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  // every block has taken its ticket: leave it 0 for the next launch
-  if (tid == 0) ticket[lane] = 0;
-
-  // the last block: every pair's partials in a fixed order
-#pragma unroll
-  for (int p = 0; p < kMaxPairs; ++p) {
-    double s = 0.0;
-    if (p < n_pairs) {
-      for (int q = tid; q < nblocks; q += kThreads) {
-        s += __ldcg(&partials[(int64_t)p * nblocks + q]);
-      }
-    }
-    acc[p] = s;
-  }
-  __syncthreads();  // s_warp is read again below
-  const double total = block_sums(acc, n_pairs, s_warp);
-  if (tid < n_pairs) sums[tid * lanes + lane] = down<TO>((float)total);
+  finish_sums(acc, n_pairs, s_warp, &s_last, partials, ticket, sums, lane,
+              lanes);
 }
 
 // Rows a warp marches at (bm, bn, pad): kMaxRows, or half as many where
@@ -432,6 +465,36 @@ dim3 grid_of(int bm, int bn, int pad, int lanes = 1) {
               lanes);
 }
 
+// The pair table into ``pairs``; false for counts or indices out of range.
+// ``is_bundle``: the table is the compiled bundle's, index for index.
+template <typename TX>
+bool make_pairs(Pairs<TX>& pairs, bool& is_bundle,
+                const void* const* operands, int n_operands,
+                const int* pair_x, const int* pair_y, int n_pairs) {
+  if (n_operands < 1 || n_operands > kMaxOperands || n_pairs < 1 ||
+      n_pairs > kMaxPairs) {
+    return false;
+  }
+  pairs = Pairs<TX>{};
+  for (int o = 0; o < n_operands; ++o) {
+    pairs.ptr[o] = static_cast<const TX*>(operands[o]);
+  }
+  is_bundle = n_operands == kBundleOperands && n_pairs == kBundlePairs;
+  for (int p = 0; p < n_pairs; ++p) {
+    if (pair_x[p] < 0 || pair_x[p] >= n_operands || pair_y[p] < 0 ||
+        pair_y[p] >= n_operands) {
+      return false;
+    }
+    pairs.x[p] = pair_x[p];
+    pairs.y[p] = pair_y[p];
+    is_bundle = is_bundle && pair_x[p] == bundle_x(p) &&
+                pair_y[p] == bundle_y(p);
+  }
+  pairs.n_operands = n_operands;
+  pairs.n_pairs = n_pairs;
+  return true;
+}
+
 // Checks the pair table, picks the instantiation (the compiled bundle's
 // for its table, else the generic one; rows_of's rows) and launches
 // ``lanes`` lanes; see the entry points.
@@ -441,27 +504,12 @@ int launch(const TW* w, const TC* a, const TC* b, TO* out,
            const int* pair_y, int n_pairs, int x_ld, int x_off,
            double* partials, int* ticket, TO* sums, int lanes, int bm,
            int bn, int pad, float h1, float h2, void* stream) {
-  if (n_operands < 1 || n_operands > kMaxOperands || n_pairs < 1 ||
-      n_pairs > kMaxPairs || lanes < 1) {
+  Pairs<TX> pairs;
+  bool is_bundle = false;
+  if (lanes < 1 || !make_pairs(pairs, is_bundle, operands, n_operands,
+                               pair_x, pair_y, n_pairs)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Pairs<TX> pairs{};
-  for (int o = 0; o < n_operands; ++o) {
-    pairs.ptr[o] = static_cast<const TX*>(operands[o]);
-  }
-  bool is_bundle = n_operands == kBundleOperands && n_pairs == kBundlePairs;
-  for (int p = 0; p < n_pairs; ++p) {
-    if (pair_x[p] < 0 || pair_x[p] >= n_operands || pair_y[p] < 0 ||
-        pair_y[p] >= n_operands) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    pairs.x[p] = pair_x[p];
-    pairs.y[p] = pair_y[p];
-    is_bundle = is_bundle && pair_x[p] == bundle_x(p) &&
-                pair_y[p] == bundle_y(p);
-  }
-  pairs.n_operands = n_operands;
-  pairs.n_pairs = n_pairs;
   const dim3 grid = grid_of(bm, bn, pad, lanes);
   const dim3 block(32, kWarps);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -482,6 +530,185 @@ int launch(const TW* w, const TC* a, const TC* b, TO* out,
     rows_for(std::true_type{});
   } else {
     rows_for(std::false_type{});
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- K-f bf16: the vector-lane march (csrc/lane_march.cuh) -----------------
+
+namespace lm = lane_march;
+using BF = __nv_bfloat16;
+
+// Rows in flight behind a row, and blocks an SM (the double accumulators
+// and the operand words of the ring take most of the registers).
+constexpr int kLaneDotsAhead = 2;
+constexpr int kLaneDotsMinBlocks = 2;
+
+// The dot products in the march: each operand's word of row r in out's
+// frame F (the lane's columns c, c + 1 at frame 0; c - 1, c at frame 1),
+// each node half's product in float (exact for two bf16 values), widened
+// to double and added into acc, low half then high. A half that is no node
+// adds +0, which leaves a double sum that starts at +0 as it is.
+template <bool kBundle>
+struct LaneDots {
+  static constexpr int kOps = kBundle ? kBundleOperands : kMaxOperands;
+  struct Slot {
+    lm::W v[kOps];
+  };
+  const Pairs<BF>* pairs;
+  const BF* op[kOps];  // each operand at the lane's first element
+  int g2;
+  double acc[kMaxPairs];
+
+  template <int F>
+  __device__ __forceinline__ void issue(Slot& sl, int r, bool node_row,
+                                        const lm::Cols& k) {
+    const bool any = node_row && (F ? (k.nm || k.nx) : (k.nx || k.ny));
+    const int at = r * g2 + k.c - F;
+#pragma unroll
+    for (int o = 0; o < kOps; ++o) {
+      sl.v[o] = lm::X::load(op[o] + at,
+                            any && (kBundle || o < pairs->n_operands));
+    }
+  }
+
+  template <int F>
+  __device__ __forceinline__ void take(const Slot& sl, bool node_row,
+                                       const lm::Cols& k) {
+    const bool lo = node_row && (F ? k.nm : k.nx);
+    const bool hi = node_row && (F ? k.nx : k.ny);
+    float vx[kMaxOperands], vy[kMaxOperands];
+#pragma unroll
+    for (int o = 0; o < kMaxOperands; ++o) {
+      const float2 v =
+          o < kOps ? lm::X::unpack(sl.v[o]) : make_float2(0.f, 0.f);
+      vx[o] = v.x;
+      vy[o] = v.y;
+    }
+#pragma unroll
+    for (int p = 0; p < kMaxPairs; ++p) {
+      float px, py;
+      if (kBundle) {
+        px = vx[bundle_x(p)] * vx[bundle_y(p)];
+        py = vy[bundle_x(p)] * vy[bundle_y(p)];
+      } else if (p < pairs->n_pairs) {
+        px = pick(vx, pairs->x[p]) * pick(vx, pairs->y[p]);
+        py = pick(vy, pairs->x[p]) * pick(vy, pairs->y[p]);
+      } else {
+        continue;
+      }
+      acc[p] += (double)(lo ? px : 0.f);
+      acc[p] += (double)(hi ? py : 0.f);
+    }
+  }
+};
+
+// K-f bf16: a warp a unit (a strip of one lane over ``rows`` rows), a
+// block kWarps units of one lane (blockIdx.z, even lanes first), the
+// lane's partials a block and its ticket; kOdd: g2 is odd; kD1: odd lanes
+// are in the other frame from a and b (an odd g1 g2).
+template <bool kBundle, bool kOdd, bool kD1>
+__global__ void __launch_bounds__(kThreads, kLaneDotsMinBlocks)
+lane_stencil_dots_kernel(const BF* __restrict__ w, const BF* __restrict__ a,
+                         const BF* __restrict__ b, BF* __restrict__ out,
+                         const Pairs<BF> pairs, double* partials, int* ticket,
+                         BF* sums, int lanes, lm::Geo g) {
+  __shared__ double s_warp[kMaxPairs][kWarps];
+  __shared__ int s_last;
+  const int n_pairs = kBundle ? kBundlePairs : pairs.n_pairs;
+  const int lane = lm::group_of(blockIdx.z, lanes);
+  const int lane_size = g.g1 * g.g2;
+  w += lane * (int64_t)lane_size;
+  out += lane * (int64_t)lane_size;
+  partials += (int64_t)lane * n_pairs * gridDim.x;
+  LaneDots<kBundle> dots;
+  dots.pairs = &pairs;
+  dots.g2 = g.g2;
+#pragma unroll
+  for (int o = 0; o < LaneDots<kBundle>::kOps; ++o) {
+    dots.op[o] = pairs.ptr[o] + lane * (int64_t)lane_size;
+  }
+#pragma unroll
+  for (int p = 0; p < kMaxPairs; ++p) dots.acc[p] = 0.0;
+  const int nstrips = lm::strips(g.g2);
+  const int unit = blockIdx.x * kWarps + threadIdx.y;
+  if (unit < nstrips * lm::tiles(g.g1, 1, g.rows)) {
+    const int tile = unit / nstrips;  // warp-uniform
+    const int s = unit - tile * nstrips;
+    bool done = false;
+    if constexpr (kD1) {
+      if (lane & 1) {
+        lm::march<1, kOdd, false, true, kLaneDotsAhead>(
+            w, lane_size, a, b, out, lane_size, g, tile * g.rows, s, dots);
+        done = true;
+      }
+    }
+    if (!done) {
+      lm::march<1, kOdd, false, false, kLaneDotsAhead>(
+          w, lane_size, a, b, out, lane_size, g, tile * g.rows, s, dots);
+    }
+  }
+  finish_sums(dots.acc, n_pairs, s_warp, &s_last, partials, ticket, sums,
+              lane, lanes);
+}
+
+bool aligned4(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 3) == 0;
+}
+
+// K-f bf16's rows a unit at (bm, bn, pad) and ``lanes``, and its blocks a
+// lane.
+int lane_dots_rows(int bm, int bn, int pad, int lanes) {
+  return lm::rows_of(bm + 2, bn + 2, pad, lanes);
+}
+int64_t lane_dots_blocks(int bm, int bn, int pad, int lanes) {
+  return lm::group_blocks(bm + 2, bn + 2, pad,
+                          lane_dots_rows(bm, bn, pad, lanes));
+}
+
+// K-f bf16's launch: the full-grid layout (pad 1, the operands (lanes, bm
+// + 2, bn + 2) read on the interior), every array 4-byte aligned, a lane's
+// grid indexed in 32 bits; anything else is refused with
+// cudaErrorInvalidValue, as a table out of range is.
+int launch_lane_dots(const BF* w, const BF* a, const BF* b, BF* out,
+                     const void* const* operands, int n_operands,
+                     const int* pair_x, const int* pair_y, int n_pairs,
+                     int x_ld, int x_off, double* partials, int* ticket,
+                     BF* sums, int lanes, int bm, int bn, int pad, float h1,
+                     float h2, void* stream) {
+  const int g1 = bm + 2, g2 = bn + 2;
+  Pairs<BF> pairs;
+  bool is_bundle = false;
+  bool ok = make_pairs(pairs, is_bundle, operands, n_operands, pair_x,
+                       pair_y, n_pairs) &&
+            lanes >= 1 && lanes <= 65535 && bm >= 1 && bn >= 1 &&
+            pad == 1 && x_ld == g2 && x_off == g2 + 1 &&
+            (int64_t)(g1 + 2) * g2 < (int64_t{1} << 31) && aligned4(w) &&
+            aligned4(a) && aligned4(b) && aligned4(out);
+  for (int o = 0; ok && o < n_operands; ++o) ok = aligned4(operands[o]);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const lm::Geo geo{g1, g2, 1, lane_dots_rows(bm, bn, pad, lanes), h1, h2};
+  const dim3 grid(static_cast<unsigned>(lane_dots_blocks(bm, bn, pad, lanes)),
+                  1, lanes);
+  const dim3 block(32, kWarps);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto bundle) {
+    constexpr bool kB = decltype(bundle)::value;
+    if ((g2 & 1) && (g1 & 1)) {
+      lane_stencil_dots_kernel<kB, true, true><<<grid, block, 0, st>>>(
+          w, a, b, out, pairs, partials, ticket, sums, lanes, geo);
+    } else if (g2 & 1) {
+      lane_stencil_dots_kernel<kB, true, false><<<grid, block, 0, st>>>(
+          w, a, b, out, pairs, partials, ticket, sums, lanes, geo);
+    } else {
+      lane_stencil_dots_kernel<kB, false, false><<<grid, block, 0, st>>>(
+          w, a, b, out, pairs, partials, ticket, sums, lanes, geo);
+    }
+  };
+  if (is_bundle) {
+    run(std::true_type{});
+  } else {
+    run(std::false_type{});
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -575,16 +802,24 @@ int pe_stencil_dots_bf16(const __nv_bfloat16* w, const __nv_bfloat16* a,
 }
 
 // K-f's bf16 form: as pe_batched_stencil_dots_f32 with w, a, b, out, every
-// operand and sums in bf16; h1, h2 the bf16-rounded spacings.
+// operand and sums in bf16, 4-byte aligned, pad 1 (x_ld = bn + 2, x_off =
+// bn + 3); partials holds n_pairs * pe_batched_stencil_dots_bf16_blocks
+// doubles a lane. h1, h2 the bf16-rounded spacings.
 int pe_batched_stencil_dots_bf16(
     const __nv_bfloat16* w, const __nv_bfloat16* a, const __nv_bfloat16* b,
     __nv_bfloat16* out, const void* const* operands, int n_operands,
     const int* pair_x, const int* pair_y, int n_pairs, int x_ld, int x_off,
     double* partials, int* ticket, __nv_bfloat16* sums, int lanes, int bm,
     int bn, int pad, float h1, float h2, void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
-      w, a, b, out, operands, n_operands, pair_x, pair_y, n_pairs, x_ld,
-      x_off, partials, ticket, sums, lanes, bm, bn, pad, h1, h2, stream);
+  return launch_lane_dots(w, a, b, out, operands, n_operands, pair_x, pair_y,
+                          n_pairs, x_ld, x_off, partials, ticket, sums, lanes,
+                          bm, bn, pad, h1, h2, stream);
+}
+
+// Blocks of one lane of a K-f bf16 launch at (bm, bn, pad) with ``lanes``
+// lanes.
+int pe_batched_stencil_dots_bf16_blocks(int bm, int bn, int pad, int lanes) {
+  return static_cast<int>(lane_dots_blocks(bm, bn, pad, lanes));
 }
 
 const char* pe_stencil_dots_error_string(int code) {

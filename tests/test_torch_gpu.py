@@ -1715,9 +1715,14 @@ def test_k1_bf16_march_issues_one_device_kernel(cuda, activities):
 
 BF16 = torch.bfloat16
 # K-e and K-f bf16 at their path's shapes (401x601 B = 32, 801x1201 B = 8)
-# and ragged ones
+# and ragged ones; then the lane march's frames (csrc/lane_march.cuh): an
+# odd g1 g2 with B >= 2 (odd lanes in the other frame from a and b) just
+# past a 64-column strip, B = 1, odd B (K-e's lone last lane), even widths
+# of one strip and just past it (pad 0's out in the other frame), an even
+# g1 at an odd width below a strip
 BATCHED_BF16_SHAPES = [(44, 132, 3), (130, 20, 2), (2, 2, 1), (400, 600, 32),
-                       (800, 1200, 8)]
+                       (800, 1200, 8), (10, 64, 2), (44, 132, 1),
+                       (12, 63, 3), (5, 65, 1), (7, 62, 3), (16, 127, 5)]
 # K1-shard bf16: a rank's 1201x1601 block (bn + 2 odd) and 1200x1600 (even),
 # a 1x1 block, ragged ones of both parities
 SHARD_BF16_BLOCKS = [(1201, 1601), (1200, 1600), (1, 1), (7, 5), (8, 9),
@@ -1792,6 +1797,52 @@ def test_batched_stencil_dots_bf16_is_its_plain_version_and_k_d_bf16(cuda, M,
                                                  h1, h2, lane_pairs)
             assert _same_bits(n[lane], n_l)
             assert _same_bits(sums[:, lane], sums_l)
+
+
+@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("M,N,B", [(44, 132, 3), (12, 63, 3), (16, 127, 5),
+                                   (2, 2, 1), (400, 600, 32)])
+def test_batched_stencil_bf16_one_or_two_lanes_a_thread(cuda, M, N, B, pad):
+    """K-e bf16's march with one and with two lanes a thread (a and b
+    loaded once for two): the same bits as the engines' entry."""
+    w, a, b, _ = _bf16_lane_inputs(M, N, B, cuda)
+    h1, h2 = 2.0 / M, 1.2 / N
+    want = hk._launch_batched(w, a, b, h1, h2, pad)
+    for group in (1, 2):
+        got = hk._launch_batched(w, a, b, h1, h2, pad, group=group)
+        assert _same_bits(got, want), group
+    with pytest.raises(RuntimeError, match="launch failed"):
+        hk._launch_batched(w, a, b, h1, h2, pad, group=3)
+
+
+def test_batched_stencil_dots_bf16_blocks_are_the_mirrored_count(cuda):
+    """The library's K-f bf16 blocks a lane are ``lane_dots_blocks``: the
+    partials the wrapper sizes from it hold every block."""
+    lib = _build.load(hk.DOTS_KERNEL, hk._DOTS_SIGNATURES)
+    for M, N, B in BATCHED_BF16_SHAPES + [(2400, 3200, 2), (20, 20, 200)]:
+        assert (lib.pe_batched_stencil_dots_bf16_blocks(M - 1, N - 1, 1, B)
+                == hk.lane_dots_blocks(M + 1, N + 1, 1, B))
+
+
+def test_batched_bf16_kernels_refuse_arrays_off_a_word(cuda):
+    """The lane marches load aligned words: an array one element past a
+    4-byte boundary is refused, not read across words."""
+    M, N, B = 44, 132, 3
+    w, a, b, ops = _bf16_lane_inputs(M, N, B, cuda)
+    h1, h2 = 2.0 / M, 1.2 / N
+
+    def off(t):
+        buf = torch.zeros(t.numel() + 1, dtype=BF16, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for args in ((off(w), a, b), (w, off(a), b), (w, a, off(b))):
+        with pytest.raises(ValueError, match="4-byte"):
+            hk.apply_a_batched_kernel(*args, h1, h2)
+    with pytest.raises(ValueError, match="4-byte"):
+        hk.apply_a_dots_batched_kernel(w, a, b, h1, h2,
+                                       pp._bundle(*ops[:4], off(ops[4])))
 
 
 @pytest.mark.parametrize("engine_name,counters", [
