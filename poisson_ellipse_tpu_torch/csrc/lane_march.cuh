@@ -294,7 +294,8 @@ __device__ __forceinline__ void march(
   const SharedEdges se = shared_edges(a, b, g, r0, c0, lane);
 
   // each array at the lane's column c of its row 0: a row r's element c is
-  // base + r*g2 (w, a, b) or base + r*on (out)
+  // base + r*g2 (w, a, b) or base + r*on (out; its first row is row
+  // 1 - pad)
   const __nv_bfloat16* wq[kK];
   __nv_bfloat16* oq[kK];
 #pragma unroll
@@ -340,27 +341,40 @@ __device__ __forceinline__ void march(
   const auto body = [&](auto inside) {
     constexpr bool kIn = decltype(inside)::value;
     const Cols k = kIn ? cols_inside(c) : cols_of(c, g2, g.pad);
+    // the rows the next issue loads (w and a one row down, b its own row)
+    // and the next step stores, each at column c
+    const __nv_bfloat16* pw[kK];
+    __nv_bfloat16* po[kK];
+#pragma unroll
+    for (int q = 0; q < kK; ++q) {
+      pw[q] = wq[q] + (r0 + 1) * g2;
+      po[q] = oq[q] + r0 * on;
+    }
+    const __nv_bfloat16* pa = ac + (r0 + 1) * g2;
+    const __nv_bfloat16* pb = bc + r0 * g2;
     // the loads of step r (parity P): a and b's frame in row r is Fr, in
     // row r + 1 Fd
     const auto issue = [&](int r, Slot& sl, auto P) {
       constexpr int Fr = kOdd ? decltype(P)::value : 0;
       constexpr int Fd = kOdd ? 1 - Fr : 0;
-      const int o = r * g2;
       const bool down = kIn || r + 1 <= g1 - 1;
       const bool last_down = !kIn && r + 1 == g1 - 1;
-      const int od = o + g2;
-      sl.w[0] = down ? word<delta<kK, kOdd, kD1>(0) ^ Fd>(wq[0] + od, k,
+      sl.w[0] = down ? word<delta<kK, kOdd, kD1>(0) ^ Fd>(pw[0], k,
                                                           last_down)
                      : 0u;
       if constexpr (kK == 2) {
-        sl.w[1] = down ? word<delta<kK, kOdd, kD1>(1) ^ Fd>(wq[1] + od, k,
+        sl.w[1] = down ? word<delta<kK, kOdd, kD1>(1) ^ Fd>(pw[1], k,
                                                             last_down)
                        : 0u;
       }
-      sl.a = down ? word<Fd>(ac + od, k, last_down) : 0u;
-      sl.b = word<Fr>(bc + o, k, !kIn && r == g1 - 1);
-      dots.template issue<delta<kK, kOdd, kD1>(0) ^ Fr>(sl.d, r,
-                                       kIn || (r >= 1 && r <= g1 - 2), k);
+      sl.a = down ? word<Fd>(pa, k, last_down) : 0u;
+      sl.b = word<Fr>(pb, k, !kIn && r == g1 - 1);
+#pragma unroll
+      for (int q = 0; q < kK; ++q) pw[q] += g2;
+      pa += g2;
+      pb += g2;
+      dots.template issue<delta<kK, kOdd, kD1>(0) ^ Fr>(
+          sl.d, r, kIn || (r >= 1 && r <= g1 - 2), k);
     };
 
     // step r (parity P): the stencil of row r in the fixed columns, out's
@@ -397,8 +411,9 @@ __device__ __forceinline__ void march(
         }
         if (kIn || r >= 1 - g.pad) {
           constexpr int Fo = d ^ Fr ^ (kFlip ? 1 : 0);
-          store<Fo>(oq[q] + r * on, X::pack(vx, vy), k, lane);
+          store<Fo>(po[q], X::pack(vx, vy), k, lane);
         }
+        po[q] += on;
         x.fn = f_s;
         x.wc = ws;
       };
@@ -421,13 +436,13 @@ __device__ __forceinline__ void march(
         if (!kIn && r >= end) return;  // warp-uniform
         {
           const Slot cur = ring[q];
-          if (r + kAhead < end) issue(r + kAhead, ring[q], I<0>{});
+          if (kIn || r + kAhead < end) issue(r + kAhead, ring[q], I<0>{});
           step(r, cur, I<0>{});
         }
         if (!kIn && r + 1 >= end) return;
         {
           const Slot cur = ring[q + 1];
-          if (r + 1 + kAhead < end) {
+          if (kIn || r + 1 + kAhead < end) {
             issue(r + 1 + kAhead, ring[q + 1], I<1>{});
           }
           step(r + 1, cur, I<1>{});
@@ -435,9 +450,11 @@ __device__ __forceinline__ void march(
       }
     }
   };
-  // every row a node row with its loads above the last row, every column
-  // a node column with the strip's edges inside the grid
-  if (r0 >= 1 && r0 + g.rows <= g1 - 2 && c0 >= 1 && c0 + 64 <= g2 - 2) {
+  // every row a node row and every row the issues load (kAhead past the
+  // unit) above the grid's last row, every column a node column with the
+  // strip's edges inside the grid
+  if (r0 >= 1 && r0 + g.rows + kAhead <= g1 - 2 && c0 >= 1 &&
+      c0 + 64 <= g2 - 2) {
     body(std::true_type{});
   } else {
     body(std::false_type{});

@@ -282,8 +282,10 @@ struct LaneShape {
   static constexpr int kAhead = 2;
   static constexpr int kMinBlocks = 3;
 };
-// lanes a thread in pe_batched_stencil_bf16
-constexpr int kLaneGroup = 2;
+// lanes a thread in pe_batched_stencil_bf16: one, timed in turns against
+// two a thread (a and b loaded once for two lanes), which ran slower
+// (PERF.md, section 6)
+constexpr int kLaneGroup = 1;
 
 namespace lm = lane_march;
 

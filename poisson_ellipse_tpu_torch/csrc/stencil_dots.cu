@@ -539,26 +539,15 @@ int launch(const TW* w, const TC* a, const TC* b, TO* out,
 namespace lm = lane_march;
 using BF = __nv_bfloat16;
 
-// K-f bf16's roles in a block: kLaneStencilWarps warps march a unit's
-// stencil each (K-e bf16's march), kLaneDotWarps warps sum the pair
-// products of the block's units, kLaneDotUnits units each in turn, so a
-// block takes kLaneStencilWarps units. The two roles keep their registers
-// apart (a march's ring and edges; the double accumulators and the
-// operands' ring): together in one thread they took 124 registers and 2
-// blocks an SM. Rows in flight behind a row: a march's, a dot warp's.
-constexpr int kLaneDotWarps = 2;
-constexpr int kLaneStencilWarps = kWarps - kLaneDotWarps;
-constexpr int kLaneDotUnits = kLaneStencilWarps / kLaneDotWarps;
-constexpr int kLaneAhead = 2;
-constexpr int kLaneDotsAhead = 4;
-constexpr int kLaneDotsMinBlocks = 3;
-static_assert(kLaneDotUnits * kLaneDotWarps == kLaneStencilWarps,
-              "every unit's dots summed once");
+// Rows in flight behind a row, and blocks an SM (the double accumulators
+// and the operand words of the ring take most of the registers).
+constexpr int kLaneDotsAhead = 2;
+constexpr int kLaneDotsMinBlocks = 2;
 
-// The dot products of a row: each operand's word of row r in out's frame
-// F (the lane's columns c, c + 1 at frame 0; c - 1, c at frame 1), each
-// node half's product in float (exact for two bf16 values), widened to
-// double and added into acc, low half then high. A half that is no node
+// The dot products in the march: each operand's word of row r in out's
+// frame F (the lane's columns c, c + 1 at frame 0; c - 1, c at frame 1),
+// each node half's product in float (exact for two bf16 values), widened
+// to double and added into acc, low half then high. A half that is no node
 // adds +0, which leaves a double sum that starts at +0 as it is.
 template <bool kBundle>
 struct LaneDots {
@@ -612,71 +601,12 @@ struct LaneDots {
       acc[p] += (double)(hi ? py : 0.f);
     }
   }
-
-  // One unit's node rows: strip s, rows r0 .. r0 + rows - 1 (r0 even), the
-  // operands in frame kD ^ (r's parity at an odd width), their words
-  // issued kLaneDotsAhead rows ahead; a unit whose rows and columns are all
-  // nodes takes no masks.
-  template <bool kOdd, bool kD>
-  __device__ __forceinline__ void march(const lm::Geo& g, int r0, int s) {
-    constexpr int kA = kLaneDotsAhead;
-    static_assert(kA % 2 == 0, "a trip of whole row pairs");
-    const int lane = threadIdx.x & 31;
-    const int c0 = lm::kStrip * s;
-    const int c = c0 + 2 * lane;
-    const int end = min(r0 + g.rows, g.g1 - 1);  // past the last node row
-    if (r0 >= end) return;  // warp-uniform
-    const auto body = [&](auto inside) {
-      constexpr bool kIn = decltype(inside)::value;
-      const lm::Cols k = kIn ? lm::cols_inside(c) : lm::cols_of(c, g2, 1);
-      constexpr int F0 = kOdd && kD ? 1 : 0;
-      constexpr int F1 = F0 ^ (kOdd ? 1 : 0);
-      const auto node = [&](int r) { return kIn || r >= 1; };
-      Slot ring[kA];
-#pragma unroll
-      for (int q = 0; q < kA; q += 2) {
-        if (kIn || r0 + q < end) {
-          issue<F0>(ring[q], r0 + q, node(r0 + q), k);
-        }
-        if (kIn || r0 + q + 1 < end) {
-          issue<F1>(ring[q + 1], r0 + q + 1, node(r0 + q + 1), k);
-        }
-      }
-#pragma unroll 1
-      for (int t = 0; t < g.rows; t += kA) {
-#pragma unroll
-        for (int q = 0; q < kA; q += 2) {
-          const int r = r0 + t + q;
-          if (!kIn && r >= end) return;  // warp-uniform
-          {
-            const Slot cur = ring[q];
-            if (r + kA < end) issue<F0>(ring[q], r + kA, node(r + kA), k);
-            take<F0>(cur, node(r), k);
-          }
-          if (!kIn && r + 1 >= end) return;
-          {
-            const Slot cur = ring[q + 1];
-            if (r + 1 + kA < end) {
-              issue<F1>(ring[q + 1], r + 1 + kA, node(r + 1 + kA), k);
-            }
-            take<F1>(cur, node(r + 1), k);
-          }
-        }
-      }
-    };
-    if (r0 >= 1 && r0 + g.rows <= g.g1 - 1 && c0 >= 2 &&
-        c0 + 64 <= g2 - 2) {
-      body(std::true_type{});
-    } else {
-      body(std::false_type{});
-    }
-  }
 };
 
-// K-f bf16: a block takes kLaneStencilWarps units of one lane (blockIdx.z,
-// even lanes first), its warps in the two roles above, the lane's partials
-// a block and its ticket; kOdd: g2 is odd; kD1: odd lanes are in the other
-// frame from a and b (an odd g1 g2).
+// K-f bf16: a warp a unit (a strip of one lane over ``rows`` rows), a
+// block kWarps units of one lane (blockIdx.z, even lanes first), the
+// lane's partials a block and its ticket; kOdd: g2 is odd; kD1: odd lanes
+// are in the other frame from a and b (an odd g1 g2).
 template <bool kBundle, bool kOdd, bool kD1>
 __global__ void __launch_bounds__(kThreads, kLaneDotsMinBlocks)
 lane_stencil_dots_kernel(const BF* __restrict__ w, const BF* __restrict__ a,
@@ -688,78 +618,46 @@ lane_stencil_dots_kernel(const BF* __restrict__ w, const BF* __restrict__ a,
   const int n_pairs = kBundle ? kBundlePairs : pairs.n_pairs;
   const int lane = lm::group_of(blockIdx.z, lanes);
   const int lane_size = g.g1 * g.g2;
-  const int nstrips = lm::strips(g.g2);
-  const int nunits = nstrips * lm::tiles(g.g1, 1, g.rows);
-  const int warp = threadIdx.y;
-  const bool odd = kD1 && (lane & 1);
+  w += lane * (int64_t)lane_size;
+  out += lane * (int64_t)lane_size;
   partials += (int64_t)lane * n_pairs * gridDim.x;
-  double acc[kMaxPairs];
-  if (warp < kLaneStencilWarps) {
-    const int unit = blockIdx.x * kLaneStencilWarps + warp;
-    if (unit < nunits) {
-      const int tile = unit / nstrips;  // warp-uniform
-      const int s = unit - tile * nstrips;
-      const BF* wl = w + lane * (int64_t)lane_size;
-      BF* ol = out + lane * (int64_t)lane_size;
-      lm::NoDots none;
-      if (odd) {
-        lm::march<1, kOdd, false, true, kLaneAhead>(
-            wl, lane_size, a, b, ol, lane_size, g, tile * g.rows, s, none);
-      } else {
-        lm::march<1, kOdd, false, false, kLaneAhead>(
-            wl, lane_size, a, b, ol, lane_size, g, tile * g.rows, s, none);
+  LaneDots<kBundle> dots{&pairs, lane * (int64_t)lane_size, g.g2, {}};
+#pragma unroll
+  for (int p = 0; p < kMaxPairs; ++p) dots.acc[p] = 0.0;
+  const int nstrips = lm::strips(g.g2);
+  const int unit = blockIdx.x * kWarps + threadIdx.y;
+  if (unit < nstrips * lm::tiles(g.g1, 1, g.rows)) {
+    const int tile = unit / nstrips;  // warp-uniform
+    const int s = unit - tile * nstrips;
+    bool done = false;
+    if constexpr (kD1) {
+      if (lane & 1) {
+        lm::march<1, kOdd, false, true, kLaneDotsAhead>(
+            w, lane_size, a, b, out, lane_size, g, tile * g.rows, s, dots);
+        done = true;
       }
     }
-#pragma unroll
-    for (int p = 0; p < kMaxPairs; ++p) acc[p] = 0.0;
-  } else {
-    LaneDots<kBundle> dots{&pairs, lane * (int64_t)lane_size, g.g2, {}};
-#pragma unroll
-    for (int p = 0; p < kMaxPairs; ++p) dots.acc[p] = 0.0;
-    const int first = blockIdx.x * kLaneStencilWarps +
-                      (warp - kLaneStencilWarps) * kLaneDotUnits;
-    for (int j = 0; j < kLaneDotUnits; ++j) {
-      const int unit = first + j;
-      if (unit >= nunits) break;  // warp-uniform
-      const int tile = unit / nstrips;
-      const int s = unit - tile * nstrips;
-      if (odd) {
-        dots.template march<kOdd, true>(g, tile * g.rows, s);
-      } else {
-        dots.template march<kOdd, false>(g, tile * g.rows, s);
-      }
+    if (!done) {
+      lm::march<1, kOdd, false, false, kLaneDotsAhead>(
+          w, lane_size, a, b, out, lane_size, g, tile * g.rows, s, dots);
     }
-#pragma unroll
-    for (int p = 0; p < kMaxPairs; ++p) acc[p] = dots.acc[p];
   }
-  finish_sums(acc, n_pairs, s_warp, &s_last, partials, ticket, sums, lane,
-              lanes);
+  finish_sums(dots.acc, n_pairs, s_warp, &s_last, partials, ticket, sums,
+              lane, lanes);
 }
 
 bool aligned4(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 3) == 0;
 }
 
-// K-f bf16's rows a unit at (bm, bn, pad) and ``lanes`` (lane_march.cuh
-// rows_of's rule, with a block of kLaneStencilWarps units), and its blocks
-// a lane.
-int64_t lane_dots_blocks_of(int g1, int g2, int pad, int rows) {
-  return ((int64_t)lm::strips(g2) * lm::tiles(g1, pad, rows) +
-          kLaneStencilWarps - 1) /
-         kLaneStencilWarps;
-}
+// K-f bf16's rows a unit at (bm, bn, pad) and ``lanes``, and its blocks a
+// lane.
 int lane_dots_rows(int bm, int bn, int pad, int lanes) {
-  int rows = lm::kMaxRows;
-  while (rows > lm::kMinRows &&
-         lane_dots_blocks_of(bm + 2, bn + 2, pad, rows) * lanes <
-             lm::kFillBlocks) {
-    rows /= 2;
-  }
-  return rows;
+  return lm::rows_of(bm + 2, bn + 2, pad, lanes);
 }
 int64_t lane_dots_blocks(int bm, int bn, int pad, int lanes) {
-  return lane_dots_blocks_of(bm + 2, bn + 2, pad,
-                             lane_dots_rows(bm, bn, pad, lanes));
+  return lm::group_blocks(bm + 2, bn + 2, pad,
+                          lane_dots_rows(bm, bn, pad, lanes));
 }
 
 // K-f bf16's launch: the full-grid layout (pad 1, the operands (lanes, bm
