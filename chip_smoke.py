@@ -5328,14 +5328,12 @@ def phase_lane_bf16_timing(seed: int, card: str) -> list:
     """``--only lane-bf16-timing``: K-e and K-f bf16 first held bitwise as
     phase 8 holds them (``phase_batched_bf16_kernels``), then timed three
     ways (``timed_row``) at LANE_BF16_CASES beside their bounds, shares of
-    them and losses on their paths; K-e bf16 with one and two lanes a
-    thread by device time in turns (1, 2, 2, 1), where the tree has the
-    grouped entry; us a launch of each inside bf16 batched-pallas and
-    batched-pipelined-pallas at 400x600, B = 32, capped at
-    LANE_BF16_LOOP_CAP (torch.profiler); K1-shard bf16 at its path's
+    them and losses on their paths; us a launch of each inside bf16
+    batched-pallas and batched-pipelined-pallas at 400x600, B = 32, capped
+    at LANE_BF16_LOOP_CAP (torch.profiler); K1-shard bf16 at its path's
     1x1 block of 2400x3200, bitwise its plain version, by device time; the
     two libraries' SASS for the lane kernels. Runs on an older tree's
-    kernels too (what it lacks prints as not measured)."""
+    kernels too."""
     from poisson_ellipse_tpu_torch.models.problem import Problem
     from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
     from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
@@ -5344,7 +5342,6 @@ def phase_lane_bf16_timing(seed: int, card: str) -> list:
     phase_batched_bf16_kernels(seed)
     say(f"== K-e and K-f bf16 by device time on {card}")
     rows, aside = [], []
-    grouped = hasattr(hk, "LANE_GROUP")
     for (m, n), lanes in LANE_BF16_CASES:
         sets = [lane_inputs((m, n), lanes, seed + s)
                 for s in range(QUEUE_SETS)]
@@ -5373,21 +5370,8 @@ def phase_lane_bf16_timing(seed: int, card: str) -> list:
                  "ops/pallas_kernels.py:529")):
             timed_row(out, name, f"{name} {label}", calls, plain,
                       passes * 2 * nodes, flops * nodes * lanes, src, line,
-                      launches=LANE_BF16_LAUNCHES[name], per=nodes * lanes)
-        if not grouped:
-            say(f"  K-e bf16 {label} by lanes a thread: not measured (this "
-                "tree has one form)")
-            continue
-        by = {1: [], 2: []}
-        for group in (1, 2, 2, 1):
-            by[group].append(device_ms([
-                lambda s=s, g=group: hk._launch_batched(
-                    s["w"], s["a"], s["b"], h1, h2, 1, group=g)
-                for s in sets]))
-        say(f"  K-e bf16 {label} device us, in turns 1, 2, 2, 1 lanes a "
-            f"thread: one {', '.join(f'{t * 1e3:.2f}' for t in by[1])}; "
-            f"two {', '.join(f'{t * 1e3:.2f}' for t in by[2])} (the "
-            f"engines take {hk.LANE_GROUP})")
+                      launches=LANE_BF16_LAUNCHES[name] if out is rows
+                      else 0, per=nodes * lanes)
         del sets
 
     say("  a launch inside the bf16 lane loops at 400x600, B = 32 "

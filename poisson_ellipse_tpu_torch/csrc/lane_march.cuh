@@ -2,8 +2,8 @@
 // (stencil.cu, pe_batched_stencil_bf16) and K-f bf16 (stencil_dots.cu,
 // pe_batched_stencil_dots_bf16). A lane owns two columns, a warp marches a
 // strip of 64 columns down ``rows`` rows of one lane's grid (a unit), and
-// a block takes kWarps units of one lane group in a row, numbered row tile
-// by row tile, so the grid, the split of the nodes and the order of every
+// a block takes kWarps units of one lane in a row, numbered row tile by
+// row tile, so the grid, the split of the nodes and the order of every
 // sum follow the grid's shape (g1, g2, pad, lanes) alone.
 //
 // Columns. Lane L of strip s owns the fixed columns c = 64 s + 2 L and
@@ -74,23 +74,23 @@ __host__ __device__ inline int strips(int g2) {
 __host__ __device__ inline int tiles(int g1, int pad, int rows) {
   return (g1 - 1 + pad + rows - 1) / rows;
 }
-__host__ __device__ inline int64_t group_blocks(int g1, int g2, int pad,
-                                                int rows) {
+__host__ __device__ inline int64_t lane_blocks(int g1, int g2, int pad,
+                                               int rows) {
   return ((int64_t)strips(g2) * tiles(g1, pad, rows) + kWarps - 1) / kWarps;
 }
-inline int rows_of(int g1, int g2, int pad, int groups) {
+inline int rows_of(int g1, int g2, int pad, int lanes) {
   int rows = kMaxRows;
   while (rows > kMinRows &&
-         group_blocks(g1, g2, pad, rows) * groups < kFillBlocks) {
+         lane_blocks(g1, g2, pad, rows) * lanes < kFillBlocks) {
     rows /= 2;
   }
   return rows;
 }
 
-// The lane group of block z: the even groups first, so that blocks of one
-// frame pattern run together (an odd g1 g2 alternates delta by lane).
-__device__ __forceinline__ int group_of(int z, int groups) {
-  const int half = (groups + 1) / 2;
+// The lane of block z: the even lanes first, so that blocks of one frame
+// run together (an odd g1 g2 alternates the frame by lane).
+__device__ __forceinline__ int lane_of(int z, int lanes) {
+  const int half = (lanes + 1) / 2;
   return z < half ? 2 * z : 2 * (z - half) + 1;
 }
 
@@ -196,8 +196,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* at, W v, const Cols& k,
   if (lane == 31 && k.oy) st_half(at + 1, v >> 16);
 }
 
-// A lane group's row-r0 - 1 + k edges (lane k): w one column west of the
-// strip, the west flux of the column east of it, w in its last column.
+// A unit's row-r0 - 1 + k edges (lane k): w one column west of the strip,
+// the west flux of the column east of it, w in its last column.
 struct LaneEdges {
   float ew, ef;
   W w63;
@@ -240,8 +240,8 @@ __device__ __forceinline__ SharedEdges shared_edges(const __nv_bfloat16* a,
   return e;
 }
 
-// The march state of one lane of the group: w's current row and the
-// north flux, in the fixed columns.
+// The march state: w's current row and the north flux, in the fixed
+// columns.
 struct State {
   float2 wc, fn;
 };
@@ -255,29 +255,23 @@ struct NoDots {
   __device__ __forceinline__ void take(const Slot&, bool, const Cols&) {}
 };
 
-// Lane q's frame against a and b's (delta): 0 for the first of two lanes,
-// kD1 for the second or a lone lane; always 0 at an even width.
-template <int kK, bool kOdd, bool kD1>
-__host__ __device__ constexpr int delta(int q) {
-  return kOdd && kD1 && (kK == 1 || q == 1) ? 1 : 0;
-}
-
-// One unit: strip s of the group's kK lanes (lane q at w + q*lane_size and
-// out + q*out_size, in frame delta(q) against a and b: 0 for the first of
-// two, kD1 for the second or a lone lane) down rows r0 .. r0 + rows - 1 of
-// the extended grid, r0 even. Row r is taken in step r, whose loads (w and
-// a of row r + 1; b and the dots' operands, in out's layout, of row r) are
-// issued kAhead steps ahead. A unit whose rows and columns are all nodes,
-// and whose loads all lie above the grid's last row, takes a march with no
-// masks (kIn); the others mask by row and column.
-template <int kK, bool kOdd, bool kFlip, bool kD1, int kAhead, class Dots>
-__device__ __forceinline__ void march(
-    const __nv_bfloat16* __restrict__ w, int lane_size,
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
-    __nv_bfloat16* __restrict__ out, int out_size, const Geo& g, int r0,
-    int s, Dots& dots) {
+// One unit: strip s of one lane (w and out at the lane's first element, in
+// frame kD against a and b: 1 for an odd lane of an odd g1 g2) down rows
+// r0 .. r0 + rows - 1 of the extended grid, r0 even. Row r is taken in step
+// r, whose loads (w and a of row r + 1; b and the dots' operands, in out's
+// layout, of row r) are issued kAhead steps ahead. A unit whose rows and
+// columns are all nodes, and whose issues load only rows above the grid's
+// last, takes a march with no masks (kIn); the others mask by row and
+// column.
+template <bool kOdd, bool kFlip, bool kD, int kAhead, class Dots>
+__device__ __forceinline__ void march(const __nv_bfloat16* __restrict__ w,
+                                      const __nv_bfloat16* __restrict__ a,
+                                      const __nv_bfloat16* __restrict__ b,
+                                      __nv_bfloat16* __restrict__ out,
+                                      const Geo& g, int r0, int s,
+                                      Dots& dots) {
   static_assert(kAhead % 2 == 0, "a trip of whole row pairs");
-  static_assert(kK == 1 || kK == 2, "one or two lanes a thread");
+  constexpr int d = kOdd && kD ? 1 : 0;
   const int lane = threadIdx.x & 31;
   const int c0 = kStrip * s;
   const int c = c0 + 2 * lane;
@@ -286,55 +280,38 @@ __device__ __forceinline__ void march(
   const int end = min(r0 + g.rows, g1 - 1 + g.pad);  // past the last row
   if (r0 >= end) return;  // warp-uniform
 
-  LaneEdges le[kK];
-#pragma unroll
-  for (int q = 0; q < kK; ++q) {
-    le[q] = lane_edges(w + q * (int64_t)lane_size, b, g, r0, c0, lane);
-  }
+  const LaneEdges le = lane_edges(w, b, g, r0, c0, lane);
   const SharedEdges se = shared_edges(a, b, g, r0, c0, lane);
-
   // each array at the lane's column c of its row 0: a row r's element c is
   // base + r*g2 (w, a, b) or base + r*on (out; its first row is row
   // 1 - pad)
-  const __nv_bfloat16* wq[kK];
-  __nv_bfloat16* oq[kK];
-#pragma unroll
-  for (int q = 0; q < kK; ++q) {
-    wq[q] = w + q * (int64_t)lane_size + c;
-    oq[q] = out + q * (int64_t)out_size + (g.pad - 1) * on + (c - 1 + g.pad);
-  }
+  const __nv_bfloat16* wc = w + c;
   const __nv_bfloat16* ac = a + c;
   const __nv_bfloat16* bc = b + c;
+  __nv_bfloat16* oc = out + (g.pad - 1) * on + (c - 1 + g.pad);
 
-  // rows r0 - 1 and r0 into the fixed columns: each lane's w and north
-  // flux (a of row r0, frame 0: r0 is even)
-  State st[kK];
+  // rows r0 - 1 and r0 into the fixed columns: w and the north flux (a of
+  // row r0, frame 0: r0 is even; w of row r0 in frame d, lane 1 holding
+  // its edges, of row r0 - 1 in d ^ kOdd)
+  State st;
   {
     const Cols k = cols_of(c, g2, g.pad);
     const float2 av = X::unpack(word<0>(ac + r0 * g2, k, r0 == g1 - 1));
-    const auto start = [&](auto qq) {
-      constexpr int q = decltype(qq)::value;
-      constexpr int d = delta<kK, kOdd, kD1>(q);
-      // row r0 in frame d (lane k = 1 holds its edges), r0 - 1 in d ^ kOdd
-      st[q].wc = X::unpack(fixed<d>(
-          word<d>(wq[q] + r0 * g2, k, r0 == g1 - 1), le[q].w63, 1, lane));
-      st[q].fn = make_float2(0.f, 0.f);
-      if (r0 >= 1) {
-        constexpr int dm = d ^ (kOdd ? 1 : 0);
-        const float2 mv = X::unpack(fixed<dm>(
-            word<dm>(wq[q] + (r0 - 1) * g2, k, false), le[q].w63, 0, lane));
-        st[q].fn = make_float2(face_flux(av.x, st[q].wc.x, mv.x, g.h1),
-                               face_flux(av.y, st[q].wc.y, mv.y, g.h1));
-      }
-    };
-    start(I<0>{});
-    if constexpr (kK == 2) start(I<1>{});
+    st.wc = X::unpack(
+        fixed<d>(word<d>(wc + r0 * g2, k, r0 == g1 - 1), le.w63, 1, lane));
+    st.fn = make_float2(0.f, 0.f);
+    if (r0 >= 1) {
+      constexpr int dm = d ^ (kOdd ? 1 : 0);
+      const float2 mv = X::unpack(
+          fixed<dm>(word<dm>(wc + (r0 - 1) * g2, k, false), le.w63, 0, lane));
+      st.fn = make_float2(face_flux(av.x, st.wc.x, mv.x, g.h1),
+                          face_flux(av.y, st.wc.y, mv.y, g.h1));
+    }
   }
 
   // a step's loads: w and a of row r + 1, b of row r
   struct Slot {
-    W w[kK];
-    W a, b;
+    W w, a, b;
     typename Dots::Slot d;
   };
 
@@ -343,15 +320,10 @@ __device__ __forceinline__ void march(
     const Cols k = kIn ? cols_inside(c) : cols_of(c, g2, g.pad);
     // the rows the next issue loads (w and a one row down, b its own row)
     // and the next step stores, each at column c
-    const __nv_bfloat16* pw[kK];
-    __nv_bfloat16* po[kK];
-#pragma unroll
-    for (int q = 0; q < kK; ++q) {
-      pw[q] = wq[q] + (r0 + 1) * g2;
-      po[q] = oq[q] + r0 * on;
-    }
+    const __nv_bfloat16* pw = wc + (r0 + 1) * g2;
     const __nv_bfloat16* pa = ac + (r0 + 1) * g2;
     const __nv_bfloat16* pb = bc + r0 * g2;
+    __nv_bfloat16* po = oc + r0 * on;
     // the loads of step r (parity P): a and b's frame in row r is Fr, in
     // row r + 1 Fd
     const auto issue = [&](int r, Slot& sl, auto P) {
@@ -359,22 +331,14 @@ __device__ __forceinline__ void march(
       constexpr int Fd = kOdd ? 1 - Fr : 0;
       const bool down = kIn || r + 1 <= g1 - 1;
       const bool last_down = !kIn && r + 1 == g1 - 1;
-      sl.w[0] = down ? word<delta<kK, kOdd, kD1>(0) ^ Fd>(pw[0], k,
-                                                          last_down)
-                     : 0u;
-      if constexpr (kK == 2) {
-        sl.w[1] = down ? word<delta<kK, kOdd, kD1>(1) ^ Fd>(pw[1], k,
-                                                            last_down)
-                       : 0u;
-      }
+      sl.w = down ? word<d ^ Fd>(pw, k, last_down) : 0u;
       sl.a = down ? word<Fd>(pa, k, last_down) : 0u;
       sl.b = word<Fr>(pb, k, !kIn && r == g1 - 1);
-#pragma unroll
-      for (int q = 0; q < kK; ++q) pw[q] += g2;
+      pw += g2;
       pa += g2;
       pb += g2;
-      dots.template issue<delta<kK, kOdd, kD1>(0) ^ Fr>(
-          sl.d, r, kIn || (r >= 1 && r <= g1 - 2), k);
+      dots.template issue<d ^ Fr>(sl.d, r, kIn || (r >= 1 && r <= g1 - 2),
+                                  k);
     };
 
     // step r (parity P): the stencil of row r in the fixed columns, out's
@@ -386,40 +350,31 @@ __device__ __forceinline__ void march(
       const bool node_row = kIn || (r >= 1 && r <= g1 - 2);
       const float2 bb = X::unpack(fixed<Fr>(sl.b, se.b63, t, lane));
       const float2 as = X::unpack(fixed<Fd>(sl.a, se.a63, t + 1, lane));
-      const auto one = [&](auto qq) {
-        constexpr int q = decltype(qq)::value;
-        constexpr int d = delta<kK, kOdd, kD1>(q);
-        State& x = st[q];
-        const float2 ws =
-            X::unpack(fixed<d ^ Fd>(sl.w[q], le[q].w63, t + 1, lane));
-        float w_w = __shfl_up_sync(kFull, x.wc.y, 1);
-        const float e_w = __shfl_sync(kFull, le[q].ew, t);
-        const float e_f = __shfl_sync(kFull, le[q].ef, t);
-        if (lane == 0) w_w = e_w;
-        const float2 f_s = make_float2(face_flux(as.x, ws.x, x.wc.x, g.h1),
-                                       face_flux(as.y, ws.y, x.wc.y, g.h1));
-        const float2 f_w = make_float2(face_flux(bb.x, x.wc.x, w_w, g.h2),
-                                       face_flux(bb.y, x.wc.y, x.wc.x, g.h2));
-        float f_e = __shfl_down_sync(kFull, f_w.x, 1);
-        if (lane == 31) f_e = e_f;
-        float vx = 0.f, vy = 0.f;
-        if (node_row && k.nx) {
-          vx = stencil_of_fluxes(f_s.x, x.fn.x, f_w.y, f_w.x, g.h1, g.h2);
-        }
-        if (node_row && k.ny) {
-          vy = stencil_of_fluxes(f_s.y, x.fn.y, f_e, f_w.y, g.h1, g.h2);
-        }
-        if (kIn || r >= 1 - g.pad) {
-          constexpr int Fo = d ^ Fr ^ (kFlip ? 1 : 0);
-          store<Fo>(po[q], X::pack(vx, vy), k, lane);
-        }
-        po[q] += on;
-        x.fn = f_s;
-        x.wc = ws;
-      };
-      one(I<0>{});
-      if constexpr (kK == 2) one(I<1>{});
-      dots.template take<delta<kK, kOdd, kD1>(0) ^ Fr>(sl.d, node_row, k);
+      const float2 ws = X::unpack(fixed<d ^ Fd>(sl.w, le.w63, t + 1, lane));
+      float w_w = __shfl_up_sync(kFull, st.wc.y, 1);
+      const float e_w = __shfl_sync(kFull, le.ew, t);
+      const float e_f = __shfl_sync(kFull, le.ef, t);
+      if (lane == 0) w_w = e_w;
+      const float2 f_s = make_float2(face_flux(as.x, ws.x, st.wc.x, g.h1),
+                                     face_flux(as.y, ws.y, st.wc.y, g.h1));
+      const float2 f_w = make_float2(face_flux(bb.x, st.wc.x, w_w, g.h2),
+                                     face_flux(bb.y, st.wc.y, st.wc.x, g.h2));
+      float f_e = __shfl_down_sync(kFull, f_w.x, 1);
+      if (lane == 31) f_e = e_f;
+      float vx = 0.f, vy = 0.f;
+      if (node_row && k.nx) {
+        vx = stencil_of_fluxes(f_s.x, st.fn.x, f_w.y, f_w.x, g.h1, g.h2);
+      }
+      if (node_row && k.ny) {
+        vy = stencil_of_fluxes(f_s.y, st.fn.y, f_e, f_w.y, g.h1, g.h2);
+      }
+      if (kIn || r >= 1 - g.pad) {
+        store<d ^ Fr ^ (kFlip ? 1 : 0)>(po, X::pack(vx, vy), k, lane);
+      }
+      po += on;
+      st.fn = f_s;
+      st.wc = ws;
+      dots.template take<d ^ Fr>(sl.d, node_row, k);
     };
 
     Slot ring[kAhead];

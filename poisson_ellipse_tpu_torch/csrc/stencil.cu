@@ -60,8 +60,7 @@
 // lane a column and 2-byte loads the march took as many instructions a node
 // as in f32 and ran at 18-19% of its bound (PERF.md, section 6). A lane owns
 // two columns, one aligned 4-byte word of each array, a warp a 64-column
-// strip; kLaneGroup lanes of one strip share a thread, so a and b are
-// loaded and moved into the fixed columns once for them.
+// strip.
 
 // K-g, the mixed-precision form: w in the storage type (bf16 or f16) or
 // f32, a and b in the storage type, out f32. Each load is upcast exactly
@@ -270,99 +269,77 @@ int launch_march(const TW* w, const TC* a, const TC* b, TO* out, int lanes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K-e bf16's march (csrc/lane_march.cuh): a thread the same two columns
-// of kK lanes, a warp a unit (a 64-column strip over ``rows`` rows), a
-// block kWarps units of one lane group, the group (blockIdx.z, even groups
-// first) of lanes kK g .. kK g + kK - 1. kOdd: g2 is odd; kD1: odd lanes
-// are in the other frame from a and b (an odd g1 g2); kFlip: out is in
-// the other frame from w (pad 0 at an even width). Rows in flight and
-// blocks an SM: LaneShape.
-template <int kK>
-struct LaneShape {
-  static constexpr int kAhead = 2;
-  static constexpr int kMinBlocks = 3;
-};
-// lanes a thread in pe_batched_stencil_bf16: one, timed in turns against
-// two a thread (a and b loaded once for two lanes), which ran slower
-// (PERF.md, section 6)
-constexpr int kLaneGroup = 1;
+// K-e bf16's march (csrc/lane_march.cuh): a warp a unit (a 64-column
+// strip over ``rows`` rows), a block kWarps units of one lane (blockIdx.z,
+// even lanes first). kOdd: g2 is odd; kD1: odd lanes are in the other
+// frame from a and b (an odd g1 g2); kFlip: out is in the other frame from
+// w (pad 0 at an even width). Rows in flight behind a row, and blocks an
+// SM (lane_march's registers stay under their 85): two rows ahead fill the
+// long row step; four ran slower, as did two lanes a thread, with a and b
+// loaded once for both (PERF.md, section 6).
+constexpr int kLaneAhead = 2;
+constexpr int kLaneMinBlocks = 3;
 
 namespace lm = lane_march;
 
-template <int kK, bool kOdd, bool kFlip, bool kD1>
-__global__ void __launch_bounds__(lm::kThreads, LaneShape<kK>::kMinBlocks)
+template <bool kOdd, bool kFlip, bool kD1>
+__global__ void __launch_bounds__(lm::kThreads, kLaneMinBlocks)
 lane_stencil_kernel(const __nv_bfloat16* __restrict__ w,
                     const __nv_bfloat16* __restrict__ a,
                     const __nv_bfloat16* __restrict__ b,
                     __nv_bfloat16* __restrict__ out, int lanes, lm::Geo g) {
-  constexpr int kA = LaneShape<kK>::kAhead;
-  const int groups = (lanes + kK - 1) / kK;
-  const int l = lm::group_of(blockIdx.z, groups) * kK;
-  const int lane_size = g.g1 * g.g2;
-  const int out_size = (g.g1 - 2 + 2 * g.pad) * (g.g2 - 2 + 2 * g.pad);
+  const int l = lm::lane_of(blockIdx.z, lanes);
   const int nstrips = lm::strips(g.g2);
   const int unit = blockIdx.x * lm::kWarps + (threadIdx.x >> 5);
   if (unit >= nstrips * lm::tiles(g.g1, g.pad, g.rows)) return;
   const int tile = unit / nstrips;  // warp-uniform
   const int s = unit - tile * nstrips;
-  w += l * (int64_t)lane_size;
-  out += l * (int64_t)out_size;
+  w += l * (int64_t)(g.g1 * g.g2);
+  out += l * (int64_t)((g.g1 - 2 + 2 * g.pad) * (g.g2 - 2 + 2 * g.pad));
   lm::NoDots none;
-  if constexpr (kK == 2) {
-    if (l + 1 < lanes) {
-      lm::march<2, kOdd, kFlip, kD1, kA>(w, lane_size, a, b, out, out_size,
-                                         g, tile * g.rows, s, none);
-      return;
-    }
-  } else if constexpr (kD1) {
-    if (l & 1) {
-      lm::march<1, kOdd, kFlip, true, kA>(w, lane_size, a, b, out, out_size,
-                                          g, tile * g.rows, s, none);
-      return;
-    }
+  if (kD1 && (l & 1)) {
+    lm::march<kOdd, kFlip, true, kLaneAhead>(w, a, b, out, g, tile * g.rows,
+                                             s, none);
+  } else {
+    lm::march<kOdd, kFlip, false, kLaneAhead>(w, a, b, out, g,
+                                              tile * g.rows, s, none);
   }
-  // an even lane alone: in a's frame
-  lm::march<1, kOdd, kFlip, false, kA>(w, lane_size, a, b, out, out_size, g,
-                                       tile * g.rows, s, none);
 }
 
 bool aligned4(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 3) == 0;
 }
 
-// K-e bf16's launch, kK lanes a thread. The march indexes a lane's grid
-// in 32 bits and loads words: a larger grid, an array off a 4-byte
-// boundary or more lane groups than gridDim.z holds is refused with
-// cudaErrorInvalidValue.
-template <int kK>
+// K-e bf16's launch. The march indexes a lane's grid in 32 bits and loads
+// words: a larger grid, an array off a 4-byte boundary or more lanes than
+// gridDim.z holds is refused with cudaErrorInvalidValue.
 int launch_lanes(const __nv_bfloat16* w, const __nv_bfloat16* a,
                  const __nv_bfloat16* b, __nv_bfloat16* out, int lanes,
                  int bm, int bn, int pad, float h1, float h2, void* stream) {
   const int g1 = bm + 2, g2 = bn + 2;
-  const int groups = (lanes + kK - 1) / kK;
-  if (lanes < 1 || groups > 65535 || bm < 1 || bn < 1 ||
+  if (lanes < 1 || lanes > 65535 || bm < 1 || bn < 1 ||
       (pad != 0 && pad != 1) ||
       (int64_t)(g1 + 2) * g2 >= (int64_t{1} << 31) || !aligned4(w) ||
       !aligned4(a) || !aligned4(b) || !aligned4(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const lm::Geo geo{g1, g2, pad, lm::rows_of(g1, g2, pad, groups), h1, h2};
+  const lm::Geo geo{g1, g2, pad, lm::rows_of(g1, g2, pad, lanes), h1, h2};
   const dim3 grid(
-      static_cast<unsigned>(lm::group_blocks(g1, g2, pad, geo.rows)), 1,
-      groups);
+      static_cast<unsigned>(lm::lane_blocks(g1, g2, pad, geo.rows)), 1,
+      lanes);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool odd = g2 & 1;
   if (odd && (g1 & 1)) {
-    lane_stencil_kernel<kK, true, false, true>
+    lane_stencil_kernel<true, false, true>
         <<<grid, lm::kThreads, 0, st>>>(w, a, b, out, lanes, geo);
   } else if (odd) {
-    lane_stencil_kernel<kK, true, false, false>
+    lane_stencil_kernel<true, false, false>
         <<<grid, lm::kThreads, 0, st>>>(w, a, b, out, lanes, geo);
   } else if (pad == 0) {
-    lane_stencil_kernel<kK, false, true, false>
+    lane_stencil_kernel<false, true, false>
         <<<grid, lm::kThreads, 0, st>>>(w, a, b, out, lanes, geo);
   } else {
-    lane_stencil_kernel<kK, false, false, false>
+    lane_stencil_kernel<false, false, false>
         <<<grid, lm::kThreads, 0, st>>>(w, a, b, out, lanes, geo);
   }
   return static_cast<int>(cudaGetLastError());
@@ -393,25 +370,7 @@ int pe_batched_stencil_bf16(const __nv_bfloat16* w, const __nv_bfloat16* a,
                             const __nv_bfloat16* b, __nv_bfloat16* out,
                             int lanes, int bm, int bn, int pad, float h1,
                             float h2, void* stream) {
-  return launch_lanes<kLaneGroup>(w, a, b, out, lanes, bm, bn, pad, h1, h2,
-                                  stream);
-}
-
-// The same with ``group`` (1 or 2) lanes a thread: the timing's
-// instantiation; the engines launch pe_batched_stencil_bf16.
-int pe_batched_stencil_bf16_grouped(const __nv_bfloat16* w,
-                                    const __nv_bfloat16* a,
-                                    const __nv_bfloat16* b,
-                                    __nv_bfloat16* out, int lanes, int bm,
-                                    int bn, int pad, float h1, float h2,
-                                    int group, void* stream) {
-  if (group == 1) {
-    return launch_lanes<1>(w, a, b, out, lanes, bm, bn, pad, h1, h2, stream);
-  }
-  if (group == 2) {
-    return launch_lanes<2>(w, a, b, out, lanes, bm, bn, pad, h1, h2, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_lanes(w, a, b, out, lanes, bm, bn, pad, h1, h2, stream);
 }
 
 // K-g: w (bm+2, bn+2) in the storage type or f32, a and b (bm+2, bn+2) in

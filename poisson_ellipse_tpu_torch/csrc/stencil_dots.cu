@@ -616,10 +616,8 @@ lane_stencil_dots_kernel(const BF* __restrict__ w, const BF* __restrict__ a,
   __shared__ double s_warp[kMaxPairs][kWarps];
   __shared__ int s_last;
   const int n_pairs = kBundle ? kBundlePairs : pairs.n_pairs;
-  const int lane = lm::group_of(blockIdx.z, lanes);
+  const int lane = lm::lane_of(blockIdx.z, lanes);
   const int lane_size = g.g1 * g.g2;
-  w += lane * (int64_t)lane_size;
-  out += lane * (int64_t)lane_size;
   partials += (int64_t)lane * n_pairs * gridDim.x;
   LaneDots<kBundle> dots{&pairs, lane * (int64_t)lane_size, g.g2, {}};
 #pragma unroll
@@ -629,17 +627,14 @@ lane_stencil_dots_kernel(const BF* __restrict__ w, const BF* __restrict__ a,
   if (unit < nstrips * lm::tiles(g.g1, 1, g.rows)) {
     const int tile = unit / nstrips;  // warp-uniform
     const int s = unit - tile * nstrips;
-    bool done = false;
-    if constexpr (kD1) {
-      if (lane & 1) {
-        lm::march<1, kOdd, false, true, kLaneDotsAhead>(
-            w, lane_size, a, b, out, lane_size, g, tile * g.rows, s, dots);
-        done = true;
-      }
-    }
-    if (!done) {
-      lm::march<1, kOdd, false, false, kLaneDotsAhead>(
-          w, lane_size, a, b, out, lane_size, g, tile * g.rows, s, dots);
+    const BF* wl = w + lane * (int64_t)lane_size;
+    BF* ol = out + lane * (int64_t)lane_size;
+    if (kD1 && (lane & 1)) {
+      lm::march<kOdd, false, true, kLaneDotsAhead>(wl, a, b, ol, g,
+                                                   tile * g.rows, s, dots);
+    } else {
+      lm::march<kOdd, false, false, kLaneDotsAhead>(wl, a, b, ol, g,
+                                                    tile * g.rows, s, dots);
     }
   }
   finish_sums(dots.acc, n_pairs, s_warp, &s_last, partials, ticket, sums,
@@ -656,8 +651,8 @@ int lane_dots_rows(int bm, int bn, int pad, int lanes) {
   return lm::rows_of(bm + 2, bn + 2, pad, lanes);
 }
 int64_t lane_dots_blocks(int bm, int bn, int pad, int lanes) {
-  return lm::group_blocks(bm + 2, bn + 2, pad,
-                          lane_dots_rows(bm, bn, pad, lanes));
+  return lm::lane_blocks(bm + 2, bn + 2, pad,
+                         lane_dots_rows(bm, bn, pad, lanes));
 }
 
 // K-f bf16's launch: the full-grid layout (pad 1, the operands (lanes, bm

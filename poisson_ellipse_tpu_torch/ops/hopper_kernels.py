@@ -101,9 +101,6 @@ _SIGNATURES = {
     # w, a, b, out, lanes, bm, bn, pad, h1, h2, stream
     **{f"pe_batched_stencil_{form}": (_I, [_P] * 4 + [_I] * 4 + [_F, _F, _P])
        for form in ("f32", "bf16")},
-    # K-e bf16 with ``group`` lanes a thread before the stream (timing)
-    "pe_batched_stencil_bf16_grouped": (_I, [_P] * 4 + [_I] * 4
-                                        + [_F, _F, _I, _P]),
     # K-g: pe_stencil_f32's arguments, w and a, b of the named types
     **{f"pe_stencil_mixed_{w}_{ab}": (_I, [_P] * 4 + [_I] * 3 + [_F, _F, _P])
        for ab in ("bf16", "f16") for w in (ab, "f32")},
@@ -126,15 +123,12 @@ _DOTS_SIGNATURES = {
     "pe_batched_stencil_dots_bf16_blocks": (_I, [_I] * 4),
 }
 
-# K-e and K-f bf16's march (csrc/lane_march.cuh), mirrored for the tests
-# and the timing: a lane two columns, a warp a strip of LANE_STRIP columns
-# over lane_rows rows (a unit), a block LANE_WARPS units of one lane group;
-# K-e bf16 marches LANE_GROUP lanes a thread (stencil.cu kLaneGroup; two
-# ran slower, the timing's grouped entry keeps them)
+# K-e and K-f bf16's march (csrc/lane_march.cuh), mirrored for the tests:
+# a lane two columns, a warp a strip of LANE_STRIP columns over lane_rows
+# rows (a unit), a block LANE_WARPS units of one lane
 LANE_STRIP, LANE_WARPS = 64, 8
 LANE_MAX_ROWS, LANE_MIN_ROWS = 16, 4
 LANE_FILL_BLOCKS = 2 * 132 * 3
-LANE_GROUP = 1
 
 
 def lane_strips(g2: int) -> int:
@@ -146,25 +140,25 @@ def lane_tiles(g1: int, pad: int, rows: int) -> int:
     return -(-(g1 - 1 + pad) // rows)
 
 
-def lane_group_blocks(g1: int, g2: int, pad: int, rows: int) -> int:
+def lane_blocks(g1: int, g2: int, pad: int, rows: int) -> int:
+    """Blocks of one lane."""
     return -(-(lane_strips(g2) * lane_tiles(g1, pad, rows)) // LANE_WARPS)
 
 
-def lane_rows(g1: int, g2: int, pad: int, groups: int) -> int:
-    """Rows a unit at the extended grid (g1, g2) with ``groups`` lane
-    groups: LANE_MAX_ROWS, halved while the launch would give fewer than
+def lane_rows(g1: int, g2: int, pad: int, lanes: int) -> int:
+    """Rows a unit at the extended grid (g1, g2) with ``lanes`` lanes:
+    LANE_MAX_ROWS, halved while the launch would give fewer than
     LANE_FILL_BLOCKS blocks."""
     rows = LANE_MAX_ROWS
     while (rows > LANE_MIN_ROWS
-           and lane_group_blocks(g1, g2, pad, rows) * groups
-           < LANE_FILL_BLOCKS):
+           and lane_blocks(g1, g2, pad, rows) * lanes < LANE_FILL_BLOCKS):
         rows //= 2
     return rows
 
 
 def lane_dots_blocks(g1: int, g2: int, pad: int, lanes: int) -> int:
     """K-f bf16's blocks a lane (``pe_batched_stencil_dots_bf16_blocks``)."""
-    return lane_group_blocks(g1, g2, pad, lane_rows(g1, g2, pad, lanes))
+    return lane_blocks(g1, g2, pad, lane_rows(g1, g2, pad, lanes))
 
 
 def _check_words(kernel: str, tensors) -> None:
@@ -276,27 +270,22 @@ def apply_a_batched_kernel(w, a, b, h1: float, h2: float):
     return _launch_batched(w, a, b, h1, h2, pad=1)
 
 
-def _launch_batched(w, a, b, h1, h2, pad: int, group: int | None = None):
-    """K-e; at bf16 the lane march, with ``group`` (1 or 2) lanes a thread
-    through the timing's entry where it is given."""
+def _launch_batched(w, a, b, h1, h2, pad: int):
+    """K-e; at bf16 the lane march, which takes 4-byte aligned arrays."""
     _check_stencil_inputs(BATCHED_KERNEL, w, a, b, lanes=True)
     form = ws.form_of(w.dtype)
     counter = ws.counter(BATCHED_KERNEL, form)
+    if form == "bf16":
+        _check_words(counter, (w, a, b))
     lanes, bm, bn = w.shape[0], w.shape[1] - 2, w.shape[2] - 2
     out = torch.empty((lanes, bm + 2 * pad, bn + 2 * pad), dtype=w.dtype,
                       device=w.device)
-    if form == "bf16":
-        _check_words(counter, (w, a, b))
-    elif group is not None:
-        raise ValueError(f"{counter}: lanes a thread are a bf16 option")
     lib = _build.load(KERNEL, _SIGNATURES)
-    args = (w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes,
-            bm, bn, pad, rounded(h1, w.dtype), rounded(h2, w.dtype))
-    stream = _build.stream_handle(w.device)
-    if group is None:
-        rc = getattr(lib, f"pe_batched_stencil_{form}")(*args, stream)
-    else:
-        rc = lib.pe_batched_stencil_bf16_grouped(*args, group, stream)
+    rc = getattr(lib, f"pe_batched_stencil_{form}")(
+        w.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes, bm,
+        bn, pad, rounded(h1, w.dtype), rounded(h2, w.dtype),
+        _build.stream_handle(w.device),
+    )
     _build.check(lib.pe_stencil_error_string, counter, rc)
     _build.count_launch(counter)
     return out

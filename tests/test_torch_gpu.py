@@ -1799,20 +1799,23 @@ def test_batched_stencil_dots_bf16_is_its_plain_version_and_k_d_bf16(cuda, M,
             assert _same_bits(sums[:, lane], sums_l)
 
 
-@pytest.mark.parametrize("pad", [0, 1])
-@pytest.mark.parametrize("M,N,B", [(44, 132, 3), (12, 63, 3), (16, 127, 5),
-                                   (2, 2, 1), (400, 600, 32)])
-def test_batched_stencil_bf16_one_or_two_lanes_a_thread(cuda, M, N, B, pad):
-    """K-e bf16's march with one and with two lanes a thread (a and b
-    loaded once for two): the same bits as the engines' entry."""
-    w, a, b, _ = _bf16_lane_inputs(M, N, B, cuda)
-    h1, h2 = 2.0 / M, 1.2 / N
-    want = hk._launch_batched(w, a, b, h1, h2, pad)
-    for group in (1, 2):
-        got = hk._launch_batched(w, a, b, h1, h2, pad, group=group)
-        assert _same_bits(got, want), group
-    with pytest.raises(RuntimeError, match="launch failed"):
-        hk._launch_batched(w, a, b, h1, h2, pad, group=3)
+@pytest.mark.parametrize("warm", [False, True])
+def test_batched_bf16_lane_marches_in_a_cuda_graph(cuda, warm):
+    """K-e and K-f bf16 launches captured in a CUDA graph and replayed
+    equal the eager ones (K-f's tickets are back at 0 after each)."""
+    from chip_smoke import graph_and_eager
+
+    w, a, b, ops = _bf16_lane_inputs(44, 132, 3, cuda)
+    h1, h2 = 2.0 / 44, 1.2 / 132
+    pairs = pp._bundle(*ops)
+
+    def both():
+        n, sums = hk.apply_a_dots_batched_kernel(w, a, b, h1, h2, pairs)
+        aw = hk.apply_a_batched_kernel(w, a, b, h1, h2)
+        return torch.cat([aw.flatten(), n.flatten(), sums.flatten()])
+
+    eager, captured = graph_and_eager(both, warm)
+    assert _same_bits(eager, captured)
 
 
 def test_batched_stencil_dots_bf16_blocks_are_the_mirrored_count(cuda):

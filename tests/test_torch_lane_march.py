@@ -41,55 +41,49 @@ def _frame(l: int, g1: int, g2: int, i: int) -> int:
 
 
 def _delta(l: int, g1: int, g2: int) -> int:
-    """The kernel's compiled frame of lane l against a and b (delta): kD1
-    (an odd g1 g2) for an odd lane, the second of a pair or alone; an even
-    lane, first of a pair or alone, is in a and b's frame."""
+    """The kernel's compiled frame of lane l against a and b: kD1 (an odd
+    g1 g2) for an odd lane, a and b's frame for an even one."""
     return int(bool(g2 & 1 and g1 & 1 and l & 1))
 
 
-def _units(g1: int, g2: int, pad: int, groups: int):
-    """(rows, [(tile, strip)]) of one lane group, in the kernel's order."""
-    rows = hk.lane_rows(g1, g2, pad, groups)
+def _units(g1: int, g2: int, pad: int, lanes: int):
+    """(rows, [(tile, strip)]) of one lane, in the kernel's order."""
+    rows = hk.lane_rows(g1, g2, pad, lanes)
     strips = hk.lane_strips(g2)
     tiles = hk.lane_tiles(g1, pad, rows)
     return rows, [divmod(u, strips) for u in range(strips * tiles)]
 
 
-def _march(g1: int, g2: int, pad: int, lanes: int, group: int):
+def _march(g1: int, g2: int, pad: int, lanes: int):
     """Every store and load of the march, mirrored: yields ("load" | "store",
     array, lane, row, element, halves) with element the word's first
     element in that array (a lane's stack offset included) and halves the
     (column, wanted) of its two elements."""
-    groups = -(-lanes // group)
     on = g2 - 2 + 2 * pad
     om = g1 - 2 + 2 * pad
     end_row = g1 - 1 + pad
-    rows, units = _units(g1, g2, pad, groups)
+    rows, units = _units(g1, g2, pad, lanes)
     lo, hi = 1 - pad, g2 - 2 + pad
-    for z in range(groups):
-        first = z * group
-        members = [first + q for q in range(group) if first + q < lanes]
+    for l in range(lanes):
+        d = _delta(l, g1, g2)
         for tile, s in units:
             r0 = tile * rows
             assert r0 % 2 == 0
             for r in range(r0, min(r0 + rows, end_row)):
+                fr = (g2 & 1) and r & 1
                 for lane in range(32):
                     c = STRIP * s + 2 * lane
-                    for l in members:
-                        d = _delta(l, g1, g2)
-                        fr = (g2 & 1) and r & 1
-                        # w of row r + 1 and a, b as the step loads them
-                        if r + 1 <= g1 - 1:
-                            fw = d ^ ((g2 & 1) and (r + 1) & 1)
-                            yield from _word("w", l, g1, g2, r + 1, c, fw)
-                        if r >= 1 - pad:
-                            fo = d ^ fr ^ int(pad == 0 and g2 % 2 == 0)
-                            yield from _store(l, om, on, r - lo, c - lo, c,
-                                              lo, hi, fo, lane)
+                    # w and a of row r + 1 and b of row r, as a step loads
+                    # them; out's row r as it stores it
                     if r + 1 <= g1 - 1:
-                        yield from _word("a", 0, g1, g2, r + 1, c,
-                                         (g2 & 1) and (r + 1) & 1)
-                    yield from _word("b", 0, g1, g2, r, c, (g2 & 1) and r & 1)
+                        fd = (g2 & 1) and (r + 1) & 1
+                        yield from _word("w", l, g1, g2, r + 1, c, d ^ fd)
+                        yield from _word("a", 0, g1, g2, r + 1, c, fd)
+                    yield from _word("b", 0, g1, g2, r, c, fr)
+                    if r >= 1 - pad:
+                        fo = d ^ fr ^ int(pad == 0 and g2 % 2 == 0)
+                        yield from _store(l, om, on, r - lo, c - lo, c, lo,
+                                          hi, fo, lane)
 
 
 def _word(name, l, g1, g2, i, c, f):
@@ -125,11 +119,9 @@ def _store(l, om, on, oi, oc, c, lo, hi, f, lane):
                                                       (c + 2, False)))
 
 
-@pytest.mark.parametrize("group", [1, 2])
 @pytest.mark.parametrize("pad", [0, 1])
 @pytest.mark.parametrize("g1,g2,lanes", SHAPES)
-def test_march_owns_every_output_once_in_aligned_words(g1, g2, lanes, pad,
-                                                       group):
+def test_march_owns_every_output_once_in_aligned_words(g1, g2, lanes, pad):
     """Every (lane, node) of out written by exactly one thread, once; each
     store a word at an even element (4 bytes) of its lane's out or a half
     of one, each half it writes a column of out's row. Every word load
@@ -139,7 +131,7 @@ def test_march_owns_every_output_once_in_aligned_words(g1, g2, lanes, pad,
     lo = 1 - pad
     owned = np.zeros((lanes, om, on), dtype=np.int64)
     size = {"w": lanes * g1 * g2, "a": g1 * g2, "b": g1 * g2}
-    for kind, name, l, i, at, halves in _march(g1, g2, pad, lanes, group):
+    for kind, name, l, i, at, halves in _march(g1, g2, pad, lanes):
         assert at % 2 == 0
         if kind == "store":
             wanted = [(col, k) for k, (col, ok) in enumerate(halves) if ok]
@@ -197,18 +189,19 @@ def test_frame_one_words_move_into_the_fixed_columns(s):
     assert STRIP * s + 2 * 31 + 1 == STRIP * s + 63
 
 
-@pytest.mark.parametrize("g1,g2,pad,groups,rows,blocks", [
+@pytest.mark.parametrize("g1,g2,pad,lanes,rows,blocks", [
     (401, 601, 1, 32, 16, 33), (801, 1201, 1, 8, 16, 122),
     (401, 601, 1, 16, 8, 64), (801, 1201, 1, 4, 8, 240),
     (3, 3, 1, 1, 4, 1), (3, 3, 0, 1, 4, 1)])
-def test_lane_blocks_by_hand(g1, g2, pad, groups, rows, blocks):
+def test_lane_blocks_by_hand(g1, g2, pad, lanes, rows, blocks):
     """401x601: 10 strips x 26 tiles of 16 = 260 units, 33 blocks a lane,
     1056 for 32 lanes (at least two waves of three blocks an SM); for 16
-    lane pairs 528 would be fewer, so 8 rows: 51 tiles, 64 blocks.
-    801x1201: 19 strips x 51 tiles = 969 units, 122 blocks; 4 pairs take
-    8 rows, 101 tiles, 240 blocks."""
-    assert hk.lane_rows(g1, g2, pad, groups) == rows
-    assert hk.lane_group_blocks(g1, g2, pad, rows) == blocks
+    lanes 528 would be fewer, so 8 rows: 51 tiles, 64 blocks. 801x1201: 19
+    strips x 51 tiles = 969 units, 122 blocks; 4 lanes take 8 rows, 101
+    tiles, 240 blocks. K-f bf16's blocks a lane are these."""
+    assert hk.lane_rows(g1, g2, pad, lanes) == rows
+    assert hk.lane_blocks(g1, g2, pad, rows) == blocks
+    assert hk.lane_dots_blocks(g1, g2, pad, lanes) == blocks
 
 
 class _Fn:
@@ -278,27 +271,25 @@ def test_partials_are_sized_from_the_library_block_count(fake, g1, g2,
     assert args[14] == lanes and args[11] == partials.data_ptr()
 
 
-def test_lane_entries_and_groups(fake):
-    """The engines' K-e bf16 entry, the timing's grouped entry with its
-    lanes a thread, and refusals: lanes a thread at f32, a bf16 array off a
-    4-byte boundary (before any launch)."""
+def test_lane_entries_refuse_arrays_off_a_word(fake):
+    """The engines' K-e bf16 entry with the grid and pad; a bf16 array off
+    a 4-byte boundary is refused before any launch, for K-e and K-f."""
     lanes, g = 3, (9, 13)
     w, a, b = _stack(lanes, g), torch.ones(g, dtype=torch.bfloat16), \
         torch.ones(g, dtype=torch.bfloat16)
     hk._launch_batched(w, a, b, 0.1, 0.2, 1)
-    hk._launch_batched(w, a, b, 0.1, 0.2, 0, group=1)
+    hk._launch_batched(w, a, b, 0.1, 0.2, 0)
     lib = fake[hk.KERNEL]
     (s0, a0), (s1, a1) = lib.launches
-    assert s0 == "pe_batched_stencil_bf16" and a0[4:8] == (lanes, 7, 11, 1)
-    assert s1 == "pe_batched_stencil_bf16_grouped" and a1[-2] == 1
-    with pytest.raises(ValueError, match="bf16 option"):
-        hk._launch_batched(w.float(), a.float(), b.float(), 0.1, 0.2, 1,
-                           group=2)
-    buf = torch.zeros(w.numel() + 1, dtype=torch.bfloat16)
-    off = buf[1:].view(w.shape)
-    with pytest.raises(ValueError, match="4-byte"):
-        hk._launch_batched(off, a, b, 0.1, 0.2, 1)
-    ops = [_stack(lanes, g) for _ in range(4)] + [off]
+    assert s0 == s1 == "pe_batched_stencil_bf16"
+    assert a0[4:8] == (lanes, 7, 11, 1) and a1[4:8] == (lanes, 7, 11, 0)
+    def off(t):
+        return torch.zeros(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+
+    for args in ((off(w), a, b), (w, off(a), b), (w, a, off(b))):
+        with pytest.raises(ValueError, match="4-byte"):
+            hk._launch_batched(*args, 0.1, 0.2, 1)
+    ops = [_stack(lanes, g) for _ in range(4)] + [off(w)]
     with pytest.raises(ValueError, match="4-byte"):
         hk._launch_dots(w, a, b, 0.1, 0.2, pp._bundle(*ops), pad=1,
                         lanes=True)
@@ -315,7 +306,6 @@ def _c_kinds(library: str, symbol: str) -> list:
 
 @pytest.mark.parametrize("library,symbol,table", [
     (hk.KERNEL, "pe_batched_stencil_bf16", hk._SIGNATURES),
-    (hk.KERNEL, "pe_batched_stencil_bf16_grouped", hk._SIGNATURES),
     (hk.DOTS_KERNEL, "pe_batched_stencil_dots_bf16", hk._DOTS_SIGNATURES),
     (hk.DOTS_KERNEL, "pe_batched_stencil_dots_bf16_blocks",
      hk._DOTS_SIGNATURES)])
@@ -326,16 +316,12 @@ def test_lane_entries_match_their_c_prototypes(library, symbol, table):
 
 
 def test_mirror_constants_are_the_header_s():
-    """The Python mirror's strip, warps, rows and fill are lane_march.cuh's,
-    and LANE_GROUP stencil.cu's kLaneGroup."""
-    csrc = _build.source_path("stencil").parent
-    header = (csrc / "lane_march.cuh").read_text()
-    stencil = _build.source_path("stencil").read_text()
+    """The Python mirror's strip, warps, rows and fill are lane_march.cuh's."""
+    header = (_build.source_path("stencil").parent
+              / "lane_march.cuh").read_text()
     for name, value in (("kWarps", WARPS), ("kMaxRows", hk.LANE_MAX_ROWS),
                         ("kMinRows", hk.LANE_MIN_ROWS)):
         assert re.search(rf"constexpr int {name} = {value};", header), name
     assert re.search(r"kFillBlocks = 2 \* 132 \* 3;", header)
     assert hk.LANE_FILL_BLOCKS == 2 * 132 * 3
-    assert re.search(rf"constexpr int kLaneGroup = {hk.LANE_GROUP};",
-                     stencil)
     assert STRIP == 64
