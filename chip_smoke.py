@@ -99,11 +99,14 @@ result line):
               printed, not required. In bf16: K-e's and K-f's bf16 forms
               bitwise their plain versions and, lane by lane, K-a's and
               K-d's bf16 forms at 401x601 with B = 32, 801x1201 with B = 8,
-              45x133 with B = 3 and 3x3 with B = 1 (K-e on seeded, +0, -0
-              and zero-exterior iterates in both layouts; K-f's n and sums,
-              its generic table the same bits); the four batched engines in
-              bf16 at 400x600 with B = 32 through build_solver (capped:
-              4096 classical, 512 pipelined): every lane the same count,
+              45x133 with B = 3, 3x3 with B = 1 and the lane march's
+              frames (BATCHED_BF16_CASES: odd and even widths below, at and
+              past a 64-column strip, odd g1 g2 with B = 1 to 5, an even
+              g1; K-e on seeded, +0, -0 and zero-exterior iterates in both
+              layouts; K-f's n and sums, its generic table the same bits);
+              the four batched engines in bf16 at 400x600 with B = 32
+              through build_solver (capped: 4096 classical, 512
+              pipelined): every lane the same count,
               each converged lane's l2 < 2e-2, the classical ones
               converged, the launches as the body count predicts (the
               rebuilds every 8 iterations at bf16); run_once batched-pallas
@@ -293,6 +296,13 @@ forms and bounds, with their device activities a call (counted in a child
 process); last, fused bf16 on one rank at 400x600 and 2400x3200 on the card
 and through the plain versions on the host's CPU, the witness of
 MESH_BF16_WITNESS (about two minutes on the host).
+`--only lane-bf16-timing` runs phases 1-2 and then K-e and K-f bf16 (the
+lane march, csrc/lane_march.cuh): bitwise as phase 8 holds them, then
+three ways at 401x601, B = 32 and 801x1201, B = 8 beside their bounds and
+losses on their paths; us a launch of each inside bf16 batched-pallas and
+batched-pipelined-pallas at 400x600, B = 32; K1-shard bf16 bitwise and by
+device time at its path's 1x1 block of 2400x3200 (2401x3201); the lane
+kernels' SASS. It too runs on an older tree's kernels.
 `--only fused-timing` runs phases 1-2 and then the fused pair: K1 and K2
 in f32 and bf16 at 2401x3201 and 401x601, each bitwise its plain version
 and timed three ways beside its bound and its loss on its path (working

@@ -36,6 +36,16 @@
 // at column g2 - 1 would end past an array of odd length. That element (the
 // grid's corner, on the boundary ring) enters no node's stencil, so that
 // one word is not loaded.
+//
+// What paces it: instructions, not bytes. A row step of 64 nodes takes
+// about 210 instructions, its 8 IEEE divisions (div_pos, each a reciprocal
+// refined by FMAs, a range check and a branch to the slow path) about 14
+// each. Measured on the H100 (PERF.md, section 6; tools/lane_sweep.py):
+// a product by the reciprocal in place of div_pos, not bitwise, would take
+// K-e bf16 from 42.6 to 26.2 us; two rows of loads ahead are enough (an L2
+// prefetch further ahead ran slower), four rows ahead doubled the loop
+// and ran slower, as did two lanes a thread and a K-f whose warps split
+// the stencil and the dot products.
 
 #pragma once
 
@@ -92,6 +102,11 @@ inline int rows_of(int g1, int g2, int pad, int lanes) {
 __device__ __forceinline__ int lane_of(int z, int lanes) {
   const int half = (lanes + 1) / 2;
   return z < half ? 2 * z : 2 * (z - half) + 1;
+}
+
+// Whether an array starts on a 4-byte boundary: the march loads words.
+inline bool aligned4(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 3) == 0;
 }
 
 // Extended grid (g1, g2), output layout, spacings and rows a unit.

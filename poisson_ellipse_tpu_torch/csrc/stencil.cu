@@ -1,5 +1,6 @@
 // The plain-stencil family for Hopper (sm_90a): K-a, its bf16 form, K-e
-// and K-g, four forms of one kernel, march_kernel below.
+// and K-g, four forms of one kernel, march_kernel below; and K-e's bf16
+// form, the vector-lane march of csrc/lane_march.cuh (lane_stencil_kernel).
 //
 // K-a: the 5-point variable-coefficient stencil A·w. For every owned node
 // of a halo-extended (bm+2, bn+2) block,
@@ -58,9 +59,10 @@
 // with B = 32, 31.8 MB, 9.5 us. Its kernel is the vector-lane march of
 // csrc/lane_march.cuh (lane_stencil_kernel below), not march_kernel: with a
 // lane a column and 2-byte loads the march took as many instructions a node
-// as in f32 and ran at 18-19% of its bound (PERF.md, section 6). A lane owns
-// two columns, one aligned 4-byte word of each array, a warp a 64-column
-// strip.
+// as in f32 and ran at 18-19% of its bound. A lane owns two columns, one
+// aligned 4-byte word of each array, a warp a 64-column strip: 42.6 us
+// against that form's 51.3 on the H100 (PERF.md, section 6), still paced
+// by the instructions of the tree's eight divisions a row step.
 
 // K-g, the mixed-precision form: w in the storage type (bf16 or f16) or
 // f32, a and b in the storage type, out f32. Each load is upcast exactly
@@ -306,10 +308,6 @@ lane_stencil_kernel(const __nv_bfloat16* __restrict__ w,
   }
 }
 
-bool aligned4(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 3) == 0;
-}
-
 // K-e bf16's launch. The march indexes a lane's grid in 32 bits and loads
 // words: a larger grid, an array off a 4-byte boundary or more lanes than
 // gridDim.z holds is refused with cudaErrorInvalidValue.
@@ -319,8 +317,8 @@ int launch_lanes(const __nv_bfloat16* w, const __nv_bfloat16* a,
   const int g1 = bm + 2, g2 = bn + 2;
   if (lanes < 1 || lanes > 65535 || bm < 1 || bn < 1 ||
       (pad != 0 && pad != 1) ||
-      (int64_t)(g1 + 2) * g2 >= (int64_t{1} << 31) || !aligned4(w) ||
-      !aligned4(a) || !aligned4(b) || !aligned4(out)) {
+      (int64_t)(g1 + 2) * g2 >= (int64_t{1} << 31) || !lm::aligned4(w) ||
+      !lm::aligned4(a) || !lm::aligned4(b) || !lm::aligned4(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const lm::Geo geo{g1, g2, pad, lm::rows_of(g1, g2, pad, lanes), h1, h2};

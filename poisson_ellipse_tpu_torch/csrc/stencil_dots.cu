@@ -641,10 +641,6 @@ lane_stencil_dots_kernel(const BF* __restrict__ w, const BF* __restrict__ a,
               lane, lanes);
 }
 
-bool aligned4(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 3) == 0;
-}
-
 // K-f bf16's rows a unit at (bm, bn, pad) and ``lanes``, and its blocks a
 // lane.
 int lane_dots_rows(int bm, int bn, int pad, int lanes) {
@@ -672,9 +668,12 @@ int launch_lane_dots(const BF* w, const BF* a, const BF* b, BF* out,
                        pair_y, n_pairs) &&
             lanes >= 1 && lanes <= 65535 && bm >= 1 && bn >= 1 &&
             pad == 1 && x_ld == g2 && x_off == g2 + 1 &&
-            (int64_t)(g1 + 2) * g2 < (int64_t{1} << 31) && aligned4(w) &&
-            aligned4(a) && aligned4(b) && aligned4(out);
-  for (int o = 0; ok && o < n_operands; ++o) ok = aligned4(operands[o]);
+            (int64_t)(g1 + 2) * g2 < (int64_t{1} << 31) &&
+            lm::aligned4(w) && lm::aligned4(a) && lm::aligned4(b) &&
+            lm::aligned4(out);
+  for (int o = 0; ok && o < n_operands; ++o) {
+    ok = lm::aligned4(operands[o]);
+  }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const lm::Geo geo{g1, g2, 1, lane_dots_rows(bm, bn, pad, lanes), h1, h2};
   const dim3 grid(static_cast<unsigned>(lane_dots_blocks(bm, bn, pad, lanes)),

@@ -48,7 +48,12 @@ of ``csrc/stencil.cu`` (a lane a column, each face flux once, every
 division through ``stencil_tree.cuh``'s ``div_pos``, so a zero dividend
 skips IEEE division's slow path and gives the division's own signed
 zero): each is bitwise its plain version, and lane l of K-e bitwise K-a
-on lane l.
+on lane l. K-e's and K-f's bf16 forms are the vector-lane march of
+``csrc/lane_march.cuh`` (a lane two columns, one aligned 4-byte word of
+each array, a warp a 64-column strip): lane l of each is bitwise K-a bf16
+or K-d bf16 on lane l, its sums those of the same products in another
+fixed order; they take 4-byte aligned arrays, and K-f bf16's partials
+follow ``pe_batched_stencil_dots_bf16_blocks``.
 
 The plain versions index the last two axes only (``ops.stencil``), so the
 same plain function serves one grid and a (B, ·, ·) stack of lanes. The
