@@ -1279,8 +1279,10 @@ def test_dot_and_update_p_at_edge_shapes(cuda, case, dtype):
 def _count_activities() -> dict:
     """The device activities one call issues, after a first call on the
     stream (``chip_smoke.device_activities``): dot and update_p on every
-    STREAM_CASES row in f32 and f64, and each K-d-family entry at 400x600
-    (``_dots_call``)."""
+    STREAM_CASES row in f32 and f64, each K-d-family entry at 400x600
+    (``_dots_call``), K-g, K-a, K1 bf16, the lane and mesh bf16 forms at
+    their path's shapes, and K-e / K-f bf16 at every BATCHED_BF16_SHAPES
+    shape."""
     from chip_smoke import device_activities
 
     dev = torch.device("cuda")
@@ -1307,6 +1309,17 @@ def _count_activities() -> dict:
     counts["K1 bf16"] = device_activities(_k1_bf16_call(dev)[0])
     for name, call in _lane_mesh_bf16_calls(dev).items():
         counts[name] = device_activities(call)
+    for M, N, B in BATCHED_BF16_SHAPES:
+        w, a, b, ops = _bf16_lane_inputs(M, N, B, dev)
+        pairs = pp._bundle(*ops)
+        h1, h2 = 2.0 / M, 1.2 / N
+        label = f"{M}x{N} B={B}"
+        for layout, fn in (("full", hk.apply_a_batched_kernel),
+                           ("block", hk.apply_a_batched_block_kernel)):
+            counts[f"K-e bf16 {layout} {label}"] = device_activities(
+                lambda: fn(w, a, b, h1, h2))
+        counts[f"K-f bf16 {label}"] = device_activities(
+            lambda: hk.apply_a_dots_batched_kernel(w, a, b, h1, h2, pairs))
     return counts
 
 
@@ -2016,3 +2029,12 @@ def _lane_mesh_bf16_calls(dev) -> dict:
 def test_lane_and_mesh_bf16_forms_issue_one_device_kernel(cuda, activities,
                                                           name):
     assert activities[name] == 1
+
+
+@pytest.mark.parametrize("M,N,B", BATCHED_BF16_SHAPES)
+def test_batched_bf16_lane_marches_issue_one_device_kernel(cuda, activities,
+                                                           M, N, B):
+    """K-e bf16 in both layouts and K-f bf16 at every shape of the lane
+    march's frames: a call is its kernel alone."""
+    for name in ("K-e bf16 full", "K-e bf16 block", "K-f bf16"):
+        assert activities[f"{name} {M}x{N} B={B}"] == 1, name

@@ -151,13 +151,22 @@ def test_every_division_of_the_stencil_tree_goes_through_div_pos(name,
 
 
 def test_stencil_library_holds_one_kernel_design():
-    """K-a f32 and bf16, K-e and K-g: one __global__ template, reached
-    from every C entry point of the library."""
+    """K-a f32 and bf16, K-e and K-g: one __global__ template,
+    ``march_kernel``, reached from each of their C entry points; K-e's bf16
+    form alone takes the vector-lane march (``lane_stencil_kernel``, the
+    one other template, csrc/lane_march.cuh), from its one entry point."""
     code = _code(CSRC / "stencil.cu")
-    assert code.count("__global__") == 1
-    assert "stencil_kernel" not in code
+    assert re.findall(r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s*"
+                      r"(\w+)\(", code) == ["march_kernel",
+                                           "lane_stencil_kernel"]
+    assert code.count("__global__") == 2
     entries = re.findall(r"^int (pe_\w+)\(", code, flags=re.M)
     assert sorted(entries) == sorted(
         name for name in hk._SIGNATURES if name != "pe_stencil_error_string")
+    lane = "pe_batched_stencil_bf16"
     for name in entries:
-        assert "launch_march" in _body(code, name)
+        body = _body(code, name)
+        assert ("launch_lanes" in body) == (name == lane), name
+        assert ("launch_march" in body) == (name != lane), name
+    assert "lane_stencil_kernel" in _body(code, "launch_lanes")
+    assert "march_kernel" not in _body(code, "launch_lanes")
