@@ -2808,7 +2808,8 @@ BATCHED_BF16_CAPS = {"batched": 4096, "batched-pallas": 4096,
 BATCHED_BF16_L2 = 2e-2
 # K1-shard and K2-shard bf16: a rank's 1201x1601 block of 2401x3201 (bn + 2
 # odd, the halo exchange's p window mid-word), 1200x1600 (even), a 1x1
-# block and ragged ones
+# block and ragged ones; phase 11 adds K1-shard bf16's path block
+# (K1_SHARD_PATH_BLOCK) and each block with z and p at either frame
 SHARD_BF16_BLOCKS = ((1201, 1601), (1200, 1600), (1, 1), (7, 5), (8, 9),
                      (33, 62))
 # the mesh in bf16, each run capped (a bf16 count is chaotic, and a stalled
@@ -3012,6 +3013,37 @@ def stacked_shard_inputs(bm: int, bn: int, seed: int,
     return inp
 
 
+def framed(t: torch.Tensor, frame: int) -> torch.Tensor:
+    """A copy of ``t`` starting at element ``frame`` of a fresh buffer: in
+    bf16, mid-word where ``frame`` is 1."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[frame:frame + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def shard_scratch(bm: int, bn: int, dtype=torch.bfloat16):
+    """``fused_sharded.scratch`` for the form of ``dtype``; an older
+    tree's takes no dtype (its K1 forms launched one grid)."""
+    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
+
+    try:
+        return fs.scratch(bm, bn, "cuda", dtype)
+    except TypeError:
+        return fs.scratch(bm, bn, "cuda")
+
+
+def shard_k1_partials(bm: int, bn: int, dtype=torch.bfloat16) -> int:
+    """K1-shard's partials in the form of ``dtype`` (an older tree's
+    count takes no dtype)."""
+    from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
+
+    try:
+        return fs.partial_counts(bm, bn, dtype)[0]
+    except TypeError:
+        return fs.partial_counts(bm, bn)[0]
+
+
 def _shard_bf16_pair(inp, k1, k2, parts, h1, h2, max_iter=2**31 - 1):
     """``_shard_pair`` on bf16 arrays."""
     bm, bn = inp["d"].shape
@@ -3027,11 +3059,27 @@ def _shard_bf16_pair(inp, k1, k2, parts, h1, h2, max_iter=2**31 - 1):
     return pn, ap, w, r, z, parts[0].sum(), parts[1].sum(0)
 
 
+def _shard_bf16_k1(inp, k1, partials, h1, h2, pn=None, ap=None):
+    """K1-shard bf16 (or its plain version) alone: (pn, ap, rank sum)."""
+    bm, bn = inp["d"].shape
+    if pn is None:
+        pn, ap = (torch.full((bm, bn), 7.0, dtype=torch.bfloat16,
+                             device="cuda") for _ in range(2))
+    k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap, inp["scal"],
+       inp["flags"], partials, max_iter=2**31 - 1, h1=h1, h2=h2)
+    torch.cuda.synchronize()
+    return pn, ap, partials.sum()
+
+
 def phase_shard_bf16_kernels(seed: int) -> dict:
     """K1-shard and K2-shard bf16 bitwise their plain versions at every
-    SHARD_BF16_BLOCKS block, the rank sums equal once rounded to f32, and
-    nothing written after the loop's exit."""
+    SHARD_BF16_BLOCKS block and K1-shard bf16's path block, the rank sums
+    equal once rounded to f32; K1-shard bf16 (the lane march) also with the
+    windows z and p at each frame, its block arrays off a word refused, a
+    block past its 32-bit indexing refused by the launcher, and nothing
+    written after the loop's exit."""
     from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import _build
     from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
     from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
 
@@ -3042,12 +3090,12 @@ def phase_shard_bf16_kernels(seed: int) -> dict:
     bf = torch.bfloat16
     k1_name, k2_name = (f"{k}_bf16" for k in (fs.K1, fs.K2))
     errs = {k1_name: 0.0, k2_name: 0.0}
-    for bm, bn in SHARD_BF16_BLOCKS:
+    one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
+           torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
+    for bm, bn in SHARD_BF16_BLOCKS + (K1_SHARD_PATH_BLOCK,):
         inp = stacked_shard_inputs(bm, bn, seed)
-        got = _shard_bf16_pair(inp, fs.k1, fs.k2,
-                               fs.scratch(bm, bn, "cuda"), h1, h2)
-        one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
-               torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
+        got = _shard_bf16_pair(inp, fs.k1, fs.k2, shard_scratch(bm, bn), h1,
+                               h2)
         want = _shard_bf16_pair(inp, fs.k1_plain, fs.k2_plain, one, h1, h2)
         for name, kernel, i in (("pn", k1_name, 0), ("ap", k1_name, 1),
                                 ("w", k2_name, 2), ("r", k2_name, 3),
@@ -3063,15 +3111,56 @@ def phase_shard_bf16_kernels(seed: int) -> dict:
         require(bool(torch.all(got[1][0, :] == 0) & torch.all(got[1][:, 0]
                                                               == 0)),
                 "K1-shard bf16 wrote a nonzero ap where d is 0")
+        frames = []
+        for fz in (0, 1):
+            for fpp in (0, 1):
+                win = dict(inp, z=framed(inp["z"], fz), p=framed(inp["p"], fpp))
+                k = _shard_bf16_k1(win, fs.k1, shard_scratch(bm, bn)[0], h1,
+                                   h2)
+                ref = _shard_bf16_k1(win, fs.k1_plain, one[0], h1, h2)
+                errs[k1_name] = max(errs[k1_name], max_abs(k[0], ref[0]),
+                                    max_abs(k[1], ref[1]))
+                require(same_bits(k[0], ref[0]) and same_bits(k[1], ref[1])
+                        and torch.equal(k[2].float(), ref[2].float()),
+                        f"K1-shard bf16 at {bm}x{bn} with z in frame {fz}, "
+                        f"p in frame {fpp}: not bitwise its plain version")
+                frames.append(f"{fz}{fpp}")
         say(f"  {bm}x{bn} (bn+2 {'odd' if bn % 2 else 'even'}, p window "
             f"{'mid-word' if inp['p'].data_ptr() % 4 else 'aligned'}): pn, "
             f"ap, w, r, z bitwise, rank sums equal in f32 (double gaps "
             f"{abs(float(got[5] - want[5])):.3e}, "
-            f"{float((got[6] - want[6]).abs().max()):.3e})")
+            f"{float((got[6] - want[6]).abs().max()):.3e}); K1-shard with "
+            f"(z, p) frames {', '.join(frames)} bitwise")
+    bm, bn = SHARD_BF16_BLOCKS[0]
+    inp = stacked_shard_inputs(bm, bn, seed)
+    pn, ap = (torch.empty((bm, bn), dtype=bf, device="cuda")
+              for _ in range(2))
+    for name in ("a", "b", "d", "pn", "ap"):
+        off = dict(inp, pn=pn, ap=ap)
+        off[name] = framed(off[name], 1)
+        try:
+            _shard_bf16_k1(off, fs.k1, shard_scratch(bm, bn)[0], h1, h2,
+                           off["pn"], off["ap"])
+        except ValueError as e:
+            require("4-byte" in str(e) and name in str(e),
+                    f"K1-shard bf16 refused an off-word {name} as: {e}")
+        else:
+            require(False, f"K1-shard bf16 took {name} off a 4-byte word")
+    lib = _build.load(fs.LIBRARY, fs._SIGNATURES)
+    rc = lib.pe_fused_sharded_k1_bf16(
+        *(t.data_ptr() for t in (inp["z"], inp["p"], inp["a"], inp["b"],
+                                 inp["d"], pn, ap)),
+        shard_scratch(bm, bn)[0].data_ptr(), inp["scal"].data_ptr(),
+        inp["flags"].data_ptr(), 46400, 46400, 2**31 - 1, h1, h2,
+        _build.stream_handle(pn.device))
+    require(rc == 1, f"K1-shard bf16's launcher took a 46400x46400 block "
+            f"(rc {rc}): past its 32-bit indexing")
+    say("  a, b, d, pn, ap off a 4-byte word refused (ValueError); a "
+        "46400x46400 block refused by the launcher (cudaErrorInvalidValue)")
     for flag in (fp.FLAG_CONVERGED, fp.FLAG_BREAKDOWN, fp.FLAG_K):
         inp = stacked_shard_inputs(*SHARD_BF16_BLOCKS[0], seed)
         inp["flags"][flag] = 5
-        parts = fs.scratch(*SHARD_BF16_BLOCKS[0], "cuda")
+        parts = shard_scratch(*SHARD_BF16_BLOCKS[0])
         parts[0].fill_(3.0)
         parts[1].fill_(3.0)
         pn, ap, w, r, z, _, _ = _shard_bf16_pair(inp, fs.k1, fs.k2, parts,
@@ -3218,7 +3307,7 @@ def shard_calls(bm: int, bn: int, seed: int, dtype=torch.bfloat16):
         s["pn"], s["ap"] = (torch.empty((bm, bn), dtype=dtype, device="cuda")
                             for _ in range(2))
         s["z_out"] = torch.empty_like(s["pn"])
-        s["parts"] = fs.scratch(bm, bn, "cuda")
+        s["parts"] = shard_scratch(bm, bn, dtype)
     one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
            torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
     never = 2**31 - 1
@@ -3234,7 +3323,7 @@ def shard_calls(bm: int, bn: int, seed: int, dtype=torch.bfloat16):
            max_iter=never)
 
     n_blk, n_ext = bm * bn, (bm + 2) * (bn + 2)
-    n1, n2 = fs.partial_counts(bm, bn)
+    n1, n2 = shard_k1_partials(bm, bn, dtype), fs.partial_counts(bm, bn)[1]
     return (([lambda s=s: k1(s) for s in shards],
              lambda: k1(shards[0], fs.k1_plain, one[0]),
              size * (4 * n_ext + 3 * n_blk) + 8 * n1,
@@ -5341,9 +5430,10 @@ def phase_lane_bf16_timing(seed: int, card: str) -> list:
     them and losses on their paths; us a launch of each inside bf16
     batched-pallas and batched-pipelined-pallas at 400x600, B = 32, capped
     at LANE_BF16_LOOP_CAP (torch.profiler); K1-shard bf16 at its path's
-    1x1 block of 2400x3200, bitwise its plain version, by device time; the
-    two libraries' SASS for the lane kernels. Runs on an older tree's
-    kernels too."""
+    1x1 block of 2400x3200 and at a 2x2 rank's 1201x1601, bitwise its plain
+    version, three ways, and a launch of it inside fused bf16 on one rank at
+    2400x3200 (``k1_in_loop``); the SASS of the lane kernels and of
+    K1-shard. Runs on an older tree's kernels too."""
     from poisson_ellipse_tpu_torch.models.problem import Problem
     from poisson_ellipse_tpu_torch.ops import hopper_kernels as hk
     from poisson_ellipse_tpu_torch.ops.pipelined_pcg import _bundle
@@ -5406,20 +5496,59 @@ def phase_lane_bf16_timing(seed: int, card: str) -> list:
                 say(f"    {engine} bf16 {label}: not measured (no device "
                     "events)")
 
-    bm, bn = K1_SHARD_PATH_BLOCK
-    k1_calls, _ = shard_calls(bm, bn, seed)
-    calls, plain, nbytes, flops = k1_calls
-    say(f"  K1-shard bf16 at its path's block {bm}x{bn} (fused bf16, 1x1, "
-        f"{SHARD_GRID[0]}x{SHARD_GRID[1]})")
-    check_k1_shard_block(bm, bn, seed)
-    timed_row(rows, "fused_sharded_k1_bf16", f"fused_sharded_k1_bf16 "
-              f"{bm}x{bn}", calls, plain, nbytes, flops,
-              "csrc/fused_sharded.cu", "parallel/fused_sharded.py:179",
-              launches=K1_SHARD_PATH_LAUNCHES, per=bm * bn)
+    for (bm, bn), out, launches in (
+            (K1_SHARD_PATH_BLOCK, rows, K1_SHARD_PATH_LAUNCHES),
+            (SHARD_BLOCKS[0], aside, 0)):
+        k1_calls, _ = shard_calls(bm, bn, seed)
+        calls, plain, nbytes, flops = k1_calls
+        say(f"  K1-shard bf16 at {bm}x{bn} ("
+            + ("its path's block: fused bf16, 1x1, " if out is rows
+               else "a rank's block on 2x2 at ")
+            + f"{SHARD_GRID[0]}x{SHARD_GRID[1]})")
+        check_k1_shard_block(bm, bn, seed)
+        timed_row(out, "fused_sharded_k1_bf16", f"fused_sharded_k1_bf16 "
+                  f"{bm}x{bn}", calls, plain, nbytes, flops,
+                  "csrc/fused_sharded.cu", "parallel/fused_sharded.py:179",
+                  launches=launches, per=bm * bn)
+        del calls, plain, k1_calls
+    k1_in_loop(card)
     say("  the lane kernels' SASS (cuobjdump -sass)")
     show_sass("stencil", "lane_stencil_kernel")
     show_sass("stencil_dots", "lane_stencil_dots_kernel")
+    show_sass("fused_sharded", "k1_")
     return rows
+
+
+def k1_in_loop(card: str) -> None:
+    """Device us of each K1-shard bf16 launch inside fused bf16 on one rank
+    at SHARD_GRID (its path's block, capped as phase 11 caps it), by
+    torch.profiler: the working launches apart from the early returns of
+    the last chunk. Matches an older tree's kernel (the node-a-thread
+    k1_shard_kernel<bf16>) too."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.parallel.fused_sharded import (
+        build_fused_sharded_solver,
+    )
+    from poisson_ellipse_tpu_torch.parallel.mesh import make_mesh
+
+    m, n = SHARD_GRID
+    problem = Problem(M=m, N=n, max_iter=MESH_BF16_CAPS[SHARD_GRID])
+    solver, args = build_fused_sharded_solver(problem, make_mesh(
+        device="cuda"), BF16)
+    iters = int(solver(*args).iters)
+    us = _launch_us(solver, args, lambda nm: "k1_march_kernel" in nm or (
+        "k1_shard_kernel" in nm and "bfloat16" in nm))
+    if not us:
+        say(f"  K1-shard bf16 in fused bf16 {m}x{n} on one rank: not "
+            f"measured (no device events; {card})")
+        return
+    work, idle = us[:iters], us[iters:]
+    say(f"  K1-shard bf16 in fused bf16 {m}x{n} on one rank ({iters} "
+        f"iterations): {len(us)} launches; {len(work)} working, median "
+        f"{statistics.median(work):.2f} us, mean "
+        f"{statistics.mean(work):.2f}"
+        + (f"; {len(idle)} returning early, median "
+           f"{statistics.median(idle):.2f} us" if idle else ""))
 
 
 def check_k1_shard_block(bm: int, bn: int, seed: int) -> None:
@@ -5430,7 +5559,7 @@ def check_k1_shard_block(bm: int, bn: int, seed: int) -> None:
 
     h1, h2 = 2.0 / SHARD_GRID[0], 1.2 / SHARD_GRID[1]
     inp = stacked_shard_inputs(bm, bn, seed)
-    got = _shard_bf16_pair(inp, fs.k1, fs.k2, fs.scratch(bm, bn, "cuda"),
+    got = _shard_bf16_pair(inp, fs.k1, fs.k2, shard_scratch(bm, bn),
                            h1, h2)
     one = (torch.zeros(1, dtype=torch.float64, device="cuda"),
            torch.zeros((1, 2), dtype=torch.float64, device="cuda"))
@@ -5464,9 +5593,9 @@ def main(argv=None) -> int:
              "part and in its loop (fused-timing), or K-e, K-f, K1-shard "
              "and K2-shard bf16 bitwise their plain versions and by device "
              "time beside their f32 forms (batched-mesh-bf16), or K-e and "
-             "K-f bf16 bitwise and by device time, in their loops and by "
-             "lanes a thread, with K1-shard bf16 at its path's block "
-             "(lane-bf16-timing); the timings "
+             "K-f bf16 bitwise and by device time, in their loops, with "
+             "K1-shard bf16 bitwise and by device time at its path's block "
+             "and a rank's, and in its loop (lane-bf16-timing); the timings "
              "also run on an older tree's kernels; prints the kernels' "
              "record and no result line")
     ap.add_argument("--sass-dir", help="with --only stencil-dots-timing "

@@ -37,32 +37,58 @@
 // r, pn, ap, dinv and writes w, r, z (8 passes, 18.4 us). Each node takes a
 // few tens of flops.
 //
-// Design: one node a thread, as K-a. K1 uses K-a's 32x8 blocks over the
-// owned block and recomputes pn at each of a node's four neighbours from z
-// and p (the same two operations, so the same bits); K2 is K-c's grid-stride
-// pass. Each block adds its terms in double in a fixed order (warp
-// shuffles, then warp 0 over the warp sums); no float atomics. Built with
-// -fmad=false, so the arrays are bitwise the plain version's and the sums,
-// added in another order, agree once rounded to f32.
+// Design of the f32 forms: one node a thread, as K-a. K1 uses K-a's 32x8
+// blocks over the owned block and recomputes pn at each of a node's four
+// neighbours from z and p (the same two operations, so the same bits); K2
+// is K-c's grid-stride pass. Each block adds its terms in double in a fixed
+// order (warp shuffles, then warp 0 over the warp sums); no float atomics.
+// Built with -fmad=false, so the arrays are bitwise the plain version's and
+// the sums, added in another order, agree once rounded to f32.
 //
 // The bf16 forms (pe_fused_sharded_k1_bf16, pe_fused_sharded_k2_bf16)
 // replace the same two pallas_calls at bf16 (:179 and :207 with bf16
-// operands): each kernel templated on its run type, every array and the
-// scalar carry bf16, each load widened exactly, every value computed in
-// float and rounded once to bf16 where it is stored (rn/down, storage.cuh):
-// pn = rn(z + beta*p), ap = rn(A(pn)) with the same tree on the
-// bf16-rounded h1, h2, and w, r, z as K-c's bf16 form computes them. The
-// sums add products of two bf16 values (exact in float) in double, per
-// block, as the f32 forms do. A kernel of two columns a lane (one 4-byte
-// word of pn, ap and d, pn_march.cuh's) was tried and was the slower on
-// an H100, 34.6 us against 22.5 at 1201x1601: the windows' pairs start
-// mid-word wherever the halo exchange's stack puts them, and it formed
-// each pn at three rows. Bound: 7 passes at 2 B, 26.9 MB on a 1201x1601 block,
-// 8.0 us; K2-shard bf16 8 passes, 30.8 MB, 9.2 us.
+// operands): every array and the scalar carry bf16, each load widened
+// exactly, every value computed in float and rounded once to bf16 where it
+// is stored (rn/down, storage.cuh): pn = rn(z + beta*p), ap = rn(A(pn))
+// with the same tree on the bf16-rounded h1, h2, and w, r, z as K-c's bf16
+// form computes them. The sums add products of two bf16 values (exact in
+// float) in double, per block, as the f32 forms do. K2-shard bf16 is the
+// f32 kernel templated on bf16. Bound: 7 passes at 2 B, 26.9 MB on a
+// 1201x1601 block, 8.0 us; K2-shard bf16 8 passes, 30.8 MB, 9.2 us.
+//
+// K1-shard bf16 is the vector-lane march of csrc/lane_march.cuh
+// (k1_march_kernel), on the (g1, g2) = (bm + 2, bn + 2) windows with pad 0,
+// so d, pn and ap are the march's block-form out. The node-a-thread kernel
+// (the f32 one templated on bf16) formed each pn five times and each flux
+// twice, with 2-byte loads, and ran at 36-40% of its bound on an H100; a
+// kernel of a lane's word per row on pn_march.cuh formed each pn at three
+// rows and was slower still (34.6 us against 22.5 at 1201x1601; PERF.md,
+// section 6). The march's source (lane_march::PnRows) loads the z and p
+// words of a row, each in its own frame: the halo exchange stacks (z, p) as
+// one tensor, so p starts mid-word where g1 g2 is odd. It moves each into
+// the lane's fixed columns and forms pn there, once a node, and the
+// stencil computes each flux once. The policy here (ShardDots) loads d in
+// out's frame, moves it into the fixed columns, sets ap to +0 where d is
+// 0, stores pn beside ap, and adds ap*pn in double down the lane's rows;
+// then the warp and the block in a fixed order, a partial a block
+// (pe_fused_sharded_k1_bf16_blocks). pn and ap are stored as plain words,
+// not streamed past L2: K2-shard reads them next. Units are 16 rows at
+// every block. a, b, d, pn and ap must start on a 4-byte word (the wrapper
+// raises on others); z and p may start on any element. The frames of z and
+// p against a and b are compiled (8 instantiations with kOdd: pad 0 fixes
+// kFlip), chosen from the pointers, each built for three blocks an SM and,
+// for launches of at most a wave of two, for two. Measured on an H100
+// (PERF.md, section 6; tools/lane_sweep.py's k1 variants): 66.6-67.2 us at
+// 2401x3201 and 21.8-21.9 at 1201x1601 against the node-a-thread kernel's
+// 80.3 and 22.7-22.8; bounds, not bitwise: a product by the reciprocal in
+// place of div_pos 60.7 / 17.9, pn = z alone 61.6 / 20.6, no pn store
+// 61.1 / 20.4.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
+#include "lane_march.cuh"
 #include "stencil_tree.cuh"
 #include "storage.cuh"
 
@@ -100,42 +126,163 @@ __device__ double block_sum(double v, double* s_warp) {
   return s;
 }
 
-// K1-shard in the run type T: float, or bf16 (each load widened, pn and ap
-// rounded once to T where they are stored).
-template <typename T>
+// K1-shard's f32 form: a node a thread.
 __global__ void __launch_bounds__(kBlockX * kBlockY)
-k1_shard_kernel(const T* __restrict__ z, const T* __restrict__ p,
-                const T* __restrict__ a, const T* __restrict__ b,
-                const T* __restrict__ d, T* __restrict__ pn,
-                T* __restrict__ ap, double* __restrict__ partials,
-                const T* __restrict__ scal, const int* __restrict__ flags,
+k1_shard_kernel(const float* __restrict__ z, const float* __restrict__ p,
+                const float* __restrict__ a, const float* __restrict__ b,
+                const float* __restrict__ d, float* __restrict__ pn,
+                float* __restrict__ ap, double* __restrict__ partials,
+                const float* __restrict__ scal, const int* __restrict__ flags,
                 int bm, int bn, int max_iter, float h1, float h2) {
   if (!loop_active(flags, max_iter)) return;
   __shared__ double s_warp[32];
-  const float beta = up(scal[kBeta]);
+  const float beta = scal[kBeta];
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   double term = 0.0;
   if (i < bm && j < bn) {
     const int64_t ld = bn + 2;
     const int64_t c = (int64_t)(i + 1) * ld + (j + 1);
-    const auto at = [&](int64_t o) {
-      return rn<T>(up(z[o]) + beta * up(p[o]));
-    };
+    const auto at = [&](int64_t o) { return z[o] + beta * p[o]; };
     const float wc = at(c);
-    float v = rn<T>(stencil_tree(wc, at(c - ld), at(c + ld), at(c - 1),
-                                 at(c + 1), up(a[c]), up(a[c + ld]),
-                                 up(b[c]), up(b[c + 1]), h1, h2));
+    float v = stencil_tree(wc, at(c - ld), at(c + ld), at(c - 1), at(c + 1),
+                           a[c], a[c + ld], b[c], b[c + 1], h1, h2);
     const int64_t o = (int64_t)i * bn + j;
-    v = up(d[o]) != 0.f ? v : 0.f;
-    pn[o] = down<T>(wc);
-    ap[o] = down<T>(v);
+    v = d[o] != 0.f ? v : 0.f;
+    pn[o] = wc;
+    ap[o] = v;
     term = static_cast<double>(v * wc);
   }
   const double s = block_sum(term, s_warp);
   if (threadIdx.x == 0 && threadIdx.y == 0) {
     partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
   }
+}
+
+// -- K1-shard bf16: the vector-lane march (csrc/lane_march.cuh) ------------
+
+namespace lm = lane_march;
+using BF = __nv_bfloat16;
+
+// Rows in flight behind a row, and the blocks an SM the compiler is told
+// of: three where the launch takes more than a wave of two blocks on each
+// of an H100's 132 SMs, two where it does not (the compiler then keeps 86
+// registers, and one wave of fewer warps runs on a shorter step;
+// tools/lane_sweep.py, PERF.md section 6).
+constexpr int kShardAhead = 2;
+constexpr int kShardMinBlocks = 3;
+constexpr int kShardFewBlocks = 2;
+constexpr int64_t kShardFewWave = 2 * 132;
+
+// K1-shard's step besides the stencil: d's word of row r in out's frame F
+// (the block arrays' layout: row r's element of column c at (r - 1) bn +
+// c - 1), moved into the fixed columns (lane 31's second half from the
+// strip's last column, which the edge lanes hold, d63); ap set to +0 where
+// d is 0 (+0 or -0); pn's row stored beside ap; each node's ap*pn (two
+// bf16 values, exact in float) widened to double and added into acc, low
+// half then high, a half that is no node adding +0. The march issues and
+// takes rows r0, r0 + 1, ... in order, so d and pn are read and written
+// through row pointers that step a row a call.
+struct ShardDots {
+  static constexpr bool kOut = true;
+  static constexpr bool kStream = false;
+  struct Slot {
+    lm::W d;
+  };
+  const BF* __restrict__ d;
+  BF* __restrict__ pn;
+  int g1, bn;
+  lm::W d63;
+  double acc;
+  const BF* dr;  // d at the lane's column c of the next row issued
+  BF* pr;        // pn at column c of the next row taken
+
+  // lane k: d of row r0 - 1 + k in the strip's last column, c0 + 63; the
+  // row pointers at row r0
+  __device__ __forceinline__ void start(const lm::Geo& g, int r0, int c0,
+                                        int lane) {
+    const int i = r0 - 1 + lane;
+    d63 = 0u;
+    if (lane <= g.rows + 1 && i >= 1 && i <= g.g1 - 2 && c0 + 63 <= bn) {
+      d63 = lm::raw(__ldg(d + (i - 1) * bn + c0 + 62));
+    }
+    const int at = (r0 - 1) * bn + c0 + 2 * lane - 1;
+    dr = d + at;
+    pr = pn + at;
+  }
+
+  // the word of row r holding column c in frame F; the word whose low
+  // half is the last column of the block's last row (which ends past the
+  // array where the block's last element starts a word) one element
+  template <int F>
+  __device__ __forceinline__ void issue(Slot& sl, int r, bool node_row,
+                                        const lm::Cols& k) {
+    const bool any = node_row && (F ? (k.nm || k.nx) : (k.nx || k.ny));
+    const BF* at = dr - F;
+    dr += bn;
+    if (r == g1 - 2 && !(F ? k.nx : k.ny)) {
+      sl.d = any ? lm::raw(__ldg(at)) : 0u;
+    } else {
+      sl.d = lm::X::load(at, any);
+    }
+  }
+
+  // v with a half set to +0 where d's is +0 or -0: (h & 0x7fff) + 0x7fff
+  // carries into a half's top bit exactly where h is neither, and prmt
+  // replicates each half's top bit over it
+  template <int F>
+  __device__ __forceinline__ lm::W out(const Slot& sl, lm::W v, int t,
+                                       int lane) {
+    const lm::W dd = lm::fixed<F>(sl.d, d63, t, lane);
+    const lm::W m = (dd & 0x7fff7fffu) + 0x7fff7fffu;
+    lm::W keep;
+    asm("prmt.b32 %0, %1, %1, 0xBB99;" : "=r"(keep) : "r"(m));
+    return v & keep;
+  }
+
+  template <int F>
+  __device__ __forceinline__ void take(const Slot&, lm::W v, float2 wr,
+                                       int, bool node_row,
+                                       const lm::Cols& k, int lane) {
+    if (node_row) {
+      lm::store<F, kStream>(pr, lm::X::pack(wr.x, wr.y), k, lane);
+    }
+    pr += bn;
+    const float2 apv = lm::X::unpack(v);
+    const bool lo = node_row && k.nx;
+    const bool hi = node_row && k.ny;
+    acc += (double)(lo ? apv.x * wr.x : 0.f);
+    acc += (double)(hi ? apv.y * wr.y : 0.f);
+  }
+};
+
+// K1-shard bf16: a warp a unit (a 64-column strip over ``rows`` rows of
+// the windows), a block kWarps units, a partial a block. kOdd: g2 is odd
+// (out in a and b's frame; at an even width in the other); DZ, DP: z's and
+// p's frames against a and b; kBlocks: the blocks an SM it is built for.
+template <bool kOdd, int DZ, int DP, int kBlocks>
+__global__ void __launch_bounds__(lm::kThreads, kBlocks)
+k1_march_kernel(const BF* __restrict__ z, const BF* __restrict__ p,
+                const BF* __restrict__ a, const BF* __restrict__ b,
+                const BF* __restrict__ d, BF* __restrict__ pn,
+                BF* __restrict__ ap, double* __restrict__ partials,
+                const BF* __restrict__ scal, const int* __restrict__ flags,
+                int max_iter, lm::Geo g) {
+  if (!loop_active(flags, max_iter)) return;
+  __shared__ double s_warp[32];
+  ShardDots dots{d, pn, g.g1, g.g2 - 2, 0u, 0.0, nullptr, nullptr};
+  const int nstrips = lm::strips(g.g2);
+  const int unit = blockIdx.x * lm::kWarps + (threadIdx.x >> 5);
+  if (unit < nstrips * lm::tiles(g.g1, 0, g.rows)) {
+    const int tile = unit / nstrips;  // warp-uniform
+    const int s = unit - tile * nstrips;
+    dots.start(g, tile * g.rows, lm::kStrip * s, threadIdx.x & 31);
+    lm::PnRows<DZ, DP> src{z, p, up(scal[kBeta])};
+    lm::march_rows<kOdd, !kOdd, false, kShardAhead>(src, a, b, ap, g,
+                                                    tile * g.rows, s, dots);
+  }
+  const double sum = block_sum(dots.acc, s_warp);
+  if (threadIdx.x == 0) partials[blockIdx.x] = sum;
 }
 
 // K2-shard in the run type T: float, or bf16 (K-c's bf16 form's body).
@@ -188,15 +335,80 @@ int k2_blocks(int64_t n) {
   return static_cast<int>(want < kK2MaxBlocks ? want : kK2MaxBlocks);
 }
 
-template <typename T>
-int launch_k1(const T* z, const T* p, const T* a, const T* b, const T* d,
-              T* pn, T* ap, double* partials, const T* scal, const int* flags,
-              int bm, int bn, int max_iter, float h1, float h2,
-              void* stream) {
+int launch_k1(const float* z, const float* p, const float* a, const float* b,
+              const float* d, float* pn, float* ap, double* partials,
+              const float* scal, const int* flags, int bm, int bn,
+              int max_iter, float h1, float h2, void* stream) {
   if (bm < 1 || bn < 1) return static_cast<int>(cudaErrorInvalidValue);
-  k1_shard_kernel<T><<<k1_grid(bm, bn), dim3(kBlockX, kBlockY), 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  k1_shard_kernel<<<k1_grid(bm, bn), dim3(kBlockX, kBlockY), 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1, h2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1-shard bf16's rows a unit and blocks at a (bm, bn) block: 16 rows a
+// unit whatever the block. A unit's start (its edges and first rows) is a
+// chain of loads, so at a rank's 1201x1601 one wave of 16-row units ran
+// faster than 2.5 waves of the 4-row units K-e's rule gives (lane_march
+// rows_of; tools/lane_sweep.py).
+int k1_march_rows(int, int) { return lm::kMaxRows; }
+int64_t k1_march_blocks(int bm, int bn) {
+  return lm::lane_blocks(bm + 2, bn + 2, 0, k1_march_rows(bm, bn));
+}
+
+// A bf16 array's frame: 1 where it starts mid-word.
+int frame_of(const BF* x) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(x) >> 1) & 1);
+}
+
+// K1-shard bf16's launch. The march indexes a window in 32 bits, with room
+// for the rows a unit's issues reach past the last, and loads words: a
+// larger block, or a, b, d, pn or ap off a 4-byte boundary, is refused
+// with cudaErrorInvalidValue.
+int launch_k1_march(const BF* z, const BF* p, const BF* a, const BF* b,
+                    const BF* d, BF* pn, BF* ap, double* partials,
+                    const BF* scal, const int* flags, int bm, int bn,
+                    int max_iter, float h1, float h2, void* stream) {
+  if (bm < 1 || bn < 1 ||
+      (int64_t)(bm + 4 + kShardAhead) * (bn + 2) >= (int64_t{1} << 31) ||
+      !lm::aligned4(a) || !lm::aligned4(b) || !lm::aligned4(d) ||
+      !lm::aligned4(pn) || !lm::aligned4(ap)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const lm::Geo geo{bm + 2, bn + 2, 0, k1_march_rows(bm, bn), h1, h2};
+  const dim3 grid(static_cast<unsigned>(k1_march_blocks(bm, bn)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool few = grid.x <= kShardFewWave;
+  const auto go = [&](auto odd, auto dz, auto dp) {
+    constexpr bool o = decltype(odd)::value;
+    constexpr int fz = decltype(dz)::value, fp = decltype(dp)::value;
+    if (few) {
+      k1_march_kernel<o, fz, fp, kShardFewBlocks>
+          <<<grid, lm::kThreads, 0, st>>>(z, p, a, b, d, pn, ap, partials,
+                                          scal, flags, max_iter, geo);
+    } else {
+      k1_march_kernel<o, fz, fp, kShardMinBlocks>
+          <<<grid, lm::kThreads, 0, st>>>(z, p, a, b, d, pn, ap, partials,
+                                          scal, flags, max_iter, geo);
+    }
+  };
+  const auto frames = [&](auto odd) {
+    const int fz = frame_of(z), fp = frame_of(p);
+    if (fz && fp) {
+      go(odd, lm::I<1>{}, lm::I<1>{});
+    } else if (fz) {
+      go(odd, lm::I<1>{}, lm::I<0>{});
+    } else if (fp) {
+      go(odd, lm::I<0>{}, lm::I<1>{});
+    } else {
+      go(odd, lm::I<0>{}, lm::I<0>{});
+    }
+  };
+  if (geo.g2 & 1) {
+    frames(std::true_type{});
+  } else {
+    frames(std::false_type{});
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,11 +428,16 @@ int launch_k2(T* w, T* r, const T* pn, const T* ap, const T* dinv, T* z,
 
 extern "C" {
 
-// Blocks each kernel launches for one (bm, bn) block, in either form: K1
-// writes one partial a block, K2 two.
+// Blocks each kernel launches for one (bm, bn) block: K1 writes one
+// partial a block, K2 two. K1's f32 form, its bf16 form (the march), and
+// K2 in either form.
 int pe_fused_sharded_k1_blocks(int bm, int bn) {
   const dim3 g = k1_grid(bm, bn);
   return static_cast<int>(g.x * g.y);
+}
+
+int pe_fused_sharded_k1_bf16_blocks(int bm, int bn) {
+  return static_cast<int>(k1_march_blocks(bm, bn));
 }
 
 int pe_fused_sharded_k2_blocks(int bm, int bn) {
@@ -238,7 +455,8 @@ int pe_fused_sharded_k1_f32(const float* z, const float* p, const float* a,
                    max_iter, h1, h2, stream);
 }
 
-// The bf16 form: every array and scal bf16; h1, h2 rounded to bf16.
+// The bf16 form: every array and scal bf16; a, b, d, pn and ap 4-byte
+// aligned; partials: k1_bf16_blocks doubles; h1, h2 rounded to bf16.
 int pe_fused_sharded_k1_bf16(const __nv_bfloat16* z, const __nv_bfloat16* p,
                              const __nv_bfloat16* a, const __nv_bfloat16* b,
                              const __nv_bfloat16* d, __nv_bfloat16* pn,
@@ -246,8 +464,8 @@ int pe_fused_sharded_k1_bf16(const __nv_bfloat16* z, const __nv_bfloat16* p,
                              const __nv_bfloat16* scal, const int* flags,
                              int bm, int bn, int max_iter, float h1, float h2,
                              void* stream) {
-  return launch_k1(z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn,
-                   max_iter, h1, h2, stream);
+  return launch_k1_march(z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn,
+                         max_iter, h1, h2, stream);
 }
 
 // w, r, pn, ap, dinv, z: (bm, bn); w, r updated in place; partials:

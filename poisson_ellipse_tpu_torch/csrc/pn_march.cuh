@@ -2,8 +2,8 @@
 // of rows, with a lane owning two columns (one 4-byte word of bf16): the
 // word loads and stores, pn's formation, and each node's west and east
 // neighbours in pn. csrc/fused_pcg.cu's K1 bf16 form (k1_march_kernel) is
-// built from them; the mesh's K1-shard computes the same pn, A*pn and
-// sum(ap*pn) on an exchanged window and can take them as they are.
+// built from them; the vector-lane march (lane_march.cuh) takes its word
+// type and pn_of, with which the mesh's K1-shard bf16 forms pn.
 //
 // Frames. A row of an unpadded (g1, g2) grid starts at element i*g2, so at
 // an odd g2 every other row starts in the middle of a 4-byte word. Words

@@ -551,6 +551,8 @@ constexpr int kLaneDotsMinBlocks = 2;
 // adds +0, which leaves a double sum that starts at +0 as it is.
 template <bool kBundle>
 struct LaneDots {
+  static constexpr bool kOut = false;
+  static constexpr bool kStream = true;
   static constexpr int kOps = kBundle ? kBundleOperands : kMaxOperands;
   struct Slot {
     lm::W v[kOps];
@@ -573,8 +575,9 @@ struct LaneDots {
   }
 
   template <int F>
-  __device__ __forceinline__ void take(const Slot& sl, bool node_row,
-                                       const lm::Cols& k) {
+  __device__ __forceinline__ void take(const Slot& sl, lm::W, float2, int,
+                                       bool node_row, const lm::Cols& k,
+                                       int) {
     const bool lo = node_row && (F ? k.nm : k.nx);
     const bool hi = node_row && (F ? k.nx : k.ny);
     float vx[kMaxOperands], vy[kMaxOperands];

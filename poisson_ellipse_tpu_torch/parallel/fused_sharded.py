@@ -25,11 +25,17 @@ The kernels (``csrc/fused_sharded.cu``): K1-shard runs the
 ``apply_a_block`` tree (each difference divided by h), which keeps its
 count equal to the sharded ``xla`` loop's, on the exchanged
 (bm+2, bn+2) windows of z, p, a and b; K2-shard is K-c's body without the
-scalar tail. Each writes per-block partial sums in double; the rank adds
-them (``torch.sum`` in double) and ``Mesh.reduce`` adds the ranks' in rank
+scalar tail. Each writes per-block partial sums in double, as many as its
+form launches blocks (``partial_counts``); the rank adds them
+(``torch.sum`` in double) and ``Mesh.reduce`` adds the ranks' in rank
 order, rounded once to f32. Beside each kernel is its plain version
 (``k1_plain``, ``k2_plain``); the launcher takes it only for CPU tensors
-and otherwise launches the kernel or raises.
+and otherwise launches the kernel or raises. K1-shard's bf16 form is the
+vector-lane march of ``csrc/lane_march.cuh``: it loads aligned words, so
+a, b, d, pn and ap must start on a 4-byte boundary (the windows z and p
+may start on any element; the halo exchange's stack puts p mid-word
+where (bm+2)(bn+2) is odd), and it indexes a window in 32 bits, about
+2³¹ elements.
 
 The loop runs at f32 or bf16, as the JAX K1/K2 run at the solve's dtype.
 At bf16 the arrays and the scalar carry are bf16; every value is computed
@@ -96,6 +102,7 @@ K2 = "fused_sharded_k2"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     **{f"pe_fused_sharded_k{k}_blocks": (_I, [_I, _I]) for k in (1, 2)},
+    "pe_fused_sharded_k1_bf16_blocks": (_I, [_I, _I]),
     # z, p, a, b, d, pn, ap, partials, scal, flags, bm, bn, max_iter, h1,
     # h2, stream
     **{f"pe_fused_sharded_k1_{form}": (_I, [_P] * 10 + [_I] * 3
@@ -109,19 +116,25 @@ _SIGNATURES = {
 
 
 @functools.lru_cache(maxsize=16)
-def partial_counts(bm: int, bn: int) -> tuple[int, int]:
-    """(K1's, K2's) per-block partials for a (bm, bn) block on the card,
-    in either form."""
+def partial_counts(bm: int, bn: int,
+                   dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    """(K1's, K2's) per-block partials for a (bm, bn) block on the card in
+    the form of ``dtype``: K1's f32 form is a node a thread, its bf16 form
+    the lane march, each with a grid of its own; K2's is either form's."""
     lib = _build.load(LIBRARY, _SIGNATURES)
-    return (int(lib.pe_fused_sharded_k1_blocks(bm, bn)),
-            int(lib.pe_fused_sharded_k2_blocks(bm, bn)))
+    k1_blocks = (lib.pe_fused_sharded_k1_bf16_blocks
+                 if dtype == torch.bfloat16 else lib.pe_fused_sharded_k1_blocks)
+    return int(k1_blocks(bm, bn)), int(lib.pe_fused_sharded_k2_blocks(bm, bn))
 
 
-def scratch(bm: int, bn: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernels' partials buffers in double, zeroed: (n1,) for K1 and
-    (n2, 2) for K2; one row each for the plain versions on the CPU."""
+def scratch(bm: int, bn: int, device,
+            dtype: torch.dtype = torch.float32
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' partials buffers in double, zeroed, for the form of
+    ``dtype``: (n1,) for K1 and (n2, 2) for K2; one row each for the plain
+    versions on the CPU."""
     dev = torch.device(device)
-    n1, n2 = partial_counts(bm, bn) if dev.type == "cuda" else (1, 1)
+    n1, n2 = partial_counts(bm, bn, dtype) if dev.type == "cuda" else (1, 1)
     return (torch.zeros(n1, dtype=torch.float64, device=dev),
             torch.zeros((n2, 2), dtype=torch.float64, device=dev))
 
@@ -210,6 +223,16 @@ def _check(kernel: str, arrays: dict, shape, scal, flags, partials,
                          f"{n_partials} at least")
 
 
+def _check_words(arrays: dict) -> None:
+    """Raise unless every array starts on a 4-byte boundary: K1-shard
+    bf16's march loads and stores aligned words of a, b, d, pn and ap."""
+    for name, t in arrays.items():
+        if t.data_ptr() % 4:
+            raise ValueError(
+                f"{K1}: bf16 {name} starts off a 4-byte boundary "
+                f"({t.data_ptr():#x}); the lane march takes aligned words")
+
+
 def k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, partials, *,
        max_iter: int, h1: float, h2: float) -> None:
     """K1-shard: pn = z + βp and ap = A(pn) over this rank's block, the
@@ -218,12 +241,22 @@ def k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, partials, *,
     if z_ext.device.type == "cpu":
         return k1_plain(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags,
                         partials, max_iter=max_iter, h1=h1, h2=h2)
+    _launch_k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, partials,
+               max_iter, h1, h2)
+
+
+def _launch_k1(z_ext, p_ext, a_ext, b_ext, d, pn, ap, scal, flags, partials,
+               max_iter: int, h1: float, h2: float) -> None:
+    """K1-shard's launch in the form of z's dtype, its arguments checked
+    first; a refused launch raises (``_build.check``)."""
     bm, bn = d.shape
     ext = dict(z_ext=z_ext, p_ext=p_ext, a_ext=a_ext, b_ext=b_ext)
     _check(K1, {**ext, "d": d, "pn": pn, "ap": ap},
            lambda name: (bm + 2, bn + 2) if name in ext else (bm, bn),
-           scal, flags, partials, partial_counts(bm, bn)[0])
+           scal, flags, partials, partial_counts(bm, bn, z_ext.dtype)[0])
     form = DTYPES[z_ext.dtype]
+    if form == "bf16":
+        _check_words(dict(a_ext=a_ext, b_ext=b_ext, d=d, pn=pn, ap=ap))
     lib = _build.load(LIBRARY, _SIGNATURES)
     rc = getattr(lib, f"pe_fused_sharded_k1_{form}")(
         z_ext.data_ptr(), p_ext.data_ptr(), a_ext.data_ptr(),
@@ -307,7 +340,7 @@ def _run(problem: Problem, mesh: Mesh, bm: int, bn: int, operands,
     scal[SCAL_ZR] = q(q(zr0) * h1t * h2t)
     scal[SCAL_DIFF] = float("inf")
     flags = torch.zeros(N_FLAGS, dtype=torch.int32, device=rhs_blk.device)
-    part1, part2 = scratch(bm, bn, rhs_blk.device)
+    part1, part2 = scratch(bm, bn, rhs_blk.device, ct)
     consts = dict(max_iter=limit)
     bodies = [0]
 

@@ -1737,9 +1737,11 @@ BATCHED_BF16_SHAPES = [(44, 132, 3), (130, 20, 2), (2, 2, 1), (400, 600, 32),
                        (800, 1200, 8), (10, 64, 2), (44, 132, 1),
                        (12, 63, 3), (5, 65, 1), (7, 62, 3), (16, 127, 5)]
 # K1-shard bf16: a rank's 1201x1601 block (bn + 2 odd) and 1200x1600 (even),
-# a 1x1 block, ragged ones of both parities
+# a 1x1 block, ragged ones of both parities; K1-shard bf16's path block
+# (fused bf16 on 1x1 at 2400x3200) beside them for K1-shard alone
 SHARD_BF16_BLOCKS = [(1201, 1601), (1200, 1600), (1, 1), (7, 5), (8, 9),
                      (33, 62)]
+K1_SHARD_PATH_BLOCK = (2401, 3201)
 
 
 def _bf16_lane_inputs(M, N, B, dev, seed=0):
@@ -1913,7 +1915,7 @@ def test_fused_sharded_bf16_kernels_match_plain(cuda, bm, bn):
     inp = _shard_bf16_inputs(bm, bn, cuda)
     assert (inp["p"].data_ptr() % 4 == 0) == ((bm + 2) * (bn + 2) % 2 == 0)
     _build.reset_launches()
-    got = _shard_bf16_run(inp, fs.k1, fs.k2, fs.scratch(bm, bn, cuda))
+    got = _shard_bf16_run(inp, fs.k1, fs.k2, fs.scratch(bm, bn, cuda, BF16))
     torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {"fused_sharded_k1_bf16": 1,
                                      "fused_sharded_k2_bf16": 1}
@@ -1932,7 +1934,7 @@ def test_fused_sharded_bf16_kernels_do_nothing_after_exit(cuda):
     for flag in (fp.FLAG_CONVERGED, fp.FLAG_BREAKDOWN, fp.FLAG_K):
         inp = _shard_bf16_inputs(45, 71, cuda)
         inp["flags"][flag] = 5
-        parts = fs.scratch(45, 71, cuda)
+        parts = fs.scratch(45, 71, cuda, BF16)
         parts[0].fill_(3.0)
         parts[1].fill_(3.0)
         pn, ap = (torch.full((45, 71), 7.0, dtype=BF16, device=cuda)
@@ -1950,27 +1952,108 @@ def test_fused_sharded_bf16_kernels_do_nothing_after_exit(cuda):
         assert torch.all(parts[0] == 3.0) and torch.all(parts[1] == 3.0)
 
 
-def test_fused_sharded_bf16_takes_blocks_at_any_offset(cuda):
-    """K1-shard bf16 reads and writes a node at a time, so pn and ap may
-    start mid-word: the same bits as the plain version's."""
-    inp = _shard_bf16_inputs(7, 5, cuda)
-    bufs = [torch.full((1 + 35,), 7.0, dtype=BF16, device=cuda)
-            for _ in range(2)]
-    pn, ap = (buf[1:].view(7, 5) for buf in bufs)
-    assert pn.data_ptr() % 4 and ap.data_ptr() % 4
-    parts = fs.scratch(7, 5, cuda)
-    fs.k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap,
-          inp["scal"], inp["flags"], parts[0], max_iter=NEVER, h1=0.05,
-          h2=0.03)
-    want = [torch.full((7, 5), 7.0, dtype=BF16, device=cuda)
-            for _ in range(2)]
-    fs.k1_plain(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], *want,
-                inp["scal"], inp["flags"],
-                torch.zeros(1, dtype=torch.float64, device=cuda),
-                max_iter=NEVER, h1=0.05, h2=0.03)
+def _framed(t, frame):
+    """A copy of bf16 ``t`` starting at element ``frame`` of a fresh
+    buffer: mid-word where ``frame`` is 1."""
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[frame:frame + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _k1_bf16(inp, k1, partials, pn=None, ap=None):
+    bm, bn = inp["d"].shape
+    if pn is None:
+        pn, ap = (torch.full((bm, bn), 7.0, dtype=BF16,
+                             device=inp["d"].device) for _ in range(2))
+    k1(inp["z"], inp["p"], inp["a"], inp["b"], inp["d"], pn, ap, inp["scal"],
+       inp["flags"], partials, max_iter=NEVER, h1=0.05, h2=0.03)
+    return pn, ap, partials.sum()
+
+
+@pytest.mark.parametrize("fz,fp_", [(0, 0), (0, 1), (1, 0), (1, 1)])
+@pytest.mark.parametrize("bm,bn", SHARD_BF16_BLOCKS + [K1_SHARD_PATH_BLOCK])
+def test_fused_sharded_k1_bf16_windows_at_each_frame(cuda, bm, bn, fz, fp_):
+    """K1-shard bf16 (the lane march) with z and p each starting on a word
+    or mid-word: pn and ap bitwise its plain version, the rank sum equal
+    once rounded to f32, one launch."""
+    inp = _shard_bf16_inputs(bm, bn, cuda)
+    inp["z"], inp["p"] = _framed(inp["z"], fz), _framed(inp["p"], fp_)
+    assert (inp["z"].data_ptr() >> 1) & 1 == fz
+    assert (inp["p"].data_ptr() >> 1) & 1 == fp_
+    _build.reset_launches()
+    got = _k1_bf16(inp, fs.k1, fs.scratch(bm, bn, cuda, BF16)[0])
     torch.cuda.synchronize()
-    assert _same_bits(pn, want[0]) and _same_bits(ap, want[1])
-    assert torch.all(bufs[0][0] == 7.0) and torch.all(bufs[1][0] == 7.0)
+    assert dict(_build.LAUNCHES) == {"fused_sharded_k1_bf16": 1}
+    want = _k1_bf16(inp, fs.k1_plain,
+                    torch.zeros(1, dtype=torch.float64, device=cuda))
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    assert torch.equal(got[2].float(), want[2].float())
+
+
+def test_fused_sharded_bf16_takes_blocks_at_any_offset(cuda):
+    """K1-shard bf16 takes its windows z and p at any element (the halo
+    exchange's stack puts p mid-word where (bm+2)(bn+2) is odd): the same
+    bits as the plain version's with both off a word. Its march loads and
+    stores aligned words of a, b, d, pn and ap, so each of those off a
+    4-byte word is refused, naming it, and nothing is written."""
+    inp = _shard_bf16_inputs(7, 5, cuda)
+    inp["z"], inp["p"] = _framed(inp["z"], 1), _framed(inp["p"], 1)
+    parts = fs.scratch(7, 5, cuda, BF16)
+    got = _k1_bf16(inp, fs.k1, parts[0])
+    want = _k1_bf16(inp, fs.k1_plain,
+                    torch.zeros(1, dtype=torch.float64, device=cuda))
+    torch.cuda.synchronize()
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    for name in ("a", "b", "d", "pn", "ap"):
+        args = dict(inp, pn=torch.full((7, 5), 7.0, dtype=BF16, device=cuda),
+                    ap=torch.full((7, 5), 7.0, dtype=BF16, device=cuda))
+        args[name] = _framed(args[name], 1)
+        _build.reset_launches()
+        with pytest.raises(ValueError, match="4-byte"):
+            _k1_bf16(args, fs.k1, parts[0], args["pn"], args["ap"])
+        torch.cuda.synchronize()
+        assert not _build.LAUNCHES
+        assert torch.all(args["pn"] == 7.0) and torch.all(args["ap"] == 7.0)
+
+
+def test_fused_sharded_k1_bf16_launcher_refuses_past_32_bits(cuda):
+    """The march indexes a window in 32 bits with room for the rows its
+    loads reach past the last: a 46400x46400 block is refused with
+    cudaErrorInvalidValue before any launch (the wrapper raises on it,
+    ``_build.check``)."""
+    inp = _shard_bf16_inputs(7, 5, cuda)
+    pn, ap = (torch.full((7, 5), 7.0, dtype=BF16, device=cuda)
+              for _ in range(2))
+    parts = fs.scratch(7, 5, cuda, BF16)
+    lib = _build.load(fs.LIBRARY, fs._SIGNATURES)
+    rc = lib.pe_fused_sharded_k1_bf16(
+        *(t.data_ptr() for t in (inp["z"], inp["p"], inp["a"], inp["b"],
+                                 inp["d"], pn, ap, parts[0], inp["scal"],
+                                 inp["flags"])),
+        46400, 46400, NEVER, 0.05, 0.03, _build.stream_handle(pn.device))
+    torch.cuda.synchronize()
+    assert rc == 1
+    assert torch.all(pn == 7.0) and torch.all(ap == 7.0)
+    assert lib.pe_fused_sharded_k1_bf16(
+        *(t.data_ptr() for t in (inp["z"], inp["p"], inp["a"], inp["b"],
+                                 inp["d"], pn, ap, parts[0], inp["scal"],
+                                 inp["flags"])),
+        7, 5, NEVER, 0.05, 0.03, _build.stream_handle(pn.device)) == 0
+
+
+def test_fused_sharded_k1_bf16_blocks_are_the_mirrored_count(cuda):
+    """The library's K1-shard bf16 blocks are the lane march's with 16-row
+    units (``hopper_kernels.lane_blocks`` at pad 0); the f32 form keeps its
+    32x8 grid."""
+    lib = _build.load(fs.LIBRARY, fs._SIGNATURES)
+    for bm, bn in SHARD_BF16_BLOCKS + [K1_SHARD_PATH_BLOCK]:
+        g1, g2 = bm + 2, bn + 2
+        want = hk.lane_blocks(g1, g2, 0, hk.LANE_MAX_ROWS)
+        assert lib.pe_fused_sharded_k1_bf16_blocks(bm, bn) == want
+        assert fs.partial_counts(bm, bn, BF16)[0] == want
+        assert lib.pe_fused_sharded_k1_blocks(bm, bn) == (
+            -(-bn // 32) * -(-bm // 8))
 
 
 def test_sharded_fused_bf16_on_one_and_two_ranks(cuda):
@@ -2006,7 +2089,11 @@ def _lane_mesh_bf16_calls(dev) -> dict:
     w, a, b, ops = _bf16_lane_inputs(400, 600, 32, dev)
     pairs = pp._bundle(*ops)
     inp = _shard_bf16_inputs(1201, 1601, dev)
-    parts = fs.scratch(1201, 1601, dev)
+    parts = fs.scratch(1201, 1601, dev, BF16)
+    path = _shard_bf16_inputs(*K1_SHARD_PATH_BLOCK, dev)
+    path_parts = fs.scratch(*K1_SHARD_PATH_BLOCK, dev, BF16)
+    path_out = [torch.empty(K1_SHARD_PATH_BLOCK, dtype=BF16, device=dev)
+                for _ in range(2)]
     pn, ap = (torch.empty((1201, 1601), dtype=BF16, device=dev)
               for _ in range(2))
     w2, r2, z2 = inp["w"].clone(), inp["r"].clone(), torch.empty_like(pn)
@@ -2021,11 +2108,15 @@ def _lane_mesh_bf16_calls(dev) -> dict:
         "K2-shard bf16": lambda: fs.k2(
             w2, r2, pn, ap, inp["dinv"], z2, inp["scal"], inp["flags"],
             parts[1], max_iter=NEVER),
+        "K1-shard bf16 2401x3201": lambda: fs.k1(
+            path["z"], path["p"], path["a"], path["b"], path["d"],
+            *path_out, path["scal"], path["flags"], path_parts[0],
+            max_iter=NEVER, h1=0.05, h2=0.03),
     }
 
 
 @pytest.mark.parametrize("name", ["K-e bf16", "K-f bf16", "K1-shard bf16",
-                                  "K2-shard bf16"])
+                                  "K2-shard bf16", "K1-shard bf16 2401x3201"])
 def test_lane_and_mesh_bf16_forms_issue_one_device_kernel(cuda, activities,
                                                           name):
     assert activities[name] == 1
