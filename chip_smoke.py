@@ -184,7 +184,20 @@ result line):
               command line with --mesh 1 2 --dtype f64 at 40x40 (exactly
               50). On every rank: K1-shard and K2-shard (K-a for pallas)
               once per issued body, 1 halo exchange and 2 reductions per
-              body, the report's mesh and backend. Then K1-shard and
+              body, the report's mesh and backend. The engines with no
+              kernel of their own, f32: pipelined (2449 +- 2) and sstep,
+              s = 4 (2449 +- 154, the single-device sstep rows' band) at
+              2400x3200 and the lane-sharded batched engine at 400x600 with
+              32 lanes (546 +- 2, every lane converged) on 1x1 over NCCL;
+              the same three at 400x600 on the 2x2 spawn (546 +- 2; 8 lanes
+              a rank), and sstep with bf16 storage there, capped at 1024
+              (finite, l2 < 0.1, its storage in the report); the command
+              line on 1x2 at 40x40 f64 with --engine pipelined and sstep
+              (exactly 50). Every rank makes its engine's collectives for
+              the bodies it issued (MESH_CADENCE: pipelined 1 reduction and
+              1 halo a body, 2 halos more a replacement body; sstep 1
+              reduction and 1 deep halo a body; batched 1 reduction a body)
+              and launches no kernel. Then K1-shard and
               K2-shard timed with CUDA events at the 1201x1601 block
               against their bounds and plain versions, and T_solver of each
               sharded run.
@@ -2494,7 +2507,39 @@ MESH_RUNS = (("fused", "f32", (400, 600), 546), ("xla", "f32", (400, 600), 546),
              ("xla", "f32", (800, 1200), 989),
              ("fused", "f32", SHARD_GRID, MAIN_ITERS))
 MESH_KERNELS = {"fused": ("fused_sharded_k1", "fused_sharded_k2"),
-                "pallas": ("stencil",), "xla": ()}
+                "pallas": ("stencil",), "xla": (), "pipelined": (),
+                "sstep": (), "batched": ()}
+# each engine's collectives on every rank of a solve that issued ``b`` loop
+# bodies: the classical loops 1 halo exchange and 2 reductions a body; the
+# pipelined recurrence 1 and 1, 2 halo exchanges more in each replacement
+# body (k = 32, 64, ...), and a, b and w0's halos once; the s-step engine 1
+# deep halo exchange and 1 reduction a body (s iterations), the deep a, b
+# and rhs halos once; the lane-sharded engine the active-lane count, 1
+# reduction a body, and no halo; the classical loops and the s-step engine
+# reduce zr0 once
+MESH_CADENCE = {
+    **{e: (lambda b: {"halo": b + 2, "reduce": 2 * b + 1})
+       for e in ("fused", "pallas", "xla")},
+    "pipelined": lambda b: {"halo": b + 2 * ((b - 1) // 32) + 3,
+                            "reduce": b},
+    "sstep": lambda b: {"halo": b + 3, "reduce": b + 1},
+    "batched": lambda b: {"reduce": b},
+}
+# the engines phase 11 adds beside MESH_RUNS, as (engine, grid, oracle,
+# band, run_once keywords), f32: on 1x1 over NCCL, and in the 2x2 spawn;
+# the s-step band at 2400x3200 is the single-device sstep rows' (phase 5)
+SSTEP_BAND = 2 * (MAIN_ITERS // 32 + 1)
+MESH_LANES = 32
+MESH_ONE_REST = (("pipelined", SHARD_GRID, MAIN_ITERS, ITERS_ABS, {}),
+                 ("sstep", SHARD_GRID, MAIN_ITERS, SSTEP_BAND,
+                  dict(sstep_s=SSTEP_S)),
+                 ("batched", (400, 600), 546, ITERS_ABS,
+                  dict(lanes=MESH_LANES)))
+MESH_REST_RUNS = (("pipelined", (400, 600), 546, ITERS_ABS, {}),
+                  ("sstep", (400, 600), 546, ITERS_ABS,
+                   dict(sstep_s=SSTEP_S)),
+                  ("batched", (400, 600), 546, ITERS_ABS,
+                   dict(lanes=MESH_LANES)))
 
 
 def shard_inputs(bm: int, bn: int, seed: int):
@@ -2594,30 +2639,52 @@ def phase_shard_kernels(seed: int) -> dict:
     return errs
 
 
-def _check_mesh_report(label: str, report, want_iters: int, engine: str,
-                       exact: bool = False) -> None:
+def _check_mesh_report(label: str, report, want_iters: int | None,
+                       engine: str, exact: bool = False,
+                       band: int = ITERS_ABS) -> None:
+    """A sharded run's count (``want_iters`` within ``band``, exactly with
+    ``exact``; None: a capped narrow run, held finite and under
+    STORAGE_L2), l2 < 1e-3, and on every rank the engine's launches and
+    collectives for the bodies it issued (MESH_KERNELS, MESH_CADENCE)."""
+    bodies = report.bodies
+    per_body = {k: round(v / max(bodies, 1), 3)
+                for k, v in report.rank_collectives[0].items()}
     say(f"  {label}: {report.iters} iterations, converged {report.converged},"
         f" l2 {report.l2_error:.3e}, mesh {report.mesh_shape}, backend "
-        f"{report.backend}, T_solver {report.t_solver:.5f} s, {report.bodies}"
-        f" bodies, {report.host_syncs} host reads; rank launches "
-        f"{report.rank_launches}; rank collectives "
-        f"{report.rank_collectives}")
-    ok_iters = (report.iters == want_iters if exact
-                else abs(report.iters - want_iters) <= ITERS_ABS)
-    require(report.converged and ok_iters,
-            f"{label}: {report.iters} iterations, want {want_iters}"
-            + ("" if exact else f" +- {ITERS_ABS}"))
-    require(report.l2_error < 1e-3, f"{label}: l2 {report.l2_error}")
-    bodies = report.bodies
+        f"{report.backend}, T_solver {report.t_solver:.5f} s, {bodies}"
+        f" bodies, {report.host_syncs} host reads, rank 0's collectives a "
+        f"body {per_body}; rank launches {report.rank_launches}; rank "
+        f"collectives {report.rank_collectives}"
+        + (f"; lanes {report.lanes}, {report.solves_per_sec:.2f} solves/s, "
+           f"{report.quarantined} quarantined" if report.lanes > 1 else "")
+        + (f"; storage {report.storage_dtype}" if report.storage_dtype
+           else ""))
+    if want_iters is None:
+        require(not report.breakdown and (report.converged or report.iters
+                                          == report.problem.max_iterations),
+                f"{label}: {report.iters} iterations, breakdown "
+                f"{report.breakdown}: neither converged nor at the cap")
+        require(math.isfinite(report.l2_error)
+                and report.l2_error < STORAGE_L2,
+                f"{label}: l2 {report.l2_error} (a narrow run is held to "
+                f"{STORAGE_L2})")
+    else:
+        ok_iters = (report.iters == want_iters if exact
+                    else abs(report.iters - want_iters) <= band)
+        require(report.converged and ok_iters,
+                f"{label}: {report.iters} iterations, want {want_iters}"
+                + ("" if exact else f" +- {band}"))
+        require(report.l2_error < 1e-3, f"{label}: l2 {report.l2_error}")
+    require(report.quarantined == 0, f"{label}: a lane was quarantined")
+    cadence = MESH_CADENCE[engine]
     for rank, (launches, colls) in enumerate(zip(report.rank_launches,
                                                  report.rank_collectives)):
         want = {k: bodies for k in MESH_KERNELS[engine]}
         require(launches == want, f"{label}: rank {rank} launched "
                 f"{launches}, want {want} (once per issued body)")
-        require(colls == {"halo": bodies + 2, "reduce": 2 * bodies + 1},
-                f"{label}: rank {rank} made {colls}, want 1 halo exchange "
-                "and 2 reductions a body (and the 2 coefficient halos and "
-                "zr0's reduction once)")
+        require(colls == cadence(bodies),
+                f"{label}: rank {rank} made {colls}, want {cadence(bodies)}"
+                f" for {bodies} bodies ({engine}'s cadence, MESH_CADENCE)")
     require(len(report.rank_launches) == report.mesh_shape[0]
             * report.mesh_shape[1], f"{label}: not every rank reported")
     d = report.json_dict()
@@ -2639,16 +2706,41 @@ def phase_mesh(card: str) -> dict:
     require(one.backend == "nccl", f"the 1x1 mesh took {one.backend}, not "
             "NCCL")
     _check_mesh_report("fused 1x1 2400x3200", one, MAIN_ITERS, "fused")
+    # the pipelined, s-step and lane-sharded engines on 1x1, in one spawn
+    ones_rest = multihost.spawn(multihost.run_jobs, 1, ([
+        (run_once, (Problem(M=g[0], N=g[1]),),
+         dict(mode="sharded", dtype="f32", engine=e, mesh_shape=(1, 1),
+              device="cuda", **kw))
+        for e, g, _, _, kw in MESH_ONE_REST],))
+    for (e, g, want, band, _), report in zip(MESH_ONE_REST, ones_rest):
+        require(report.backend == "nccl", f"the 1x1 mesh took "
+                f"{report.backend}, not NCCL")
+        _check_mesh_report(f"{e} 1x1 {g[0]}x{g[1]}", report, want, e,
+                           band=band)
+    t_one = time.perf_counter() - t0
     # one spawn of the four ranks for every 2x2 run and the profile
     jobs = [(run_once, (Problem(M=g[0], N=g[1]),),
              dict(mode="sharded", dtype=dt, engine=e, mesh_shape=(2, 2),
                   device="cuda"))
             for e, dt, g, _ in MESH_RUNS]
-    jobs += mesh_bf16_jobs()
+    bf16_jobs = mesh_bf16_jobs()
+    rest_jobs = [(run_once, (Problem(M=g[0], N=g[1]),),
+                  dict(mode="sharded", dtype="f32", engine=e,
+                       mesh_shape=(2, 2), device="cuda", **kw))
+                 for e, g, _, _, kw in MESH_REST_RUNS]
+    # the narrow s-step run, capped like phase 9's narrow rows
+    rest_jobs.append((run_once, (Problem(M=400, N=600,
+                                         max_iter=STORAGE_CAP),),
+                      dict(mode="sharded", dtype="f32", engine="sstep",
+                           mesh_shape=(2, 2), device="cuda",
+                           sstep_s=SSTEP_S, storage_dtype="bf16")))
+    jobs += bf16_jobs + rest_jobs
     jobs.append((profile_rank, (Problem(M=400, N=600), "fused"), {}))
     *reports, profiled = multihost.spawn(multihost.run_jobs, 4, (jobs,))
-    bf16_reports = reports[len(MESH_RUNS):]
-    reports = reports[:len(MESH_RUNS)]
+    n_main, n_bf16 = len(MESH_RUNS), len(bf16_jobs)
+    bf16_reports = reports[n_main:n_main + n_bf16]
+    rest = reports[n_main + n_bf16:]
+    reports = reports[:n_main]
     counts = {}
     for (e, dt, g, want), report in zip(MESH_RUNS, reports):
         require(report.backend == "gloo", f"2x2 on one card took "
@@ -2656,22 +2748,47 @@ def phase_mesh(card: str) -> dict:
         _check_mesh_report(f"{e} 2x2 {g[0]}x{g[1]}", report, want, e)
         if (e, g) == ("fused", SHARD_GRID):
             counts = report.rank_launches[0]
-    out = subprocess.run(
-        [sys.executable, "-m", "poisson_ellipse_tpu_torch.harness", "40",
-         "40", "--mode", "sharded", "--mesh", "1", "2", "--dtype", "f64",
-         "--json"], capture_output=True, text=True, timeout=300, cwd=ROOT)
-    require(out.returncode == 0, f"the command line on 1x2 exited "
-            f"{out.returncode}: {out.stderr[-2000:]}")
-    rec = json.loads(out.stdout.strip().splitlines()[-1])
-    say(f"  command line f64 xla 1x2 40x40: {rec}")
-    require(rec["iters"] == 50 and rec["converged"] and rec["mesh"] == [1, 2]
-            and rec["backend"] == "gloo" and rec["engine"] == "xla",
-            "the command line on 1x2 did not give exactly 50 over gloo")
+    for (e, g, want, band, _), report in zip(MESH_REST_RUNS, rest):
+        require(report.backend == "gloo", f"2x2 on one card took "
+                f"{report.backend}, not gloo")
+        _check_mesh_report(f"{e} 2x2 {g[0]}x{g[1]}", report, want, e,
+                           band=band)
+    narrow = rest[-1]
+    require(narrow.storage_dtype == "bf16", "the narrow s-step run does not "
+            "report its storage dtype")
+    _check_mesh_report(f"sstep bf16-storage 2x2 400x600 (cap {STORAGE_CAP})",
+                       narrow, None, "sstep")
+    for engine_name, extra in (("xla", []), ("pipelined", []),
+                               ("sstep", ["--sstep-s", str(SSTEP_S)])):
+        out = subprocess.run(
+            [sys.executable, "-m", "poisson_ellipse_tpu_torch.harness", "40",
+             "40", "--mode", "sharded", "--mesh", "1", "2", "--dtype", "f64",
+             "--engine", engine_name, "--json", *extra],
+            capture_output=True, text=True, timeout=300, cwd=ROOT)
+        require(out.returncode == 0, f"the command line on 1x2 "
+                f"({engine_name}) exited {out.returncode}: "
+                f"{out.stderr[-2000:]}")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        say(f"  command line f64 {engine_name} 1x2 40x40: {rec}")
+        require(rec["iters"] == 50 and rec["converged"]
+                and rec["mesh"] == [1, 2] and rec["backend"] == "gloo"
+                and rec["engine"] == engine_name,
+                f"the command line on 1x2 ({engine_name}) did not give "
+                "exactly 50 over gloo")
     say(f"  T_solver on {card}: fused 1x1 NCCL 2400x3200 "
-        f"{one.t_solver:.5f} s; 2x2 gloo: " + ", ".join(
+        f"{one.t_solver:.5f} s; 1x1 NCCL: " + ", ".join(
+            f"{e} {g[0]}x{g[1]} {r.t_solver:.5f} s ({r.bodies} bodies)"
+            for (e, g, *_), r in zip(MESH_ONE_REST, ones_rest))
+        + "; 2x2 gloo: " + ", ".join(
             f"{e} {g[0]}x{g[1]} {r.t_solver:.5f} s"
-            for (e, _, g, _), r in zip(MESH_RUNS, reports)))
-    say(f"  phase 11 runs took {time.perf_counter() - t0:.1f} s")
+            for (e, _, g, _), r in zip(MESH_RUNS, reports))
+        + ", " + ", ".join(
+            f"{e} {g[0]}x{g[1]} {r.t_solver:.5f} s ({r.bodies} bodies)"
+            for (e, g, *_), r in zip(MESH_REST_RUNS, rest))
+        + f", sstep bf16-storage 400x600 {narrow.t_solver:.5f} s "
+          f"({narrow.bodies} bodies)")
+    say(f"  phase 11 runs took {time.perf_counter() - t0:.1f} s (the 1x1 "
+        f"runs {t_one:.1f} s)")
     show_mesh_profile(profiled, card)
     return {"counts": counts, "one": one, "reports": reports,
             "bf16_reports": bf16_reports}

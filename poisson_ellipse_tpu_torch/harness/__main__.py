@@ -159,9 +159,11 @@ def _sharded(args, problems):
     ranks other than 0), else in PX·PY rank processes started here."""
     from poisson_ellipse_tpu_torch.parallel import multihost
 
-    check_sharded(args.engine, args.lanes, args.storage_dtype)
+    check_sharded(args.engine, args.lanes, args.storage_dtype, args.dtype)
     jobs = [dict(problem=p, dtype=args.dtype, engine=args.engine,
-                 repeat=args.repeat, mesh_shape=args.mesh) for p in problems]
+                 repeat=args.repeat, mesh_shape=args.mesh,
+                 sstep_s=args.sstep_s, lanes=args.lanes,
+                 storage_dtype=args.storage_dtype) for p in problems]
     if multihost.torchrun_env():
         multihost.initialize_multihost(device=args.device)
         try:

@@ -24,18 +24,26 @@ included, as the JAX harness's ``--dtype bf16``.
 
 ``mode="sharded"`` runs the mesh (``parallel``): ``mesh_shape`` (px, py)
 ranks of a ``torch.distributed`` group each solve their block with
-``engine`` ``xla`` (``auto``), ``pallas`` (K-a on every rank) or ``fused``
-(K1-shard and K2-shard). Inside a group (torchrun, ``multihost.spawn``)
-every rank calls ``run_once`` together and gets the report; without one,
+``engine`` ``xla`` (``auto``), ``pallas`` (K-a on every rank), ``fused``
+(K1-shard and K2-shard), ``pipelined`` (one reduction an iteration) or
+``sstep`` / ``sstep-pallas`` (one deep halo exchange and one reduction per
+``sstep_s`` iterations, the one sharded engine that takes
+``storage_dtype``; both names run ``sstep``, as in the JAX harness). With
+``lanes`` > 1 or a lane-batched engine each rank solves ``lanes / world``
+whole lanes instead (``parallel.batched_sharded``, one reduction an
+iteration), in the classical recurrence unless the engine is
+``batched-pipelined``, as the JAX harness routes them. Inside a group
+(torchrun, ``multihost.spawn``) every rank calls ``run_once`` together
+and gets the report; without one,
 ``run_once`` starts the px·py rank processes itself
 (``multihost.spawn``) and returns rank 0's. The backend follows the
 layout: NCCL when each rank has a card of its own, gloo on the CPU and
 when ranks share a card. The warm-up is one chunk of iterations (it loads
 the kernels and opens the group's connections); T_solver is rank 0's
-solve up to its owned block, after a barrier; the global w is gathered for
-the L2 error afterwards. The
-report names the mesh and the backend and counts the timed solve's loop
-bodies, collectives (every rank's) and kernel launches (every rank's).
+solve up to its owned block (its lanes), after a barrier; the global w (the
+lanes) is gathered for the L2 error afterwards. The report names the mesh
+and the backend and counts the timed solve's loop bodies, collectives
+(every rank's) and kernel launches (every rank's).
 """
 
 from __future__ import annotations
@@ -56,11 +64,17 @@ from poisson_ellipse_tpu_torch.parallel.mesh import (
     make_mesh,
     reset_collectives,
 )
+from poisson_ellipse_tpu_torch.parallel.batched_sharded import (
+    build_batched_sharded_solver,
+    gather_lanes,
+)
 from poisson_ellipse_tpu_torch.parallel.multihost import spawn
 from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
-    MESH_REST,
     build_sharded_solver,
     gather_w,
+)
+from poisson_ellipse_tpu_torch.parallel.sstep_sharded import (
+    build_sstep_sharded_solver,
 )
 from poisson_ellipse_tpu_torch.solver.engine import (
     BATCHED_ENGINES,
@@ -196,26 +210,37 @@ def resolve_mesh(mesh_shape: tuple[int, int] | None = None,
 
 
 def check_sharded(engine: str, lanes: int = 1,
-                  storage_dtype: str | None = None) -> str:
-    """The engine a sharded run takes (``auto`` → ``xla``): ``xla`` in
-    f32, f64 and bf16, ``pallas`` (K-a) and ``fused`` (K1-shard and
-    K2-shard) in f32 and bf16, f64 raising in the builder as in the JAX
-    package. A single-device engine gets the JAX harness's refusal, whose
-    text names the JAX package's sharded engines; the ones the port does
-    not have yet raise naming their ROADMAP item."""
-    if lanes != 1:
-        raise unported("lane-sharded batched runs (--lanes with --mode "
-                       "sharded)", MESH_REST)
-    if storage_dtype is not None:
+                  storage_dtype: str | None = None, dtype: str = "f32") -> str:
+    """The engine a sharded run takes, with the JAX harness's refusals.
+
+    ``auto`` → ``xla``, or ``batched`` with ``lanes`` > 1. On the spatial
+    mesh: ``xla`` in f32, f64 and bf16; ``pallas`` (K-a) and ``fused``
+    (K1-shard and K2-shard) in f32 and bf16, f64 raising in the builder as
+    in the JAX package; ``pipelined`` and ``sstep`` in f32 and f64, with
+    ``sstep-pallas`` running ``sstep`` and ``storage_dtype`` taken by the
+    s-step engine alone. ``lanes`` > 1 or a lane-batched engine shards whole
+    lanes over the ranks, in f32 and f64. bf16 compute on the pipelined,
+    s-step and lane-sharded mesh raises naming its ROADMAP item, and a
+    single-device engine gets the JAX harness's refusal, whose text names
+    the JAX package's sharded engines."""
+    if lanes < 1:
+        raise ValueError("lanes must be >= 1")
+    if lanes > 1 or engine in BATCHED_ENGINES:
+        if engine == "auto":
+            engine = "batched"
+        if engine not in BATCHED_ENGINES:
+            raise ValueError(
+                f"engine {engine!r} runs one solve per dispatch; "
+                "--lanes needs --engine batched or batched-pipelined"
+            )
+    if storage_dtype is not None and engine not in ("sstep", "sstep-pallas"):
         raise ValueError(
             "sharded --storage-dtype covers the sstep engine (whose "
             "deep-halo exchange ships the narrow state); the classical/"
             "pipelined/batched sharded forms run full width"
         )
-    if engine in ("pipelined", "sstep", "sstep-pallas") or (
-            engine in BATCHED_ENGINES):
-        raise unported(f"--mode sharded --engine {engine}", MESH_REST)
-    if engine != "auto" and engine not in SHARDED_ENGINES:
+    if engine not in ("auto", "sstep-pallas") + BATCHED_ENGINES + (
+            SHARDED_ENGINES):
         raise ValueError(
             f"engine {engine!r} is single-device only; sharded mode "
             "runs the XLA block stencil ('xla', default), the "
@@ -227,6 +252,12 @@ def check_sharded(engine: str, lanes: int = 1,
             "'cheb-pcg': V-cycle/Chebyshev per shard, halo-ppermute "
             "only — the scalar-collective cadence stays classical)"
         )
+    if engine == "sstep-pallas":
+        engine = "sstep"  # the sharded s-step runs the plain block stencil
+    if dtype == "bf16" and (engine in ("pipelined", "sstep")
+                            or engine in BATCHED_ENGINES):
+        raise unported(f"--dtype bf16 with --mode sharded --engine {engine}",
+                       "Queue A item 21d")
     return "xla" if engine == "auto" else engine
 
 
@@ -251,15 +282,43 @@ def _barrier(mesh: Mesh) -> None:
         dist.barrier()
 
 
+def _outcome(result, batched: bool) -> tuple:
+    """(iterations, converged, breakdown, step norm, w) of a solve: of a
+    batched one the worst lane's count and step norm, every lane
+    converged, any lane broken down, and lane 0's solution."""
+    if batched:
+        return (int(result.iters.max()), bool(result.converged.all()),
+                bool(result.breakdown.any()), float(result.diff.max()),
+                result.w[0])
+    return (int(result.iters), bool(result.converged),
+            bool(result.breakdown), float(result.diff), result.w)
+
+
+def _build_sharded(problem: Problem, mesh: Mesh, tdtype, engine: str,
+                   sstep_s: int, lanes: int, storage_dtype):
+    """(solver, args) of the sharded ``engine`` on this rank."""
+    if engine in BATCHED_ENGINES:
+        # the JAX harness's routing: only "batched-pipelined" runs the
+        # pipelined lanes on the mesh
+        return build_batched_sharded_solver(
+            problem, mesh, lanes, tdtype,
+            pipelined=engine == "batched-pipelined")
+    if engine == "sstep":
+        return build_sstep_sharded_solver(problem, mesh, tdtype, s=sstep_s,
+                                          storage_dtype=storage_dtype)
+    return build_sharded_solver(problem, mesh, tdtype, stencil_impl=engine)
+
+
 def _run_sharded(problem: Problem, dtype: str, engine: str, repeat: int,
-                 device, mesh_shape) -> RunReport:
+                 device, mesh_shape, sstep_s: int = 4, lanes: int = 1,
+                 storage_dtype: str | None = None) -> RunReport:
     """The sharded run on this rank of an initialised group."""
     mesh = resolve_mesh(mesh_shape, device)
     tdtype = DTYPES[dtype]
     timer = PhaseTimer(mesh.device)
     with timer.phase("init"):
-        solver, args = build_sharded_solver(problem, mesh, tdtype,
-                                            stencil_impl=engine)
+        solver, args = _build_sharded(problem, mesh, tdtype, engine, sstep_s,
+                                      lanes, storage_dtype)
     # warm-up, one chunk of bodies: it loads the kernels and opens the
     # group's connections (a whole warm-up solve would double the run)
     solver(*args, limit=DEFAULT_CHUNK)
@@ -274,26 +333,37 @@ def _run_sharded(problem: Problem, dtype: str, engine: str, repeat: int,
         times.append(step.totals["solver"])
     counts = dict(COLLECTIVES), dict(_build.LAUNCHES)
     timer.add("solver", statistics.median(times))
+    batched = engine in BATCHED_ENGINES
     with timer.phase("finalize"):
-        w = gather_w(problem, mesh, result.w)
+        if batched:
+            result = gather_lanes(mesh, result)
+        iters, converged, breakdown, diff, w = _outcome(result, batched)
+        if not batched:
+            w = gather_w(problem, mesh, w)
         l2 = float(l2_error_vs_analytic(problem, w))
     rank_counts = _rank_counts(mesh, counts)
+    t_solver = timer.totals["solver"]
     return RunReport(
         problem=problem,
         mesh_shape=mesh.shape,
         dtype=dtype,
         engine=engine,
-        iters=int(result.iters),
-        converged=bool(result.converged),
-        breakdown=bool(result.breakdown),
-        diff=float(result.diff),
+        iters=iters,
+        converged=converged,
+        breakdown=breakdown,
+        diff=diff,
         l2_error=l2,
         t_init=timer.totals["init"],
-        t_solver=timer.totals["solver"],
+        t_solver=t_solver,
         times=times,
         device=(torch.cuda.get_device_name(mesh.device)
                 if mesh.device.type == "cuda" else "cpu"),
         host_syncs=solver.host_syncs,
+        lanes=lanes,
+        solves_per_sec=(lanes / t_solver if batched and t_solver > 0
+                        else None),
+        quarantined=int(result.quarantined.sum()) if batched else 0,
+        storage_dtype=storage_dtype,
         backend=mesh.backend,
         bodies=solver.bodies,
         rank_collectives=[c for c, _ in rank_counts],
@@ -322,14 +392,15 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
     if mode == "auto" and mesh_shape is not None:
         mode = "sharded"  # as the JAX harness: an explicit mesh is sharded
     if mode == "sharded":
-        engine = check_sharded(engine, lanes, storage_dtype)
+        engine = check_sharded(engine, lanes, storage_dtype, dtype)
         if dist.is_initialized():
             return _run_sharded(problem, dtype, engine, repeat, device,
-                                mesh_shape)
+                                mesh_shape, sstep_s, lanes, storage_dtype)
         resolve_device(device)  # no card and no CPU request: raise here
         px, py = (1, 1) if mesh_shape is None else mesh_shape
         job = dict(problem=problem, dtype=dtype, engine=engine,
-                   repeat=repeat, mesh_shape=(px, py))
+                   repeat=repeat, mesh_shape=(px, py), sstep_s=sstep_s,
+                   lanes=lanes, storage_dtype=storage_dtype)
         return spawn(run_sharded_jobs, px * py, ([job], device),
                      device=device or "cuda")[0]
     if lanes > 1 and engine == "auto":
@@ -353,19 +424,7 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
     timer.add("solver", statistics.median(times))
     t_solver = timer.totals["solver"]
     batched = engine in BATCHED_ENGINES
-    if batched:
-        # the worst lane's count and step norm, lane 0's solution
-        iters = int(result.iters.max())
-        converged = bool(result.converged.all())
-        breakdown = bool(result.breakdown.any())
-        diff = float(result.diff.max())
-        w0 = result.w[0]
-    else:
-        iters = int(result.iters)
-        converged = bool(result.converged)
-        breakdown = bool(result.breakdown)
-        diff = float(result.diff)
-        w0 = result.w
+    iters, converged, breakdown, diff, w0 = _outcome(result, batched)
     with timer.phase("finalize"):
         l2 = float(l2_error_vs_analytic(problem, w0))
     roof = (dict(passes_per_iter=0.0, hbm_gbps=None, hbm_peak_frac=None)

@@ -31,7 +31,9 @@ hands each rank its block (args = (a, b, rhs) blocks; the coefficient
 halos are exchanged once); "device" has each rank assemble its
 halo-extended block from global indices with no communication
 (``ops.assembly.coefficients_at``; args = ()). ``stencil_impl="fused"``
-is the two-kernel iteration of ``parallel.fused_sharded``.
+is the two-kernel iteration of ``parallel.fused_sharded``, and
+``"pipelined"`` the one-reduction recurrence of
+``parallel.pipelined_sharded``.
 
 The solver returns each rank's owned block of w; ``gather_w`` assembles the
 global (M+1, N+1) solution (off the timed path: the JAX package never
@@ -68,12 +70,21 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     unported,
 )
 
-# the sharded stencils of the classical loop, and the fused iteration
-STENCIL_IMPLS = ("xla", "pallas", "fused")
+# the sharded stencils of the classical loop, the fused iteration and the
+# pipelined recurrence (the s-step and lane-sharded engines have builders
+# of their own: ``sstep_sharded``, ``batched_sharded``)
+STENCIL_IMPLS = ("xla", "pallas", "fused", "pipelined")
 
-# ROADMAP.md's item for the rest of the mesh (the other sharded engines,
-# the stepper and recover builders, ABFT, the elastic mesh)
-MESH_REST = "Queue A item 21"
+# ROADMAP.md's item for the mesh's resilience hooks (the stepper and
+# recover builders, ABFT, the elastic mesh)
+MESH_HOOKS = "Queue A item 21b"
+
+
+def reject_narrow(dtype: torch.dtype, what: str) -> None:
+    """bf16 (or f16) compute on the pipelined, s-step and lane-sharded
+    mesh is ROADMAP Queue A item 21d."""
+    if torch.empty((), dtype=dtype).element_size() < 4:
+        raise unported(f"{dtype} compute on the {what}", "Queue A item 21d")
 
 
 def block_shape(problem: Problem, mesh: Mesh) -> tuple[int, int]:
@@ -128,11 +139,11 @@ def _reject(history=False, precond=None, abft=False, x0_blk=None) -> None:
     if history:
         raise unported("history=", "Queue A item 8")
     if precond is not None:
-        raise unported("precond= on the mesh", MESH_REST)
+        raise unported("precond= on the mesh", "Queue A item 21c")
     if abft:
-        raise unported("abft=", MESH_REST)
+        raise unported("abft=", MESH_HOOKS)
     if x0_blk is not None:
-        raise unported("x0_blk=", MESH_REST)
+        raise unported("x0_blk=", "Queue A item 21c")
 
 
 def _shard_init(problem: Problem, pdot, d, rhs_blk, dtype,
@@ -262,17 +273,29 @@ def build_sharded_solver(problem: Problem, mesh: Mesh | None = None,
 
     Every rank of the mesh builds and calls it together. ``solver(*args)``
     returns a ``PCGResult`` whose ``w`` is this rank's (bm, bn) block and
-    whose scalars are the same on every rank (a ``ShardedSolver``). ``stencil_impl``: "xla", "pallas"
-    (K-a on every rank) or "fused" (``parallel.fused_sharded``, host
-    assembly, f32); "pipelined" is not ported yet."""
+    whose scalars are the same on every rank (a ``ShardedSolver``).
+    ``stencil_impl``: "xla", "pallas" (K-a on every rank), "fused"
+    (``parallel.fused_sharded``, host assembly, f32 and bf16) or
+    "pipelined" (``parallel.pipelined_sharded``, host assembly, f32 and
+    f64)."""
     if geometry is not None or theta is not None:
         raise unported("geometry=/theta=", "Queue A item 11")
     if history:
         raise unported("history=", "Queue A item 8")
-    if stencil_impl == "pipelined":
-        raise unported("stencil_impl='pipelined'", MESH_REST)
     if mesh is None:
         mesh = make_mesh()
+    if stencil_impl == "pipelined":
+        if assembly_mode != "host":
+            raise ValueError(
+                "stencil_impl='pipelined' assembles on the host (the "
+                f"rounded-once operand set); got assembly_mode={assembly_mode!r}"
+            )
+        from poisson_ellipse_tpu_torch.parallel.pipelined_sharded import (
+            build_pipelined_sharded_solver,
+        )
+
+        return build_pipelined_sharded_solver(problem, mesh, dtype,
+                                              chunk=chunk)
     if stencil_impl == "fused":
         if assembly_mode != "host":
             raise ValueError(
@@ -314,12 +337,12 @@ def build_sharded_solver(problem: Problem, mesh: Mesh | None = None,
 def build_sharded_stepper(*_args, **_kwargs):
     """The chunked/resumable sharded stepper (``resilience.guard``'s mesh
     path) is not ported yet."""
-    raise unported("build_sharded_stepper", MESH_REST)
+    raise unported("build_sharded_stepper", MESH_HOOKS)
 
 
 def build_sharded_recover(*_args, **_kwargs):
     """The sharded true-residual restart is not ported yet."""
-    raise unported("build_sharded_recover", MESH_REST)
+    raise unported("build_sharded_recover", MESH_HOOKS)
 
 
 def solve_sharded(problem: Problem, mesh: Mesh | None = None,
@@ -358,14 +381,10 @@ def _host_sharded_args(problem: Problem, mesh: Mesh, dtype):
                  for x in assembly.assemble_numpy(problem))
 
 
-def solve_report(problem: Problem, dtype=torch.float32,
-                 stencil_impl: str = "xla", assembly_mode: str = "host",
-                 chunk: int = DEFAULT_CHUNK, device=None) -> dict:
-    """One sharded solve on this rank, for a caller that compares it: the
-    global w gathered to a host array, the scalars, the bodies and host
-    reads, and every rank's collectives and launches during the solve.
-    Every rank calls it together (``multihost.run_jobs``), with the
-    ``device`` type its group was started on."""
+def measured_solve(mesh: Mesh, solver, args):
+    """One call of a built sharded ``solver`` on this rank, with every
+    rank's collectives and kernel launches during it: (result, per-rank
+    counts in rank order). Every rank calls it together."""
     import torch.distributed as dist
 
     from poisson_ellipse_tpu_torch.ops import _build
@@ -374,9 +393,6 @@ def solve_report(problem: Problem, dtype=torch.float32,
         reset_collectives,
     )
 
-    mesh = make_mesh(device=device)
-    solver, args = build_sharded_solver(problem, mesh, dtype, assembly_mode,
-                                        stencil_impl, chunk=chunk)
     reset_collectives()
     _build.reset_launches()
     result = solver(*args)
@@ -386,13 +402,35 @@ def solve_report(problem: Problem, dtype=torch.float32,
     if mesh.backend != "none":
         per_rank = [None] * mesh.world
         dist.all_gather_object(per_rank, counts)
+    return result, per_rank
+
+
+def host_report(problem: Problem, mesh: Mesh, solver, result,
+                per_rank) -> dict:
+    """A sharded solve's result for a caller that compares it: the global
+    w gathered to a host array, the scalars, the bodies and host reads,
+    and every rank's counts (``measured_solve``)."""
     w = gather_w(problem, mesh, result.w)
-    # numpy has no bf16: a bf16 w crosses as its exact f32 widening
+    # numpy has no bf16: a narrow w crosses as its exact f32 widening
     w = w if w.dtype.itemsize >= 4 else w.float()
     return dict(
         w=w.cpu().numpy(), block=tuple(result.w.shape),
+        w_dtype=str(result.w.dtype),
         iters=int(result.iters), converged=bool(result.converged),
         breakdown=bool(result.breakdown), diff=float(result.diff),
         bodies=solver.bodies, host_syncs=solver.host_syncs,
         ranks=per_rank, mesh=mesh.shape, backend=mesh.backend,
     )
+
+
+def solve_report(problem: Problem, dtype=torch.float32,
+                 stencil_impl: str = "xla", assembly_mode: str = "host",
+                 chunk: int = DEFAULT_CHUNK, device=None) -> dict:
+    """One sharded solve on this rank (``host_report``). Every rank calls
+    it together (``multihost.run_jobs``), with the ``device`` type its
+    group was started on."""
+    mesh = make_mesh(device=device)
+    solver, args = build_sharded_solver(problem, mesh, dtype, assembly_mode,
+                                        stencil_impl, chunk=chunk)
+    return host_report(problem, mesh, solver,
+                       *measured_solve(mesh, solver, args))

@@ -112,8 +112,12 @@ from poisson_ellipse_tpu_torch.utils.device import (
 #   storage  — accepts ``storage_dtype`` (the JAX table's column)
 #   sharded_reductions, sharded_halo — the engine's mesh form
 #              (``parallel``, ``run_once(mode="sharded")``): reductions and
-#              halo exchanges an iteration, the JAX table's ``sharded_psum``
-#              and ``sharded_halo``; absent where the port has no mesh form
+#              halo exchanges a loop body (an iteration; s of them on the
+#              s-step engine), the JAX table's ``sharded_psum`` and
+#              ``sharded_halo``; absent where the port has no mesh form
+#   batched_reductions, batched_halo — the lane-sharded mesh form of a
+#              lane-batched engine, the JAX table's ``batched_psum`` and
+#              ``batched_halo``
 # the kernels' compute dtypes, and the plain loops' (f64 too)
 _F32_BF16 = (torch.float32, torch.bfloat16)
 _ALL = (torch.float32, torch.float64, torch.bfloat16)
@@ -134,19 +138,23 @@ ENGINE_CAPS = {
                   capacity=None, dtypes=_F32_BF16, storage=False,
                   sharded_reductions=2, sharded_halo=1),
     "pipelined": dict(family="pipelined", kernels=(), capacity=None,
-                      dtypes=_ALL, storage=True),
+                      dtypes=_ALL, storage=True, sharded_reductions=1,
+                      sharded_halo=1),
     "pipelined-pallas": dict(family="pipelined",
                              kernels=("stencil", "stencil_dots"),
                              capacity=None, dtypes=_F32_BF16,
                              storage=True),
     "sstep": dict(family="sstep", kernels=(), capacity=None,
-                  dtypes=_ALL, storage=True),
+                  dtypes=_ALL, storage=True, sharded_reductions=1,
+                  sharded_halo=1),
     "sstep-pallas": dict(family="sstep", kernels=("stencil",), capacity=None,
                          dtypes=_F32_BF16, storage=True),
     "batched": dict(family="batched", kernels=(), capacity=None,
-                    dtypes=_ALL, storage=True),
+                    dtypes=_ALL, storage=True, batched_reductions=1,
+                    batched_halo=0),
     "batched-pipelined": dict(family="batched", kernels=(), capacity=None,
-                              dtypes=_ALL, storage=False),
+                              dtypes=_ALL, storage=False,
+                              batched_reductions=1, batched_halo=0),
     "batched-pallas": dict(family="batched", kernels=("batched_stencil",),
                            capacity=None, dtypes=_F32_BF16, storage=False),
     "batched-pipelined-pallas": dict(
@@ -169,8 +177,9 @@ BATCHED_ENGINES = tuple(
 # the engines that accept ``storage_dtype`` (the JAX package's tuple)
 STORAGE_ENGINES = tuple(e for e, c in ENGINE_CAPS.items() if c["storage"])
 
-# the engines with a mesh form (``parallel``); there "pallas" runs K-a and
-# "fused" K1-shard / K2-shard (f32)
+# the engines with a spatial mesh form (``parallel``); there "pallas" runs
+# K-a, "fused" K1-shard / K2-shard, and "pipelined" and "sstep" the plain
+# block stencil (the lane-batched engines' mesh form shards lanes instead)
 SHARDED_ENGINES = tuple(
     e for e, c in ENGINE_CAPS.items() if "sharded_halo" in c
 )

@@ -109,11 +109,12 @@ def test_entry_points_raise_without_a_card(no_card, capsys):
 
 
 def test_run_once_ports_single_mode_only():
-    # the mesh's classical and fused loops are ported (test_torch_parallel);
-    # its other engines are ROADMAP Queue A item 21, and no other mode runs
+    # the mesh's engines are ported (test_torch_parallel,
+    # test_torch_mesh_rest) but bf16 compute on its pipelined, s-step and
+    # lane-sharded forms, ROADMAP Queue A item 21d; no other mode runs
     with pytest.raises(NotImplementedError, match="Queue A item 21"):
         run_once(Problem(M=10, N=10), mode="sharded", engine="pipelined",
-                 device="cpu")
+                 dtype="bf16", device="cpu")
     with pytest.raises(ValueError, match="mode"):
         run_once(Problem(M=10, N=10), mode="native", device="cpu")
 

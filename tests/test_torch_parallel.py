@@ -42,6 +42,7 @@ from poisson_ellipse_tpu_torch.ops import fused_pcg as fp
 from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
 from poisson_ellipse_tpu_torch.parallel import halo, mesh, multihost
 from poisson_ellipse_tpu_torch.parallel import pcg_sharded as ps
+from poisson_ellipse_tpu_torch.parallel import pipelined_sharded as pps
 from poisson_ellipse_tpu_torch.solver import engine
 
 W_ATOL_F64 = 1e-10
@@ -630,20 +631,33 @@ def test_cli_sharded_runs_its_ranks(capsys):
 
 
 @pytest.mark.parametrize("engine_name,error", [
-    ("resident", ValueError), ("batched-pallas", NotImplementedError),
-    ("pipelined", NotImplementedError), ("sstep", NotImplementedError)])
+    ("resident", ValueError), ("pipelined-pallas", ValueError)])
 def test_run_once_sharded_refuses_what_it_does_not_run(engine_name, error):
     with pytest.raises(error):
         run_once(Problem(M=10, N=10), mode="sharded", engine=engine_name,
                  device="cpu")
 
 
+@pytest.mark.parametrize("engine_name,iters", [
+    ("batched-pallas", 17), ("pipelined", 17), ("sstep", 17)])
+def test_run_once_sharded_runs_what_it_once_refused(engine_name, iters):
+    """The lane-sharded, pipelined and s-step mesh engines, which this
+    harness once refused, run on one rank: the reference's 17 at 10²
+    (unweighted) in f64."""
+    report = run_once(Problem(M=10, N=10, norm="unweighted"), mode="sharded",
+                      engine=engine_name, dtype="f64", device="cpu")
+    assert report.converged and report.iters == iters
+    assert report.engine == engine_name and report.mesh_shape == (1, 1)
+
+
 def test_run_once_sharded_refuses_storage_and_lanes():
     with pytest.raises(ValueError, match="storage-dtype"):
         run_once(Problem(M=10, N=10), mode="sharded", storage_dtype="bf16",
                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        run_once(Problem(M=10, N=10), mode="sharded", lanes=2, device="cpu")
+    # lanes ride the lane-batched engines (parallel.batched_sharded)
+    with pytest.raises(ValueError, match="--lanes needs --engine batched"):
+        run_once(Problem(M=10, N=10), mode="sharded", engine="xla", lanes=2,
+                 device="cpu")
 
 
 def test_sharded_without_a_card_raises(monkeypatch):
@@ -693,15 +707,19 @@ def test_sharded_rejects_unknown_stencil_impl_and_assembly():
                          assembly_mode="disk")
 
 
-@pytest.mark.parametrize("option", ["history", "pipelined", "stepper",
+@pytest.mark.parametrize("option", ["history", "pipelined_bf16",
+                                    "pipelined_stepper", "stepper",
                                     "recover", "abft", "precond", "x0"])
 def test_unported_mesh_options_name_their_item(option):
     m = _mesh1()
     p = Problem(M=10, N=10)
     calls = {
         "history": lambda: ps.build_sharded_solver(p, m, history=True),
-        "pipelined": lambda: ps.build_sharded_solver(
-            p, m, stencil_impl="pipelined"),
+        # f32 and f64 run (tests/test_torch_mesh_rest.py); bf16 is 21d
+        "pipelined_bf16": lambda: ps.build_sharded_solver(
+            p, m, torch.bfloat16, stencil_impl="pipelined"),
+        "pipelined_stepper": lambda: pps.build_pipelined_sharded_stepper(
+            p, m),
         "stepper": lambda: ps.build_sharded_stepper(p, m),
         "recover": lambda: ps.build_sharded_recover(p, m),
         "abft": lambda: ps._shard_init(p, None, None, None, None, abft=True),
