@@ -220,7 +220,16 @@ result line):
               count of fused on 1x1, each rank's bf16 kernels once a
               body. Then K-e, K-f, K1-shard and K2-shard bf16 by device
               time (CUDA-graph replay) beside their plain versions and
-              bounds.
+              bounds. The engines with no kernel in bf16
+              (MESH_REST_BF16_ONE / _TWO, capped: the pipelined mesh keeps
+              the JAX cadence of 32 and need not converge): pipelined and
+              sstep (s = 4) at 2400x3200 capped at 4096 and 32 lanes at
+              400x600 on 1x1 over NCCL, the three at 400x600 capped at 256
+              in the 2x2 spawn: each report's dtype, its flags (converged,
+              broken down or at the cap), l2 under MESH_BF16_L2 where it
+              converged, every rank's collectives the engine's cadence
+              and no launch; the 1x1 lanes' worst count and flags those of
+              the single-device bf16 batched lanes.
 
 12. stage 4 — the last four TPU kernels and bf16 on the kernel loops.
               The stage-4 kernels (csrc/stage4.cu: dinv, dot, update_w_r,
@@ -254,6 +263,24 @@ result line):
               captured in a CUDA graph, replays timed with CUDA events),
               call time (CUDA events around eager calls) and host time
               (the host clock around those calls, before the sync).
+
+13. obs     — the observability layer. fused, pallas and
+              pipelined-pallas with history=True at 400x600 and 800x1200
+              (the spectrum's predicted iterations within 15% of the
+              solve's, tests/test_spectrum.py's band) and at 2400x3200 in
+              turns with the plain solve (plain, ring, ring, plain):
+              iterations, w and the step norm bitwise, host reads and
+              kernel launches equal, the ring finite to the iterations and
+              zero past them, T_solver with and without; `diagnose
+              <engine> --grid 2400x3200` through the command line's
+              main() for each (bit_identical, equal host reads, the
+              spectrum's band, its trace and OpenMetrics snapshot
+              validated); the device activities the ring adds a body
+              (count_ring_activities, capped at RING_CAP, in a child
+              process); and `harness 2400 3200 --trace --metrics` in a
+              subprocess (auto -> xl, 2449 +- 2; the trace validated by
+              obs.trace.validate_file, the snapshot by
+              obs.export.validate_openmetrics).
 
 `--only stage4` runs phases 1-2 and then phase 12's stage-4 checks, loop
 and timing alone; `--only stage4-timing` the timing alone (it also runs
@@ -325,7 +352,8 @@ scalar tail alone); us a launch inside fused (bf16 at 400x600 and
 2400x3200, f32 at 400x600), working launches apart from those that return
 early; the fused library's SASS. It too runs on an older tree's kernels
 (the parts print as not measured there). Each prints the kernels' record
-and no result line.
+and no result line. `--only obs` runs phases 1-2 and then phase 13
+alone.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -2540,6 +2568,15 @@ MESH_REST_RUNS = (("pipelined", (400, 600), 546, ITERS_ABS, {}),
                    dict(sstep_s=SSTEP_S)),
                   ("batched", (400, 600), 546, ITERS_ABS,
                    dict(lanes=MESH_LANES)))
+# the same engines in bf16 (item 21d), each run capped as fused bf16 is (a
+# bf16 count is chaotic; the pipelined mesh keeps the JAX cadence of 32 and
+# need not converge): as (engine, grid, cap, run_once keywords), on 1x1
+# over NCCL, and at 400x600 in the 2x2 spawn, whose bodies take 10-20 ms
+MESH_REST_BF16_ONE = (("pipelined", SHARD_GRID, 4096, {}),
+                      ("sstep", SHARD_GRID, 4096, dict(sstep_s=SSTEP_S)),
+                      ("batched", (400, 600), 4096, dict(lanes=MESH_LANES)))
+MESH_REST_BF16_TWO = tuple((e, (400, 600), 256, kw)
+                           for e, _, _, kw in MESH_REST_BF16_ONE)
 
 
 def shard_inputs(bm: int, bn: int, seed: int):
@@ -2734,12 +2771,15 @@ def phase_mesh(card: str) -> dict:
                       dict(mode="sharded", dtype="f32", engine="sstep",
                            mesh_shape=(2, 2), device="cuda",
                            sstep_s=SSTEP_S, storage_dtype="bf16")))
-    jobs += bf16_jobs + rest_jobs
+    rest_bf16_jobs = rest_bf16_run_jobs(MESH_REST_BF16_TWO, (2, 2))
+    jobs += bf16_jobs + rest_jobs + rest_bf16_jobs
     jobs.append((profile_rank, (Problem(M=400, N=600), "fused"), {}))
     *reports, profiled = multihost.spawn(multihost.run_jobs, 4, (jobs,))
     n_main, n_bf16 = len(MESH_RUNS), len(bf16_jobs)
+    n_rest = len(rest_jobs)
     bf16_reports = reports[n_main:n_main + n_bf16]
-    rest = reports[n_main + n_bf16:]
+    rest = reports[n_main + n_bf16:n_main + n_bf16 + n_rest]
+    rest_bf16 = reports[n_main + n_bf16 + n_rest:]
     reports = reports[:n_main]
     counts = {}
     for (e, dt, g, want), report in zip(MESH_RUNS, reports):
@@ -2791,7 +2831,92 @@ def phase_mesh(card: str) -> dict:
         f"runs {t_one:.1f} s)")
     show_mesh_profile(profiled, card)
     return {"counts": counts, "one": one, "reports": reports,
-            "bf16_reports": bf16_reports}
+            "bf16_reports": bf16_reports, "rest_bf16_reports": rest_bf16}
+
+
+def rest_bf16_run_jobs(runs, mesh_shape) -> list:
+    """run_once jobs of the bf16 runs ``runs`` (MESH_REST_BF16_ONE or
+    _TWO) on ``mesh_shape``."""
+    from poisson_ellipse_tpu_torch.harness.run import run_once
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+
+    return [(run_once, (Problem(M=g[0], N=g[1], max_iter=cap),),
+             dict(mode="sharded", dtype="bf16", engine=e,
+                  mesh_shape=mesh_shape, device="cuda", **kw))
+            for e, g, cap, kw in runs]
+
+
+def _check_rest_bf16(label: str, report, engine: str, cap: int) -> None:
+    """A bf16 run of the pipelined, s-step or lane-sharded mesh: the
+    report's dtype, its flags (converged, broken down, or at the cap), its
+    l2 where it converged (MESH_BF16_L2 at the grid), and on every rank the
+    engine's collectives for the bodies it issued and no launch."""
+    g = (report.problem.M, report.problem.N)
+    say(f"  {label}: {report.iters} iterations, converged {report.converged},"
+        f" breakdown {report.breakdown}, l2 {report.l2_error:.3e}, backend "
+        f"{report.backend}, {report.bodies} bodies, {report.host_syncs} host"
+        f" reads, T_solver {report.t_solver:.5f} s; rank 0's collectives "
+        f"{report.rank_collectives[0]}"
+        + (f"; lanes {report.lanes}, {report.quarantined} quarantined"
+           if report.lanes > 1 else ""))
+    require(report.dtype == "bf16", f"{label}: dtype {report.dtype}")
+    require(report.converged or report.breakdown or report.iters == cap,
+            f"{label}: {report.iters} iterations, neither converged, nor "
+            f"broken down, nor at the cap {cap}")
+    require(not report.converged or report.l2_error < MESH_BF16_L2[g],
+            f"{label}: l2 {report.l2_error}, not under {MESH_BF16_L2[g]}")
+    cadence = MESH_CADENCE[engine]
+    for rank, (launches, colls) in enumerate(zip(report.rank_launches,
+                                                 report.rank_collectives)):
+        require(launches == {}, f"{label}: rank {rank} launched {launches}")
+        require(colls == cadence(report.bodies),
+                f"{label}: rank {rank} made {colls}, want "
+                f"{cadence(report.bodies)} ({engine}'s cadence)")
+
+
+def phase_mesh_rest_bf16(card: str, mesh: dict) -> None:
+    """bf16 on the pipelined, s-step and lane-sharded mesh: the 1x1 NCCL
+    runs of MESH_REST_BF16_ONE (one spawn) and the 2x2 gloo runs of
+    phase_mesh's spawn; the 1x1 lanes beside the single-device bf16
+    batched lanes at the same cap (the same ops: the same worst count and
+    flags)."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.parallel import multihost
+    from poisson_ellipse_tpu_torch.solver import engine as eng
+
+    say(f"== phase 11: the pipelined, s-step and lane-sharded mesh in bf16 "
+        f"({card})")
+    t0 = time.perf_counter()
+    ones = multihost.spawn(multihost.run_jobs, 1, (
+        rest_bf16_run_jobs(MESH_REST_BF16_ONE, (1, 1)),))
+    for (e, g, cap, _), report in zip(MESH_REST_BF16_ONE, ones):
+        require(report.backend == "nccl", f"the 1x1 mesh took "
+                f"{report.backend}, not NCCL")
+        _check_rest_bf16(f"{e} bf16 1x1 {g[0]}x{g[1]} (cap {cap})", report,
+                         e, cap)
+    e, g, cap, _ = MESH_REST_BF16_ONE[-1]
+    lanes = ones[-1]
+    solver, args, _ = eng.build_solver(Problem(M=g[0], N=g[1], max_iter=cap),
+                                       "batched", torch.bfloat16, "cuda",
+                                       lanes=MESH_LANES)
+    single = solver(*args)
+    say(f"  single-device bf16 batched {g[0]}x{g[1]} B={MESH_LANES} (cap "
+        f"{cap}): worst lane {int(single.iters.max())}, converged "
+        f"{bool(single.converged.all())}")
+    require((lanes.iters, lanes.converged) == (int(single.iters.max()),
+                                               bool(single.converged.all())),
+            "the 1x1 bf16 lanes differ from the single-device bf16 lanes")
+    for (e, g, cap, _), report in zip(MESH_REST_BF16_TWO,
+                                      mesh["rest_bf16_reports"]):
+        require(report.backend == "gloo", f"2x2 took {report.backend}")
+        _check_rest_bf16(f"{e} bf16 2x2 {g[0]}x{g[1]} (cap {cap})", report,
+                         e, cap)
+    say(f"  phase 11's bf16 runs of the engines with no kernel: 1x1 "
+        f"{time.perf_counter() - t0:.1f} s here; T_solver on {card}: "
+        + ", ".join(f"{e} {g[0]}x{g[1]} {r.t_solver:.5f} s ({r.bodies} "
+                    f"bodies)" for (e, g, *_), r in zip(
+                        MESH_REST_BF16_ONE + MESH_REST_BF16_TWO,
+                        list(ones) + list(mesh["rest_bf16_reports"]))))
 
 
 def profile_rank(problem, engine: str) -> dict:
@@ -3987,6 +4112,204 @@ def phase_bf16_loops(card: str) -> dict:
         say(f"  {engine}: bf16 {times[torch.bfloat16] * 1e6:.2f} us/iter, "
             f"f32 {times[torch.float32] * 1e6:.2f} us/iter")
     return dict(counts=counts)
+
+
+# phase 13: the observability layer. The history engines at the main
+# path's grid; the grids whose spectrum predictions are held to the band
+# of tests/test_spectrum.py:129-140 (15% of the iterations); the capped
+# solves whose device activities a body the ring adds are counted
+OBS_ENGINES = ("fused", "pallas", "pipelined-pallas")
+OBS_SPECTRUM_GRIDS = ((400, 600), (800, 1200))
+SPECTRUM_BAND = 0.15
+RING_CAP = 8
+
+
+def count_ring_activities() -> dict:
+    """{engine: [plain, ring]}: the device activities of a solve of each
+    OBS_ENGINES engine at 400x600 capped at RING_CAP iterations, without
+    and with the history ring, after a first call (device_activities)."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.solver import engine as eng
+
+    problem = Problem(M=400, N=600, max_iter=RING_CAP)
+    counts = {}
+    for name in OBS_ENGINES:
+        pair = []
+        for history in (False, True):
+            solver, args, _ = eng.build_solver(problem, name, torch.float32,
+                                               "cuda", history=history)
+            pair.append(device_activities(lambda: solver(*args)))
+        counts[name] = pair
+    return counts
+
+
+def _ring_checks(label: str, plain, plain_syncs: int, out, syncs: int,
+                 launches: tuple) -> None:
+    """A history solve against the plain one: equal iterations, w and the
+    step norm bitwise, equal host reads and kernel launches; the ring's
+    valid entries finite and the rest zero."""
+    result, trace = out
+    n = int(result.iters)
+    require(n == int(plain.iters) and bool(result.converged)
+            == bool(plain.converged), f"{label}: {n} iterations with the "
+            f"ring, {int(plain.iters)} without")
+    require(same_bits(result.w, plain.w) and same_bits(result.diff,
+                                                       plain.diff),
+            f"{label}: w or the step norm differ with the ring on")
+    require(syncs == plain_syncs, f"{label}: {syncs} host reads with the "
+            f"ring, {plain_syncs} without")
+    require(launches[0] == launches[1], f"{label}: launches {launches[1]} "
+            f"with the ring, {launches[0]} without")
+    ring = torch.stack([getattr(trace, f) for f in ("zr", "diff", "alpha",
+                                                    "beta")])
+    require(bool(torch.isfinite(ring[:, :n]).all()),
+            f"{label}: a valid ring entry is not finite")
+    require(not bool(ring[:, n:].any()), f"{label}: the ring is not zero "
+            "past the iterations")
+
+
+def _spectrum_checks(label: str, trace, iters: int, delta: float) -> dict:
+    """The spectrum of a ring: available, its predicted iterations within
+    SPECTRUM_BAND of the solve's."""
+    from poisson_ellipse_tpu_torch.obs import spectrum
+
+    rep = spectrum.spectrum_report(trace, delta=delta, actual_iters=iters)
+    require(rep["available"] and rep["predicted_iters"] is not None,
+            f"{label}: no spectrum")
+    require(abs(rep["predicted_iters"] - iters) <= SPECTRUM_BAND * iters,
+            f"{label}: predicted {rep['predicted_iters']} iterations, the "
+            f"solve took {iters}")
+    return rep
+
+
+def phase_obs(card: str) -> dict:
+    """Phase 13: the history ring on fused, pallas and pipelined-pallas at
+    2400x3200 (bitwise the plain solve, the same host reads and launches,
+    the ring zero past the iterations, T_solver with and without in
+    turns) and through the diagnose command line; the spectrum's
+    prediction at 400x600, 800x1200 and 2400x3200; the device activities
+    the ring adds a body; the main prog with --trace and --metrics, both
+    validated."""
+    import contextlib
+    import io
+
+    from poisson_ellipse_tpu_torch.harness.__main__ import main as cli
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.obs import export, trace as obs_trace
+    from poisson_ellipse_tpu_torch.ops import _build
+    from poisson_ellipse_tpu_torch.solver import engine as eng
+
+    say(f"== phase 13: obs ({card})")
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "obs"
+    work.mkdir(parents=True, exist_ok=True)
+    times = {}
+    for name in OBS_ENGINES:
+        for g in OBS_SPECTRUM_GRIDS:
+            problem = Problem(M=g[0], N=g[1])
+            solver, args, _ = eng.build_solver(problem, name, torch.float32,
+                                               "cuda", history=True)
+            result, trace = solver(*args)
+            rep = _spectrum_checks(f"{name} {g[0]}x{g[1]}", trace,
+                                   int(result.iters), problem.delta)
+            say(f"  {name} {g[0]}x{g[1]}: {int(result.iters)} iterations, "
+                f"kappa {rep['kappa']:.6g}, predicted "
+                f"{rep['predicted_iters']}")
+        problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1])
+        solvers = {h: eng.build_solver(problem, name, torch.float32, "cuda",
+                                       history=h)[:2]
+                   for h in (False, True)}
+        # in turns: plain, ring, ring, plain; each call's launches counted
+        runs = {False: [], True: []}
+        for history in (False, True, True, False):
+            solver, args = solvers[history]
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = solver(*args)
+            end.record()
+            end.synchronize()
+            runs[history].append((start.elapsed_time(end) / 1e3, out,
+                                  solver.host_syncs, dict(_build.LAUNCHES)))
+        (_, plain, plain_syncs, plain_launches) = runs[False][0]
+        (_, out, syncs, launches) = runs[True][0]
+        label = f"{name} {MAIN_GRID[0]}x{MAIN_GRID[1]}"
+        _ring_checks(label, plain, plain_syncs, out, syncs,
+                     (plain_launches, launches))
+        n = int(out[0].iters)
+        pair = {"plain": [r[0] for r in runs[False]],
+                "ring": [r[0] for r in runs[True]]}
+        times[name] = (pair["plain"], pair["ring"], n)
+        del solvers, runs, plain, out
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["diagnose", name, "--grid",
+                      f"{MAIN_GRID[0]}x{MAIN_GRID[1]}", "--repeat", "1",
+                      "--json", "--trace", str(work / f"diagnose-{name}.jsonl"),
+                      "--metrics", str(work / f"diagnose-{name}.prom")])
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        spec, prof = rec["spectrum"], rec["profile"]
+        say(f"  diagnose {name} {MAIN_GRID[0]}x{MAIN_GRID[1]}: rc {rc}, "
+            f"{rec['iters']} iterations, bit_identical "
+            f"{rec['bit_identical']}, host reads {rec['host_syncs']}, "
+            f"launches {launches}, kappa {spec['kappa']:.6g}, predicted "
+            f"{spec['predicted_iters']}; profile build "
+            f"{prof['t_build_s']:.4f} compile {prof['t_compile_s']:.4f} h2d "
+            f"{prof['t_h2d_s']:.4f} solve {prof['t_solve_s']:.4f} d2h "
+            f"{prof['t_d2h_s']:.4f} s, {prof['hbm_gbps']} GB/s (model); "
+            f"T_solver in turns {pair['plain']} s plain, {pair['ring']} s "
+            f"with the ring")
+        require(rc == 0 and rec["bit_identical"] and rec["iters"] == n
+                and rec["host_syncs"]["history"] == rec["host_syncs"]["plain"],
+                f"diagnose {name}: rc {rc}, {rec}")
+        require(abs(spec["predicted_iters"] - n) <= SPECTRUM_BAND * n,
+                f"diagnose {name}: predicted {spec['predicted_iters']} "
+                f"iterations, the solve took {n}")
+        require(obs_trace.validate_file(work / f"diagnose-{name}.jsonl")
+                == [], f"diagnose {name}: the trace does not validate")
+        require(export.validate_openmetrics(
+            (work / f"diagnose-{name}.prom").read_text()) == [],
+            f"diagnose {name}: the snapshot does not validate")
+    ring = child_activities("count_ring_activities")
+    for name, (plain_n, ring_n) in ring.items():
+        say(f"  {name} 400x600 capped at {RING_CAP}: device activities "
+            f"{plain_n} without the ring, {ring_n} with: "
+            f"{(ring_n - plain_n) / RING_CAP:g} a body")
+    tpath, mpath = work / "run.jsonl", work / "run.prom"
+    for f in (tpath, mpath):
+        f.unlink(missing_ok=True)
+    res = subprocess.run(
+        [sys.executable, "-m", "poisson_ellipse_tpu_torch.harness",
+         str(MAIN_GRID[0]), str(MAIN_GRID[1]), "--trace", str(tpath),
+         "--metrics", str(mpath), "--json"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    require(res.returncode == 0, f"the --trace/--metrics run exited "
+            f"{res.returncode}: {res.stderr[-2000:]}")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    problems = obs_trace.validate_file(tpath)
+    require(problems == [], f"the run's trace: {problems[:5]}")
+    names = [r["name"] for r in obs_trace.read_jsonl(tpath)]
+    require(all(k in names for k in ("cli-args", "run_report", "cli-exit",
+                                     "phase:solver")),
+            f"the run's trace lacks an event: {sorted(set(names))}")
+    text = mpath.read_text()
+    require(export.validate_openmetrics(text) == [], "the run's OpenMetrics "
+            "snapshot does not validate")
+    say(f"  --trace/--metrics run 2400x3200: engine {rec['engine']}, "
+        f"{rec['iters']} iterations, {len(names)} trace records, "
+        f"snapshot {export.parse_openmetrics(text)['counters']}")
+    require(rec["engine"] == "xl" and abs(rec["iters"] - MAIN_ITERS)
+            <= ITERS_ABS, f"the --trace/--metrics run: {rec}")
+    say(f"  T_solver with the ring / without, medians in turns ({card}): "
+        + ", ".join(
+            f"{name} {statistics.median(r):.5f} / {statistics.median(p):.5f}"
+            f" s ({(statistics.median(r) / statistics.median(p) - 1) * 100:+.2f}"
+            f"%, {(statistics.median(r) - statistics.median(p)) / n * 1e6:+.2f}"
+            " us an iteration)" for name, (p, r, n) in times.items()))
+    say(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+    return {"times": times, "ring": ring}
 
 
 def phase_stage4_timing(seed: int, card: str) -> list:
@@ -5697,7 +6020,7 @@ def main(argv=None) -> int:
         "--only", choices=("stage4", "stage4-timing", "stencil-dots-timing",
                            "xl-timing", "stencil-timing", "whole-timing",
                            "fused-timing", "batched-mesh-bf16",
-                           "lane-bf16-timing"),
+                           "lane-bf16-timing", "obs"),
         help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
              "loop and timing (stage4), its timing alone (stage4-timing), "
              "rule 2's queue by device time, the K-d family's SASS and the "
@@ -5712,7 +6035,9 @@ def main(argv=None) -> int:
              "time beside their f32 forms (batched-mesh-bf16), or K-e and "
              "K-f bf16 bitwise and by device time, in their loops, with "
              "K1-shard bf16 bitwise and by device time at its path's block "
-             "and a rank's, and in its loop (lane-bf16-timing); the timings "
+             "and a rank's, and in its loop (lane-bf16-timing), or phase "
+             "13's history ring, spectrum, diagnose and --trace/--metrics "
+             "run (obs); the timings "
              "also run on an older tree's kernels; prints the kernels' "
              "record and no result line")
     ap.add_argument("--sass-dir", help="with --only stencil-dots-timing "
@@ -5745,6 +6070,9 @@ def main(argv=None) -> int:
         mesh_bf16_witness(card)
     elif args.only == "lane-bf16-timing":
         timed = phase_lane_bf16_timing(args.seed, card)
+    elif args.only == "obs":
+        phase_obs(card)
+        timed = []
     elif args.only:
         if args.only == "stage4":
             phase_stage4_kernels(args.seed)
@@ -5814,6 +6142,7 @@ def main(argv=None) -> int:
     timed += phase_shard_timing(args.seed, card)
     errs.update(phase_shard_bf16_kernels(args.seed))
     mesh_bf16 = phase_mesh_bf16(card, mesh)
+    phase_mesh_rest_bf16(card, mesh)
     timed += phase_bf16_forms_timing(args.seed, card)
     mark("phase 11")
     errs.update(phase_stage4_kernels(args.seed))
@@ -5822,6 +6151,8 @@ def main(argv=None) -> int:
     bf16_loops = phase_bf16_loops(card)
     timed += phase_stage4_timing(args.seed, card)
     mark("phase 12")
+    phase_obs(card)
+    mark("phase 13")
 
     counts = {**rec["counts"], **main_run["counts"], **batched["counts"],
               **storage_main["counts"], **storage_rec["counts"],

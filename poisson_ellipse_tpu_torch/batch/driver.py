@@ -9,10 +9,11 @@ chunk becomes one ``RecoveryEvent("lane-quarantine", iters[lane],
 HEALTH_NONFINITE, engine, detail="lane j")``. Healthy lanes are untouched:
 their trajectory is the loop's.
 
-Not ported in this slice: lane-addressed fault injection (``faults=``) and
-the graceful timeout (``timeout=``), both ROADMAP Queue A item 9, and the
-``recovery:lane-quarantine`` trace event (item 8); the events are returned
-in ``GuardedBatchedResult.recoveries`` as in the JAX package.
+Each event is also emitted on the ambient trace (``obs.trace``) as
+``recovery:lane-quarantine`` with the lane as the schema's top-level
+``lane`` key, as the JAX guard's ``_record`` emits it. Not ported in this
+slice: lane-addressed fault injection (``faults=``) and the graceful
+timeout (``timeout=``), both ROADMAP Queue A item 9.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from poisson_ellipse_tpu_torch.batch.batched_pcg import (
     batched_operands,
 )
 from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.obs import trace as obs_trace
 from poisson_ellipse_tpu_torch.solver.engine import BATCHED_ENGINES
 from poisson_ellipse_tpu_torch.solver.pcg import run_chunked, unported
 
@@ -130,6 +132,9 @@ def solve_batched(
                 events.append(RecoveryEvent(
                     "lane-quarantine", iters[lane], HEALTH_NONFINITE, engine,
                     detail=f"lane {lane}"))
+                obs_trace.event("recovery:lane-quarantine", lane=lane,
+                                iter=iters[lane], health="nonfinite",
+                                engine=engine, detail=f"lane {lane}")
         seen[:] = [bool(q) for q in quar]
 
     run_chunked(step, flags, max_iter, chunk, on_read=on_read)

@@ -3,9 +3,28 @@
 The argv contract of ``python -m poisson_ellipse_tpu.harness``'s default
 command (``M N``, ``--grids``, ``--engine``, ``--dtype``, ``--norm``,
 ``--eps``, ``--delta``, ``--repeat``, ``--json``, ``--sstep-s``,
-``--lanes``, ``--storage-dtype``, ``--mode``, ``--mesh``), plus
-``--device``. It runs on the card unless ``--device cpu`` is given, and
-fails without one.
+``--lanes``, ``--storage-dtype``, ``--mode``, ``--mesh``, ``--trace``,
+``--metrics``, ``--metrics-interval``), plus ``--device``, and its
+``diagnose`` and ``inspect`` subcommands. It runs on the card unless
+``--device cpu`` is given, and fails without one.
+
+``--trace FILE`` (or ``POISSON_TRACE=FILE`` in the environment) appends a
+JSONL run trace (``obs.trace``, schema v3): the ``cli-args`` event, the
+``phase:<name>`` spans of every timed phase, one ``run_report`` event a
+run (the ``--json`` line's fields), the registry's counters, gauges and
+histograms, and ``cli-exit``. ``--metrics FILE`` writes the run's
+``runs``, ``runs_converged``, ``last_iters`` and ``solve_seconds`` as an
+OpenMetrics snapshot (``obs.export``), every ``--metrics-interval``
+seconds while running and once at the end. A path that cannot be written
+exits 2 before any solve.
+
+``diagnose <engine>`` runs one history solve (``obs.convergence``) beside
+a plain one and reports whether the iterates are bitwise the same, the
+spectrum (``obs.spectrum``: κ, CG rate, predicted iterations, plateaus)
+and the phase profile (``obs.profile``), with ``--trace``, ``--metrics``
+and ``--json``. ``inspect <engine>`` reports the kernel launches and
+collectives a loop body and the roofline model (``obs.static_cost``),
+``--mode sharded --mesh PX PY`` over that many rank processes.
 
 ``--mode sharded --mesh PX PY`` solves over a PX×PY mesh of ranks
 (``parallel``). Under torchrun (its ``RANK``/``WORLD_SIZE`` environment)
@@ -14,7 +33,8 @@ the PX·PY rank processes itself (``parallel.multihost.spawn``), runs every
 grid in them, and prints rank 0's reports.
 
 Exit codes: 0 converged, 1 not converged within the iteration cap,
-2 breakdown or bad input.
+2 breakdown or bad input (and a diagnose whose history solve is not the
+plain one bit for bit).
 """
 
 from __future__ import annotations
@@ -23,6 +43,8 @@ import argparse
 import json
 import sys
 
+import torch
+
 from poisson_ellipse_tpu_torch.harness.run import (
     DTYPES,
     check_sharded,
@@ -30,6 +52,8 @@ from poisson_ellipse_tpu_torch.harness.run import (
     run_sharded_jobs,
 )
 from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.obs import metrics as obs_metrics
+from poisson_ellipse_tpu_torch.obs import trace as obs_trace
 from poisson_ellipse_tpu_torch.solver.engine import ENGINES
 from poisson_ellipse_tpu_torch.utils.device import resolve_device
 
@@ -42,6 +66,11 @@ def _parse_grid(spec: str) -> tuple[int, int]:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "diagnose":
+        return _run_diagnose(argv[1:])
+    if argv and argv[0] == "inspect":
+        return _run_inspect(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m poisson_ellipse_tpu_torch.harness",
         description="Fictitious-domain Poisson PCG on one CUDA device",
@@ -95,9 +124,78 @@ def main(argv=None) -> int:
                     help="timed solves; T_solver is their median")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--trace", metavar="FILE",
+                    help="append a JSONL run trace (phase spans, run-report "
+                    "events, counters; obs.trace schema v3) to FILE; "
+                    "POISSON_TRACE=FILE in the environment does the same")
+    ap.add_argument("--metrics", metavar="FILE",
+                    help="export the run's counters, gauges and histograms "
+                    "as an OpenMetrics snapshot to FILE (obs.export; written "
+                    "every --metrics-interval seconds and once at exit)")
+    ap.add_argument("--metrics-interval", type=float, default=30.0,
+                    metavar="SECONDS",
+                    help="periodic snapshot cadence for --metrics")
     ap.add_argument("--json", action="store_true", help="one JSON line per run")
     args = ap.parse_args(argv)
 
+    if args.metrics and args.metrics_interval <= 0:
+        print("error: --metrics-interval must be positive (a zero cadence "
+              "would busy-spin the exporter thread)", file=sys.stderr)
+        return 2
+    err = _start_trace(args.trace)
+    if err:
+        return err
+    obs_trace.event("cli-args", argv=list(argv))
+    exporter = None
+    if args.metrics:
+        from poisson_ellipse_tpu_torch.obs.export import MetricsExporter
+
+        exporter = MetricsExporter(args.metrics,
+                                   interval_s=args.metrics_interval)
+        # an unwritable path is bad input: exit 2 before any solve
+        err = exporter.try_write()
+        if err is not None:
+            print(f"error: cannot write --metrics {args.metrics}: {err}",
+                  file=sys.stderr)
+            if args.trace:
+                obs_trace.stop()
+            return 2
+        exporter.start()
+    rc = None
+    try:
+        rc = _run_cli(args)
+        return rc
+    finally:
+        # per-run aggregates: flushed before the reset, so a later main()
+        # in this process does not report this run's counts as its own
+        obs_metrics.REGISTRY.emit()
+        if exporter is not None:
+            exporter.stop(final_write=False)
+            err = exporter.try_write()
+            if err is not None:
+                print(f"warning: metrics snapshot failed: {err}",
+                      file=sys.stderr)
+        obs_metrics.REGISTRY.reset()
+        obs_trace.event("cli-exit", rc="error" if rc is None else rc)
+        if args.trace:
+            obs_trace.stop()
+
+
+def _start_trace(path) -> int:
+    """Start the tracer on ``path`` (none: the environment's, if any); 2
+    with a message when the file cannot be opened, else 0."""
+    if not path:
+        return 0
+    try:
+        obs_trace.start(path)
+    except OSError as e:
+        print(f"error: cannot write --trace {path}: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def _run_cli(args) -> int:
+    """The default command's runs, after the trace and metrics set-up."""
     try:
         if args.M is not None:
             grids = [(args.M, args.N if args.N is not None else args.M)]
@@ -143,7 +241,14 @@ def main(argv=None) -> int:
 
 
 def _show(report, as_json: bool) -> int:
-    """Print one report; its exit code."""
+    """Print one report and put it on the trace and the metrics; its exit
+    code."""
+    obs_trace.event("run_report", **report.json_dict())
+    obs_metrics.counter("runs").inc()
+    if report.converged:
+        obs_metrics.counter("runs_converged").inc()
+    obs_metrics.gauge("last_iters").set(report.iters)
+    obs_metrics.histogram("solve_seconds").observe(report.t_solver)
     if as_json:
         print(json.dumps(report.json_dict()))
     else:
@@ -159,7 +264,7 @@ def _sharded(args, problems):
     ranks other than 0), else in PX·PY rank processes started here."""
     from poisson_ellipse_tpu_torch.parallel import multihost
 
-    check_sharded(args.engine, args.lanes, args.storage_dtype, args.dtype)
+    check_sharded(args.engine, args.lanes, args.storage_dtype)
     jobs = [dict(problem=p, dtype=args.dtype, engine=args.engine,
                  repeat=args.repeat, mesh_shape=args.mesh,
                  sstep_s=args.sstep_s, lanes=args.lanes,
@@ -177,6 +282,215 @@ def _sharded(args, problems):
         job["mesh_shape"] = (px, py)
     return multihost.spawn(run_sharded_jobs, px * py, (jobs, args.device),
                            device=args.device)
+
+
+def _parse_grid_arg(spec) -> tuple[int, int]:
+    """A subcommand's --grid (default 40x40)."""
+    return (40, 40) if spec is None else _parse_grid(spec)
+
+
+def _bitwise_equal(x, y) -> bool:
+    """Whether two tensors hold the same bits (NaN and -0 as bits)."""
+    from poisson_ellipse_tpu_torch.parallel.pcg_sharded import _bits
+
+    return (x.shape == y.shape and x.dtype == y.dtype
+            and bool(torch.equal(_bits(x), _bits(y))))
+
+
+def _run_diagnose(argv: list) -> int:
+    """The ``diagnose`` subcommand: one history solve beside a plain one
+    (bitwise the same iterates, the same host reads), the spectrum read
+    from its ring, the phase profile, and optionally an OpenMetrics
+    snapshot and a trace."""
+    from poisson_ellipse_tpu_torch.harness.run import DTYPES
+    from poisson_ellipse_tpu_torch.solver.engine import (
+        HISTORY_ENGINES,
+        build_solver,
+    )
+
+    ap = argparse.ArgumentParser(
+        prog="python -m poisson_ellipse_tpu_torch.harness diagnose",
+        description="Solver diagnostics in one report: Lanczos spectral "
+        "estimates (kappa, CG rate, predicted iterations, plateaus) from "
+        "the on-device convergence ring, the fenced build/compile/H2D/"
+        "solve/D2H phase profile beside the roofline model, and "
+        "OpenMetrics export. The history solve is checked bitwise against "
+        "a plain solve: diagnosing never changes the solver.",
+    )
+    ap.add_argument("engine", nargs="?", default="auto",
+                    help="history-capable engine to diagnose "
+                    f"({', '.join(HISTORY_ENGINES)}; auto resolves to xla)")
+    ap.add_argument("--grid", help="MxN grid (default 40x40)")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument("--delta", type=float, default=1e-6)
+    ap.add_argument("--repeat", type=int, default=3,
+                    help="solve-phase repetitions for the profile median")
+    ap.add_argument("--no-profile", action="store_true",
+                    help="skip the phase profile (spectrum and the bitwise "
+                    "check only)")
+    ap.add_argument("--metrics", metavar="FILE",
+                    help="write the diagnostic numbers as an OpenMetrics "
+                    "snapshot (obs.export; atomic write)")
+    ap.add_argument("--trace", metavar="FILE", help="JSONL trace sink")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--json", action="store_true", help="one JSON line")
+    args = ap.parse_args(argv)
+
+    err = _start_trace(args.trace)
+    if err:
+        return err
+    try:
+        from poisson_ellipse_tpu_torch.obs import profile as obs_profile
+        from poisson_ellipse_tpu_torch.obs import spectrum as obs_spectrum
+        from poisson_ellipse_tpu_torch.obs.export import MetricsExporter
+
+        try:
+            grid = _parse_grid_arg(args.grid)
+            problem = Problem(M=grid[0], N=grid[1], delta=args.delta)
+            dtype = DTYPES[args.dtype]
+            dev = resolve_device(args.device)
+            if args.repeat < 1:
+                raise ValueError("repeat must be >= 1")
+            if args.engine not in HISTORY_ENGINES:
+                raise ValueError(
+                    f"engine {args.engine!r} records no history; diagnose "
+                    f"covers {', '.join(HISTORY_ENGINES)}")
+            if args.metrics:
+                # an unwritable path fails here, before the solves
+                err = MetricsExporter(
+                    args.metrics, registry=obs_metrics.MetricsRegistry()
+                ).try_write()
+                if err is not None:
+                    raise ValueError(
+                        f"cannot write --metrics {args.metrics}: {err}")
+            solver, solver_args, engine = build_solver(problem, args.engine,
+                                                       dtype, dev,
+                                                       history=True)
+            result, trace = solver(*solver_args)
+            history_syncs = solver.host_syncs
+            plain_solver, plain_args, _ = build_solver(problem, engine,
+                                                       dtype, dev)
+            plain = plain_solver(*plain_args)
+        except (ValueError, RuntimeError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        bit_identical = (int(plain.iters) == int(result.iters)
+                         and _bitwise_equal(plain.diff, result.diff)
+                         and _bitwise_equal(plain.w, result.w))
+        spec = obs_spectrum.spectrum_report(trace, delta=problem.delta,
+                                            actual_iters=int(result.iters))
+        bounds = obs_spectrum.eigenvalue_bounds(trace)
+        spec["eigenvalue_bounds"] = list(bounds) if bounds else None
+        prof = None
+        if not args.no_profile:
+            prof = obs_profile.profile_engine(problem, engine, dtype,
+                                              repeat=args.repeat, device=dev)
+        record = {
+            "engine": engine,
+            "grid": list(grid),
+            "dtype": args.dtype,
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+            "iters": int(result.iters),
+            "converged": bool(result.converged),
+            "bit_identical": bit_identical,
+            "host_syncs": {"history": history_syncs,
+                           "plain": plain_solver.host_syncs},
+            "spectrum": spec,
+            "profile": prof,
+        }
+        if args.metrics:
+            reg = obs_metrics.MetricsRegistry()
+            reg.gauge("diagnose_iters").set(record["iters"])
+            if spec.get("available"):
+                reg.gauge("diagnose_kappa").set(spec["kappa"])
+                reg.gauge("diagnose_cg_rate").set(spec["cg_rate"])
+                if spec.get("predicted_iters") is not None:
+                    reg.gauge("diagnose_predicted_iters").set(
+                        spec["predicted_iters"])
+            if prof is not None:
+                reg.histogram("diagnose_solve_seconds").observe(
+                    prof["t_solve_s"])
+                reg.gauge("diagnose_compile_seconds").set(
+                    prof["t_compile_s"])
+                if prof.get("hbm_gbps") is not None:
+                    reg.gauge("diagnose_hbm_gbps").set(prof["hbm_gbps"])
+            record["metrics_path"] = MetricsExporter(
+                args.metrics, registry=reg).write()
+        obs_trace.event("diagnose_report", **record)
+        if args.json:
+            print(json.dumps(record))
+        else:
+            print(f"diagnose {engine} {grid[0]}x{grid[1]} ({args.dtype}, "
+                  f"{record['device']}): {record['iters']} iterations, "
+                  + ("converged" if record["converged"] else "NOT converged")
+                  + "; history-enabled iterates "
+                  + ("BIT-IDENTICAL to the plain solve" if bit_identical
+                     else "DIFFER from the plain solve (contract violation)")
+                  + f"; host reads {history_syncs} with the ring, "
+                  f"{plain_solver.host_syncs} without")
+            print(obs_spectrum.render_report(spec))
+            if spec.get("eigenvalue_bounds"):
+                lo, hi = spec["eigenvalue_bounds"]
+                print(f"  chebyshev interval    [{lo:.6g}, {hi:.6g}]  "
+                      "(widened Lanczos bounds)")
+            if prof is not None:
+                print(obs_profile.render_profile(prof))
+            if args.metrics:
+                print(f"metrics snapshot: {record['metrics_path']}")
+        if not bit_identical:
+            return 2
+        return 0 if record["converged"] else 1
+    finally:
+        if args.trace:
+            obs_trace.stop()
+
+
+def _run_inspect(argv: list) -> int:
+    """The ``inspect`` subcommand: kernel launches and collectives a loop
+    body and the roofline model, for one engine (``obs.static_cost``)."""
+    from poisson_ellipse_tpu_torch.harness.run import DTYPES
+    from poisson_ellipse_tpu_torch.obs import static_cost
+
+    ap = argparse.ArgumentParser(
+        prog="python -m poisson_ellipse_tpu_torch.harness inspect",
+        description="Cost accounting for one solver engine: kernel "
+        "launches and collectives a loop body (counted over two short "
+        "capped runs) beside the roofline traffic model.",
+    )
+    ap.add_argument("engine", help="engine to inspect (single-device: "
+                    f"{', '.join(ENGINES[1:])}; --mode sharded: xla, "
+                    "pallas, fused, pipelined, sstep and the batched "
+                    "engines with --lanes)")
+    ap.add_argument("--mode", choices=("single", "sharded"), default="single")
+    ap.add_argument("--mesh", type=int, nargs=2, metavar=("PX", "PY"),
+                    help="mesh shape for --mode sharded (default 1 1)")
+    ap.add_argument("--grid", help="MxN grid (default 40x40)")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument("--storage-dtype", choices=("bf16", "f16", "f32"),
+                    default=None)
+    ap.add_argument("--sstep-s", type=int, choices=(2, 4), default=4)
+    ap.add_argument("--lanes", type=int, default=1)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--json", action="store_true", help="one JSON line")
+    args = ap.parse_args(argv)
+    try:
+        grid = _parse_grid_arg(args.grid)
+        report = static_cost.engine_report(
+            Problem(M=grid[0], N=grid[1]), engine=args.engine,
+            dtype=DTYPES[args.dtype], mode=args.mode,
+            mesh_shape=tuple(args.mesh) if args.mesh else None,
+            storage_dtype=args.storage_dtype, sstep_s=args.sstep_s,
+            lanes=args.lanes, device=args.device)
+    except (ValueError, NotImplementedError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(report))
+    else:
+        print(static_cost.render_report(report))
+    obs_trace.event("inspect", **report)
+    return 0
 
 
 if __name__ == "__main__":

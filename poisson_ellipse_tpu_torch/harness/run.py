@@ -19,8 +19,8 @@ the bytes at the storage width (on ``streamed`` and ``xl``, which store
 only their operands narrow, those passes alone). ``dtype="bf16"`` is bf16
 compute on every engine the JAX harness runs it on (``auto`` walks the
 resident → streamed → xl ladder with the gates at 2 bytes a node), the
-lane-batched engines and the mesh's ``xla``, ``pallas`` and ``fused``
-included, as the JAX harness's ``--dtype bf16``.
+lane-batched engines and every engine of the mesh included, as the JAX
+harness's ``--dtype bf16``.
 
 ``mode="sharded"`` runs the mesh (``parallel``): ``mesh_shape`` (px, py)
 ranks of a ``torch.distributed`` group each solve their block with
@@ -82,7 +82,7 @@ from poisson_ellipse_tpu_torch.solver.engine import (
     SHARDED_ENGINES,
     build_solver,
 )
-from poisson_ellipse_tpu_torch.solver.pcg import DEFAULT_CHUNK, unported
+from poisson_ellipse_tpu_torch.solver.pcg import DEFAULT_CHUNK
 from poisson_ellipse_tpu_torch.utils.device import capacity, resolve_device
 from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
 from poisson_ellipse_tpu_torch.utils.timing import PhaseTimer
@@ -210,19 +210,18 @@ def resolve_mesh(mesh_shape: tuple[int, int] | None = None,
 
 
 def check_sharded(engine: str, lanes: int = 1,
-                  storage_dtype: str | None = None, dtype: str = "f32") -> str:
+                  storage_dtype: str | None = None) -> str:
     """The engine a sharded run takes, with the JAX harness's refusals.
 
     ``auto`` → ``xla``, or ``batched`` with ``lanes`` > 1. On the spatial
-    mesh: ``xla`` in f32, f64 and bf16; ``pallas`` (K-a) and ``fused``
-    (K1-shard and K2-shard) in f32 and bf16, f64 raising in the builder as
-    in the JAX package; ``pipelined`` and ``sstep`` in f32 and f64, with
-    ``sstep-pallas`` running ``sstep`` and ``storage_dtype`` taken by the
-    s-step engine alone. ``lanes`` > 1 or a lane-batched engine shards whole
-    lanes over the ranks, in f32 and f64. bf16 compute on the pipelined,
-    s-step and lane-sharded mesh raises naming its ROADMAP item, and a
-    single-device engine gets the JAX harness's refusal, whose text names
-    the JAX package's sharded engines."""
+    mesh: ``xla``, ``pipelined`` and ``sstep`` in f32, f64 and bf16;
+    ``pallas`` (K-a) and ``fused`` (K1-shard and K2-shard) in f32 and bf16,
+    f64 raising in ``build_sharded_solver`` as in the JAX package;
+    ``sstep-pallas`` runs ``sstep``, and ``storage_dtype`` is taken by the
+    s-step engine alone. ``lanes`` > 1 or a lane-batched engine shards whole lanes over
+    the ranks, in f32, f64 and bf16. A single-device engine gets the JAX
+    harness's refusal, whose text names the JAX package's sharded
+    engines."""
     if lanes < 1:
         raise ValueError("lanes must be >= 1")
     if lanes > 1 or engine in BATCHED_ENGINES:
@@ -254,10 +253,6 @@ def check_sharded(engine: str, lanes: int = 1,
         )
     if engine == "sstep-pallas":
         engine = "sstep"  # the sharded s-step runs the plain block stencil
-    if dtype == "bf16" and (engine in ("pipelined", "sstep")
-                            or engine in BATCHED_ENGINES):
-        raise unported(f"--dtype bf16 with --mode sharded --engine {engine}",
-                       "Queue A item 21d")
     return "xla" if engine == "auto" else engine
 
 
@@ -392,7 +387,7 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
     if mode == "auto" and mesh_shape is not None:
         mode = "sharded"  # as the JAX harness: an explicit mesh is sharded
     if mode == "sharded":
-        engine = check_sharded(engine, lanes, storage_dtype, dtype)
+        engine = check_sharded(engine, lanes, storage_dtype)
         if dist.is_initialized():
             return _run_sharded(problem, dtype, engine, repeat, device,
                                 mesh_shape, sstep_s, lanes, storage_dtype)

@@ -38,6 +38,16 @@ before. K1's bf16 form marches two nodes a lane, one 4-byte word of each
 array (csrc/pn_march.cuh), so its wrapper refuses an array that does not
 start on a 4-byte boundary; its launch shape comes from the grid's shape
 alone (``partials_count`` mirrors it on the host).
+
+``history=True`` records each iteration into the ring of
+``obs.convergence`` after K2, from the carry the kernels leave: zr, diff
+and α (K1's guarded α, 0 on a breakdown) from ``scal``, β from ``scal``
+too but for a breakdown iteration, whose held β the JAX engine replaces
+by its raw zr_new / 1 (here the held zr: α = 0 leaves r and z, so K2's
+sum gives the held zr back). The column is the iteration the host issues
+the body as; the body ran an iteration iff K2 advanced ``flags[FLAG_K]``
+past it, and a body after the exit keeps the column (zero). No kernel
+changes, and no host read.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.obs.convergence import history_record
 from poisson_ellipse_tpu_torch.ops import _build, assembly
 from poisson_ellipse_tpu_torch.ops import whole_solve as ws
 from poisson_ellipse_tpu_torch.ops.stencil import spacing
@@ -59,7 +70,9 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     DENOM_GUARD,
     PCGResult,
     Solver,
+    new_ring,
     run_chunked,
+    with_history,
 )
 from poisson_ellipse_tpu_torch.utils.device import resolve_device
 
@@ -453,9 +466,21 @@ def k2(w, r, pn, ap, dinv, z, scal, flags, partials, *, max_iter: int,
     _build.count_launch(ws.counter(K2, DTYPES[w.dtype]))
 
 
+def record(ring: torch.Tensor, k: int, scal: torch.Tensor,
+           flags: torch.Tensor) -> None:
+    """Record into ``ring`` the iteration ``k`` a body was issued as, from
+    the carry K2 left (module docstring); nothing if the body ran none."""
+    active = flags[FLAG_K] > k
+    breakdown = flags[FLAG_BREAKDOWN] != 0
+    beta = torch.where(breakdown, scal[SCAL_ZR], scal[SCAL_BETA])
+    history_record(ring, k, active, scal[SCAL_ZR], scal[SCAL_DIFF],
+                   scal[SCAL_ALPHA], beta)
+
+
 def _run_fused(problem: Problem, coeffs, r0: torch.Tensor,
-               chunk: int = DEFAULT_CHUNK):
-    """The rotated loop over prebuilt operands; returns (result, host reads)."""
+               chunk: int = DEFAULT_CHUNK, history: bool = False):
+    """The rotated loop over prebuilt operands; returns (result, host
+    reads), the result (PCGResult, ConvergenceTrace) with ``history``."""
     an, as_, bw, be, d, dinv = coeffs
     ct = r0.dtype
     q = ws.rounder(ct)
@@ -466,8 +491,9 @@ def _run_fused(problem: Problem, coeffs, r0: torch.Tensor,
     limit = problem.max_iterations
     consts = dict(max_iter=limit, h1=problem.h1, h2=problem.h2)
     bodies = [0]
+    ring = new_ring(problem, r0) if history else None
 
-    def step(_k):
+    def step(k):
         src = carry.p[bodies[0] % 2]
         dst = carry.p[(bodies[0] + 1) % 2]
         k1(carry.z, src, an, as_, bw, be, d, dst, carry.ap, carry.scal,
@@ -475,6 +501,8 @@ def _run_fused(problem: Problem, coeffs, r0: torch.Tensor,
         k2(carry.w, carry.r, dst, carry.ap, dinv, carry.z, carry.scal,
            carry.flags, carry.partials, delta=problem.delta,
            weighted=problem.norm == "weighted", **consts)
+        if ring is not None:
+            record(ring, k, carry.scal, carry.flags)
         bodies[0] += 1
 
     syncs = run_chunked(step, lambda: carry.flags[:3], limit, chunk)
@@ -485,7 +513,7 @@ def _run_fused(problem: Problem, coeffs, r0: torch.Tensor,
         converged=carry.flags[FLAG_CONVERGED].to(torch.bool),
         breakdown=carry.flags[FLAG_BREAKDOWN].to(torch.bool),
     )
-    return result, syncs
+    return with_history(result, ring), syncs
 
 
 def _check_dtype(dtype: torch.dtype) -> None:
@@ -494,21 +522,23 @@ def _check_dtype(dtype: torch.dtype) -> None:
                          f"not {dtype}; use the xla engine for f64")
 
 
-def pcg_fused(problem: Problem, a, b, rhs,
-              chunk: int = DEFAULT_CHUNK) -> PCGResult:
+def pcg_fused(problem: Problem, a, b, rhs, chunk: int = DEFAULT_CHUNK,
+              history: bool = False):
     """PCG with the fused two-kernel iteration on pre-assembled device
     tensors; the coefficient normalisation runs in their dtype (for the
-    oracle-exact f64-rounded operands use ``build_fused_solver``)."""
+    oracle-exact f64-rounded operands use ``build_fused_solver``).
+    ``history=True`` returns (PCGResult, ConvergenceTrace)."""
     _check_dtype(rhs.dtype)
     coeffs = normalized_coefficients(problem, a, b)
-    return _run_fused(problem, coeffs, rhs, chunk)[0]
+    return _run_fused(problem, coeffs, rhs, chunk, history)[0]
 
 
 def build_fused_solver(problem: Problem, dtype=torch.float32, device=None,
-                       chunk: int = DEFAULT_CHUNK):
+                       chunk: int = DEFAULT_CHUNK, history: bool = False):
     """(solver, args) with the f64-rounded operand set: args are
     (an, as_, bw, be, d, dinv, r0) on the device, and ``solver(*args)``
-    may be called many times."""
+    may be called many times (returning (PCGResult, ConvergenceTrace)
+    with ``history``)."""
     _check_dtype(dtype)
     dev = resolve_device(device)
     coeffs = fused_operands(problem, dtype, dev)
@@ -516,7 +546,7 @@ def build_fused_solver(problem: Problem, dtype=torch.float32, device=None,
     args = (*coeffs, assembly.to_device(rhs64, dtype, dev))
     solver = Solver(
         lambda an, as_, bw, be, d, dinv, r0: _run_fused(
-            problem, (an, as_, bw, be, d, dinv), r0, chunk
+            problem, (an, as_, bw, be, d, dinv), r0, chunk, history
         )
     )
     return solver, args

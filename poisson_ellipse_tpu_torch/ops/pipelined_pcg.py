@@ -42,6 +42,12 @@ bf16 or f16) and rounds a, b and D once. m = D⁻¹w stays at compute width.
 ``"pallas"`` then runs K-h (``apply_a_dots_mixed_kernel``) on m and the
 stored bundle operands, and K-g for the rebuilds. w₀ is A·u₀ at full
 width (K-a for ``"pallas"``), as in the JAX ``init_state``.
+
+``history`` records each iteration's (γ, diff, α, β) into the ring of
+``obs.convergence`` (``solver.pcg.new_ring``), as the JAX engine records
+them (``poisson_ellipse_tpu/ops/pipelined_pcg.py:323-330``): γ is the
+iteration's (r, u), the classical loop's zr one recurrence step earlier;
+α is 0 on a breakdown iteration; β and γ are raw.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from typing import NamedTuple
 import torch
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.obs.convergence import history_record
 from poisson_ellipse_tpu_torch.ops import assembly
 from poisson_ellipse_tpu_torch.ops.precision import (
     load,
@@ -64,10 +71,13 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
     DENOM_GUARD,
     PCGResult,
+    check_ring,
+    new_ring,
     reject_unported,
     run_chunked,
     stencil_fn,
     stored_operands,
+    with_history,
 )
 from poisson_ellipse_tpu_torch.utils.device import resolve_device
 
@@ -129,14 +139,13 @@ def _bundle(r, u, w, s, p):
 
 
 def init_state(problem: Problem, a, b, rhs, stencil: str = "xla",
-               history: bool = False,
                storage_dtype=None) -> PipelinedState:
     """The pipelined carry at iteration 0: x = 0, r = rhs, u = D⁻¹r,
     w = A·u (the one stencil application outside the loop), z = s = p = 0
     (β = 0 in the first iteration rebuilds them), γ₋₁ = 1 (it divides
     only under that β = 0), diff = inf. With ``storage_dtype`` the seven
     vectors are stored in it (u₀ and w₀ computed at full width first)."""
-    reject_unported(history, storage_dtype=storage_dtype)
+    reject_unported(storage_dtype=storage_dtype)
     st = resolve_storage_dtype(storage_dtype, rhs.dtype)
     dtype, dev = rhs.dtype, rhs.device
     h1, h2 = spacing(problem.h1, rhs), spacing(problem.h2, rhs)
@@ -161,11 +170,11 @@ def init_state(problem: Problem, a, b, rhs, stencil: str = "xla",
 
 
 def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
-              storage_dtype=None):
+              storage_dtype=None, ring=None):
     """One pipelined iteration as ``body(state, k)``, where ``k`` is the
     iteration the host expects the body to run (exact while the loop is
     active, and irrelevant after it has exited, when the body is a
-    no-op)."""
+    no-op); with ``ring`` each body records its iteration into it."""
     dtype = rhs.dtype
     sd = resolve_storage_dtype(storage_dtype, dtype)
     cadence = replace_every(sd, dtype)
@@ -174,6 +183,7 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
     delta = spacing(problem.delta, rhs)
     weighted = problem.norm == "weighted"
     one = torch.ones((), dtype=dtype, device=rhs.device)
+    zero = torch.zeros((), dtype=dtype, device=rhs.device)
     a_s, b_s, d_s = stored_operands(a, b, diag_d(a, b, h1, h2), sd)
     d = load(d_s, dtype, sd)
     apply_stencil = stencil_fn(problem, a_s, b_s, h1, h2, stencil, sd)
@@ -236,6 +246,10 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
         def keep(old, new):
             return torch.where(upd, store(new, sd), old)
 
+        diff = torch.where(upd, diff, st.diff)
+        if ring is not None:
+            history_record(ring, k, active, gamma, diff,
+                           torch.where(breakdown, zero, alpha), beta)
         return PipelinedState(
             k=st.k + active.to(st.k.dtype),
             x=keep(st.x, x_new),
@@ -246,7 +260,7 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
             s=keep(st.s, s_new),
             p=keep(st.p, p_new),
             gamma_prev=torch.where(upd, gamma, st.gamma_prev),
-            diff=torch.where(upd, diff, st.diff),
+            diff=diff,
             converged=st.converged | (active & converged),
             breakdown=st.breakdown | (active & breakdown),
         )
@@ -256,17 +270,19 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
 
 def advance(problem: Problem, a, b, rhs, state: PipelinedState, limit=None,
             stencil: str = "xla", chunk: int = DEFAULT_CHUNK,
-            history: bool = False, storage_dtype=None):
+            history=None, storage_dtype=None):
     """Advance the pipelined carry until convergence/breakdown or
     iteration ``limit`` (default ``max_iterations``). Returns (new carry,
     host reads). Chunked runs (limit = k, k + K, …; any ``chunk``) are
     bitwise equal to one straight run: the replacement is keyed on the
     iteration counter, not on where the host looks. ``storage_dtype`` must
-    be the one the carry was made with."""
-    reject_unported(history, storage_dtype=storage_dtype)
+    be the one the carry was made with; ``history`` is a ring
+    (``solver.pcg.new_ring``) to record into, or None."""
+    reject_unported(storage_dtype=storage_dtype)
     cap = problem.max_iterations
     limit = cap if limit is None else min(int(limit), cap)
-    body = make_body(problem, a, b, rhs, limit, stencil, storage_dtype)
+    body = make_body(problem, a, b, rhs, limit, stencil, storage_dtype,
+                     ring=check_ring(history, problem, rhs))
     carry = [state]
 
     def step(k: int):
@@ -289,26 +305,29 @@ def result_of(state: PipelinedState) -> PCGResult:
 
 def pcg_pipelined(problem: Problem, a, b, rhs, stencil: str = "xla",
                   chunk: int = DEFAULT_CHUNK, history: bool = False,
-                  storage_dtype=None) -> PCGResult:
+                  storage_dtype=None):
     """Run pipelined PCG on pre-assembled (M+1, N+1) tensors on their
     device. stencil: "xla" (plain PyTorch) or "pallas" (K-d once per
     iteration, K-a for w₀ and the rebuilds; f32; with ``storage_dtype``
-    K-h once per iteration and K-g for the rebuilds)."""
-    reject_unported(history, storage_dtype=storage_dtype)
+    K-h once per iteration and K-g for the rebuilds). ``history=True``
+    returns (PCGResult, ``obs.convergence.ConvergenceTrace``)."""
+    reject_unported(storage_dtype=storage_dtype)
     state = init_state(problem, a, b, rhs, stencil=stencil,
                        storage_dtype=storage_dtype)
+    ring = new_ring(problem, rhs) if history else None
     state, _ = advance(problem, a, b, rhs, state, stencil=stencil,
-                       chunk=chunk, storage_dtype=storage_dtype)
-    return result_of(state)
+                       chunk=chunk, history=ring,
+                       storage_dtype=storage_dtype)
+    return with_history(result_of(state), ring)
 
 
 def solve(problem: Problem, dtype: torch.dtype = torch.float32,
           stencil: str = "xla", device=None, chunk: int = DEFAULT_CHUNK,
-          history: bool = False, storage_dtype=None) -> PCGResult:
+          history: bool = False, storage_dtype=None):
     """Assemble and solve on one device (cuda unless ``device='cpu'``)
     with the pipelined recurrence."""
-    reject_unported(history, storage_dtype=storage_dtype)
+    reject_unported(storage_dtype=storage_dtype)
     dev = resolve_device(device)
     a, b, rhs = assembly.assemble(problem, dtype, dev)
     return pcg_pipelined(problem, a, b, rhs, stencil=stencil, chunk=chunk,
-                         storage_dtype=storage_dtype)
+                         history=history, storage_dtype=storage_dtype)

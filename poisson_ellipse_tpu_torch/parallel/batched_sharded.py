@@ -21,8 +21,9 @@ same flags and issues the same bodies. A rank whose lanes are all done
 issues bodies that change nothing (each lane step masks a frozen lane).
 
 ``solver(*args)`` returns this rank's lanes; ``gather_lanes`` puts every
-rank's back together in lane order (off the timed loop). f32 and f64;
-bf16 compute raises naming ROADMAP Queue A item 21d.
+rank's back together in lane order (off the timed loop). f32, f64 and
+bf16 compute; a bf16 lane is the single-device bf16 lane of ``batch/``
+(the pipelined lanes rebuild every 8 iterations), bitwise on the CPU.
 """
 
 from __future__ import annotations
@@ -42,7 +43,6 @@ from poisson_ellipse_tpu_torch.parallel.mesh import Mesh, count, make_mesh
 from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
     ShardedSolver,
     measured_solve,
-    reject_narrow,
 )
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
@@ -73,7 +73,6 @@ def build_batched_sharded_solver(problem: Problem, mesh: Mesh | None = None,
     rank's (lanes / world, M+1, N+1) lanes of the stack. ``solver(*args)``
     returns this rank's ``BatchedPCGResult`` (a ``ShardedSolver``:
     ``host_syncs`` and ``bodies`` of its last call)."""
-    reject_narrow(dtype, "lane-sharded mesh")
     if mesh is None:
         mesh = make_mesh()
     if lanes is None:
@@ -190,8 +189,11 @@ def solve_report(problem: Problem, lanes: int, dtype=torch.float32,
                                                 operands=operands)
     result, per_rank = measured_solve(mesh, solver, args)
     whole = gather_lanes(mesh, result)
+    # numpy has no bf16: a narrow field crosses as its exact f32 widening
     return dict(
-        **{name: x.cpu().numpy() for name, x in whole._asdict().items()},
+        **{name: (x if x.dtype.itemsize >= 4 or x.dtype == torch.bool
+                  else x.float()).cpu().numpy()
+           for name, x in whole._asdict().items()},
         local_lanes=int(result.w.shape[0]), bodies=solver.bodies,
         host_syncs=solver.host_syncs, ranks=per_rank, mesh=mesh.shape,
         backend=mesh.backend,

@@ -38,6 +38,12 @@ is the two-kernel iteration of ``parallel.fused_sharded``, and
 The solver returns each rank's owned block of w; ``gather_w`` assembles the
 global (M+1, N+1) solution (off the timed path: the JAX package never
 gathers its sharded result either).
+
+``history=True`` (the classical loops, "xla" and "pallas", as in the JAX
+package) records each iteration into a ring of ``obs.convergence`` on
+every rank, from the reduced scalars, so every rank holds the same ring
+bits; the solver then returns (PCGResult, ConvergenceTrace). The fused and
+pipelined iterations raise the JAX package's ValueError.
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ import numpy as np
 import torch
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.obs.convergence import (
+    HISTORY_FIELDS,
+    history_record,
+)
 from poisson_ellipse_tpu_torch.ops import assembly
 from poisson_ellipse_tpu_torch.ops.stencil import (
     apply_a_block,
@@ -66,8 +76,10 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     PCGResult,
     PCGState,
     Solver,
+    new_ring,
     run_chunked,
     unported,
+    with_history,
 )
 
 # the sharded stencils of the classical loop, the fused iteration and the
@@ -78,13 +90,6 @@ STENCIL_IMPLS = ("xla", "pallas", "fused", "pipelined")
 # ROADMAP.md's item for the mesh's resilience hooks (the stepper and
 # recover builders, ABFT, the elastic mesh)
 MESH_HOOKS = "Queue A item 21b"
-
-
-def reject_narrow(dtype: torch.dtype, what: str) -> None:
-    """bf16 (or f16) compute on the pipelined, s-step and lane-sharded
-    mesh is ROADMAP Queue A item 21d."""
-    if torch.empty((), dtype=dtype).element_size() < 4:
-        raise unported(f"{dtype} compute on the {what}", "Queue A item 21d")
 
 
 def block_shape(problem: Problem, mesh: Mesh) -> tuple[int, int]:
@@ -135,9 +140,7 @@ def _shard_ops(problem: Problem, mesh: Mesh, bm: int, bn: int, a_ext, b_ext,
     return stencil, pdot, d, maskd
 
 
-def _reject(history=False, precond=None, abft=False, x0_blk=None) -> None:
-    if history:
-        raise unported("history=", "Queue A item 8")
+def _reject(precond=None, abft=False, x0_blk=None) -> None:
     if precond is not None:
         raise unported("precond= on the mesh", "Queue A item 21c")
     if abft:
@@ -146,12 +149,11 @@ def _reject(history=False, precond=None, abft=False, x0_blk=None) -> None:
         raise unported("x0_blk=", "Queue A item 21c")
 
 
-def _shard_init(problem: Problem, pdot, d, rhs_blk, dtype,
-                history: bool = False, precond=None, abft: bool = False,
-                x0_blk=None) -> PCGState:
+def _shard_init(problem: Problem, pdot, d, rhs_blk, dtype, precond=None,
+                abft: bool = False, x0_blk=None) -> PCGState:
     """The carry at iteration 0 on this rank: w = 0, r = rhs, p = D⁻¹r and
     zr over the mesh (one reduction)."""
-    _reject(history, precond, abft, x0_blk)
+    _reject(precond, abft, x0_blk)
     dev = rhs_blk.device
     z0 = apply_dinv(rhs_blk, d)
     return PCGState(
@@ -168,12 +170,13 @@ def _shard_init(problem: Problem, pdot, d, rhs_blk, dtype,
 
 def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
                    dtype, limit=None, chunk: int = DEFAULT_CHUNK,
-                   history: bool = False, precond=None, abft: bool = False):
+                   history=None, precond=None, abft: bool = False):
     """Advance this rank's carry until convergence, breakdown or iteration
     ``limit`` (default ``max_iterations``); returns (carry, host reads,
     bodies issued). Every rank must call it together: each body makes 1
-    halo exchange and 2 reductions."""
-    _reject(history, precond, abft)
+    halo exchange and 2 reductions. ``history`` is a ring
+    (``solver.pcg.new_ring``) each iteration is recorded into, or None."""
+    _reject(precond, abft)
     cap = problem.max_iterations
     limit = cap if limit is None else min(int(limit), cap)
     like = state.r
@@ -183,7 +186,7 @@ def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
     zero = torch.zeros((), dtype=dtype, device=like.device)
     weighted = problem.norm == "weighted"
 
-    def body(s: PCGState) -> PCGState:
+    def body(s: PCGState, k: int) -> PCGState:
         active = (s.k < limit) & ~s.converged & ~s.breakdown
         ap = stencil(s.p)
         denom = mesh.reduce(rank_sums((ap, s.p)), dtype)[0] * h1 * h2
@@ -205,13 +208,16 @@ def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
         converged = step & (diff < delta)
         beta = zr_new / s.zr
         advance = step & ~converged
+        diff = torch.where(step, diff, s.diff)
+        if history is not None:
+            history_record(history, k, active, zr_new, diff, alpha, beta)
         return PCGState(
             k=s.k + active.to(s.k.dtype),
             w=w_new,
             r=r_new,
             p=torch.where(advance, z + beta * s.p, s.p),
             zr=torch.where(advance, zr_new, s.zr),
-            diff=torch.where(step, diff, s.diff),
+            diff=diff,
             converged=s.converged | converged,
             breakdown=s.breakdown | (active & breakdown),
         )
@@ -219,8 +225,8 @@ def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
     carry = [state]
     bodies = [0]
 
-    def step(_k):
-        carry[0] = body(carry[0])
+    def step(k):
+        carry[0] = body(carry[0], k)
         bodies[0] += 1
 
     def flags():
@@ -234,18 +240,19 @@ def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
 
 def _local_pcg(problem: Problem, mesh: Mesh, bm: int, bn: int, a_ext, b_ext,
                rhs_blk, dtype, stencil_impl: str = "xla",
-               chunk: int = DEFAULT_CHUNK, limit=None):
+               chunk: int = DEFAULT_CHUNK, limit=None, history: bool = False):
     """This rank's whole solve: init, then advance to the cap (or
     ``limit``). Returns (PCGResult over the owned block, host reads, bodies
-    issued)."""
+    issued), the result (PCGResult, ConvergenceTrace) with ``history``."""
     stencil, pdot, d, _maskd = _shard_ops(problem, mesh, bm, bn, a_ext, b_ext,
                                           dtype, stencil_impl)
     state = _shard_init(problem, pdot, d, rhs_blk, dtype)
+    ring = new_ring(problem, rhs_blk) if history else None
     state, syncs, bodies = _shard_advance(problem, mesh, stencil, d, state,
-                                          dtype, limit, chunk)
-    return PCGResult(w=state.w, iters=state.k, diff=state.diff,
-                     converged=state.converged,
-                     breakdown=state.breakdown), syncs, bodies
+                                          dtype, limit, chunk, history=ring)
+    result = PCGResult(w=state.w, iters=state.k, diff=state.diff,
+                       converged=state.converged, breakdown=state.breakdown)
+    return with_history(result, ring), syncs, bodies
 
 
 class ShardedSolver(Solver):
@@ -276,12 +283,18 @@ def build_sharded_solver(problem: Problem, mesh: Mesh | None = None,
     whose scalars are the same on every rank (a ``ShardedSolver``).
     ``stencil_impl``: "xla", "pallas" (K-a on every rank), "fused"
     (``parallel.fused_sharded``, host assembly, f32 and bf16) or
-    "pipelined" (``parallel.pipelined_sharded``, host assembly, f32 and
-    f64)."""
+    "pipelined" (``parallel.pipelined_sharded``, host assembly, f32, f64
+    and bf16). ``history=True`` ("xla" and "pallas") returns (PCGResult,
+    ConvergenceTrace), the same ring bits on every rank."""
     if geometry is not None or theta is not None:
         raise unported("geometry=/theta=", "Queue A item 11")
-    if history:
-        raise unported("history=", "Queue A item 8")
+    if history and stencil_impl not in ("xla", "pallas"):
+        raise ValueError(
+            "history capture covers the classical sharded loops "
+            f"('xla'/'pallas'); got stencil_impl={stencil_impl!r} — the "
+            "fused/pipelined sharded iterations keep their scalars inside "
+            "kernels/recurrences with their own carry layouts"
+        )
     if mesh is None:
         mesh = make_mesh()
     if stencil_impl == "pipelined":
@@ -317,7 +330,7 @@ def build_sharded_solver(problem: Problem, mesh: Mesh | None = None,
             a_ext = halo_extend(a_blk, mesh)
             b_ext = halo_extend(b_blk, mesh)
             return _local_pcg(problem, mesh, bm, bn, a_ext, b_ext, rhs_blk,
-                              dtype, stencil_impl, chunk, limit)
+                              dtype, stencil_impl, chunk, limit, history)
 
         args = _host_sharded_args(problem, mesh, dtype)
     elif assembly_mode == "device":
@@ -326,7 +339,7 @@ def build_sharded_solver(problem: Problem, mesh: Mesh | None = None,
             a_ext, b_ext = assembly.coefficients_at(problem, gi, gj, dtype)
             rhs_blk = assembly.rhs_at(problem, gi[1:-1], gj[1:-1], dtype)
             return _local_pcg(problem, mesh, bm, bn, a_ext, b_ext, rhs_blk,
-                              dtype, stencil_impl, chunk, limit)
+                              dtype, stencil_impl, chunk, limit, history)
 
         args = ()
     else:
@@ -350,7 +363,8 @@ def solve_sharded(problem: Problem, mesh: Mesh | None = None,
                   stencil_impl: str = "xla", history: bool = False,
                   chunk: int = DEFAULT_CHUNK) -> PCGResult:
     """Assemble, shard and solve over the mesh; ``w`` is this rank's block
-    (``gather_w`` assembles the global solution)."""
+    (``gather_w`` assembles the global solution); with ``history``
+    (PCGResult, ConvergenceTrace)."""
     solver, args = build_sharded_solver(problem, mesh, dtype, assembly_mode,
                                         stencil_impl, history, chunk=chunk)
     return solver(*args)
@@ -409,28 +423,55 @@ def host_report(problem: Problem, mesh: Mesh, solver, result,
                 per_rank) -> dict:
     """A sharded solve's result for a caller that compares it: the global
     w gathered to a host array, the scalars, the bodies and host reads,
-    and every rank's counts (``measured_solve``)."""
+    and every rank's counts (``measured_solve``). A history solve's result
+    (PCGResult, ConvergenceTrace) adds ``history`` (every field's full
+    buffer) and ``history_same_on_every_rank`` (every rank's ring gathered
+    and held bitwise against this rank's)."""
+    trace = None
+    if isinstance(result, tuple) and not isinstance(result, PCGResult):
+        result, trace = result
     w = gather_w(problem, mesh, result.w)
-    # numpy has no bf16: a narrow w crosses as its exact f32 widening
-    w = w if w.dtype.itemsize >= 4 else w.float()
-    return dict(
-        w=w.cpu().numpy(), block=tuple(result.w.shape),
+    report = dict(
+        w=_widened(w).cpu().numpy(), block=tuple(result.w.shape),
         w_dtype=str(result.w.dtype),
         iters=int(result.iters), converged=bool(result.converged),
         breakdown=bool(result.breakdown), diff=float(result.diff),
         bodies=solver.bodies, host_syncs=solver.host_syncs,
         ranks=per_rank, mesh=mesh.shape, backend=mesh.backend,
     )
+    if trace is not None:
+        ring = torch.stack([getattr(trace, f) for f in HISTORY_FIELDS])
+        rings = [r.to(ring.device) for r in mesh.all_gather(ring)]
+        report["history"] = {f: _widened(x).cpu().numpy()
+                             for f, x in zip(HISTORY_FIELDS, ring)}
+        report["history_same_on_every_rank"] = all(
+            torch.equal(_bits(r), _bits(ring)) for r in rings)
+    return report
+
+
+_INT_OF_SIZE = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s bits as integers of its width (NaN and -0 compare as
+    bits)."""
+    return x.view(_INT_OF_SIZE[x.dtype.itemsize])
+
+
+def _widened(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a narrow one widened exactly to f32 (numpy has no bf16)."""
+    return x if x.dtype.itemsize >= 4 else x.float()
 
 
 def solve_report(problem: Problem, dtype=torch.float32,
                  stencil_impl: str = "xla", assembly_mode: str = "host",
-                 chunk: int = DEFAULT_CHUNK, device=None) -> dict:
+                 chunk: int = DEFAULT_CHUNK, device=None,
+                 history: bool = False) -> dict:
     """One sharded solve on this rank (``host_report``). Every rank calls
     it together (``multihost.run_jobs``), with the ``device`` type its
     group was started on."""
     mesh = make_mesh(device=device)
     solver, args = build_sharded_solver(problem, mesh, dtype, assembly_mode,
-                                        stencil_impl, chunk=chunk)
+                                        stencil_impl, history, chunk=chunk)
     return host_report(problem, mesh, solver,
                        *measured_solve(mesh, solver, args))

@@ -27,8 +27,13 @@ flags come from reduced scalars. A body issued after the exit changes
 nothing (every field is masked by whether the loop was active).
 
 The operands are the host assembly of ``pcg_sharded`` (f64, rounded once),
-each rank's block of the grid padded to the mesh. f32 and f64; bf16
-compute raises naming ROADMAP Queue A item 21d.
+each rank's block of the grid padded to the mesh. f32, f64 and bf16
+compute. At bf16 the cadence stays the JAX module's 32, where the port's
+single-device and lane recurrences replace every 8: neither cadence
+converges on the bf16 mesh at 10²-40² (JAX's engine breaks down at
+iteration 11-17, the port's at 11-13 or runs on to the cap; at cadence 8
+the port's diverges), so nothing argues for departing from JAX
+(``tests/test_torch_mesh_bf16_rest.py``).
 """
 
 from __future__ import annotations
@@ -60,7 +65,6 @@ from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
     global_indices,
     host_report,
     measured_solve,
-    reject_narrow,
 )
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
@@ -208,7 +212,6 @@ def build_pipelined_sharded_solver(problem: Problem, mesh: Mesh | None = None,
     ``PCGResult`` whose ``w`` is this rank's block (a ``ShardedSolver``)."""
     if geometry is not None or theta is not None:
         raise unported("geometry=/theta=", "Queue A item 11")
-    reject_narrow(dtype, "pipelined mesh")
     if mesh is None:
         mesh = make_mesh()
     bm, bn = block_shape(problem, mesh)

@@ -28,9 +28,12 @@ the same. As in the JAX module a, b and D stay at compute width.
 As on one device the host decides which blocks replace (from the iteration
 a block starts at), a limit inside a block stops at exactly that iteration,
 and a body issued after the exit changes nothing. The carry is the
-classical one (``solver.pcg.PCGState``) over this rank's block. f32 and
-f64 compute; bf16 compute raises naming ROADMAP Queue A item 21d, and
-``abft=True`` and the stepper Queue A item 21b.
+classical one (``solver.pcg.PCGState``) over this rank's block. f32, f64
+and bf16 compute: bf16 takes the single-device bf16 arithmetic of
+``ops.sstep_pcg`` (the Grams accumulated in f64, the cadence
+``replace_every(storage_dtype, dtype)``: 8 at bf16, as the JAX module
+takes it). ``abft=True`` and the stepper raise naming ROADMAP Queue A item
+21b.
 """
 
 from __future__ import annotations
@@ -74,7 +77,6 @@ from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
     global_indices,
     host_report,
     measured_solve,
-    reject_narrow,
 )
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
@@ -94,18 +96,19 @@ def _crop(arr, m: int):
 def make_sstep_parts(problem: Problem, mesh: Mesh | None, dtype, s: int,
                      storage_dtype=None, abft: bool = False, geometry=None,
                      theta=None, chunk: int = DEFAULT_CHUNK):
-    """(run, args) for this rank: ``run(a_blk, b_blk, rhs_blk, limit=None)``
-    exchanges the deep coefficient and right-hand-side halos, makes the
-    carry at iteration 0 (one reduction) and advances it in blocks of s to
-    the cap or ``limit``; it returns (carry, host reads, bodies issued).
-    ``args`` are this rank's blocks of the host-assembled (a, b, rhs)."""
+    """(run, args) for this rank: ``run(a_blk, b_blk, rhs_blk, limit=None,
+    state=None)`` exchanges the deep coefficient and right-hand-side halos,
+    makes the carry at iteration 0 (one reduction) unless ``state`` hands
+    it one (this rank's block of a carry, stored as the run stores it) and
+    advances it in blocks of s to the cap or ``limit``; it returns (carry,
+    host reads, bodies issued). ``args`` are this rank's blocks of the
+    host-assembled (a, b, rhs)."""
     if s not in SSTEP_CHOICES:
         raise ValueError(f"s must be one of {SSTEP_CHOICES}, got {s}")
     if abft:
         raise unported("abft= on the s-step mesh", "Queue A item 21b")
     if geometry is not None or theta is not None:
         raise unported("geometry=/theta=", "Queue A item 11")
-    reject_narrow(dtype, "s-step mesh")
     if mesh is None:
         mesh = make_mesh()
     st = resolve_storage_dtype(storage_dtype, dtype)
@@ -124,7 +127,7 @@ def make_sstep_parts(problem: Problem, mesh: Mesh | None, dtype, s: int,
     gd = gram_dtype(dtype)
     weighted = problem.norm == "weighted"
 
-    def run(a_blk, b_blk, rhs_blk, limit=None):
+    def run(a_blk, b_blk, rhs_blk, limit=None, state=None):
         cap = problem.max_iterations
         limit = cap if limit is None else min(int(limit), cap)
         dev = rhs_blk.device
@@ -157,9 +160,11 @@ def make_sstep_parts(problem: Problem, mesh: Mesh | None, dtype, s: int,
         def pdot(u, v):
             return mesh.reduce(rank_sums((u, v)), dtype)[0] * hw
 
-        state = _shard_init(problem, pdot, d0, rhs_blk, dtype)
-        state = state._replace(w=store(state.w, st), r=store(state.r, st),
-                               p=store(state.p, st))
+        if state is None:
+            state = _shard_init(problem, pdot, d0, rhs_blk, dtype)
+            state = state._replace(w=store(state.w, st),
+                                   r=store(state.r, st),
+                                   p=store(state.p, st))
 
         def chain(v_ext, q_in):
             """One Â = D⁻¹A application down the halo chain: depth q_in in,

@@ -63,6 +63,13 @@ and ``xl`` stream their operands dinv, a and b narrow, the state and r0 at
 the compute width (their kernels' f32_bf16 and f32_f16 forms). Every
 other engine, ``auto`` included, refuses it with the JAX error.
 
+``history=True`` (the ``obs.convergence`` ring; the solver returns
+(PCGResult, ConvergenceTrace)) runs on the ``HISTORY_ENGINES``: ``xla``,
+``pallas``, ``fused``, ``pipelined`` and ``pipelined-pallas``, and
+``auto``, which then resolves to ``xla`` (the whole-solve engines keep
+their scalars inside the kernel); every other engine raises the JAX
+package's ValueError.
+
 bf16 compute (``dtype=torch.bfloat16``) runs on ``xla``, ``fused`` (K-b
 and K-c in bf16), ``resident``, ``streamed`` and ``xl`` (their bf16
 forms), on the single-device loops ``pallas``, ``pipelined``,
@@ -86,8 +93,10 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     Solver,
     advance,
     init_state,
+    new_ring,
     reject_unported,
     result_of,
+    with_history,
 )
 from poisson_ellipse_tpu_torch.utils.device import (
     DeviceCapacity,
@@ -118,48 +127,51 @@ from poisson_ellipse_tpu_torch.utils.device import (
 #   batched_reductions, batched_halo — the lane-sharded mesh form of a
 #              lane-batched engine, the JAX table's ``batched_psum`` and
 #              ``batched_halo``
+#   history  — records the ``obs.convergence`` ring (``history=True``),
+#              the JAX table's column
 # the kernels' compute dtypes, and the plain loops' (f64 too)
 _F32_BF16 = (torch.float32, torch.bfloat16)
 _ALL = (torch.float32, torch.float64, torch.bfloat16)
 ENGINE_CAPS = {
     "resident": dict(family="megakernel", kernels=("resident",), capacity=0,
-                     dtypes=_F32_BF16, storage=False),
+                     dtypes=_F32_BF16, storage=False, history=False),
     "streamed": dict(family="megakernel", kernels=("streamed",), capacity=1,
-                     dtypes=_F32_BF16, storage=True),
+                     dtypes=_F32_BF16, storage=True, history=False),
     "xl": dict(family="megakernel", kernels=("xl",), capacity=2,
-               dtypes=_F32_BF16, storage=True),
+               dtypes=_F32_BF16, storage=True, history=False),
     "xla": dict(family="loop", kernels=(), capacity=None,
-                dtypes=_ALL, storage=True, sharded_reductions=2,
-                sharded_halo=1),
+                dtypes=_ALL, storage=True, history=True,
+                sharded_reductions=2, sharded_halo=1),
     "pallas": dict(family="loop", kernels=("stencil",), capacity=None,
-                   dtypes=_F32_BF16, storage=True,
+                   dtypes=_F32_BF16, storage=True, history=True,
                    sharded_reductions=2, sharded_halo=1),
     "fused": dict(family="fused", kernels=("fused_k1", "fused_k2"),
                   capacity=None, dtypes=_F32_BF16, storage=False,
-                  sharded_reductions=2, sharded_halo=1),
+                  history=True, sharded_reductions=2, sharded_halo=1),
     "pipelined": dict(family="pipelined", kernels=(), capacity=None,
-                      dtypes=_ALL, storage=True, sharded_reductions=1,
-                      sharded_halo=1),
+                      dtypes=_ALL, storage=True, history=True,
+                      sharded_reductions=1, sharded_halo=1),
     "pipelined-pallas": dict(family="pipelined",
                              kernels=("stencil", "stencil_dots"),
                              capacity=None, dtypes=_F32_BF16,
-                             storage=True),
+                             storage=True, history=True),
     "sstep": dict(family="sstep", kernels=(), capacity=None,
-                  dtypes=_ALL, storage=True, sharded_reductions=1,
-                  sharded_halo=1),
+                  dtypes=_ALL, storage=True, history=False,
+                  sharded_reductions=1, sharded_halo=1),
     "sstep-pallas": dict(family="sstep", kernels=("stencil",), capacity=None,
-                         dtypes=_F32_BF16, storage=True),
+                         dtypes=_F32_BF16, storage=True, history=False),
     "batched": dict(family="batched", kernels=(), capacity=None,
-                    dtypes=_ALL, storage=True, batched_reductions=1,
-                    batched_halo=0),
+                    dtypes=_ALL, storage=True, history=False,
+                    batched_reductions=1, batched_halo=0),
     "batched-pipelined": dict(family="batched", kernels=(), capacity=None,
-                              dtypes=_ALL, storage=False,
+                              dtypes=_ALL, storage=False, history=False,
                               batched_reductions=1, batched_halo=0),
     "batched-pallas": dict(family="batched", kernels=("batched_stencil",),
-                           capacity=None, dtypes=_F32_BF16, storage=False),
+                           capacity=None, dtypes=_F32_BF16, storage=False,
+                           history=False),
     "batched-pipelined-pallas": dict(
         family="batched", kernels=("batched_stencil", "batched_stencil_dots"),
-        capacity=None, dtypes=_F32_BF16, storage=False),
+        capacity=None, dtypes=_F32_BF16, storage=False, history=False),
 }
 
 ENGINES = ("auto",) + tuple(ENGINE_CAPS)
@@ -172,6 +184,12 @@ SSTEP_ENGINES = tuple(
 # the lane-batched engines: ``build_solver``'s ``lanes`` sets their width
 BATCHED_ENGINES = tuple(
     e for e, c in ENGINE_CAPS.items() if c["family"] == "batched"
+)
+
+# the engines that record the convergence ring (``history=True``); "auto"
+# resolves to "xla" under it (the JAX package's tuple)
+HISTORY_ENGINES = ("auto",) + tuple(
+    e for e, c in ENGINE_CAPS.items() if c["history"]
 )
 
 # the engines that accept ``storage_dtype`` (the JAX package's tuple)
@@ -241,6 +259,11 @@ def build_solver(problem: Problem, engine: str = "auto",
     ``storage_dtype`` ("bf16", "f16", "f32", a torch dtype or None) stores
     the state and the rounded operands narrow on the ``STORAGE_ENGINES``
     (``ops.precision``); storage equal to ``dtype`` is the plain solve.
+
+    ``history=True`` builds the solver in convergence-telemetry form on the
+    ``HISTORY_ENGINES`` (``auto`` resolves to ``xla``): ``solver(*args)``
+    returns (PCGResult, ``obs.convergence.ConvergenceTrace``), the ring
+    made anew on the device each call, with the same host reads.
     """
     if lanes != 1 and engine not in BATCHED_ENGINES:
         raise ValueError(
@@ -265,8 +288,25 @@ def build_solver(problem: Problem, engine: str = "auto",
             )
         if lanes < 1:
             raise ValueError("lanes must be >= 1")
-    reject_unported(history, precond, storage_dtype, recycle=recycle,
+    reject_unported(precond, storage_dtype, recycle=recycle,
                     geometry=geometry)
+    if engine == "auto" and history:
+        # the whole-solve engines auto would pick cannot record: take the
+        # reference-trajectory engine, as the JAX package does
+        engine = "xla"
+    if engine in SSTEP_ENGINES and history:
+        raise ValueError(
+            "the s-step engines advance in coordinate blocks and do "
+            "not record the per-iteration obs.convergence buffers; "
+            "use a HISTORY_ENGINES engine for history=True"
+        )
+    if history and engine in ENGINES and engine not in HISTORY_ENGINES:
+        raise ValueError(
+            f"engine {engine!r} keeps its scalar recurrence in VMEM kernel "
+            "scratch and cannot record history; use one of "
+            f"{', '.join(HISTORY_ENGINES[1:])} (or engine='auto', which "
+            "resolves to xla under history=True)"
+        )
     dev = resolve_device(device)
     if capacity is None and dev.type == "cuda":
         capacity = device_capacity(dev)
@@ -279,7 +319,8 @@ def build_solver(problem: Problem, engine: str = "auto",
     if engine == "fused":
         from poisson_ellipse_tpu_torch.ops.fused_pcg import build_fused_solver
 
-        solver, args = build_fused_solver(problem, dtype, dev, chunk)
+        solver, args = build_fused_solver(problem, dtype, dev, chunk,
+                                          history)
         return solver, args, engine
     if engine == "resident":
         from poisson_ellipse_tpu_torch.ops.resident_pcg import (
@@ -331,12 +372,14 @@ def build_solver(problem: Problem, engine: str = "auto",
         from poisson_ellipse_tpu_torch.ops import pipelined_pcg as pp
 
         def run(a, b, rhs):
+            ring = new_ring(problem, rhs) if history else None
             state, syncs = pp.advance(
                 problem, a, b, rhs,
                 pp.init_state(problem, a, b, rhs, stencil=stencil,
                               storage_dtype=storage_dtype),
-                stencil=stencil, chunk=chunk, storage_dtype=storage_dtype)
-            return pp.result_of(state), syncs
+                stencil=stencil, chunk=chunk, history=ring,
+                storage_dtype=storage_dtype)
+            return with_history(pp.result_of(state), ring), syncs
     elif family == "sstep":
         from poisson_ellipse_tpu_torch.ops import sstep_pcg as ss
 
@@ -354,11 +397,13 @@ def build_solver(problem: Problem, engine: str = "auto",
             return result_of(state), syncs
     else:
         def run(a, b, rhs):
+            ring = new_ring(problem, rhs) if history else None
             state, syncs = advance(
                 problem, a, b, rhs,
                 init_state(problem, a, b, rhs, storage_dtype=storage_dtype),
-                stencil=stencil, chunk=chunk, storage_dtype=storage_dtype)
-            return result_of(state), syncs
+                stencil=stencil, chunk=chunk, history=ring,
+                storage_dtype=storage_dtype)
+            return with_history(result_of(state), ring), syncs
 
     return Solver(run), assembly.assemble(problem, dtype, dev), engine
 

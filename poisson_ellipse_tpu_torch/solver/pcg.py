@@ -28,6 +28,14 @@ each body loads them at compute width and stores the new ones rounded; a,
 b and D are rounded once from the compute-width operands. The "pallas"
 stencil is then K-g, which reads p, a and b narrow. A body that changes
 nothing (breakdown, or issued after the exit) keeps the stored bits.
+
+``history`` records each iteration's (zr, diff, α, β) into the ring of
+``obs.convergence`` (the raw zr_new and β, the carried diff, the applied
+α) at column k, the iteration ``run_chunked`` issues the body as, masked
+by the body's device flag: no host read, and the iterates bitwise those
+of the plain loop. A breakdown iteration records α = 0 and the zr and β of
+the update it discards, which here is none: zr_new is the held state's
+(JAX forms it from the discarded update).
 """
 
 from __future__ import annotations
@@ -37,6 +45,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from poisson_ellipse_tpu_torch.models.problem import Problem
+from poisson_ellipse_tpu_torch.obs.convergence import (
+    history_init,
+    history_record,
+    trace_of,
+)
 from poisson_ellipse_tpu_torch.ops import assembly
 from poisson_ellipse_tpu_torch.ops.precision import (
     load,
@@ -106,8 +119,8 @@ def unported(option: str, item: str):
     )
 
 
-def reject_unported(history=False, precond=None, storage_dtype=None,
-                    x0=None, recycle=None, geometry=None) -> None:
+def reject_unported(precond=None, storage_dtype=None, x0=None, recycle=None,
+                    geometry=None) -> None:
     """Raise for any option this slice does not port, naming the
     ROADMAP.md item that will; and, as the JAX package does, for a
     storage dtype beside a preconditioner."""
@@ -119,8 +132,6 @@ def reject_unported(history=False, precond=None, storage_dtype=None,
         )
     if geometry is not None:
         raise unported("geometry=", "Queue A item 11")
-    if history:
-        raise unported("history=", "Queue A item 8")
     if precond is not None:
         raise unported("precond=", "Queue A item 11")
     if x0 is not None or recycle:
@@ -163,12 +174,13 @@ def run_chunked(step: Callable[[int], None],
             step(k + j * per_body)
 
 
-def init_state(problem: Problem, a, b, rhs, history: bool = False,
-               precond=None, storage_dtype=None, x0=None, recycle=None):
+def init_state(problem: Problem, a, b, rhs, precond=None, storage_dtype=None,
+               x0=None, recycle=None):
     """The PCG carry at iteration 0 (w = 0, r = rhs, p = z = D⁻¹r); with
     ``storage_dtype`` w, r and p are stored in it, zr stays at compute
-    width."""
-    reject_unported(history, precond, storage_dtype, x0, recycle)
+    width. A history ring is not part of the carry: ``new_ring`` makes
+    one, and ``advance(history=ring)`` records into it."""
+    reject_unported(precond, storage_dtype, x0, recycle)
     st = resolve_storage_dtype(storage_dtype, rhs.dtype)
     dev = rhs.device
     h1, h2 = spacing(problem.h1, rhs), spacing(problem.h2, rhs)
@@ -226,14 +238,22 @@ def stored_operands(a, b, d, storage_dtype):
     return tuple(store(x, storage_dtype) for x in (a, b, d))
 
 
+def new_ring(problem: Problem, like: torch.Tensor) -> torch.Tensor:
+    """A zeroed ``obs.convergence`` ring for a solve of ``problem`` at
+    ``like``'s dtype on its device."""
+    return history_init(problem.max_iterations, like.dtype, like.device)
+
+
 def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
-              storage_dtype=None):
+              storage_dtype=None, ring=None):
     """One PCG iteration as a function of the carry, with no host sync.
 
     With ``storage_dtype`` the body loads w, r and p at compute width and
     stores the new ones rounded (the JAX storage body,
     ``poisson_ellipse_tpu/solver/pcg.py:197-275``); K-g reads the stored p.
-    Without one, load and store are identities."""
+    Without one, load and store are identities. With ``ring`` (``new_ring``)
+    ``body(s, k)`` records its iteration into column ``k``, the iteration
+    the host issues it as (``run_chunked``'s)."""
     st = resolve_storage_dtype(storage_dtype, rhs.dtype)
     dtype, dev = rhs.dtype, rhs.device
     h1, h2 = spacing(problem.h1, rhs), spacing(problem.h2, rhs)
@@ -248,7 +268,7 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
     d = load(d_s, dtype, st)
     narrow_stencil = st is not None and stencil == "pallas"
 
-    def body(s: PCGState) -> PCGState:
+    def body(s: PCGState, k: Optional[int] = None) -> PCGState:
         active = (s.k < limit) & ~s.converged & ~s.breakdown
         w, r, p = (load(x, dtype, st) for x in (s.w, s.r, s.p))
         ap = apply_stencil(s.p if narrow_stencil else p)
@@ -270,13 +290,19 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
         converged = step & (diff < delta)
         beta = zr_new / s.zr
         advance = step & ~converged
+        diff = torch.where(step, diff, s.diff)
+        if ring is not None:
+            if k is None:
+                raise ValueError("a body that records into a ring needs "
+                                 "the iteration the host issues it as")
+            history_record(ring, k, active, zr_new, diff, alpha, beta)
         return PCGState(
             k=s.k + active.to(s.k.dtype),
             w=store(w_new, st),
             r=store(r_new, st),
             p=torch.where(advance, store(z + beta * p, st), s.p),
             zr=torch.where(advance, zr_new, s.zr),
-            diff=torch.where(step, diff, s.diff),
+            diff=diff,
             converged=s.converged | converged,
             breakdown=s.breakdown | (active & breakdown),
         )
@@ -286,22 +312,24 @@ def make_body(problem: Problem, a, b, rhs, limit: int, stencil: str = "xla",
 
 def advance(problem: Problem, a, b, rhs, state: PCGState, limit=None,
             stencil: str = "xla", chunk: int = DEFAULT_CHUNK,
-            history: bool = False, precond=None, storage_dtype=None):
+            history=None, precond=None, storage_dtype=None):
     """Advance the carry until convergence/breakdown or iteration ``limit``
     (default ``max_iterations``). Returns (new carry, host reads).
 
     Chunking moves only where the host looks, not the arithmetic, so any
     ``chunk`` and any sequence of ``limit``s give the same bits.
-    ``storage_dtype`` must be the one the carry was made with.
+    ``storage_dtype`` must be the one the carry was made with. ``history``
+    is a ring (``new_ring``) each iteration is recorded into, or None.
     """
-    reject_unported(history, precond, storage_dtype)
+    reject_unported(precond, storage_dtype)
     cap = problem.max_iterations
     limit = cap if limit is None else min(int(limit), cap)
-    body = make_body(problem, a, b, rhs, limit, stencil, storage_dtype)
+    body = make_body(problem, a, b, rhs, limit, stencil, storage_dtype,
+                     ring=check_ring(history, problem, rhs))
     carry = [state]
 
-    def step(_k):
-        carry[0] = body(carry[0])
+    def step(k):
+        carry[0] = body(carry[0], k)
 
     def flags():
         s = carry[0]
@@ -310,6 +338,26 @@ def advance(problem: Problem, a, b, rhs, state: PCGState, limit=None,
 
     syncs = run_chunked(step, flags, limit, chunk)
     return carry[0], syncs
+
+
+def check_ring(ring, problem: Problem, like: torch.Tensor):
+    """``ring`` if it is a history ring for ``problem`` at ``like``'s
+    dtype and device, None for None or False; raises otherwise (``True``
+    included: the caller makes the ring, ``new_ring``)."""
+    if ring is None or ring is False:
+        return None
+    if (not isinstance(ring, torch.Tensor) or ring.dtype != like.dtype
+            or ring.device != like.device
+            or ring.shape != (4, problem.max_iterations)):
+        raise ValueError("history= takes the ring new_ring(problem, rhs) "
+                         "makes (obs.convergence.history_init)")
+    return ring
+
+
+def with_history(result, ring):
+    """``result``, or (result, its ConvergenceTrace) when a ring was
+    recorded: the JAX package's ``history=True`` return."""
+    return result if ring is None else (result, trace_of(ring, result.iters))
 
 
 def result_of(state: PCGState) -> PCGResult:
@@ -326,21 +374,24 @@ def pcg(problem: Problem, a, b, rhs, stencil: str = "xla",
     stencil: "xla" (plain PyTorch slices) or "pallas" (the CUDA stencil
     K-a, ``ops.hopper_kernels.apply_a_kernel``; K-g with a storage dtype).
     ``storage_dtype``: the narrow dtype the state is stored in (the
-    returned w too), or None.
+    returned w too), or None. ``history=True`` returns (PCGResult,
+    ``obs.convergence.ConvergenceTrace``).
     """
-    reject_unported(history, precond, storage_dtype, x0, recycle)
+    reject_unported(precond, storage_dtype, x0, recycle)
     state = init_state(problem, a, b, rhs, storage_dtype=storage_dtype)
+    ring = new_ring(problem, rhs) if history else None
     state, _ = advance(problem, a, b, rhs, state, stencil=stencil,
-                       chunk=chunk, storage_dtype=storage_dtype)
-    return result_of(state)
+                       chunk=chunk, history=ring,
+                       storage_dtype=storage_dtype)
+    return with_history(result_of(state), ring)
 
 
 def solve(problem: Problem, dtype: torch.dtype = torch.float32,
           stencil: str = "xla", device=None, chunk: int = DEFAULT_CHUNK,
           history: bool = False, storage_dtype=None) -> PCGResult:
     """Assemble and solve on one device (cuda unless ``device='cpu'``)."""
-    reject_unported(history, storage_dtype=storage_dtype)
+    reject_unported(storage_dtype=storage_dtype)
     dev = resolve_device(device)
     a, b, rhs = assembly.assemble(problem, dtype, dev)
     return pcg(problem, a, b, rhs, stencil=stencil, chunk=chunk,
-               storage_dtype=storage_dtype)
+               history=history, storage_dtype=storage_dtype)

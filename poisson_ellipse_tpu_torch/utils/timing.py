@@ -3,7 +3,9 @@
 On a CUDA device a phase is timed with CUDA events recorded on the
 current stream around it and closed by the fence
 ``torch.cuda.synchronize()``. On the CPU the host clock is the only
-clock and there is nothing to fence.
+clock and there is nothing to fence. Every measurement is also a
+``phase:<name>`` span on the ambient trace (``obs.trace``; a no-op when
+tracing is off), as the JAX package's ``PhaseTimer`` emits it.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+
+from poisson_ellipse_tpu_torch.obs import trace as _trace
 
 
 @dataclass
@@ -24,6 +28,7 @@ class PhaseTimer:
 
     def add(self, name: str, seconds: float) -> None:
         self.totals[name] = self.totals.get(name, 0.0) + seconds
+        _trace.span_event(f"phase:{name}", seconds)
 
     @contextlib.contextmanager
     def phase(self, name: str):

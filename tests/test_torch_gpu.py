@@ -46,7 +46,10 @@ launch captured in a CUDA graph equals the eager one. The plain-stencil
 march (K-a f32 and bf16, K-e) is held bitwise, on integer views so the
 sign of a zero counts, on seeded, +0, -0 and zero-exterior inputs at
 ragged shapes, on capped solves' own w, lane by lane at B = 1, 3 and 32,
-and in a CUDA graph. Device activities are counted in a fresh
+and in a CUDA graph. The history ring (``obs.convergence``) on
+``fused``, ``pallas`` and ``pipelined-pallas`` gives the plain solve's
+bits, host reads and launches, and adds RING_ACTIVITIES device activities
+a body. Device activities are counted in a fresh
 process (``activities``): after the graph tests the profiler recorded no
 activity for some calls.
 """
@@ -1309,6 +1312,10 @@ def _count_activities() -> dict:
     counts["K1 bf16"] = device_activities(_k1_bf16_call(dev)[0])
     for name, call in _lane_mesh_bf16_calls(dev).items():
         counts[name] = device_activities(call)
+    from chip_smoke import count_ring_activities
+
+    counts.update({f"ring {name}": pair
+                   for name, pair in count_ring_activities().items()})
     for M, N, B in BATCHED_BF16_SHAPES:
         w, a, b, ops = _bf16_lane_inputs(M, N, B, dev)
         pairs = pp._bundle(*ops)
@@ -2129,3 +2136,55 @@ def test_batched_bf16_lane_marches_issue_one_device_kernel(cuda, activities,
     march's frames: a call is its kernel alone."""
     for name in ("K-e bf16 full", "K-e bf16 block", "K-f bf16"):
         assert activities[f"{name} {M}x{N} B={B}"] == 1, name
+
+
+# -- the history ring (obs.convergence) on the kernel engines ----------------
+
+RING_ENGINES = ("fused", "pallas", "pipelined-pallas")
+# the device activities the ring's record adds a body: the classical
+# loop's stack, mask and copy into the ring's column; the pipelined loop's
+# α mask on top; fused's two flag tests and β's select on top. No operand
+# is a Python scalar (a where against one added a copy from the host a
+# body, 4 / 6 / 7 on the H100)
+RING_ACTIVITIES = {"pallas": 3, "pipelined-pallas": 4, "fused": 6}
+
+
+@pytest.mark.parametrize("name", RING_ENGINES)
+def test_history_ring_is_bitwise_and_adds_no_launch(cuda, name):
+    """With the ring on, the kernel engines give the plain solve's bits,
+    host reads and kernel launches; the ring's valid entries are finite,
+    the rest zero, its last step norm the solver's."""
+    p = Problem(M=44, N=132)
+    runs = []
+    for history in (False, True):
+        solver, args, _ = engine.build_solver(p, name, torch.float32, cuda,
+                                              history=history)
+        solver(*args)
+        _build.reset_launches()
+        out = solver(*args)
+        runs.append((out, solver.host_syncs, dict(_build.LAUNCHES)))
+    (plain, plain_syncs, plain_launches), ((result, trace), syncs,
+                                           launches) = runs
+    assert int(result.iters) == int(plain.iters) and bool(result.converged)
+    assert _same_bits(result.w, plain.w)
+    assert _same_bits(result.diff, plain.diff)
+    assert syncs == plain_syncs and launches == plain_launches
+    assert launches
+    n = int(result.iters)
+    ring = torch.stack([trace.zr, trace.diff, trace.alpha, trace.beta])
+    assert bool(torch.isfinite(ring[:, :n]).all())
+    assert not bool(ring[:, n:].any())
+    assert float(trace.diff[n - 1]) == float(result.diff)
+
+
+@pytest.mark.parametrize("name", RING_ENGINES)
+def test_history_ring_activities_a_body(cuda, activities, name):
+    """The ring adds RING_ACTIVITIES[name] device activities a body and no
+    kernel launch of the port's (torch.profiler over a capped solve, in
+    the fresh process: ``activities``)."""
+    from chip_smoke import RING_CAP
+
+    plain, ring = activities[f"ring {name}"]
+    assert plain > 0
+    # and the ring's zero fill once a solve
+    assert ring - plain == RING_ACTIVITIES[name] * RING_CAP + 1

@@ -109,12 +109,12 @@ def test_entry_points_raise_without_a_card(no_card, capsys):
 
 
 def test_run_once_ports_single_mode_only():
-    # the mesh's engines are ported (test_torch_parallel,
-    # test_torch_mesh_rest) but bf16 compute on its pipelined, s-step and
-    # lane-sharded forms, ROADMAP Queue A item 21d; no other mode runs
-    with pytest.raises(NotImplementedError, match="Queue A item 21"):
-        run_once(Problem(M=10, N=10), mode="sharded", engine="pipelined",
-                 dtype="bf16", device="cpu")
+    # the mesh's engines are ported in every dtype (test_torch_parallel,
+    # test_torch_mesh_rest, test_torch_mesh_bf16_rest), the single-device
+    # engines refused there; no other mode runs
+    with pytest.raises(ValueError, match="single-device only"):
+        run_once(Problem(M=10, N=10), mode="sharded",
+                 engine="pipelined-pallas", dtype="bf16", device="cpu")
     with pytest.raises(ValueError, match="mode"):
         run_once(Problem(M=10, N=10), mode="native", device="cpu")
 

@@ -427,7 +427,10 @@ def test_lane_refill_advance_names_item_10():
 
 @pytest.mark.parametrize("build", ["pipelined", "sstep", "lanes"])
 def test_bf16_compute_names_item_21d(build):
-    p, m = Problem(M=10, N=10), mesh.make_mesh(device="cpu")
+    """Item 21d is ported: bf16 compute builds and runs on the pipelined,
+    s-step and lane-sharded mesh (one rank here; held to the JAX package
+    in tests/test_torch_mesh_bf16_rest.py), the state in bf16."""
+    p, m = Problem(M=10, N=10, max_iter=8), mesh.make_mesh(device="cpu")
     calls = {
         "pipelined": lambda: ps.build_sharded_solver(
             p, m, torch.bfloat16, stencil_impl="pipelined"),
@@ -435,8 +438,10 @@ def test_bf16_compute_names_item_21d(build):
         "lanes": lambda: bs.build_batched_sharded_solver(
             p, m, 1, torch.bfloat16),
     }
-    with pytest.raises(NotImplementedError, match="Queue A item 21d"):
-        calls[build]()
+    solver, args = calls[build]()
+    result = solver(*args)
+    assert result.w.dtype == torch.bfloat16
+    assert int(torch.as_tensor(result.iters).max()) <= 8
 
 
 # -- the harness ----------------------------------------------------------
@@ -494,12 +499,11 @@ def test_cli_lanes_and_narrow_storage_on_the_mesh(capsys):
      "sharded --storage-dtype covers the sstep engine"),
     (dict(engine="xla", lanes=2), ValueError,
      "--lanes needs --engine batched"),
-    (dict(engine="pipelined", dtype="bf16"), NotImplementedError,
-     "Queue A item 21d"),
-    (dict(engine="sstep", dtype="bf16"), NotImplementedError,
-     "Queue A item 21d"),
-    (dict(engine="batched", lanes=2, dtype="bf16"), NotImplementedError,
-     "Queue A item 21d"),
+    (dict(engine="resident"), ValueError, "single-device only"),
+    (dict(engine="sstep", lanes=2), ValueError,
+     "--lanes needs --engine batched"),
+    (dict(engine="batched", lanes=2, storage_dtype="bf16"), ValueError,
+     "sharded --storage-dtype covers the sstep engine"),
     (dict(engine="pipelined-pallas"), ValueError, "single-device only"),
 ])
 def test_run_once_sharded_refusals(kw, error, text):

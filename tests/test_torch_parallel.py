@@ -43,6 +43,7 @@ from poisson_ellipse_tpu_torch.parallel import fused_sharded as fs
 from poisson_ellipse_tpu_torch.parallel import halo, mesh, multihost
 from poisson_ellipse_tpu_torch.parallel import pcg_sharded as ps
 from poisson_ellipse_tpu_torch.parallel import pipelined_sharded as pps
+from poisson_ellipse_tpu_torch.parallel import sstep_sharded as sss
 from poisson_ellipse_tpu_torch.solver import engine
 
 W_ATOL_F64 = 1e-10
@@ -707,17 +708,18 @@ def test_sharded_rejects_unknown_stencil_impl_and_assembly():
                          assembly_mode="disk")
 
 
-@pytest.mark.parametrize("option", ["history", "pipelined_bf16",
+@pytest.mark.parametrize("option", ["sstep_stepper", "sstep_abft",
                                     "pipelined_stepper", "stepper",
                                     "recover", "abft", "precond", "x0"])
 def test_unported_mesh_options_name_their_item(option):
     m = _mesh1()
     p = Problem(M=10, N=10)
     calls = {
-        "history": lambda: ps.build_sharded_solver(p, m, history=True),
-        # f32 and f64 run (tests/test_torch_mesh_rest.py); bf16 is 21d
-        "pipelined_bf16": lambda: ps.build_sharded_solver(
-            p, m, torch.bfloat16, stencil_impl="pipelined"),
+        # history= and bf16 on the pipelined mesh are ported
+        # (tests/test_torch_obs.py, tests/test_torch_mesh_bf16_rest.py)
+        "sstep_stepper": lambda: sss.build_sstep_sharded_stepper(p, m),
+        "sstep_abft": lambda: sss.make_sstep_parts(p, m, torch.float32, 4,
+                                                   abft=True),
         "pipelined_stepper": lambda: pps.build_pipelined_sharded_stepper(
             p, m),
         "stepper": lambda: ps.build_sharded_stepper(p, m),

@@ -176,7 +176,8 @@ def test_select_engine_policy():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(geometry="ellipse"), "Queue A item 11"),
-    (dict(history=True), "Queue A item 8"),
+    # history= is ported (tests/test_torch_obs.py)
+    (dict(recycle=1), "Queue A item 13"),
     (dict(precond="mg"), "Queue A item 11"),
     (dict(recycle=8), "Queue A item 13"),
 ])

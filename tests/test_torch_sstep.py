@@ -276,14 +276,22 @@ def test_engine_dtypes(name):
 
 @pytest.mark.parametrize("name", RECURRENCE_ENGINES)
 @pytest.mark.parametrize("kw,item", [
-    (dict(history=True), "Queue A item 8"),
+    # history= is ported: the pipelined engines record the ring
+    # (tests/test_torch_obs.py), the s-step engines refuse it as the JAX
+    # package does
+    (dict(history=True), "coordinate blocks"),
     # storage_dtype is ported (the storage runs below); storage wider than
     # compute is refused as in the JAX package
     (dict(storage_dtype=torch.float64), "wider than compute"),
 ])
 def test_unported_options_name_their_roadmap_item(name, kw, item):
-    error = NotImplementedError if "history" in kw else ValueError
-    with pytest.raises(error, match=item):
+    if "history" in kw and name.startswith("pipelined"):
+        solver, args, _ = engine.build_solver(Problem(M=10, N=10), name,
+                                              torch.float32, "cpu", **kw)
+        result, trace = solver(*args)
+        assert trace.valid()["diff"][-1] == float(result.diff)
+        return
+    with pytest.raises(ValueError, match=item):
         engine.build_solver(Problem(M=10, N=10), name, torch.float32, "cpu",
                             **kw)
 
@@ -306,11 +314,18 @@ def test_module_entry_points_reject_unported_options():
 
     problem = Problem(M=10, N=10)
     _, ours, _ = _operands(problem)
+    # history= is ported: the module entry points return the trace too
     for call in (lambda: pp.pcg_pipelined(problem, *ours, history=True),
-                 lambda: pp.solve(problem, device="cpu", history=True),
-                 lambda: pp.init_state(problem, *ours, history=True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            call()
+                 lambda: pp.solve(problem, device="cpu", history=True)):
+        result, trace = call()
+        assert int(trace.iters) == int(result.iters)
+        assert bool(result.converged)
+    # a ring is not part of the carry, and advance records only into one
+    with pytest.raises(TypeError):
+        pp.init_state(problem, *ours, history=True)
+    with pytest.raises(ValueError, match="new_ring"):
+        pp.advance(problem, *ours, pp.init_state(problem, *ours),
+                   history=True)
     # storage_dtype is ported: the module entry points run it (f64 compute
     # with bf16 storage here, f32 through solve)
     for call in (lambda: pp.pcg_pipelined(problem, *ours, storage_dtype="bf16"),
