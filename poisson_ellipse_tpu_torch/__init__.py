@@ -29,8 +29,14 @@ package's, so each module's counterpart has the same relative path:
   solving its block with the classical loop (``xla``, ``pallas``) or the
   fused iteration (K1-shard / K2-shard), halo exchanges and gathered
   reductions between them;
+- ``resilience`` — the exit-code contract and the classified errors,
+  deterministic fault injection, and the guard (``guarded_solve``: a
+  health word a chunk and the recovery ladder); ``solver.checkpoint``
+  saves and resumes the classical carry;
+- ``obs`` — the convergence ring, spectrum, trace, metrics and profile;
 - ``harness`` — ``run_once`` and the command line (``--lanes``,
-  ``--storage-dtype``, ``--mode sharded --mesh PX PY``);
+  ``--storage-dtype``, ``--mode sharded --mesh PX PY``, ``--guard``,
+  ``--timeout``, ``--checkpoint-dir``, ``inject``);
 - ``interop`` — the JAX package's arrays into the port, for the tests.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

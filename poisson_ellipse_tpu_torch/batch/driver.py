@@ -4,21 +4,23 @@ The counterpart of ``poisson_ellipse_tpu.batch.driver``. The batched
 engines already mask a poisoned lane out inside the loop; what the loop
 cannot do is tell anyone which lane, at which iteration. The driver issues
 the engine's bodies a chunk at a time and, after each chunk, reads the
-per-lane flag vector in one host read; each lane newly quarantined in that
-chunk becomes one ``RecoveryEvent("lane-quarantine", iters[lane],
-HEALTH_NONFINITE, engine, detail="lane j")``. Healthy lanes are untouched:
-their trajectory is the loop's.
-
-Each event is also emitted on the ambient trace (``obs.trace``) as
+loop's flags, the per-lane quarantine flags and iteration counts in one
+host read; each lane newly quarantined in that chunk becomes one
+``RecoveryEvent("lane-quarantine", iters[lane], HEALTH_NONFINITE, engine,
+detail="lane j")``, also emitted on the ambient trace (``obs.trace``) as
 ``recovery:lane-quarantine`` with the lane as the schema's top-level
-``lane`` key, as the JAX guard's ``_record`` emits it. Not ported in this
-slice: lane-addressed fault injection (``faults=``) and the graceful
-timeout (``timeout=``), both ROADMAP Queue A item 9.
+``lane`` key (``resilience.guard._record``). Healthy lanes are untouched:
+their trajectory is the loop's, bit for bit.
+
+``faults`` (``resilience.faultinject.FaultPlan``) injects lane-addressed
+carry corruption at exact iterations: a chunk ends at each fault's
+iteration and the fault corrupts that lane's slice of the carry there.
+``timeout`` cancels at a chunk boundary with ``SolveTimeout``.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import torch
@@ -29,31 +31,35 @@ from poisson_ellipse_tpu_torch.batch.batched_pcg import (
     batched_operands,
 )
 from poisson_ellipse_tpu_torch.models.problem import Problem
-from poisson_ellipse_tpu_torch.obs import trace as obs_trace
+from poisson_ellipse_tpu_torch.resilience.faultinject import FaultPlan
+from poisson_ellipse_tpu_torch.resilience.guard import (
+    DEFAULT_CHUNK,
+    HEALTH_NONFINITE,
+    RecoveryEvent,
+    _check_deadline,
+    _record,
+)
 from poisson_ellipse_tpu_torch.solver.engine import BATCHED_ENGINES
-from poisson_ellipse_tpu_torch.solver.pcg import run_chunked, unported
+from poisson_ellipse_tpu_torch.solver.pcg import run_chunked
 
-# the port's copies of poisson_ellipse_tpu/resilience/guard.py's health bit
-# for a non-finite carry and its chunk length
-HEALTH_NONFINITE = 2
-DEFAULT_CHUNK = 128
-
-
-@dataclasses.dataclass(frozen=True)
-class RecoveryEvent:
-    """One recovery action: what fired, where, and what the guard did
-    (``resilience.guard.RecoveryEvent`` in the JAX package)."""
-
-    kind: str
-    at_iter: int
-    health: int
-    engine: str
-    detail: str = ""
-
-
-# each engine's module (the JAX table's carry-slot addressing for fault
-# injection comes with ROADMAP Queue A item 9)
-_LAYOUT = {"batched": batched_pcg, "batched-pipelined": batched_pipelined}
+# carry layouts per engine: the module, the field-name → index table the
+# fault plans address (resilience.guard's adapters' contract), and the
+# slots of the breakdown flags and of zr (γ₋₁ in the pipelined carry)
+_LAYOUT = {
+    "batched": {
+        "module": batched_pcg,
+        "fields": {"w": 1, "r": 2, "p": 3, "zr": 4},
+        "zr": 4, "bd": 7,
+    },
+    "batched-pipelined": {
+        "module": batched_pipelined,
+        "fields": {
+            "x": 1, "r": 2, "u": 3, "w": 4, "z": 5, "s": 6, "p": 7,
+            "gamma": 8,
+        },
+        "zr": 8, "bd": 11,
+    },
+}
 
 
 class GuardedBatchedResult(NamedTuple):
@@ -74,7 +80,7 @@ def solve_batched(
     operands=None,
     mask=None,
     chunk: int = DEFAULT_CHUNK,
-    faults=None,
+    faults: Optional[FaultPlan] = None,
     timeout: Optional[float] = None,
     device=None,
     state=None,
@@ -87,23 +93,36 @@ def solve_batched(
     problem is assembled on ``device`` (cuda unless ``device='cpu'``) and
     its RHS tiled over ``lanes``. ``state`` is a carry of the engine's
     layout to continue from (default: the engine's ``init_state``).
+    ``faults`` must be lane-addressed (``Fault(..., lane=j)``, j inside
+    the batch); ``timeout`` is seconds, checked at each chunk boundary.
     """
     if engine not in BATCHED_ENGINES:
         raise ValueError(
             f"unknown batched engine {engine!r} (one of {BATCHED_ENGINES})"
         )
-    if faults is not None:
-        raise unported("faults=", "Queue A item 9")
-    if timeout is not None:
-        raise unported("timeout=", "Queue A item 9")
     if chunk < 1:
         raise ValueError("chunk must be >= 1")
     stencil = "pallas" if engine.endswith("-pallas") else "xla"
-    mod = _LAYOUT[engine.removesuffix("-pallas")]
+    lay = _LAYOUT[engine.removesuffix("-pallas")]
+    mod = lay["module"]
     a, b, rhs = (operands if operands is not None
                  else batched_operands(problem, lanes, dtype, device))
     if rhs.shape[0] != lanes:
         raise ValueError(f"rhs carries {rhs.shape[0]} lanes, expected {lanes}")
+    plan = faults if faults is not None else FaultPlan()
+    for fault in plan.faults:
+        if fault.lane is None:
+            raise ValueError(
+                "batched carries hold per-lane state: faults must be "
+                "lane-addressed (Fault(..., lane=j)) so the corruption "
+                "lands on one lane's slice"
+            )
+        if not 0 <= fault.lane < lanes:
+            raise ValueError(
+                f"fault lane {fault.lane} outside the {lanes}-lane batch"
+            )
+    events: list[RecoveryEvent] = []
+    t0 = time.monotonic()
     max_iter = problem.max_iterations
     body = mod.make_body(problem, a, b, rhs, max_iter, mask=mask,
                          stencil=stencil)
@@ -112,11 +131,18 @@ def solve_batched(
         extra = {"stencil": stencil} if mod is batched_pipelined else {}
         state = mod.init_state(problem, a, b, rhs, mask=mask, **extra)
     carry = [state]
-    events: list[RecoveryEvent] = []
     seen = [False] * lanes
 
     def step(k: int):
         carry[0] = body(carry[0], k)
+
+    def chunk_end(k: int):
+        _check_deadline(timeout, t0, k)
+        stop = plan.next_stop(k - 1)  # a fault AT k fires before this chunk
+        if plan:
+            carry[0] = plan.apply(k, carry[0], lay["fields"], lay["bd"],
+                                  lay["zr"])
+        return stop if stop is not None and k < stop else None
 
     def flags():
         # one host read a chunk: the loop's flags, then per lane the
@@ -129,14 +155,12 @@ def solve_batched(
         quar, iters = vals[3:3 + lanes], vals[3 + lanes:]
         for lane in range(lanes):
             if quar[lane] and not seen[lane]:
-                events.append(RecoveryEvent(
-                    "lane-quarantine", iters[lane], HEALTH_NONFINITE, engine,
-                    detail=f"lane {lane}"))
-                obs_trace.event("recovery:lane-quarantine", lane=lane,
-                                iter=iters[lane], health="nonfinite",
-                                engine=engine, detail=f"lane {lane}")
+                _record(events, "lane-quarantine", iters[lane],
+                        HEALTH_NONFINITE, engine, detail=f"lane {lane}",
+                        lane=lane)
         seen[:] = [bool(q) for q in quar]
 
-    run_chunked(step, flags, max_iter, chunk, on_read=on_read)
+    run_chunked(step, flags, max_iter, chunk, on_read=on_read,
+                chunk_end=chunk_end)
     return GuardedBatchedResult(result=mod.result_of(carry[0]),
                                 recoveries=tuple(events), engine=engine)

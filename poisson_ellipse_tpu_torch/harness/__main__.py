@@ -32,15 +32,29 @@ this process is one rank and rank 0 prints; otherwise the command starts
 the PX·PY rank processes itself (``parallel.multihost.spawn``), runs every
 grid in them, and prints rank 0's reports.
 
-Exit codes: 0 converged, 1 not converged within the iteration cap,
-2 breakdown or bad input (and a diagnose whose history solve is not the
-plain one bit for bit).
+``--guard`` runs the solve through ``resilience.guard`` (chunks with a
+health word each, the recovery ladder, classified errors), ``--timeout S``
+(which implies ``--guard``) cancels it at a chunk boundary past S seconds,
+``--max-recoveries`` caps the ladder; with ``--lanes`` the guard is the
+chunked lane driver. ``--checkpoint-dir D`` saves the carry every
+``--chunk`` iterations (``xla`` or ``pallas``) and resumes from D. The
+``inject`` subcommand runs one guarded solve with one deterministic fault
+(``resilience.faultinject``) and reports the recovery.
+
+Exit codes (the JAX package's contract, ``resilience.errors``): 0
+converged; 1 not converged within the iteration cap; 2 breakdown,
+recovery budget exhausted, or bad input (and a diagnose whose history
+solve is not the plain one bit for bit); 3 device out of memory with no
+engine left to degrade to; 4 ``--timeout`` exceeded (a partial report on
+the trace); 5-9 the serving, ABFT, mesh, geometry and fleet errors of
+modules not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import torch
@@ -54,8 +68,20 @@ from poisson_ellipse_tpu_torch.harness.run import (
 from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.obs import metrics as obs_metrics
 from poisson_ellipse_tpu_torch.obs import trace as obs_trace
+from poisson_ellipse_tpu_torch.resilience.errors import SolveError
 from poisson_ellipse_tpu_torch.solver.engine import ENGINES
 from poisson_ellipse_tpu_torch.utils.device import resolve_device
+
+
+EXIT_CODES_HELP = (
+    "exit codes (contract): 0 converged; 1 iteration cap reached without "
+    "convergence; 2 diverged — breakdown or recovery budget exhausted "
+    "(also invalid invocations, per argparse convention); 3 device "
+    "out-of-memory with no engine left to degrade to; 4 --timeout "
+    "exceeded (partial trace artifact emitted); 5-9 the serving, ABFT, "
+    "mesh-loss, geometry and fleet errors (resilience.errors), raised by "
+    "modules not ported yet."
+)
 
 
 def _parse_grid(spec: str) -> tuple[int, int]:
@@ -71,9 +97,12 @@ def main(argv=None) -> int:
         return _run_diagnose(argv[1:])
     if argv and argv[0] == "inspect":
         return _run_inspect(argv[1:])
+    if argv and argv[0] == "inject":
+        return _run_inject(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m poisson_ellipse_tpu_torch.harness",
         description="Fictitious-domain Poisson PCG on one CUDA device",
+        epilog=EXIT_CODES_HELP,
     )
     ap.add_argument("M", type=int, nargs="?", help="grid cells in x")
     ap.add_argument("N", type=int, nargs="?", help="grid cells in y")
@@ -135,6 +164,27 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-interval", type=float, default=30.0,
                     metavar="SECONDS",
                     help="periodic snapshot cadence for --metrics")
+    ap.add_argument("--checkpoint-dir",
+                    help="persist the PCG carry here every --chunk "
+                    "iterations and resume from it after a kill (engines "
+                    "xla and pallas)")
+    ap.add_argument("--chunk", type=int, default=500,
+                    help="iterations between checkpoints (with "
+                    "--checkpoint-dir)")
+    ap.add_argument("--timeout", type=float, default=None, metavar="SECONDS",
+                    help="per-solve deadline, enforced at guard chunk "
+                    "boundaries (graceful cancel: the in-flight chunk "
+                    "completes, a partial schema-valid trace is emitted, "
+                    "exit code 4); implies --guard")
+    ap.add_argument("--guard", action="store_true",
+                    help="run through resilience.guard: chunked execution "
+                    "with a per-chunk device-side health word (breakdown/"
+                    "NaN/stagnation), the recovery ladder (residual restart "
+                    "-> f32->f64 escalation -> engine fallback), and "
+                    "classified errors instead of NaN results")
+    ap.add_argument("--max-recoveries", type=int, default=3,
+                    help="recovery-action budget for guarded runs before "
+                    "the solve is classified diverged (exit code 2)")
     ap.add_argument("--json", action="store_true", help="one JSON line per run")
     args = ap.parse_args(argv)
 
@@ -216,7 +266,9 @@ def _run_cli(args) -> int:
         return Problem(M=M, N=N, delta=args.delta, eps=args.eps,
                        norm=args.norm)
 
-    if args.mode == "sharded":
+    resilient = (args.guard or args.timeout is not None
+                 or args.checkpoint_dir is not None)
+    if args.mode == "sharded" and not resilient:
         try:
             reports = _sharded(args, [problem_of(M, N) for M, N in grids])
         except (ValueError, NotImplementedError, RuntimeError) as e:
@@ -227,12 +279,33 @@ def _run_cli(args) -> int:
         return max(_show(report, args.json) for report in reports)
     rc = 0
     for M, N in grids:
+        ck_dir = args.checkpoint_dir
+        if ck_dir is not None and len(grids) > 1:
+            # a checkpoint is fingerprinted by its grid: one directory a run
+            ck_dir = os.path.join(ck_dir, f"{M}x{N}")
         try:
-            report = run_once(problem_of(M, N), dtype=args.dtype,
-                              engine=args.engine, repeat=args.repeat,
-                              device=args.device, sstep_s=args.sstep_s,
-                              lanes=args.lanes,
-                              storage_dtype=args.storage_dtype)
+            report = run_once(problem_of(M, N), mode=args.mode,
+                              dtype=args.dtype, engine=args.engine,
+                              repeat=args.repeat, device=args.device,
+                              sstep_s=args.sstep_s, lanes=args.lanes,
+                              storage_dtype=args.storage_dtype,
+                              mesh_shape=(tuple(args.mesh) if args.mesh
+                                          else None),
+                              checkpoint_dir=ck_dir, chunk=args.chunk,
+                              timeout=args.timeout, guard=args.guard,
+                              max_recoveries=args.max_recoveries)
+        except SolveError as e:
+            # the classified exit: the trace keeps every event written
+            # before the abort (recovery:* included) and this partial report
+            record = {"M": M, "N": N, "dtype": args.dtype,
+                      "engine": args.engine, "aborted": e.classification,
+                      "iters": e.iters}
+            obs_trace.event("run_report_partial", **record)
+            if args.json:
+                print(json.dumps(record))
+            print(f"error: solve aborted — {e.classification}: {e}",
+                  file=sys.stderr)
+            return e.exit_code
         except (ValueError, NotImplementedError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
@@ -491,6 +564,130 @@ def _run_inspect(argv: list) -> int:
         print(static_cost.render_report(report))
     obs_trace.event("inspect", **report)
     return 0
+
+
+# the chunk-steppable engines ``inject`` guards (the JAX subcommand's, less
+# the multigrid engines of ROADMAP Queue A item 11)
+INJECT_ENGINES = ("xla", "pallas", "pipelined", "pipelined-pallas")
+
+
+def _run_inject(argv: list) -> int:
+    """The ``inject`` subcommand: one guarded solve with one deterministic
+    fault, reporting the recovery ladder's actions (the JAX subcommand's
+    arguments, JSON record and exit codes)."""
+    from poisson_ellipse_tpu_torch.harness.run import DTYPES
+    from poisson_ellipse_tpu_torch.resilience import faultinject
+    from poisson_ellipse_tpu_torch.resilience.guard import guarded_solve
+
+    ap = argparse.ArgumentParser(
+        prog="python -m poisson_ellipse_tpu_torch.harness inject",
+        description="Fault-injection harness: run a guarded solve with "
+        "one deterministic fault (resilience.faultinject) and report the "
+        "recovery ladder's actions. " + EXIT_CODES_HELP,
+    )
+    ap.add_argument(
+        "fault",
+        # device_loss/straggler are mesh-level dispatch faults: the mesh
+        # guard's drills, not the single-solve guard's
+        choices=sorted(
+            set(faultinject.FAULT_KINDS) - {"device_loss", "straggler"}
+        ),
+        help="fault class to inject (see resilience.faultinject)",
+    )
+    ap.add_argument("M", type=int, nargs="?", default=40)
+    ap.add_argument("N", type=int, nargs="?", default=None)
+    ap.add_argument("--at", type=int, default=10, metavar="K",
+                    help="iteration to inject at (guard chunks stop "
+                    "exactly there)")
+    ap.add_argument("--field", default=None,
+                    help="carry field to corrupt (nan/halo faults; "
+                    "default r)")
+    ap.add_argument("--persistent", action="store_true",
+                    help="re-fire the fault on every visit instead of "
+                    "one-shot — forces the guard up the ladder and into the "
+                    "classified error")
+    ap.add_argument("--engine", default="xla", choices=INJECT_ENGINES,
+                    help="chunk-steppable engine to guard (carry faults "
+                    "need one)")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument("--chunk", type=int, default=16)
+    ap.add_argument("--max-recoveries", type=int, default=3)
+    ap.add_argument("--timeout", type=float, default=None)
+    ap.add_argument("--delta", type=float, default=1e-6)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--trace", metavar="FILE", help="JSONL trace sink")
+    ap.add_argument("--json", action="store_true", help="one JSON line")
+    args = ap.parse_args(argv)
+
+    err = _start_trace(args.trace)
+    if err:
+        return err
+    # everything past the tracer's start sits under the finally that stops
+    # it: a bad fault or problem spec exits 2 and releases the tracer
+    try:
+        try:
+            dev = resolve_device(args.device)
+        except (RuntimeError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        try:
+            problem = Problem(M=args.M,
+                              N=args.N if args.N is not None else args.M,
+                              delta=args.delta)
+            plan = faultinject.FaultPlan(faultinject.Fault(
+                args.fault, at_iter=args.at, field=args.field,
+                persistent=args.persistent,
+            ))
+            guarded = guarded_solve(
+                problem, args.engine, DTYPES[args.dtype], chunk=args.chunk,
+                max_recoveries=args.max_recoveries, timeout=args.timeout,
+                faults=plan, device=dev,
+            )
+        except SolveError as e:
+            record = {"fault": args.fault, "at": args.at,
+                      "engine": args.engine,
+                      "aborted": e.classification, "iters": e.iters}
+            obs_trace.event("inject_report", **record)
+            if args.json:
+                print(json.dumps(record))
+            else:
+                print(f"fault {args.fault}@{args.at}: solve aborted — "
+                      f"{e.classification} ({e}); exit {e.exit_code}",
+                      file=sys.stderr)
+            return e.exit_code
+        except (ValueError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        return _report_inject(args, guarded)
+    finally:
+        # stop last: every inject_report above must land in the trace
+        if args.trace:
+            obs_trace.stop()
+
+
+def _report_inject(args, guarded) -> int:
+    result = guarded.result
+    record = {
+        "fault": args.fault, "at": args.at,
+        "engine_requested": args.engine, "engine_final": guarded.engine,
+        "dtype_final": guarded.dtype,
+        "iters": int(result.iters), "converged": bool(result.converged),
+        "recoveries": [e.kind for e in guarded.recoveries],
+    }
+    obs_trace.event("inject_report", **record)
+    if args.json:
+        print(json.dumps(record))
+    else:
+        kinds = ", ".join(e.kind for e in guarded.recoveries) or "none"
+        print(
+            f"fault {args.fault}@{args.at} on {args.engine}: "
+            f"{'converged' if record['converged'] else 'NOT converged'} "
+            f"after {record['iters']} iterations "
+            f"(recoveries: {kinds}; finished on {guarded.engine}"
+            + (f", {guarded.dtype}" if guarded.dtype else "")
+            + ")"
+        )
+    return 0 if record["converged"] else 1
 
 
 if __name__ == "__main__":

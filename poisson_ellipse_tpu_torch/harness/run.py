@@ -44,12 +44,29 @@ solve up to its owned block (its lanes), after a barrier; the global w (the
 lanes) is gathered for the L2 error afterwards. The report names the mesh
 and the backend and counts the timed solve's loop bodies, collectives
 (every rank's) and kernel launches (every rank's).
+
+``guard=True`` (or any ``timeout``) routes one solve through
+``resilience.guard.guarded_solve``: the bodies in chunks with a health
+word a chunk, the recovery ladder, classified ``SolveError``s instead of
+NaN results, ``timeout`` seconds checked at each chunk boundary
+(``SolveTimeout``, exit 4 on the command line); with ``lanes`` > 1 or a
+lane-batched engine, through the chunked lane driver
+(``batch.driver.solve_batched``). ``checkpoint_dir`` runs one
+``solver.checkpoint.CheckpointingSolver`` solve (``xla`` or ``pallas``),
+saving the carry every ``chunk`` iterations and resuming from the newest
+valid step there. Both are timed by a plain wall clock around the one
+solve, after a device fence, as the JAX harness times them (a restartable
+solve is not the bench protocol); the report's ``recoveries`` lists the
+guard's recovery kinds in order, and a resumed run's roofline covers only
+the iterations it ran (``timed_iters``). On the mesh they are ROADMAP
+Queue A item 21b.
 """
 
 from __future__ import annotations
 
 import math
 import statistics
+import time
 from dataclasses import dataclass, field
 
 import torch
@@ -82,7 +99,7 @@ from poisson_ellipse_tpu_torch.solver.engine import (
     SHARDED_ENGINES,
     build_solver,
 )
-from poisson_ellipse_tpu_torch.solver.pcg import DEFAULT_CHUNK
+from poisson_ellipse_tpu_torch.solver.pcg import DEFAULT_CHUNK, unported
 from poisson_ellipse_tpu_torch.utils.device import capacity, resolve_device
 from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
 from poisson_ellipse_tpu_torch.utils.timing import PhaseTimer
@@ -127,6 +144,12 @@ class RunReport:
     bodies: int = 0
     rank_collectives: list = field(default_factory=list)
     rank_launches: list = field(default_factory=list)
+    # iterations T_solver covers when it differs from ``iters``: a resumed
+    # checkpointed run times only the iterations it ran
+    timed_iters: int | None = None
+    # the recovery actions of a guarded run (resilience.guard event kinds,
+    # in order); empty: the healthy path ran start to finish
+    recoveries: list = field(default_factory=list)
 
     def summary(self) -> str:
         p = self.problem
@@ -161,11 +184,15 @@ class RunReport:
                 + (f"  ({self.quarantined} lane(s) quarantined)"
                    if self.quarantined else "")
             )
-        if self.hbm_gbps is not None and self.iters:
+        if self.recoveries:
+            lines.append(f"Recoveries: {len(self.recoveries)} "
+                         f"({', '.join(self.recoveries)})")
+        n = self.timed_iters if self.timed_iters is not None else self.iters
+        if self.hbm_gbps is not None and n:
             frac = (f"  ({self.hbm_peak_frac:.1%} of peak)"
                     if self.hbm_peak_frac is not None else "")
             lines.append(
-                f"Roofline: {self.t_solver / self.iters * 1e6:.1f} us/iter, "
+                f"Roofline: {self.t_solver / n * 1e6:.1f} us/iter, "
                 f"{self.passes_per_iter:g} passes/iter -> "
                 f"{self.hbm_gbps:.0f} GB/s{frac}"
             )
@@ -192,6 +219,7 @@ class RunReport:
             "passes_per_iter": self.passes_per_iter,
             "hbm_gbps": self.hbm_gbps,
             "hbm_peak_frac": self.hbm_peak_frac,
+            **({"recoveries": self.recoveries} if self.recoveries else {}),
             **({"lanes": self.lanes, "solves_per_sec": self.solves_per_sec,
                 "quarantined": self.quarantined} if self.lanes > 1 else {}),
             **({"storage_dtype": self.storage_dtype}
@@ -370,12 +398,17 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
              engine: str = "auto", repeat: int = 1,
              device=None, sstep_s: int = 4, lanes: int = 1,
              storage_dtype: str | None = None,
-             mesh_shape: tuple[int, int] | None = None) -> RunReport:
+             mesh_shape: tuple[int, int] | None = None,
+             checkpoint_dir: str | None = None, chunk: int = 500,
+             timeout: float | None = None, guard: bool = False,
+             max_recoveries: int = 3) -> RunReport:
     """Assemble, warm up, and time ``repeat`` solves on one device, or
     with ``mode="sharded"`` over a ``mesh_shape`` mesh of ranks;
     ``sstep_s`` is the s-step engines' block size, ``lanes`` the number of
     solves a batched engine runs together, ``storage_dtype`` the narrow
-    width the state and operands are stored at."""
+    width the state and operands are stored at. ``guard``, ``timeout`` and
+    ``max_recoveries`` run one guarded solve, ``checkpoint_dir`` and
+    ``chunk`` one checkpointed solve (the module docstring)."""
     if mode not in ("single", "auto", "sharded"):
         raise ValueError(f"unknown mode: {mode!r}")
     if dtype not in DTYPES:
@@ -386,6 +419,58 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
         raise ValueError(f"unknown engine: {engine!r} (choose from {ENGINES})")
     if mode == "auto" and mesh_shape is not None:
         mode = "sharded"  # as the JAX harness: an explicit mesh is sharded
+    if checkpoint_dir is not None:
+        if storage_dtype is not None:
+            raise ValueError(
+                "checkpoint fingerprints do not cover a storage dtype "
+                "yet; drop --checkpoint-dir or --storage-dtype"
+            )
+        if lanes > 1 or engine in BATCHED_ENGINES:
+            raise ValueError(
+                "checkpointing persists the single-solve PCG carry; "
+                "drop --checkpoint-dir or --lanes"
+            )
+    if timeout is not None or guard:
+        if checkpoint_dir is not None:
+            raise ValueError(
+                "guarded/timeout runs and checkpointed runs are separate "
+                "chunked drivers; drop --checkpoint-dir or --timeout/--guard"
+            )
+        if repeat > 1:
+            raise ValueError(
+                "guarded/timeout runs are one wall-clocked chunked solve; "
+                "the repeat/batch timing protocol does not apply"
+            )
+        if lanes > 1 and engine == "auto":
+            engine = "batched"
+        if lanes > 1 and engine not in BATCHED_ENGINES:
+            raise ValueError(
+                f"engine {engine!r} runs one solve per dispatch; "
+                "--lanes needs --engine batched or batched-pipelined"
+            )
+        if engine in BATCHED_ENGINES:
+            if mode == "sharded":
+                raise ValueError(
+                    "guarded batched solves run the single-device chunked "
+                    "lane driver (batch.driver); drop --mesh/--mode sharded"
+                )
+            return _run_batched_guarded(problem, dtype, engine, lanes,
+                                        timeout, device)
+        if mode == "sharded":
+            raise unported("--guard/--timeout on the mesh", "Queue A item 21b")
+        return _run_guarded(problem, dtype, engine, timeout, max_recoveries,
+                            storage_dtype, sstep_s, device)
+    if checkpoint_dir is not None:
+        if repeat > 1:
+            raise ValueError(
+                "checkpointed runs are one wall-clocked chunked solve; "
+                "the repeat/batch timing protocol does not apply "
+                "(drop --repeat/--batch or --checkpoint-dir)"
+            )
+        if mode == "sharded":
+            raise unported("--checkpoint-dir on the mesh", "Queue A item 21b")
+        return _run_checkpointed(problem, dtype, engine, checkpoint_dir,
+                                 chunk, device)
     if mode == "sharded":
         engine = check_sharded(engine, lanes, storage_dtype)
         if dist.is_initialized():
@@ -417,14 +502,28 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
             result = solver(*args)
         times.append(step.totals["solver"])
     timer.add("solver", statistics.median(times))
+    return _single_report(problem, dtype, engine, result, timer, times, dev,
+                          cap, solver.host_syncs, lanes, storage_dtype,
+                          sstep_s)
+
+
+def _single_report(problem: Problem, dtype: str, engine: str, result,
+                   timer: PhaseTimer, times: list, dev, cap,
+                   host_syncs: int, lanes: int = 1,
+                   storage_dtype: str | None = None, sstep_s: int = 4,
+                   timed_iters: int | None = None) -> RunReport:
+    """The single-device report: the outcome, the L2 error (timed as the
+    finalize phase) and the roofline over the iterations T_solver covers
+    (none for a batched run, or for a resumed run with nothing left)."""
     t_solver = timer.totals["solver"]
     batched = engine in BATCHED_ENGINES
     iters, converged, breakdown, diff, w0 = _outcome(result, batched)
     with timer.phase("finalize"):
         l2 = float(l2_error_vs_analytic(problem, w0))
+    n = timed_iters if timed_iters is not None else iters
     roof = (dict(passes_per_iter=0.0, hbm_gbps=None, hbm_peak_frac=None)
-            if batched else
-            roofline(problem, engine, iters, t_solver, tdtype, dev, cap,
+            if batched or (timed_iters is not None and n <= 0) else
+            roofline(problem, engine, n, t_solver, DTYPES[dtype], dev, cap,
                      sstep_s, storage_dtype))
     return RunReport(
         problem=problem,
@@ -436,16 +535,109 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
         breakdown=breakdown,
         diff=diff,
         l2_error=l2,
-        t_init=timer.totals["init"],
+        t_init=timer.totals.get("init", 0.0),
         t_solver=t_solver,
         times=times,
         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu"),
-        host_syncs=solver.host_syncs,
+        host_syncs=host_syncs,
         lanes=lanes,
         solves_per_sec=(lanes / t_solver if batched and t_solver > 0
                         else None),
         quarantined=int(result.quarantined.sum()) if batched else 0,
         storage_dtype=storage_dtype,
+        timed_iters=timed_iters,
         **roof,
     )
+
+
+def _wall_clock(dev, run):
+    """(``run()``'s value, its seconds on the host clock, the device
+    fenced before and after): the plain wall clock the guarded and
+    checkpointed drivers are timed by."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def _run_guarded(problem: Problem, dtype: str, engine: str,
+                 timeout: float | None, max_recoveries: int,
+                 storage_dtype: str | None, sstep_s: int,
+                 device) -> RunReport:
+    """One guarded (and/or deadlined) solve through
+    ``resilience.guard.guarded_solve``, on a plain wall clock: no warm-up
+    solve (a guarded solve is one solve, its kernels built inside it)."""
+    from poisson_ellipse_tpu_torch.resilience.guard import guarded_solve
+
+    dev = resolve_device(device)
+    cap = capacity(dev) if dev.type == "cuda" else None
+    timer = PhaseTimer(dev)
+    timer.add("init", 0.0)
+    guarded, t_solve = _wall_clock(dev, lambda: guarded_solve(
+        problem, engine, DTYPES[dtype], timeout=timeout,
+        max_recoveries=max_recoveries, storage_dtype=storage_dtype,
+        sstep_s=sstep_s, device=dev, capacity=cap))
+    timer.add("solver", t_solve)
+    report = _single_report(problem, dtype, guarded.engine, guarded.result,
+                            timer, [t_solve], dev, cap, guarded.host_syncs,
+                            storage_dtype=storage_dtype, sstep_s=sstep_s)
+    report.recoveries = [event.kind for event in guarded.recoveries]
+    return report
+
+
+def _run_batched_guarded(problem: Problem, dtype: str, engine: str,
+                         lanes: int, timeout: float | None,
+                         device) -> RunReport:
+    """One guarded lane-batched solve through the chunked lane driver
+    (``batch.driver.solve_batched``): per-chunk lane health, quarantine
+    events on the trace, the chunk-boundary timeout; a plain wall
+    clock."""
+    from poisson_ellipse_tpu_torch.batch.driver import solve_batched
+
+    dev = resolve_device(device)
+    timer = PhaseTimer(dev)
+    timer.add("init", 0.0)
+    guarded, t_solve = _wall_clock(dev, lambda: solve_batched(
+        problem, lanes, engine, DTYPES[dtype], timeout=timeout, device=dev))
+    timer.add("solver", t_solve)
+    report = _single_report(problem, dtype, engine, guarded.result, timer,
+                            [t_solve], dev, None, 0, lanes=lanes)
+    report.recoveries = [event.kind for event in guarded.recoveries]
+    return report
+
+
+def _run_checkpointed(problem: Problem, dtype: str, engine: str,
+                      directory: str, chunk: int, device) -> RunReport:
+    """One checkpointed solve, resumed from ``directory`` if it holds a
+    matching checkpoint, on a plain wall clock. A resumed run's roofline
+    covers only the iterations it ran."""
+    from poisson_ellipse_tpu_torch.solver.checkpoint import (
+        CheckpointingSolver,
+    )
+
+    if engine == "auto":
+        engine = "xla"
+    if engine not in ("xla", "pallas"):
+        raise ValueError(
+            "checkpointed runs persist the XLA-loop PCG carry; "
+            "--engine must be xla or pallas (the per-op/per-shard stencil "
+            f"kernel), got {engine!r}"
+        )
+    dev = resolve_device(device)
+    cap = capacity(dev) if dev.type == "cuda" else None
+    timer = PhaseTimer(dev)
+    with timer.phase("init"):
+        solver = CheckpointingSolver(problem, directory, chunk=chunk,
+                                     dtype=DTYPES[dtype], stencil=engine,
+                                     device=dev)
+    with solver:
+        start_k = solver.latest_step() or 0
+        result, t_solve = _wall_clock(dev, solver.run)
+    timer.add("solver", t_solve)
+    return _single_report(problem, dtype, engine, result, timer, [t_solve],
+                          dev, cap, solver.host_syncs,
+                          timed_iters=int(result.iters) - start_k)

@@ -10,8 +10,10 @@ and each store rounds back once.
 consumer then runs the code it ran before the storage axis existed.
 
 The raw narrow solve converges to the storage floor: an l2 error near
-bf16's rounding, not the compute dtype's. Recovering full accuracy is the
-guard's promotion rung (ROADMAP Queue A item 9), which is not ported.
+bf16's rounding, not the compute dtype's. Full accuracy is recovered by
+the guard's storage-promotion rung (``resilience.guard``:
+``guarded_solve(storage_dtype=...)`` hands the iterate to the full-width
+loop when the narrow one converges or stalls, and finishes there).
 """
 
 from __future__ import annotations

@@ -47,6 +47,7 @@ from poisson_ellipse_tpu_torch.solver.pcg import DENOM_GUARD, PCGResult, Solver
 from poisson_ellipse_tpu_torch.utils.device import (
     DeviceCapacity,
     capacity as device_capacity,
+    gate_capacity,
     resolve_device,
 )
 
@@ -104,8 +105,8 @@ def layout(problem: Problem, cap: DeviceCapacity,
 
 def fits_resident(problem: Problem, dtype, cap: DeviceCapacity) -> bool:
     """True if the whole solve's arrays fit the shared memory of
-    ``cap``'s SMs."""
-    return layout(problem, cap, dtype).fits
+    ``cap``'s SMs (as the gates see it: ``utils.device.gate_capacity``)."""
+    return layout(problem, gate_capacity(cap), dtype).fits
 
 
 def resident_operands(problem: Problem, dtype=torch.float32, device=None):

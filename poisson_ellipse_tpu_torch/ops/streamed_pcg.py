@@ -57,6 +57,7 @@ from poisson_ellipse_tpu_torch.solver.pcg import DENOM_GUARD, PCGResult, Solver
 from poisson_ellipse_tpu_torch.utils.device import (
     DeviceCapacity,
     capacity as device_capacity,
+    gate_capacity,
     resolve_device,
 )
 
@@ -143,8 +144,9 @@ class StreamPlan:
 def fits_streamed(problem: Problem, dtype, cap: DeviceCapacity) -> bool:
     """True if the always-resident state (w, r, p) fits the shared memory
     of ``cap``'s SMs. Past this gate the state itself does not fit: the xl
-    engine streams it too."""
-    return StreamPlan(problem, cap, dtype).fits
+    engine streams it too. The shared memory is the gates' view of it
+    (``utils.device.gate_capacity``)."""
+    return StreamPlan(problem, gate_capacity(cap), dtype).fits
 
 
 def streamed_operands(problem: Problem, dtype=torch.float32, device=None,

@@ -141,7 +141,9 @@ def reject_unported(precond=None, storage_dtype=None, x0=None, recycle=None,
 def run_chunked(step: Callable[[int], None],
                 flags: Callable[[], torch.Tensor], limit: int,
                 chunk: int = DEFAULT_CHUNK, per_body: int = 1,
-                on_read: Optional[Callable[[list], None]] = None) -> int:
+                on_read: Optional[Callable[[list], None]] = None,
+                chunk_end: Optional[Callable[[int], Optional[int]]] = None,
+                ) -> int:
     """Issue ``step`` in chunks until the loop's flags say it has exited.
 
     ``flags()`` returns the device tensor (k, converged, breakdown, ...); it
@@ -149,8 +151,11 @@ def run_chunked(step: Callable[[int], None],
     read as a list (the entries past the first three are the caller's). A chunk covers the next ``chunk``
     iterations, or what the iteration ``limit`` leaves, in bodies of up to
     ``per_body`` iterations each (the body masks itself at ``limit``, so a
-    limit inside a body still stops exactly there). Body j of a chunk that
-    starts at iteration k₀ is called as ``step(k₀ + j·per_body)``: the
+    limit inside a body still stops exactly there). ``chunk_end``, if
+    given, is called with k just before each chunk is issued (the caller
+    checks a deadline or corrupts the carry there) and returns an
+    iteration past k to end that chunk at sooner, or None. Body j of a
+    chunk that starts at iteration k₀ is called as ``step(k₀ + j·per_body)``: the
     iteration it starts at while the loop is active, which lets the host
     issue work keyed on the iteration counter (the residual replacement of
     the recurrence engines) only in the bodies where it fires. Returns the
@@ -169,8 +174,13 @@ def run_chunked(step: Callable[[int], None],
         k, converged, breakdown = (int(v) for v in vals[:3])
         if converged or breakdown or k >= limit:
             return syncs
-        iters = min(chunk, limit - k)
-        for j in range(-(-iters // per_body)):
+        end = min(k + chunk, limit)
+        stop = chunk_end(k) if chunk_end is not None else None
+        if stop is not None:
+            if stop <= k:
+                raise ValueError(f"chunk_end({k}) gave {stop}, not past it")
+            end = min(end, stop)
+        for j in range(-(-(end - k) // per_body)):
             step(k + j * per_body)
 
 

@@ -14,6 +14,7 @@ of published sizes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Optional
@@ -112,6 +113,38 @@ class DeviceCapacity:
             raise RuntimeError(f"{self.name} does not take cooperative "
                                "launches, which the whole-solve kernels need")
         return per_sm * self.sm_count
+
+
+# a cap on the shared memory a block may take, which the capacity gates
+# read in place of the card's (``smem_override``); None: the card's own
+_SMEM_OVERRIDE: Optional[int] = None
+
+
+@contextlib.contextmanager
+def smem_override(capacity_bytes: int):
+    """Make the capacity gates budget a block's shared memory at no more
+    than ``capacity_bytes`` while the context is active: the counterpart
+    of the JAX package's ``vmem_capacity_override``, the deterministic
+    stand-in for a smaller card (``resilience.simulated_vmem``). It moves
+    which engine ``auto`` selects, not the launch shape of an engine that
+    runs: the kernels keep the card's real budget."""
+    global _SMEM_OVERRIDE
+    prev = _SMEM_OVERRIDE
+    _SMEM_OVERRIDE = int(capacity_bytes)
+    try:
+        yield
+    finally:
+        _SMEM_OVERRIDE = prev
+
+
+def gate_capacity(cap: DeviceCapacity) -> DeviceCapacity:
+    """``cap`` as the capacity gates see it: under ``smem_override`` its
+    shared memory cut to the override."""
+    if _SMEM_OVERRIDE is None:
+        return cap
+    return dataclasses.replace(
+        cap, smem_per_block=min(cap.smem_per_block, _SMEM_OVERRIDE),
+        smem_per_sm=min(cap.smem_per_sm, _SMEM_OVERRIDE))
 
 
 def capacity(device=None) -> DeviceCapacity:

@@ -657,10 +657,29 @@ def test_kernel_forms_reject_what_the_kernels_do_not_take(engine_name):
 
 def test_solve_batched_contract():
     problem = Problem(M=20, N=20)
-    for kw, item in ((dict(faults=object()), "Queue A item 9"),
-                     (dict(timeout=1.0), "Queue A item 9")):
-        with pytest.raises(NotImplementedError, match=item):
+    # faults= and timeout= as the JAX driver takes them: an unaddressed
+    # fault is refused, and a spent deadline cancels at the first chunk
+    # boundary (SolveTimeout, exit 4)
+    from poisson_ellipse_tpu_torch.resilience import (
+        FaultPlan as TorchFaultPlan,
+        SolveTimeout,
+        inject_nan as torch_inject_nan,
+    )
+
+    for kw, error, text in (
+            (dict(faults=TorchFaultPlan(torch_inject_nan(10, "r"))),
+             ValueError, "lane-addressed"),
+            (dict(timeout=0.0), SolveTimeout, "timeout")):
+        with pytest.raises(error, match=text) as exc:
             driver.solve_batched(problem, 2, device="cpu", **kw)
+        with pytest.raises(Exception, match=text) as ref:
+            jax_solve_batched(_jax_problem(problem), 2, "batched",
+                              jnp.float32, **{
+                                  k: (FaultPlan(inject_nan(10, "r"))
+                                      if k == "faults" else v)
+                                  for k, v in kw.items()})
+        assert type(ref.value).__name__ == error.__name__
+    assert exc.value.exit_code == ref.value.exit_code == 4
     with pytest.raises(ValueError, match="unknown batched engine"):
         driver.solve_batched(problem, 2, "xla", device="cpu")
     with pytest.raises(ValueError, match="lanes"):

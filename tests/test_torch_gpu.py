@@ -51,7 +51,13 @@ and in a CUDA graph. The history ring (``obs.convergence``) on
 bits, host reads and launches, and adds RING_ACTIVITIES device activities
 a body. Device activities are counted in a fresh
 process (``activities``): after the graph tests the profiler recorded no
-activity for some calls.
+activity for some calls. The guard (``resilience.guard``): a guarded
+clean pallas solve is bitwise the plain one with the same launches and
+the same device activities a body; a fault recovers to the clean count; a
+chunk leaves the carry it advanced from (the rollback point) as it was; a
+real allocation past the card's memory classifies as ``oom``; and a
+checkpointed pallas solve, and one resumed from disk onto the card, is
+bitwise the straight one.
 """
 
 import dataclasses
@@ -2188,3 +2194,141 @@ def test_history_ring_activities_a_body(cuda, activities, name):
     assert plain > 0
     # and the ring's zero fill once a solve
     assert ring - plain == RING_ACTIVITIES[name] * RING_CAP + 1
+
+
+# -- the guard and checkpoint/resume (resilience, solver.checkpoint) --------
+
+
+def _same_bytes(x, y) -> bool:
+    """Equal dtypes, shapes and bytes (0-dim tensors included)."""
+    return (x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)))
+
+
+def test_guarded_clean_pallas_is_bitwise_the_plain_solve(cuda):
+    """No fault: no event, the plain solve's bits and kernel launches, one
+    host read a chunk and one for the drift check."""
+    from poisson_ellipse_tpu_torch.resilience import guard
+
+    p = Problem(M=44, N=132)
+    solver, args, _ = engine.build_solver(p, "pallas", torch.float32, cuda)
+    solver(*args)
+    _build.reset_launches()
+    plain = solver(*args)
+    plain_launches = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    got = guard.guarded_solve(p, "pallas", torch.float32, chunk=64,
+                              device=cuda)
+    assert got.recoveries == () and got.engine == "pallas"
+    assert dict(_build.LAUNCHES) == plain_launches and plain_launches
+    for x, y in zip(got.result, plain):
+        assert _same_bits(x, y) if x.is_floating_point() else torch.equal(
+            x, y)
+    assert got.host_syncs == -(-int(plain.iters) // 64) + 1
+
+
+@pytest.fixture(scope="module")
+def guard_activities():
+    """``chip_smoke.count_guard_activities`` in two processes of their
+    own, every profile's reading kept: in the ``activities`` child, after
+    the other counters' profiles, the profiler missed a few activities of
+    some of these calls, and a process of its own has met a miss too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from chip_smoke import guard_activity_readings
+
+    return guard_activity_readings(2)
+
+
+@pytest.mark.parametrize("name", ["pallas", "pipelined-pallas"])
+def test_guard_adds_no_device_activity_a_body(cuda, guard_activities, name):
+    """Two capped solves, one chunk each (chip_smoke.GUARD_CAP): the
+    bodies between the caps issue the same device activities guarded as
+    plain (torch.profiler, in fresh processes). Each count is the most its
+    profiles recorded: a profile can miss activities, never add them; the
+    readings' spread is printed."""
+    lists = guard_activities[name]
+    print(name, "readings (least, most) plain at 8, 16, guarded at 8, 16:",
+          [(min(x), max(x)) for x in lists])
+    p8, p16, g8, g16 = (max(x) for x in lists)
+    assert min(p8, p16, g8, g16) > 0
+    assert g16 - g8 == p16 - p8, lists
+
+
+@pytest.mark.parametrize("name", ["pallas", "pipelined-pallas",
+                                  "sstep-pallas"])
+def test_faults_recover_on_the_card(cuda, name):
+    """A NaN in r and a forced breakdown at 10: one residual restart,
+    converged at the unguarded count +- 2."""
+    from poisson_ellipse_tpu_torch.resilience import faultinject as fi
+    from poisson_ellipse_tpu_torch.resilience import guard
+
+    p = Problem(M=40, N=40)
+    clean = engine.solve(p, name, torch.float32, device=cuda)
+    for fault in (fi.inject_nan(10, "r"), fi.force_breakdown(10)):
+        got = guard.guarded_solve(p, name, torch.float32, chunk=8,
+                                  device=cuda, faults=fi.FaultPlan(fault))
+        assert [(e.kind, e.at_iter) for e in got.recoveries] == [
+            ("residual-restart", 10)]
+        assert bool(got.result.converged)
+        assert abs(int(got.result.iters) - int(clean.iters)) <= 2
+        assert bool(torch.isfinite(got.result.w).all())
+
+
+@pytest.mark.parametrize("name,storage", [
+    ("xla", None), ("pallas", None), ("pipelined-pallas", None),
+    ("sstep-pallas", None), ("pallas", "bf16"), ("pipelined-pallas", "bf16")])
+def test_a_chunk_leaves_the_rollback_point_untouched(cuda, name, storage):
+    from poisson_ellipse_tpu_torch.resilience import guard
+
+    adapter = guard._make_adapter(Problem(M=44, N=132), name, torch.float32,
+                                  storage_dtype=storage, device=cuda)
+    state = adapter.advance(adapter.init(), 0, 8)
+    kept = [x.clone() for x in state]
+    adapter.advance(state, int(state.k), 24)
+    for x, y in zip(state, kept):
+        assert _same_bytes(x, y)
+
+
+def test_a_real_oom_is_classified_oom(cuda):
+    from poisson_ellipse_tpu_torch.resilience import errors, guard
+
+    _, total = torch.cuda.mem_get_info(cuda)
+    with pytest.raises(torch.OutOfMemoryError) as exc:
+        torch.empty(total + (1 << 30), dtype=torch.uint8, device=cuda)
+    assert errors.classify_error(exc.value) == "oom"
+    del exc
+    torch.cuda.empty_cache()
+    got = guard.guarded_solve(Problem(M=40, N=40), "pallas", torch.float32,
+                              device=cuda)
+    assert bool(got.result.converged) and int(got.result.iters) == 50
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A checkpointed pallas solve on CUDA tensors, and one resumed from a
+    step on disk (loaded onto the card) after the newest is truncated:
+    each bitwise the straight solve."""
+    import warnings
+
+    from poisson_ellipse_tpu_torch.resilience import (
+        truncate_latest_checkpoint,
+    )
+    from poisson_ellipse_tpu_torch.solver import checkpoint as ck
+
+    p = Problem(M=44, N=132)
+    straight = engine.solve(p, "pallas", torch.float32, device=cuda)
+    directory = str(tmp_path / "ck")
+    with ck.CheckpointingSolver(p, directory, chunk=40, stencil="pallas",
+                                device=cuda) as solver:
+        got = solver.run()
+        restored = solver.restore_latest()
+    assert all(x.device.type == "cuda" for x in restored)
+    assert int(restored.k) == int(straight.iters)
+    truncate_latest_checkpoint(directory)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        resumed = ck.solve_with_checkpoints(p, directory, chunk=40,
+                                            stencil="pallas", device=cuda)
+    for res in (got, resumed):
+        for x, y in zip(res, straight):
+            assert x.device == y.device and _same_bytes(x, y)
