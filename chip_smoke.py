@@ -181,7 +181,8 @@ result line):
               1e-3); on 2x2, four ranks sharing the card over gloo, fused
               and xla at 400x600 (546 +- 2; 800x1200 left out to keep
               the run inside the script's time limit), fused at 2400x3200
-              (2449 +- 2), pallas at 400x600 (546 +- 2); the
+              capped at 256 (its count is 1x1's), pallas at 400x600
+              (546 +- 2); the
               command line with --mesh 1 2 --dtype f64 at 40x40 (exactly
               50). On every rank: K1-shard and K2-shard (K-a for pallas)
               once per issued body, 1 halo exchange and 2 reductions per
@@ -273,7 +274,7 @@ result line):
               iterations, w and the step norm bitwise, host reads and
               kernel launches equal, the ring finite to the iterations and
               zero past them, T_solver with and without; `diagnose
-              <engine> --grid 800x1200` (not 2400x3200, for the run's
+              <engine> --grid 400x600` (not 2400x3200, for the run's
               time) through the command line's
               main() for each (bit_identical, equal host reads, the
               spectrum's band, its trace and OpenMetrics snapshot
@@ -325,6 +326,34 @@ result line):
               resume bitwise the straight solve at 2449; the newest step
               truncated, its quarantine and a resume again bitwise; each
               save's host copy and write timed.
+
+15. mesh resilience — the mesh's resilience hooks (guard, ABFT, elastic
+              mesh, mesh checkpoints). (a) on 1x1 over NCCL at 2400x3200
+              pallas capped at MR_CAP: the unguarded sharded solve, the
+              guarded one and the guarded one with ABFT (chunks of
+              MR_CHUNK), in turns (plain, off, abft, abft, off, plain): w
+              bitwise across the three, a body's halo exchanges and
+              reductions equal (1 and 2), K-a once a body and once a chunk
+              more with ABFT (the checksum field), one agreement a chunk,
+              no event, T_solver of each. (b) on 1x1, the SDC matrix at
+              400x600 pallas with ABFT, each fault at MR_FAULT_AT in chunks
+              of as many: a p element's exponent bit 3 flipped and the
+              carried zr's sign flipped -> sdc-rollback, NaN in r ->
+              residual-restart, the default-bit flip (which shrinks that
+              element) absorbed; each within +-2 iterations of the clean
+              guarded run (whose only event is the drift gate's restart)
+              and at most 1.01x its l2; the persistent flip ->
+              SilentCorruptionError, exit 6. (c) one 2x2 spawn over gloo at
+              400x600 pallas: ABFT clean (no alarm) and the flip on shard 1
+              (rank 3 alone) -> sdc-rollback; elastic_solve losing ranks 3
+              and 2 at MR_ELASTIC_AT (chunks of MR_ELASTIC_CHUNK): 2x2 ->
+              1x3 -> 1x2, within +-2 of the uninterrupted 2x2 count (phase
+              11's pallas run; run here with --only), l2 at most 1.01x its,
+              ranks 2 and 3 with no collective or launch after their
+              degrade. (d) the command line on 1x1: --mode
+              sharded --engine pallas --guard at 400x600 (the drift gate's
+              restart alone), and --checkpoint-dir twice (--chunk
+              MR_CKPT_CHUNK), the second run resuming at the newest step.
 
 `--only stage4` runs phases 1-2 and then phase 12's stage-4 checks, loop
 and timing alone; `--only stage4-timing` the timing alone (it also runs
@@ -397,7 +426,8 @@ scalar tail alone); us a launch inside fused (bf16 at 400x600 and
 early; the fused library's SASS. It too runs on an older tree's kernels
 (the parts print as not measured there). Each prints the kernels' record
 and no result line. `--only obs` runs phases 1-2 and then phase 13
-alone, `--only resilience` phase 14 alone.
+alone, `--only resilience` phase 14 alone, `--only mesh-resilience`
+phase 15 alone.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -1242,17 +1272,17 @@ def phase_timing(problem, inp, card: str) -> list:
 
     rows = [
         ("stencil", "csrc/stencil.cu",
-         "poisson_ellipse_tpu/ops/pallas_kernels.py:101", stencil,
+         "poisson_ellipse_tpu/ops/pallas_kernels.py:169", stencil,
          stencil_plain, 4 * array, 18 * n),
         ("fused_k1", "csrc/fused_pcg.cu",
-         "poisson_ellipse_tpu/ops/fused_pcg.py:112", k1,
+         "poisson_ellipse_tpu/ops/fused_pcg.py:229", k1,
          lambda: k1(fp.k1_plain), 9 * array, 15 * n),
         ("fused_k2", "csrc/fused_pcg.cu",
-         "poisson_ellipse_tpu/ops/fused_pcg.py:152", k2,
+         "poisson_ellipse_tpu/ops/fused_pcg.py:244", k2,
          lambda: k2(fp.k2_plain), 8 * array, 10 * n),
         # reads w, a, b and the bundle's 5 distinct vectors, writes n
         ("stencil_dots", "csrc/stencil_dots.cu",
-         "poisson_ellipse_tpu/ops/pallas_kernels.py:196", stencil_dots,
+         "poisson_ellipse_tpu/ops/pallas_kernels.py:299", stencil_dots,
          lambda: stencil_dots(hk.apply_a_dots_plain), 9 * array,
          KD_FLOPS * n),
     ]
@@ -2551,8 +2581,8 @@ def phase_dtype_timing(cap, card: str) -> list:
 
         item = dt.itemsize
         for name, fn, plain, passes, flops, line in (
-                ("fused_k1", k1, lambda: k1(fp.k1_plain), 9, 15, 112),
-                ("fused_k2", k2, lambda: k2(fp.k2_plain), 8, 10, 152)):
+                ("fused_k1", k1, lambda: k1(fp.k1_plain), 9, 15, 229),
+                ("fused_k2", k2, lambda: k2(fp.k2_plain), 8, 10, 244)):
             ms = time_ms(fn, 200)
             plain_ms = time_ms(plain, 20)
             bound_ms, bound_by = bound(passes * nodes * item, flops * nodes)
@@ -2578,10 +2608,13 @@ SHARD_GRID = (2400, 3200)
 # product and its sum (2); K2's updates, products and sums
 K1_SHARD_FLOPS = 30
 K2_SHARD_FLOPS = 10
-# run_once jobs on 2x2: (engine, dtype, grid, oracle iterations)
-MESH_RUNS = (("fused", "f32", (400, 600), 546), ("xla", "f32", (400, 600), 546),
-             ("pallas", "f32", (400, 600), 546),
-             ("fused", "f32", SHARD_GRID, MAIN_ITERS))
+# run_once jobs on 2x2: (engine, dtype, grid, oracle iterations, cap); a
+# capped run (fused at the main grid, its count checked on 1x1 over NCCL,
+# capped for the run's time since PR 21) is held to its cap
+MESH_RUNS = (("fused", "f32", (400, 600), 546, None),
+             ("xla", "f32", (400, 600), 546, None),
+             ("pallas", "f32", (400, 600), 546, None),
+             ("fused", "f32", SHARD_GRID, MAIN_ITERS, 256))
 MESH_KERNELS = {"fused": ("fused_sharded_k1", "fused_sharded_k2"),
                 "pallas": ("stencil",), "xla": (), "pipelined": (),
                 "sstep": (), "batched": ()}
@@ -2621,7 +2654,7 @@ MESH_REST_RUNS = (("pipelined", (400, 600), 546, ITERS_ABS, {}),
 # need not converge): as (engine, grid, cap, run_once keywords), on 1x1
 # over NCCL, and at 400x600 in the 2x2 spawn, whose bodies take 10-20 ms
 MESH_REST_BF16_ONE = (("pipelined", SHARD_GRID, 4096, {}),
-                      ("sstep", SHARD_GRID, 4096, dict(sstep_s=SSTEP_S)),
+                      ("sstep", SHARD_GRID, 1024, dict(sstep_s=SSTEP_S)),
                       ("batched", (400, 600), 4096, dict(lanes=MESH_LANES)))
 MESH_REST_BF16_TWO = tuple((e, (400, 600), 256, kw)
                            for e, _, _, kw in MESH_REST_BF16_ONE)
@@ -2726,11 +2759,13 @@ def phase_shard_kernels(seed: int) -> dict:
 
 def _check_mesh_report(label: str, report, want_iters: int | None,
                        engine: str, exact: bool = False,
-                       band: int = ITERS_ABS) -> None:
+                       band: int = ITERS_ABS, cap: int | None = None) -> None:
     """A sharded run's count (``want_iters`` within ``band``, exactly with
     ``exact``; None: a capped narrow run, held finite and under
-    STORAGE_L2), l2 < 1e-3, and on every rank the engine's launches and
-    collectives for the bodies it issued (MESH_KERNELS, MESH_CADENCE)."""
+    STORAGE_L2), l2 < 1e-3 (with ``cap``: a run capped short of
+    convergence, held to its cap, finite), and on every rank the engine's
+    launches and collectives for the bodies it issued (MESH_KERNELS,
+    MESH_CADENCE)."""
     bodies = report.bodies
     per_body = {k: round(v / max(bodies, 1), 3)
                 for k, v in report.rank_collectives[0].items()}
@@ -2744,7 +2779,13 @@ def _check_mesh_report(label: str, report, want_iters: int | None,
            f"{report.quarantined} quarantined" if report.lanes > 1 else "")
         + (f"; storage {report.storage_dtype}" if report.storage_dtype
            else ""))
-    if want_iters is None:
+    if cap is not None:
+        require(report.iters == cap and not report.breakdown
+                and math.isfinite(report.l2_error),
+                f"{label}: {report.iters} iterations, breakdown "
+                f"{report.breakdown}, l2 {report.l2_error}: not at its cap "
+                f"{cap}")
+    elif want_iters is None:
         require(not report.breakdown and (report.converged or report.iters
                                           == report.problem.max_iterations),
                 f"{label}: {report.iters} iterations, breakdown "
@@ -2777,26 +2818,45 @@ def _check_mesh_report(label: str, report, want_iters: int | None,
             f"{label}: the report does not name the mesh and the backend")
 
 
-def phase_mesh(card: str) -> dict:
+def phase_mesh(card: str, one_extra=(), two_extra=()) -> dict:
     """The sharded path through the harness entry point: 1x1 over NCCL,
-    2x2 ranks sharing the card over gloo, and the command line on 1x2."""
+    2x2 ranks sharing the card over gloo, and the command line on 1x2.
+    Every 1x1 run of phase 11 (and ``one_extra``, phase 15's) is one
+    1-rank spawn, every 2x2 run (and ``two_extra``) one 4-rank spawn: a
+    spawn's processes take seconds to reach the card. The results of the
+    other phases' runs are kept in the record for their checks."""
     from poisson_ellipse_tpu_torch.harness.run import run_once
     from poisson_ellipse_tpu_torch.models.problem import Problem
     from poisson_ellipse_tpu_torch.parallel import multihost
 
     say(f"== phase 11: the mesh through the harness ({card})")
     t0 = time.perf_counter()
-    one = run_once(Problem(M=SHARD_GRID[0], N=SHARD_GRID[1]), mode="sharded",
-                   engine="fused", mesh_shape=(1, 1))
+    one_jobs = [(run_once, (Problem(M=SHARD_GRID[0], N=SHARD_GRID[1]),),
+                 dict(mode="sharded", engine="fused", mesh_shape=(1, 1),
+                      device="cuda"))]
+    # the pipelined, s-step and lane-sharded engines on 1x1
+    one_jobs += [(run_once, (Problem(M=g[0], N=g[1]),),
+                  dict(mode="sharded", dtype="f32", engine=e,
+                       mesh_shape=(1, 1), device="cuda", **kw))
+                 for e, g, _, _, kw in MESH_ONE_REST]
+    # fused bf16 (phase_mesh_bf16) and the engines with no kernel in bf16
+    # (phase_mesh_rest_bf16) on 1x1
+    one_jobs += [(run_once, (Problem(M=g[0], N=g[1], max_iter=cap),),
+                  dict(mode="sharded", engine="fused", dtype="bf16",
+                       mesh_shape=(1, 1), device="cuda"))
+                 for g, cap in MESH_BF16_CAPS.items()]
+    one_jobs += rest_bf16_run_jobs(MESH_REST_BF16_ONE, (1, 1))
+    n_rest, n_bf16 = len(MESH_ONE_REST), len(MESH_BF16_CAPS)
+    ones = multihost.spawn(multihost.run_jobs, 1,
+                           (one_jobs + list(one_extra),))
+    one, ones_rest = ones[0], ones[1:1 + n_rest]
+    bf16_ones = dict(zip(MESH_BF16_CAPS, ones[1 + n_rest:1 + n_rest
+                                                + n_bf16]))
+    rest_bf16_ones = ones[1 + n_rest + n_bf16:len(one_jobs)]
+    one_extra_out = ones[len(one_jobs):]
     require(one.backend == "nccl", f"the 1x1 mesh took {one.backend}, not "
             "NCCL")
     _check_mesh_report("fused 1x1 2400x3200", one, MAIN_ITERS, "fused")
-    # the pipelined, s-step and lane-sharded engines on 1x1, in one spawn
-    ones_rest = multihost.spawn(multihost.run_jobs, 1, ([
-        (run_once, (Problem(M=g[0], N=g[1]),),
-         dict(mode="sharded", dtype="f32", engine=e, mesh_shape=(1, 1),
-              device="cuda", **kw))
-        for e, g, _, _, kw in MESH_ONE_REST],))
     for (e, g, want, band, _), report in zip(MESH_ONE_REST, ones_rest):
         require(report.backend == "nccl", f"the 1x1 mesh took "
                 f"{report.backend}, not NCCL")
@@ -2804,10 +2864,10 @@ def phase_mesh(card: str) -> dict:
                            band=band)
     t_one = time.perf_counter() - t0
     # one spawn of the four ranks for every 2x2 run and the profile
-    jobs = [(run_once, (Problem(M=g[0], N=g[1]),),
+    jobs = [(run_once, (Problem(M=g[0], N=g[1], max_iter=cap),),
              dict(mode="sharded", dtype=dt, engine=e, mesh_shape=(2, 2),
                   device="cuda"))
-            for e, dt, g, _ in MESH_RUNS]
+            for e, dt, g, _, cap in MESH_RUNS]
     bf16_jobs = mesh_bf16_jobs()
     rest_jobs = [(run_once, (Problem(M=g[0], N=g[1]),),
                   dict(mode="sharded", dtype="f32", engine=e,
@@ -2821,8 +2881,13 @@ def phase_mesh(card: str) -> dict:
                            sstep_s=SSTEP_S, storage_dtype="bf16")))
     rest_bf16_jobs = rest_bf16_run_jobs(MESH_REST_BF16_TWO, (2, 2))
     jobs += bf16_jobs + rest_jobs + rest_bf16_jobs
-    jobs.append((profile_rank, (Problem(M=400, N=600), "fused"), {}))
-    *reports, profiled = multihost.spawn(multihost.run_jobs, 4, (jobs,))
+    # the profile of a capped solve: a body's costs, not the count
+    jobs.append((profile_rank, (Problem(M=400, N=600, max_iter=256),
+                                "fused"), {}))
+    everything = multihost.spawn(multihost.run_jobs, 4,
+                                 (jobs + list(two_extra),))
+    two_extra_out = everything[len(jobs):]
+    *reports, profiled = everything[:len(jobs)]
     n_main, n_bf16 = len(MESH_RUNS), len(bf16_jobs)
     n_rest = len(rest_jobs)
     bf16_reports = reports[n_main:n_main + n_bf16]
@@ -2830,10 +2895,12 @@ def phase_mesh(card: str) -> dict:
     rest_bf16 = reports[n_main + n_bf16 + n_rest:]
     reports = reports[:n_main]
     counts = {}
-    for (e, dt, g, want), report in zip(MESH_RUNS, reports):
+    for (e, dt, g, want, cap), report in zip(MESH_RUNS, reports):
         require(report.backend == "gloo", f"2x2 on one card took "
                 f"{report.backend}, not gloo")
-        _check_mesh_report(f"{e} 2x2 {g[0]}x{g[1]}", report, want, e)
+        _check_mesh_report(f"{e} 2x2 {g[0]}x{g[1]}"
+                           + (f" (cap {cap})" if cap else ""), report, want,
+                           e, cap=cap)
         if (e, g) == ("fused", SHARD_GRID):
             counts = report.rank_launches[0]
     for (e, g, want, band, _), report in zip(MESH_REST_RUNS, rest):
@@ -2868,18 +2935,22 @@ def phase_mesh(card: str) -> dict:
             f"{e} {g[0]}x{g[1]} {r.t_solver:.5f} s ({r.bodies} bodies)"
             for (e, g, *_), r in zip(MESH_ONE_REST, ones_rest))
         + "; 2x2 gloo: " + ", ".join(
-            f"{e} {g[0]}x{g[1]} {r.t_solver:.5f} s"
-            for (e, _, g, _), r in zip(MESH_RUNS, reports))
+            f"{e} {g[0]}x{g[1]}" + (f" (cap {cap})" if cap else "")
+            + f" {r.t_solver:.5f} s"
+            for (e, _, g, _, cap), r in zip(MESH_RUNS, reports))
         + ", " + ", ".join(
             f"{e} {g[0]}x{g[1]} {r.t_solver:.5f} s ({r.bodies} bodies)"
             for (e, g, *_), r in zip(MESH_REST_RUNS, rest))
         + f", sstep bf16-storage 400x600 {narrow.t_solver:.5f} s "
           f"({narrow.bodies} bodies)")
     say(f"  phase 11 runs took {time.perf_counter() - t0:.1f} s (the 1x1 "
-        f"runs {t_one:.1f} s)")
+        f"spawn {t_one:.1f} s; phase 15's jobs in the spawns: "
+        f"{len(one_extra)} on 1x1, {len(two_extra)} on 2x2)")
     show_mesh_profile(profiled, card)
     return {"counts": counts, "one": one, "reports": reports,
-            "bf16_reports": bf16_reports, "rest_bf16_reports": rest_bf16}
+            "bf16_reports": bf16_reports, "rest_bf16_reports": rest_bf16,
+            "bf16_ones": bf16_ones, "rest_bf16_ones": rest_bf16_ones,
+            "one_extra": one_extra_out, "two_extra": two_extra_out}
 
 
 def rest_bf16_run_jobs(runs, mesh_shape) -> list:
@@ -2924,8 +2995,8 @@ def _check_rest_bf16(label: str, report, engine: str, cap: int) -> None:
 
 def phase_mesh_rest_bf16(card: str, mesh: dict) -> None:
     """bf16 on the pipelined, s-step and lane-sharded mesh: the 1x1 NCCL
-    runs of MESH_REST_BF16_ONE (one spawn) and the 2x2 gloo runs of
-    phase_mesh's spawn; the 1x1 lanes beside the single-device bf16
+    runs of MESH_REST_BF16_ONE and the 2x2 gloo runs of phase_mesh's
+    spawns; the 1x1 lanes beside the single-device bf16
     batched lanes at the same cap (the same ops: the same worst count and
     flags)."""
     from poisson_ellipse_tpu_torch.models.problem import Problem
@@ -2935,8 +3006,7 @@ def phase_mesh_rest_bf16(card: str, mesh: dict) -> None:
     say(f"== phase 11: the pipelined, s-step and lane-sharded mesh in bf16 "
         f"({card})")
     t0 = time.perf_counter()
-    ones = multihost.spawn(multihost.run_jobs, 1, (
-        rest_bf16_run_jobs(MESH_REST_BF16_ONE, (1, 1)),))
+    ones = mesh["rest_bf16_ones"]  # phase_mesh's 1x1 spawn
     for (e, g, cap, _), report in zip(MESH_REST_BF16_ONE, ones):
         require(report.backend == "nccl", f"the 1x1 mesh took "
                 f"{report.backend}, not NCCL")
@@ -3509,11 +3579,11 @@ def _check_mesh_bf16(label, report, single, fused, engine: str,
 
 
 def phase_mesh_bf16(card: str, mesh: dict) -> dict:
-    """fused bf16 on 1x1 over NCCL (run_once) at 400x600 and 2400x3200,
-    and the 2x2 gloo bf16 runs of phase_mesh's spawn, beside single-device
+    """fused bf16 on 1x1 over NCCL (run_once, phase_mesh's 1x1 spawn) at
+    400x600 and 2400x3200, and the 2x2 gloo bf16 runs of its 2x2 spawn,
+    beside single-device
     bf16 pallas and fused; fused on 2x2 the count of fused on 1x1 (each
     reduction adds the rank sums in double and rounds once)."""
-    from poisson_ellipse_tpu_torch.harness.run import run_once
     from poisson_ellipse_tpu_torch.models.problem import Problem
     from poisson_ellipse_tpu_torch.solver import engine as eng
 
@@ -3524,8 +3594,7 @@ def phase_mesh_bf16(card: str, mesh: dict) -> dict:
         singles[g] = tuple(eng.solve(problem, e, torch.bfloat16,
                                      device="cuda")
                            for e in ("pallas", "fused"))
-        ones[g] = run_once(problem, mode="sharded", engine="fused",
-                           dtype="bf16", mesh_shape=(1, 1))
+        ones[g] = mesh["bf16_ones"][g]
         require(ones[g].backend == "nccl", f"the 1x1 mesh took "
                 f"{ones[g].backend}")
         _check_mesh_bf16(f"fused bf16 1x1 {g[0]}x{g[1]} (cap {cap})",
@@ -4304,9 +4373,10 @@ def phase_obs(card: str) -> dict:
                 "ring": [r[0] for r in runs[True]]}
         times[name] = (pair["plain"], pair["ring"], n)
         del solvers, runs, plain, out
-        # diagnose at the spectrum's largest grid (the main grid's ring is
-        # held above; at 2400x3200 its solves cost ~30 s of the run's limit)
-        dg = OBS_SPECTRUM_GRIDS[-1]
+        # diagnose at the spectrum's smaller grid (the main grid's ring is
+        # held above; its solves at 800x1200 cost ~10 s of the run's limit,
+        # at 2400x3200 ~30 s)
+        dg = OBS_SPECTRUM_GRIDS[0]
         n = counts[dg]
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -4968,6 +5038,329 @@ def phase_resilience(card: str) -> dict:
     say(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
     return {"times": times, "reads": reads, "activities": acts,
             "checkpoint": ckpt}
+
+
+# phase 15: the mesh's resilience hooks. (a) the guard with and without
+# ABFT beside the unguarded sharded pallas solve on 1x1 (NCCL) at the main
+# grid, capped (no convergence claim: the guard's healthy path alone)
+MR_CAP = 512
+MR_CHUNK = 128
+# (b) the SDC matrix at 400x600 on 1x1, each fault at MR_FAULT_AT with
+# chunks of as many iterations (the JAX package's placement: a fault at a
+# chunk boundary); (c) the 2x2 spawn's elastic drill loses ranks 3 and 2
+MR_FAULT_AT = 100
+MR_SDC_EVENTS = {"sdc-rollback", "residual-restart"}
+# the flipped bit of the silent cells: exponent bit 3, a x2^8 growth of
+# p's element at the flip site (2.02e-4 at iteration 100 at 400x600 in
+# f32, exponent 114 on the CPU); its drift, 3.1e-3 of sum|p|, is past the
+# f32 band (1e-3). The default bit (width - 5, exponent bit 4) is set in
+# that element, so its flip shrinks it by 2^16: a drift of 1.2e-5 of
+# sum|p|, absorbed as the detection model says (the cell
+# "halo_bitflip_default" shows it, held to the clean count and l2)
+MR_FLIP_BIT = 26
+MR_ELASTIC_AT = 256
+MR_ELASTIC_CHUNK = 128
+MR_CKPT_CHUNK = 200
+
+
+def _mr_plans(at: int, shard: int = 1) -> dict:
+    from poisson_ellipse_tpu_torch.resilience import faultinject as fi
+
+    return {
+        "clean": None,
+        "halo_bitflip": fi.FaultPlan(fi.halo_bitflip(
+            at, field="p", shard=shard, bit=MR_FLIP_BIT)),
+        "halo_bitflip_default": fi.FaultPlan(fi.halo_bitflip(
+            at, field="p", shard=shard)),
+        "psum_corrupt": fi.FaultPlan(fi.psum_corrupt(at)),
+        "nan": fi.FaultPlan(fi.inject_nan(at, "r")),
+        "persistent": fi.FaultPlan(fi.halo_bitflip(
+            at, field="p", shard=shard, bit=MR_FLIP_BIT, persistent=True)),
+    }
+
+
+def mesh_resilience_one_rank() -> dict:
+    """Phase 15 (a) and (b) on this rank of a 1x1 mesh over NCCL: the
+    unguarded sharded pallas solve, the guarded one and the guarded one
+    with ABFT at MAIN_GRID capped at MR_CAP, each first called once, then
+    in turns (plain, off, abft, abft, off, plain) with their collectives,
+    K-a launches and seconds; then the SDC matrix at FAULT_GRID."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.ops import _build
+    from poisson_ellipse_tpu_torch.parallel import mesh as mesh_mod
+    from poisson_ellipse_tpu_torch.parallel import pcg_sharded as ps
+    from poisson_ellipse_tpu_torch.resilience import guard
+    from poisson_ellipse_tpu_torch.resilience import mesh_drills as md
+
+    mesh = mesh_mod.make_mesh(device="cuda")
+    f32 = torch.float32
+    problem = Problem(M=MAIN_GRID[0], N=MAIN_GRID[1], max_iter=MR_CAP)
+    solver, args = ps.build_sharded_solver(problem, mesh, f32,
+                                           stencil_impl="pallas")
+    adapters = {"off": guard._make_adapter(problem, "pallas", f32,
+                                           mesh=mesh),
+                "abft": guard._make_adapter(problem, "pallas", f32,
+                                            mesh=mesh, abft=True)}
+
+    def run(kind):
+        if kind == "plain":
+            result = solver(*args)
+            return result.w, int(result.iters), (), solver.bodies
+        g = guard._run_chunked(problem, adapters[kind], chunk=MR_CHUNK,
+                               max_recoveries=3, timeout=None,
+                               t0=time.monotonic(), plan=guard.FaultPlan(),
+                               events=[])
+        return g.result.w, int(g.result.iters), g.recoveries, MR_CAP
+
+    # a first chunk of each, untimed: it builds the kernels and fills
+    # PyTorch's cache
+    solver(*args, limit=MR_CHUNK)
+    for adapter in adapters.values():
+        adapter.advance(adapter.init(), 0, MR_CHUNK)
+    out = {"runs": {"plain": [], "off": [], "abft": []}}
+    for kind in ("plain", "off", "abft", "abft", "off", "plain"):
+        mesh_mod.reset_collectives()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, iters, events, bodies = run(kind)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out["runs"][kind].append(dict(
+            seconds=seconds, iters=iters, bodies=bodies,
+            events=[(e.kind, e.at_iter) for e in events],
+            collectives=dict(mesh_mod.COLLECTIVES),
+            launches=dict(_build.LAUNCHES), w=w.clone()))
+    plain_w = out["runs"]["plain"][0]["w"]
+    out["bitwise"] = {kind: all(same_bits(r["w"], plain_w) for r in runs)
+                      for kind, runs in out["runs"].items()}
+    for runs in out["runs"].values():
+        for r in runs:
+            del r["w"]
+    out["matrix"] = md.guard_matrix(
+        Problem(M=FAULT_GRID[0], N=FAULT_GRID[1]), "pallas", f32,
+        MR_FAULT_AT, _mr_plans(MR_FAULT_AT), abft=True, device="cuda")
+    out["backend"] = mesh.backend
+    return out
+
+
+def _mr_check_turns(one: dict, card: str) -> None:
+    """(a): w bitwise across the three, a body's halo exchanges and
+    reductions equal, K-a once a body (and once a chunk more with ABFT),
+    no event; T_solver in turns."""
+    chunks = MR_CAP // MR_CHUNK
+    per_body = {}
+    for kind, runs in one["runs"].items():
+        for r in runs:
+            require(r["iters"] == MR_CAP and r["events"] == [],
+                    f"mesh guard {kind}: {r['iters']} iterations, events "
+                    f"{r['events']}")
+            b, c = r["bodies"], r["collectives"]
+            abft = kind == "abft"
+            if kind == "plain":
+                # the coefficient halos and zr0's reduction once a solve
+                halo, reduce = c["halo"] - 2, c["reduce"] - 1
+            else:
+                # zr0 (and ABFT's anchor) once; the checksum field's halo
+                # once a chunk with ABFT; one agreement a chunk
+                halo = c["halo"] - (chunks if abft else 0)
+                reduce = c["reduce"] - 1 - (1 if abft else 0)
+                require(c.get("agree") == chunks,
+                        f"mesh guard {kind}: {c.get('agree')} agreements, "
+                        f"want one a chunk ({chunks})")
+            per_body[kind] = (halo / b, reduce / b)
+            want_ka = b + (chunks if abft else 0)
+            require(r["launches"] == {"stencil": want_ka},
+                    f"mesh guard {kind}: launches {r['launches']}, want "
+                    f"K-a {want_ka}")
+    require(len(set(per_body.values())) == 1
+            and per_body["plain"] == (1.0, 2.0),
+            f"the halo exchanges and reductions a body differ: {per_body}")
+    require(all(one["bitwise"].values()),
+            f"w not bitwise across plain / guarded / ABFT: {one['bitwise']}")
+    med = {k: statistics.median(r["seconds"] for r in runs)
+           for k, runs in one["runs"].items()}
+    say(f"  (a) 1x1 {one['backend']} pallas {MAIN_GRID[0]}x{MAIN_GRID[1]} "
+        f"capped at {MR_CAP}: w bitwise plain / guarded / guarded+ABFT "
+        f"{one['bitwise']}; halo and reductions a body {per_body}; K-a "
+        + ", ".join(f"{k} {v[0]['launches']}" for k, v in one["runs"].items())
+        + f"; T_solver in turns ({card}) " + ", ".join(
+            f"{k} {[round(r['seconds'], 5) for r in v]} s"
+            for k, v in one["runs"].items())
+        + f"; medians guarded {med['off'] / med['plain'] - 1:+.2%}, ABFT "
+          f"{med['abft'] / med['plain'] - 1:+.2%} against plain, ABFT "
+          f"{med['abft'] / med['off'] - 1:+.2%} against guarded")
+
+
+def _mr_check_matrix(label: str, matrix: dict, faults) -> None:
+    """The SDC cells against the clean guarded run: the recovery events
+    within MR_SDC_EVENTS, sdc-rollback for the silent kinds (the
+    default-bit flip, absorbed or caught, is held to the count and l2
+    alone), the count within +-2, l2 at most 1.01x; the clean run no
+    alarm; a persistent flip SilentCorruptionError (exit 6)."""
+    clean = matrix["clean"]
+    require(clean["error"] is None and clean["converged"]
+            and "sdc-rollback" not in {e[0] for e in clean["events"]},
+            f"{label} clean: {clean.get('events')} {clean.get('error')}")
+    cells = [f"clean {clean['iters']} it. l2 {clean['l2']:.6e} "
+             f"{[(e[0], e[1]) for e in clean['events']]}"]
+    for name in faults:
+        got = matrix[name]
+        kinds = {e[0] for e in got["events"]}
+        require(got["error"] is None and got["converged"]
+                and kinds <= MR_SDC_EVENTS
+                and (name in ("nan", "halo_bitflip_default")
+                     or "sdc-rollback" in kinds)
+                and abs(got["iters"] - clean["iters"]) <= ITERS_ABS
+                and got["l2"] <= clean["l2"] * 1.01 + 1e-12,
+                f"{label} {name}: {got.get('error')} {got['events']} "
+                f"{got['iters']} it. (clean {clean['iters']}), l2 "
+                f"{got['l2']} (clean {clean['l2']})")
+        cells.append(f"{name} {got['iters']} it. l2 {got['l2']:.6e} "
+                     f"{[(e[0], e[1]) for e in got['events']]}")
+    if "persistent" in matrix:
+        err = matrix["persistent"]["error"]
+        require(err is not None and err[0] == "SilentCorruptionError"
+                and err[1] == 6, f"{label} persistent flip: {err}")
+        cells.append(f"persistent flip {err[0]} exit {err[1]} at {err[2]}")
+    say(f"  {label}: " + "; ".join(cells))
+
+
+def mesh_resilience_work() -> Path:
+    """Phase 15's scratch directory, emptied."""
+    import shutil
+
+    work = ROOT / "build" / "mesh-resilience"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True, exist_ok=True)
+    return work
+
+
+def mesh_resilience_jobs(work: Path) -> tuple[list, list]:
+    """Phase 15's (1x1 jobs, 2x2 jobs): (a) and (b) on one rank, and the
+    2x2 spawn's ABFT matrix and elastic drill; phase 11 runs them in its
+    own spawns in the full run."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.resilience import faultinject as fi
+    from poisson_ellipse_tpu_torch.resilience import mesh_drills as md
+
+    small = Problem(M=FAULT_GRID[0], N=FAULT_GRID[1])
+    f32 = torch.float32
+    plans = _mr_plans(MR_FAULT_AT)
+    two = [
+        (md.guard_matrix, (small, "pallas", f32, MR_FAULT_AT,
+                           {"clean": None,
+                            "halo_bitflip": plans["halo_bitflip"]}),
+         dict(abft=True, device="cuda")),
+        (md.elastic, (small, f32, str(work / "elastic"), MR_ELASTIC_CHUNK),
+         dict(faults=fi.FaultPlan(fi.device_loss(MR_ELASTIC_AT, device=3),
+                                  fi.device_loss(MR_ELASTIC_AT, device=2)),
+              stencil="pallas", device="cuda")),
+    ]
+    return [(mesh_resilience_one_rank, (), {})], two
+
+
+def phase_mesh_resilience(card: str, mesh: dict | None = None,
+                          work: Path | None = None) -> dict:
+    """Phase 15: the mesh's resilience hooks (item 21b) on the card.
+    ``mesh`` is phase 11's record: its spawns ran this phase's rank jobs
+    (``mesh_resilience_jobs``) and its 2x2 pallas solve at FAULT_GRID is
+    the uninterrupted run the elastic drill is held to. Without it
+    (``--only mesh-resilience``) this phase spawns its own ranks."""
+    from poisson_ellipse_tpu_torch.harness.__main__ import main as cli
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.parallel import multihost
+    from poisson_ellipse_tpu_torch.parallel import pcg_sharded as ps
+    from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
+
+    say(f"== phase 15: the mesh's resilience hooks ({card})")
+    t0 = time.perf_counter()
+    small = Problem(M=FAULT_GRID[0], N=FAULT_GRID[1])
+    if mesh is not None and mesh.get("one_extra"):
+        work = work or ROOT / "build" / "mesh-resilience"
+        (one,), (matrix, elastic) = mesh["one_extra"], mesh["two_extra"]
+        phase11 = [r for (e, _, g, _, cap), r in zip(MESH_RUNS,
+                                                      mesh["reports"])
+                   if (e, g, cap) == ("pallas", FAULT_GRID, None)][0]
+        straight = {"iters": phase11.iters, "l2": phase11.l2_error,
+                    "from": "phase 11"}
+    else:
+        work = mesh_resilience_work()
+        one_jobs, two_jobs = mesh_resilience_jobs(work)
+        (one,) = multihost.spawn(multihost.run_jobs, 1, (one_jobs,))
+        two_jobs.append((ps.solve_report, (small, torch.float32),
+                         dict(stencil_impl="pallas", device="cuda")))
+        matrix, elastic, plain = multihost.spawn(multihost.run_jobs, 4,
+                                                 (two_jobs,))
+        straight = {"iters": plain["iters"], "l2": float(l2_error_vs_analytic(
+            small, torch.as_tensor(plain["w"]))), "from": "this phase"}
+    require(one["backend"] == "nccl", f"the 1x1 mesh took {one['backend']}")
+    _mr_check_turns(one, card)
+    _mr_check_matrix(f"(b) 1x1 SDC matrix {FAULT_GRID[0]}x{FAULT_GRID[1]} "
+                     f"pallas + ABFT, faults at {MR_FAULT_AT}",
+                     one["matrix"], ("halo_bitflip", "halo_bitflip_default",
+                                     "psum_corrupt", "nan"))
+    _mr_check_matrix(f"(c) 2x2 gloo {FAULT_GRID[0]}x{FAULT_GRID[1]} pallas "
+                     f"+ ABFT, halo_bitflip(shard=1) at {MR_FAULT_AT}",
+                     matrix, ("halo_bitflip",))
+    l2_straight = straight["l2"]
+    ranks = elastic["ranks"]
+    lost = [r for r, x in enumerate(ranks) if x["dropped"] is not None]
+    quiet = all(x["end"] == x["dropped"] for x in ranks
+                if x["dropped"] is not None)
+    say(f"  (c) elastic_solve pallas {FAULT_GRID[0]}x{FAULT_GRID[1]}, ranks "
+        f"3 and 2 lost at {MR_ELASTIC_AT} (chunk {MR_ELASTIC_CHUNK}): "
+        f"{elastic.get('error')} {elastic.get('iters')} it., mesh "
+        f"{elastic.get('mesh_shape')}, {elastic.get('degrades')} degrades, "
+        f"events {elastic.get('events')}, l2 {elastic.get('l2')} "
+        f"(uninterrupted 2x2, {straight['from']}: {straight['iters']} it., "
+        f"l2 {l2_straight:.6e}); dropped ranks {lost}, quiet after their "
+        f"degrade {quiet}; counts at the drop / end "
+        f"{[(x['dropped'], x['end']) for x in ranks]}; seconds "
+        f"{[round(x['seconds'], 3) for x in ranks]}")
+    require(elastic["error"] is None and elastic["converged"]
+            and elastic["mesh_shape"] == (1, 2) and elastic["degrades"] == 2
+            and [e[4] for e in elastic["events"]] == [(1, 3), (1, 2)]
+            and abs(elastic["iters"] - straight["iters"]) <= ITERS_ABS
+            and elastic["l2"] <= l2_straight * 1.01 + 1e-12,
+            "the elastic drill: 2x2 -> 1x3 -> 1x2 at the uninterrupted count")
+    require(lost == [2, 3] and quiet and all(
+        x["dropped"]["launches"].get("stencil", 0) > 0 for x in ranks
+        if x["dropped"] is not None),
+        "a dropped rank launched or exchanged after its degrade")
+    t_ranks = time.perf_counter() - t0
+
+    # (d) the command line on 1x1 (NCCL): --guard, and --checkpoint-dir
+    # twice, the second run resuming
+    base = [str(FAULT_GRID[0]), str(FAULT_GRID[1]), "--mode", "sharded",
+            "--engine", "pallas", "--json"]
+    rc, rec = _cli_json(cli, [*base, "--guard"])
+    say(f"  (d) harness {' '.join(base)} --guard: exit {rc}, {rec}")
+    require(rc == 0 and rec["converged"] and rec["mesh"] == [1, 1]
+            and rec["backend"] == "nccl"
+            and abs(rec["iters"] - 546) <= DRIFT_BAND
+            and set(rec.get("recoveries", [])) <= {"residual-restart"},
+            "the guarded mesh through the command line")
+    ckpt = [*base, "--checkpoint-dir", str(work / "ckpt"), "--chunk",
+            str(MR_CKPT_CHUNK)]
+    first = _cli_json(cli, ckpt)
+    second = _cli_json(cli, ckpt)
+    steps = sorted(int(n) for n in __import__("os").listdir(work / "ckpt")
+                   if n.isdigit())
+    say(f"  (d) harness ... --checkpoint-dir --chunk {MR_CKPT_CHUNK} twice: "
+        f"exit {first[0]}, {first[1]}; then exit {second[0]}, {second[1]}; "
+        f"steps on disk {steps}")
+    require(first[0] == second[0] == 0 and first[1]["converged"]
+            and abs(first[1]["iters"] - 546) <= ITERS_ABS
+            and second[1]["iters"] == first[1]["iters"]
+            and second[1]["l2_error"] == first[1]["l2_error"]
+            and steps[-1] == first[1]["iters"],
+            "the checkpointed mesh through the command line and its resume")
+    say(f"  phase 15 took {time.perf_counter() - t0:.1f} s here (its rank "
+        f"jobs {t_ranks:.1f} s"
+        + (", in phase 11's spawns otherwise" if straight["from"] ==
+           "phase 11" else "") + ")")
+    return {"one": one, "two": (matrix, elastic, straight)}
 
 
 def phase_stage4_timing(seed: int, card: str) -> list:
@@ -6678,7 +7071,8 @@ def main(argv=None) -> int:
         "--only", choices=("stage4", "stage4-timing", "stencil-dots-timing",
                            "xl-timing", "stencil-timing", "whole-timing",
                            "fused-timing", "batched-mesh-bf16",
-                           "lane-bf16-timing", "obs", "resilience"),
+                           "lane-bf16-timing", "obs", "resilience",
+                           "mesh-resilience"),
         help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
              "loop and timing (stage4), its timing alone (stage4-timing), "
              "rule 2's queue by device time, the K-d family's SASS and the "
@@ -6696,7 +7090,8 @@ def main(argv=None) -> int:
              "and a rank's, and in its loop (lane-bf16-timing), or phase "
              "13's history ring, spectrum, diagnose and --trace/--metrics "
              "run (obs), or phase 14's guard, fault drills and "
-             "checkpoint/resume (resilience); the timings "
+             "checkpoint/resume (resilience), or phase 15's guarded, ABFT "
+             "and elastic mesh (mesh-resilience); the timings "
              "also run on an older tree's kernels; prints the kernels' "
              "record and no result line")
     ap.add_argument("--sass-dir", help="with --only stencil-dots-timing "
@@ -6734,6 +7129,9 @@ def main(argv=None) -> int:
         timed = []
     elif args.only == "resilience":
         phase_resilience(card)
+        timed = []
+    elif args.only == "mesh-resilience":
+        phase_mesh_resilience(card)
         timed = []
     elif args.only:
         if args.only == "stage4":
@@ -6800,7 +7198,10 @@ def main(argv=None) -> int:
 
     mark("phase 10")
     errs.update(phase_shard_kernels(args.seed))
-    mesh = phase_mesh(card)
+    # phase 15's rank jobs ride phase 11's spawns
+    mr_work = mesh_resilience_work()
+    mr_one, mr_two = mesh_resilience_jobs(mr_work)
+    mesh = phase_mesh(card, mr_one, mr_two)
     timed += phase_shard_timing(args.seed, card)
     errs.update(phase_shard_bf16_kernels(args.seed))
     mesh_bf16 = phase_mesh_bf16(card, mesh)
@@ -6817,6 +7218,8 @@ def main(argv=None) -> int:
     mark("phase 13")
     phase_resilience(card)
     mark("phase 14")
+    phase_mesh_resilience(card, mesh, mr_work)
+    mark("phase 15")
 
     counts = {**rec["counts"], **main_run["counts"], **batched["counts"],
               **storage_main["counts"], **storage_rec["counts"],

@@ -37,7 +37,10 @@ health word each, the recovery ladder, classified errors), ``--timeout S``
 (which implies ``--guard``) cancels it at a chunk boundary past S seconds,
 ``--max-recoveries`` caps the ladder; with ``--lanes`` the guard is the
 chunked lane driver. ``--checkpoint-dir D`` saves the carry every
-``--chunk`` iterations (``xla`` or ``pallas``) and resumes from D. The
+``--chunk`` iterations (``xla`` or ``pallas``) and resumes from D. With
+``--mode sharded`` both run on the mesh (the guard on ``xla``, ``pallas``,
+``pipelined``, ``sstep``; checkpoints on ``xla``, ``pallas``, resumed on
+any mesh shape), rank 0 printing. The
 ``inject`` subcommand runs one guarded solve with one deterministic fault
 (``resilience.faultinject``) and reports the recovery.
 
@@ -46,8 +49,9 @@ converged; 1 not converged within the iteration cap; 2 breakdown,
 recovery budget exhausted, or bad input (and a diagnose whose history
 solve is not the plain one bit for bit); 3 device out of memory with no
 engine left to degrade to; 4 ``--timeout`` exceeded (a partial report on
-the trace); 5-9 the serving, ABFT, mesh, geometry and fleet errors of
-modules not ported yet.
+the trace); 6 silent corruption a rollback did not clear and 7 a mesh with
+no survivor left (the mesh's resilience layer); 5, 8 and 9 the serving,
+geometry and fleet errors of modules not ported yet.
 """
 
 from __future__ import annotations
@@ -145,7 +149,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", choices=("single", "sharded"),
                     default="single",
                     help="one device, or the mesh: --mesh PX PY ranks, each "
-                    "solving its block (engines auto/xla, pallas, fused)")
+                    "solving its block (engines auto/xla, pallas, fused, "
+                    "pipelined, sstep/sstep-pallas, and the lane engines "
+                    "with --lanes); with --guard/--timeout the guarded mesh "
+                    "(xla, pallas, pipelined, sstep), with --checkpoint-dir "
+                    "the checkpointed mesh (xla, pallas)")
     ap.add_argument("--mesh", type=int, nargs=2, metavar=("PX", "PY"),
                     help="mesh shape for --mode sharded (default: every "
                     "rank of torchrun's group, else 1 1)")
@@ -268,21 +276,26 @@ def _run_cli(args) -> int:
 
     resilient = (args.guard or args.timeout is not None
                  or args.checkpoint_dir is not None)
-    if args.mode == "sharded" and not resilient:
+    if args.mode == "sharded":
         try:
-            reports = _sharded(args, [problem_of(M, N) for M, N in grids])
+            reports = _sharded(args, [problem_of(M, N) for M, N in grids],
+                               resilient)
         except (ValueError, NotImplementedError, RuntimeError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
         if reports is None:
             return 0  # a rank other than 0 under torchrun
-        return max(_show(report, args.json) for report in reports)
+        rc = 0
+        for (M, N), report in zip(grids, reports):
+            if isinstance(report, SolveError):
+                return _aborted(args, M, N, report)
+            if isinstance(report, BaseException):
+                print(f"error: {report}", file=sys.stderr)
+                return 2
+            rc = max(rc, _show(report, args.json))
+        return rc
     rc = 0
     for M, N in grids:
-        ck_dir = args.checkpoint_dir
-        if ck_dir is not None and len(grids) > 1:
-            # a checkpoint is fingerprinted by its grid: one directory a run
-            ck_dir = os.path.join(ck_dir, f"{M}x{N}")
         try:
             report = run_once(problem_of(M, N), mode=args.mode,
                               dtype=args.dtype, engine=args.engine,
@@ -291,26 +304,38 @@ def _run_cli(args) -> int:
                               storage_dtype=args.storage_dtype,
                               mesh_shape=(tuple(args.mesh) if args.mesh
                                           else None),
-                              checkpoint_dir=ck_dir, chunk=args.chunk,
-                              timeout=args.timeout, guard=args.guard,
+                              checkpoint_dir=_grid_dir(args, grids, M, N),
+                              chunk=args.chunk, timeout=args.timeout,
+                              guard=args.guard,
                               max_recoveries=args.max_recoveries)
         except SolveError as e:
-            # the classified exit: the trace keeps every event written
-            # before the abort (recovery:* included) and this partial report
-            record = {"M": M, "N": N, "dtype": args.dtype,
-                      "engine": args.engine, "aborted": e.classification,
-                      "iters": e.iters}
-            obs_trace.event("run_report_partial", **record)
-            if args.json:
-                print(json.dumps(record))
-            print(f"error: solve aborted — {e.classification}: {e}",
-                  file=sys.stderr)
-            return e.exit_code
+            return _aborted(args, M, N, e)
         except (ValueError, NotImplementedError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
         rc = max(rc, _show(report, args.json))
     return rc
+
+
+def _grid_dir(args, grids, M: int, N: int):
+    """The run's checkpoint directory: a checkpoint is fingerprinted by
+    its grid, so a sweep keeps one directory a grid."""
+    if args.checkpoint_dir is None or len(grids) == 1:
+        return args.checkpoint_dir
+    return os.path.join(args.checkpoint_dir, f"{M}x{N}")
+
+
+def _aborted(args, M: int, N: int, e: SolveError) -> int:
+    """The classified exit: the trace keeps every event written before the
+    abort (recovery:* included) and this partial report."""
+    record = {"M": M, "N": N, "dtype": args.dtype, "engine": args.engine,
+              "aborted": e.classification, "iters": e.iters}
+    obs_trace.event("run_report_partial", **record)
+    if args.json:
+        print(json.dumps(record))
+    print(f"error: solve aborted — {e.classification}: {e}",
+          file=sys.stderr)
+    return e.exit_code
 
 
 def _show(report, as_json: bool) -> int:
@@ -332,16 +357,25 @@ def _show(report, as_json: bool) -> int:
     return 0 if report.converged else 1
 
 
-def _sharded(args, problems):
+def _sharded(args, problems, resilient: bool = False):
     """The sharded runs of every grid: in this rank under torchrun (None on
-    ranks other than 0), else in PX·PY rank processes started here."""
+    ranks other than 0), else in PX·PY rank processes started here. A
+    guarded or checkpointed run's classified error (or a refusal) comes
+    back as the last entry (``run_sharded_jobs``)."""
     from poisson_ellipse_tpu_torch.parallel import multihost
 
-    check_sharded(args.engine, args.lanes, args.storage_dtype)
+    if not resilient:
+        check_sharded(args.engine, args.lanes, args.storage_dtype)
+    grids = [(p.M, p.N) for p in problems]
     jobs = [dict(problem=p, dtype=args.dtype, engine=args.engine,
                  repeat=args.repeat, mesh_shape=args.mesh,
                  sstep_s=args.sstep_s, lanes=args.lanes,
                  storage_dtype=args.storage_dtype) for p in problems]
+    if resilient:
+        for job, (M, N) in zip(jobs, grids):
+            job.update(checkpoint_dir=_grid_dir(args, grids, M, N),
+                       chunk=args.chunk, timeout=args.timeout,
+                       guard=args.guard, max_recoveries=args.max_recoveries)
     if multihost.torchrun_env():
         multihost.initialize_multihost(device=args.device)
         try:

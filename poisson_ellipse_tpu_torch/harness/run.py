@@ -58,8 +58,12 @@ valid step there. Both are timed by a plain wall clock around the one
 solve, after a device fence, as the JAX harness times them (a restartable
 solve is not the bench protocol); the report's ``recoveries`` lists the
 guard's recovery kinds in order, and a resumed run's roofline covers only
-the iterations it ran (``timed_iters``). On the mesh they are ROADMAP
-Queue A item 21b.
+the iterations it ran (``timed_iters``). With ``mode="sharded"`` both run
+on the mesh, every rank together (``guarded_solve(mesh=)``,
+``CheckpointingSolver(mesh=)``; a step written on another mesh shape
+resumes resharded), and rank 0's report is the run's; a classified
+``SolveError`` (or a refusal) raised in the ranks is raised by
+``run_once`` as it is.
 """
 
 from __future__ import annotations
@@ -99,7 +103,7 @@ from poisson_ellipse_tpu_torch.solver.engine import (
     SHARDED_ENGINES,
     build_solver,
 )
-from poisson_ellipse_tpu_torch.solver.pcg import DEFAULT_CHUNK, unported
+from poisson_ellipse_tpu_torch.solver.pcg import DEFAULT_CHUNK
 from poisson_ellipse_tpu_torch.utils.device import capacity, resolve_device
 from poisson_ellipse_tpu_torch.utils.error import l2_error_vs_analytic
 from poisson_ellipse_tpu_torch.utils.timing import PhaseTimer
@@ -287,8 +291,28 @@ def check_sharded(engine: str, lanes: int = 1,
 def run_sharded_jobs(jobs: list, device=None) -> list:
     """``run_once(mode="sharded", **job)`` for each job on this rank of the
     group, in order: the rank function the command line and ``run_once``
-    start their ranks with (``multihost.spawn``)."""
-    return [run_once(**job, mode="sharded", device=device) for job in jobs]
+    start their ranks with (``multihost.spawn``). A classified
+    ``SolveError`` or a refusal (``ValueError``, ``NotImplementedError``)
+    ends the list as its last entry, in place of a report: every rank
+    raises it at the same point, and the caller raises it as it is."""
+    from poisson_ellipse_tpu_torch.resilience.errors import SolveError
+
+    out = []
+    for job in jobs:
+        try:
+            out.append(run_once(**job, mode="sharded", device=device))
+        except (SolveError, ValueError, NotImplementedError) as e:
+            out.append(e)
+            break
+    return out
+
+
+def raise_failed(reports: list) -> list:
+    """``reports`` of ``run_sharded_jobs``, raising the error that ended
+    them, if one did."""
+    if reports and isinstance(reports[-1], BaseException):
+        raise reports[-1]
+    return reports
 
 
 def _rank_counts(mesh: Mesh, counts: dict) -> list:
@@ -296,13 +320,8 @@ def _rank_counts(mesh: Mesh, counts: dict) -> list:
     if mesh.backend == "none":
         return [counts]
     out = [None] * mesh.world
-    dist.all_gather_object(out, counts)
+    dist.all_gather_object(out, counts, group=mesh.group)
     return out
-
-
-def _barrier(mesh: Mesh) -> None:
-    if mesh.backend != "none":
-        dist.barrier()
 
 
 def _outcome(result, batched: bool) -> tuple:
@@ -347,7 +366,7 @@ def _run_sharded(problem: Problem, dtype: str, engine: str, repeat: int,
     solver(*args, limit=DEFAULT_CHUNK)
     times = []
     for _ in range(repeat):
-        _barrier(mesh)
+        mesh.barrier()
         reset_collectives()
         _build.reset_launches()
         step = PhaseTimer(mesh.device)
@@ -457,7 +476,15 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
             return _run_batched_guarded(problem, dtype, engine, lanes,
                                         timeout, device)
         if mode == "sharded":
-            raise unported("--guard/--timeout on the mesh", "Queue A item 21b")
+            if dist.is_initialized():
+                return _run_sharded_guarded(
+                    problem, dtype, engine, timeout, max_recoveries,
+                    storage_dtype, sstep_s, mesh_shape, device)
+            return _in_ranks(dict(
+                problem=problem, dtype=dtype, engine=engine,
+                mesh_shape=mesh_shape, sstep_s=sstep_s,
+                storage_dtype=storage_dtype, timeout=timeout, guard=True,
+                max_recoveries=max_recoveries), device)
         return _run_guarded(problem, dtype, engine, timeout, max_recoveries,
                             storage_dtype, sstep_s, device)
     if checkpoint_dir is not None:
@@ -468,7 +495,14 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
                 "(drop --repeat/--batch or --checkpoint-dir)"
             )
         if mode == "sharded":
-            raise unported("--checkpoint-dir on the mesh", "Queue A item 21b")
+            if dist.is_initialized():
+                return _run_sharded_checkpointed(
+                    problem, dtype, engine, checkpoint_dir, chunk,
+                    mesh_shape, device)
+            return _in_ranks(dict(
+                problem=problem, dtype=dtype, engine=engine,
+                mesh_shape=mesh_shape, checkpoint_dir=checkpoint_dir,
+                chunk=chunk), device)
         return _run_checkpointed(problem, dtype, engine, checkpoint_dir,
                                  chunk, device)
     if mode == "sharded":
@@ -476,13 +510,10 @@ def run_once(problem: Problem, mode: str = "single", dtype: str = "f32",
         if dist.is_initialized():
             return _run_sharded(problem, dtype, engine, repeat, device,
                                 mesh_shape, sstep_s, lanes, storage_dtype)
-        resolve_device(device)  # no card and no CPU request: raise here
-        px, py = (1, 1) if mesh_shape is None else mesh_shape
-        job = dict(problem=problem, dtype=dtype, engine=engine,
-                   repeat=repeat, mesh_shape=(px, py), sstep_s=sstep_s,
-                   lanes=lanes, storage_dtype=storage_dtype)
-        return spawn(run_sharded_jobs, px * py, ([job], device),
-                     device=device or "cuda")[0]
+        return _in_ranks(dict(
+            problem=problem, dtype=dtype, engine=engine, repeat=repeat,
+            mesh_shape=mesh_shape, sstep_s=sstep_s, lanes=lanes,
+            storage_dtype=storage_dtype), device)
     if lanes > 1 and engine == "auto":
         engine = "batched"  # build_solver refuses lanes on any other engine
     dev = resolve_device(device)
@@ -610,6 +641,20 @@ def _run_batched_guarded(problem: Problem, dtype: str, engine: str,
     return report
 
 
+def _checkpoint_engine(engine: str) -> str:
+    """The checkpointed run's engine (``auto`` → ``xla``), with the JAX
+    harness's refusal."""
+    if engine == "auto":
+        engine = "xla"
+    if engine not in ("xla", "pallas"):
+        raise ValueError(
+            "checkpointed runs persist the XLA-loop PCG carry; "
+            "--engine must be xla or pallas (the per-op/per-shard stencil "
+            f"kernel), got {engine!r}"
+        )
+    return engine
+
+
 def _run_checkpointed(problem: Problem, dtype: str, engine: str,
                       directory: str, chunk: int, device) -> RunReport:
     """One checkpointed solve, resumed from ``directory`` if it holds a
@@ -619,14 +664,7 @@ def _run_checkpointed(problem: Problem, dtype: str, engine: str,
         CheckpointingSolver,
     )
 
-    if engine == "auto":
-        engine = "xla"
-    if engine not in ("xla", "pallas"):
-        raise ValueError(
-            "checkpointed runs persist the XLA-loop PCG carry; "
-            "--engine must be xla or pallas (the per-op/per-shard stencil "
-            f"kernel), got {engine!r}"
-        )
+    engine = _checkpoint_engine(engine)
     dev = resolve_device(device)
     cap = capacity(dev) if dev.type == "cuda" else None
     timer = PhaseTimer(dev)
@@ -641,3 +679,92 @@ def _run_checkpointed(problem: Problem, dtype: str, engine: str,
     return _single_report(problem, dtype, engine, result, timer, [t_solve],
                           dev, cap, solver.host_syncs,
                           timed_iters=int(result.iters) - start_k)
+
+
+def _in_ranks(job: dict, device) -> RunReport:
+    """``run_once(**job, mode="sharded")`` in the mesh's rank processes,
+    started here (``multihost.spawn``): rank 0's report, or the error the
+    ranks ended with, raised."""
+    resolve_device(device)  # no card and no CPU request: raise here
+    px, py = job["mesh_shape"] or (1, 1)
+    job = dict(job, mesh_shape=(px, py))
+    return raise_failed(spawn(run_sharded_jobs, px * py, ([job], device),
+                              device=device or "cuda"))[0]
+
+
+def _mesh_report(problem: Problem, mesh: Mesh, dtype: str, engine: str,
+                 result, t_solve: float, host_syncs: int,
+                 timed_iters: int | None = None) -> RunReport:
+    """A guarded or checkpointed mesh run's report (w the global
+    solution), as the sharded runs report: the mesh and backend, no
+    roofline."""
+    timer = PhaseTimer(mesh.device)
+    timer.add("init", 0.0)
+    timer.add("solver", t_solve)
+    iters, converged, breakdown, diff, w = _outcome(result, False)
+    with timer.phase("finalize"):
+        l2 = float(l2_error_vs_analytic(problem, w))
+    return RunReport(
+        problem=problem,
+        mesh_shape=mesh.shape,
+        dtype=dtype,
+        engine=engine,
+        iters=iters,
+        converged=converged,
+        breakdown=breakdown,
+        diff=diff,
+        l2_error=l2,
+        t_init=0.0,
+        t_solver=t_solve,
+        times=[t_solve],
+        device=(torch.cuda.get_device_name(mesh.device)
+                if mesh.device.type == "cuda" else "cpu"),
+        host_syncs=host_syncs,
+        backend=mesh.backend,
+        timed_iters=timed_iters,
+    )
+
+
+def _run_sharded_guarded(problem: Problem, dtype: str, engine: str,
+                         timeout: float | None, max_recoveries: int,
+                         storage_dtype: str | None, sstep_s: int,
+                         mesh_shape, device) -> RunReport:
+    """One guarded solve on the mesh (``guarded_solve(mesh=)``) on this
+    rank, on a plain wall clock after a barrier, its build included."""
+    from poisson_ellipse_tpu_torch.resilience.guard import guarded_solve
+
+    mesh = resolve_mesh(mesh_shape, device)
+    if engine == "auto":
+        engine = "xla"
+    mesh.barrier()
+    guarded, t_solve = _wall_clock(mesh.device, lambda: guarded_solve(
+        problem, engine, DTYPES[dtype], mesh=mesh, timeout=timeout,
+        max_recoveries=max_recoveries, storage_dtype=storage_dtype,
+        sstep_s=sstep_s))
+    report = _mesh_report(problem, mesh, dtype, guarded.engine,
+                          guarded.result, t_solve, guarded.host_syncs)
+    report.recoveries = [event.kind for event in guarded.recoveries]
+    return report
+
+
+def _run_sharded_checkpointed(problem: Problem, dtype: str, engine: str,
+                              directory: str, chunk: int, mesh_shape,
+                              device) -> RunReport:
+    """One checkpointed solve on the mesh on this rank, resumed from
+    ``directory`` if it holds a step of this problem (written on any mesh
+    shape), on a plain wall clock."""
+    from poisson_ellipse_tpu_torch.solver.checkpoint import (
+        CheckpointingSolver,
+    )
+
+    engine = _checkpoint_engine(engine)
+    mesh = resolve_mesh(mesh_shape, device)
+    with CheckpointingSolver(problem, directory, chunk=chunk,
+                             dtype=DTYPES[dtype], stencil=engine,
+                             mesh=mesh) as solver:
+        start_k = solver.latest_step() or 0
+        mesh.barrier()
+        result, t_solve = _wall_clock(mesh.device, solver.run)
+    return _mesh_report(problem, mesh, dtype, engine, result, t_solve,
+                        solver.host_syncs,
+                        timed_iters=int(result.iters) - start_k)

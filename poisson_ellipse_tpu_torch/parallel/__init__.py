@@ -1,8 +1,7 @@
 """The mesh: PCG over a grid of ``torch.distributed`` ranks.
 
 The counterpart of ``poisson_ellipse_tpu.parallel``, without its
-resilience hooks (ROADMAP Queue A item 21b) and its multigrid forms
-(item 21c):
+multigrid forms (ROADMAP Queue A item 21c):
 
 - ``mesh``:        the rank grid (``choose_process_grid``, the reference's
                    factorisation), the padding to even blocks, the gathered
@@ -10,7 +9,8 @@ resilience hooks (ROADMAP Queue A item 21b) and its multigrid forms
 - ``halo``:        the one-cell (or w-cell) halo exchange, corners in the
                    second round;
 - ``pcg_sharded``: the classical loop on every rank (``xla``, ``pallas``),
-                   2 reductions and 1 halo exchange an iteration;
+                   2 reductions and 1 halo exchange an iteration, and its
+                   chunked stepper, recover and ABFT checks (the guard's);
 - ``fused_sharded``: the two-kernel iteration on every rank, K1-shard and
                    K2-shard (``csrc/fused_sharded.cu``);
 - ``pipelined_sharded``: the pipelined recurrence, 1 reduction and 1 halo
@@ -19,6 +19,8 @@ resilience hooks (ROADMAP Queue A item 21b) and its multigrid forms
                    exchange per s iterations, with narrow storage;
 - ``batched_sharded``: whole lanes of a batch on each rank, 1 reduction an
                    iteration and no halo exchange;
+- ``elastic``:     the survivors' mesh after a lost rank, and a carry
+                   resharded across mesh shapes (``resilience.meshguard``);
 - ``multihost``:   the process group and the rank processes.
 """
 

@@ -39,8 +39,10 @@ def _check_width(block_shape, width: int) -> None:
 
 
 def _round(mesh: Mesh, lo_peer, hi_peer, to_lo, to_hi, recv_shape, dtype):
-    """One exchange round along an axis: send ``to_lo`` to ``lo_peer`` and
-    ``to_hi`` to ``hi_peer`` (None: no neighbour on that side); return
+    """One exchange round along an axis: send ``to_lo`` to the grid
+    position ``lo_peer`` and ``to_hi`` to ``hi_peer`` (None: no neighbour
+    on that side; a message names the position's global rank,
+    ``Mesh.peer``, which differs on a survivors' sub-group); return
     (from_lo, from_hi), zeros from a missing neighbour. Both edges go out
     in one staging copy and come in through one buffer, so under gloo a
     round waits for the card once."""
@@ -51,9 +53,10 @@ def _round(mesh: Mesh, lo_peer, hi_peer, to_lo, to_hi, recv_shape, dtype):
     for side, peer in enumerate((lo_peer, hi_peer)):
         if peer is None:
             continue
-        ops.append(dist.P2POp(dist.isend, out[side * n:(side + 1) * n], peer,
+        to = mesh.peer(peer)
+        ops.append(dist.P2POp(dist.isend, out[side * n:(side + 1) * n], to,
                               mesh.group))
-        ops.append(dist.P2POp(dist.irecv, inbox[side], peer, mesh.group))
+        ops.append(dist.P2POp(dist.irecv, inbox[side], to, mesh.group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()

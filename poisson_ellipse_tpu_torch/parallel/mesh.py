@@ -20,7 +20,15 @@ The mesh's two per-iteration collectives are the halo exchange
 Both count themselves in ``COLLECTIVES`` (per process, as
 ``ops._build.LAUNCHES`` counts launches), so a test can read the cadence
 of a loop: the classical and fused loops make 1 halo exchange and 2
-reductions an iteration.
+reductions an iteration. The resilience layer's decisions at a chunk
+boundary (the health word, a deadline, the checkpoint step) are agreed
+with one collective each off the loop (``Mesh.agree_or``,
+``Mesh.agree_first``), counted apart as "agree".
+
+A mesh may be a sub-group of the process group (``parallel.elastic``'s
+survivors): ``rank`` is this process's position in the grid (its rank in
+``group``) and ``ranks`` the global rank at each position, which is what
+a point-to-point message names (``Mesh.peer``).
 
 ``Mesh.reduce`` gathers every rank's partials (``all_gather``, one double
 each) and adds them in rank order on every rank, in double, rounded once
@@ -44,7 +52,8 @@ from poisson_ellipse_tpu_torch.utils.device import rank_device
 
 # collectives per process by kind: "halo" (one exchange of one or a stack
 # of blocks), "reduce" (one gathered sum), "gather" (a block gathered for
-# the report, off the loop)
+# the report or a checkpoint, off the loop), "agree" (a decision every rank
+# takes from the same bits, at a chunk boundary)
 COLLECTIVES: collections.Counter = collections.Counter()
 
 
@@ -85,9 +94,12 @@ def padded_dims(problem_nodes: tuple[int, int], mesh: "Mesh") -> tuple[int, int]
 class Mesh:
     """One rank's view of a (px, py) rank grid.
 
-    ``group`` is the process group its collectives run in; ``backend`` is
-    that group's ("gloo" or "nccl"), or "none" for a one-rank mesh with no
-    process group, whose collectives are local.
+    ``rank`` is this process's position in the grid, row-major; ``group``
+    is the process group its collectives run in; ``backend`` is that
+    group's ("gloo" or "nccl"), or "none" for a one-rank mesh with no
+    process group, whose collectives are local. ``ranks`` holds the global
+    rank at each position (None: the identity, the mesh over every rank of
+    the default group).
     """
 
     px: int
@@ -96,6 +108,7 @@ class Mesh:
     device: torch.device
     backend: str
     group: Optional[object] = None
+    ranks: Optional[tuple] = None
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -115,6 +128,20 @@ class Mesh:
 
     def rank_of(self, ix: int, iy: int) -> int:
         return ix * self.py + iy
+
+    @property
+    def global_ranks(self) -> tuple:
+        """The global rank at each position."""
+        return tuple(range(self.world)) if self.ranks is None else self.ranks
+
+    def peer(self, pos: int) -> int:
+        """The global rank of the process at grid position ``pos``: the
+        rank a point-to-point message names."""
+        return self.global_ranks[pos]
+
+    @property
+    def global_rank(self) -> int:
+        return self.peer(self.rank)
 
     @property
     def via_host(self) -> bool:
@@ -168,17 +195,54 @@ class Mesh:
         return self.unwire(staged.copy_(total))
 
     def gather_blocks(self, block: torch.Tensor) -> torch.Tensor:
-        """The (px·bm, py·bn) global array of every rank's (bm, bn) block,
-        on every rank (for the report, after the timed solve)."""
+        """The (..., px·bm, py·bn) global array of every rank's (..., bm,
+        bn) block, on every rank (for the report after the timed solve, or
+        a checkpoint at a chunk boundary): one gather, a stack of blocks
+        too."""
         count("gather")
-        bm, bn = block.shape
-        out = torch.empty((self.px * bm, self.py * bn), dtype=block.dtype,
-                          device=self.device)
+        bm, bn = block.shape[-2:]
+        out = torch.empty((*block.shape[:-2], self.px * bm, self.py * bn),
+                          dtype=block.dtype, device=self.device)
         for r, blk in enumerate(self.all_gather(block)):
             ix, iy = divmod(r, self.py)
-            out[ix * bm:(ix + 1) * bm, iy * bn:(iy + 1) * bn] = blk.to(
+            out[..., ix * bm:(ix + 1) * bm, iy * bn:(iy + 1) * bn] = blk.to(
                 self.device)
         return out
+
+    def agree_or(self, word: torch.Tensor) -> torch.Tensor:
+        """The bitwise OR over ranks of each rank's integer 0-d ``word``: a
+        flag any rank raised (a NaN in its own block) raised on every
+        rank."""
+        count("agree")
+        if self.backend == "none":
+            return word
+        words = self.all_gather(word.to(torch.int64).reshape(1))
+        out = words[0]
+        for got in words[1:]:
+            out = out | got
+        return out.reshape(()).to(device=word.device, dtype=word.dtype)
+
+    def agree_sum(self, x: torch.Tensor) -> float:
+        """The sum over ranks of each rank's 0-d ``x``, added in rank order
+        in double (a norm over the whole grid, off the loop)."""
+        count("agree")
+        parts = self.all_gather(x.to(torch.float64).reshape(1))
+        return float(sum(float(part) for part in parts))
+
+    def agree_first(self, value):
+        """The first position's ``value`` (any picklable object) on every
+        rank: a decision one rank takes from its own clock or its own view
+        of the disk, taken by all."""
+        count("agree")
+        if self.backend == "none":
+            return value
+        box = [value]
+        dist.broadcast_object_list(box, src=self.peer(0), group=self.group)
+        return box[0]
+
+    def barrier(self) -> None:
+        if self.backend != "none":
+            dist.barrier(group=self.group)
 
 
 def rank_sums(*pairs) -> torch.Tensor:
@@ -210,3 +274,18 @@ def make_mesh(mesh_shape: Optional[tuple[int, int]] = None,
     return Mesh(px=px, py=py, rank=rank,
                 device=rank_device(device, rank, world), backend=backend,
                 group=group)
+
+
+def sub_mesh(mesh: Mesh, survivors, group) -> Mesh:
+    """This process's mesh over the global ranks ``survivors`` (in
+    order), a near-square grid (``choose_process_grid``) in the process
+    group ``group`` made for them; the process must be one of them."""
+    survivors = tuple(survivors)
+    px, py = choose_process_grid(len(survivors))
+    if len(survivors) == 1:
+        group, backend = None, "none"
+    else:
+        backend = mesh.backend
+    return Mesh(px=px, py=py, rank=survivors.index(mesh.global_rank),
+                device=mesh.device, backend=backend, group=group,
+                ranks=survivors)

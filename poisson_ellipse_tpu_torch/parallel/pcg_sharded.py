@@ -44,9 +44,22 @@ package) records each iteration into a ring of ``obs.convergence`` on
 every rank, from the reduced scalars, so every rank holds the same ring
 bits; the solver then returns (PCGResult, ConvergenceTrace). The fused and
 pipelined iterations raise the JAX package's ValueError.
+
+The resilience hooks (the JAX package's): ``build_sharded_stepper`` is the
+chunked form the guard, the checkpointing solver and the elastic mesh
+drive (``init_fn()``, ``advance_fn(state, limit, k)`` issuing the bodies
+from the carry's iteration ``k`` to ``limit`` with no host read), and
+``build_sharded_recover`` the true-residual restart. ``abft=True`` extends
+the carry with the silent-corruption checks of ``resilience.abft``
+(``ABFTState``): ten partials more ride the body's second reduction, so a
+body keeps its 1 halo exchange and 2 reductions, and the checksum field
+c = A·1 is one stencil call (one halo exchange, one K-a launch on
+"pallas") a dispatch, outside the loop.
 """
 
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
@@ -70,6 +83,13 @@ from poisson_ellipse_tpu_torch.parallel.mesh import (
     padded_dims,
     rank_sums,
 )
+from poisson_ellipse_tpu_torch.resilience.abft import (
+    ClassicalChecks,
+    checksum_field,
+    classical_partials,
+    plain_sums,
+    with_tail,
+)
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
     DENOM_GUARD,
@@ -86,10 +106,6 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
 # pipelined recurrence (the s-step and lane-sharded engines have builders
 # of their own: ``sstep_sharded``, ``batched_sharded``)
 STENCIL_IMPLS = ("xla", "pallas", "fused", "pipelined")
-
-# ROADMAP.md's item for the mesh's resilience hooks (the stepper and
-# recover builders, ABFT, the elastic mesh)
-MESH_HOOKS = "Queue A item 21b"
 
 
 def block_shape(problem: Problem, mesh: Mesh) -> tuple[int, int]:
@@ -140,23 +156,22 @@ def _shard_ops(problem: Problem, mesh: Mesh, bm: int, bn: int, a_ext, b_ext,
     return stencil, pdot, d, maskd
 
 
-def _reject(precond=None, abft=False, x0_blk=None) -> None:
+def _reject(precond=None, x0_blk=None) -> None:
     if precond is not None:
         raise unported("precond= on the mesh", "Queue A item 21c")
-    if abft:
-        raise unported("abft=", MESH_HOOKS)
     if x0_blk is not None:
         raise unported("x0_blk=", "Queue A item 21c")
 
 
 def _shard_init(problem: Problem, pdot, d, rhs_blk, dtype, precond=None,
-                abft: bool = False, x0_blk=None) -> PCGState:
+                abft: bool = False, x0_blk=None, mesh: Mesh | None = None):
     """The carry at iteration 0 on this rank: w = 0, r = rhs, p = D⁻¹r and
-    zr over the mesh (one reduction)."""
-    _reject(precond, abft, x0_blk)
+    zr over the mesh (one reduction). ``abft`` appends the shadow tail,
+    anchored by one reduction more over ``mesh`` (once a solve)."""
+    _reject(precond, x0_blk)
     dev = rhs_blk.device
     z0 = apply_dinv(rhs_blk, d)
-    return PCGState(
+    state = PCGState(
         k=torch.zeros((), dtype=torch.int32, device=dev),
         w=torch.zeros_like(rhs_blk),
         r=rhs_blk.clone(),
@@ -166,28 +181,41 @@ def _shard_init(problem: Problem, pdot, d, rhs_blk, dtype, precond=None,
         converged=torch.zeros((), dtype=torch.bool, device=dev),
         breakdown=torch.zeros((), dtype=torch.bool, device=dev),
     )
+    if not abft:
+        return state
+    sums = mesh.reduce(plain_sums(rhs_blk, z0), dtype)
+    return with_tail(state, (sums[0], torch.zeros_like(sums[0]), sums[1],
+                             torch.zeros((), dtype=torch.bool, device=dev)))
 
 
-def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
-                   dtype, limit=None, chunk: int = DEFAULT_CHUNK,
-                   history=None, precond=None, abft: bool = False):
-    """Advance this rank's carry until convergence, breakdown or iteration
-    ``limit`` (default ``max_iterations``); returns (carry, host reads,
-    bodies issued). Every rank must call it together: each body makes 1
-    halo exchange and 2 reductions. ``history`` is a ring
-    (``solver.pcg.new_ring``) each iteration is recorded into, or None."""
-    _reject(precond, abft)
-    cap = problem.max_iterations
-    limit = cap if limit is None else min(int(limit), cap)
-    like = state.r
+def _make_body(problem: Problem, mesh: Mesh, stencil, d, dtype, like,
+               limit: int, history=None, abft: bool = False, abft_c=None):
+    """One iteration of this rank's carry as ``body(state, k)``, ``k`` the
+    iteration the host issues it as: 1 halo exchange and 2 reductions, and
+    a no-op once the loop has exited (past ``limit``, converged, broken
+    down, or flagged by ABFT). ``abft`` runs the checks of
+    ``resilience.abft`` on the extended carry with ``abft_c`` the checksum
+    field: the ten partials (Σap, Σr, Σw, Σp, Σc·p, Σz, Σ|ap|, Σ|r|, Σ|w|,
+    Σ|p|) ride the second reduction beside Σz·r and Σ(Δw)², which stay
+    bitwise those of the plain loop; every check reads a NaN as a
+    violation (``abft.ClassicalChecks``)."""
+    if abft and (history is not None or abft_c is None):
+        raise ValueError(
+            "abft needs the checksum field (abft_c) and excludes history "
+            "capture — both extend the carry tail"
+        )
     h1, h2 = spacing(problem.h1, like), spacing(problem.h2, like)
     delta = spacing(problem.delta, like)
     one = torch.ones((), dtype=dtype, device=like.device)
     zero = torch.zeros((), dtype=dtype, device=like.device)
     weighted = problem.norm == "weighted"
+    checks = ClassicalChecks(dtype, like.device) if abft else None
 
-    def body(s: PCGState, k: int) -> PCGState:
+    def body(s, k: int):
         active = (s.k < limit) & ~s.converged & ~s.breakdown
+        if abft:
+            # a flagged carry stops at once: the guard rolls the chunk back
+            active = active & ~s.sdc
         ap = stencil(s.p)
         denom = mesh.reduce(rank_sums((ap, s.p)), dtype)[0] * h1 * h2
         breakdown = denom < DENOM_GUARD
@@ -200,8 +228,12 @@ def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
         z = apply_dinv(r_new, d)
         # the realised increment, not α·p
         dw = w_new - s.w
-        # one reduction for both scalars
-        sums = mesh.reduce(rank_sums((z, r_new), (dw, dw)), dtype)
+        # one reduction for both scalars (and the ABFT partials)
+        partials = rank_sums((z, r_new), (dw, dw))
+        if abft:
+            partials = torch.cat([partials, classical_partials(
+                ap, r_new, w_new, s.p, abft_c, z)])
+        sums = mesh.reduce(partials, dtype)
         zr_new = sums[0] * h1 * h2
         dw2 = sums[1]
         diff = torch.sqrt(dw2 * h1 * h2) if weighted else torch.sqrt(dw2)
@@ -211,7 +243,7 @@ def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
         diff = torch.where(step, diff, s.diff)
         if history is not None:
             history_record(history, k, active, zr_new, diff, alpha, beta)
-        return PCGState(
+        out = PCGState(
             k=s.k + active.to(s.k.dtype),
             w=w_new,
             r=r_new,
@@ -221,7 +253,33 @@ def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
             converged=s.converged | converged,
             breakdown=s.breakdown | (active & breakdown),
         )
+        if not abft:
+            return out
+        tail = (s.s_r, s.s_w, s.s_p_pred)
+        ok = checks(sums, tail, alpha, s.zr)
+        # the next iteration's shadows: the reduced Σr and Σw, and the
+        # predicted Σp⁺ = Σz + β·Σp
+        s_r, s_w, s_p, s_z = sums[3], sums[4], sums[5], sums[7]
+        shadows = torch.where(step, torch.stack([s_r, s_w, s_z + beta * s_p]),
+                              torch.stack(tail))
+        return with_tail(out, (*shadows.unbind(), s.sdc | (step & ~ok)))
 
+    return body
+
+
+def _shard_advance(problem: Problem, mesh: Mesh, stencil, d, state: PCGState,
+                   dtype, limit=None, chunk: int = DEFAULT_CHUNK,
+                   history=None, precond=None):
+    """Advance this rank's carry until convergence, breakdown or iteration
+    ``limit`` (default ``max_iterations``); returns (carry, host reads,
+    bodies issued). Every rank must call it together: each body makes 1
+    halo exchange and 2 reductions. ``history`` is a ring
+    (``solver.pcg.new_ring``) each iteration is recorded into, or None."""
+    _reject(precond)
+    cap = problem.max_iterations
+    limit = cap if limit is None else min(int(limit), cap)
+    body = _make_body(problem, mesh, stencil, d, dtype, state.r, limit,
+                      history=history)
     carry = [state]
     bodies = [0]
 
@@ -347,15 +405,94 @@ def build_sharded_solver(problem: Problem, mesh: Mesh | None = None,
     return ShardedSolver(run), args
 
 
-def build_sharded_stepper(*_args, **_kwargs):
-    """The chunked/resumable sharded stepper (``resilience.guard``'s mesh
-    path) is not ported yet."""
-    raise unported("build_sharded_stepper", MESH_HOOKS)
+def stepper_parts(problem: Problem, mesh: Mesh | None, dtype,
+                  stencil_impl: str = "xla", abft: bool = False):
+    """The stepper's parts over one build (this rank's host blocks, the
+    coefficient halos exchanged once, the loop's operators), as a
+    namespace: ``init``, ``advance``, ``recover`` (``build_sharded_stepper``
+    and ``build_sharded_recover``) and ``rhs_norm``, ‖rhs‖ over the whole
+    grid from the host assembly (the guard's drift scale)."""
+    if stencil_impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown stencil_impl: {stencil_impl!r}")
+    if mesh is None:
+        mesh = make_mesh()
+    bm, bn = block_shape(problem, mesh)
+    a_blk, b_blk, rhs_blk, rhs_norm = _host_blocks(problem, mesh, dtype)
+    a_ext = halo_extend(a_blk, mesh)
+    b_ext = halo_extend(b_blk, mesh)
+    stencil, pdot, d, maskd = _shard_ops(problem, mesh, bm, bn, a_ext, b_ext,
+                                         dtype, stencil_impl)
+    cap = problem.max_iterations
+
+    def init_fn():
+        return _shard_init(problem, pdot, d, rhs_blk, dtype, abft=abft,
+                           mesh=mesh)
+
+    def advance_fn(state, limit, k=None):
+        limit = min(int(limit), cap)
+        k = int(state.k) if k is None else int(k)
+        if k >= limit:
+            return state
+        # the checksum field, one stencil call a dispatch
+        c = checksum_field(stencil, maskd) if abft else None
+        body = _make_body(problem, mesh, stencil, d, dtype, rhs_blk, limit,
+                          abft=abft, abft_c=c)
+        for it in range(k, limit):
+            state = body(state, it)
+        return state
+
+    def recover_fn(state):
+        w, p = state.w, state.p
+        r2 = rhs_blk - stencil(w)
+        z2 = apply_dinv(r2, d)
+        out = PCGState(k=state.k, w=w, r=r2, p=p, zr=pdot(z2, r2),
+                       diff=state.diff,
+                       converged=torch.zeros_like(state.converged),
+                       breakdown=torch.zeros_like(state.breakdown))
+        if not abft:
+            return out
+        # the tail re-anchored to the rebuilt carry (one reduction)
+        sums = mesh.reduce(plain_sums(r2, w, p), dtype)
+        return with_tail(out, (sums[0], sums[1], sums[2],
+                               torch.zeros_like(state.converged)))
+
+    return types.SimpleNamespace(init=init_fn, advance=advance_fn,
+                                 recover=recover_fn, rhs_norm=rhs_norm)
 
 
-def build_sharded_recover(*_args, **_kwargs):
-    """The sharded true-residual restart is not ported yet."""
-    raise unported("build_sharded_recover", MESH_HOOKS)
+def build_sharded_stepper(problem: Problem, mesh: Mesh | None = None,
+                          dtype=torch.float32, stencil_impl: str = "xla",
+                          abft: bool = False):
+    """(init_fn, advance_fn) for chunked, resumable sharded solves on this
+    rank; every rank builds and calls them together.
+
+    ``init_fn()`` is the iteration-0 carry (``PCGState`` over this rank's
+    block, ``ABFTState`` with ``abft``); ``advance_fn(state, limit, k=None)``
+    issues the bodies from iteration ``k`` (the carry's count, read from it
+    when None) to ``limit``: the loop's own bodies, so a chunked run is a
+    straight run. ``abft`` runs the silent-corruption checks, the
+    checksum field built once a call, outside the loop."""
+    parts = stepper_parts(problem, mesh, dtype, stencil_impl, abft)
+    return parts.init, parts.advance
+
+
+def build_sharded_recover(problem: Problem, mesh: Mesh | None = None,
+                          dtype=torch.float32, stencil_impl: str = "xla",
+                          abft: bool = False):
+    """The true-residual restart of a sharded carry on this rank, the
+    recovery the guard applies on the mesh: ``recover_fn(state)`` rebuilds
+    r = rhs − A·w (one halo exchange), z and zr (one reduction), keeps the
+    search direction p and clears the flags; with ``abft`` the shadow tail
+    is re-anchored to the rebuilt carry (one reduction more). An 8-field
+    carry is taken too (a restored checkpoint's)."""
+    return stepper_parts(problem, mesh, dtype, stencil_impl, abft).recover
+
+
+def sharded_result_of(problem: Problem, state) -> PCGResult:
+    """A sharded carry (any ABFT tail ignored) as a ``PCGResult`` over this
+    rank's block (``gather_w`` assembles the global solution)."""
+    return PCGResult(w=state.w, iters=state.k, diff=state.diff,
+                     converged=state.converged, breakdown=state.breakdown)
 
 
 def solve_sharded(problem: Problem, mesh: Mesh | None = None,
@@ -390,9 +527,16 @@ def rank_block(problem: Problem, mesh: Mesh, arr: np.ndarray) -> np.ndarray:
 def _host_sharded_args(problem: Problem, mesh: Mesh, dtype):
     """This rank's blocks of the host-f64-assembled a, b, rhs, rounded once
     to ``dtype`` on its device (the "host" assembly mode's operand set)."""
-    return tuple(assembly.to_device(rank_block(problem, mesh, x), dtype,
-                                    mesh.device)
-                 for x in assembly.assemble_numpy(problem))
+    return _host_blocks(problem, mesh, dtype)[:3]
+
+
+def _host_blocks(problem: Problem, mesh: Mesh, dtype):
+    """(a, b, rhs blocks, ‖rhs‖): ``_host_sharded_args`` and the f64 norm
+    of the whole assembled right-hand side, from one assembly."""
+    arrays = assembly.assemble_numpy(problem)
+    return (*(assembly.to_device(rank_block(problem, mesh, x), dtype,
+                                 mesh.device) for x in arrays),
+            float(np.linalg.norm(arrays[2])))
 
 
 def measured_solve(mesh: Mesh, solver, args):
@@ -415,7 +559,7 @@ def measured_solve(mesh: Mesh, solver, args):
     per_rank = [counts]
     if mesh.backend != "none":
         per_rank = [None] * mesh.world
-        dist.all_gather_object(per_rank, counts)
+        dist.all_gather_object(per_rank, counts, group=mesh.group)
     return result, per_rank
 
 

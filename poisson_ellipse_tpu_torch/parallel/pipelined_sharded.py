@@ -26,6 +26,17 @@ in the first; every rank issues the same collectives, since k and the
 flags come from reduced scalars. A body issued after the exit changes
 nothing (every field is masked by whether the loop was active).
 
+``build_pipelined_sharded_stepper`` is the chunked form the guard drives
+(``pcg_sharded.build_sharded_stepper``'s contract over this carry), with
+the residual replacement keyed on the host's iteration, so a chunked run
+is a straight run. ``abft=True`` runs the JAX module's checks adapted to
+this recurrence: the one reduction comes before the updates, so the Σr
+recurrence is checked one iteration late (iteration k+1's reduced Σr
+against the prediction Σr − α·(Σw + β·Σs) carried from k, skipped where
+the replacement rebuilt r), Σp against Σu + β·Σp, and γ > 0; the ten
+partials ride the same reduction (``PipelinedABFTState``, the tail at
+``PIPE_PRED`` … ``PIPE_SDC``).
+
 The operands are the host assembly of ``pcg_sharded`` (f64, rounded once),
 each rank's block of the grid padded to the mesh. f32, f64 and bf16
 compute. At bf16 the cadence stays the JAX module's 32, where the port's
@@ -37,6 +48,9 @@ the port's diverges), so nothing argues for departing from JAX
 """
 
 from __future__ import annotations
+
+import types
+from typing import NamedTuple
 
 import torch
 
@@ -60,27 +74,68 @@ from poisson_ellipse_tpu_torch.parallel.halo import (
 from poisson_ellipse_tpu_torch.parallel.mesh import Mesh, make_mesh, rank_sums
 from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
     ShardedSolver,
+    _host_blocks,
     _host_sharded_args,
     block_shape,
     global_indices,
     host_report,
     measured_solve,
 )
+from poisson_ellipse_tpu_torch.resilience.abft import (
+    abft_dummy_tail,
+    abft_rtol,
+    drift_ok,
+    plain_and_abs_sums,
+    with_tail,
+)
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
     DENOM_GUARD,
     PCGResult,
+    PCGState,
     run_chunked,
     unported,
 )
 
+# the ABFT tail's places in the pipelined carry: (…, pred_r, scale_r,
+# pred_p, scale_p, sdc), the lagged checks of the module docstring
+PIPE_PRED, PIPE_SCALE, PIPE_PRED_P, PIPE_SCALE_P, PIPE_SDC = (
+    12, 13, 14, 15, 16
+)
+
+
+class PipelinedABFTState(NamedTuple):
+    """The pipelined carry (``ops.pipelined_pcg.PipelinedState``'s twelve
+    fields) with the lagged ABFT tail."""
+
+    k: torch.Tensor
+    x: torch.Tensor
+    r: torch.Tensor
+    u: torch.Tensor
+    w: torch.Tensor
+    z: torch.Tensor
+    s: torch.Tensor
+    p: torch.Tensor
+    gamma_prev: torch.Tensor
+    diff: torch.Tensor
+    converged: torch.Tensor
+    breakdown: torch.Tensor
+    pred_r: torch.Tensor
+    scale_r: torch.Tensor
+    pred_p: torch.Tensor
+    scale_p: torch.Tensor
+    sdc: torch.Tensor
+
 
 def _pipelined_parts(problem: Problem, mesh: Mesh, bm: int, bn: int, a_blk,
-                     b_blk, rhs_blk, dtype):
+                     b_blk, rhs_blk, dtype, abft: bool = False,
+                     extras: dict | None = None):
     """(state0, body) for this rank's block of the pipelined iteration;
     ``body(state, k, limit)`` is one iteration, ``k`` the one the host
     expects it to run. Making them exchanges the coefficient halos and w₀'s
-    (3 halo exchanges, no reduction)."""
+    (3 halo exchanges, no reduction). ``abft`` extends the carry with the
+    lagged checks' tail. ``extras``, a dict, gets the operators the
+    stepper's recover uses ("stencil_of", "dinv", "maskd")."""
     like = rhs_blk
     h1, h2 = spacing(problem.h1, like), spacing(problem.h2, like)
     hw = h1 * h2
@@ -116,6 +171,9 @@ def _pipelined_parts(problem: Problem, mesh: Mesh, bm: int, bn: int, a_blk,
         uq_ext = halo_extend_stacked(torch.stack([u, dinv(s)]), mesh)
         return r, u, stencil(uq_ext[0]), stencil(uq_ext[1]), s
 
+    if extras is not None:
+        extras.update(stencil_of=stencil_of, dinv=dinv, maskd=maskd)
+    rtol = abft_rtol(dtype) if abft else None
     u0 = dinv(rhs_blk)
     zeros = torch.zeros_like(rhs_blk)
     state0 = PipelinedState(
@@ -127,15 +185,30 @@ def _pipelined_parts(problem: Problem, mesh: Mesh, bm: int, bn: int, a_blk,
         converged=torch.zeros((), dtype=torch.bool, device=like.device),
         breakdown=torch.zeros((), dtype=torch.bool, device=like.device),
     )
+    if abft:
+        # the lagged checks start at k = 1
+        zero = torch.zeros((), dtype=dtype, device=like.device)
+        state0 = PipelinedABFTState(*state0, zero, zero, zero, zero,
+                                    torch.zeros_like(state0.converged))
 
-    def body(st: PipelinedState, k: int, limit: int) -> PipelinedState:
+    def body(st, k: int, limit: int):
         active = (st.k < limit) & ~st.converged & ~st.breakdown
+        if abft:
+            # a flagged carry stops at once: the guard rolls it back
+            active = active & ~st.sdc
         x, r, u, w, z, s, p = st.x, st.r, st.u, st.w, st.z, st.s, st.p
-        if k > 0 and k % REPLACE_EVERY == 0:
+        replaced = k > 0 and k % REPLACE_EVERY == 0
+        if replaced:
             r, u, w, z, s = rebuilt(x, p)
 
         # the one reduction of the iteration: all eight partials stacked
-        sums = mesh.reduce(rank_sums(*_bundle(r, u, w, s, p)), dtype)
+        # (and the ABFT partials Σr, Σ|r|, Σw, Σ|w|, Σs, Σ|s|, Σp, Σ|p|,
+        # Σu, Σ|u| of the vectors the bundle reads)
+        partials = rank_sums(*_bundle(r, u, w, s, p))
+        if abft:
+            partials = torch.cat([partials,
+                                  plain_and_abs_sums(r, w, s, p, u)])
+        sums = mesh.reduce(partials, dtype)
         # which this halo exchange and stencil do not consume
         n = stencil_of(dinv(w))
 
@@ -167,7 +240,7 @@ def _pipelined_parts(problem: Problem, mesh: Mesh, bm: int, bn: int, a_blk,
         def keep(old, new):
             return torch.where(upd, new, old)
 
-        return PipelinedState(
+        out = PipelinedState(
             k=st.k + active.to(st.k.dtype),
             x=keep(st.x, x_new), r=keep(st.r, r_new), u=keep(st.u, u_new),
             w=keep(st.w, w_new), z=keep(st.z, z_new), s=keep(st.s, s_new),
@@ -177,6 +250,28 @@ def _pipelined_parts(problem: Problem, mesh: Mesh, bm: int, bn: int, a_blk,
             converged=st.converged | (active & converged),
             breakdown=st.breakdown | (active & breakdown),
         )
+        if not abft:
+            return out
+        (s_r, s_absr, s_w, s_absw, s_s, s_abss, s_p, s_absp, s_u,
+         s_absu) = sums[8:18]
+        # the replacement rebuilt r away from the carried prediction: no
+        # r check there (p holds: the rebuild takes p as ground truth)
+        ok = (drift_ok(s_p, st.pred_p, st.scale_p, rtol)
+              # γ is an energy product: positive until convergence
+              & (st.gamma_prev > 0))
+        if not replaced:
+            ok = ok & drift_ok(s_r, st.pred_r, st.scale_r, rtol)
+        fault = active & ~ok if k > 0 else torch.zeros_like(active)
+        # this iteration's incoming r and p for the next: r − α(w + βs)
+        # and u + βp, with the round-off scale of each prediction
+        ab, bb = torch.abs(alpha), torch.abs(beta)
+        return PipelinedABFTState(
+            *out,
+            keep(st.pred_r, s_r - alpha * (s_w + beta * s_s)),
+            keep(st.scale_r, s_absr + ab * (s_absw + bb * s_abss)),
+            keep(st.pred_p, s_u + beta * s_p),
+            keep(st.scale_p, s_absu + bb * s_absp),
+            st.sdc | fault)
 
     return state0, body
 
@@ -225,16 +320,89 @@ def build_pipelined_sharded_solver(problem: Problem, mesh: Mesh | None = None,
     return ShardedSolver(run), _host_sharded_args(problem, mesh, dtype)
 
 
-def build_pipelined_sharded_stepper(*_args, **_kwargs):
-    """The chunked/resumable pipelined mesh stepper (``resilience.guard``'s
-    and the contract checker's) is not ported yet."""
-    raise unported("build_pipelined_sharded_stepper", "Queue A item 21b")
+def stepper_parts(problem: Problem, mesh: Mesh | None, dtype,
+                  abft: bool = False):
+    """The stepper's parts over one build of this rank's operands (the
+    coefficient halos exchanged once), as a namespace: ``init``,
+    ``advance``, ``recover`` (the replacement's rebuild on demand),
+    ``to_classical`` (the guard's fallback conversion) and ``rhs_norm``."""
+    if mesh is None:
+        mesh = make_mesh()
+    bm, bn = block_shape(problem, mesh)
+    a_blk, b_blk, rhs_blk, rhs_norm = _host_blocks(problem, mesh, dtype)
+    ops: dict = {}
+    state0, body = _pipelined_parts(problem, mesh, bm, bn, a_blk, b_blk,
+                                    rhs_blk, dtype, abft=abft, extras=ops)
+    stencil_of, dinv, maskd = ops["stencil_of"], ops["dinv"], ops["maskd"]
+    h1, h2 = spacing(problem.h1, rhs_blk), spacing(problem.h2, rhs_blk)
+    cap = problem.max_iterations
+
+    def advance_fn(state, limit, k=None):
+        limit = min(int(limit), cap)
+        k = int(state.k) if k is None else int(k)
+        for it in range(k, limit):
+            state = body(state, it, limit)
+        return state
+
+    def true_residual(x):
+        return (rhs_blk - stencil_of(x)) * maskd
+
+    def recover_fn(state):
+        """The replacement's rebuild on demand: every recurrence vector
+        from x and p, p kept, γ₋₁ reset to 1 where it is not a positive
+        number; the ABFT tail re-anchored to r and p (one reduction)."""
+        x, p, g = state.x, state.p, state.gamma_prev
+        r2 = true_residual(x)
+        u2 = dinv(r2)
+        w2 = stencil_of(u2)
+        s2 = stencil_of(p)
+        z2 = stencil_of(dinv(s2))
+        g2 = torch.where(torch.isfinite(g) & (g > 0), g, torch.ones_like(g))
+        false = torch.zeros_like(state.converged)
+        out = PipelinedState(k=state.k, x=x, r=r2, u=u2, w=w2, z=z2, s=s2,
+                             p=p, gamma_prev=g2, diff=state.diff,
+                             converged=false, breakdown=false)
+        if not abft:
+            return out
+        sums = mesh.reduce(plain_and_abs_sums(r2, p), dtype)
+        return PipelinedABFTState(*out, *sums.unbind(), false)
+
+    def to_classical(state):
+        """The classical carry from a pipelined one: the classical
+        end-of-iteration update once, p₀ = z + (zr/γ)·p (one halo
+        exchange, one reduction); with ``abft`` a placeholder tail, which
+        the recover that follows re-anchors."""
+        x, p = state.x, state.p
+        r2 = true_residual(x)
+        z2 = dinv(r2)
+        zr2 = mesh.reduce(rank_sums((z2, r2)), dtype)[0] * h1 * h2
+        false = torch.zeros_like(state.converged)
+        out = PCGState(k=state.k, w=x, r=r2, p=z2 + (zr2 / state.gamma_prev)
+                       * p, zr=zr2, diff=state.diff, converged=false,
+                       breakdown=false)
+        return with_tail(out, abft_dummy_tail(zr2)) if abft else out
+
+    return types.SimpleNamespace(init=lambda: state0, advance=advance_fn,
+                                 recover=recover_fn,
+                                 to_classical=to_classical,
+                                 rhs_norm=rhs_norm)
 
 
-def pipelined_sharded_result_of(problem: Problem,
-                                state: PipelinedState) -> PCGResult:
-    """View a pipelined sharded carry as a ``PCGResult`` over this rank's
-    block (``pcg_sharded.gather_w`` crops the padding of the global w)."""
+def build_pipelined_sharded_stepper(problem: Problem,
+                                    mesh: Mesh | None = None,
+                                    dtype=torch.float32, abft: bool = False):
+    """(init_fn, advance_fn) for chunked, resumable pipelined mesh solves
+    on this rank (``pcg_sharded.build_sharded_stepper``'s contract over
+    the twelve-field pipelined carry, ``PipelinedABFTState`` with
+    ``abft``); every rank builds and calls them together."""
+    parts = stepper_parts(problem, mesh, dtype, abft)
+    return parts.init, parts.advance
+
+
+def pipelined_sharded_result_of(problem: Problem, state) -> PCGResult:
+    """View a pipelined sharded carry (any ABFT tail ignored) as a
+    ``PCGResult`` over this rank's block (``pcg_sharded.gather_w`` crops
+    the padding of the global w)."""
     return PCGResult(w=state.x, iters=state.k, diff=state.diff,
                      converged=state.converged, breakdown=state.breakdown)
 

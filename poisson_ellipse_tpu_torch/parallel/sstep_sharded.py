@@ -32,8 +32,18 @@ classical one (``solver.pcg.PCGState``) over this rank's block. f32, f64
 and bf16 compute: bf16 takes the single-device bf16 arithmetic of
 ``ops.sstep_pcg`` (the Grams accumulated in f64, the cadence
 ``replace_every(storage_dtype, dtype)``: 8 at bf16, as the JAX module
-takes it). ``abft=True`` and the stepper raise naming ROADMAP Queue A item
-21b.
+takes it).
+
+``build_sstep_sharded_stepper`` is the chunked form the guard drives; its
+carry is the classical one, so ``pcg_sharded.build_sharded_recover``
+restarts it. ``abft=True`` runs the JAX module's block-level checks on the
+classical ABFT tail (``resilience.abft``): the column sums σ = Σ basisₘ
+and τ = Σ D·basisₘ, Σx and the scales Σ|x|, Σ|p|, Σ|r| ride the Gram
+reduction; a block checks Σp = σ₀, Σr = τ_z₀ (not where it replaced r),
+Σx against the last block's predictions through the coordinates, and that
+the Grams' diagonals (sums of squares) are not negative, which a
+sign-flipped reduction breaks. The rtol is that of the storage dtype
+where there is one.
 """
 
 from __future__ import annotations
@@ -78,6 +88,11 @@ from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
     host_report,
     measured_solve,
 )
+from poisson_ellipse_tpu_torch.resilience.abft import (
+    abft_rtol,
+    drift_ok,
+    with_tail,
+)
 from poisson_ellipse_tpu_torch.solver.pcg import (
     DEFAULT_CHUNK,
     PCGResult,
@@ -102,11 +117,12 @@ def make_sstep_parts(problem: Problem, mesh: Mesh | None, dtype, s: int,
     it one (this rank's block of a carry, stored as the run stores it) and
     advances it in blocks of s to the cap or ``limit``; it returns (carry,
     host reads, bodies issued). ``args`` are this rank's blocks of the
-    host-assembled (a, b, rhs)."""
+    host-assembled (a, b, rhs). ``run.prepare(a_blk, b_blk, rhs_blk)``
+    makes the halos and returns (init, body) without running: ``init()``
+    the iteration-0 carry, ``body(state, k, limit)`` one block from the
+    iteration ``k`` the host issues it at."""
     if s not in SSTEP_CHOICES:
         raise ValueError(f"s must be one of {SSTEP_CHOICES}, got {s}")
-    if abft:
-        raise unported("abft= on the s-step mesh", "Queue A item 21b")
     if geometry is not None or theta is not None:
         raise unported("geometry=/theta=", "Queue A item 11")
     if mesh is None:
@@ -124,12 +140,12 @@ def make_sstep_parts(problem: Problem, mesh: Mesh | None, dtype, s: int,
             f"{bm}x{bn} blocks on a {mesh.px}x{mesh.py} mesh"
         )
     K = basis_size(s)
+    iz = s + 1
     gd = gram_dtype(dtype)
     weighted = problem.norm == "weighted"
+    rtol = abft_rtol(st if st is not None else dtype) if abft else None
 
-    def run(a_blk, b_blk, rhs_blk, limit=None, state=None):
-        cap = problem.max_iterations
-        limit = cap if limit is None else min(int(limit), cap)
+    def prepare(a_blk, b_blk, rhs_blk):
         dev = rhs_blk.device
         h1, h2 = spacing(problem.h1, rhs_blk), spacing(problem.h2, rhs_blk)
         hw = h1 * h2
@@ -160,11 +176,12 @@ def make_sstep_parts(problem: Problem, mesh: Mesh | None, dtype, s: int,
         def pdot(u, v):
             return mesh.reduce(rank_sums((u, v)), dtype)[0] * hw
 
-        if state is None:
-            state = _shard_init(problem, pdot, d0, rhs_blk, dtype)
-            state = state._replace(w=store(state.w, st),
-                                   r=store(state.r, st),
-                                   p=store(state.p, st))
+        def init():
+            state = _shard_init(problem, pdot, d0, rhs_blk, dtype, abft=abft,
+                                mesh=mesh)
+            return state._replace(w=store(state.w, st),
+                                  r=store(state.r, st),
+                                  p=store(state.p, st))
 
         def chain(v_ext, q_in):
             """One Â = D⁻¹A application down the halo chain: depth q_in in,
@@ -175,8 +192,11 @@ def make_sstep_parts(problem: Problem, mesh: Mesh | None, dtype, s: int,
             out = apply_a_block(v_ext, a_q, b_q, h1, h2) * masks[q]
             return apply_dinv(out, diags[q])
 
-        def body(sv: PCGState, k: int) -> PCGState:
+        def body(sv, k: int, limit: int):
             active = (sv.k < limit) & ~sv.converged & ~sv.breakdown
+            if abft:
+                # a flagged carry stops at once (the classical stance)
+                active = active & ~sv.sdc
             x_own, r_own, p_own = (load(v, dtype, st)
                                    for v in (sv.w, sv.r, sv.p))
 
@@ -208,30 +228,37 @@ def make_sstep_parts(problem: Problem, mesh: Mesh | None, dtype, s: int,
                              for v in vs + zs])  # (K, bm, bn)
             del vs, zs
 
-            # the block's one reduction: both Gram partials, widened
+            # the block's one reduction: both Gram partials, widened (and
+            # the ABFT column sums σ, τ and Σx, Σ|x|, Σ|p|, Σ|r|)
             Vg = V.to(gd)
-            gm_loc = torch.einsum("kij,lij->kl", Vg, Vg * d0_g)
+            Vd = Vg * d0_g
+            gm_loc = torch.einsum("kij,lij->kl", Vg, Vd)
             ge_loc = torch.einsum("kij,lij->kl", Vg, Vg)
-            del Vg
-            sums = mesh.reduce(torch.cat([gm_loc.reshape(-1),
-                                          ge_loc.reshape(-1)]), gd)
+            parts = [gm_loc.reshape(-1), ge_loc.reshape(-1)]
+            if abft:
+                parts += [Vg.sum(dim=(1, 2)), Vd.sum(dim=(1, 2)),
+                          torch.stack([x_own, x_own.abs(), p_own.abs(),
+                                       r_own.abs()]).sum(
+                              dim=(1, 2), dtype=torch.float64).to(gd)]
+            del Vg, Vd
+            sums = mesh.reduce(torch.cat(parts), gd)
             Gm = sums[:K * K].reshape(K, K) * hw_g
-            Ge = sums[K * K:].reshape(K, K)
+            Ge = sums[K * K:2 * K * K].reshape(K, K)
 
             k_n, x_c, z_c, p_c, zr_n, diff_n, conv_n, bd_n = sstep_inner(
                 Gm, Ge, Bm, s, sv.k, limit, delta_g, hw_g, weighted,
                 sv.diff.to(gd), sv.converged, sv.breakdown, gd,
             )
-            x_c, z_c, p_c = x_c.to(dtype), z_c.to(dtype), p_c.to(dtype)
-            x_new = x_own + torch.tensordot(x_c, V, dims=1)
-            r_new = d0 * torch.tensordot(z_c, V, dims=1)
-            p_new = torch.tensordot(p_c, V, dims=1)
+            x_cd, z_cd, p_cd = x_c.to(dtype), z_c.to(dtype), p_c.to(dtype)
+            x_new = x_own + torch.tensordot(x_cd, V, dims=1)
+            r_new = d0 * torch.tensordot(z_cd, V, dims=1)
+            p_new = torch.tensordot(p_cd, V, dims=1)
 
             # a body issued after the loop has exited changes nothing
             def keep(old, new):
                 return torch.where(active, store(new, st), old)
 
-            return PCGState(
+            out = PCGState(
                 k=k_n,
                 w=keep(sv.w, x_new),
                 r=keep(sv.r, r_new),
@@ -241,12 +268,45 @@ def make_sstep_parts(problem: Problem, mesh: Mesh | None, dtype, s: int,
                 converged=conv_n,
                 breakdown=bd_n,
             )
+            if not abft:
+                return out
+            off = 2 * K * K
+            sigma, tau = sums[off:off + K], sums[off + K:off + 2 * K]
+            s_x, s_absx, s_absp, s_absr = sums[off + 2 * K:off + 2 * K + 4]
+            # the block-start checks against the last block's predictions:
+            # Σp = σ₀ (not where narrow storage restarted p = z), Σr = τ_z₀
+            # (not where the block replaced r), Σx; and the Grams'
+            # diagonals, sums of squares, not negative
+            ok = (drift_ok(s_x, sv.s_w, s_absx, rtol)
+                  & (torch.diagonal(Gm) >= 0).all()
+                  & (torch.diagonal(Ge) >= 0).all())
+            if not (replaced and st is not None):
+                ok = ok & drift_ok(sigma[0], sv.s_p_pred, s_absp, rtol)
+            if not replaced:
+                ok = ok & drift_ok(tau[iz], sv.s_r, s_absr, rtol)
+            step = active & ~bd_n
 
-        carry = [state]
+            def next_(old, new):
+                return torch.where(step, new.to(dtype), old)
+
+            # the next block's predictions through the coordinates
+            return with_tail(out, (
+                next_(sv.s_r, z_c @ tau),
+                next_(sv.s_w, s_x + x_c @ sigma),
+                next_(sv.s_p_pred, p_c @ sigma),
+                sv.sdc | (step & ~ok)))
+
+        return init, body
+
+    def run(a_blk, b_blk, rhs_blk, limit=None, state=None):
+        cap = problem.max_iterations
+        limit = cap if limit is None else min(int(limit), cap)
+        init, body = prepare(a_blk, b_blk, rhs_blk)
+        carry = [init() if state is None else state]
         bodies = [0]
 
         def step(k: int):
-            carry[0] = body(carry[0], k)
+            carry[0] = body(carry[0], k, limit)
             bodies[0] += 1
 
         def flags():
@@ -257,6 +317,7 @@ def make_sstep_parts(problem: Problem, mesh: Mesh | None, dtype, s: int,
         syncs = run_chunked(step, flags, limit, chunk, per_body=s)
         return carry[0], syncs, bodies[0]
 
+    run.prepare = prepare
     return run, _host_sharded_args(problem, mesh, dtype)
 
 
@@ -278,10 +339,29 @@ def build_sstep_sharded_solver(problem: Problem, mesh: Mesh | None = None,
     return ShardedSolver(solve), args
 
 
-def build_sstep_sharded_stepper(*_args, **_kwargs):
-    """The chunked/guarded s-step mesh stepper (``resilience.guard``'s and
-    the contract checker's) is not ported yet."""
-    raise unported("build_sstep_sharded_stepper", "Queue A item 21b")
+def build_sstep_sharded_stepper(problem: Problem, mesh: Mesh | None = None,
+                                dtype=torch.float32, s: int = DEFAULT_S,
+                                abft: bool = False, storage_dtype=None):
+    """(init_fn, advance_fn) for chunked, guarded s-step mesh solves on
+    this rank (``pcg_sharded.build_sharded_stepper``'s contract over the
+    classical carry): ``advance_fn(state, limit, k=None)`` issues the
+    blocks of s from iteration ``k`` (read from the carry when None); a
+    limit inside a block stops at exactly that iteration, and the next
+    call starts its blocks there. The deep halos are exchanged once, at
+    the build; ``abft`` appends the classical shadow tail."""
+    run, args = make_sstep_parts(problem, mesh, dtype, s, storage_dtype,
+                                 abft=abft)
+    init, body = run.prepare(*args)
+    cap = problem.max_iterations
+
+    def advance_fn(state, limit, k=None):
+        limit = min(int(limit), cap)
+        k = int(state.k) if k is None else int(k)
+        for it in range(k, limit, s):
+            state = body(state, it, limit)
+        return state
+
+    return init, advance_fn
 
 
 def solve_sstep_sharded(problem: Problem, mesh: Mesh | None = None,

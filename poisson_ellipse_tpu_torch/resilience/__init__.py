@@ -1,7 +1,7 @@
-"""resilience — guarded solves, classified failures, fault injection.
+"""resilience — guarded solves, classified failures, fault injection,
+silent-corruption detection, degraded-mesh recovery.
 
-The port's counterpart of ``poisson_ellipse_tpu.resilience`` on one
-device:
+The port's counterpart of ``poisson_ellipse_tpu.resilience``:
 
 - :mod:`.guard` — ``guarded_solve``: a loop engine's bodies in chunks with
   one device-side health word a chunk (breakdown / NaN-Inf / stagnation),
@@ -13,11 +13,16 @@ device:
   contract (2 diverged, 3 oom, 4 timeout, … 9), and the one place a
   device-runtime exception is classified.
 - :mod:`.faultinject` — deterministic fault injection at exact
-  iterations, the shrunken on-chip budget (``simulated_vmem``) and the
-  checkpoint truncation.
-
-Not ported yet: ``abft`` and ``meshguard`` (the mesh's silent-corruption
-checks and degraded-mesh recovery, ROADMAP Queue A item 21b).
+  iterations (on a mesh too: halo bit flips on the owning rank, sign-
+  flipped reductions, lost ranks, stragglers), the shrunken on-chip
+  budget (``simulated_vmem``) and the checkpoint truncation.
+- :mod:`.abft` — the mesh's silent-corruption checks, their partials
+  riding the loops' existing reductions, answered by rollback and re-run;
+  persistent corruption raises ``SilentCorruptionError`` (exit 6).
+- :mod:`.meshguard` — rank loss and stragglers detected at chunk
+  boundaries, the mesh shrunk over the survivors, the last durable
+  checkpoint resharded and resumed (``elastic_solve``; exhaustion raises
+  ``DeviceLossError``, exit 7).
 """
 
 from poisson_ellipse_tpu_torch.resilience.errors import (
@@ -67,9 +72,15 @@ from poisson_ellipse_tpu_torch.resilience.guard import (
     guarded_solve,
     health_name,
 )
+from poisson_ellipse_tpu_torch.resilience.meshguard import (
+    ElasticResult,
+    MeshEvent,
+    elastic_solve,
+)
 
 __all__ = [
     "DeviceLossError",
+    "ElasticResult",
     "EXIT_DEVICE_LOSS",
     "EXIT_DIVERGED",
     "EXIT_FLEET_UNAVAILABLE",
@@ -86,6 +97,7 @@ __all__ = [
     "HEALTH_NONFINITE",
     "HEALTH_SDC",
     "HEALTH_STAGNATION",
+    "MeshEvent",
     "OutOfMemoryError",
     "RecoveryEvent",
     "SilentCorruptionError",
@@ -94,6 +106,7 @@ __all__ = [
     "classify_error",
     "corrupt_halo",
     "device_loss",
+    "elastic_solve",
     "force_breakdown",
     "guarded_solve",
     "halo_bitflip",

@@ -19,9 +19,24 @@ injected at an exact, reproducible iteration, with no randomness:
 - ``halo_bitflip`` flip one bit of one element (a view to the integer
                    dtype of the same width, int16 for bf16 and f16);
 - ``psum_corrupt`` flip the sign of the carried (z, r);
-- ``device_loss``, ``straggler``, the replica, lease-store, admission and
-  cache kinds: data here; their consumers (the mesh guard, serving, the
-  fleet) are ported with ROADMAP Queue A items 10, 15 and 21b.
+- ``device_loss``  raise a DEVICE_LOST-classified error at a chunk
+                   boundary, naming the lost rank (``resilience.meshguard``
+                   shrinks the mesh past it);
+- ``straggler``    sleep at the chunk boundary (the mesh guard's deadline
+                   turns it into a degradation);
+- the replica, lease-store, admission and cache kinds: data here; their
+  consumers (serving, the fleet) are ported with ROADMAP Queue A items 10
+  and 15.
+
+On a mesh (``apply(mesh=)``, the mesh guard's and the mesh adapters')
+every rank applies the same plan to its own block of the carry, and a
+fault lands where the JAX package's lands on the global array:
+``halo_bitflip`` flips the element at the global site (shard ``shard``'s
+first row of the padded grid, its middle column) on the rank that owns
+it alone; ``nan``, ``breakdown``, ``stagnation`` and ``psum_corrupt``
+(the replicated zr's sign) change every rank's part; ``halo`` the ranks
+holding the grid's first ``rows`` rows; ``device_loss`` raises on every
+rank at the same iteration; ``straggler`` sleeps on the named rank only.
 
 :func:`simulated_vmem` shrinks the on-chip budget the capacity gates
 (``ops.resident_pcg.fits_resident``, ``ops.streamed_pcg.fits_streamed``)
@@ -326,10 +341,11 @@ class FaultPlan:
         return min(pending) if pending else None
 
     def apply(self, k: int, state, fields: dict[str, int],
-              breakdown_index: int, zr_index: int):
+              breakdown_index: int, zr_index: int, mesh=None):
         """Fire every unfired fault scheduled at iteration ``k`` against
-        ``state`` (a carry NamedTuple); returns a carry of the same type.
-        ``oom`` and ``device_loss`` faults raise where a dispatch would."""
+        ``state`` (a carry NamedTuple; on ``mesh``, this rank's blocks of
+        it); returns a carry of the same type. ``oom`` and ``device_loss``
+        faults raise where a dispatch would."""
         for fault in self.faults:
             if fault.fired or fault.at_iter != k:
                 continue
@@ -347,9 +363,12 @@ class FaultPlan:
                     device=fault.device,
                 )
             if fault.kind == "straggler":
-                time.sleep(fault.delay_s)
+                if (mesh is None or fault.device is None
+                        or fault.device == mesh.global_rank):
+                    time.sleep(fault.delay_s)
                 continue
-            state = _corrupt(state, fault, fields, breakdown_index, zr_index)
+            state = _corrupt(state, fault, fields, breakdown_index, zr_index,
+                             mesh)
         return state
 
     def lost_devices(self) -> list[int]:
@@ -405,8 +424,22 @@ def _field(fields: dict[str, int], fault: Fault) -> int:
     return fields[field]
 
 
+def _local_site(arr: torch.Tensor, fault: Fault, mesh):
+    """(row, col) in this rank's block of the flipped element, or None
+    when another rank owns it: the global site of ``_bitflip_site`` on
+    the mesh's padded grid."""
+    if mesh is None:
+        return _bitflip_site(arr, fault)
+    bm, bn = arr.shape[-2], arr.shape[-1]
+    row, col = _bitflip_site(torch.empty((mesh.px * bm, mesh.py * bn),
+                                         device="meta"), fault)
+    if (row // bm, col // bn) != (mesh.ix, mesh.iy):
+        return None
+    return row % bm, col % bn
+
+
 def _corrupt(state, fault: Fault, fields: dict[str, int],
-             breakdown_index: int, zr_index: int):
+             breakdown_index: int, zr_index: int, mesh=None):
     if fault.lane is not None:
         return _corrupt_lane(state, fault, fields, breakdown_index, zr_index)
     out = list(state)
@@ -414,10 +447,12 @@ def _corrupt(state, fault: Fault, fields: dict[str, int],
         out[zr_index] = -out[zr_index]
     elif fault.kind == "halo_bitflip":
         idx = _field(fields, fault)
-        arr = out[idx].clone()
-        row, col = _bitflip_site(arr, fault)
-        arr[row, col] = _flip_bit(arr[row, col], fault.bit)
-        out[idx] = arr
+        site = _local_site(out[idx], fault, mesh)
+        if site is not None:
+            arr = out[idx].clone()
+            row, col = site
+            arr[row, col] = _flip_bit(arr[row, col], fault.bit)
+            out[idx] = arr
     elif fault.kind == "breakdown":
         out[breakdown_index] = torch.ones_like(out[breakdown_index])
     elif fault.kind == "stagnation":
@@ -431,9 +466,14 @@ def _corrupt(state, fault: Fault, fields: dict[str, int],
         if fault.kind == "nan":
             out[idx] = torch.full_like(out[idx], float("nan"))
         else:
-            arr = out[idx].clone()
-            arr[: fault.rows] = float("nan")
-            out[idx] = arr
+            # the grid's first rows: on a mesh, the part of them this
+            # rank's block holds
+            rows = fault.rows if mesh is None else max(
+                fault.rows - mesh.ix * out[idx].shape[-2], 0)
+            if rows:
+                arr = out[idx].clone()
+                arr[:rows] = float("nan")
+                out[idx] = arr
     return _rebuild(state, out)
 
 

@@ -51,8 +51,22 @@ they are guarded at whole-solve granularity: the result is checked, and
 an OOM or an unhealthy result degrades down the capacity ladder resident
 → streamed → xl → the chunked guarded ``xla`` loop.
 
-Not ported here: the mesh adapters and ABFT (``mesh=``, ``abft=``, ROADMAP
-Queue A item 21b) and the geometry and multigrid engines (item 11).
+On the mesh (``mesh=``, every rank of it calling together) the chunked
+steppers of ``parallel.pcg_sharded`` (``xla``/``auto``, ``pallas``),
+``sstep_sharded`` (``sstep``, ``sstep-pallas``) and ``pipelined_sharded``
+(``pipelined``) run under the same ladder: restart, f64 escalation on
+``xla``, fallback to the classical ``xla`` stepper. ``abft=True`` turns on
+the in-loop silent-corruption checks (``resilience.abft``); their sticky
+flag is the health word's ``HEALTH_SDC`` bit, answered by a rollback to
+the last healthy chunk boundary and a re-run, and by
+``SilentCorruptionError`` (exit 6) when it fires again. Every branch is
+taken from the same bits on every rank: the health word is OR-ed over the
+ranks (a NaN in one rank's block), the drift check's norm summed over
+them, and the deadline read from the first rank's clock, one collective
+each at a chunk boundary, counted as "agree" (``parallel.mesh``).
+
+Not ported here: the geometry and multigrid engines (ROADMAP Queue A
+items 11 and 21c).
 """
 
 from __future__ import annotations
@@ -81,6 +95,7 @@ from poisson_ellipse_tpu_torch.ops.stencil import (
     diag_d,
     spacing,
 )
+from poisson_ellipse_tpu_torch.resilience import abft as abft_layer
 from poisson_ellipse_tpu_torch.resilience.errors import (
     DivergedError,
     OutOfMemoryError,
@@ -105,8 +120,9 @@ HEALTH_BREAKDOWN = 1
 HEALTH_NONFINITE = 2
 HEALTH_STAGNATION = 4
 HEALTH_CONVERGED = 8
-# the ABFT layer's silent-corruption bit (the mesh guard, Queue A item
-# 21b); no single-device adapter sets it
+# the ABFT layer's silent-corruption bit (the mesh adapters with abft);
+# routed to rollback and re-run, never to a restart, which would launder
+# the corrupted iterate into the answer
 HEALTH_SDC = 16
 
 _UNHEALTHY = HEALTH_BREAKDOWN | HEALTH_NONFINITE | HEALTH_STAGNATION
@@ -200,10 +216,13 @@ def _false(like: torch.Tensor) -> torch.Tensor:
 
 
 class _Adapter:
-    """What the two adapters share: operands, the chunk, the probe."""
+    """What the adapters share: operands, the chunk, the probe, and the
+    mesh hooks, which on one device agree with nobody."""
 
     FIELDS: dict = {}
     K = ZR = DIFF = CONV = BD = 0
+    mesh = None
+    abft = False
 
     def _setup(self, problem: Problem, dtype, stencil: str, operands,
                storage_dtype, device) -> None:
@@ -246,13 +265,32 @@ class _Adapter:
     def probe(self, new, prev, limit: int) -> torch.Tensor:
         """(health word, iteration count, step norm) of the chunk's carry
         ``new`` against the chunk-start carry ``prev``, as one float64
-        device tensor: the guard reads it once."""
+        device tensor: the guard reads it once. With ABFT the carry's
+        sticky flag sets ``HEALTH_SDC``; on a mesh the word is OR-ed over
+        the ranks (the scalars are the same on every rank)."""
         zr_prev, diff_prev = self.scalars(prev)
         word = _health_word(
             self.vectors(new), new[self.ZR], new[self.DIFF], new[self.K],
             new[self.CONV], new[self.BD], zr_prev, diff_prev, limit)
+        if self.abft:
+            word = word + new.sdc.to(torch.int32) * HEALTH_SDC
+        if self.mesh is not None:
+            word = self.mesh.agree_or(word)
         return torch.stack([word.double(), new[self.K].double(),
                             new[self.DIFF].double()])
+
+    def norm(self, v: torch.Tensor) -> float:
+        """‖v‖ over the whole grid: this block's, summed over the ranks
+        on a mesh."""
+        local = torch.sum(v.float() ** 2)
+        if self.mesh is not None:
+            return float(self.mesh.agree_sum(local)) ** 0.5
+        return float(torch.sqrt(local))
+
+    def agree(self, late: bool) -> bool:
+        """A decision from this process's clock, taken by every rank: the
+        mesh's first rank's."""
+        return late if self.mesh is None else self.mesh.agree_first(late)
 
     def init(self):
         return self._init()
@@ -465,6 +503,136 @@ class _PipelinedAdapter(_Adapter):
                         converged=_false(rhs), breakdown=_false(rhs))
 
 
+class _ShardedAdapter(_Adapter):
+    """The mesh's classical carry (``parallel.pcg_sharded``'s stepper, or
+    the s-step stepper's, the same layout): each rank's blocks of w, r, p
+    and the replicated scalars, the ABFT tail with ``abft``. Engines
+    ``xla`` and ``pallas``, and ``sstep`` (``sstep_s`` iterations a block,
+    the classical ``xla`` recover)."""
+
+    FIELDS = {"w": 1, "r": 2, "p": 3, "zr": 4}
+    K, ZR, DIFF, CONV, BD = 0, 4, 5, 6, 7
+    SDC = abft_layer.SDC  # the abft module's tail layout
+
+    def __init__(self, problem: Problem, mesh, dtype, stencil: str = "xla",
+                 abft: bool = False, sstep_s=None):
+        from poisson_ellipse_tpu_torch.parallel import pcg_sharded as ps
+
+        self.problem = problem
+        self.mesh = mesh
+        self.dtype = dtype
+        self.stencil = stencil
+        self.abft = abft
+        self.sstep_s = sstep_s
+        self.storage_dtype = None  # the mesh ladder runs at full width
+        self.device = mesh.device
+        if stencil == "sstep":
+            # the s-step carry is the classical one: the classical recover
+            # applies as it is
+            from poisson_ellipse_tpu_torch.parallel.sstep_sharded import (
+                build_sstep_sharded_stepper,
+            )
+
+            self.engine = "sstep"
+            parts = ps.stepper_parts(problem, mesh, dtype, "xla", abft)
+            self._init, self._advance = build_sstep_sharded_stepper(
+                problem, mesh, dtype, s=sstep_s or 4, abft=abft)
+        else:
+            self.engine = stencil
+            parts = ps.stepper_parts(problem, mesh, dtype, stencil, abft)
+            self._init, self._advance = parts.init, parts.advance
+        self.recover = parts.recover
+        self.rhs_norm = parts.rhs_norm
+
+    def advance(self, state, k: int, limit: int):
+        return self._advance(state, limit, k)
+
+    def vectors(self, state) -> tuple:
+        return state.w, state.r, state.p
+
+    def result(self, state) -> PCGResult:
+        """The global (M+1, N+1) solution on every rank (one gather)."""
+        from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
+            gather_w,
+            sharded_result_of,
+        )
+
+        result = sharded_result_of(self.problem, state)
+        return result._replace(w=gather_w(self.problem, self.mesh,
+                                          result.w))
+
+    def escalate(self):
+        if self.stencil != "xla" or self.dtype.itemsize >= 8:
+            return None
+        adapter = _ShardedAdapter(self.problem, self.mesh, torch.float64,
+                                  stencil="xla", abft=self.abft)
+        return adapter, lambda state: _cast_carry(state, torch.float64)
+
+    def fallback(self):
+        if self.stencil in ("pallas", "sstep"):
+            # the same carry: the iterate and the direction hand over
+            adapter = _ShardedAdapter(self.problem, self.mesh, self.dtype,
+                                      stencil="xla", abft=self.abft)
+            return adapter, lambda state: state
+        return None
+
+
+class _PipelinedShardedAdapter(_Adapter):
+    """The mesh's pipelined carry (``parallel.pipelined_sharded``'s
+    stepper): each rank's blocks of x, r, u, w, z, s, p, the replicated
+    γ₋₁, step norm and flags, and the lagged ABFT tail with ``abft``. Its
+    ladder is restart, then fallback to the classical ``xla`` stepper."""
+
+    FIELDS = {"x": 1, "r": 2, "u": 3, "w": 4, "z": 5, "s": 6, "p": 7}
+    K, ZR, DIFF, CONV, BD = 0, 8, 9, 10, 11
+    SDC = 16  # = pipelined_sharded.PIPE_SDC
+
+    def __init__(self, problem: Problem, mesh, dtype, abft: bool = False):
+        from poisson_ellipse_tpu_torch.parallel.pipelined_sharded import (
+            PIPE_SDC,
+            stepper_parts,
+        )
+
+        assert self.SDC == PIPE_SDC  # the recurrence owns its tail layout
+        self.problem = problem
+        self.mesh = mesh
+        self.dtype = dtype
+        self.stencil = "xla"
+        self.abft = abft
+        self.storage_dtype = None
+        self.device = mesh.device
+        self.engine = "pipelined"
+        parts = stepper_parts(problem, mesh, dtype, abft)
+        self._init, self._advance = parts.init, parts.advance
+        self.recover = parts.recover
+        self._to_classical = parts.to_classical
+        self.rhs_norm = parts.rhs_norm
+
+    def advance(self, state, k: int, limit: int):
+        return self._advance(state, limit, k)
+
+    def vectors(self, state) -> tuple:
+        return tuple(state[1:8])
+
+    def result(self, state) -> PCGResult:
+        from poisson_ellipse_tpu_torch.parallel.pcg_sharded import gather_w
+        from poisson_ellipse_tpu_torch.parallel.pipelined_sharded import (
+            pipelined_sharded_result_of,
+        )
+
+        result = pipelined_sharded_result_of(self.problem, state)
+        return result._replace(w=gather_w(self.problem, self.mesh,
+                                          result.w))
+
+    def escalate(self):
+        return None  # the mesh ladder is restart, then classical fallback
+
+    def fallback(self):
+        adapter = _ShardedAdapter(self.problem, self.mesh, self.dtype,
+                                  stencil="xla", abft=self.abft)
+        return adapter, self._to_classical
+
+
 def _promotion(adapter: _Adapter, diff_index: int):
     """(full-width classical adapter, carry conversion) of a narrow
     adapter's storage promotion: the iterate at compute width, r zero, p
@@ -486,12 +654,55 @@ def _promotion(adapter: _Adapter, diff_index: int):
 
 
 def _make_adapter(problem: Problem, engine: str, dtype, storage_dtype=None,
-                  sstep_s: int = 4, device=None) -> _Adapter:
+                  sstep_s: int = 4, device=None, mesh=None,
+                  abft: bool = False, geometry=None) -> _Adapter:
     from poisson_ellipse_tpu_torch.solver.engine import (
         BATCHED_ENGINES,
         ENGINE_CAPS,
     )
 
+    if geometry is not None and mesh is not None:
+        raise ValueError(
+            "guarded sharded solves do not take geometry= yet — run the "
+            "sharded build (parallel.pcg_sharded.build_sharded_solver) "
+            "directly, or guard the single-chip engines"
+        )
+    if abft and mesh is None:
+        raise ValueError(
+            "abft covers the sharded engines (the checksum partials ride "
+            "the mesh's stacked convergence psum); single-device solves "
+            "are guarded by the health word + final residual gate alone"
+        )
+    if mesh is not None:
+        if storage_dtype is not None:
+            raise ValueError(
+                "the guarded mesh ladder runs at full width; narrow-"
+                "storage sharded solves run the steppers directly "
+                "(parallel.pcg_sharded / parallel.sstep_sharded with "
+                "storage_dtype=) — drop --storage-dtype or --mesh"
+            )
+        if engine in ("auto", "xla"):
+            return _ShardedAdapter(problem, mesh, dtype, stencil="xla",
+                                   abft=abft)
+        if engine == "pallas":
+            return _ShardedAdapter(problem, mesh, dtype, stencil="pallas",
+                                   abft=abft)
+        if engine in ("sstep", "sstep-pallas"):
+            return _ShardedAdapter(problem, mesh, dtype, stencil="sstep",
+                                   abft=abft, sstep_s=sstep_s)
+        if engine in ("mg-pcg", "cheb-pcg"):
+            raise unported(f"the guarded {engine!r} engine on the mesh",
+                           "Queue A item 21c")
+        if engine == "pipelined":
+            return _PipelinedShardedAdapter(problem, mesh, dtype, abft=abft)
+        raise ValueError(
+            f"guarded sharded solves run the chunked steppers "
+            f"('xla'/'pallas'/'pipelined'/'sstep'/'mg-pcg'/'cheb-pcg'); "
+            f"got engine={engine!r} — the fused sharded iteration has no "
+            "resumable stepper form"
+        )
+    if geometry is not None:
+        raise unported("geometry=", "Queue A item 11")
     if engine in _UNPORTED_ENGINES:
         raise unported(f"the guarded {engine!r} engine", "Queue A item 11")
     if engine in BATCHED_ENGINES:
@@ -560,24 +771,38 @@ def guarded_solve(
     under the guard, promoted to compute width before its convergence is
     accepted. ``sstep_s`` sizes the s-step engines' blocks.
 
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank of it calls together)
+    runs the mesh's chunked steppers (``xla``/``auto``, ``pallas``,
+    ``pipelined``, ``sstep``/``sstep-pallas``), the result's w the global
+    solution on every rank; ``abft=True`` (the mesh only) turns on the
+    in-loop silent-corruption checks, a flagged chunk rolled back and
+    re-run, a second flag from a clean carry raising
+    ``SilentCorruptionError``.
+
     Raises the classified ``SolveError`` subclasses on recovery
     exhaustion (``DivergedError``), memory exhaustion with no engine left
-    (``OutOfMemoryError``), or deadline (``SolveTimeout``).
+    (``OutOfMemoryError``), silent corruption that a rollback does not
+    clear (``SilentCorruptionError``), or deadline (``SolveTimeout``).
     """
-    if mesh is not None:
-        raise unported("the guarded mesh (mesh=)", "Queue A item 21b")
-    if abft:
-        raise unported("abft=", "Queue A item 21b")
-    if geometry is not None or theta is not None:
-        raise unported("geometry=", "Queue A item 11")
     if chunk < 1:
         raise ValueError("chunk must be >= 1")
     t0 = time.monotonic()
     plan = faults if faults is not None else FaultPlan()
     events: list[RecoveryEvent] = []
-    dev = resolve_device(device)
+    if theta is not None and geometry is None:
+        raise unported("geometry=", "Queue A item 11")
 
-    if engine in ("auto", "resident", "streamed", "xl", "fused"):
+    if mesh is None and engine in ("auto", "resident", "streamed", "xl",
+                                   "fused"):
+        if abft:
+            raise ValueError(
+                "abft covers the sharded engines; the whole-solve VMEM "
+                f"engines ({engine!r}) are validated by the final "
+                "health check alone"
+            )
+        if geometry is not None:
+            raise unported("geometry=", "Queue A item 11")
+        dev = resolve_device(device)
         if storage_dtype is not None:
             raise ValueError(
                 "guarded narrow-storage solves run the chunked loop "
@@ -596,7 +821,9 @@ def guarded_solve(
 
     adapter = _make_adapter(problem, engine, dtype,
                             storage_dtype=storage_dtype, sstep_s=sstep_s,
-                            device=dev)
+                            device=None if mesh is not None
+                            else resolve_device(device),
+                            mesh=mesh, abft=abft, geometry=geometry)
     return _run_chunked(
         problem, adapter, chunk=chunk, max_recoveries=max_recoveries,
         timeout=timeout, t0=t0, plan=plan, events=events,
@@ -621,15 +848,23 @@ def _record(events: list[RecoveryEvent], kind: str, at_iter: int,
 
 def _residual_drift(adapter: _Adapter, state) -> float:
     """Relative drift of the carried residual from the true one (the
-    convergence-claim check; one extra read, at the final chunk only)."""
+    convergence-claim check; one extra read, at the final chunk only; on
+    a mesh the norm is summed over the ranks)."""
     rebuilt = adapter.recover(state)
     idx = adapter.FIELDS["r"]
-    num = torch.sqrt(torch.sum((state[idx] - rebuilt[idx]).float() ** 2))
-    return float(num) / max(adapter.rhs_norm, 1e-30)
+    return adapter.norm(state[idx] - rebuilt[idx]) / max(adapter.rhs_norm,
+                                                         1e-30)
 
 
-def _check_deadline(timeout, t0, k: int) -> None:
-    if timeout is not None and time.monotonic() - t0 > timeout:
+def _check_deadline(timeout, t0, k: int, adapter=None) -> None:
+    """Raise ``SolveTimeout`` past the deadline; on a mesh the first
+    rank's clock decides for every rank."""
+    if timeout is None:
+        return
+    late = time.monotonic() - t0 > timeout
+    if adapter is not None:
+        late = adapter.agree(late)
+    if late:
         obs_trace.event("recovery:timeout", iter=k, timeout_s=timeout)
         raise SolveTimeout(
             f"solve exceeded --timeout {timeout:g}s at iteration {k} "
@@ -666,7 +901,7 @@ def _run_chunked(problem: Problem, adapter: _Adapter, *, chunk: int,
     max_iter = problem.max_iterations
 
     while True:
-        _check_deadline(timeout, t0, k)
+        _check_deadline(timeout, t0, k, adapter)
         stop = plan.next_stop(k - 1)  # a fault AT k fires before this chunk
         limit = min(k + chunk, max_iter)
         if stop is not None and k < stop:
@@ -674,7 +909,8 @@ def _run_chunked(problem: Problem, adapter: _Adapter, *, chunk: int,
         failure = None
         try:
             run_state = plan.apply(
-                k, state, adapter.FIELDS, adapter.BD, adapter.ZR
+                k, state, adapter.FIELDS, adapter.BD, adapter.ZR,
+                mesh=adapter.mesh,
             ) if plan else state
             new = adapter.advance(run_state, k_state, limit)
             word, k_new, diff_new = adapter.probe(new, state, limit).tolist()
@@ -716,8 +952,7 @@ def _run_chunked(problem: Problem, adapter: _Adapter, *, chunk: int,
             continue
 
         if word & HEALTH_SDC and not word & HEALTH_NONFINITE:
-            # silent corruption: roll back and re-run, never restart (no
-            # single-device adapter raises this bit; kept for the mesh)
+            # silent corruption: roll back and re-run, never restart
             nrec += 1
             if sdc_strikes >= 1 or nrec > max_recoveries:
                 raise SilentCorruptionError(

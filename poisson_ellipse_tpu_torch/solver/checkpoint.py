@@ -33,8 +33,18 @@ thread while the next chunk runs, and that thread is joined before a
 restore and at ``close()``. ``save_seconds`` and ``write_seconds`` keep
 each save's host copy and its write.
 
-The mesh's checkpoints (``mesh=``, the resharded restore) are ROADMAP
-Queue A item 21b.
+``mesh=`` checkpoints the sharded classical loop
+(``parallel.pcg_sharded.build_sharded_stepper``), every rank of the mesh
+driving it together. At a chunk boundary the ranks gather the global
+(padded) w, r and p in one collective and the mesh's first rank writes
+them, so ``directory`` must be one every rank sees. The fingerprint holds
+the mesh shape; a step written on another shape (or on one device) is
+resharded on restore, as in the JAX package: cropped to the node grid,
+re-padded to this mesh's dims, cut to this rank's block
+(``parallel.elastic.reshard_state``), and a single-device solve crops a
+mesh's step the same way. Which step a mesh restores, after the
+verification and any quarantine, is the first rank's decision, taken by
+every rank (``Mesh.agree_first``).
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from poisson_ellipse_tpu_torch.models.problem import Problem
 from poisson_ellipse_tpu_torch.obs import trace as obs_trace
 from poisson_ellipse_tpu_torch.ops import assembly
 from poisson_ellipse_tpu_torch.ops.precision import dtype_name
+from poisson_ellipse_tpu_torch.parallel.mesh import padded_dims_of
 from poisson_ellipse_tpu_torch.resilience.errors import (
     _is_loud_error,
     classify_error,
@@ -66,11 +77,11 @@ from poisson_ellipse_tpu_torch.solver.pcg import (
     make_body,
     result_of,
     run_chunked,
-    unported,
 )
 from poisson_ellipse_tpu_torch.utils.device import resolve_device
 
 STATE_KEYS = ("k", "w", "r", "p", "zr", "diff", "converged", "breakdown")
+_GRID_KEYS = ("w", "r", "p")
 
 # per-step integrity manifest (relative path -> byte size)
 MANIFEST_NAME = "integrity.json"
@@ -106,8 +117,9 @@ def _fingerprint(problem: Problem, dtype, stencil: str, mesh_shape) -> dict:
 
 
 class CheckpointingSolver:
-    """Single-device PCG that persists its carry every ``chunk``
-    iterations, on ``device`` (cuda unless ``device='cpu'``).
+    """PCG that persists its carry every ``chunk`` iterations, on
+    ``device`` (cuda unless ``device='cpu'``), or over ``mesh`` (every
+    rank of it constructs and drives the solver together).
 
     >>> solver = CheckpointingSolver(problem, "/path/ckpts", chunk=500)
     >>> result = solver.run()          # resumes automatically if killed
@@ -124,9 +136,6 @@ class CheckpointingSolver:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise unported("checkpointing on the mesh (mesh=)",
-                           "Queue A item 21b")
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
         if stencil not in STENCILS:
@@ -139,17 +148,24 @@ class CheckpointingSolver:
         self.dtype = dtype
         self.stencil = stencil
         self.keep = keep
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
-        a, b, rhs = assembly.assemble(problem, dtype, self.device)
-        self._operands = (a, b, rhs)
-        self._init = lambda: init_state(problem, a, b, rhs)
-        # the loop's own body, masked at the iteration cap; a chunk issues
-        # exactly its bodies
-        self._body = make_body(problem, a, b, rhs, problem.max_iterations,
-                               stencil)
-        self._fp = _fingerprint(problem, dtype, stencil, (1, 1))
+        if mesh is None:
+            a, b, rhs = assembly.assemble(problem, dtype, self.device)
+            self._init = lambda: init_state(problem, a, b, rhs)
+            # the loop's own body, masked at the iteration cap; a chunk
+            # issues exactly its bodies
+            self._body = make_body(problem, a, b, rhs,
+                                   problem.max_iterations, stencil)
+        else:
+            # the sharded stepper, built on first use (the mesh guard
+            # drives its own and uses this class for durability only)
+            self._stepper = None
+        self._fp = _fingerprint(problem, dtype, stencil,
+                                (1, 1) if mesh is None else mesh.shape)
         self._writer = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         self._pending: list = []
         self.save_seconds: list[float] = []
@@ -157,23 +173,51 @@ class CheckpointingSolver:
         # host reads of the last run: its start and one a save
         self.host_syncs = 0
 
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the steps: one device, or the
+        mesh's first rank."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _parts(self):
+        if self._stepper is None:
+            from poisson_ellipse_tpu_torch.parallel.pcg_sharded import (
+                build_sharded_stepper,
+            )
+
+            self._stepper = build_sharded_stepper(
+                self.problem, self.mesh, self.dtype,
+                stencil_impl=self.stencil)
+        return self._stepper
+
     # -- persistence --------------------------------------------------------
 
     def latest_step(self) -> Optional[int]:
-        """The newest finalized step on disk (saves in flight included)."""
+        """The newest finalized step on disk (saves in flight included);
+        on a mesh, the first rank's view, taken by every rank."""
         self.wait_until_finished()
         steps = self._step_dirs()
-        return steps[-1] if steps else None
+        step = steps[-1] if steps else None
+        return self.mesh.agree_first(step) if self.mesh is not None else step
 
     def _save(self, state: PCGState) -> dict:
         """Copy the carry to the host and queue its write; returns the
-        host copy (its flags are what the loop reads)."""
+        host copy (its flags are what the loop reads). On a mesh the
+        global w, r and p are gathered (one collective on every rank) and
+        the first rank writes them."""
         t0 = time.perf_counter()
+        fields = dict(zip(STATE_KEYS, state))
+        if self.mesh is not None:
+            grids = self.mesh.gather_blocks(torch.stack(
+                [fields[key] for key in _GRID_KEYS]))
+            fields.update(zip(_GRID_KEYS, grids))
         host = {key: x.detach().to("cpu", copy=True)
-                for key, x in zip(STATE_KEYS, state)}
+                for key, x in fields.items()}
         self.save_seconds.append(time.perf_counter() - t0)
-        step = int(host["k"])
-        self._pending.append(self._writer.submit(self._write, step, host))
+        if self._writes:
+            step = int(host["k"])
+            self._pending.append(self._writer.submit(self._write, step,
+                                                     host))
         return host
 
     def _write(self, step: int, host: dict) -> None:
@@ -270,19 +314,40 @@ class CheckpointingSolver:
     def _restore_latest_valid(self):
         """The newest step that verifies and loads; damaged steps are
         quarantined and the next older one tried. None when no step
-        survives."""
+        survives. On a mesh the first rank verifies, quarantines and
+        picks the step, and every rank loads it (or raises the first
+        rank's refusal)."""
+        if self.mesh is None:
+            return self._newest_valid()[0]
+        verdict = state = None
+        if self._writes:
+            try:
+                state, step = self._newest_valid()
+                verdict = ("step", step)
+            except Exception as e:  # noqa: BLE001 — shared, raised below
+                verdict = ("error", e)
+        kind, value = self.mesh.agree_first(verdict)
+        if kind == "error":
+            raise value
+        if value is None or self._writes:
+            return state
+        return self._restore(value)
+
+    def _newest_valid(self):
+        """(carry, step) of the newest step that verifies and loads, or
+        (None, None); damaged steps are quarantined on the way."""
         self.wait_until_finished()
         while True:
             steps = self._step_dirs()
             if not steps:
-                return None
+                return None, None
             step = steps[-1]
             reason = self._verify_step(step)
             if reason is None:
                 try:
-                    return self._restore(step)
-                except (CheckpointMismatchError, NotImplementedError):
-                    raise  # deliberate refusals, not damage
+                    return self._restore(step), step
+                except CheckpointMismatchError:
+                    raise  # a deliberate refusal, not damage
                 except Exception as e:  # noqa: BLE001 — quarantined below
                     if classify_error(e) != "unknown" or _is_loud_error(e):
                         raise  # the device failed, not the step's files
@@ -290,6 +355,10 @@ class CheckpointingSolver:
             self._quarantine(step, reason)
 
     def _restore(self, step: int) -> PCGState:
+        """Step ``step``'s carry for this solve: this rank's block of it on
+        a mesh, the node grid on one device. A step written on another
+        mesh shape is resharded (the elastic resume): only the mesh may
+        differ from the fingerprint."""
         step_dir = os.path.join(self.directory, str(step))
         # the fingerprint first: it must refuse before a shape mismatch
         # could fail the load with an opaque error
@@ -302,32 +371,53 @@ class CheckpointingSolver:
                     "checkpoint was written by a different problem/dtype: "
                     f"saved {meta}, current {self._fp}"
                 )
-            raise unported(
-                f"resuming a checkpoint written on a {meta['mesh']} mesh",
-                "Queue A item 21b")
+            if self._writes:
+                obs_trace.event(
+                        "degrade:checkpoint-reshard",
+                    step=step,
+                    from_mesh=meta["mesh"],
+                    to_mesh=self._fp["mesh"],
+                )
         tree = torch.load(os.path.join(step_dir, STATE_NAME),
-                          map_location=self.device, weights_only=True)
-        template = self._init()
-        for key, want in zip(STATE_KEYS, template):
+                          map_location="cpu", weights_only=True)
+        # the arrays as the writing solve laid them out: its mesh's padded
+        # node grid (the node grid itself on one device)
+        dims = padded_dims_of(self.problem.node_shape, *meta["mesh"])
+        for key in STATE_KEYS:
             got = tree[key]
-            if got.shape != want.shape or got.dtype != want.dtype:
+            want = (dims if key in _GRID_KEYS else ())
+            if (tuple(got.shape) != tuple(want) or got.dtype != (
+                    torch.int32 if key == "k" else torch.bool
+                    if key in ("converged", "breakdown") else self.dtype)):
                 raise ValueError(
                     f"field {key} is {got.dtype} {tuple(got.shape)}, the "
-                    f"solve's is {want.dtype} {tuple(want.shape)}")
-        return PCGState(*(tree[key] for key in STATE_KEYS))
+                    f"solve's is {want}")
+        state = PCGState(*(tree[key] for key in STATE_KEYS))
+        if self.mesh is not None:
+            from poisson_ellipse_tpu_torch.parallel.elastic import (
+                reshard_state,
+            )
+
+            return reshard_state(self.problem, state, self.mesh, self.dtype)
+        g1, g2 = self.problem.node_shape
+        return PCGState(*(x[:g1, :g2].to(self.device) if x.dim() == 2
+                          else x.to(self.device) for x in state))
 
     # -- the surface the mesh guard drives ---------------------------------
 
     def initial_state(self) -> PCGState:
-        """A fresh iteration-0 carry."""
-        return self._init()
+        """A fresh iteration-0 carry (this rank's, on a mesh)."""
+        return self._parts()[0]() if self.mesh is not None else self._init()
 
     def save(self, state) -> None:
-        """Persist the classical 8-field prefix of ``state``."""
-        self._save(PCGState(*state[:8]))
+        """Persist the classical 8-field prefix of ``state`` (an ABFT tail
+        is never saved: shadow sums are re-anchored on whatever mesh the
+        carry wakes up on)."""
+        self._save(PCGState(*tuple(state)[:8]))
 
     def restore_latest(self):
-        """The newest valid step's carry (quarantining damage), or None."""
+        """The newest valid step's carry, laid out for this solver's mesh
+        (quarantining damage, resharding across mesh shapes), or None."""
         return self._restore_latest_valid()
 
     # -- driving ------------------------------------------------------------
@@ -337,8 +427,11 @@ class CheckpointingSolver:
 
         resume=True picks up from the newest valid checkpoint in
         ``directory`` (quarantining damaged steps); resume=False starts
-        from iteration 0 regardless."""
+        from iteration 0 regardless. On a mesh the result's w is the
+        global (M+1, N+1) solution on every rank."""
         state = self._restore_latest_valid() if resume else None
+        if self.mesh is not None:
+            return self._run_mesh(state)
         carry = [state if state is not None else self._init()]
         issued = [False]
 
@@ -361,6 +454,30 @@ class CheckpointingSolver:
         self.host_syncs = run_chunked(step, flags,
                                       self.problem.max_iterations, self.chunk)
         return result_of(carry[0])
+
+    def _run_mesh(self, state) -> PCGResult:
+        """The mesh's run: the stepper's chunks, a save (a gather and the
+        first rank's write) after each."""
+        from poisson_ellipse_tpu_torch.parallel.pcg_sharded import gather_w
+
+        init_fn, advance_fn = self._parts()
+        if state is None:
+            state = init_fn()
+        cap = self.problem.max_iterations
+        k, converged, breakdown = (int(v) for v in torch.stack([
+            state.k, state.converged.to(state.k.dtype),
+            state.breakdown.to(state.k.dtype)]).tolist())
+        self.host_syncs = 1
+        while not (converged or breakdown or k >= cap):
+            state = advance_fn(state, min(k + self.chunk, cap), k)
+            host = self._save(state)
+            self.host_syncs += 1
+            k, converged, breakdown = (int(host["k"]),
+                                       bool(host["converged"]),
+                                       bool(host["breakdown"]))
+        result = result_of(state)
+        return result._replace(w=gather_w(self.problem, self.mesh,
+                                          result.w))
 
     def close(self) -> None:
         self.wait_until_finished()

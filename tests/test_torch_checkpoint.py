@@ -261,20 +261,56 @@ def test_a_device_failure_on_restore_quarantines_nothing(tmp_path,
 
 
 def test_mesh_checkpoints_name_their_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 21b"):
-        ck.CheckpointingSolver(Problem(M=10, N=10), str(tmp_path),
-                               mesh=object(), device="cpu")
+    """Mesh checkpoints are ported: a one-rank mesh's checkpointed solve
+    takes the single-device count, w within 1e-10 (f64; its reductions
+    add in double), with the same steps (the 2×2 → 1×2 resume is
+    ``tests/test_torch_elastic.py``'s); a step written on another mesh
+    shape, its arrays on that mesh's padded grid, restores resharded:
+    cropped to the node grid, the resume bitwise the straight solve."""
+    from poisson_ellipse_tpu_torch.parallel.mesh import (
+        make_mesh,
+        padded_dims_of,
+    )
+
+    problem = Problem(M=10, N=10)
+    single = _solve(problem, tmp_path / "single", chunk=4)
+    with ck.CheckpointingSolver(problem, str(tmp_path / "mesh"), chunk=4,
+                                dtype=F64,
+                                mesh=make_mesh(device="cpu")) as solver:
+        on_mesh = solver.run()
+    assert int(on_mesh.iters) == int(single.iters)
+    assert _steps(tmp_path / "mesh") == _steps(tmp_path / "single")
+    np.testing.assert_allclose(on_mesh.w.numpy(), single.w.numpy(), rtol=0,
+                               atol=1e-10)
     # a step written on another mesh shape: the resharded restore
     directory = tmp_path / "ck"
-    _solve(Problem(M=10, N=10), directory, chunk=4)
+    with ck.CheckpointingSolver(problem, str(directory), chunk=4,
+                                dtype=F64, device="cpu") as first:
+        state = first.initial_state()
+        for k in (4, 8):
+            state = first._body(first._body(first._body(first._body(
+                state, k - 4), k - 3), k - 2), k - 1)
+            first.save(state)
+    g1p, g2p = padded_dims_of(problem.node_shape, 2, 2)
     for step in _steps(directory):
+        path = directory / step / ck.STATE_NAME
+        tree = torch.load(path, weights_only=True)
+        for key in ("w", "r", "p"):
+            full = torch.zeros((g1p, g2p), dtype=tree[key].dtype)
+            full[:11, :11] = tree[key]
+            tree[key] = full
+        torch.save(tree, path)
         meta_path = directory / step / ck.META_NAME
         meta = json.loads(meta_path.read_text())
         meta["mesh"] = [2, 2]
         meta_path.write_text(json.dumps(meta))
         (directory / step / ck.MANIFEST_NAME).unlink()
-    with pytest.raises(NotImplementedError, match="Queue A item 21b"):
-        _solve(Problem(M=10, N=10), directory, chunk=4)
+    with ck.CheckpointingSolver(problem, str(directory), chunk=4,
+                                dtype=F64, device="cpu") as resumed:
+        assert resumed.latest_step() == 8
+        _bitwise(resumed.run(), single)
+    assert not [n for n in os.listdir(directory)
+                if n.startswith("quarantined-")]
 
 
 def test_cli_checkpoint_dir_runs_twice_and_resumes(tmp_path, capsys):

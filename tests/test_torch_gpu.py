@@ -2332,3 +2332,70 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     for res in (got, resumed):
         for x, y in zip(res, straight):
             assert x.device == y.device and _same_bytes(x, y)
+
+
+# -- the mesh's resilience hooks: ABFT on K-a, the guarded 1x1 mesh -------
+
+
+@pytest.mark.parametrize("ix,iy", [(0, 0), (1, 1), (0, 1)])
+def test_abft_checksum_through_k_a_is_its_plain_version(cuda, ix, iy):
+    """The ABFT checksum field c = A·1 (``abft.checksum_field``: the loop's
+    stencil on the interior mask) on a rank's block of 2400x3200 on 2x2,
+    its halo as the exchange gives it: K-a bitwise its plain version."""
+    from poisson_ellipse_tpu_torch.parallel.mesh import padded_dims_of
+    from poisson_ellipse_tpu_torch.resilience.abft import checksum_field
+
+    p = Problem(M=2400, N=3200)
+    a, b, _ = (torch.as_tensor(x) for x in assembly.assemble_numpy(p))
+    g1p, g2p = padded_dims_of(p.node_shape, 2, 2)
+    bm, bn = g1p // 2, g2p // 2
+    gi = ix * bm - 1 + torch.arange(bm + 2)
+    gj = iy * bn - 1 + torch.arange(bn + 2)
+
+    def window(x):
+        # the rank's block with the halo the exchange delivers: the
+        # neighbours' values, zeros past the grid
+        full = torch.zeros((g1p + 2, g2p + 2), dtype=torch.float64)
+        full[1:1 + x.shape[0], 1:1 + x.shape[1]] = x
+        return full[ix * bm:ix * bm + bm + 2, iy * bn:iy * bn + bn + 2].to(
+            torch.float32).to(cuda)
+
+    a_ext, b_ext = window(a), window(b)
+    interior = assembly.interior_mask(p, gi.to(cuda), gj.to(cuda))
+    mask_ext = interior.to(torch.float32)
+    maskd = mask_ext[1:-1, 1:-1]
+
+    def stencil_with(fn):
+        # the halo the exchange delivers: the neighbours' interior mask
+        return lambda v: fn(mask_ext, a_ext, b_ext, p.h1, p.h2) * maskd
+
+    _build.reset_launches()
+    got = checksum_field(stencil_with(hk.apply_a_block_kernel), maskd)
+    assert dict(_build.LAUNCHES) == {"stencil": 1}
+    want = checksum_field(stencil_with(hk.apply_a_block_plain), maskd)
+    assert _same_bits(got, want)
+    assert bool(torch.isfinite(got).all()) and float(got.abs().sum()) > 0
+
+
+def test_guarded_abft_pallas_on_one_rank_is_bitwise_unguarded(cuda):
+    """A 1x1 NCCL guarded pallas solve with ABFT at 400x600 (capped at
+    256, no convergence claim: the healthy path alone): no event, no
+    alarm, w bitwise the unguarded sharded solve's; K-a once a body and
+    once a chunk more for the checksum field."""
+    from poisson_ellipse_tpu_torch.parallel import multihost
+    from poisson_ellipse_tpu_torch.parallel import pcg_sharded as ps
+    from poisson_ellipse_tpu_torch.resilience import mesh_drills as md
+
+    p = Problem(M=400, N=600, max_iter=256)
+    matrix, plain = multihost.spawn(multihost.run_jobs, 1, ([
+        (md.guard_matrix, (p, "pallas", torch.float32, 64, {"clean": None}),
+         dict(abft=True, device="cuda")),
+        (ps.solve_report, (p, torch.float32),
+         dict(stencil_impl="pallas", device="cuda")),
+    ],), device="cuda")
+    got = matrix["clean"]
+    assert got["error"] is None and got["events"] == []
+    assert got["iters"] == plain["iters"] == 256
+    np.testing.assert_array_equal(got["w"], plain["w"])
+    assert plain["backend"] == "nccl"
+    assert got["counts"][0]["launches"] == {"stencil": 256 + 256 // 64}

@@ -333,12 +333,24 @@ def test_sstep_refusals_carry_jax_text():
 
 @pytest.mark.parametrize("call", ["abft", "stepper"])
 def test_sstep_resilience_hooks_name_item_21b(call):
+    """The s-step mesh's resilience hooks (item 21b) are ported: with
+    ``abft`` the solve is bitwise the plain one, unflagged; the stepper
+    chunked on its blocks (12 iterations) is the straight solve."""
     p, m = Problem(M=10, N=10), mesh.make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 21b"):
-        if call == "abft":
-            sss.make_sstep_parts(p, m, torch.float32, 4, abft=True)
-        else:
-            sss.build_sstep_sharded_stepper(p, m)
+    straight, _, _ = sss.make_sstep_parts(p, m, torch.float64, 4)[0](
+        *sss.make_sstep_parts(p, m, torch.float64, 4)[1])
+    if call == "abft":
+        run, args = sss.make_sstep_parts(p, m, torch.float64, 4, abft=True)
+        state, _, _ = run(*args)
+        assert not bool(state.sdc)
+    else:
+        init, advance = sss.build_sstep_sharded_stepper(p, m, torch.float64)
+        state, limit = init(), 0
+        while not bool(state.converged) and limit < p.max_iterations:
+            limit += 12
+            state = advance(state, limit)
+    assert int(state.k) == int(straight.k) and bool(state.converged)
+    assert torch.equal(state.w, straight.w)
 
 
 # -- the lane-sharded engine ----------------------------------------------

@@ -673,7 +673,8 @@ def test_sharded_without_a_card_raises(monkeypatch):
 
 def test_a_failing_rank_raises_its_error():
     with pytest.raises(RuntimeError, match="not ported"):
-        _spawn(2, [(ps.build_sharded_stepper, (), {})])
+        _spawn(2, [(ps._shard_init, (Problem(M=10, N=10), None, None, None,
+                                     None), {"precond": "mg"})])
 
 
 # -- refusals, as in the JAX package ----------------------------------------
@@ -712,26 +713,55 @@ def test_sharded_rejects_unknown_stencil_impl_and_assembly():
                                     "pipelined_stepper", "stepper",
                                     "recover", "abft", "precond", "x0"])
 def test_unported_mesh_options_name_their_item(option):
+    """The resilience hooks (item 21b) are ported: each runs on a one-rank
+    mesh to the straight solve's count, unflagged; precond= and x0_blk=
+    still name item 21c."""
     m = _mesh1()
     p = Problem(M=10, N=10)
-    calls = {
-        # history= and bf16 on the pipelined mesh are ported
-        # (tests/test_torch_obs.py, tests/test_torch_mesh_bf16_rest.py)
-        "sstep_stepper": lambda: sss.build_sstep_sharded_stepper(p, m),
-        "sstep_abft": lambda: sss.make_sstep_parts(p, m, torch.float32, 4,
-                                                   abft=True),
-        "pipelined_stepper": lambda: pps.build_pipelined_sharded_stepper(
-            p, m),
-        "stepper": lambda: ps.build_sharded_stepper(p, m),
-        "recover": lambda: ps.build_sharded_recover(p, m),
-        "abft": lambda: ps._shard_init(p, None, None, None, None, abft=True),
-        "precond": lambda: ps._shard_init(p, None, None, None, None,
-                                          precond=object()),
-        "x0": lambda: ps._shard_init(p, None, None, None, None,
-                                     x0_blk=torch.zeros(1)),
-    }
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
-        calls[option]()
+    f64 = torch.float64
+
+    def chunked(init, advance, chunk=4):
+        state, limit = init(), 0
+        while not bool(state.converged) and limit < p.max_iterations:
+            limit += chunk
+            state = advance(state, limit)
+        return state
+
+    straight = ps.solve_sharded(p, m, f64)
+    if option in ("precond", "x0"):
+        kw = {"precond": object()} if option == "precond" else {
+            "x0_blk": torch.zeros(1)}
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue A item 21c"):
+            ps._shard_init(p, None, None, None, None, **kw)
+        return
+    if option == "sstep_stepper":
+        state = chunked(*sss.build_sstep_sharded_stepper(p, m, f64))
+    elif option == "sstep_abft":
+        state = chunked(*sss.build_sstep_sharded_stepper(p, m, f64,
+                                                         abft=True))
+        assert not bool(state.sdc)
+    elif option == "pipelined_stepper":
+        state = chunked(*pps.build_pipelined_sharded_stepper(p, m, f64))
+        assert abs(int(state.k) - int(straight.iters)) <= 2
+        return
+    elif option == "recover":
+        init, advance = ps.build_sharded_stepper(p, m, f64)
+        recover = ps.build_sharded_recover(p, m, f64)
+        state = recover(advance(init(), 8))
+        assert int(state.k) == 8 and not bool(state.converged)
+        state = advance(state, p.max_iterations)
+    else:
+        state = chunked(*ps.build_sharded_stepper(p, m, f64,
+                                                  abft=option == "abft"))
+        if option == "abft":
+            assert not bool(state.sdc)
+    assert bool(state.converged)
+    if option in ("stepper", "abft"):
+        assert int(state.k) == int(straight.iters)
+        assert torch.equal(state.w, straight.w)
+    else:
+        assert abs(int(state.k) - int(straight.iters)) <= 2
 
 
 def test_one_rank_solve_in_process_matches_single():

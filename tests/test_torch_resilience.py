@@ -168,8 +168,7 @@ def test_exit_codes_and_classes_equal_jax():
     assert errors._DEVICE_LOSS_MARKERS == jax_errors._DEVICE_LOSS_MARKERS
     assert set(resilience.__all__) == set(
         __import__("poisson_ellipse_tpu.resilience",
-                   fromlist=["__all__"]).__all__) - {
-        "ElasticResult", "MeshEvent", "elastic_solve"}
+                   fromlist=["__all__"]).__all__)
 
 
 @pytest.mark.parametrize("exc", [
@@ -633,12 +632,46 @@ def test_whole_solve_guard_refusals():
 
 
 def test_unported_and_refused_options():
-    for kw, item in ((dict(mesh=object()), "Queue A item 21b"),
-                     (dict(abft=True), "Queue A item 21b"),
-                     (dict(geometry={"kind": "ellipse"}), "Queue A item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            guard.guarded_solve(PROBLEM, "xla", torch.float32, device="cpu",
-                                **kw)
+    """The guarded mesh and ABFT are ported (a one-rank mesh here; the
+    2×2 runs are ``tests/test_torch_mesh_abft.py``'s): ABFT off the mesh,
+    narrow storage and the fused iteration on it raise the JAX package's
+    ValueError word for word; geometry and the multigrid engines name
+    their items."""
+    from jax.sharding import Mesh as JaxMesh
+
+    import jax
+
+    from poisson_ellipse_tpu.parallel.mesh import AXIS_X, AXIS_Y
+    from poisson_ellipse_tpu_torch.parallel.mesh import make_mesh
+
+    one = make_mesh(device="cpu")
+    jax_one = JaxMesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
+                      (AXIS_X, AXIS_Y))
+    got = guard.guarded_solve(PROBLEM, "xla", torch.float32, mesh=one,
+                              abft=True, device="cpu")
+    assert got.recoveries == () and int(got.result.iters) == 26
+    assert got.result.w.shape == (21, 21)
+    for kw, jax_kw in ((dict(abft=True), dict(abft=True)),
+                       (dict(mesh=one, storage_dtype="bf16"),
+                        dict(mesh=jax_one, storage_dtype="bf16")),
+                       (dict(mesh=one, engine="fused"),
+                        dict(mesh=jax_one, engine="fused"))):
+        engine_name = kw.pop("engine", "xla")
+        jax_kw.pop("engine", None)
+        with pytest.raises(ValueError) as exc:
+            guard.guarded_solve(PROBLEM, engine_name, torch.float32,
+                                device="cpu", **kw)
+        with pytest.raises(ValueError) as ref:
+            jax_guard.guarded_solve(JAX_PROBLEM, engine_name, jnp.float32,
+                                    **jax_kw)
+        assert str(exc.value) == str(ref.value)
+    for name in ("mg-pcg", "cheb-pcg"):
+        with pytest.raises(NotImplementedError, match="Queue A item 21c"):
+            guard.guarded_solve(PROBLEM, name, torch.float32, mesh=one,
+                                device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+        guard.guarded_solve(PROBLEM, "xla", torch.float32, device="cpu",
+                            geometry={"kind": "ellipse"})
     for name in ("mg-pcg", "cheb-pcg", "fmg"):
         with pytest.raises(NotImplementedError, match="Queue A item 11"):
             guard.guarded_solve(PROBLEM, name, torch.float32, device="cpu")
@@ -939,6 +972,15 @@ def test_cli_refusals_equal_jax(flags, text, tmp_path, capsys):
 
 
 def test_cli_guard_on_the_mesh_names_its_item(capsys):
-    rc, _, err = _cli(cli_main, ["20", "20", "--mode", "sharded", "--guard",
-                                 "--device", "cpu"], capsys)
-    assert rc == 2 and "Queue A item 21b" in err
+    """``--mode sharded --guard`` runs the guarded mesh (item 21b is
+    ported): JAX's count and fields on a 1×2 mesh of rank processes."""
+    argv = ["20", "20", "--mode", "sharded", "--mesh", "1", "2", "--guard",
+            "--json"]
+    rc, out, _ = _cli(cli_main, [*argv, "--device", "cpu"], capsys)
+    ref_rc, ref_out, _ = _cli(jax_main, argv, capsys)
+    got, ref = json.loads(out.strip()), json.loads(ref_out.strip())
+    assert rc == ref_rc == 0
+    assert got["iters"] == ref["iters"] == 26
+    assert got["mesh"] == ref["mesh"] == [1, 2]
+    assert got["engine"] == ref["engine"] == "xla"
+    assert got["converged"] is ref["converged"] is True
