@@ -359,6 +359,32 @@ result line):
               restart alone), and --checkpoint-dir twice (--chunk
               MR_CKPT_CHUNK), the second run resuming at the newest step.
 
+16. serve — serving on one device (serve/, runtime/), f32 at the
+              reference's grids; no hand kernel lies on this path (the
+              scheduler runs the plain per-lane stencil), and the serve
+              drill's launch counts are read to show none ran. (a) the warm
+              pool: warmup("batched", 400x600, lanes 8) builds bucket
+              512x768, lane bucket 8, and captures one chunk graph; 500x700
+              is a hit on the same entry; pool.solve of 400x600 on 8 lanes
+              converges every lane within +-2 of 546, its w, iterations and
+              step norms bitwise the eager init_state + advance on the same
+              buffers; capture, solve (graph replay) and eager seconds. (b)
+              the serve drill through the command line: 64 requests of
+              400x600 and 800x1200, lanes 8, chunk 16, seed 0, with --trace
+              and --metrics: exit 0, all 64 completed, each request's count
+              (its serve:retire event) within +-2 of 546 / 989, the trace and
+              the OpenMetrics snapshot valid; solves/s, queue p50/p99, wall.
+              (c) refill parity: a 400x600 request refilled into lane 1 of
+              a busy 8-lane batch against the same request alone on lane 0
+              of a fresh one: w, count and step norm bitwise (the lane
+              planes' aligned pitch, serve.scheduler.lane_pitch, makes the
+              card's reductions sum every lane in one order). (d) chaos --mesh at
+              400x600, 200x300, 100x150, 50 requests, lanes 8, chunk 16:
+              exit 0, nothing lost, doubled or unclassified, the NaN, the
+              OOM and the device loss fired, the kill replayed. (e) warmup
+              --grids 400x600,800x1200 --lanes 1,8 twice in the process: 4
+              buckets built, then 4 hits.
+
 `--only stage4` runs phases 1-2 and then phase 12's stage-4 checks, loop
 and timing alone; `--only stage4-timing` the timing alone (it also runs
 from the root of an older tree, to compare two trees' kernels in one
@@ -431,7 +457,7 @@ early; the fused library's SASS. It too runs on an older tree's kernels
 (the parts print as not measured there). Each prints the kernels' record
 and no result line. `--only obs` runs phases 1-2 and then phase 13
 alone, `--only resilience` phase 14 alone, `--only mesh-resilience`
-phase 15 alone.
+phase 15 alone, `--only serve` phase 16 alone.
 
 The last three lines are nvidia-smi's card name and power limit, the
 kernels' JSON record and
@@ -5474,6 +5500,215 @@ def phase_mesh_resilience(card: str, mesh: dict | None = None,
     return {"one": one, "two": (matrix, elastic, straight)}
 
 
+# phase 16: serving on one device at the reference's grids, f32
+SERVE_REQUESTS = 64
+SERVE_LANES = 8
+SERVE_CHUNK = 16
+CHAOS_REQUESTS = 50
+
+
+def _serve_pool(card: str) -> dict:
+    """(a): the warm pool's capture, hit and graph replay against the eager
+    chunked advance."""
+    from poisson_ellipse_tpu_torch.batch import batched_pcg as bp
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.runtime import compile_cache as cc
+
+    pool = cc.WarmPool()
+    entry = pool.warmup("batched", (400, 600), torch.float32,
+                        lanes=SERVE_LANES)
+    require(entry.bucket == (512, 768) and entry.lanes == SERVE_LANES
+            and pool.misses == 1, f"warm pool bucket {entry.bucket} lanes "
+            f"{entry.lanes}, misses {pool.misses}")
+    g = entry.compiled
+    require(set(g.graphs) == {False}, f"graphs {set(g.graphs)}")
+    again = pool.warmup("batched", (500, 700), torch.float32,
+                        lanes=SERVE_LANES)
+    require(again is entry and pool.hits == 1,
+            "500x700 is not a hit on the 400x600 entry")
+    p = Problem(M=400, N=600)
+    res, solve_s = _timed(lambda: pool.solve(p, SERVE_LANES))
+    res2, solve2_s = _timed(lambda: pool.solve(p, SERVE_LANES))
+
+    def eager():
+        state = bp.init_state(g.proto, g.a, g.b, g.rhs, mask=g.mask,
+                              h1=g.h1, h2=g.h2)
+        return bp.advance(g.proto, g.a, g.b, g.rhs, state,
+                          limit=p.max_iterations, mask=g.mask, h1=g.h1,
+                          h2=g.h2, delta=g.delta, chunk=g.chunk)
+
+    (state, reads), eager_s = _timed(eager)
+    want = bp.result_of(state)
+    iters = res.iters.tolist()
+    require(all(res.converged.tolist()), f"pool lanes not converged: {iters}")
+    require(all(abs(i - LARGE[(400, 600)]) <= ITERS_ABS for i in iters),
+            f"pool iterations {iters} not 546 +-2")
+    crop = (slice(0, SERVE_LANES), slice(0, 401), slice(0, 601))
+    bitwise = (same_bits(res.w, want.w[crop])
+               and torch.equal(res.iters, want.iters[:SERVE_LANES])
+               and same_bits(res.diff, want.diff[:SERVE_LANES])
+               and same_bits(res2.w, res.w))
+    require(bitwise, "the pool's graph replay is not bitwise the eager "
+            f"advance (max |dw| {max_abs(res.w, want.w[crop]):.3e})")
+    say(f"  (a) warm pool batched 400x600 -> bucket 512x768, {SERVE_LANES} "
+        f"lanes: capture {entry.compile_s:.4f} s; solve by graph replay "
+        f"{solve_s:.4f} s first, {solve2_s:.4f} s again (embed, copy in, "
+        f"init_state, {-(-iters[0] // g.chunk)} replays of {g.chunk}); the "
+        f"eager advance {eager_s:.4f} s ({reads} host reads); iterations "
+        f"{iters}; w, counts and step norms bitwise the eager run ({card})")
+    return {"capture_s": entry.compile_s, "solve_s": solve_s,
+            "solve_again_s": solve2_s, "eager_s": eager_s, "iters": iters}
+
+
+def _serve_drill(cli, work: Path, card: str) -> dict:
+    """(b): the serve subcommand with --trace and --metrics."""
+    from poisson_ellipse_tpu_torch.obs import trace as obs_trace
+    from poisson_ellipse_tpu_torch.obs.export import validate_openmetrics
+    from poisson_ellipse_tpu_torch.ops import _build
+
+    trace, metrics = work / "serve.jsonl", work / "serve.prom"
+    for f in (trace, metrics):
+        f.unlink(missing_ok=True)
+    _build.reset_launches()
+    (rc, rec), wall = _timed(lambda: _cli_json(cli, [
+        "serve", "--requests", str(SERVE_REQUESTS), "--grids",
+        "400x600,800x1200", "--lanes", str(SERVE_LANES), "--chunk",
+        str(SERVE_CHUNK), "--seed", "0", "--json", "--trace", str(trace),
+        "--metrics", str(metrics)]))
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    require(rc == 0 and rec["outcomes"] == {"completed": SERVE_REQUESTS},
+            f"serve drill rc {rc}, outcomes {rec and rec['outcomes']}")
+    require(obs_trace.validate_file(str(trace)) == [],
+            "the serve drill's trace does not validate")
+    require(validate_openmetrics(metrics.read_text()) == [],
+            "the serve drill's OpenMetrics snapshot does not validate")
+    recs = obs_trace.read_jsonl(str(trace))
+    grid = {r["request_id"]: tuple(r["fields"]["grid"]) for r in recs
+            if r["name"] == "serve:admit"}
+    iters = {r["request_id"]: r["fields"]["iters"] for r in recs
+             if r["name"] == "serve:retire"}
+    require(len(iters) == SERVE_REQUESTS and set(iters) == set(grid),
+            f"{len(iters)} retirements on the trace")
+    by_grid: dict = {}
+    for rid, n in iters.items():
+        by_grid.setdefault(grid[rid], []).append(n)
+        require(abs(n - LARGE[grid[rid]]) <= ITERS_ABS,
+                f"request {rid} at {grid[rid]}: {n} iterations")
+    say(f"  (b) serve --requests {SERVE_REQUESTS} --grids 400x600,800x1200 "
+        f"--lanes {SERVE_LANES} --chunk {SERVE_CHUNK}: exit 0, all "
+        f"completed; solves/s {rec['solves_per_sec']}, queue p50 "
+        f"{rec['queue_p50_s']:.4f} s, p99 {rec['queue_p99_s']:.4f} s, wall "
+        f"{rec['wall_s']} s ({wall:.2f} s with the set-up); counts by grid "
+        + ", ".join(f"{M}x{N}: {len(v)} requests, {min(v)}-{max(v)}"
+                    for (M, N), v in sorted(by_grid.items()))
+        + f"; hand-kernel launches {launches or 'none'}; trace and "
+        f"OpenMetrics valid ({card})")
+    return {"record": rec, "wall_s": wall, "launches": launches}
+
+
+def _serve_refill(card: str) -> dict:
+    """(c): a refilled lane against a fresh lane 0, bit for bit."""
+    from poisson_ellipse_tpu_torch.models.problem import Problem
+    from poisson_ellipse_tpu_torch.serve import Scheduler
+
+    def scheduler():
+        return Scheduler(lanes=SERVE_LANES, chunk=SERVE_CHUNK,
+                         backoff_base_s=0.0)
+
+    p = Problem(M=400, N=600)
+    busy = scheduler()
+    busy.submit(Problem(M=400, N=600, delta=1e-7), request_id="long")
+    busy.submit(Problem(M=400, N=600, delta=5e-6), request_id="short")
+    for _ in range(200):
+        busy.step()
+        if "short" in busy.results:
+            break
+    require("short" in busy.results and "long" not in busy.results,
+            "no retirement while the other lane was in flight")
+    busy.submit(p, request_id="swapped")
+    busy._fill_lanes()
+    _, slot = busy._slot_of("swapped")
+    require(slot.base_k > 0 and slot.lane == 1,
+            f"swap-in at k {slot.base_k} on lane {slot.lane}")
+    base_k = slot.base_k
+    res = busy.drain()["swapped"]
+    fresh = scheduler()
+    fresh.submit(p, request_id="alone")
+    fresh._fill_lanes()
+    require(fresh._slot_of("alone")[1].lane == 0, "fresh request not lane 0")
+    alone = fresh.drain()["alone"]
+    require(res.outcome == alone.outcome == "completed",
+            f"outcomes {res.outcome} / {alone.outcome}")
+    bitwise = (res.iters == alone.iters and res.diff == alone.diff
+               and np.array_equal(res.w.view(np.int32),
+                                  alone.w.view(np.int32)))
+    gap = float(np.abs(res.w.astype(np.float64) - alone.w).max())
+    require(bitwise, f"the refilled lane is not bitwise a fresh lane 0: "
+            f"iterations {res.iters} / {alone.iters}, max |dw| {gap:.3e}, "
+            f"step norms {res.diff!r} / {alone.diff!r}")
+    say(f"  (c) refill parity 400x600, {SERVE_LANES} lanes: refilled on lane "
+        f"1 at k {base_k}, {res.iters} iterations, against lane 0 of a fresh "
+        f"batch, {alone.iters}: w, count and step norm bitwise equal "
+        f"({card})")
+    return {"bitwise": bitwise, "iters": (res.iters, alone.iters)}
+
+
+def _serve_chaos(cli, card: str) -> dict:
+    """(d): the chaos drill with the device-loss drill."""
+    (rc, rep), wall = _timed(lambda: _cli_json(cli, [
+        "chaos", "--requests", str(CHAOS_REQUESTS), "--grids",
+        "400x600,200x300,100x150", "--lanes", str(SERVE_LANES), "--chunk",
+        str(SERVE_CHUNK), "--mesh", "--json"]))
+    require(rc == 0 and rep["ok"] and not rep["lost"]
+            and not rep["double_completed"] and not rep["unclassified"],
+            f"chaos rc {rc}: {rep}")
+    require(rep["mesh_killed"] and rep["killed"] and rep["faults_fired"] == 3,
+            f"chaos drills fired: killed {rep['killed']}, mesh "
+            f"{rep['mesh_killed']}, faults {rep['faults_fired']}")
+    require(sum(rep["counts"].values()) == CHAOS_REQUESTS, "chaos counts")
+    say(f"  (d) chaos --requests {CHAOS_REQUESTS} --mesh: exit 0, lost 0, "
+        f"doubled 0, unclassified 0; outcomes {rep['counts']}, replayed "
+        f"{rep['replayed']} after the kill, {rep['faults_fired']} faults "
+        f"fired (NaN lane, OOM, device loss); wall {rep['wall_s']:.3f} s "
+        f"({wall:.2f} s with the set-up) ({card})")
+    return {"report": rep, "wall_s": wall}
+
+
+def _serve_warmup(cli, card: str) -> dict:
+    """(e): the warmup subcommand twice in the process."""
+    argv = ["warmup", "--grids", "400x600,800x1200", "--lanes", "1,8",
+            "--json"]
+    (rc1, first), t1 = _timed(lambda: _cli_json(cli, argv))
+    (rc2, second), t2 = _timed(lambda: _cli_json(cli, argv))
+    require(rc1 == rc2 == 0, f"warmup exit {rc1}, {rc2}")
+    require(first["misses"] == 4 and first["hits"] == 0,
+            f"first warmup {first['misses']} misses, {first['hits']} hits")
+    require(second["misses"] == 4 and second["hits"] == 4,
+            f"second warmup {second['misses']} misses, {second['hits']} hits")
+    say("  (e) warmup --grids 400x600,800x1200 --lanes 1,8: "
+        + ", ".join(f"{r['bucket'][0]}x{r['bucket'][1]} lanes "
+                    f"{r['lane_bucket']} {r['compile_s']:.4f} s"
+                    for r in first["warmed"])
+        + f" ({t1:.2f} s, 4 misses); again: 4 hits ({t2:.3f} s); kernel "
+        f"libraries at {first['persistent_dir']} ({card})")
+    return {"first": first, "second": second}
+
+
+def phase_serve(card: str) -> dict:
+    """Phase 16: serving on one device (the module docstring)."""
+    from poisson_ellipse_tpu_torch.harness.__main__ import main as cli
+
+    say(f"== phase 16: serving on one device ({card})")
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "serve"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"pool": _serve_pool(card), "drill": _serve_drill(cli, work, card),
+           "refill": _serve_refill(card), "chaos": _serve_chaos(cli, card),
+           "warmup": _serve_warmup(cli, card)}
+    say(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def phase_stage4_timing(seed: int, card: str) -> list:
     """The four stage-4 kernels at 2401x3201 f32 (f64 printed) and the two
     bf16 forms beside their bounds and plain versions. Each stage-4 kernel,
@@ -7183,7 +7418,7 @@ def main(argv=None) -> int:
                            "xl-timing", "stencil-timing", "whole-timing",
                            "fused-timing", "batched-mesh-bf16",
                            "lane-bf16-timing", "obs", "resilience",
-                           "mesh-resilience"),
+                           "mesh-resilience", "serve"),
         help="run phases 1-2 and then only phase 12's stage-4 kernel checks, "
              "loop and timing (stage4), its timing alone (stage4-timing), "
              "rule 2's queue by device time, the K-d family's SASS and the "
@@ -7202,7 +7437,8 @@ def main(argv=None) -> int:
              "13's history ring, spectrum, diagnose and --trace/--metrics "
              "run (obs), or phase 14's guard, fault drills and "
              "checkpoint/resume (resilience), or phase 15's guarded, ABFT "
-             "and elastic mesh (mesh-resilience); the timings "
+             "and elastic mesh (mesh-resilience), or phase 16's warm pool, serve "
+             "drill, refill parity, chaos and warmup (serve); the timings "
              "also run on an older tree's kernels; prints the kernels' "
              "record and no result line")
     ap.add_argument("--sass-dir", help="with --only stencil-dots-timing "
@@ -7246,6 +7482,9 @@ def main(argv=None) -> int:
         timed = []
     elif args.only == "mesh-resilience":
         phase_mesh_resilience(card)
+        timed = []
+    elif args.only == "serve":
+        phase_serve(card)
         timed = []
     elif args.only:
         if args.only == "stage4":
@@ -7334,6 +7573,8 @@ def main(argv=None) -> int:
     mark("phase 14")
     phase_mesh_resilience(card, mesh, mr_work)
     mark("phase 15")
+    phase_serve(card)
+    mark("phase 16")
 
     counts = {**rec["counts"], **main_run["counts"], **batched["counts"],
               **storage_main["counts"], **storage_rec["counts"],

@@ -34,9 +34,15 @@ package's, so each module's counterpart has the same relative path:
   health word a chunk and the recovery ladder); ``solver.checkpoint``
   saves and resumes the classical carry;
 - ``obs`` — the convergence ring, spectrum, trace, metrics and profile;
+- ``runtime`` — shape buckets and the warm pool (a bucket's buffers and
+  its captured chunk graphs, ``compile_cache``), and the kernel
+  libraries' directory;
+- ``serve`` — continuous batching on one device: bounded admission, the
+  retire-and-refill scheduler, the request journal and the chaos drill;
 - ``harness`` — ``run_once`` and the command line (``--lanes``,
   ``--storage-dtype``, ``--mode sharded --mesh PX PY``, ``--guard``,
-  ``--timeout``, ``--checkpoint-dir``, ``inject``);
+  ``--timeout``, ``--checkpoint-dir``, ``inject``, ``serve``, ``chaos``,
+  ``warmup``);
 - ``interop`` — the JAX package's arrays into the port, for the tests.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

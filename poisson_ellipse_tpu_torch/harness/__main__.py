@@ -5,8 +5,9 @@ command (``M N``, ``--grids``, ``--engine``, ``--dtype``, ``--norm``,
 ``--eps``, ``--delta``, ``--repeat``, ``--json``, ``--sstep-s``,
 ``--lanes``, ``--storage-dtype``, ``--mode``, ``--mesh``, ``--trace``,
 ``--metrics``, ``--metrics-interval``), plus ``--device``, and its
-``diagnose`` and ``inspect`` subcommands. It runs on the card unless
-``--device cpu`` is given, and fails without one.
+``diagnose``, ``inspect``, ``inject``, ``serve``, ``chaos`` and ``warmup``
+subcommands. It runs on the card unless ``--device cpu`` is given, and
+fails without one.
 
 ``--trace FILE`` (or ``POISSON_TRACE=FILE`` in the environment) appends a
 JSONL run trace (``obs.trace``, schema v3): the ``cli-args`` event, the
@@ -50,8 +51,18 @@ recovery budget exhausted, or bad input (and a diagnose whose history
 solve is not the plain one bit for bit); 3 device out of memory with no
 engine left to degrade to; 4 ``--timeout`` exceeded (a partial report on
 the trace); 6 silent corruption a rollback did not clear and 7 a mesh with
-no survivor left (the mesh's resilience layer); 5, 8 and 9 the serving,
-geometry and fleet errors of modules not ported yet.
+no survivor left (the mesh's resilience layer); 5 a request shed at admission (``serve``);
+8 and 9 the geometry and fleet errors of modules not ported yet.
+
+``serve`` drives a seeded Poisson arrival stream of mixed shapes through
+the continuous-batching scheduler (``serve.scheduler``) and exits with the
+worst per-request outcome; ``chaos`` runs the serving chaos drill
+(``serve.chaos``: a NaN lane, a fake out-of-memory, a kill with journal
+replay, ``--mesh`` a device loss) and exits 0 iff nothing was lost,
+doubled or left unclassified, else 2; ``warmup`` fills the warm pool's
+buckets (``runtime.compile_cache``: captured chunk graphs on the card)
+and the kernel libraries' directory, and exits 0. Their options, JSON
+records and exit codes are the JAX package's, with ``--device``.
 """
 
 from __future__ import annotations
@@ -82,17 +93,18 @@ EXIT_CODES_HELP = (
     "convergence; 2 diverged — breakdown or recovery budget exhausted "
     "(also invalid invocations, per argparse convention); 3 device "
     "out-of-memory with no engine left to degrade to; 4 --timeout "
-    "exceeded (partial trace artifact emitted); 5-9 the serving, ABFT, "
-    "mesh-loss, geometry and fleet errors (resilience.errors), raised by "
-    "modules not ported yet."
+    "exceeded (partial trace artifact emitted); 5 shed at admission "
+    "(serve); 6 silent corruption, 7 no mesh survivor; 8-9 the geometry "
+    "and fleet errors (resilience.errors), raised by modules not ported "
+    "yet."
 )
 
 
 def _parse_grid(spec: str) -> tuple[int, int]:
-    m, sep, n = spec.strip().lower().partition("x")
-    if not sep:
-        raise ValueError(f"grid {spec!r} is not MxN")
-    return int(m), int(n)
+    """One ``MxN`` grid (``M`` alone: M×M), as the JAX package's command
+    line parses it; ValueError on a malformed or empty one."""
+    m, _, n = spec.lower().partition("x")
+    return (int(m), int(n or m))
 
 
 def main(argv=None) -> int:
@@ -103,6 +115,12 @@ def main(argv=None) -> int:
         return _run_inspect(argv[1:])
     if argv and argv[0] == "inject":
         return _run_inject(argv[1:])
+    if argv and argv[0] == "warmup":
+        return _run_warmup(argv[1:])
+    if argv and argv[0] == "serve":
+        return _run_serve(argv[1:])
+    if argv and argv[0] == "chaos":
+        return _run_chaos(argv[1:])
     ap = argparse.ArgumentParser(
         prog="python -m poisson_ellipse_tpu_torch.harness",
         description="Fictitious-domain Poisson PCG on one CUDA device",
@@ -722,6 +740,441 @@ def _report_inject(args, guarded) -> int:
             + ")"
         )
     return 0 if record["converged"] else 1
+
+
+
+class _SigtermDrain:
+    """SIGTERM → graceful drain for the ``serve`` subcommand.
+
+    The handler only sets a flag; the serve loop checks it between
+    arrivals and switches to drain mode (stop admitting, finish or
+    journal in-flight, flush metrics/trace, exit 0) instead of dying
+    mid-stream with the trace tail unflushed. Installed around the loop
+    and restored on exit; a caller off the main thread gets no handler,
+    never an error.
+    """
+
+    def __init__(self):
+        self.requested = False
+        self._prev = None
+        self._installed = False
+
+    def _handle(self, signum, frame):
+        self.requested = True
+
+    def __enter__(self):
+        import signal
+
+        try:
+            self._prev = signal.signal(signal.SIGTERM, self._handle)
+            self._installed = True
+        except ValueError:  # not the main thread: no handler, no error
+            pass
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        if self._installed:
+            signal.signal(signal.SIGTERM, self._prev)
+        return False
+
+
+def _run_warmup(argv: list) -> int:
+    """The ``warmup`` subcommand: fill the kernel libraries' directory and
+    the warm pool's buckets (``runtime.compile_cache``) for the requested
+    grids and lane counts, so a serving worker's first real request is a
+    hit. Hit/miss counts land on the trace (``cache:hit`` /
+    ``cache:miss``)."""
+    from poisson_ellipse_tpu_torch.runtime import compile_cache
+
+    ap = argparse.ArgumentParser(
+        prog="python -m poisson_ellipse_tpu_torch.harness warmup",
+        description="Warm the serving caches: point the kernel libraries' "
+        "directory at the cache (building them there on the card) and "
+        "build the warm pool's buckets for the batched engines, keyed "
+        "(engine, grid-bucket, dtype, lane-bucket): static buffers and, on "
+        "the card, a captured CUDA graph of one chunk. Arbitrary request "
+        "sizes then hit a warm bucket by pad-and-mask embedding.",
+    )
+    ap.add_argument(
+        "--grids", default="40x40",
+        help="comma list of MxN grids to warm buckets for",
+    )
+    ap.add_argument(
+        "--lanes", default="1,8",
+        help="comma list of lane counts (each rounds up to its bucket)",
+    )
+    ap.add_argument(
+        "--engine", default="batched",
+        choices=("batched", "batched-pipelined", "both"),
+    )
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument(
+        "--cache-dir", default=None,
+        help="kernel library directory (default: $POISSON_COMPILE_CACHE "
+        "or the repository's build/kernels/)",
+    )
+    ap.add_argument(
+        "--no-persistent", action="store_true",
+        help="leave the kernel library directory alone (in-process pool "
+        "only)",
+    )
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--trace", metavar="FILE", help="JSONL trace sink")
+    ap.add_argument("--json", action="store_true", help="one JSON line")
+    args = ap.parse_args(argv)
+
+    err = _start_trace(args.trace)
+    if err:
+        return err
+    try:
+        try:
+            dev = resolve_device(args.device)
+            grids = [_parse_grid(spec) for spec in args.grids.split(",")]
+            lane_counts = [int(x) for x in args.lanes.split(",")]
+        except (RuntimeError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        cache_dir = (None if args.no_persistent else
+                     compile_cache.enable_persistent_cache(args.cache_dir,
+                                                           device=dev))
+        engines = (
+            ("batched", "batched-pipelined")
+            if args.engine == "both"
+            else (args.engine,)
+        )
+        pool = compile_cache.warm_pool()
+        rows = []
+        dtype = DTYPES[args.dtype]
+        for engine in engines:
+            for grid in grids:
+                for lanes in lane_counts:
+                    entry = pool.warmup(engine, grid, dtype, lanes,
+                                        device=dev)
+                    rows.append({
+                        "engine": engine,
+                        "grid": list(grid),
+                        "bucket": list(entry.bucket),
+                        "lanes": lanes,
+                        "lane_bucket": entry.lanes,
+                        "compile_s": round(entry.compile_s, 4),
+                    })
+        record = {
+            "persistent_dir": cache_dir,
+            "warmed": rows,
+            "hits": pool.hits,
+            "misses": pool.misses,
+        }
+        obs_trace.event("warmup_report", **record)
+        if args.json:
+            print(json.dumps(record))
+        else:
+            for row in rows:
+                print(
+                    f"warm {row['engine']:18s} {row['grid'][0]}x"
+                    f"{row['grid'][1]} -> bucket {row['bucket'][0]}x"
+                    f"{row['bucket'][1]} lanes {row['lanes']} -> "
+                    f"{row['lane_bucket']}  build "
+                    + (
+                        f"{row['compile_s']:.3f}s"
+                        if row["compile_s"] else "cached"
+                    )
+                )
+            print(
+                f"warm pool: {pool.misses} built, {pool.hits} already "
+                "warm"
+                + (f"; kernel libraries at {cache_dir}" if cache_dir else "")
+            )
+        return 0
+    finally:
+        if args.trace:
+            obs_trace.stop()
+
+
+def _run_serve(argv: list) -> int:
+    """The ``serve`` subcommand: a synthetic arrival stream through the
+    continuous-batching scheduler — the serving layer exercised from the
+    command line, lifecycle events on the trace, latency quantiles in the
+    report."""
+    import random
+    import time as _time
+
+    from poisson_ellipse_tpu_torch.serve import EXIT_BY_OUTCOME, Scheduler
+    from poisson_ellipse_tpu_torch.solver.pcg import unported
+
+    ap = argparse.ArgumentParser(
+        prog="python -m poisson_ellipse_tpu_torch.harness serve",
+        description="Continuous-batching serve drill: drive a seeded "
+        "Poisson arrival stream of mixed shapes through the scheduler "
+        "(bounded admission, chunk-boundary lane retirement/refill, "
+        "deadlines, retry ladder, optional crash-safe journal). "
+        "exit code = the WORST per-request outcome of the stream "
+        "(numerically highest of the per-request contract): 0 every "
+        "request completed; 1 iteration cap; 2 failed/diverged (also "
+        "invalid invocations, per argparse convention); 4 deadline "
+        "missed; 5 shed at admission (backpressure — resubmit after "
+        "retry_after_s).",
+    )
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument(
+        "--grids", default="10x10,12x12",
+        help="comma list of MxN request shapes, mixed by the seeded RNG",
+    )
+    ap.add_argument(
+        "--rate", type=float, default=200.0,
+        help="Poisson arrival rate (requests/second of wall clock)",
+    )
+    ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--chunk", type=int, default=16)
+    ap.add_argument("--queue-capacity", type=int, default=64)
+    ap.add_argument(
+        "--deadline", type=float, default=None, metavar="SECONDS",
+        help="per-request deadline (admission sheds infeasible asks; "
+        "mid-solve expiry cancels at a chunk boundary, partial result)",
+    )
+    ap.add_argument("--retries", type=int, default=1)
+    ap.add_argument(
+        "--journal", metavar="FILE",
+        help="crash-safe request journal; admitted-but-unfinished "
+        "requests replay on the next start (see --replay)",
+    )
+    ap.add_argument(
+        "--replay", action="store_true",
+        help="replay the journal's unfinished requests before the new "
+        "stream (requires --journal)",
+    )
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument(
+        "--warm-start", action="store_true",
+        help="per-bucket solve-cache pools (ROADMAP.md Queue A item 13; "
+        "not ported: exits 2)",
+    )
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--trace", metavar="FILE", help="JSONL trace sink")
+    ap.add_argument(
+        "--metrics", metavar="FILE",
+        help="OpenMetrics snapshot of the serving counters/histograms",
+    )
+    ap.add_argument("--json", action="store_true", help="one JSON line")
+    args = ap.parse_args(argv)
+
+    err = _start_trace(args.trace)
+    if err:
+        return err
+    try:
+        try:
+            if args.warm_start:
+                raise unported("--warm-start", "Queue A item 13")
+            if args.replay and not args.journal:
+                raise ValueError("--replay needs --journal")
+            grids = [_parse_grid(spec) for spec in args.grids.split(",")]
+            if args.requests < (0 if args.replay else 1):
+                # --requests 0 is the pure-replay restart: drain the
+                # journal's unfinished admissions, admit nothing new
+                raise ValueError(
+                    "--requests must be >= 1 (0 allowed with --replay)"
+                )
+            if args.rate <= 0:
+                raise ValueError("--rate must be > 0 requests/second")
+            sched = Scheduler(
+                lanes=args.lanes, chunk=args.chunk,
+                queue_capacity=args.queue_capacity,
+                dtype=DTYPES[args.dtype],
+                max_retries=args.retries, journal=args.journal,
+                keep_solutions=False, device=args.device,
+            )
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        replayed = sched.replay() if args.replay else 0
+        rng = random.Random(args.seed)
+        t0 = _time.monotonic()
+        # results are harvested through collect() as the stream runs —
+        # the eviction hand-off a long-lived server needs
+        results: dict = {}
+        drained_early = False
+        with _SigtermDrain() as term:
+            for _ in range(args.requests):
+                if term.requested:
+                    # SIGTERM: stop admitting, finish (or journal) the
+                    # in-flight work, flush, exit 0
+                    drained_early = True
+                    sched.begin_drain()
+                    obs_trace.event(
+                        "serve:sigterm-drain", queued=len(sched.queue),
+                    )
+                    break
+                M, N = rng.choice(grids)
+                sched.submit(
+                    Problem(M=M, N=N), deadline_s=args.deadline,
+                )
+                _time.sleep(min(rng.expovariate(args.rate), 0.05))
+                sched.step()
+                results.update(sched.collect())
+            sched.drain()
+            results.update(sched.collect())
+        wall = _time.monotonic() - t0
+        counts: dict[str, int] = {}
+        for res in results.values():
+            counts[res.outcome] = counts.get(res.outcome, 0) + 1
+        completed = counts.get("completed", 0)
+        lat = obs_metrics.REGISTRY.histogram("time_in_queue_seconds")
+        record = {
+            "requests": args.requests,
+            "replayed": replayed,
+            "outcomes": counts,
+            "solves_per_sec": round(completed / wall, 2) if wall else None,
+            "queue_p50_s": lat.quantile(0.5),
+            "queue_p99_s": lat.quantile(0.99),
+            "wall_s": round(wall, 4),
+            "drained_on_sigterm": drained_early,
+        }
+        obs_trace.event("serve_report", **record)
+        if args.metrics:
+            from poisson_ellipse_tpu_torch.obs.export import MetricsExporter
+
+            err = MetricsExporter(args.metrics).try_write()
+            if err is not None:
+                print(
+                    f"warning: metrics snapshot failed: {err}",
+                    file=sys.stderr,
+                )
+        if args.json:
+            print(json.dumps(record))
+        else:
+            outcome_str = ", ".join(
+                f"{k}={v}" for k, v in sorted(counts.items())
+            )
+            print(
+                f"serve: {args.requests} requests (+{replayed} replayed) "
+                f"in {wall:.2f}s — {outcome_str}; "
+                f"{record['solves_per_sec']} solves/sec sustained"
+            )
+        # exit with the worst (numerically highest) per-request outcome;
+        # a SIGTERM'd run that drained cleanly exits 0
+        if drained_early:
+            return 0
+        return max((EXIT_BY_OUTCOME[o] for o in counts), default=0)
+    finally:
+        obs_metrics.REGISTRY.emit()
+        obs_metrics.REGISTRY.reset()
+        if args.trace:
+            obs_trace.stop()
+
+
+def _run_chaos(argv: list) -> int:
+    """The ``chaos`` subcommand: the serving invariants under an injected
+    lane NaN, a fake out-of-memory and a kill/restart — zero lost, zero
+    double-completed, every outcome classified."""
+    import tempfile
+
+    from poisson_ellipse_tpu_torch.serve import run_chaos
+    from poisson_ellipse_tpu_torch.solver.pcg import unported
+
+    ap = argparse.ArgumentParser(
+        prog="python -m poisson_ellipse_tpu_torch.harness chaos",
+        description="Serving chaos drill (serve.chaos): a seeded Poisson "
+        "stream of mixed shapes with an injected NaN-poisoned lane, a "
+        "fake out-of-memory dispatch, and one mid-stream kill/restart "
+        "with journal replay. Exit 0 iff zero requests were lost, none "
+        "double-completed, and every terminal state is a classified "
+        "outcome; exit 2 otherwise.",
+    )
+    ap.add_argument("--requests", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--grids", default="10x10,12x12,8x8")
+    ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--chunk", type=int, default=8)
+    ap.add_argument(
+        "--no-kill", action="store_true",
+        help="skip the kill/restart (fault injection only)",
+    )
+    ap.add_argument(
+        "--mesh", action="store_true",
+        help="add the device-kill drill: a simulated device loss takes "
+        "out every live batch carry mid-stream and every in-flight "
+        "request must re-enter through the journal/retry ladder — the "
+        "zero-lost/zero-double invariants asserted across a DEVICE "
+        "kill, not just a process kill",
+    )
+    ap.add_argument(
+        "--journal", metavar="FILE",
+        help="journal path (default: a temp file, removed after)",
+    )
+    ap.add_argument(
+        "--deadline", type=float, default=None, metavar="SECONDS",
+        help="per-request deadline for the stream",
+    )
+    ap.add_argument(
+        "--warm-start", action="store_true",
+        help="the drill with the per-bucket recycle pools (ROADMAP.md "
+        "Queue A item 13; not ported: exits 2)",
+    )
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--trace", metavar="FILE", help="JSONL trace sink")
+    ap.add_argument("--json", action="store_true", help="one JSON line")
+    args = ap.parse_args(argv)
+
+    err = _start_trace(args.trace)
+    if err:
+        return err
+    try:
+        try:
+            if args.warm_start:
+                raise unported("--warm-start", "Queue A item 13")
+            grids = tuple(
+                _parse_grid(spec) for spec in args.grids.split(",")
+            )
+            resolve_device(args.device)
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        tmp_dir = None
+        journal = args.journal
+        if journal is None and not args.no_kill:
+            tmp_dir = tempfile.TemporaryDirectory()
+            journal = os.path.join(tmp_dir.name, "chaos-journal.json")
+        try:
+            report = run_chaos(
+                n_requests=args.requests, seed=args.seed, grids=grids,
+                lanes=args.lanes, chunk=args.chunk,
+                journal_path=journal,
+                kill_after=None if not args.no_kill else 0,
+                deadline_s=args.deadline,
+                mesh_kill_request=(
+                    max(args.requests // 3, 1) if args.mesh else None
+                ),
+                device=args.device,
+            )
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        finally:
+            if tmp_dir is not None:
+                tmp_dir.cleanup()
+        if args.json:
+            print(json.dumps(report.json_dict()))
+        else:
+            verdict = "OK" if report.ok else "INVARIANT VIOLATION"
+            mesh_note = (
+                "; device-kill drill fired" if report.mesh_killed else ""
+            )
+            print(
+                f"chaos: {report.n_requests} requests, seed {args.seed} — "
+                f"{verdict}; outcomes {report.counts}; "
+                f"replayed {report.replayed} after kill; "
+                f"{report.faults_fired} faults fired{mesh_note}; "
+                f"lost {len(report.lost)}, doubled "
+                f"{len(report.double_completed)} ({report.wall_s:.2f}s)"
+            )
+        return 0 if report.ok else 2
+    finally:
+        obs_metrics.REGISTRY.emit()
+        obs_metrics.REGISTRY.reset()
+        if args.trace:
+            obs_trace.stop()
 
 
 if __name__ == "__main__":

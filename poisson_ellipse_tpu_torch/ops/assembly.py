@@ -89,9 +89,9 @@ def assemble_numpy(problem: Problem):
     return a, b, rhs
 
 
-def to_device(x: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+def to_host(x: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     """One host array rounded to ``dtype`` as the JAX package's numpy
-    ``astype`` rounds it, and copied to ``device``.
+    ``astype`` rounds it, as a host tensor.
 
     numpy has no bfloat16; the JAX package's ``astype`` goes through
     ml_dtypes, which rounds f64 to bf16 through f32 (1 + 2⁻⁸ + 2⁻³⁰ gives
@@ -100,9 +100,15 @@ def to_device(x: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     is numpy's own ``astype``, one rounding from f64."""
     x = np.ascontiguousarray(x)
     if dtype == torch.bfloat16:
-        return torch.from_numpy(x).to(dtype).to(device)
+        return torch.from_numpy(x).to(dtype)
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
-    return torch.from_numpy(np.ascontiguousarray(x.astype(np_dtype))).to(device)
+    return torch.from_numpy(np.ascontiguousarray(x.astype(np_dtype)))
+
+
+def to_device(x: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """One host array rounded to ``dtype`` (``to_host``) and copied to
+    ``device``."""
+    return to_host(x, dtype).to(device)
 
 
 def assemble(problem: Problem, dtype: torch.dtype = torch.float32,

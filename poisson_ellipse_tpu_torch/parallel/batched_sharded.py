@@ -148,9 +148,9 @@ def gather_lanes(mesh: Mesh, result: BatchedPCGResult) -> BatchedPCGResult:
 
 
 def build_sharded_chunk_advance(*_args, **_kwargs):
-    """The serve scheduler's lane-refill advance on the mesh comes with the
-    scheduler."""
-    raise unported("build_sharded_chunk_advance", "Queue A item 10")
+    """The serve scheduler's lane-refill advance on the mesh: the
+    scheduler composed with the lane-sharded mesh, one process a rank."""
+    raise unported("build_sharded_chunk_advance", "Queue A item 10b")
 
 
 def solve_batched_sharded(problem: Problem, lanes: int | None = None,

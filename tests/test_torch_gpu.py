@@ -57,7 +57,10 @@ the same device activities a body; a fault recovers to the clean count; a
 chunk leaves the carry it advanced from (the rollback point) as it was; a
 real allocation past the card's memory classifies as ``oom``; and a
 checkpointed pallas solve, and one resumed from disk onto the card, is
-bitwise the straight one.
+bitwise the straight one. Serving (``runtime.compile_cache``,
+``serve.scheduler``): the warm pool's captured chunk graphs replay to the
+eager ``advance``'s bits, and a request refilled into lane 1 of a busy
+batch is bitwise the same request on lane 0 of a fresh one.
 """
 
 import dataclasses
@@ -2399,3 +2402,69 @@ def test_guarded_abft_pallas_on_one_rank_is_bitwise_unguarded(cuda):
     np.testing.assert_array_equal(got["w"], plain["w"])
     assert plain["backend"] == "nccl"
     assert got["counts"][0]["launches"] == {"stencil": 256 + 256 // 64}
+
+
+# -- serving: the warm pool's graph replay and the lane refill ---------------
+
+
+@pytest.mark.parametrize("engine", ["batched", "batched-pipelined"])
+def test_warm_pool_graph_replay_bitwise_eager(cuda, engine):
+    """The pool's captured chunk graphs replayed until every lane stops
+    give the eager init_state + advance on the same buffers bit for bit;
+    another shape in the bucket replays the same graph."""
+    from poisson_ellipse_tpu_torch.runtime import compile_cache as cc
+
+    mod = bp if engine == "batched" else bpp
+    pool = cc.WarmPool()
+    p = Problem(M=80, N=60)
+    res = pool.solve(p, 3, engine, torch.float32, device=cuda)
+    entry = pool.warmup(engine, (80, 60), torch.float32, 3, device=cuda)
+    g = entry.compiled
+    assert set(g.graphs) == ({True, False} if engine == "batched-pipelined"
+                             else {False})
+    assert res.iters.tolist()[0] > g.chunk
+    state = mod.init_state(g.proto, g.a, g.b, g.rhs, mask=g.mask, h1=g.h1,
+                           h2=g.h2)
+    state, _ = mod.advance(g.proto, g.a, g.b, g.rhs, state,
+                           limit=p.max_iterations, mask=g.mask, h1=g.h1,
+                           h2=g.h2, delta=g.delta, chunk=g.chunk)
+    want = mod.result_of(state)
+    assert torch.equal(res.w.view(torch.int32),
+                       want.w[:3, :81, :61].contiguous().view(torch.int32))
+    assert torch.equal(res.iters, want.iters[:3])
+    assert torch.equal(res.diff, want.diff[:3])
+    graphs = dict(g.graphs)
+    other = pool.solve(Problem(M=70, N=64), 4, engine, torch.float32,
+                       device=cuda)
+    assert pool.hits == 2 and g.graphs == graphs
+    assert bool(other.converged.all())
+
+
+@pytest.mark.parametrize("M,N", [(12, 12), (40, 60)])
+def test_refilled_lane_bitwise_a_fresh_lane_on_the_card(cuda, M, N):
+    """A request refilled into lane 1 of a busy batch gives the bits of the
+    same request on lane 0 of a fresh batch of the same width."""
+    from poisson_ellipse_tpu_torch.serve import Scheduler
+
+    def scheduler():
+        return Scheduler(lanes=2, chunk=4, backoff_base_s=0.0, device=cuda)
+
+    busy = scheduler()
+    busy.submit(Problem(M=M, N=N, delta=1e-7), request_id="long")
+    busy.submit(Problem(M=M, N=N, delta=5e-6), request_id="short")
+    for _ in range(500):
+        busy.step()
+        if "short" in busy.results:
+            break
+    assert "short" in busy.results and "long" not in busy.results
+    busy.submit(Problem(M=M, N=N), request_id="swapped")
+    busy._fill_lanes()
+    _, slot = busy._slot_of("swapped")
+    assert slot.base_k > 0 and slot.lane == 1
+    res = busy.drain()["swapped"]
+    fresh = scheduler()
+    fresh.submit(Problem(M=M, N=N), request_id="alone")
+    alone = fresh.drain()["alone"]
+    assert res.outcome == alone.outcome == "completed"
+    assert res.iters == alone.iters and res.diff == alone.diff
+    assert np.array_equal(res.w.view(np.int32), alone.w.view(np.int32))
